@@ -1,19 +1,27 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch / H100 port (``src/repro_torch``).
 
-Drives the port's main path — the paper's wireless D-PSGD run: Eq. 2
-capacities, Algorithm 2 rates at λ targets {0.1, 0.8}, then the full
-21 840-parameter CNN trained with D-PSGD on 6 nodes at batch 25 over the
-60 000-image synthetic set — on one NVIDIA Hopper card, through the
-entry points a user calls, with every gossip mix in the hand-written CUDA
-kernels of ``src/repro_torch/csrc/gossip_mix.cu``. Phases, each of which
-ends the run with a nonzero exit if it fails:
+Drives the port's two paths on one NVIDIA Hopper card, through the entry
+points a user calls:
+
+* the paper's wireless D-PSGD run: Eq. 2 capacities, Algorithm 2 rates at
+  λ targets {0.1, 0.8}, then the full 21 840-parameter CNN trained with
+  D-PSGD on 6 nodes at batch 25 over the 60 000-image synthetic set, with
+  every gossip mix in the CUDA kernels of ``csrc/gossip_mix.cu``;
+* serving recurrentgemma-2b at its published widths and full depth
+  (``launch.serve.generate``: a 4096-token prompt at batch 4, then 32
+  greedy tokens), with local attention's prefill in the CUDA kernel of
+  ``csrc/flash_attention.cu`` and the RG-LRU recurrence in that of
+  ``csrc/rglru_scan.cu``.
+
+Phases, each of which ends the run with a nonzero exit if it fails:
 
 1. device   — a CUDA card of compute capability >= (9, 0); TF32 off for
               matmuls and cuDNN convolutions, so fp32 means fp32;
-2. build    — nvcc builds every kernel from the sources into ``build/``;
+2. build    — nvcc builds every kernel from the sources into ``build/``
+              (one nvcc per source, started together);
 3. kernels  — each kernel against its plain torch version at the main
-              path's shapes and at edge shapes, its ValueError contracts,
+              paths' shapes and at edge shapes, its ValueError contracts,
               and its time beside its bound, plain and library times;
 4. slice    — the paper run; the gossip_mix launch counter must grow by
               one launch per step, and the first 5 steps rerun on the CPU
@@ -21,7 +29,15 @@ ends the run with a nonzero exit if it fails:
               to 1e-4 and on the mixed parameters to 1e-5;
 5. compressed — 4 rounds of int8 error-feedback D-PSGD with one dead
               node; the gossip_mix_q8 counter must grow, and one more step
-              must agree with the CPU (q bit-equal, parameters to 1e-5).
+              must agree with the CPU (q bit-equal, parameters to 1e-5);
+6. serving  — recurrentgemma-2b served at (4, 4096, 32) in bf16: tokens
+              (4, 32), finite logits, exactly 8 flash and 576 rglru
+              launches; prefill s, decode tok/s, peak memory, the decode
+              idle share and the top device operations of a prefill;
+7. served correctness — (a) fp32 teacher forcing at full width and depth
+              (prefill and 3 decode steps against ``apply``, 2e-4);
+              (b) card against CPU in lockstep at the smoke widths with
+              window 32 (logits and caches, 1e-4).
 
 The last lines are the card's ``nvidia-smi`` name and power limit, one
 JSON line with every kernel's numbers, and ``{"ok": true, "device": ...}``.
@@ -51,7 +67,17 @@ PROFILE_STEPS = 10                   # steps under the profiler
 COMPRESSED_ROUNDS = 4
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM data sheet
 FP32_FLOPS = 67e12                   # H100 SXM, fp32 outside tensor cores
+BF16_FLOPS = 989e12                  # H100 SXM, dense bf16 tensor cores
 TOL_FP32, TOL_BF16 = 1e-5, 3e-2      # tests/test_kernels.py
+TOL_FLASH_FP32, TOL_RGLRU = 2e-5, 1e-4   # tests/test_kernels.py
+
+# the serving slice (phases 6-7): recurrentgemma-2b at its published widths
+SERVE_ARCH = "recurrentgemma-2b"
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 4096, 32
+WARM_PROMPT = 256                    # warm-up generate, same widths
+DECODE_PROFILE_STEPS = 10
+TF_PROMPT, TF_STEPS = 4096, 3        # 7(a): teacher forcing, batch 1, fp32
+LOCK_BATCH, LOCK_PROMPT, LOCK_STEPS = 2, 80, 4   # 7(b): card vs CPU
 
 
 def fail(msg: str) -> None:
@@ -80,10 +106,11 @@ def nvidia_smi() -> str:
 # Timing and bounds
 # ---------------------------------------------------------------------------
 
-def time_ms(torch, fn, reps: int = 100, rounds: int = 5) -> float:
-    """CUDA events around ``reps`` back-to-back calls, after warm-up; the
-    median over ``rounds`` of the per-call mean (>= 500 calls in all)."""
-    for _ in range(10):
+def time_ms(torch, fn, reps: int = 100, rounds: int = 5,
+            warmup: int = 10) -> float:
+    """CUDA events around ``reps`` back-to-back calls, after ``warmup``
+    calls; the median over ``rounds`` of the per-call mean."""
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     per_call = []
@@ -132,10 +159,12 @@ def device_ms(torch, fn, kernel_name: str, calls: int = 50):
     return ms if ms > 0 else None
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
-    """Least time on an H100 SXM: bytes over HBM rate vs fp32 flops over
-    the fp32 peak, whichever is larger (ms, and which one binds)."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+def bound(nbytes: float, flops: float,
+          peak: float = FP32_FLOPS) -> tuple[float, str]:
+    """Least time on an H100 SXM: bytes over HBM rate vs flops over the
+    peak of their type (fp32 unless given), whichever is larger (ms, and
+    which one binds)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -154,8 +183,40 @@ def q8_cost(m: int, k: int, n: int) -> tuple[float, float]:
     return nbytes, float(k * n + m * n + 2 * m * k * n)
 
 
+def flash_cost(b: int, s: int, hq: int, hkv: int, d: int, window: int,
+               elt: int) -> tuple[float, float]:
+    """flash_attention, causal: q and out (B, S, Hq, D), k and v
+    (B, S, Hkv, D) once each; 4 D flops per (query, key) pair of the band
+    (2 for q.k, 2 for p.v), for every batch and q head."""
+    pairs = sum(min(q + 1, window) if window else q + 1 for q in range(s))
+    return elt * (2 * b * s * hq * d + 2 * b * s * hkv * d), \
+        4.0 * d * pairs * b * hq
+
+
+def rglru_cost(b: int, s: int, d: int) -> tuple[float, float]:
+    """rglru_scan: fp32 a, b in and h out (B, S, D), h0 (B, D); one
+    multiply-add (2 flops) per element."""
+    return 4.0 * (3 * b * s * d + b * d), 2.0 * b * s * d
+
+
 def err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
+
+
+def tree_leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
+def tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_to(v, device) for v in tree]
+    return tree.to(device)
 
 
 # ---------------------------------------------------------------------------
@@ -182,16 +243,18 @@ def phase_build() -> None:
     phase("2. build")
     from repro_torch.kernels import _build
 
-    _, so = _build._target("gossip_mix")
-    built = not so.exists()
     t0 = time.perf_counter()
-    _build.load("gossip_mix")
-    print(f"gossip_mix: built={built} in {time.perf_counter() - t0:.2f}s -> "
-          f"{so.relative_to(ROOT)}")
-    log = so.with_suffix(".log")
-    for line in (log.read_text() if log.exists() else "").splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
-            print(f"   {line.strip()}")
+    built = _build.build()          # one nvcc per missing source, together
+    print(f"built {built or 'nothing (all up to date)'} in "
+          f"{time.perf_counter() - t0:.2f}s")
+    for name in _build.SOURCES:
+        _, so = _build._target(name)
+        _build.load(name)
+        print(f"{name}: {so.relative_to(ROOT)}")
+        log = so.with_suffix(".log")
+        for line in (log.read_text() if log.exists() else "").splitlines():
+            if "registers" in line or "spill" in line or "error" in line:
+                print(f"   {line.strip()}")
 
 
 def phase_kernels(torch) -> dict:
@@ -480,6 +543,327 @@ def phase_compressed(torch, sl: dict) -> int:
     return launches
 
 
+def phase_attention_kernels(torch) -> dict:
+    phase("3b. flash_attention and rglru_scan against their plain versions")
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rglru_scan as rg
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    errs = {"flash_attention": 0.0, "rglru_scan": 0.0}
+    tol = {torch.float32: TOL_FLASH_FP32, torch.bfloat16: TOL_BF16}
+
+    def hold(name, got, want, tol, what):
+        e = err(got, want)
+        print(f"{name:15s} {what:58s} max|err| {e:.3e} (tol {tol:g})")
+        check(got.shape == want.shape and got.dtype == want.dtype,
+              f"{name} {what}: {got.shape}/{got.dtype} vs "
+              f"{want.shape}/{want.dtype}")
+        check(e <= tol, f"{name} {what}: max|err| {e} > {tol}")
+        errs[name] = max(errs[name], e)
+
+    def qkv(b, s, hq, hkv, d, dtype):
+        return tuple(torch.randn((b, s, h, d), generator=gen, device=dev
+                                 ).to(dtype) for h in (hq, hkv, hkv))
+
+    # the slice's prefill shape, then edge shapes: ragged S, D in
+    # {16, 64, 80, 128}, window 0 causal and not, Hq == Hkv, bands that skip
+    main = (SERVE_BATCH, SERVE_PROMPT, 10, 1, 256, True, 2048)
+    cases = [(*main, torch.bfloat16), (*main, torch.float32),
+             (2, 33, 4, 2, 64, True, 0, torch.float32),
+             (2, 80, 4, 1, 16, True, 32, torch.float32),
+             (2, 130, 8, 2, 64, True, 48, torch.bfloat16),
+             (1, 257, 4, 4, 128, True, 0, torch.float32),
+             (1, 65, 4, 4, 80, True, 0, torch.float32),
+             (2, 100, 4, 2, 64, False, 0, torch.float32),
+             (2, 100, 4, 2, 16, False, 0, torch.bfloat16)]
+    for b, s, hq, hkv, d, causal, window, dtype in cases:
+        q, k, v = qkv(b, s, hq, hkv, d, dtype)
+        got = fa.flash_attention(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        hold("flash_attention", got, fa.flash_attention_plain(
+            q, k, v, causal=causal, window=window), tol[dtype],
+            f"({b},{s},{hq}/{hkv},{d}) causal={causal} w={window} "
+            f"{str(dtype)[6:]}")
+    before = fa.flash_attention.launches
+    try:
+        fa.flash_attention(*qkv(1, 8, 2, 1, 320, torch.float32))
+    except ValueError as e:
+        check(fa.flash_attention.launches == before, "launched before raising")
+        print(f"flash_attention ValueError on head_dim 320: ok ({e})")
+    else:
+        fail("flash_attention accepted head_dim 320")
+
+    for b, s, d, with_h0 in ((SERVE_BATCH, SERVE_PROMPT, 2560, True),
+                             (SERVE_BATCH, 1, 2560, True),
+                             (3, 37, 100, False), (2, 70, 100, True)):
+        a = torch.sigmoid(torch.randn((b, s, d), generator=gen, device=dev))
+        x = torch.randn((b, s, d), generator=gen, device=dev)
+        h0 = torch.randn((b, d), generator=gen, device=dev) if with_h0 \
+            else None
+        got = rg.rglru_scan(a, x, h0)
+        torch.cuda.synchronize()
+        hold("rglru_scan", got, rg.rglru_scan_plain(a, x, h0), TOL_RGLRU,
+             f"({b},{s},{d}) h0={with_h0}")
+
+    # times at the slice's shapes: flash in bf16 (the served dtype) and
+    # fp32; rglru at the prefill (S = 4096) and decode (S = 1) shapes
+    out = {}
+    b, s, hq, hkv, d, causal, window = main
+    qpos = torch.arange(s, device=dev)[:, None]
+    kpos = torch.arange(s, device=dev)[None, :]
+    band = (kpos <= qpos) & (qpos - kpos < window)
+    for dtype, elt, peak in ((torch.bfloat16, 2, BF16_FLOPS),
+                             (torch.float32, 4, FP32_FLOPS)):
+        q, k, v = qkv(b, s, hq, hkv, d, dtype)
+
+        def kernel():
+            return fa.flash_attention(q, k, v, causal=causal, window=window)
+
+        def library():
+            return F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                attn_mask=band, enable_gqa=True)
+        lib_err = err(library().transpose(1, 2), kernel())
+        b_ms, b_by = bound(*flash_cost(b, s, hq, hkv, d, window, elt), peak)
+        out[str(dtype)[6:]] = {
+            "ms": time_ms(torch, kernel, reps=10, rounds=3, warmup=2),
+            "plain_ms": time_ms(torch, lambda: fa.flash_attention_plain(
+                q, k, v, causal=causal, window=window), reps=2, rounds=3,
+                warmup=1),
+            "library_ms": time_ms(torch, library, reps=10, rounds=3,
+                                  warmup=2),
+            "device_ms": device_ms(torch, kernel, "flash_attention_kernel",
+                                   calls=3),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "shape": f"q ({b},{s},{hq},{d}) k/v ({b},{s},{hkv},{d}) "
+                     f"{str(dtype)[6:]}, causal, window {window}"}
+        print(f"flash_attention {out[str(dtype)[6:]]['shape']}: library "
+              f"(scaled_dot_product_attention, band mask) vs kernel "
+              f"max|diff| {lib_err:.3e}")
+    flash = dict(out["bfloat16"], fp32=out["float32"])
+    for b, s, d, reps in ((SERVE_BATCH, SERVE_PROMPT, 2560, 1),
+                          (SERVE_BATCH, 1, 2560, 100)):
+        a = torch.sigmoid(torch.randn((b, s, d), generator=gen, device=dev))
+        x = torch.randn((b, s, d), generator=gen, device=dev)
+        h0 = torch.randn((b, d), generator=gen, device=dev)
+        b_ms, b_by = bound(*rglru_cost(b, s, d))
+        out[s] = {
+            "ms": time_ms(torch, lambda: rg.rglru_scan(a, x, h0), reps=20),
+            # the plain version is a Python loop over time: at S = 4096,
+            # 3 rounds of 1 call after 1 warm-up call
+            "plain_ms": time_ms(torch, lambda: rg.rglru_scan_plain(a, x, h0),
+                                reps=reps, rounds=3, warmup=1),
+            "library_ms": None,
+            "device_ms": device_ms(torch, lambda: rg.rglru_scan(a, x, h0),
+                                   "rglru_scan_kernel", calls=10),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "shape": f"a, b ({b},{s},{d}) fp32, h0 ({b},{d})"}
+    rglru = dict(out[SERVE_PROMPT], decode=out[1])
+    for name, t in (("flash_attention", flash),
+                    ("flash_attention", flash["fp32"]),
+                    ("rglru_scan", rglru), ("rglru_scan", rglru["decode"])):
+        dms = "not measured" if t["device_ms"] is None \
+            else f"{t['device_ms']:.4f} ms"
+        lib = "none" if t["library_ms"] is None \
+            else f"{t['library_ms']:.4f} ms"
+        print(f"{name:15s} {t['shape']}: {t['ms']:.4f} ms/call "
+              f"(device {dms}) | plain {t['plain_ms']:.4f} ms | library "
+              f"{lib} | bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+    flash["max_abs_err"] = errs["flash_attention"]
+    rglru["max_abs_err"] = errs["rglru_scan"]
+    return {"flash_attention": flash, "rglru_scan": rglru}
+
+
+def phase_serve(torch) -> dict:
+    phase("6. serving slice: recurrentgemma-2b at full width on the card")
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rglru_scan as rg
+    from repro_torch.launch import serve
+    from repro_torch.models import build, transformer
+
+    cfg = get_config(SERVE_ARCH)
+    kinds = transformer.layer_kinds(cfg)
+    n_attn = sum(k in ("global", "local") for k in kinds)
+    n_rec = sum(k == "rglru" for k in kinds)
+    print(f"{cfg.name}: {cfg.n_layers} layers ({n_rec} rglru, {n_attn} "
+          f"local), d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} "
+          f"heads x {cfg.head_dim}, window {cfg.window}, vocab "
+          f"{cfg.vocab_size}, {cfg.dtype} compute, {cfg.param_dtype} "
+          f"weights; batch {SERVE_BATCH}, prompt {SERVE_PROMPT}, "
+          f"{SERVE_GEN} tokens")
+    # warm-up at the same widths (cuBLAS handles, the allocator's pools)
+    serve.generate(cfg, batch=SERVE_BATCH, prompt_len=WARM_PROMPT, gen=2,
+                   device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    fa.flash_attention.launches = rg.rglru_scan.launches = 0
+    out = serve.generate(cfg, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
+                         gen=SERVE_GEN, device="cuda")
+    torch.cuda.synchronize()
+    launches = {"flash_attention": fa.flash_attention.launches,
+                "rglru_scan": rg.rglru_scan.launches}
+    peak = torch.cuda.max_memory_allocated()
+    want = {"flash_attention": n_attn, "rglru_scan": n_rec * SERVE_GEN}
+    print(f"launches: {launches} (expected {want}: flash once per "
+          f"attention layer in prefill, rglru once per recurrent layer in "
+          f"prefill and in each of {SERVE_GEN - 1} decode steps)")
+    check(launches == want, f"launches {launches}, want {want}")
+    tokens, logits = out["tokens"], out["logits"]
+    check(tuple(tokens.shape) == (SERVE_BATCH, SERVE_GEN),
+          f"tokens {tuple(tokens.shape)}")
+    check(bool(torch.isfinite(logits.float()).all()), "non-finite logits")
+    print(f"prefill {out['prefill_s']:.4f} s ({SERVE_BATCH} x {SERVE_PROMPT} "
+          f"tokens), decode {out['decode_s']:.4f} s for {SERVE_GEN - 1} "
+          f"steps = {out['tok_per_s']:.2f} tok/s, peak device memory "
+          f"{peak / 2**30:.3f} GiB ({peak} bytes); sample "
+          f"{tokens[0, :8].tolist()}")
+
+    # where the time goes: one profiled prefill, then DECODE_PROFILE_STEPS
+    # decode steps timed on the host clock and again under the profiler
+    api = build(cfg, "cuda")
+    rng = torch.Generator(device="cuda").manual_seed(1)
+    params = serve.serving_params(cfg, api.init(rng))
+    inputs = api.make_inputs(ShapeConfig("serve", SERVE_PROMPT, SERVE_BATCH,
+                                         "prefill"), rng,
+                             batch_override=SERVE_BATCH)
+    max_len = SERVE_PROMPT + 2 * DECODE_PROFILE_STEPS + 1
+    state = {}
+
+    def prefill():
+        state["logits"], state["cache"] = api.prefill(params, inputs,
+                                                      max_len=max_len)
+    rows = device_profile(torch, prefill, 1)
+    if not rows:
+        print("prefill profile: no device time in the trace (not measured)")
+    else:
+        print(f"profile of one prefill: device busy "
+              f"{sum(r[1] for r in rows):.4f} ms; top device operations "
+              f"(ms, launches):")
+        for name, ms, calls in rows[:10]:
+            print(f"   {ms:9.4f} ms  {calls:4d}x  {name[:90]}")
+
+    def decode(start):
+        tok = torch.argmax(state["logits"], -1)
+        for i in range(DECODE_PROFILE_STEPS):
+            state["logits"], state["cache"] = api.decode_step(
+                params, tok, state["cache"], start + i)
+            tok = torch.argmax(state["logits"], -1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    decode(SERVE_PROMPT)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / DECODE_PROFILE_STEPS
+    drows = device_profile(torch, lambda: decode(
+        SERVE_PROMPT + DECODE_PROFILE_STEPS), DECODE_PROFILE_STEPS)
+    idle = None
+    if not drows:
+        print("decode profile: no device time in the trace (not measured)")
+    else:
+        dbusy = sum(r[1] for r in drows)
+        idle = 1 - dbusy / wall_ms
+        print(f"decode, {DECODE_PROFILE_STEPS} steps: device busy "
+              f"{dbusy:.4f} ms/step in {sum(r[2] for r in drows)} launches "
+              f"vs {wall_ms:.4f} ms/step wall, idle share {idle:.3f}; top "
+              f"device operations (ms/step, launches/step):")
+        for name, ms, calls in drows[:8]:
+            print(f"   {ms:9.4f} ms  {calls:4d}x  {name[:90]}")
+    del params, state
+    torch.cuda.empty_cache()
+    return {"launches": launches, "prefill_s": out["prefill_s"],
+            "tok_per_s": out["tok_per_s"], "peak_bytes": peak,
+            "decode_idle_share": idle}
+
+
+def phase_served_correctness(torch) -> None:
+    phase("7. correctness of the served path")
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduce_for_smoke
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rglru_scan as rg
+    from repro_torch.models import build, transformer
+
+    # (a) teacher forcing at full width and depth, in fp32 (same widths,
+    # only the compute type differs): prefill (flash kernel) and decode
+    # (ring-buffer einsum) against apply's logits at the same positions.
+    # fp32 end to end (TF32 off): held at tests/test_serve.py's 2e-4 on
+    # logits up to ~13, room for summation order over 26 layers (2.4e-5
+    # measured on an H100), not for a wrong band or ring.
+    cfg = dataclasses.replace(get_config(SERVE_ARCH), dtype="float32")
+    api = build(cfg, "cuda")
+    rng = torch.Generator(device="cuda").manual_seed(2)
+    params = api.init(rng)
+    tokens = torch.randint(0, cfg.vocab_size, (1, TF_PROMPT + TF_STEPS),
+                           generator=rng, device="cuda")
+    fa.flash_attention.launches = rg.rglru_scan.launches = 0
+    logits, cache = api.prefill(params, {"tokens": tokens[:, :TF_PROMPT]},
+                                max_len=TF_PROMPT + TF_STEPS)
+    served = [logits]
+    for i in range(TF_STEPS):
+        logits, cache = api.decode_step(params, tokens[:, TF_PROMPT + i],
+                                        cache, TF_PROMPT + i)
+        served.append(logits)
+    full = transformer.apply(cfg, params, tokens)
+    errs = [err(got, full[:, TF_PROMPT - 1 + i])
+            for i, got in enumerate(served)]
+    scale = float(full[:, TF_PROMPT - 1:].abs().max())
+    print(f"(a) fp32, batch 1, prompt {TF_PROMPT}, {TF_STEPS} decode steps: "
+          f"max|served - apply| per position {[f'{e:.3e}' for e in errs]} "
+          f"(logits up to {scale:.3f}); launches flash "
+          f"{fa.flash_attention.launches}, rglru {rg.rglru_scan.launches}")
+    check(max(errs) <= 2e-4, f"served logits differ from apply by {errs}")
+    check(fa.flash_attention.launches > 0 and rg.rglru_scan.launches > 0,
+          "teacher forcing did not run the kernels")
+    del params, cache, full, served
+    torch.cuda.empty_cache()
+
+    # (b) card (kernels) against CPU (plain versions) in lockstep, at the
+    # smoke widths with window 32: a prompt of 80 skips key tiles in the
+    # band and rolls the ring. Each decode step starts both from the
+    # card's cache. fp32 on both sides: 1e-4 is tests/test_kernels.py's
+    # rglru bar, the loosest of the path's kernels.
+    cfg = reduce_for_smoke(get_config(SERVE_ARCH))
+    params_c = transformer.init_params(cfg, torch.Generator().manual_seed(3),
+                                       "cpu")
+    params_g = tree_to(params_c, "cuda")
+    api_c, api_g = build(cfg, "cpu"), build(cfg, "cuda")
+    tokens = torch.randint(0, cfg.vocab_size, (LOCK_BATCH, LOCK_PROMPT),
+                           generator=torch.Generator().manual_seed(4))
+    max_len = LOCK_PROMPT + LOCK_STEPS + 1
+    fa.flash_attention.launches = rg.rglru_scan.launches = 0
+    lg, cg = api_g.prefill(params_g, {"tokens": tokens.cuda()},
+                           max_len=max_len)
+    lc, cc = api_c.prefill(params_c, {"tokens": tokens}, max_len=max_len)
+    worst = {"logits": err(lg.cpu(), lc),
+             "cache": max(err(a.cpu(), b) for a, b in
+                          zip(tree_leaves(cg), tree_leaves(cc)))}
+    for i in range(LOCK_STEPS):
+        tok = torch.argmax(lg, -1)
+        lg, cg_next = api_g.decode_step(params_g, tok, cg, LOCK_PROMPT + i)
+        lc, cc = api_c.decode_step(params_c, tok.cpu(), tree_to(cg, "cpu"),
+                                   LOCK_PROMPT + i)
+        cg = cg_next
+        worst["logits"] = max(worst["logits"], err(lg.cpu(), lc))
+        worst["cache"] = max(worst["cache"], max(
+            err(a.cpu(), b) for a, b in zip(tree_leaves(cg),
+                                            tree_leaves(cc))))
+    print(f"(b) {cfg.name} window {cfg.window}, batch {LOCK_BATCH}, prompt "
+          f"{LOCK_PROMPT}, {LOCK_STEPS} decode steps, card vs CPU in "
+          f"lockstep: max|logits diff| {worst['logits']:.3e}, max|cache "
+          f"diff| {worst['cache']:.3e}; card launches flash "
+          f"{fa.flash_attention.launches}, rglru {rg.rglru_scan.launches}")
+    check(worst["logits"] <= 1e-4 and worst["cache"] <= 1e-4,
+          f"card and CPU differ: {worst}")
+    check(fa.flash_attention.launches > 0 and rg.rglru_scan.launches > 0,
+          "the card side did not run the kernels")
+
+
 def main() -> None:
     if not (SRC / "repro_torch").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
@@ -493,20 +877,28 @@ def main() -> None:
     phase_device(torch)
     phase_build()
     kernels = phase_kernels(torch)
+    kernels.update(phase_attention_kernels(torch))
     sl = phase_slice(torch)
     q8_launches = phase_compressed(torch, sl)
+    served = phase_serve(torch)
+    phase_served_correctness(torch)
 
     rows = []
-    for name, replaces, launches in (
-            ("gossip_mix", "src/repro/kernels/gossip_mix.py:62",
+    for name, source, replaces, launches in (
+            ("gossip_mix", "gossip_mix", "gossip_mix.py:62",
              sl["launches"]["gossip_mix"]),
-            ("gossip_mix_q8", "src/repro/kernels/gossip_mix.py:109",
-             q8_launches)):
+            ("gossip_mix_q8", "gossip_mix", "gossip_mix.py:109",
+             q8_launches),
+            ("flash_attention", "flash_attention", "flash_attention.py:105",
+             served["launches"]["flash_attention"]),
+            ("rglru_scan", "rglru_scan", "rglru_scan.py:59",
+             served["launches"]["rglru_scan"])):
         k = kernels[name]
         rows.append({
             "name": name, "route": "cuda",
-            "source": "src/repro_torch/csrc/gossip_mix.cu",
-            "replaces": replaces, "launches": launches,
+            "source": f"src/repro_torch/csrc/{source}.cu",
+            "replaces": f"src/repro/kernels/{replaces}",
+            "launches": launches,
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": k["library_ms"],

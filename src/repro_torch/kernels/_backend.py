@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["use_kernel", "MIN_CAPABILITY"]
+__all__ = ["use_kernel", "require_operands", "MIN_CAPABILITY"]
 
 MIN_CAPABILITY = (9, 0)
 
@@ -38,3 +38,16 @@ def use_kernel(device: torch.device) -> bool:
             f"CUDA device {device} has compute capability {cap}; the "
             f"kernels are built for sm_90a and need >= {MIN_CAPABILITY}")
     return True
+
+
+def require_operands(device: torch.device, **tensors) -> None:
+    """Raise unless every tensor lies on ``device`` and is contiguous: what
+    a kernel's C entry assumes of the pointers it is given. ``None`` is an
+    absent optional operand (a null pointer) and passes."""
+    for name, t in tensors.items():
+        if t is None:
+            continue
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, expected {device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous for the kernel")

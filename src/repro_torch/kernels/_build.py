@@ -1,4 +1,4 @@
-"""Build the port's CUDA sources into shared libraries and load them.
+"""Build the port's CUDA sources into shared libraries, load and launch them.
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on
 first use with
@@ -9,8 +9,9 @@ first use with
 into ``build/`` at the repository root, named after a hash of the source
 and the flags, so an edited source is rebuilt and an unchanged one is
 loaded as it is. nvcc's report (ptxas registers and spills) is kept beside
-the library as ``<name>-<hash>.log``. The library is loaded with
-``ctypes``; the wrapper passes every pointer and the stream as
+the library as ``<name>-<hash>.log``. :func:`build` starts one nvcc per
+missing source, all together, and waits for them. The library is loaded
+with ``ctypes``; :func:`launch` passes every pointer and the stream as
 ``c_void_p``. Nothing is compiled or loaded at import time: the CPU has no
 ``nvcc`` and never calls :func:`load`.
 """
@@ -24,15 +25,18 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["load", "BUILD_DIR", "NVCC_FLAGS"]
+import torch
+
+__all__ = ["load", "build", "launch", "SOURCES", "BUILD_DIR", "NVCC_FLAGS"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
+SOURCES = ("gossip_mix", "flash_attention", "rglru_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LOADED: dict[str, ctypes.CDLL] = {}
-_LOCK = threading.Lock()
+_LOCK = threading.RLock()
 
 
 def _nvcc() -> str:
@@ -55,20 +59,38 @@ def _target(name: str) -> tuple[Path, Path]:
     return src, BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
-def _build(name: str, src: Path, so: Path) -> None:
-    """Compile ``src`` to a per-process temporary name, then rename it to
-    ``so`` (atomic: a concurrent loader sees the whole library or none)."""
-    cmd = [_nvcc(), *NVCC_FLAGS]
-    tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    proc = subprocess.run([*cmd, "-o", str(tmp), str(src)], text=True,
-                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-    so.with_suffix(".log").write_text(proc.stdout)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed to build {name}.cu "
-                           f"(exit {proc.returncode}):\n{proc.stdout}")
-    os.replace(tmp, so)
+def build(names=SOURCES) -> list[str]:
+    """Compile every source of ``names`` whose library is missing: one nvcc
+    each, all started together, each into a per-process temporary name that
+    is renamed to the library when it is whole (a concurrent loader sees
+    the whole library or none). Returns the names it built; raises with
+    nvcc's output if any build failed."""
+    with _LOCK:
+        todo = [(n, *_target(n)) for n in names if not _target(n)[1].exists()]
+        if not todo:
+            return []
+        nvcc = _nvcc()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        running = []
+        for name, src, so in todo:
+            tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
+            proc = subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)], text=True,
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+            running.append((name, so, tmp, proc))
+        failed = []
+        for name, so, tmp, proc in running:
+            log, _ = proc.communicate()
+            so.with_suffix(".log").write_text(log)
+            if proc.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                failed.append(f"nvcc failed to build {name}.cu "
+                              f"(exit {proc.returncode}):\n{log}")
+            else:
+                os.replace(tmp, so)
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        return [name for name, *_ in todo]
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -76,9 +98,24 @@ def load(name: str) -> ctypes.CDLL:
     with _LOCK:
         lib = _LOADED.get(name)
         if lib is None:
-            src, so = _target(name)
-            if not so.exists():
-                _build(name, src, so)
-            lib = ctypes.CDLL(str(so))
+            build([name])
+            lib = ctypes.CDLL(str(_target(name)[1]))
             _LOADED[name] = lib
         return lib
+
+
+def launch(name: str, entry: str, argtypes: tuple, device: torch.device,
+           *args) -> None:
+    """Call C entry ``entry`` of ``csrc/<name>.cu`` with ``args`` and the
+    current stream of ``device``; raises if it returns a CUDA error. The
+    argtypes are set before the first call: ctypes would otherwise pass
+    each pointer as a 32-bit int."""
+    fn = getattr(load(name), entry)
+    if fn.argtypes is None:
+        fn.argtypes = (*argtypes, ctypes.c_void_p)
+        fn.restype = ctypes.c_int
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*args, stream)
+    if err:
+        raise RuntimeError(f"{entry} launch failed: CUDA error {err}")

@@ -25,7 +25,7 @@ import ctypes
 import torch
 
 from . import _build
-from ._backend import use_kernel
+from ._backend import require_operands, use_kernel
 
 __all__ = ["gossip_mix", "gossip_mix_q8", "gossip_mix_rows",
            "gossip_mix_q8_rows", "gossip_mix_rows_plain",
@@ -36,37 +36,8 @@ _MAX_K = 4096       # one weight row lives in shared memory (<= 16 KB)
 _MAX_M = 65535      # output rows run on gridDim.y
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_SIGNATURES = {
-    "gossip_mix_rows_f32": (_P, _P, _P, _I, _I, _LL, _P),
-    "gossip_mix_rows_bf16": (_P, _P, _P, _I, _I, _LL, _P),
-    "gossip_mix_q8_rows": (_P, _P, _P, _P, _P, _P, _I, _I, _LL, _LL, _P),
-}
-
-
-def _fn(name: str):
-    """The C entry ``name`` of the built library, with its argtypes set
-    (ctypes would otherwise pass each pointer as a 32-bit int)."""
-    fn = getattr(_build.load("gossip_mix"), name)
-    if fn.argtypes is None:
-        fn.argtypes = _SIGNATURES[name]
-        fn.restype = ctypes.c_int
-    return fn
-
-
-def _launch(name: str, device: torch.device, *args) -> None:
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = _fn(name)(*args, stream)
-    if err:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-
-
-def _require_cuda(device: torch.device, **tensors: torch.Tensor) -> None:
-    for name, t in tensors.items():
-        if t.device != device:
-            raise ValueError(f"{name} is on {t.device}, expected {device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous for the kernel")
+_ROWS_ARGS = (_P, _P, _P, _I, _I, _LL)
+_Q8_ARGS = (_P, _P, _P, _P, _P, _P, _I, _I, _LL, _LL)
 
 
 # ---------------------------------------------------------------------------
@@ -99,15 +70,15 @@ def gossip_mix_rows(w: torch.Tensor, bufs: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"W {tuple(w.shape)} exceeds the kernel's limits "
                          f"(K <= {_MAX_K}, M <= {_MAX_M})")
     w = w.to(torch.float32).contiguous()
-    _require_cuda(bufs.device, w=w, bufs=bufs)
+    require_operands(bufs.device, w=w, bufs=bufs)
     n = bufs.shape[1]
     out = torch.empty((m, n), dtype=bufs.dtype, device=bufs.device)
     if m == 0 or n == 0:
         return out
     name = ("gossip_mix_rows_f32" if bufs.dtype == torch.float32
             else "gossip_mix_rows_bf16")
-    _launch(name, bufs.device, w.data_ptr(), bufs.data_ptr(),
-            out.data_ptr(), m, k, n)
+    _build.launch("gossip_mix", name, _ROWS_ARGS, bufs.device, w.data_ptr(),
+                  bufs.data_ptr(), out.data_ptr(), m, k, n)
     gossip_mix_rows.launches += 1
     return out
 
@@ -183,14 +154,15 @@ def gossip_mix_q8_rows(w_self: torch.Tensor, w_off: torch.Tensor,
     w_off = w_off.to(torch.float32).contiguous()
     self_buf = self_buf.to(torch.float32)
     scales = scales.to(torch.float32)
-    _require_cuda(self_buf.device, w_self=w_self, w_off=w_off,
-                  self_buf=self_buf, q_bufs=q_bufs, scales=scales)
+    require_operands(self_buf.device, w_self=w_self, w_off=w_off,
+                     self_buf=self_buf, q_bufs=q_bufs, scales=scales)
     out = torch.empty((m, n), dtype=torch.float32, device=self_buf.device)
     if m == 0 or n == 0:
         return out
-    _launch("gossip_mix_q8_rows", self_buf.device, w_self.data_ptr(),
-            w_off.data_ptr(), self_buf.data_ptr(), q_bufs.data_ptr(),
-            scales.data_ptr(), out.data_ptr(), m, k, n, q_bufs.shape[1])
+    _build.launch("gossip_mix", "gossip_mix_q8_rows", _Q8_ARGS,
+                  self_buf.device, w_self.data_ptr(), w_off.data_ptr(),
+                  self_buf.data_ptr(), q_bufs.data_ptr(), scales.data_ptr(),
+                  out.data_ptr(), m, k, n, q_bufs.shape[1])
     gossip_mix_q8_rows.launches += 1
     return out
 

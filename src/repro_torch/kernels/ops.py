@@ -7,11 +7,15 @@ card, the plain torch version for a tensor on the CPU.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
+from . import flash_attention as _fa
 from . import gossip_mix as _gm
+from . import rglru_scan as _rg
 
-__all__ = ["gossip_mix", "gossip_mix_q8"]
+__all__ = ["gossip_mix", "gossip_mix_q8", "flash_attention_gqa", "rglru"]
 
 
 def gossip_mix(bufs: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
@@ -26,3 +30,24 @@ def gossip_mix_q8(self_buf: torch.Tensor, q_bufs: torch.Tensor,
     (K, Np/2048) — the ``core.compression.quantize_int8`` wire layout —
     weighted by (K+1,) ``weights`` (self first). Returns fp32 (N,)."""
     return _gm.gossip_mix_q8(self_buf, q_bufs, scales, weights)
+
+
+def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: int = 0,
+                        positions: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """q (B,S,Hq,D), k/v (B,T,Hkv,D) -> (B,S,Hq,D). Query and key
+    positions count from 0 (prefill); a ``positions`` tensor, where the
+    caller has one, must be ``arange(S)``, and is checked. No padding: the
+    kernel masks the ragged edge of S, T and D itself."""
+    if positions is not None and not torch.equal(
+            positions, torch.arange(q.shape[1], device=positions.device)):
+        raise ValueError("flash_attention_gqa assumes positions "
+                         "arange(S) (a prefill from position 0)")
+    return _fa.flash_attention(q, k, v, causal=causal, window=window)
+
+
+def rglru(a: torch.Tensor, binp: torch.Tensor,
+          h0: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """h_t = a_t h_{t-1} + b_t; a, b (B,S,D); h0 (B,D) -> h (B,S,D)."""
+    return _rg.rglru_scan(a, binp, h0)

@@ -3,9 +3,12 @@
 The oracles of the kernels still to port come with them."""
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
-__all__ = ["gossip_mix_ref", "gossip_mix_q8_ref"]
+__all__ = ["gossip_mix_ref", "gossip_mix_q8_ref", "flash_attention_ref",
+           "rglru_ref"]
 
 
 def gossip_mix_ref(bufs: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
@@ -28,3 +31,36 @@ def gossip_mix_q8_ref(self_buf: torch.Tensor, q_bufs: torch.Tensor,
     w = weights.to(torch.float32)
     return w[0] * self_buf.to(torch.float32) + torch.einsum("k,kn->n",
                                                             w[1:], deq)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: int = 0) -> torch.Tensor:
+    """q (B,S,Hq,D), k/v (B,T,Hkv,D) -> (B,S,Hq,D). Naive masked softmax."""
+    b, s, hq, d = q.shape
+    t, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    qg = q.reshape(b, s, hkv, g, d).to(torch.float32)
+    scores = torch.einsum("bshgd,bthd->bshgt", qg,
+                          k.to(torch.float32)) * d**-0.5
+    qpos = torch.arange(s, device=q.device)[:, None]
+    kpos = torch.arange(t, device=q.device)[None, :]
+    mask = torch.ones((s, t), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window:
+        mask &= (qpos - kpos) < window
+    scores = scores.masked_fill(~mask[None, :, None, None, :], -1e30)
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bshgt,bthd->bshgd", p, v.to(torch.float32))
+    return out.reshape(b, s, hq, d).to(q.dtype)
+
+
+def rglru_ref(a: torch.Tensor, binp: torch.Tensor,
+              h0: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Sequential h_t = a_t h_{t-1} + b_t. a, b (B,S,D)."""
+    h = torch.zeros_like(a[:, 0]) if h0 is None else h0
+    hs = []
+    for t in range(a.shape[1]):
+        h = a[:, t] * h + binp[:, t]
+        hs.append(h)
+    return torch.stack(hs, dim=1)

@@ -1,5 +1,7 @@
-"""Models of the port. This slice carries the paper's CNN; the model zoo
-comes in a later slice."""
-from . import cnn
+"""Models of the port: the paper's CNN and the decoder-only model zoo
+(layer kinds global, local and rglru) behind the ``api`` facade."""
+from . import api, attention, cnn, layers, rglru, transformer
+from .api import ModelAPI, build
 
-__all__ = ["cnn"]
+__all__ = ["api", "attention", "cnn", "layers", "rglru", "transformer",
+           "ModelAPI", "build"]

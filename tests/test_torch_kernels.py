@@ -1,9 +1,11 @@
-"""The port's gossip-mix kernels: plain versions against the JAX package's
-Pallas kernels (interpret mode, through ``repro.kernels.ops``), the shape
-contracts and the per-call dispatch. The CUDA kernels themselves are held
-against their plain versions on the card, in test_torch_kernels_card.py.
+"""The port's kernels (gossip mix, flash attention, RG-LRU scan): plain
+versions against the JAX package's Pallas kernels (interpret mode, through
+``repro.kernels.ops``) and oracles, the shape contracts and the per-call
+dispatch. The CUDA kernels themselves are held against their plain
+versions on the card, in test_torch_kernels_card.py.
 
-Tolerances follow tests/test_kernels.py: fp32 1e-5, bf16 3e-2.
+Tolerances follow tests/test_kernels.py: gossip fp32 1e-5, bf16 3e-2;
+flash fp32 2e-5, bf16 3e-2; rglru 1e-4.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -13,7 +15,9 @@ import torch
 from repro.core.compression import quantize_int8 as jax_quantize_int8
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro.models.rglru import linear_recurrence as jax_linear_recurrence
 from repro_torch.kernels import _backend, _build, gossip_mix as gm, ops, ref
+from repro_torch.kernels import flash_attention as fa, rglru_scan as rg
 
 TOL = {"float32": 1e-5, "bfloat16": 3e-2}
 DTYPES = {"float32": (torch.float32, jnp.float32),
@@ -199,3 +203,164 @@ def test_build_names_library_after_source_hash_and_needs_nvcc(monkeypatch,
     with pytest.raises(RuntimeError, match="nvcc"):
         _build.load("gossip_mix")
     assert not (tmp_path / "build").exists()
+
+
+# ---------------------------------------------------------------------------
+# Flash attention and the RG-LRU scan
+# ---------------------------------------------------------------------------
+
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+
+
+def _qkv(b, s, hq, hkv, d, seed=0):
+    rng = np.random.default_rng(seed)
+    return tuple(rng.normal(size=(b, s, h, d)).astype(np.float32)
+                 for h in (hq, hkv, hkv))
+
+
+@pytest.mark.parametrize("s,hq,hkv,d", [
+    (64, 4, 4, 32),    # MHA
+    (80, 4, 2, 32),    # GQA, ragged seq
+    (96, 8, 1, 16),    # MQA
+])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 32), (False, 0)])
+def test_flash_attention_plain_matches_pallas(s, hq, hkv, d, causal, window):
+    """The grid of tests/test_kernels.py:78-93: the plain version against
+    the Pallas kernel (interpret mode) and both oracles."""
+    q, k, v = _qkv(2, s, hq, hkv, d)
+    want = jops.flash_attention_gqa(jnp.asarray(q), jnp.asarray(k),
+                                    jnp.asarray(v), causal=causal,
+                                    window=window, bq=32, bk=32)
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    got = ops.flash_attention_gqa(tq, tk, tv, causal=causal, window=window)
+    assert got.shape == (2, s, hq, d) and got.dtype == torch.float32
+    assert _err(got, want) < FLASH_TOL["float32"]
+    oracle = ref.flash_attention_ref(tq, tk, tv, causal=causal, window=window)
+    assert _err(got, oracle) < FLASH_TOL["float32"]
+    assert _err(oracle, jref.flash_attention_ref(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        window=window)) < FLASH_TOL["float32"]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_plain_dtypes(dtype):
+    tdt, jdt = DTYPES[dtype]
+    q, k, v = _qkv(1, 64, 2, 2, 32, seed=1)
+    want = jops.flash_attention_gqa(*(jnp.asarray(x).astype(jdt)
+                                      for x in (q, k, v)), bq=32, bk=32)
+    got = ops.flash_attention_gqa(*(torch.from_numpy(x).to(tdt)
+                                    for x in (q, k, v)))
+    assert got.dtype == tdt
+    assert _err(got, want) < FLASH_TOL[dtype]
+
+
+def test_flash_attention_plain_skips_out_of_band_blocks_exactly():
+    """A long sequence against a short window: the plain version's band
+    (the kernel's) gives the full masked softmax, rows past the first
+    plain block included."""
+    q, k, v = _qkv(1, 600, 2, 1, 16, seed=2)
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    got = fa.flash_attention_plain(tq, tk, tv, causal=True, window=40)
+    want = ref.flash_attention_ref(tq, tk, tv, causal=True, window=40)
+    assert _err(got, want) < FLASH_TOL["float32"]
+
+
+def test_flash_attention_positions_must_start_at_zero():
+    q, k, v = (torch.from_numpy(x) for x in _qkv(1, 8, 2, 1, 16))
+    ops.flash_attention_gqa(q, k, v, positions=torch.arange(8))
+    with pytest.raises(ValueError, match="arange"):
+        ops.flash_attention_gqa(q, k, v, positions=torch.arange(8) + 3)
+
+
+def test_flash_attention_contracts():
+    q, k, v = (torch.from_numpy(x) for x in _qkv(1, 8, 4, 2, 16))
+    with pytest.raises(ValueError, match="Hq % Hkv"):
+        fa.flash_attention(q[:, :, :3], k, v)
+    with pytest.raises(ValueError, match="need q"):
+        fa.flash_attention(q[0], k, v)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fa.flash_attention(q.double(), k.double(), v.double())
+
+
+def _ab(b, s, d, seed=0):
+    rng = np.random.default_rng(seed)
+    a = 1.0 / (1.0 + np.exp(-rng.normal(size=(b, s, d))))
+    return (a.astype(np.float32), rng.normal(size=(b, s, d)).astype(np.float32),
+            rng.normal(size=(b, d)).astype(np.float32))
+
+
+@pytest.mark.parametrize("s,d", [(64, 128), (100, 256), (32, 64), (1, 100)])
+@pytest.mark.parametrize("with_h0", [True, False])
+def test_rglru_plain_matches_pallas_and_model(s, d, with_h0):
+    """tests/test_kernels.py:127-147: the plain version against the Pallas
+    kernel, the sequential oracle and the model's associative scan."""
+    a, b, h0 = _ab(2, s, d, seed=s + d)
+    jh0 = jnp.asarray(h0) if with_h0 else None
+    th0 = torch.from_numpy(h0) if with_h0 else None
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    got = ops.rglru(ta, tb, th0)
+    assert got.shape == (2, s, d) and got.dtype == torch.float32
+    assert _err(got, jops.rglru(jnp.asarray(a), jnp.asarray(b), jh0,
+                                chunk=32)) < 1e-4
+    jwant = jax_linear_recurrence(jnp.asarray(a), jnp.asarray(b), jh0)
+    assert _err(got, jwant) < 1e-4
+    oracle = ref.rglru_ref(ta, tb, th0)
+    assert _err(got, oracle) < 1e-4
+    assert _err(oracle, jref.rglru_ref(jnp.asarray(a), jnp.asarray(b),
+                                       jh0)) < 1e-4
+
+
+def test_rglru_contracts():
+    a = torch.ones(2, 5, 8)
+    with pytest.raises(ValueError, match="one shape"):
+        rg.rglru_scan(a, torch.ones(2, 5, 7))
+    with pytest.raises(ValueError, match="h0"):
+        rg.rglru_scan(a, a, torch.ones(2, 7))
+
+
+def test_new_kernels_dispatch_cpu_to_plain_and_never_fall_back():
+    fa.flash_attention.launches = rg.rglru_scan.launches = 0
+    q, k, v = (torch.from_numpy(x) for x in _qkv(1, 8, 2, 1, 16))
+    ops.flash_attention_gqa(q, k, v)
+    a, b, h0 = (torch.from_numpy(x) for x in _ab(1, 4, 8))
+    ops.rglru(a, b, h0)
+    assert fa.flash_attention.launches == 0 and rg.rglru_scan.launches == 0
+    meta = {"device": "meta"}
+    with pytest.raises(RuntimeError, match="device type"):
+        fa.flash_attention(torch.ones(1, 8, 2, 16, **meta),
+                           torch.ones(1, 8, 1, 16, **meta),
+                           torch.ones(1, 8, 1, 16, **meta))
+    with pytest.raises(RuntimeError, match="device type"):
+        rg.rglru_scan(torch.ones(1, 4, 8, **meta), torch.ones(1, 4, 8, **meta))
+    assert fa.flash_attention.launches == 0 and rg.rglru_scan.launches == 0
+
+
+@pytest.mark.parametrize("kernel", ["flash", "rglru"])
+def test_new_kernels_raise_below_sm90(monkeypatch, kernel):
+    """The wrappers' dispatch, asked about a CUDA device below (9, 0),
+    raises before any launch (the probe is patched; the host tensors are
+    never touched)."""
+    monkeypatch.setattr(torch.cuda, "get_device_capability",
+                        lambda d=None: (8, 0))
+    cuda0 = torch.device("cuda", 0)
+    before = (fa.flash_attention.launches, rg.rglru_scan.launches)
+    monkeypatch.setattr(fa, "use_kernel", lambda dev: _backend.use_kernel(cuda0))
+    monkeypatch.setattr(rg, "use_kernel", lambda dev: _backend.use_kernel(cuda0))
+    with pytest.raises(RuntimeError, match="capability"):
+        if kernel == "flash":
+            q, k, v = (torch.from_numpy(x) for x in _qkv(1, 8, 2, 1, 16))
+            fa.flash_attention(q, k, v)
+        else:
+            a, b, _ = (torch.from_numpy(x) for x in _ab(1, 4, 8))
+            rg.rglru_scan(a, b)
+    assert (fa.flash_attention.launches, rg.rglru_scan.launches) == before
+
+
+def test_build_lists_every_source_and_names_each_library():
+    assert _build.SOURCES == ("gossip_mix", "flash_attention", "rglru_scan")
+    libs = set()
+    for name in _build.SOURCES:
+        src, so = _build._target(name)
+        assert src.exists() and so.name.startswith(f"{name}-")
+        libs.add(so.name)
+    assert len(libs) == 3

@@ -1,16 +1,20 @@
-"""The CUDA gossip-mix kernels against their plain torch versions, on an
-sm_90 card (every test here skips without one).
+"""The CUDA kernels (gossip mix, flash attention, RG-LRU scan) against
+their plain torch versions, on an sm_90 card (every test here skips
+without one).
 
 Imports neither ``jax`` nor ``repro``, so it runs on a machine with only
 PyTorch:  PYTHONPATH=src python -m pytest -q tests/test_torch_kernels_card.py
 
-Tolerances follow tests/test_kernels.py: fp32 1e-5, bf16 3e-2.
+Tolerances follow tests/test_kernels.py: gossip fp32 1e-5, bf16 3e-2;
+flash fp32 2e-5, bf16 3e-2; rglru 1e-4.
 """
 import pytest
 import torch
 
 from repro_torch.core.compression import quantize_int8_rows
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import gossip_mix as gm, ops
+from repro_torch.kernels import rglru_scan as rg
 
 TOL = {"float32": 1e-5, "bfloat16": 3e-2}
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -81,3 +85,57 @@ def test_gossip_mix_q8_value_errors_on_card(sm90):
                           torch.ones((2, 2), device=sm90),
                           torch.ones(3, device=sm90) / 3)
     assert gm.gossip_mix_q8_rows.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,hq,hkv,d,causal,window", [
+    (2, 33, 4, 2, 64, True, 0),       # ragged S
+    (2, 80, 4, 1, 16, True, 32),      # MQA, band skips key tiles
+    (1, 257, 4, 4, 128, True, 0),     # Hq == Hkv
+    (1, 65, 4, 4, 80, True, 0),       # D below its tile (80 of 128)
+    (2, 100, 4, 2, 64, False, 0),     # not causal
+    (1, 300, 10, 1, 256, True, 100),  # the served heads, short window
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_kernel_matches_plain(sm90, b, s, hq, hkv, d, causal,
+                                              window, dtype):
+    tdt = DTYPES[dtype]
+    g = torch.Generator().manual_seed(s + d)
+    q, k, v = (torch.randn((b, s, h, d), generator=g).to(tdt)
+               for h in (hq, hkv, hkv))
+    before = fa.flash_attention.launches
+    got = ops.flash_attention_gqa(q.to(sm90), k.to(sm90), v.to(sm90),
+                                  causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    assert got.dtype == tdt and got.shape == q.shape
+    want = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+    assert _err(got.cpu(), want) < (2e-5 if dtype == "float32" else 3e-2)
+
+
+@pytest.mark.cuda
+def test_flash_attention_kernel_refuses_wide_heads(sm90):
+    q = torch.zeros((1, 8, 2, 320), device=sm90)
+    before = fa.flash_attention.launches
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention(q, q[:, :, :1], q[:, :, :1])
+    assert fa.flash_attention.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,d,with_h0", [(4, 1, 2560, True),
+                                           (2, 70, 100, True),
+                                           (3, 37, 100, False),
+                                           (2, 600, 256, True)])
+def test_rglru_scan_kernel_matches_plain(sm90, b, s, d, with_h0):
+    g = torch.Generator().manual_seed(s + d)
+    a = torch.sigmoid(torch.randn((b, s, d), generator=g))
+    x = torch.randn((b, s, d), generator=g)
+    h0 = torch.randn((b, d), generator=g) if with_h0 else None
+    before = rg.rglru_scan.launches
+    got = ops.rglru(a.to(sm90), x.to(sm90),
+                    None if h0 is None else h0.to(sm90))
+    torch.cuda.synchronize()
+    assert rg.rglru_scan.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == (b, s, d)
+    assert _err(got.cpu(), rg.rglru_scan_plain(a, x, h0)) < 1e-4

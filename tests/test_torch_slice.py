@@ -110,7 +110,7 @@ def _imports(path):
 def test_port_and_chip_smoke_import_neither_jax_nor_repro():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
-    assert len(files) > 15
+    assert len(files) > 40
     bad = [(str(f.relative_to(ROOT)), mod) for f in files for mod in _imports(f)
            if mod.split(".")[0] in ("jax", "jaxlib", "repro")]
     assert not bad, f"forbidden imports: {bad}"
