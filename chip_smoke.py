@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch / H100 port (``src/repro_torch``).
 
-Drives the port's two paths on one NVIDIA Hopper card, through the entry
-points a user calls:
+Drives the port's three paths on one NVIDIA Hopper card, through the
+entry points a user calls:
 
 * the paper's wireless D-PSGD run: Eq. 2 capacities, Algorithm 2 rates at
   λ targets {0.1, 0.8}, then the full 21 840-parameter CNN trained with
@@ -12,7 +12,11 @@ points a user calls:
   (``launch.serve.generate``: a 4096-token prompt at batch 4, then 32
   greedy tokens), with local attention's prefill in the CUDA kernel of
   ``csrc/flash_attention.cu`` and the RG-LRU recurrence in that of
-  ``csrc/rglru_scan.cu``.
+  ``csrc/rglru_scan.cu``;
+* serving rwkv6-7b at its published widths and full depth (32 layers,
+  d_model 4096, 7.53 B parameters; the same prompt, batch and tokens), with
+  the WKV recurrence of every prefill in the CUDA kernel of
+  ``csrc/rwkv6_scan.cu``.
 
 Phases, each of which ends the run with a nonzero exit if it fails:
 
@@ -22,7 +26,9 @@ Phases, each of which ends the run with a nonzero exit if it fails:
               (one nvcc per source, started together);
 3. kernels  — each kernel against its plain torch version at the main
               paths' shapes and at edge shapes, its ValueError contracts,
-              and its time beside its bound, plain and library times;
+              and its time beside its bound, plain and library times
+              (3: gossip mixes, 3b: flash and rglru, 3c: rwkv6_scan, and
+              its state handoff to the one-token decode step);
 4. slice    — the paper run; the gossip_mix launch counter must grow by
               one launch per step, and the first 5 steps rerun on the CPU
               (plain versions) from the card's state must agree on losses
@@ -37,10 +43,22 @@ Phases, each of which ends the run with a nonzero exit if it fails:
 7. served correctness — (a) fp32 teacher forcing at full width and depth
               (prefill and 3 decode steps against ``apply``, 2e-4);
               (b) card against CPU in lockstep at the smoke widths with
-              window 32 (logits and caches, 1e-4).
+              window 32 (logits and caches, 1e-4);
+8. serving rwkv6-7b — the same at (4, 4096, 32) in bf16: tokens (4, 32),
+              finite logits, exactly 32 rwkv6_scan launches (one per
+              layer in prefill, none in decode), and the same readings;
+9. rwkv correctness — (a) as 7(a) for rwkv6-7b: the prefill against
+              apply over the same prompt (same GEMM shapes) at 2e-4, the
+              decode steps, which read the kernel's final state, at 2e-4
+              plus 3x the floor that changing only the GEMMs' shapes
+              moves apply's logits by (this model amplifies rounding; the
+              state handoff itself is held in 3c); (b) card against CPU
+              in lockstep at the smoke widths with 4 layers (5e-4, the
+              rwkv6 kernel's bar).
 
-The last lines are the card's ``nvidia-smi`` name and power limit, one
-JSON line with every kernel's numbers, and ``{"ok": true, "device": ...}``.
+Each phase prints its wall time. The last lines are the card's
+``nvidia-smi`` name and power limit, one JSON line with every kernel's
+numbers, and ``{"ok": true, "device": ...}``.
 
 Run from the repository root:  python3 chip_smoke.py
 """
@@ -70,6 +88,7 @@ FP32_FLOPS = 67e12                   # H100 SXM, fp32 outside tensor cores
 BF16_FLOPS = 989e12                  # H100 SXM, dense bf16 tensor cores
 TOL_FP32, TOL_BF16 = 1e-5, 3e-2      # tests/test_kernels.py
 TOL_FLASH_FP32, TOL_RGLRU = 2e-5, 1e-4   # tests/test_kernels.py
+TOL_RWKV = 5e-4                          # tests/test_kernels.py
 
 # the serving slice (phases 6-7): recurrentgemma-2b at its published widths
 SERVE_ARCH = "recurrentgemma-2b"
@@ -78,6 +97,12 @@ WARM_PROMPT = 256                    # warm-up generate, same widths
 DECODE_PROFILE_STEPS = 10
 TF_PROMPT, TF_STEPS = 4096, 3        # 7(a): teacher forcing, batch 1, fp32
 LOCK_BATCH, LOCK_PROMPT, LOCK_STEPS = 2, 80, 4   # 7(b): card vs CPU
+
+# the rwkv slice (phases 8-9): rwkv6-7b at its published widths, the same
+# prompt, batch and tokens; 9(b) at the smoke widths with 4 layers
+RWKV_ARCH = "rwkv6-7b"
+RWKV_CHUNK = 32                      # the model's chunk: the plain version's
+LOCK_RWKV_LAYERS = 4
 
 
 def fail(msg: str) -> None:
@@ -197,6 +222,14 @@ def rglru_cost(b: int, s: int, d: int) -> tuple[float, float]:
     """rglru_scan: fp32 a, b in and h out (B, S, D), h0 (B, D); one
     multiply-add (2 flops) per element."""
     return 4.0 * (3 * b * s * d + b * d), 2.0 * b * s * d
+
+
+def rwkv_cost(b: int, s: int, h: int, d: int) -> tuple[float, float]:
+    """rwkv6_scan: fp32 r, k, v, w in and y out (B, S, H, D), s0 in and the
+    final state out (B, H, D, D); 4 D^2 flops per (b, h, t) for the exact
+    recurrence (D^2 multiply-adds for y, D^2 for the state)."""
+    return 4.0 * (5 * b * s * h * d + 2 * b * h * d * d), \
+        4.0 * d * d * b * h * s
 
 
 def err(a, b) -> float:
@@ -676,22 +709,118 @@ def phase_attention_kernels(torch) -> dict:
     return {"flash_attention": flash, "rglru_scan": rglru}
 
 
-def phase_serve(torch) -> dict:
-    phase("6. serving slice: recurrentgemma-2b at full width on the card")
+def phase_rwkv_kernel(torch) -> dict:
+    phase("3c. rwkv6_scan against its plain version")
+    from repro_torch.kernels import rwkv6_scan as rw
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    worst = 0.0
+
+    def inputs(b, s, h, d):
+        """Drawn as tests/test_kernels.py:110-114 draws them, plus s0."""
+        r, k, v = (torch.randn((b, s, h, d), generator=gen, device=dev)
+                   for _ in range(3))
+        w = torch.exp(-torch.exp(torch.randn((b, s, h, d), generator=gen,
+                                             device=dev) * 0.5))
+        u = torch.randn((h, d), generator=gen, device=dev) * 0.1
+        s0 = torch.randn((b, h, d, d), generator=gen, device=dev)
+        return r, k, v, w, u, s0
+
+    # the served shape (B = 4, S = 4096, H = 64, D = 64), then edge shapes:
+    # S in {1, 33}, D in {8, 16, 32}, H = 1
+    cfg = (SERVE_BATCH, SERVE_PROMPT, 64, 64)
+    cases = [(*cfg, True), (*cfg, False)] + [
+        (2, s, 1, d, d != 16) for s in (1, 33) for d in (8, 16, 32)]
+    for b, s, h, d, with_s0 in cases:
+        r, k, v, w, u, s0 = inputs(b, s, h, d)
+        s0 = s0 if with_s0 else None
+        y, st = rw.rwkv6_scan(r, k, v, w, u, s0)
+        torch.cuda.synchronize()
+        want_y, want_s = rw.rwkv6_scan_plain(r, k, v, w, u, s0, RWKV_CHUNK)
+        check(y.shape == want_y.shape and st.shape == want_s.shape
+              and y.dtype == st.dtype == torch.float32,
+              f"rwkv6_scan ({b},{s},{h},{d}): {y.shape}/{st.shape}")
+        e = max(err(y, want_y), err(st, want_s))
+        print(f"rwkv6_scan     ({b},{s},{h},{d}) s0={with_s0!s:5s} "
+              f"max|err| y and state {e:.3e} (tol {TOL_RWKV:g})")
+        check(e <= TOL_RWKV, f"rwkv6_scan ({b},{s},{h},{d}): max|err| {e}")
+        worst = max(worst, e)
+    # the handoff decode reads: the kernel's final state after S steps and
+    # one plain step (models.rwkv6.wkv_step) against the kernel's own
+    # output and state after S + 1 steps, at the served heads
+    from repro_torch.models.rwkv6 import wkv_step
+
+    r, k, v, w, u, _ = inputs(SERVE_BATCH, SERVE_PROMPT + 1, 64, 64)
+    y_all, s_all = rw.rwkv6_scan(r, k, v, w, u)
+    _, s_pre = rw.rwkv6_scan(*(x[:, :-1] for x in (r, k, v, w)), u)
+    s_next, y_next = wkv_step(s_pre, r[:, -1], k[:, -1], v[:, -1], w[:, -1],
+                              u)
+    e = max(err(y_next, y_all[:, -1]), err(s_next, s_all))
+    print(f"rwkv6_scan     handoff: state after {SERVE_PROMPT} steps + one "
+          f"plain step vs the kernel over {SERVE_PROMPT + 1}: max|err| "
+          f"{e:.3e} (tol {TOL_RWKV:g})")
+    check(e <= TOL_RWKV, f"rwkv6_scan handoff: max|err| {e}")
+
+    r, k, v, w, u, s0 = inputs(1, 4, 2, 16)
+    wide = [torch.ones((1, 2, 1, 136), device=dev) for _ in range(4)]
+    for what, args, match in (
+            ("mismatched shapes", (r, k[:, :3], v, w, u), "one shape"),
+            ("a bf16 state", (r, k, v, w, u, s0.to(torch.bfloat16)),
+             "float32"),
+            ("head size 136", (*wide, torch.ones((1, 136), device=dev)),
+             "head size")):
+        before = rw.rwkv6_scan.launches
+        try:
+            rw.rwkv6_scan(*args)
+        except ValueError as e:
+            check(match in str(e), f"rwkv6_scan {what}: wrong message {e}")
+            check(rw.rwkv6_scan.launches == before,
+                  f"rwkv6_scan {what}: launched before raising")
+            print(f"rwkv6_scan     ValueError on {what}: ok")
+        else:
+            fail(f"rwkv6_scan accepted {what} on CUDA tensors")
+
+    # time at the served shape, with s0 (prefill passes the cache's zeros)
+    r, k, v, w, u, s0 = inputs(*cfg)
+    b_ms, b_by = bound(*rwkv_cost(*cfg))
+    out = {"ms": time_ms(torch, lambda: rw.rwkv6_scan(r, k, v, w, u, s0),
+                         reps=20),
+           "plain_ms": time_ms(torch, lambda: rw.rwkv6_scan_plain(
+               r, k, v, w, u, s0, RWKV_CHUNK), reps=1, rounds=3, warmup=1),
+           "library_ms": None,
+           "device_ms": device_ms(torch, lambda: rw.rwkv6_scan(
+               r, k, v, w, u, s0), "rwkv6_scan_kernel", calls=10),
+           "bound_ms": b_ms, "bound_by": b_by,
+           "shape": "r, k, v, w (%d,%d,%d,%d) fp32, s0 (%d,%d,%d,%d)"
+                    % (*cfg, cfg[0], cfg[2], cfg[3], cfg[3]),
+           "max_abs_err": worst}
+    dms = "not measured" if out["device_ms"] is None \
+        else f"{out['device_ms']:.4f} ms"
+    print(f"rwkv6_scan     {out['shape']}: {out['ms']:.4f} ms/call (device "
+          f"{dms}) | plain (chunk {RWKV_CHUNK}) {out['plain_ms']:.4f} ms | "
+          f"library none | bound {b_ms:.4f} ms ({b_by})")
+    return {"rwkv6_scan": out}
+
+
+def phase_serve(torch, title: str, arch: str, counters: dict, want: dict,
+                why: str) -> dict:
+    """Serve ``arch`` at its published widths at (SERVE_BATCH,
+    SERVE_PROMPT, SERVE_GEN) in bf16 through ``launch.serve.generate``;
+    ``counters`` are the kernel wrappers of its path, each of which must
+    launch exactly ``want[name]`` times."""
+    phase(title)
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import rglru_scan as rg
     from repro_torch.launch import serve
     from repro_torch.models import build, transformer
 
-    cfg = get_config(SERVE_ARCH)
+    cfg = get_config(arch)
     kinds = transformer.layer_kinds(cfg)
-    n_attn = sum(k in ("global", "local") for k in kinds)
-    n_rec = sum(k == "rglru" for k in kinds)
-    print(f"{cfg.name}: {cfg.n_layers} layers ({n_rec} rglru, {n_attn} "
-          f"local), d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} "
-          f"heads x {cfg.head_dim}, window {cfg.window}, vocab "
+    mix = ", ".join(f"{kinds.count(k)} {k}" for k in sorted(set(kinds)))
+    print(f"{cfg.name}: {cfg.n_layers} layers ({mix}), d_model "
+          f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads x "
+          f"{cfg.head_dim}, d_ff {cfg.d_ff}, window {cfg.window}, vocab "
           f"{cfg.vocab_size}, {cfg.dtype} compute, {cfg.param_dtype} "
           f"weights; batch {SERVE_BATCH}, prompt {SERVE_PROMPT}, "
           f"{SERVE_GEN} tokens")
@@ -702,17 +831,14 @@ def phase_serve(torch) -> dict:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
 
-    fa.flash_attention.launches = rg.rglru_scan.launches = 0
+    for fn in counters.values():
+        fn.launches = 0
     out = serve.generate(cfg, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
                          gen=SERVE_GEN, device="cuda")
     torch.cuda.synchronize()
-    launches = {"flash_attention": fa.flash_attention.launches,
-                "rglru_scan": rg.rglru_scan.launches}
+    launches = {name: fn.launches for name, fn in counters.items()}
     peak = torch.cuda.max_memory_allocated()
-    want = {"flash_attention": n_attn, "rglru_scan": n_rec * SERVE_GEN}
-    print(f"launches: {launches} (expected {want}: flash once per "
-          f"attention layer in prefill, rglru once per recurrent layer in "
-          f"prefill and in each of {SERVE_GEN - 1} decode steps)")
+    print(f"launches: {launches} (expected {want}: {why})")
     check(launches == want, f"launches {launches}, want {want}")
     tokens, logits = out["tokens"], out["logits"]
     check(tuple(tokens.shape) == (SERVE_BATCH, SERVE_GEN),
@@ -729,6 +855,7 @@ def phase_serve(torch) -> dict:
     api = build(cfg, "cuda")
     rng = torch.Generator(device="cuda").manual_seed(1)
     params = serve.serving_params(cfg, api.init(rng))
+    print(f"parameters: {sum(t.numel() for t in tree_leaves(params))}")
     inputs = api.make_inputs(ShapeConfig("serve", SERVE_PROMPT, SERVE_BATCH,
                                          "prefill"), rng,
                              batch_override=SERVE_BATCH)
@@ -780,28 +907,37 @@ def phase_serve(torch) -> dict:
             "decode_idle_share": idle}
 
 
-def phase_served_correctness(torch) -> None:
-    phase("7. correctness of the served path")
+def phase_served_correctness(torch, title: str, arch: str, counters: dict,
+                             lock_cfg, lock_tol: float,
+                             shape_noise: bool = False) -> None:
+    """(a) fp32 teacher forcing of ``arch`` at full width and depth; (b)
+    card against CPU in lockstep at ``lock_cfg``, held at ``lock_tol``.
+    Both must launch every kernel of ``counters``. With ``shape_noise``,
+    (a) also measures what the GEMMs' shapes alone change (see there)."""
+    phase(title)
     import dataclasses
 
-    from repro_torch.configs import get_config, reduce_for_smoke
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import rglru_scan as rg
+    from repro_torch.configs import get_config
     from repro_torch.models import build, transformer
 
+    def ran():
+        return {name: fn.launches for name, fn in counters.items()}
+
     # (a) teacher forcing at full width and depth, in fp32 (same widths,
-    # only the compute type differs): prefill (flash kernel) and decode
-    # (ring-buffer einsum) against apply's logits at the same positions.
-    # fp32 end to end (TF32 off): held at tests/test_serve.py's 2e-4 on
-    # logits up to ~13, room for summation order over 26 layers (2.4e-5
-    # measured on an H100), not for a wrong band or ring.
-    cfg = dataclasses.replace(get_config(SERVE_ARCH), dtype="float32")
+    # only the compute type differs): prefill (the kernels) and decode
+    # (plain torch: the ring-buffer einsum, the one-token WKV step) against
+    # apply's logits at the same positions. fp32 end to end (TF32 off):
+    # held at tests/test_serve.py's 2e-4, room for summation order over the
+    # layers (2.4e-5 measured on an H100 for recurrentgemma-2b), not for a
+    # wrong band, ring or carried state.
+    cfg = dataclasses.replace(get_config(arch), dtype="float32")
     api = build(cfg, "cuda")
     rng = torch.Generator(device="cuda").manual_seed(2)
     params = api.init(rng)
     tokens = torch.randint(0, cfg.vocab_size, (1, TF_PROMPT + TF_STEPS),
                            generator=rng, device="cuda")
-    fa.flash_attention.launches = rg.rglru_scan.launches = 0
+    for fn in counters.values():
+        fn.launches = 0
     logits, cache = api.prefill(params, {"tokens": tokens[:, :TF_PROMPT]},
                                 max_len=TF_PROMPT + TF_STEPS)
     served = [logits]
@@ -813,22 +949,41 @@ def phase_served_correctness(torch) -> None:
     errs = [err(got, full[:, TF_PROMPT - 1 + i])
             for i, got in enumerate(served)]
     scale = float(full[:, TF_PROMPT - 1:].abs().max())
-    print(f"(a) fp32, batch 1, prompt {TF_PROMPT}, {TF_STEPS} decode steps: "
-          f"max|served - apply| per position {[f'{e:.3e}' for e in errs]} "
-          f"(logits up to {scale:.3f}); launches flash "
-          f"{fa.flash_attention.launches}, rglru {rg.rglru_scan.launches}")
-    check(max(errs) <= 2e-4, f"served logits differ from apply by {errs}")
-    check(fa.flash_attention.launches > 0 and rg.rglru_scan.launches > 0,
+    print(f"(a) {cfg.name} fp32, batch 1, prompt {TF_PROMPT}, {TF_STEPS} "
+          f"decode steps: max|served - apply| per position "
+          f"{[f'{e:.3e}' for e in errs]} (logits up to {scale:.3f}); "
+          f"launches {ran()}")
+    bar = 2e-4
+    if shape_noise:
+        # A model that amplifies rounding (rwkv6-7b's random weights at
+        # full depth) moves its logits when only the GEMMs' row counts
+        # change (cuBLAS picks another kernel and summation order). apply
+        # over the prompt alone has the prefill's shapes: the prefill is
+        # held to it at 2e-4. apply over the prompt against apply over the
+        # whole sequence, at the prompt's last position, is the same
+        # computation with other shapes: that floor bounds the decode
+        # steps, whose one-row GEMMs no apply shares. The carried state
+        # itself is held exactly in phase 3c (the handoff check).
+        short = transformer.apply(cfg, params, tokens[:, :TF_PROMPT])[:, -1]
+        same = err(served[0], short)
+        floor = err(short, full[:, TF_PROMPT - 1])
+        bar = 2e-4 + 3 * floor
+        print(f"    prefill vs apply over the prompt alone (same shapes): "
+              f"{same:.3e}; apply vs apply, shapes only (the floor): "
+              f"{floor:.3e}; decode held at 2e-4 + 3 x floor = {bar:.3e}")
+        check(same <= 2e-4, f"prefill differs from apply over the same "
+              f"prompt by {same}")
+        del short
+    check(max(errs) <= bar, f"served logits differ from apply by {errs}")
+    check(all(n > 0 for n in ran().values()),
           "teacher forcing did not run the kernels")
     del params, cache, full, served
     torch.cuda.empty_cache()
 
-    # (b) card (kernels) against CPU (plain versions) in lockstep, at the
-    # smoke widths with window 32: a prompt of 80 skips key tiles in the
-    # band and rolls the ring. Each decode step starts both from the
-    # card's cache. fp32 on both sides: 1e-4 is tests/test_kernels.py's
-    # rglru bar, the loosest of the path's kernels.
-    cfg = reduce_for_smoke(get_config(SERVE_ARCH))
+    # (b) card (kernels) against CPU (plain versions) in lockstep at the
+    # smoke widths. Each decode step starts both from the card's cache.
+    # fp32 on both sides, held at the bar of the path's loosest kernel.
+    cfg = lock_cfg
     params_c = transformer.init_params(cfg, torch.Generator().manual_seed(3),
                                        "cpu")
     params_g = tree_to(params_c, "cuda")
@@ -836,7 +991,8 @@ def phase_served_correctness(torch) -> None:
     tokens = torch.randint(0, cfg.vocab_size, (LOCK_BATCH, LOCK_PROMPT),
                            generator=torch.Generator().manual_seed(4))
     max_len = LOCK_PROMPT + LOCK_STEPS + 1
-    fa.flash_attention.launches = rg.rglru_scan.launches = 0
+    for fn in counters.values():
+        fn.launches = 0
     lg, cg = api_g.prefill(params_g, {"tokens": tokens.cuda()},
                            max_len=max_len)
     lc, cc = api_c.prefill(params_c, {"tokens": tokens}, max_len=max_len)
@@ -853,14 +1009,14 @@ def phase_served_correctness(torch) -> None:
         worst["cache"] = max(worst["cache"], max(
             err(a.cpu(), b) for a, b in zip(tree_leaves(cg),
                                             tree_leaves(cc))))
-    print(f"(b) {cfg.name} window {cfg.window}, batch {LOCK_BATCH}, prompt "
-          f"{LOCK_PROMPT}, {LOCK_STEPS} decode steps, card vs CPU in "
-          f"lockstep: max|logits diff| {worst['logits']:.3e}, max|cache "
-          f"diff| {worst['cache']:.3e}; card launches flash "
-          f"{fa.flash_attention.launches}, rglru {rg.rglru_scan.launches}")
-    check(worst["logits"] <= 1e-4 and worst["cache"] <= 1e-4,
+    print(f"(b) {cfg.name} ({cfg.n_layers} layers, window {cfg.window}), "
+          f"batch {LOCK_BATCH}, prompt {LOCK_PROMPT}, {LOCK_STEPS} decode "
+          f"steps, card vs CPU in lockstep: max|logits diff| "
+          f"{worst['logits']:.3e}, max|cache diff| {worst['cache']:.3e} "
+          f"(tol {lock_tol:g}); card launches {ran()}")
+    check(worst["logits"] <= lock_tol and worst["cache"] <= lock_tol,
           f"card and CPU differ: {worst}")
-    check(fa.flash_attention.launches > 0 and rg.rglru_scan.launches > 0,
+    check(all(n > 0 for n in ran().values()),
           "the card side did not run the kernels")
 
 
@@ -869,19 +1025,64 @@ def main() -> None:
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
              "a checkout of the repository")
     sys.path.insert(0, str(SRC))
+    import dataclasses
+
     import torch
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke needs a card")
-    t0 = time.perf_counter()
-    phase_device(torch)
-    phase_build()
-    kernels = phase_kernels(torch)
-    kernels.update(phase_attention_kernels(torch))
-    sl = phase_slice(torch)
-    q8_launches = phase_compressed(torch, sl)
-    served = phase_serve(torch)
-    phase_served_correctness(torch)
+    t_start = time.perf_counter()
+    walls = []
+
+    def run(label, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        walls.append((label, time.perf_counter() - t0))
+        print(f"-- phase {label}: {walls[-1][1]:.2f} s wall", flush=True)
+        return out
+
+    run("1", phase_device, torch)
+    run("2", phase_build)
+    kernels = run("3", phase_kernels, torch)
+    kernels.update(run("3b", phase_attention_kernels, torch))
+    kernels.update(run("3c", phase_rwkv_kernel, torch))
+    sl = run("4", phase_slice, torch)
+    q8_launches = run("5", phase_compressed, torch, sl)
+
+    from repro_torch.configs import get_config, reduce_for_smoke
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rglru_scan as rg
+    from repro_torch.kernels import rwkv6_scan as rw
+    from repro_torch.models import transformer
+
+    kinds = transformer.layer_kinds(get_config(SERVE_ARCH))
+    n_attn = sum(k in ("global", "local") for k in kinds)
+    n_rec = kinds.count("rglru")
+    griffin = {"flash_attention": fa.flash_attention,
+               "rglru_scan": rg.rglru_scan}
+    served = run("6", phase_serve, torch,
+                 "6. serving slice: recurrentgemma-2b at full width on the "
+                 "card", SERVE_ARCH, griffin,
+                 {"flash_attention": n_attn, "rglru_scan": n_rec * SERVE_GEN},
+                 f"flash once per attention layer in prefill, rglru once "
+                 f"per recurrent layer in prefill and in each of "
+                 f"{SERVE_GEN - 1} decode steps")
+    run("7", phase_served_correctness, torch,
+        "7. correctness of the served path", SERVE_ARCH, griffin,
+        reduce_for_smoke(get_config(SERVE_ARCH)), TOL_RGLRU)
+    n_rwkv = get_config(RWKV_ARCH).n_layers
+    served_rwkv = run("8", phase_serve, torch,
+                      "8. serving rwkv6-7b at full width on the card",
+                      RWKV_ARCH, {"rwkv6_scan": rw.rwkv6_scan},
+                      {"rwkv6_scan": n_rwkv},
+                      "rwkv6_scan once per layer in prefill, none in the "
+                      f"{SERVE_GEN - 1} decode steps (the one-token step is "
+                      "plain torch)")
+    run("9", phase_served_correctness, torch,
+        "9. correctness of the served rwkv path", RWKV_ARCH,
+        {"rwkv6_scan": rw.rwkv6_scan},
+        dataclasses.replace(reduce_for_smoke(get_config(RWKV_ARCH)),
+                            n_layers=LOCK_RWKV_LAYERS), TOL_RWKV, True)
 
     rows = []
     for name, source, replaces, launches in (
@@ -892,7 +1093,9 @@ def main() -> None:
             ("flash_attention", "flash_attention", "flash_attention.py:105",
              served["launches"]["flash_attention"]),
             ("rglru_scan", "rglru_scan", "rglru_scan.py:59",
-             served["launches"]["rglru_scan"])):
+             served["launches"]["rglru_scan"]),
+            ("rwkv6_scan", "rwkv6_scan", "rwkv6_scan.py:87",
+             served_rwkv["launches"]["rwkv6_scan"])):
         k = kernels[name]
         rows.append({
             "name": name, "route": "cuda",
@@ -903,7 +1106,9 @@ def main() -> None:
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": k["library_ms"],
             "device_ms": k["device_ms"], "shape": k["shape"]})
-    print(f"\nall phases passed in {time.perf_counter() - t0:.1f}s")
+    print("\nphase wall times: " + ", ".join(f"{label} {sec:.2f} s"
+                                             for label, sec in walls))
+    print(f"all phases passed in {time.perf_counter() - t_start:.1f}s")
     print(nvidia_smi())
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -14,8 +14,10 @@ import torch
 from . import flash_attention as _fa
 from . import gossip_mix as _gm
 from . import rglru_scan as _rg
+from . import rwkv6_scan as _rw
 
-__all__ = ["gossip_mix", "gossip_mix_q8", "flash_attention_gqa", "rglru"]
+__all__ = ["gossip_mix", "gossip_mix_q8", "flash_attention_gqa", "rwkv6",
+           "rglru"]
 
 
 def gossip_mix(bufs: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
@@ -45,6 +47,18 @@ def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("flash_attention_gqa assumes positions "
                          "arange(S) (a prefill from position 0)")
     return _fa.flash_attention(q, k, v, causal=causal, window=window)
+
+
+def rwkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+          w: torch.Tensor, u: torch.Tensor, chunk: int = 64, *,
+          s0: Optional[torch.Tensor] = None
+          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """r,k,v,w (B,S,H,D); u (H,D) -> (y (B,S,H,D), state (B,H,D,D)).
+    ``s0`` (B,H,D,D) fp32 is the initial state (zeros without it).
+    ``chunk`` is the plain version's chunk length (clamped as the JAX
+    wrapper clamps it); the kernel walks the exact recurrence."""
+    chunk = min(chunk, max(8, r.shape[1]))
+    return _rw.rwkv6_scan(r, k, v, w, u, s0, chunk)
 
 
 def rglru(a: torch.Tensor, binp: torch.Tensor,

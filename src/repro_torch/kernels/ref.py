@@ -8,7 +8,7 @@ from typing import Optional
 import torch
 
 __all__ = ["gossip_mix_ref", "gossip_mix_q8_ref", "flash_attention_ref",
-           "rglru_ref"]
+           "rwkv6_ref", "rglru_ref"]
 
 
 def gossip_mix_ref(bufs: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
@@ -53,6 +53,25 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bshgt,bthd->bshgd", p, v.to(torch.float32))
     return out.reshape(b, s, hq, d).to(q.dtype)
+
+
+def rwkv6_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              w: torch.Tensor, u: torch.Tensor,
+              s0: Optional[torch.Tensor] = None
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact sequential WKV. r,k,v,w (B,S,H,D) fp32; u (H,D).
+    Returns (y (B,S,H,D), s_final (B,H,D,D))."""
+    b, s, h, d = r.shape
+    state = torch.zeros((b, h, d, d), dtype=torch.float32, device=r.device) \
+        if s0 is None else s0
+    ys = []
+    for t in range(s):
+        rt, kt, vt, wt = r[:, t], k[:, t], v[:, t], w[:, t]
+        kv = kt[..., :, None] * vt[..., None, :]          # (B,H,D,E)
+        ys.append(torch.einsum("bhd,bhde->bhe", rt,
+                               state + u[None, :, :, None] * kv))
+        state = wt[..., :, None] * state + kv
+    return torch.stack(ys, dim=1), state
 
 
 def rglru_ref(a: torch.Tensor, binp: torch.Tensor,

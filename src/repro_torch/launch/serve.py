@@ -5,15 +5,13 @@ The torch counterpart of ``repro.launch.serve``, on the card by default:
       --batch 4 --prompt-len 64 --gen 32
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --smoke
 
-The JAX entry point's default ``--arch rwkv6-7b`` is not ported yet (its
-layer kind comes with a later slice), so the default here is
-``recurrentgemma-2b``; the rwkv6 slice changes it back.
+The default ``--arch`` is ``rwkv6-7b``, as in the JAX entry point.
 
 Weights are random, drawn on the device from a ``torch.Generator`` seeded
 with ``seed``. Before the prompt runs, every weight leaf that each use
 casts to ``cfg.dtype`` is cast once (bit-identical to casting at each
 use, and it keeps eager decode from casting the fp32 weights every step);
-norm scales and ``rglru.lam`` stay fp32, as their uses read them.
+the leaves whose uses read them in fp32 stay fp32 (``_FP32_LEAVES``).
 """
 from __future__ import annotations
 
@@ -31,7 +29,16 @@ from ..models.layers import torch_dtype
 
 __all__ = ["main", "generate", "serving_params"]
 
-_FP32_LEAVES = frozenset({"scale", "bias", "lam"})  # norms, rglru.lam
+# Leaves read in fp32 at use: a bf16 round trip would change results.
+_FP32_LEAVES = frozenset({
+    "scale", "bias",         # norms (layers.norm)
+    "lam",                   # rglru.rglru_apply: softplus(lam) in fp32
+    # rwkv6.rwkv_time_mix (the JAX package's rwkv6.py:179-180, 187, 202)
+    "w_lora_a", "w_lora_b",  # the decay LoRA, :179-180
+    "w0",                    # the decay's offset, :180
+    "u",                     # the bonus, :187
+    "ln_scale",              # the group norm's scale, :202
+})
 
 
 def serving_params(cfg, params):
@@ -97,7 +104,7 @@ def generate(cfg, *, batch: int, prompt_len: int, gen: int, seed: int = 0,
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--arch", default="recurrentgemma-2b")
+    ap.add_argument("--arch", default="rwkv6-7b")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=64)

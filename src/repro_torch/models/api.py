@@ -1,7 +1,7 @@
 """Uniform model facade: every architecture exposes the same five functions.
 
 The torch counterpart of ``repro.models.api`` for the decoder-only
-families (lm, hybrid, vlm):
+families (lm, hybrid, ssm, vlm):
 
 * ``init(gen) -> params``                (drawn from a ``torch.Generator``)
 * ``loss(params, batch) -> scalar``      (teacher-forced, forward only)
@@ -63,7 +63,7 @@ def build(cfg: ModelConfig, device: str | torch.device = "cuda") -> ModelAPI:
     if cfg.is_encdec:
         raise NotImplementedError(
             f"{cfg.name}: encoder-decoder models are not ported yet; they "
-            "come with the mla/moe/encdec slice (ROADMAP Queue 1 item 4)")
+            "come with the mla/moe/encdec slice (ROADMAP Queue 1 item 3)")
     transformer.check_supported(cfg)
 
     def loss(params, batch):

@@ -1,7 +1,7 @@
 """Decoder-only LM assembly over heterogeneous layers.
 
 The torch counterpart of ``repro.models.transformer`` for layer kinds
-``global``, ``local`` and ``rglru``. Layers are grouped as
+``global``, ``local``, ``rglru`` and ``rwkv``. Layers are grouped as
 ``prologue + repeats x pattern-unit + tail`` with the JAX layout:
 
 * prologue = ``first_k_dense`` unrolled layers,
@@ -11,9 +11,10 @@ The torch counterpart of ``repro.models.transformer`` for layer kinds
 The JAX package's ``lax.scan`` over the unit becomes a Python loop over
 ``repeats`` that indexes the stacked params and caches and restacks the
 new caches in the same layout. Every layer is pre-norm residual:
-x += mixer(norm1(x)); x += mlp(norm2(x)). Kinds ``mla``, ``moe`` and
-``rwkv`` and cross-attention raise ``NotImplementedError`` naming the
-slice that ports them.
+x += mixer(norm1(x)); x += mlp(norm2(x)). RWKV layers use (time-mix,
+channel-mix) as (mixer, mlp) and have no ``mlp`` of their own. Kinds
+``mla`` and ``moe`` and cross-attention raise ``NotImplementedError``
+naming the slice that ports them.
 """
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
-from . import attention, rglru
+from . import attention, rglru, rwkv6
 from .layers import (cross_entropy, embed_init, mlp, mlp_init, norm,
                      norm_init, normal, torch_dtype)
 
@@ -33,10 +34,9 @@ __all__ = ["layer_kinds", "layer_groups", "check_supported", "init_params",
            "apply", "lm_loss", "init_cache", "prefill", "decode_step"]
 
 _LATER = {
-    "rwkv": "the rwkv6-7b serving slice (ROADMAP Queue 1 item 1)",
-    "mla": "the mla/moe/encdec slice (ROADMAP Queue 1 item 4)",
-    "moe": "the mla/moe/encdec slice (ROADMAP Queue 1 item 4)",
-    "cross": "the mla/moe/encdec slice (ROADMAP Queue 1 item 4)",
+    "mla": "the mla/moe/encdec slice (ROADMAP Queue 1 item 3)",
+    "moe": "the mla/moe/encdec slice (ROADMAP Queue 1 item 3)",
+    "cross": "the mla/moe/encdec slice (ROADMAP Queue 1 item 3)",
 }
 
 
@@ -67,7 +67,7 @@ def check_supported(cfg: ModelConfig) -> None:
     for kind in set(cfg.pattern):
         if kind == "global" and cfg.mla is not None:
             missing.add("mla")
-        elif kind not in ("global", "local", "rglru"):
+        elif kind not in ("global", "local", "rglru", "rwkv"):
             missing.add(kind)
     if missing:
         kind = sorted(missing)[0]
@@ -108,6 +108,9 @@ def _init_layer(gen: torch.Generator, cfg: ModelConfig, kind: str,
         p["attn"] = attention.attn_init(gen, cfg, device)
     elif kind == "rglru":
         p["rec"] = rglru.rglru_init(gen, cfg, cfg.rglru, device)
+    elif kind == "rwkv":
+        p["rwkv"] = rwkv6.rwkv_init(gen, cfg, cfg.rwkv, device)
+        return p  # rwkv owns both halves (time-mix + channel-mix)
     else:
         raise ValueError(kind)
     p["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp_kind, device,
@@ -121,6 +124,20 @@ def _apply_layer(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
                  ) -> tuple[torch.Tensor, Optional[dict]]:
     dt = torch_dtype(cfg.dtype)
     new_cache: dict = {}
+    if kind == "rwkv":
+        st = cache.get("rwkv") if cache else None
+        y, st_tm = rwkv6.rwkv_time_mix(
+            p["rwkv"], norm(p["norm1"], x, cfg.norm), cfg, cfg.rwkv,
+            state=st, return_state=want_cache)
+        x = x + y
+        y2, st_cm = rwkv6.rwkv_channel_mix(
+            p["rwkv"], norm(p["norm2"], x, cfg.norm), cfg, cfg.rwkv,
+            state=st, return_state=want_cache)
+        x = x + y2
+        if want_cache:
+            new_cache["rwkv"] = {**st_tm, **st_cm}
+        return x, (new_cache if want_cache else None)
+
     h = norm(p["norm1"], x, cfg.norm)
     if kind in ("global", "local"):
         y, attn_cache = attention.attn_apply(
@@ -148,8 +165,13 @@ def _init_layer_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
     if kind in ("global", "local"):
         return {"attn": attention.init_attn_cache(cfg, kind, batch, max_len,
                                                   dtype, device)}
-    return {"rec": rglru.init_rglru_state(cfg, cfg.rglru, batch, dtype,
-                                          device)}
+    if kind == "rglru":
+        return {"rec": rglru.init_rglru_state(cfg, cfg.rglru, batch, dtype,
+                                              device)}
+    if kind == "rwkv":
+        return {"rwkv": rwkv6.init_rwkv_state(cfg, cfg.rwkv, batch, dtype,
+                                              device)}
+    raise ValueError(kind)
 
 
 # ---------------------------------------------------------------------------

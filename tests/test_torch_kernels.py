@@ -1,11 +1,11 @@
-"""The port's kernels (gossip mix, flash attention, RG-LRU scan): plain
-versions against the JAX package's Pallas kernels (interpret mode, through
-``repro.kernels.ops``) and oracles, the shape contracts and the per-call
-dispatch. The CUDA kernels themselves are held against their plain
-versions on the card, in test_torch_kernels_card.py.
+"""The port's kernels (gossip mix, flash attention, RG-LRU scan, RWKV-6
+scan): plain versions against the JAX package's Pallas kernels (interpret
+mode, through ``repro.kernels.ops``) and oracles, the shape contracts and
+the per-call dispatch. The CUDA kernels themselves are held against their
+plain versions on the card, in test_torch_kernels_card.py.
 
 Tolerances follow tests/test_kernels.py: gossip fp32 1e-5, bf16 3e-2;
-flash fp32 2e-5, bf16 3e-2; rglru 1e-4.
+flash fp32 2e-5, bf16 3e-2; rglru 1e-4; rwkv6 5e-4.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -16,8 +16,10 @@ from repro.core.compression import quantize_int8 as jax_quantize_int8
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.models.rglru import linear_recurrence as jax_linear_recurrence
+from repro.models.rwkv6 import wkv_chunked as jax_wkv_chunked
 from repro_torch.kernels import _backend, _build, gossip_mix as gm, ops, ref
 from repro_torch.kernels import flash_attention as fa, rglru_scan as rg
+from repro_torch.kernels import rwkv6_scan as rw
 
 TOL = {"float32": 1e-5, "bfloat16": 3e-2}
 DTYPES = {"float32": (torch.float32, jnp.float32),
@@ -318,13 +320,21 @@ def test_rglru_contracts():
         rg.rglru_scan(a, a, torch.ones(2, 7))
 
 
+def _launch_counts():
+    return (fa.flash_attention.launches, rg.rglru_scan.launches,
+            rw.rwkv6_scan.launches)
+
+
 def test_new_kernels_dispatch_cpu_to_plain_and_never_fall_back():
     fa.flash_attention.launches = rg.rglru_scan.launches = 0
+    rw.rwkv6_scan.launches = 0
     q, k, v = (torch.from_numpy(x) for x in _qkv(1, 8, 2, 1, 16))
     ops.flash_attention_gqa(q, k, v)
     a, b, h0 = (torch.from_numpy(x) for x in _ab(1, 4, 8))
     ops.rglru(a, b, h0)
-    assert fa.flash_attention.launches == 0 and rg.rglru_scan.launches == 0
+    r, k, v, w, u, s0 = (torch.from_numpy(x) for x in _rkvw(1, 4, 2, 8))
+    ops.rwkv6(r, k, v, w, u, s0=s0)
+    assert _launch_counts() == (0, 0, 0)
     meta = {"device": "meta"}
     with pytest.raises(RuntimeError, match="device type"):
         fa.flash_attention(torch.ones(1, 8, 2, 16, **meta),
@@ -332,10 +342,13 @@ def test_new_kernels_dispatch_cpu_to_plain_and_never_fall_back():
                            torch.ones(1, 8, 1, 16, **meta))
     with pytest.raises(RuntimeError, match="device type"):
         rg.rglru_scan(torch.ones(1, 4, 8, **meta), torch.ones(1, 4, 8, **meta))
-    assert fa.flash_attention.launches == 0 and rg.rglru_scan.launches == 0
+    with pytest.raises(RuntimeError, match="device type"):
+        rw.rwkv6_scan(*(torch.ones(1, 4, 2, 8, **meta) for _ in range(4)),
+                      torch.ones(2, 8, **meta))
+    assert _launch_counts() == (0, 0, 0)
 
 
-@pytest.mark.parametrize("kernel", ["flash", "rglru"])
+@pytest.mark.parametrize("kernel", ["flash", "rglru", "rwkv6"])
 def test_new_kernels_raise_below_sm90(monkeypatch, kernel):
     """The wrappers' dispatch, asked about a CUDA device below (9, 0),
     raises before any launch (the probe is patched; the host tensors are
@@ -343,24 +356,98 @@ def test_new_kernels_raise_below_sm90(monkeypatch, kernel):
     monkeypatch.setattr(torch.cuda, "get_device_capability",
                         lambda d=None: (8, 0))
     cuda0 = torch.device("cuda", 0)
-    before = (fa.flash_attention.launches, rg.rglru_scan.launches)
-    monkeypatch.setattr(fa, "use_kernel", lambda dev: _backend.use_kernel(cuda0))
-    monkeypatch.setattr(rg, "use_kernel", lambda dev: _backend.use_kernel(cuda0))
+    before = _launch_counts()
+    for mod in (fa, rg, rw):
+        monkeypatch.setattr(mod, "use_kernel",
+                            lambda dev: _backend.use_kernel(cuda0))
     with pytest.raises(RuntimeError, match="capability"):
         if kernel == "flash":
             q, k, v = (torch.from_numpy(x) for x in _qkv(1, 8, 2, 1, 16))
             fa.flash_attention(q, k, v)
-        else:
+        elif kernel == "rglru":
             a, b, _ = (torch.from_numpy(x) for x in _ab(1, 4, 8))
             rg.rglru_scan(a, b)
-    assert (fa.flash_attention.launches, rg.rglru_scan.launches) == before
+        else:
+            r, k, v, w, u, _ = (torch.from_numpy(x)
+                                for x in _rkvw(1, 4, 2, 8))
+            rw.rwkv6_scan(r, k, v, w, u)
+    assert _launch_counts() == before
 
 
 def test_build_lists_every_source_and_names_each_library():
-    assert _build.SOURCES == ("gossip_mix", "flash_attention", "rglru_scan")
+    assert _build.SOURCES == ("gossip_mix", "flash_attention", "rglru_scan",
+                              "rwkv6_scan")
     libs = set()
     for name in _build.SOURCES:
         src, so = _build._target(name)
         assert src.exists() and so.name.startswith(f"{name}-")
         libs.add(so.name)
-    assert len(libs) == 3
+    assert len(libs) == 4
+
+
+# ---------------------------------------------------------------------------
+# The RWKV-6 scan
+# ---------------------------------------------------------------------------
+
+RWKV_TOL = 5e-4     # tests/test_kernels.py:117-118
+
+
+def _rkvw(b, s, h, d, seed=0):
+    """Inputs drawn as tests/test_kernels.py:110-114 draws them, plus an
+    initial state."""
+    rng = np.random.default_rng(seed)
+    r, k, v = (rng.normal(size=(b, s, h, d)).astype(np.float32)
+               for _ in range(3))
+    w = np.exp(-np.exp(rng.normal(size=(b, s, h, d)) * 0.5)).astype(np.float32)
+    u = (rng.normal(size=(h, d)) * 0.1).astype(np.float32)
+    s0 = rng.normal(size=(b, h, d, d)).astype(np.float32)
+    return r, k, v, w, u, s0
+
+
+@pytest.mark.parametrize("s,h,d,chunk", [(40, 2, 16, 16), (128, 4, 32, 32),
+                                         (33, 1, 8, 16), (1, 2, 16, 16)])
+@pytest.mark.parametrize("with_s0", [False, True])
+def test_rwkv6_plain_matches_pallas_and_oracles(s, h, d, chunk, with_s0):
+    """tests/test_kernels.py:106-118's grid plus S = 1: the plain version
+    against the Pallas kernel (interpret mode; it starts from zero, so with
+    s0 the JAX model's chunked form stands in for it), the sequential
+    oracle, and the JAX package's oracle."""
+    r, k, v, w, u, s0 = _rkvw(2, s, h, d, seed=s + d)
+    js0 = jnp.asarray(s0) if with_s0 else None
+    ts0 = torch.from_numpy(s0) if with_s0 else None
+    jargs = tuple(jnp.asarray(x) for x in (r, k, v, w, u))
+    targs = tuple(torch.from_numpy(x) for x in (r, k, v, w, u))
+    y, st = ops.rwkv6(*targs, chunk=chunk, s0=ts0)
+    assert y.shape == (2, s, h, d) and y.dtype == torch.float32
+    assert st.shape == (2, h, d, d) and st.dtype == torch.float32
+    if with_s0:
+        jy, jst = jax_wkv_chunked(*jargs, js0, chunk=chunk)
+    else:
+        jy, jst = jops.rwkv6(*jargs, chunk=chunk)
+    assert _err(y, jy) < RWKV_TOL and _err(st, jst) < RWKV_TOL
+    oy, ost = ref.rwkv6_ref(*targs, ts0)
+    assert _err(y, oy) < RWKV_TOL and _err(st, ost) < RWKV_TOL
+    jy, jst = jref.rwkv6_ref(*jargs, js0)
+    assert _err(oy, jy) < RWKV_TOL and _err(ost, jst) < RWKV_TOL
+
+
+@pytest.mark.parametrize("case", ["shapes", "u", "s0 shape", "s0 dtype",
+                                  "wide head", "ragged head"])
+def test_rwkv6_contracts(case):
+    """The kernel's ValueError contracts, raised before any dispatch (so
+    the same on the CPU as on the card)."""
+    r, k, v, w, u, s0 = (torch.from_numpy(x) for x in _rkvw(1, 4, 2, 16))
+    args, match = {
+        "shapes": ((r, k[:, :3], v, w, u), "one shape"),
+        "u": ((r, k, v, w, u[:1]), "u must be"),
+        "s0 shape": ((r, k, v, w, u, s0[..., :8]), "s0 must be"),
+        "s0 dtype": ((r, k, v, w, u, s0.to(torch.bfloat16)), "float32"),
+        "wide head": ((*(torch.ones(1, 2, 1, 136) for _ in range(4)),
+                       torch.ones(1, 136)), "head size"),
+        "ragged head": ((*(torch.ones(1, 2, 1, 12) for _ in range(4)),
+                         torch.ones(1, 12)), "head size"),
+    }[case]
+    before = rw.rwkv6_scan.launches
+    with pytest.raises(ValueError, match=match):
+        rw.rwkv6_scan(*args)
+    assert rw.rwkv6_scan.launches == before

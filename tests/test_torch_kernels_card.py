@@ -1,12 +1,12 @@
-"""The CUDA kernels (gossip mix, flash attention, RG-LRU scan) against
-their plain torch versions, on an sm_90 card (every test here skips
-without one).
+"""The CUDA kernels (gossip mix, flash attention, RG-LRU scan, RWKV-6
+scan) against their plain torch versions, on an sm_90 card (every test
+here skips without one).
 
 Imports neither ``jax`` nor ``repro``, so it runs on a machine with only
 PyTorch:  PYTHONPATH=src python -m pytest -q tests/test_torch_kernels_card.py
 
 Tolerances follow tests/test_kernels.py: gossip fp32 1e-5, bf16 3e-2;
-flash fp32 2e-5, bf16 3e-2; rglru 1e-4.
+flash fp32 2e-5, bf16 3e-2; rglru 1e-4; rwkv6 5e-4.
 """
 import pytest
 import torch
@@ -15,6 +15,7 @@ from repro_torch.core.compression import quantize_int8_rows
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import gossip_mix as gm, ops
 from repro_torch.kernels import rglru_scan as rg
+from repro_torch.kernels import rwkv6_scan as rw
 
 TOL = {"float32": 1e-5, "bfloat16": 3e-2}
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -139,3 +140,53 @@ def test_rglru_scan_kernel_matches_plain(sm90, b, s, d, with_h0):
     assert rg.rglru_scan.launches == before + 1
     assert got.dtype == torch.float32 and got.shape == (b, s, d)
     assert _err(got.cpu(), rg.rglru_scan_plain(a, x, h0)) < 1e-4
+
+
+def _rkvw(b, s, h, d, seed):
+    """r, k, v ~ N(0, 1), w = exp(-exp(N(0, 1) / 2)), u ~ N(0, 0.01) as
+    tests/test_kernels.py:110-114 draws them, and a state ~ N(0, 1)."""
+    g = torch.Generator().manual_seed(seed)
+    r, k, v = (torch.randn((b, s, h, d), generator=g) for _ in range(3))
+    w = torch.exp(-torch.exp(torch.randn((b, s, h, d), generator=g) * 0.5))
+    u = torch.randn((h, d), generator=g) * 0.1
+    s0 = torch.randn((b, h, d, d), generator=g)
+    return r, k, v, w, u, s0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,d,with_s0", [
+    (4, 256, 64, 64, True),      # the served heads, a shorter prompt
+    (4, 256, 64, 64, False),
+    (2, 1, 1, 64, True),         # one step (S = 1)
+    (2, 33, 1, 32, True),        # ragged S
+    (2, 33, 1, 16, False),
+    (3, 40, 1, 8, True),         # the narrowest head
+    (1, 50, 2, 128, True),       # the widest head
+])
+def test_rwkv6_scan_kernel_matches_plain(sm90, b, s, h, d, with_s0):
+    r, k, v, w, u, s0 = _rkvw(b, s, h, d, seed=s + d)
+    s0 = s0 if with_s0 else None
+    before = rw.rwkv6_scan.launches
+    y, st = ops.rwkv6(*(x.to(sm90) for x in (r, k, v, w, u)),
+                      s0=None if s0 is None else s0.to(sm90))
+    torch.cuda.synchronize()
+    assert rw.rwkv6_scan.launches == before + 1
+    assert y.shape == (b, s, h, d) and st.shape == (b, h, d, d)
+    assert y.dtype == st.dtype == torch.float32
+    # chunk 32, the model's: the chunked form's rounding grows with chunk
+    want_y, want_s = rw.rwkv6_scan_plain(r, k, v, w, u, s0, 32)
+    assert _err(y.cpu(), want_y) < 5e-4 and _err(st.cpu(), want_s) < 5e-4
+
+
+@pytest.mark.cuda
+def test_rwkv6_scan_kernel_contracts(sm90):
+    r, k, v, w, u, s0 = (x.to(sm90) for x in _rkvw(1, 4, 2, 16, seed=0))
+    wide = [torch.ones((1, 2, 1, 136), device=sm90) for _ in range(4)]
+    before = rw.rwkv6_scan.launches
+    for args, match in (((r, k[:, :3], v, w, u), "one shape"),
+                        ((r, k, v, w, u, s0.to(torch.bfloat16)), "float32"),
+                        ((*wide, torch.ones((1, 136), device=sm90)),
+                         "head size")):
+        with pytest.raises(ValueError, match=match):
+            rw.rwkv6_scan(*args)
+    assert rw.rwkv6_scan.launches == before

@@ -8,7 +8,9 @@ different numbers from the same seed). Tolerances:
   the reference's largest magnitude;
 * attention layers (prefill and decode, output and cache): 2e-5, the
   flash tolerance of tests/test_kernels.py;
-* the RG-LRU layer (output and state): 1e-4, the rglru tolerance there.
+* the RG-LRU layer (output and state): 1e-4, the rglru tolerance there;
+* the RWKV-6 recurrence and time-mix (output and state): 1e-4, the
+  recurrent layer's bar; channel-mix 1e-6 relative, an elementwise layer.
 """
 import dataclasses
 
@@ -20,14 +22,17 @@ import torch
 
 from repro.configs.base import ModelConfig as JaxModelConfig
 from repro.configs.base import RGLRUConfig as JaxRGLRUConfig
+from repro.configs.base import RWKVConfig as JaxRWKVConfig
 from repro.models import attention as j_attn
 from repro.models import layers as j_layers
 from repro.models import rglru as j_rglru
-from repro_torch.configs.base import ModelConfig, RGLRUConfig
+from repro.models import rwkv6 as j_rwkv
+from repro_torch.configs.base import ModelConfig, RGLRUConfig, RWKVConfig
 from repro_torch.convert import params_from_numpy, params_to_numpy
 from repro_torch.models import attention as t_attn
 from repro_torch.models import layers as t_layers
 from repro_torch.models import rglru as t_rglru
+from repro_torch.models import rwkv6 as t_rwkv
 
 BASE = dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, head_dim=16,
             d_ff=128, vocab_size=128, dtype="float32", param_dtype="float32")
@@ -36,10 +41,13 @@ BASE = dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, head_dim=16,
 def _cfgs(**kw):
     """The same configuration in both packages' dataclasses."""
     rg = kw.pop("rglru", None)
+    rw = kw.pop("rwkv", None)
     jc = JaxModelConfig(name="t", family="dense", **{**BASE, **kw},
-                        rglru=JaxRGLRUConfig(**rg) if rg else None)
+                        rglru=JaxRGLRUConfig(**rg) if rg else None,
+                        rwkv=JaxRWKVConfig(**rw) if rw else None)
     tc = ModelConfig(name="t", family="dense", **{**BASE, **kw},
-                     rglru=RGLRUConfig(**rg) if rg else None)
+                     rglru=RGLRUConfig(**rg) if rg else None,
+                     rwkv=RWKVConfig(**rw) if rw else None)
     assert dataclasses.asdict(jc) == dataclasses.asdict(tc)
     return jc, tc
 
@@ -236,3 +244,102 @@ def test_rglru_init_layout_matches_jax():
     assert shapes(tp) == shapes(jp)
     lam = tp["lam"].numpy()
     assert lam.min() >= 1.0 and lam.max() <= 5.0
+
+
+# ---------------------------------------------------------------------------
+# RWKV-6 layer
+# ---------------------------------------------------------------------------
+
+RWKV = dict(head_size=16, decay_lora=8, d_ff=96)
+
+
+def _rwkv_params(seed):
+    jc, tc = _cfgs(rwkv=RWKV)
+    p = jax.tree.map(np.asarray, j_rwkv.rwkv_init(jax.random.key(seed), jc,
+                                                  jc.rwkv))
+    return jc, tc, jax.tree.map(jnp.asarray, p), params_from_numpy(p, "cpu")
+
+
+@pytest.mark.parametrize("s", [1, 16, 33])
+@pytest.mark.parametrize("with_state", [False, True])
+def test_wkv_chunked_and_step_match_jax(s, with_state):
+    """The port's wkv_chunked (the kernel's plain version on the CPU) and
+    the exact one-token step against the JAX model's."""
+    rng = np.random.default_rng(s)
+    r, k, v = (rng.normal(size=(2, s, 4, 16)).astype(np.float32)
+               for _ in range(3))
+    w = np.exp(-np.exp(rng.normal(size=(2, s, 4, 16)) + 0.5)).astype(
+        np.float32)
+    u = (rng.normal(size=(4, 16)) * 0.1).astype(np.float32)
+    s0 = rng.normal(size=(2, 4, 16, 16)).astype(np.float32) \
+        if with_state else None
+    j = [jnp.asarray(x) for x in (r, k, v, w, u)]
+    t = [torch.from_numpy(x) for x in (r, k, v, w, u)]
+    js0 = None if s0 is None else jnp.asarray(s0)
+    ts0 = None if s0 is None else torch.from_numpy(s0)
+    jy, jst = j_rwkv.wkv_chunked(*j, js0)
+    ty, tst = t_rwkv.wkv_chunked(*t, ts0)
+    assert _err(ty, jy) <= 1e-4 and _err(tst, jst) <= 1e-4
+    assert tst.dtype == torch.float32
+    st0 = np.zeros((2, 4, 16, 16), np.float32) if s0 is None else s0
+    jst, jy = j_rwkv.wkv_step(jnp.asarray(st0), *(x[:, 0] for x in j[:4]),
+                              j[4])
+    tst, ty = t_rwkv.wkv_step(torch.from_numpy(st0),
+                              *(x[:, 0] for x in t[:4]), t[4])
+    assert _err(ty, jy) <= 1e-4 and _err(tst, jst) <= 1e-4
+
+
+@pytest.mark.parametrize("s", [1, 16, 33])
+def test_rwkv_time_mix_with_and_without_state(s):
+    """Without state (teacher forcing), from the zero state with the new
+    state returned (prefill; S = 1 takes the one-token step), then three
+    tokens on from it."""
+    jc, tc, jp, tp = _rwkv_params(17)
+    jx, tx = _both(_x(2, s, 64, seed=18))
+    jy, _ = j_rwkv.rwkv_time_mix(jp, jx, jc, jc.rwkv)
+    ty, tst = t_rwkv.rwkv_time_mix(tp, tx, tc, tc.rwkv)
+    assert _err(ty, jy) <= 1e-4 and tst is None
+    jst = j_rwkv.init_rwkv_state(jc, jc.rwkv, 2, jnp.float32)
+    tst = t_rwkv.init_rwkv_state(tc, tc.rwkv, 2, torch.float32,
+                                 torch.device("cpu"))
+    assert _tree_err(jst, tst) == 0.0
+    jy, jst = j_rwkv.rwkv_time_mix(jp, jx, jc, jc.rwkv, state=jst,
+                                   return_state=True)
+    ty, tst = t_rwkv.rwkv_time_mix(tp, tx, tc, tc.rwkv, state=tst,
+                                   return_state=True)
+    assert _err(ty, jy) <= 1e-4 and _tree_err(jst, tst) <= 1e-4
+    for i in range(3):
+        jx1, tx1 = _both(_x(2, 1, 64, seed=19 + i))
+        jy, jst = j_rwkv.rwkv_time_mix(jp, jx1, jc, jc.rwkv, state=jst,
+                                       return_state=True)
+        ty, tst = t_rwkv.rwkv_time_mix(tp, tx1, tc, tc.rwkv, state=tst,
+                                       return_state=True)
+        assert _err(ty, jy) <= 1e-4 and _tree_err(jst, tst) <= 1e-4
+    assert tst["wkv"].dtype == torch.float32
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+def test_rwkv_channel_mix(with_state):
+    jc, tc, jp, tp = _rwkv_params(22)
+    jx, tx = _both(_x(2, 9, 64, seed=23))
+    prev = _x(2, 64, seed=24)
+    jst = {"shift_cm": jnp.asarray(prev)} if with_state else None
+    tst = {"shift_cm": torch.from_numpy(prev)} if with_state else None
+    jy, jnew = j_rwkv.rwkv_channel_mix(jp, jx, jc, jc.rwkv, state=jst,
+                                       return_state=True)
+    ty, tnew = t_rwkv.rwkv_channel_mix(tp, tx, tc, tc.rwkv, state=tst,
+                                       return_state=True)
+    assert _rel(ty, jy) <= 1e-6
+    assert _err(tnew["shift_cm"], jnew["shift_cm"]) == 0.0
+
+
+def test_rwkv_init_layout_matches_jax():
+    jc, tc = _cfgs(rwkv=RWKV)
+    jp = j_rwkv.rwkv_init(jax.random.key(0), jc, jc.rwkv)
+    tp = t_rwkv.rwkv_init(torch.Generator().manual_seed(0), tc, tc.rwkv,
+                          torch.device("cpu"))
+    shapes = lambda t: {k: (tuple(v.shape) if not isinstance(v, dict) else  # noqa: E731
+                            shapes(v)) for k, v in t.items()}
+    assert shapes(tp) == shapes(jp)
+    w0 = tp["w0"].numpy()
+    assert w0.min() >= 0.5 and w0.max() <= 2.0

@@ -4,10 +4,11 @@ For each decoder-only configuration whose layer kinds the port has, the
 same converted parameters and numpy tokens go through both packages'
 ``apply``, ``prefill`` and three ``decode_step``s: logits within 2e-4
 (tests/test_serve.py's bar), caches within 1e-4, position tags exact. The
-configurations are tests/test_serve.py's ``hybrid``, ``local`` and
-``dense`` at seq 16 and 33 (the local window is 16, so 33 rolls the ring
-buffer), and ``reduce_for_smoke`` of every arch of the port's kinds at
-seq 40 (past the smoke window of 32). The other archs must refuse to
+configurations are tests/test_serve.py's ``hybrid``, ``local``,
+``dense`` and ``rwkv`` at seq 16 and 33 (the local window is 16, so 33
+rolls the ring buffer; 33 is a ragged multiple of rwkv's chunk), and
+``reduce_for_smoke`` of every arch of the port's kinds at seq 40 (past the
+smoke window of 32). The other archs must refuse to
 build. Then the serving entry point (``launch.serve.generate``), its
 greedy tokens against a loop over the JAX package's api, and the port's
 import hygiene and default device on this path.
@@ -28,10 +29,11 @@ from repro.configs import get_config as j_get_config
 from repro.configs import reduce_for_smoke as j_reduce
 from repro.configs.base import ModelConfig as JaxModelConfig
 from repro.configs.base import RGLRUConfig as JaxRGLRUConfig
+from repro.configs.base import RWKVConfig as JaxRWKVConfig
 from repro.models import build as j_build
 from repro.models import transformer as j_tf
 from repro_torch.configs import ARCHS, get_config, reduce_for_smoke
-from repro_torch.configs.base import ModelConfig, RGLRUConfig
+from repro_torch.configs.base import ModelConfig, RGLRUConfig, RWKVConfig
 from repro_torch.convert import params_from_numpy, params_to_numpy
 from repro_torch.launch import serve
 from repro_torch.models import build, transformer
@@ -43,10 +45,13 @@ BASE = dict(n_layers=4, d_model=64, n_heads=4, n_kv_heads=2, head_dim=16,
 
 def _pair(name, family, **kw):
     rg = kw.pop("rglru", None)
+    rw = kw.pop("rwkv", None)
     return (JaxModelConfig(name=name, family=family, **BASE, **kw,
-                           rglru=JaxRGLRUConfig(**rg) if rg else None),
+                           rglru=JaxRGLRUConfig(**rg) if rg else None,
+                           rwkv=JaxRWKVConfig(**rw) if rw else None),
             ModelConfig(name=name, family=family, **BASE, **kw,
-                        rglru=RGLRUConfig(**rg) if rg else None))
+                        rglru=RGLRUConfig(**rg) if rg else None,
+                        rwkv=RWKVConfig(**rw) if rw else None))
 
 
 SERVE_CFGS = {   # tests/test_serve.py:13-33
@@ -54,10 +59,12 @@ SERVE_CFGS = {   # tests/test_serve.py:13-33
     "local": _pair("l", "dense", pattern=("local", "global"), window=16),
     "hybrid": _pair("h", "hybrid", pattern=("rglru", "local"), window=16,
                     rglru=dict(d_rnn=64)),
+    "rwkv": _pair("r", "ssm", pattern=("rwkv",),
+                  rwkv=dict(head_size=16, decay_lora=8, d_ff=128)),
 }
 PORTED_ARCHS = ["recurrentgemma-2b", "gemma3-12b", "nemotron-4-15b",
-                "qwen2.5-14b", "qwen2-vl-2b", "stablelm-3b"]
-REFUSED_ARCHS = ["deepseek-v2-lite-16b", "phi3.5-moe-42b-a6.6b", "rwkv6-7b",
+                "qwen2.5-14b", "qwen2-vl-2b", "rwkv6-7b", "stablelm-3b"]
+REFUSED_ARCHS = ["deepseek-v2-lite-16b", "phi3.5-moe-42b-a6.6b",
                  "seamless-m4t-large-v2"]
 CASES = [(n, s) for n in sorted(SERVE_CFGS) for s in (16, 33)] + \
     [(a, 40) for a in PORTED_ARCHS]
@@ -174,21 +181,27 @@ def test_lm_loss_matches_jax(jax_runs):
 
 def test_init_layout_matches_jax():
     """The port's own init draws the JAX package's tree: same paths,
-    shapes and dtypes, unit params stacked over repeats."""
-    jc, tc = _cfgs("recurrentgemma-2b")
-    jparams = jax.eval_shape(lambda: j_tf.init_params(jc, jax.random.key(0)))
-    tparams = transformer.init_params(tc, torch.Generator().manual_seed(0),
-                                      "cpu")
-    flat_j = jax.tree_util.tree_flatten_with_path(jparams)[0]
-    flat_t = jax.tree_util.tree_flatten_with_path(params_to_numpy(tparams))[0]
-    assert [(p, tuple(a.shape), str(a.dtype)) for p, a in flat_j] == \
-        [(p, a.shape, str(a.dtype)) for p, a in flat_t]
-    jcache = jax.eval_shape(lambda: j_tf.init_cache(jc, 2, 40))
-    tcache = transformer.init_cache(tc, 2, 40, device="cpu")
-    assert [(p, tuple(a.shape)) for p, a in
-            jax.tree_util.tree_flatten_with_path(jcache)[0]] == \
-        [(p, a.shape) for p, a in jax.tree_util.tree_flatten_with_path(
-            params_to_numpy(tcache))[0]]
+    shapes and dtypes, unit params stacked over repeats (an rwkv layer has
+    no ``mlp``), and the cache of each layer kind (rwkv's shift and wkv
+    state, not an RG-LRU state)."""
+    for arch in ("recurrentgemma-2b", "rwkv6-7b"):
+        jc, tc = _cfgs(arch)
+        jparams = jax.eval_shape(lambda: j_tf.init_params(
+            jc, jax.random.key(0)))
+        tparams = transformer.init_params(
+            tc, torch.Generator().manual_seed(0), "cpu")
+        flat_j = jax.tree_util.tree_flatten_with_path(jparams)[0]
+        flat_t = jax.tree_util.tree_flatten_with_path(
+            params_to_numpy(tparams))[0]
+        assert [(p, tuple(a.shape), str(a.dtype)) for p, a in flat_j] == \
+            [(p, a.shape, str(a.dtype)) for p, a in flat_t], arch
+        jcache = jax.eval_shape(lambda: j_tf.init_cache(jc, 2, 40))
+        tcache = transformer.init_cache(tc, 2, 40, device="cpu")
+        assert [(p, tuple(a.shape), str(a.dtype)) for p, a in
+                jax.tree_util.tree_flatten_with_path(jcache)[0]] == \
+            [(p, a.shape, str(a.dtype)) for p, a in
+             jax.tree_util.tree_flatten_with_path(
+                 params_to_numpy(tcache))[0]], arch
 
 
 @pytest.mark.parametrize("arch", REFUSED_ARCHS)
@@ -202,28 +215,34 @@ def test_unported_archs_refuse_to_build(arch):
 
 
 def test_serving_params_cast_once_and_keep_fp32_leaves():
-    cfg = dataclasses.replace(reduce_for_smoke(get_config("recurrentgemma-2b")),
-                              dtype="bfloat16")
-    params = transformer.init_params(cfg, torch.Generator().manual_seed(0),
-                                     "cpu")
-    cast = serve.serving_params(cfg, params)
+    """Casting once is bit-identical to casting at each use; the leaves
+    each use reads in fp32 (norms, rglru's lam, rwkv's decay LoRA, w0, u
+    and group-norm scale) stay fp32."""
+    keep = {"scale", "bias", "lam", "w0", "w_lora_a", "w_lora_b", "u",
+            "ln_scale"}
+    for arch in ("recurrentgemma-2b", "rwkv6-7b"):
+        cfg = dataclasses.replace(reduce_for_smoke(get_config(arch)),
+                                  dtype="bfloat16")
+        params = transformer.init_params(
+            cfg, torch.Generator().manual_seed(0), "cpu")
+        cast = serve.serving_params(cfg, params)
 
-    def leaves(tree, key=None):
-        if isinstance(tree, dict):
-            return [x for k, v in tree.items() for x in leaves(v, k)]
-        if isinstance(tree, list):
-            return [x for v in tree for x in leaves(v, key)]
-        return [(key, tree)]
-    got = leaves(cast)
-    assert len(got) == len(leaves(params)) > 20
-    for key, leaf in got:
-        keep = key in ("scale", "bias", "lam")
-        assert leaf.dtype == (torch.float32 if keep else torch.bfloat16), key
-    tokens = torch.randint(0, cfg.vocab_size, (2, 40),
-                           generator=torch.Generator().manual_seed(1))
-    a = transformer.apply(cfg, params, tokens)
-    b = transformer.apply(cfg, cast, tokens)
-    assert torch.equal(a, b)         # casting once is bit-identical
+        def leaves(tree, key=None):
+            if isinstance(tree, dict):
+                return [x for k, v in tree.items() for x in leaves(v, k)]
+            if isinstance(tree, list):
+                return [x for v in tree for x in leaves(v, key)]
+            return [(key, tree)]
+        got = leaves(cast)
+        assert len(got) == len(leaves(params)) > 20
+        for key, leaf in got:
+            assert leaf.dtype == (torch.float32 if key in keep
+                                  else torch.bfloat16), (arch, key)
+        tokens = torch.randint(0, cfg.vocab_size, (2, 40),
+                               generator=torch.Generator().manual_seed(1))
+        a = transformer.apply(cfg, params, tokens)
+        b = transformer.apply(cfg, cast, tokens)
+        assert torch.equal(a, b), arch   # casting once is bit-identical
 
 
 def test_generate_on_cpu():
@@ -279,10 +298,11 @@ def test_serving_path_runs_without_jax_or_repro_loaded():
         "import sys\n"
         "from repro_torch.configs import get_config, reduce_for_smoke\n"
         "from repro_torch.launch import serve\n"
-        "cfg = reduce_for_smoke(get_config('recurrentgemma-2b'))\n"
-        "out = serve.generate(cfg, batch=2, prompt_len=40, gen=3, "
+        "for arch in ('recurrentgemma-2b', 'rwkv6-7b'):\n"
+        "    cfg = reduce_for_smoke(get_config(arch))\n"
+        "    out = serve.generate(cfg, batch=2, prompt_len=40, gen=3, "
         "device='cpu')\n"
-        "assert tuple(out['tokens'].shape) == (2, 3), out['tokens'].shape\n"
+        "    assert tuple(out['tokens'].shape) == (2, 3), arch\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"
@@ -297,11 +317,15 @@ def test_serving_path_runs_without_jax_or_repro_loaded():
 def test_serving_entry_points_default_to_cuda_and_raise_without_it(
         monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    cfg = reduce_for_smoke(get_config("recurrentgemma-2b"))
-    for call in (lambda: serve.generate(cfg, batch=1, prompt_len=4, gen=2),
-                 lambda: serve.main([]),
-                 lambda: transformer.init_params(cfg, torch.Generator()),
-                 lambda: transformer.init_cache(cfg, 1, 8),
-                 lambda: build(cfg).init(torch.Generator())):
-        with pytest.raises(RuntimeError, match="no CUDA device"):
-            call()
+    for arch in ("recurrentgemma-2b", "rwkv6-7b"):
+        cfg = reduce_for_smoke(get_config(arch))
+        for call in (lambda: serve.generate(cfg, batch=1, prompt_len=4,
+                                            gen=2),
+                     lambda: serve.main(["--arch", arch]),
+                     lambda: transformer.init_params(cfg, torch.Generator()),
+                     lambda: transformer.init_cache(cfg, 1, 8),
+                     lambda: build(cfg).init(torch.Generator())):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                call()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main([])               # the default arch, rwkv6-7b
