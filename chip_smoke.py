@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch / H100 port (``src/repro_torch``).
 
-Drives the port's three paths on one NVIDIA Hopper card, through the
+Drives the port's four paths on one NVIDIA Hopper card, through the
 entry points a user calls:
 
 * the paper's wireless D-PSGD run: Eq. 2 capacities, Algorithm 2 rates at
@@ -16,7 +16,12 @@ entry points a user calls:
 * serving rwkv6-7b at its published widths and full depth (32 layers,
   d_model 4096, 7.53 B parameters; the same prompt, batch and tokens), with
   the WKV recurrence of every prefill in the CUDA kernel of
-  ``csrc/rwkv6_scan.cu``.
+  ``csrc/rwkv6_scan.cu``;
+* training through the wireless simulator (``sim.simulate_dpsgd_cnn``, the
+  driver behind Fig. 3's accuracy against simulated time) at the paper's
+  size, one epoch of 400 rounds on ``compressed_int8`` and on ``static``,
+  with every int8 round's quantize and error-feedback dequantize in the
+  CUDA kernels of ``csrc/quantize.cu`` and its receive in ``gossip_mix_q8``.
 
 Phases, each of which ends the run with a nonzero exit if it fails:
 
@@ -28,7 +33,10 @@ Phases, each of which ends the run with a nonzero exit if it fails:
               paths' shapes and at edge shapes, its ValueError contracts,
               and its time beside its bound, plain and library times
               (3: gossip mixes, 3b: flash and rglru, 3c: rwkv6_scan, and
-              its state handoff to the one-token decode step);
+              its state handoff to the one-token decode step, 3d: the
+              int8 quantize / dequantize, bit-equal, in the TPU kernels'
+              256-lane format through ``ops`` and the 2048-lane wire
+              format, timed at the path's message and at (64, 1 048 576));
 4. slice    — the paper run; the gossip_mix launch counter must grow by
               one launch per step, and the first 5 steps rerun on the CPU
               (plain versions) from the card's state must agree on losses
@@ -54,7 +62,19 @@ Phases, each of which ends the run with a nonzero exit if it fails:
               moves apply's logits by (this model amplifies rounding; the
               state handoff itself is held in 3c); (b) card against CPU
               in lockstep at the smoke widths with 4 layers (5e-4, the
-              rwkv6 kernel's bar).
+              rwkv6 kernel's bar);
+10. simulated training — ``simulate_dpsgd_cnn`` over 60 000 / 10 000
+              images with ``measure_compute=True`` (each round stamped with
+              the card's own step time): on ``compressed_int8`` the
+              quantize, dequantize and gossip_mix_q8 counters each grow by
+              exactly the round count, on ``static`` gossip_mix does and the
+              codec does not; each trace's communication fields equal the
+              CPU simulator's charged the same compute; the first 5
+              compressed rounds rerun on the CPU in lockstep (q bit-equal,
+              losses 1e-4, parameters and residuals 1e-5 on every node row
+              whose max-pools and ReLUs card and CPU route alike); rounds,
+              simulated seconds, accuracy and host ms per round split into
+              simulator, step and the rest.
 
 Each phase prints its wall time. The last lines are the card's
 ``nvidia-smi`` name and power limit, one JSON line with every kernel's
@@ -103,6 +123,11 @@ LOCK_BATCH, LOCK_PROMPT, LOCK_STEPS = 2, 80, 4   # 7(b): card vs CPU
 RWKV_ARCH = "rwkv6-7b"
 RWKV_CHUNK = 32                      # the model's chunk: the plain version's
 LOCK_RWKV_LAYERS = 4
+
+# training through the wireless simulator (phase 10): one epoch of the
+# paper's setup (400 rounds of batch 25 on 6 nodes) per scenario
+SIM_EPOCHS = 1
+SIM_CPU_ROUNDS = 5                   # compressed rounds rerun on the CPU
 
 
 def fail(msg: str) -> None:
@@ -230,6 +255,25 @@ def rwkv_cost(b: int, s: int, h: int, d: int) -> tuple[float, float]:
     recurrence (D^2 multiply-adds for y, D^2 for the state)."""
     return 4.0 * (5 * b * s * h * d + 2 * b * h * d * d), \
         4.0 * d * d * b * h * s
+
+
+def quantize_cost(rows: int, length: int, block: int,
+                  elt: int) -> tuple[float, float]:
+    """quantize_int8: x (rows, length) read once, q (rows, Lp) int8 and one
+    fp32 scale per block written once; ~6 operations per lane (|x|, max,
+    divide, round, two clamps)."""
+    nb = -(-length // block)
+    return elt * rows * length + rows * nb * block + 4 * rows * nb, \
+        6.0 * rows * nb * block
+
+
+def dequantize_cost(rows: int, length: int, block: int,
+                    elt: int) -> tuple[float, float]:
+    """dequantize_int8: the int8 lanes below ``length`` and one scale per
+    block read once, (rows, length) written once; one multiply per lane."""
+    nb = -(-length // block)
+    return rows * length + 4 * rows * nb + elt * rows * length, \
+        float(rows * length)
 
 
 def err(a, b) -> float:
@@ -803,6 +847,112 @@ def phase_rwkv_kernel(torch) -> dict:
     return {"rwkv6_scan": out}
 
 
+def phase_quantize_kernels(torch) -> dict:
+    phase("3d. quantize_int8 and dequantize_int8 against their plain versions")
+    from repro_torch.core import compression as comp
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import quantize as qz
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    bf16 = torch.bfloat16
+
+    def same(what, got, want):
+        ok = all(a.shape == b.shape and a.dtype == b.dtype and torch.equal(a, b)
+                 for a, b in zip(got, want))
+        print(f"quantize       {what:62s} bit-equal: {ok}")
+        check(ok, f"int8 codec {what}: kernel and plain version differ")
+
+    def randn(rows, length, scale=3.0, dtype=torch.float32):
+        return (torch.randn((rows, length), generator=gen, device=dev)
+                * scale).to(dtype)
+
+    # the TPU kernels' contract through ops (256-lane blocks, ragged C,
+    # fp32 and bf16 inputs, fp32 and bf16 outputs)
+    for rows, c in ((8, 512), (5, 700), (16, 256), (N_NODES, 21_840)):
+        for dtype in (torch.float32, bf16):
+            x = randn(rows, c, dtype=dtype)
+            q, s = ops.quantize_int8(x)
+            qp, sp = qz.quantize_int8_plain(x, 256)
+            outs = [ops.dequantize_int8(q, s, dt) for dt in (torch.float32,
+                                                            bf16)]
+            want = [qz.dequantize_int8_plain(qp, sp, 256, c, dt)
+                    for dt in (torch.float32, bf16)]
+            torch.cuda.synchronize()
+            same(f"ops ({rows}, {c}) {str(dtype)[6:]} in, fp32/bf16 out",
+                 [q, s, *outs], [qp[:, :c], sp, *want])
+    # the wire format (2048-lane blocks) through core.compression, at the
+    # path's message and at ragged lengths
+    for rows, length in ((N_NODES, 21_840), (N_NODES, 21_843), (3, 2049),
+                         (1, 1)):
+        x = randn(rows, length, scale=0.3)
+        q, s = comp.quantize_int8_rows(x)
+        d = comp.dequantize_int8_rows(q, s, length)
+        qp, sp = qz.quantize_int8_plain(x, 2048)
+        dp = qz.dequantize_int8_plain(qp, sp, 2048, length)
+        torch.cuda.synchronize()
+        same(f"wire format ({rows}, {length}) fp32", [q, s, d], [qp, sp, dp])
+    # the ValueError contracts, raised before any launch
+    qz8 = torch.zeros((2, 512), dtype=torch.int8, device=dev)
+    for what, call, match in (
+            ("a 3-lane scale block", lambda: qz.quantize_int8(
+                randn(2, 9), 3), "scale block"),
+            ("a 1-D input", lambda: qz.quantize_int8(randn(1, 9)[0]), "2-D"),
+            ("an fp16 input", lambda: qz.quantize_int8(
+                randn(2, 9, dtype=torch.float16)), "float32 or bfloat16"),
+            ("3 scales for 2 blocks", lambda: qz.dequantize_int8(
+                qz8, torch.ones((2, 3), device=dev)), "one per block"),
+            ("a length past the payload", lambda: qz.dequantize_int8(
+                qz8, torch.ones((2, 2), device=dev), length=600), "fit")):
+        before = (qz.quantize_int8.launches, qz.dequantize_int8.launches)
+        try:
+            call()
+        except ValueError as e:
+            check(match in str(e), f"int8 codec {what}: wrong message {e}")
+            check((qz.quantize_int8.launches, qz.dequantize_int8.launches)
+                  == before, f"int8 codec {what}: launched before raising")
+            print(f"quantize       ValueError on {what}: ok")
+        else:
+            fail(f"int8 codec accepted {what} on CUDA tensors")
+
+    # times: at the path's message, (6, 21 840) fp32 in 2048-lane blocks,
+    # and at (64, 1 048 576) fp32, large enough to read the HBM rate (both
+    # formats; printed only)
+    out = {}
+    for rows, length, block, reps in ((N_NODES, 21_840, 2048, 100),
+                                      (64, 1 << 20, 2048, 10),
+                                      (64, 1 << 20, 256, 10)):
+        x = randn(rows, length, scale=0.3)
+        q, s = qz.quantize_int8(x, block)
+        for name, kernel, plain, cost, kname in (
+                ("quantize_int8", lambda: qz.quantize_int8(x, block),
+                 lambda: qz.quantize_int8_plain(x, block),
+                 quantize_cost(rows, length, block, 4),
+                 "quantize_int8_kernel"),
+                ("dequantize_int8",
+                 lambda: qz.dequantize_int8(q, s, block, length),
+                 lambda: qz.dequantize_int8_plain(q, s, block, length),
+                 dequantize_cost(rows, length, block, 4),
+                 "dequantize_int8_kernel")):
+            b_ms, b_by = bound(*cost)
+            t = {"ms": time_ms(torch, kernel, reps=reps),
+                 "plain_ms": time_ms(torch, plain, reps=reps),
+                 "library_ms": None,
+                 "device_ms": device_ms(torch, kernel, kname, calls=reps),
+                 "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": 0.0,
+                 "shape": f"({rows}, {length}) fp32, {block}-lane blocks"}
+            dms = "not measured" if t["device_ms"] is None \
+                else f"{t['device_ms'] * 1e3:.2f} us"
+            rate = "" if t["device_ms"] is None else \
+                f", {cost[0] / t['device_ms'] / 1e9:.1f} TB/s"
+            print(f"{name:15s} {t['shape']}: {t['ms'] * 1e3:.2f} us/call "
+                  f"(device {dms}{rate}) | plain {t['plain_ms'] * 1e3:.2f} us"
+                  f" | library none | bound {b_ms * 1e3:.3f} us ({b_by})")
+            if rows == N_NODES:         # the path's shape: the JSON row
+                out[name] = t
+    return out
+
+
 def phase_serve(torch, title: str, arch: str, counters: dict, want: dict,
                 why: str) -> dict:
     """Serve ``arch`` at its published widths at (SERVE_BATCH,
@@ -1020,6 +1170,191 @@ def phase_served_correctness(torch, title: str, arch: str, counters: dict,
           "the card side did not run the kernels")
 
 
+def cnn_routing(torch, params: dict, images) -> list:
+    """Per node, what the CNN's gradient depends on discontinuously: the
+    entry each 2x2 max-pool window routes to (-1 where the ReLU after it
+    blocks the gradient) and fc1's ReLU mask, from the same vmapped forward
+    the D-PSGD step runs (``models/cnn.py``)."""
+    import torch.nn.functional as F
+
+    def fwd(p, x):
+        c1 = F.conv2d(x, p["conv1"]["w"], p["conv1"]["b"])
+        c2 = F.conv2d(F.relu(F.max_pool2d(c1, 2)), p["conv2"]["w"],
+                      p["conv2"]["b"])
+        h = F.relu(F.max_pool2d(c2, 2)).reshape(x.shape[0], -1)
+        return c1, c2, h @ p["fc1"]["w"] + p["fc1"]["b"]
+
+    def pool(a):
+        n, b, c, h, w = a.shape
+        win = a.reshape(n, b, c, h // 2, 2, w // 2, 2).permute(
+            0, 1, 2, 3, 5, 4, 6).reshape(n, b, c, h // 2, w // 2, 4)
+        return torch.where(win.amax(-1) > 0, win.argmax(-1), -1).cpu()
+
+    c1, c2, z1 = torch.func.vmap(fwd)(params, images)
+    return [pool(c1), pool(c2), (z1 > 0).cpu()]
+
+
+def phase_simulated_training(torch) -> dict:
+    phase("10. training through the wireless simulator on the card")
+    from repro_torch.core import dpsgd
+    from repro_torch.core.compression import quantize_int8_rows
+    from repro_torch.data import SyntheticFashion
+    from repro_torch.kernels import gossip_mix as gm
+    from repro_torch.kernels import quantize as qz
+    from repro_torch.models import cnn
+    from repro_torch.sim import (WirelessSimulator, get_scenario,
+                                 simulate_dpsgd_cnn)
+
+    counters = {"quantize_int8": qz.quantize_int8,
+                "dequantize_int8": qz.dequantize_int8,
+                "gossip_mix_q8": gm.gossip_mix_q8_rows,
+                "gossip_mix": gm.gossip_mix_rows}
+    t0 = time.perf_counter()
+    ds = SyntheticFashion(n_train=N_TRAIN, n_test=N_TEST, seed=0)
+    print(f"data: {N_TRAIN} train / {N_TEST} test images in "
+          f"{time.perf_counter() - t0:.1f}s")
+    # warm-up (cuDNN plans, vmap) at the same widths, outside the counted runs
+    simulate_dpsgd_cnn(get_scenario("compressed_int8"), epochs=1,
+                       n_train=1200, n_test=300, device="cuda")
+    torch.cuda.synchronize()
+
+    # the first SIM_CPU_ROUNDS compressed steps are captured (the card's
+    # inputs and outputs) for the lockstep rerun on the CPU below
+    captured = []
+    factory = dpsgd.make_dpsgd_compressed_step
+
+    def capturing(*args, **kw):
+        step = factory(*args, **kw)
+
+        def run(params, batch, w, live, res):
+            out = step(params, batch, w, live, res)
+            if len(captured) < SIM_CPU_ROUNDS:
+                captured.append(((params, batch, w, live, res), out))
+            return out
+        return run
+
+    out = {}
+    for name in ("compressed_int8", "static"):
+        cfg = get_scenario(name)
+        dpsgd.make_dpsgd_compressed_step = capturing
+        try:
+            for fn in counters.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            trace, params = simulate_dpsgd_cnn(
+                cfg, epochs=SIM_EPOCHS, ds=ds, measure_compute=True,
+                device="cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {k: fn.launches for k, fn in counters.items()}
+        finally:
+            dpsgd.make_dpsgd_compressed_step = factory
+        s = trace.summary()
+        rounds = s["rounds"]
+        compressed = cfg.payload.mode == "int8"
+        want = ({"quantize_int8": rounds, "dequantize_int8": rounds,
+                 "gossip_mix_q8": rounds, "gossip_mix": 0} if compressed else
+                {"quantize_int8": 0, "dequantize_int8": 0,
+                 "gossip_mix_q8": 0, "gossip_mix": rounds})
+        print(f"{name}: launches {launches} (expected {want})")
+        check(launches == want, f"{name}: launches {launches}, want {want}")
+        check(rounds == SIM_EPOCHS * N_TRAIN // N_NODES // 25,
+              f"{name}: {rounds} rounds")
+        check(all(np.isfinite(r.loss) for r in trace.records),
+              f"{name}: non-finite loss")
+        check(all(bool(torch.isfinite(x).all())
+                  for x in dpsgd._leaves(params)),
+              f"{name}: non-finite parameters")
+        check(s["final_acc"] is not None and 0.0 <= s["final_acc"] <= 1.0,
+              f"{name}: accuracy {s['final_acc']}")
+
+        # the communication plane: the CPU simulator, charged the card's
+        # measured compute per round (fading blocks follow the simulated
+        # clock), must realize the very same rounds
+        computes = [r.t_compute_s for r in trace.records]
+        replay = WirelessSimulator(cfg).run(
+            rounds, lambda ctx: {"compute_s": computes[ctx.round]})
+        fields = ("round", "n_live", "t_start_s", "t_comm_s", "t_end_s",
+                  "lam_planned", "lam_effective", "feasible",
+                  "intended_links", "outage_links", "retx_packets",
+                  "delivered_frac", "replanned", "mean_drift", "wire_bits",
+                  "payload_mode")
+        diff = [(a.round, f) for a, b in zip(trace.records, replay.records)
+                for f in fields if getattr(a, f) != getattr(b, f)]
+        print(f"{name}: communication fields of {rounds} rounds equal to the "
+              f"CPU simulator's: {not diff}")
+        check(not diff and len(replay.records) == rounds,
+              f"{name}: the trace's communication differs from the CPU's at "
+              f"{diff[:5]}")
+        t_plan = time.perf_counter()
+        sim = WirelessSimulator(cfg)           # the initial Algorithm 2 plan
+        t_sim = time.perf_counter()
+        sim.run(rounds)
+        sim_ms = (time.perf_counter() - t_sim) * 1e3 / rounds
+        plan_s = t_sim - t_plan
+        step_ms = s["total_compute_s"] * 1e3 / rounds
+        wall_ms = wall * 1e3 / rounds
+        print(f"{name}: {rounds} rounds, simulated {s['t_end_s']:.4f} s "
+              f"(communication {s['total_comm_s']:.4f} s + the card's "
+              f"measured compute {s['total_compute_s']:.4f} s), outage "
+              f"{s['outage_rate']:.4f}, final accuracy {s['final_acc']:.4f}, "
+              f"loss {trace.records[0].loss:.4f} -> "
+              f"{trace.records[-1].loss:.4f}")
+        print(f"{name}: host {wall_ms:.4f} ms per round = simulator "
+              f"{sim_ms:.4f} (driver-less run, after a {plan_s:.4f} s "
+              f"initial plan) + step {step_ms:.4f} (synchronized) + the rest "
+              f"{wall_ms - sim_ms - step_ms:.4f} (batch gather, evaluation "
+              f"every {cfg.eval_every_rounds} rounds on {N_TEST} images)")
+        out[name] = {"launches": launches}
+
+    # the first compressed rounds again on the CPU (plain versions), in
+    # lockstep: each from the card's input state. A node's parameter row is
+    # held at 1e-5 where card and CPU route its max-pools and ReLUs alike;
+    # at a near-tie the gradient itself jumps (its fc2 row stays held).
+    check(len(captured) == SIM_CPU_ROUNDS, f"captured {len(captured)} rounds")
+    to_cpu = lambda t: dpsgd._tree_map(lambda x: x.cpu(), t)  # noqa: E731
+    step = factory(cnn.cnn_loss, get_scenario("compressed_int8").payload,
+                   dpsgd.DPSGDConfig(eta=0.05))    # simulate_dpsgd_cnn's eta
+    worst = {"loss": 0.0, "params": 0.0, "residuals": 0.0}
+    flipped = rows_held = 0
+    for (params, batch, w, live, res), (p_g, r_g, l_g) in captured:
+        p_c, r_c, l_c = step(to_cpu(params), to_cpu(batch), w, live.cpu(),
+                             to_cpu(res))
+        worst["loss"] = max(worst["loss"], err(l_g.cpu(), l_c))
+        worst["residuals"] = max(worst["residuals"], max(
+            err(a.cpu(), b) for a, b in zip(dpsgd._leaves(r_g),
+                                            dpsgd._leaves(r_c))))
+        rg = cnn_routing(torch, params, batch["images"])
+        rc = cnn_routing(torch, to_cpu(params), to_cpu(batch)["images"])
+        for k in range(len(l_c)):
+            same = all(torch.equal(a[k], b[k]) for a, b in zip(rg, rc))
+            flipped += not same
+            rows_held += 1
+            for layer in (sorted(p_c) if same else ["fc2"]):
+                for leaf in p_c[layer]:
+                    worst["params"] = max(worst["params"], err(
+                        p_g[layer][leaf][k].cpu(), p_c[layer][leaf][k]))
+
+        def carried(p, e):
+            return torch.cat([(a + b).reshape(len(l_c), -1) for a, b in
+                              zip(dpsgd._leaves(p), dpsgd._leaves(e))], 1)
+        q_g, s_g = quantize_int8_rows(carried(params, res))
+        q_c, s_c = quantize_int8_rows(carried(to_cpu(params), to_cpu(res)))
+        check(torch.equal(q_g.cpu(), q_c) and torch.equal(s_g.cpu(), s_c),
+              "int8 payload or scales differ card vs CPU")
+    print(f"compressed_int8, first {SIM_CPU_ROUNDS} rounds card vs CPU in "
+          f"lockstep: q and scales bit-equal, max|loss diff| "
+          f"{worst['loss']:.3e}, max|param diff| {worst['params']:.3e}, "
+          f"max|residual diff| {worst['residuals']:.3e}; node rows at a "
+          f"max-pool/ReLU near-tie (fc2 held only): {flipped}")
+    check(worst["loss"] <= 1e-4, f"card and CPU losses differ: {worst}")
+    check(worst["params"] <= TOL_FP32 and worst["residuals"] <= TOL_FP32,
+          f"card and CPU parameters or residuals differ: {worst}")
+    check(flipped <= 0.1 * rows_held,
+          f"{flipped} of {rows_held} node rows at near-ties")
+    return out
+
+
 def main() -> None:
     if not (SRC / "repro_torch").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
@@ -1046,6 +1381,7 @@ def main() -> None:
     kernels = run("3", phase_kernels, torch)
     kernels.update(run("3b", phase_attention_kernels, torch))
     kernels.update(run("3c", phase_rwkv_kernel, torch))
+    kernels.update(run("3d", phase_quantize_kernels, torch))
     sl = run("4", phase_slice, torch)
     q8_launches = run("5", phase_compressed, torch, sl)
 
@@ -1083,6 +1419,8 @@ def main() -> None:
         {"rwkv6_scan": rw.rwkv6_scan},
         dataclasses.replace(reduce_for_smoke(get_config(RWKV_ARCH)),
                             n_layers=LOCK_RWKV_LAYERS), TOL_RWKV, True)
+    simulated = run("10", phase_simulated_training, torch)
+    int8_run = simulated["compressed_int8"]["launches"]
 
     rows = []
     for name, source, replaces, launches in (
@@ -1095,7 +1433,11 @@ def main() -> None:
             ("rglru_scan", "rglru_scan", "rglru_scan.py:59",
              served["launches"]["rglru_scan"]),
             ("rwkv6_scan", "rwkv6_scan", "rwkv6_scan.py:87",
-             served_rwkv["launches"]["rwkv6_scan"])):
+             served_rwkv["launches"]["rwkv6_scan"]),
+            ("quantize_int8", "quantize", "quantize.py:53",
+             int8_run["quantize_int8"]),
+            ("dequantize_int8", "quantize", "quantize.py:85",
+             int8_run["dequantize_int8"])):
         k = kernels[name]
         rows.append({
             "name": name, "route": "cuda",

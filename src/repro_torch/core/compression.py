@@ -11,9 +11,10 @@ term. We provide:
   accumulating (Koloskova et al. 2019 / ref [6] of the paper).
 
 This is the torch counterpart of ``repro.core.compression``: the wire-format
-accounting is copied verbatim, the int8 codec is plain torch on whatever
-device the tensor lives (on the card the D-PSGD step quantizes with it, as
-the JAX package leaves quantization to XLA). The multi-device exchange
+accounting is copied verbatim, and the int8 codec (2048-lane blocks) is
+``kernels.quantize`` at ``block = 2048``: a CUDA tensor goes through the
+hand-written quantize / dequantize kernels (no fallback), a CPU tensor
+through their plain torch versions. The multi-device exchange
 (``compressed_gossip_mix_array``) comes with pod mode.
 """
 from __future__ import annotations
@@ -21,6 +22,8 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+
+from ..kernels import quantize as _qz
 
 __all__ = ["QuantConfig", "PAYLOAD_MODES", "GRANULARITIES",
            "quantize_int8", "dequantize_int8",
@@ -89,23 +92,13 @@ def dequantize_int8(q: torch.Tensor, scale: torch.Tensor, n: int,
 def quantize_int8_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Row-batched ``quantize_int8``: (R, L) fp -> (int8 (R, Lp), fp32 scales
     (R, Lp/_BLOCK)) with Lp = L padded to whole blocks. Row r equals
-    ``quantize_int8(x[r])``. ``torch.round`` rounds half to even, as
-    ``jnp.round`` does, so q is bit-equal to the JAX package's on the same
-    input."""
-    x = torch.atleast_2d(x).to(torch.float32)
-    r, l = x.shape
-    pad = (-l) % _BLOCK
-    if pad:
-        x = torch.cat([x, x.new_zeros((r, pad))], dim=1)
-    blocks = x.reshape(r, -1, _BLOCK)
-    amax = blocks.abs().amax(dim=-1, keepdim=True)
-    # a tensor divisor: CUDA turns division by a Python scalar into a
-    # multiply by its reciprocal, which can be one bit off IEEE division
-    # (and off the JAX package's scales)
-    scale = amax / torch.full_like(amax, 127.0)
-    scale = torch.where(scale == 0, torch.ones_like(scale), scale)
-    q = torch.clamp(torch.round(blocks / scale), -127, 127).to(torch.int8)
-    return q.reshape(r, -1), scale.reshape(r, -1)
+    ``quantize_int8(x[r])``. Rounds half to even and divides with IEEE
+    rounding (``kernels.quantize``), so q is bit-equal to the JAX package's
+    on the same input."""
+    x = torch.atleast_2d(x)
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        x = x.to(torch.float32)
+    return _qz.quantize_int8(x, block=_BLOCK)
 
 
 def dequantize_int8_rows(q: torch.Tensor, scale: torch.Tensor, l: int,
@@ -117,8 +110,10 @@ def dequantize_int8_rows(q: torch.Tensor, scale: torch.Tensor, l: int,
     if scale.shape[0] != r:
         raise ValueError(
             f"payload has {r} rows but scales have {scale.shape[0]}")
-    blocks = q.reshape(r, -1, _BLOCK).to(torch.float32) * scale[..., None]
-    return blocks.reshape(r, -1)[:, :l].to(dtype)
+    kernel_dtype = dtype if dtype in (torch.float32, torch.bfloat16) \
+        else torch.float32
+    return _qz.dequantize_int8(q, scale, block=_BLOCK, length=l,
+                               dtype=kernel_dtype).to(dtype)
 
 
 def payload_bits(n: int, cfg: QuantConfig, base_dtype_bits: int = 32) -> float:

@@ -22,10 +22,12 @@ The mix is lowered onto the hand-written kernels of ``kernels.gossip_mix``
   concatenated into one (n, total) buffer per dtype (the CNN: one launch
   over (6, 21 840)); element for element the same arithmetic as mixing
   each leaf on its own.
-* the int8 receive of ``_mix_compressed_*`` — ``gossip_mix_q8_rows``
-  (exact fp32 self term, int8 neighbor payloads dequantized in the
-  kernel); quantization and the error-feedback dequantize stay plain
-  torch, as the JAX package leaves them to XLA.
+* the int8 round of ``_mix_compressed_*`` — three launches: the
+  quantize and the error-feedback dequantize of ``kernels.quantize`` (at
+  the wire format's 2048-lane blocks, through
+  ``compression.quantize_int8_rows`` / ``dequantize_int8_rows``), then
+  ``gossip_mix_q8_rows`` (exact fp32 self term, int8 neighbor payloads
+  dequantized in the kernel).
 * the bf16 receive — one ``gossip_mix_rows`` launch with
   ``W_cat = [diag(diag(W)) | W_off]`` (n, 2n) over the stacked fp32
   buffers ``[flat; deq]`` (2n, N): the self term exact, the neighbor terms

@@ -31,7 +31,8 @@ __all__ = ["load", "build", "launch", "SOURCES", "BUILD_DIR", "NVCC_FLAGS"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
-SOURCES = ("gossip_mix", "flash_attention", "rglru_scan", "rwkv6_scan")
+SOURCES = ("gossip_mix", "flash_attention", "rglru_scan", "rwkv6_scan",
+           "quantize")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

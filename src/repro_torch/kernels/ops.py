@@ -13,11 +13,12 @@ import torch
 
 from . import flash_attention as _fa
 from . import gossip_mix as _gm
+from . import quantize as _qz
 from . import rglru_scan as _rg
 from . import rwkv6_scan as _rw
 
 __all__ = ["gossip_mix", "gossip_mix_q8", "flash_attention_gqa", "rwkv6",
-           "rglru"]
+           "rglru", "quantize_int8", "dequantize_int8"]
 
 
 def gossip_mix(bufs: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
@@ -65,3 +66,19 @@ def rglru(a: torch.Tensor, binp: torch.Tensor,
           h0: Optional[torch.Tensor] = None) -> torch.Tensor:
     """h_t = a_t h_{t-1} + b_t; a, b (B,S,D); h0 (B,D) -> h (B,S,D)."""
     return _rg.rglru_scan(a, binp, h0)
+
+
+def quantize_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """x (R, C) -> (q int8 (R, C), scales fp32 (R, ceil(C/256))). The JAX
+    wrapper pads R to 8 and C to 256 with zeros and trims the result; rows
+    are independent and the kernel reads the lanes past C as that zero
+    padding, so only the trim is left."""
+    q, s = _qz.quantize_int8(x, 256)
+    return q[:, :x.shape[1]], s
+
+
+def dequantize_int8(q: torch.Tensor, s: torch.Tensor,
+                    dtype=torch.float32) -> torch.Tensor:
+    """Inverse of ``quantize_int8``: q (R, C) int8, s (R, ceil(C/256))
+    -> (R, C) in ``dtype``."""
+    return _qz.dequantize_int8(q.contiguous(), s, 256, q.shape[1], dtype)

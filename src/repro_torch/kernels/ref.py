@@ -1,6 +1,4 @@
-"""Pure-torch oracles for the port's kernels (the allclose ground truth).
-
-The oracles of the kernels still to port come with them."""
+"""Pure-torch oracles for the port's kernels (the allclose ground truth)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -8,7 +6,8 @@ from typing import Optional
 import torch
 
 __all__ = ["gossip_mix_ref", "gossip_mix_q8_ref", "flash_attention_ref",
-           "rwkv6_ref", "rglru_ref"]
+           "rwkv6_ref", "rglru_ref", "quantize_int8_ref",
+           "dequantize_int8_ref"]
 
 
 def gossip_mix_ref(bufs: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
@@ -83,3 +82,24 @@ def rglru_ref(a: torch.Tensor, binp: torch.Tensor,
         h = a[:, t] * h + binp[:, t]
         hs.append(h)
     return torch.stack(hs, dim=1)
+
+
+def quantize_int8_ref(x: torch.Tensor, block: int = 256
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """x (R, C) with C % block == 0 -> (q int8 (R, C), scales fp32
+    (R, C/block)). The divisor is a tensor, so division is IEEE on every
+    device."""
+    r, c = x.shape
+    xb = x.to(torch.float32).reshape(r, c // block, block)
+    amax = xb.abs().amax(dim=-1)
+    scale = amax / torch.full_like(amax, 127.0)
+    scale = torch.where(scale == 0, torch.ones_like(scale), scale)
+    q = torch.clamp(torch.round(xb / scale[..., None]), -127, 127)
+    return q.to(torch.int8).reshape(r, c), scale
+
+
+def dequantize_int8_ref(q: torch.Tensor, scale: torch.Tensor,
+                        block: int = 256, dtype=torch.float32) -> torch.Tensor:
+    r, c = q.shape
+    xb = q.reshape(r, c // block, block).to(torch.float32) * scale[..., None]
+    return xb.reshape(r, c).to(dtype)

@@ -376,13 +376,13 @@ def test_new_kernels_raise_below_sm90(monkeypatch, kernel):
 
 def test_build_lists_every_source_and_names_each_library():
     assert _build.SOURCES == ("gossip_mix", "flash_attention", "rglru_scan",
-                              "rwkv6_scan")
+                              "rwkv6_scan", "quantize")
     libs = set()
     for name in _build.SOURCES:
         src, so = _build._target(name)
         assert src.exists() and so.name.startswith(f"{name}-")
         libs.add(so.name)
-    assert len(libs) == 4
+    assert len(libs) == 5
 
 
 # ---------------------------------------------------------------------------

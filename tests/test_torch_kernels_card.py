@@ -1,19 +1,23 @@
 """The CUDA kernels (gossip mix, flash attention, RG-LRU scan, RWKV-6
-scan) against their plain torch versions, on an sm_90 card (every test
-here skips without one).
+scan, int8 quantize / dequantize) against their plain torch versions, on an
+sm_90 card (every test here skips without one).
 
 Imports neither ``jax`` nor ``repro``, so it runs on a machine with only
 PyTorch:  PYTHONPATH=src python -m pytest -q tests/test_torch_kernels_card.py
 
 Tolerances follow tests/test_kernels.py: gossip fp32 1e-5, bf16 3e-2;
-flash fp32 2e-5, bf16 3e-2; rglru 1e-4; rwkv6 5e-4.
+flash fp32 2e-5, bf16 3e-2; rglru 1e-4; rwkv6 5e-4. The int8 codec is
+bit-equal: q, scales and the dequantized output ``torch.equal`` (finite
+inputs).
 """
 import pytest
 import torch
 
+from repro_torch.core import compression as comp
 from repro_torch.core.compression import quantize_int8_rows
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import gossip_mix as gm, ops
+from repro_torch.kernels import quantize as qz
 from repro_torch.kernels import rglru_scan as rg
 from repro_torch.kernels import rwkv6_scan as rw
 
@@ -190,3 +194,75 @@ def test_rwkv6_scan_kernel_contracts(sm90):
         with pytest.raises(ValueError, match=match):
             rw.rwkv6_scan(*args)
     assert rw.rwkv6_scan.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", [256, 2048])
+@pytest.mark.parametrize("rows,length", [(6, 21_840), (6, 21_843), (5, 700),
+                                         (1, 1), (16, 256), (3, 4096 + 8)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_quantize_kernels_match_plain(sm90, block, rows, length, dtype):
+    g = torch.Generator().manual_seed(rows * length + block)
+    x = (torch.randn((rows, length), generator=g) * 3).to(DTYPES[dtype])
+    before = (qz.quantize_int8.launches, qz.dequantize_int8.launches)
+    q, s = qz.quantize_int8(x.to(sm90), block)
+    outs = {odt: qz.dequantize_int8(q, s, block, length, DTYPES[odt])
+            for odt in DTYPES}
+    torch.cuda.synchronize()
+    assert (qz.quantize_int8.launches, qz.dequantize_int8.launches) == \
+        (before[0] + 1, before[1] + 2)
+    qp, sp = qz.quantize_int8_plain(x, block)
+    assert torch.equal(q.cpu(), qp) and torch.equal(s.cpu(), sp)
+    for odt, got in outs.items():
+        assert got.dtype == DTYPES[odt] and got.shape == (rows, length)
+        assert torch.equal(got.cpu(), qz.dequantize_int8_plain(
+            qp, sp, block, length, DTYPES[odt]))
+
+
+@pytest.mark.cuda
+def test_quantize_kernels_through_the_wire_codec_and_ops(sm90):
+    """The wire codec (2048 lanes) and the TPU contract (256 lanes, ragged
+    C) on the card launch the kernels and equal the CPU's plain results;
+    the card's plain version on the same inputs agrees too."""
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn((6, 21_840), generator=g) * 0.3
+    before = (qz.quantize_int8.launches, qz.dequantize_int8.launches)
+    q, s = comp.quantize_int8_rows(x.to(sm90))
+    d = comp.dequantize_int8_rows(q, s, 21_840)
+    qo, so = ops.quantize_int8(x[:5, :700].to(sm90))
+    do = ops.dequantize_int8(qo, so)
+    torch.cuda.synchronize()
+    assert (qz.quantize_int8.launches, qz.dequantize_int8.launches) == \
+        (before[0] + 2, before[1] + 2)
+    qc, sc = comp.quantize_int8_rows(x)
+    assert torch.equal(q.cpu(), qc) and torch.equal(s.cpu(), sc)
+    assert torch.equal(d.cpu(), comp.dequantize_int8_rows(qc, sc, 21_840))
+    qg, sg = qz.quantize_int8_plain(x.to(sm90), 2048)
+    assert torch.equal(q, qg) and torch.equal(s, sg)
+    qoc, soc = ops.quantize_int8(x[:5, :700])
+    assert torch.equal(qo.cpu(), qoc) and torch.equal(so.cpu(), soc)
+    assert torch.equal(do.cpu(), ops.dequantize_int8(qoc, soc))
+
+
+@pytest.mark.cuda
+def test_quantize_kernel_contracts(sm90):
+    q = torch.zeros((2, 512), dtype=torch.int8, device=sm90)
+    before = (qz.quantize_int8.launches, qz.dequantize_int8.launches)
+    for call, match in (
+            (lambda: qz.quantize_int8(torch.zeros(3, 5, device=sm90), 512),
+             "scale block"),
+            (lambda: qz.quantize_int8(torch.zeros(10, device=sm90)), "2-D"),
+            (lambda: qz.quantize_int8(torch.zeros(2, 9, dtype=torch.float16,
+                                                  device=sm90)),
+             "float32 or bfloat16"),
+            (lambda: qz.dequantize_int8(q, torch.ones(2, 3, device=sm90)),
+             "one per block"),
+            (lambda: qz.dequantize_int8(q.float(), torch.ones(2, 2,
+                                                              device=sm90)),
+             "int8"),
+            (lambda: qz.dequantize_int8(q, torch.ones(2, 2, device=sm90),
+                                        length=600), "fit")):
+        with pytest.raises(ValueError, match=match):
+            call()
+    assert (qz.quantize_int8.launches, qz.dequantize_int8.launches) == before
+

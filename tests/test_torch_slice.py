@@ -124,6 +124,10 @@ def test_slice_runs_without_jax_or_repro_loaded():
         "data = ex.load_data(6, 240, 60, device='cpu')\n"
         "out = [ex.run_target(cap, lam, data, 2) for lam in ex.LAMBDA_TARGETS]\n"
         "assert [r['steps'] for r in out] == [2, 2], out\n"
+        "import repro_torch.sim as sim\n"
+        "trace, _ = sim.simulate_dpsgd_cnn(sim.get_scenario('compressed_int8'),"
+        " epochs=1, n_train=300, n_test=30, device='cpu')\n"
+        "assert len(trace.records) == 2, trace.records\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"
