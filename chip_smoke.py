@@ -858,10 +858,12 @@ def phase_quantize_kernels(torch) -> dict:
     bf16 = torch.bfloat16
 
     def same(what, got, want):
+        """Check ``got`` bit-equal to ``want``; max|err| of each pair."""
         ok = all(a.shape == b.shape and a.dtype == b.dtype and torch.equal(a, b)
                  for a, b in zip(got, want))
         print(f"quantize       {what:62s} bit-equal: {ok}")
         check(ok, f"int8 codec {what}: kernel and plain version differ")
+        return [err(a, b) for a, b in zip(got, want)]
 
     def randn(rows, length, scale=3.0, dtype=torch.float32):
         return (torch.randn((rows, length), generator=gen, device=dev)
@@ -891,7 +893,10 @@ def phase_quantize_kernels(torch) -> dict:
         qp, sp = qz.quantize_int8_plain(x, 2048)
         dp = qz.dequantize_int8_plain(qp, sp, 2048, length)
         torch.cuda.synchronize()
-        same(f"wire format ({rows}, {length}) fp32", [q, s, d], [qp, sp, dp])
+        e = same(f"wire format ({rows}, {length}) fp32", [q, s, d],
+                 [qp, sp, dp])
+        if (rows, length) == (N_NODES, 21_840):     # the path's message
+            errs = {"quantize_int8": max(e[:2]), "dequantize_int8": e[2]}
     # the ValueError contracts, raised before any launch
     qz8 = torch.zeros((2, 512), dtype=torch.int8, device=dev)
     for what, call, match in (
@@ -917,37 +922,51 @@ def phase_quantize_kernels(torch) -> dict:
 
     # times: at the path's message, (6, 21 840) fp32 in 2048-lane blocks,
     # and at (64, 1 048 576) fp32, large enough to read the HBM rate (both
-    # formats; printed only)
+    # formats; printed only). Dequantize's library call is one broadcast
+    # multiply of the int8 payload by its scales, trimmed by a view (timed
+    # here only; quantize has no single-call equivalent)
     out = {}
     for rows, length, block, reps in ((N_NODES, 21_840, 2048, 100),
                                       (64, 1 << 20, 2048, 10),
                                       (64, 1 << 20, 256, 10)):
         x = randn(rows, length, scale=0.3)
         q, s = qz.quantize_int8(x, block)
-        for name, kernel, plain, cost, kname in (
+
+        def library():
+            return (q.view(rows, -1, block) * s[..., None]).view(
+                rows, -1)[:, :length]
+        lib_err = err(library(), qz.dequantize_int8(q, s, block, length))
+        print(f"dequantize_int8 ({rows}, {length}), {block}-lane blocks: "
+              f"library (int8 payload * scales) vs kernel max|diff| "
+              f"{lib_err:.3e}")
+        for name, kernel, plain, lib, cost, kname in (
                 ("quantize_int8", lambda: qz.quantize_int8(x, block),
-                 lambda: qz.quantize_int8_plain(x, block),
+                 lambda: qz.quantize_int8_plain(x, block), None,
                  quantize_cost(rows, length, block, 4),
                  "quantize_int8_kernel"),
                 ("dequantize_int8",
                  lambda: qz.dequantize_int8(q, s, block, length),
                  lambda: qz.dequantize_int8_plain(q, s, block, length),
-                 dequantize_cost(rows, length, block, 4),
+                 library, dequantize_cost(rows, length, block, 4),
                  "dequantize_int8_kernel")):
             b_ms, b_by = bound(*cost)
             t = {"ms": time_ms(torch, kernel, reps=reps),
                  "plain_ms": time_ms(torch, plain, reps=reps),
-                 "library_ms": None,
+                 "library_ms": None if lib is None
+                 else time_ms(torch, lib, reps=reps),
                  "device_ms": device_ms(torch, kernel, kname, calls=reps),
-                 "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": 0.0,
+                 "bound_ms": b_ms, "bound_by": b_by,
+                 "max_abs_err": errs[name],
                  "shape": f"({rows}, {length}) fp32, {block}-lane blocks"}
             dms = "not measured" if t["device_ms"] is None \
                 else f"{t['device_ms'] * 1e3:.2f} us"
             rate = "" if t["device_ms"] is None else \
                 f", {cost[0] / t['device_ms'] / 1e9:.1f} TB/s"
+            lib_us = "none" if lib is None \
+                else f"{t['library_ms'] * 1e3:.2f} us"
             print(f"{name:15s} {t['shape']}: {t['ms'] * 1e3:.2f} us/call "
                   f"(device {dms}{rate}) | plain {t['plain_ms'] * 1e3:.2f} us"
-                  f" | library none | bound {b_ms * 1e3:.3f} us ({b_by})")
+                  f" | library {lib_us} | bound {b_ms * 1e3:.3f} us ({b_by})")
             if rows == N_NODES:         # the path's shape: the JSON row
                 out[name] = t
     return out
@@ -1170,30 +1189,6 @@ def phase_served_correctness(torch, title: str, arch: str, counters: dict,
           "the card side did not run the kernels")
 
 
-def cnn_routing(torch, params: dict, images) -> list:
-    """Per node, what the CNN's gradient depends on discontinuously: the
-    entry each 2x2 max-pool window routes to (-1 where the ReLU after it
-    blocks the gradient) and fc1's ReLU mask, from the same vmapped forward
-    the D-PSGD step runs (``models/cnn.py``)."""
-    import torch.nn.functional as F
-
-    def fwd(p, x):
-        c1 = F.conv2d(x, p["conv1"]["w"], p["conv1"]["b"])
-        c2 = F.conv2d(F.relu(F.max_pool2d(c1, 2)), p["conv2"]["w"],
-                      p["conv2"]["b"])
-        h = F.relu(F.max_pool2d(c2, 2)).reshape(x.shape[0], -1)
-        return c1, c2, h @ p["fc1"]["w"] + p["fc1"]["b"]
-
-    def pool(a):
-        n, b, c, h, w = a.shape
-        win = a.reshape(n, b, c, h // 2, 2, w // 2, 2).permute(
-            0, 1, 2, 3, 5, 4, 6).reshape(n, b, c, h // 2, w // 2, 4)
-        return torch.where(win.amax(-1) > 0, win.argmax(-1), -1).cpu()
-
-    c1, c2, z1 = torch.func.vmap(fwd)(params, images)
-    return [pool(c1), pool(c2), (z1 > 0).cpu()]
-
-
 def phase_simulated_training(torch) -> dict:
     phase("10. training through the wireless simulator on the card")
     from repro_torch.core import dpsgd
@@ -1308,15 +1303,12 @@ def phase_simulated_training(torch) -> dict:
         out[name] = {"launches": launches}
 
     # the first compressed rounds again on the CPU (plain versions), in
-    # lockstep: each from the card's input state. A node's parameter row is
-    # held at 1e-5 where card and CPU route its max-pools and ReLUs alike;
-    # at a near-tie the gradient itself jumps (its fc2 row stays held).
+    # lockstep: each from the card's input state
     check(len(captured) == SIM_CPU_ROUNDS, f"captured {len(captured)} rounds")
     to_cpu = lambda t: dpsgd._tree_map(lambda x: x.cpu(), t)  # noqa: E731
     step = factory(cnn.cnn_loss, get_scenario("compressed_int8").payload,
                    dpsgd.DPSGDConfig(eta=0.05))    # simulate_dpsgd_cnn's eta
     worst = {"loss": 0.0, "params": 0.0, "residuals": 0.0}
-    flipped = rows_held = 0
     for (params, batch, w, live, res), (p_g, r_g, l_g) in captured:
         p_c, r_c, l_c = step(to_cpu(params), to_cpu(batch), w, live.cpu(),
                              to_cpu(res))
@@ -1324,16 +1316,9 @@ def phase_simulated_training(torch) -> dict:
         worst["residuals"] = max(worst["residuals"], max(
             err(a.cpu(), b) for a, b in zip(dpsgd._leaves(r_g),
                                             dpsgd._leaves(r_c))))
-        rg = cnn_routing(torch, params, batch["images"])
-        rc = cnn_routing(torch, to_cpu(params), to_cpu(batch)["images"])
-        for k in range(len(l_c)):
-            same = all(torch.equal(a[k], b[k]) for a, b in zip(rg, rc))
-            flipped += not same
-            rows_held += 1
-            for layer in (sorted(p_c) if same else ["fc2"]):
-                for leaf in p_c[layer]:
-                    worst["params"] = max(worst["params"], err(
-                        p_g[layer][leaf][k].cpu(), p_c[layer][leaf][k]))
+        worst["params"] = max(worst["params"], max(
+            err(a.cpu(), b) for a, b in zip(dpsgd._leaves(p_g),
+                                            dpsgd._leaves(p_c))))
 
         def carried(p, e):
             return torch.cat([(a + b).reshape(len(l_c), -1) for a, b in
@@ -1345,13 +1330,10 @@ def phase_simulated_training(torch) -> dict:
     print(f"compressed_int8, first {SIM_CPU_ROUNDS} rounds card vs CPU in "
           f"lockstep: q and scales bit-equal, max|loss diff| "
           f"{worst['loss']:.3e}, max|param diff| {worst['params']:.3e}, "
-          f"max|residual diff| {worst['residuals']:.3e}; node rows at a "
-          f"max-pool/ReLU near-tie (fc2 held only): {flipped}")
+          f"max|residual diff| {worst['residuals']:.3e}")
     check(worst["loss"] <= 1e-4, f"card and CPU losses differ: {worst}")
     check(worst["params"] <= TOL_FP32 and worst["residuals"] <= TOL_FP32,
           f"card and CPU parameters or residuals differ: {worst}")
-    check(flipped <= 0.1 * rows_held,
-          f"{flipped} of {rows_held} node rows at near-ties")
     return out
 
 
