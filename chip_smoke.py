@@ -28,11 +28,15 @@ Phases, each of which ends the run with a nonzero exit if it fails:
 1. device   — a CUDA card of compute capability >= (9, 0); TF32 off for
               matmuls and cuDNN convolutions, so fp32 means fp32;
 2. build    — nvcc builds every kernel from the sources into ``build/``
-              (one nvcc per source, started together);
+              (one nvcc per source, started together); each flash entry's
+              registers and spill bytes from the ptxas report, and the
+              bf16 (wgmma) kernels must not spill;
 3. kernels  — each kernel against its plain torch version at the main
               paths' shapes and at edge shapes, its ValueError contracts,
               and its time beside its bound, plain and library times
-              (3: gossip mixes, 3b: flash and rglru, 3c: rwkv6_scan, and
+              (3: gossip mixes, 3b: flash and rglru, flash in bf16 also at
+              the tensor-core kernel's tile edges, with its TFLOP/s over
+              the band and share of the bound, 3c: rwkv6_scan, and
               its state handoff to the one-token decode step, 3d: the
               int8 quantize / dequantize, bit-equal, in the TPU kernels'
               256-lane format through ``ops`` and the 2048-lane wire
@@ -85,6 +89,7 @@ Run from the repository root:  python3 chip_smoke.py
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -109,6 +114,14 @@ BF16_FLOPS = 989e12                  # H100 SXM, dense bf16 tensor cores
 TOL_FP32, TOL_BF16 = 1e-5, 3e-2      # tests/test_kernels.py
 TOL_FLASH_FP32, TOL_RGLRU = 2e-5, 1e-4   # tests/test_kernels.py
 TOL_RWKV = 5e-4                          # tests/test_kernels.py
+# bf16 flash, besides max|err| <= TOL_BF16: every output row (one query,
+# one head: D values) within 2^-6 of its norm, ||got - want|| <=
+# TOL_FLASH_ROW ||want||. Rows that attend to 2048 keys are ~0.036 in size,
+# so the absolute bar alone would pass a kernel that loses a few keys of
+# the window's edge; losing one key of 2048 moves a row by ~2048^-1/2 =
+# 0.022 of its norm, while the kernel's own roundings (P and out to bf16)
+# stay well below the bar (PERF.md, PR 15's row of the flash kernel).
+TOL_FLASH_ROW = 2.0 ** -6
 
 # the serving slice (phases 6-7): recurrentgemma-2b at its published widths
 SERVE_ARCH = "recurrentgemma-2b"
@@ -280,6 +293,41 @@ def err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
+def row_err(a, b) -> float:
+    """Largest relative error over the rows of the last axis:
+    max ||a_r - b_r|| / ||b_r||."""
+    a, b = a.float().flatten(0, -2), b.float().flatten(0, -2)
+    return float(((a - b).norm(dim=-1) / b.norm(dim=-1).clamp_min(1e-30))
+                 .max())
+
+
+def flash_edge_tile_dropped(torch, q, k, v, window: int):
+    """A planted wrong bf16 flash kernel, causal with a window: where the
+    window clips a 128-row query tile's band, the band starts one 64-key
+    tile late (the partial tile at the window's edge is lost). Otherwise
+    the plain version's arithmetic; rows left with no key read 0."""
+    b, s, hq, d = q.shape
+    hkv = k.shape[2]
+    qf = q.float().reshape(b, s, hkv, hq // hkv, d) * d**-0.5
+    out = torch.zeros_like(q)
+    for q0 in range(0, s, 128):
+        q1 = min(q0 + 128, s)
+        lo = max(0, q0 - window + 1) // 64 * 64 \
+            + (64 if q0 - window + 1 > 0 else 0)
+        if lo >= q1:
+            continue
+        scores = torch.einsum("bshgd,bthd->bshgt", qf[:, q0:q1],
+                              k[:, lo:q1].float())
+        qpos = torch.arange(q0, q1, device=q.device)[:, None]
+        kpos = torch.arange(lo, q1, device=q.device)[None, :]
+        live = ((kpos <= qpos) & (qpos - kpos < window))[None, :, None, None]
+        p = torch.softmax(scores.masked_fill(~live, -1e30), dim=-1) \
+            * live.any(-1, keepdim=True)
+        o = torch.einsum("bshgt,bthd->bshgd", p, v[:, lo:q1].float())
+        out[:, q0:q1] = o.reshape(b, q1 - q0, hq, d).to(q.dtype)
+    return out
+
+
 def tree_leaves(tree) -> list:
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
@@ -316,6 +364,25 @@ def phase_device(torch) -> None:
           "torch.backends.cudnn.allow_tf32 = False")
 
 
+def ptxas_entries(log: str) -> list[tuple[str, int, int, int]]:
+    """(entry function, registers, spill store bytes, spill load bytes) of
+    each kernel in an ``nvcc -Xptxas -v`` report."""
+    rows, name, spill = [], None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name, spill = m.group(1), (0, 0)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            rows.append((name, int(m.group(1)), *spill))
+            name = None
+    return rows
+
+
 def phase_build() -> None:
     phase("2. build")
     from repro_torch.kernels import _build
@@ -329,9 +396,28 @@ def phase_build() -> None:
         _build.load(name)
         print(f"{name}: {so.relative_to(ROOT)}")
         log = so.with_suffix(".log")
-        for line in (log.read_text() if log.exists() else "").splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
+        text = log.read_text() if log.exists() else ""
+        if name != "flash_attention":
+            for line in text.splitlines():
+                if "registers" in line or "spill" in line or "error" in line:
+                    print(f"   {line.strip()}")
+            continue
+        # the flash entries by name: the bf16 (wgmma) kernels must not spill
+        bf16 = []
+        for entry, regs, st, ld in ptxas_entries(text):
+            m = re.search(r"(flash_attention(?:_bf16)?_kernel)ILi(\d+)E",
+                          entry)
+            label = f"{m[1]}<{m[2]}>" if m else entry
+            print(f"   {label}: {regs} registers, spill stores {st} B, "
+                  f"spill loads {ld} B")
+            if "_bf16_" in label:
+                bf16.append((label, st + ld))
+        for line in text.splitlines():
+            if "Performance Loss" in line:      # wgmma serialised by ptxas
                 print(f"   {line.strip()}")
+        check(len(bf16) == 3, f"ptxas log names {len(bf16)} bf16 flash "
+              "kernels, expected 3 (DP 64, 128, 256)")
+        check(all(n == 0 for _, n in bf16), f"bf16 flash kernels spill: {bf16}")
 
 
 def phase_kernels(torch) -> dict:
@@ -645,32 +731,73 @@ def phase_attention_kernels(torch) -> dict:
                                  ).to(dtype) for h in (hq, hkv, hkv))
 
     # the slice's prefill shape, then edge shapes: ragged S, D in
-    # {16, 64, 80, 128}, window 0 causal and not, Hq == Hkv, bands that skip
+    # {16, 64, 80, 128}, window 0 causal and not, Hq == Hkv, bands that skip;
+    # the bf16 (wgmma) kernel also at its tile edges (128 query rows, 64
+    # keys a block): S = T of 1, 63, 129, 200 and 4097, windows 1, 33, 64,
+    # 100 and 2048, D of 16 to 256, GQA groups 1, 2 and 10, causal off
     main = (SERVE_BATCH, SERVE_PROMPT, 10, 1, 256, True, 2048)
-    cases = [(*main, torch.bfloat16), (*main, torch.float32),
+    bf16 = torch.bfloat16
+    cases = [(*main, bf16), (*main, torch.float32),
              (2, 33, 4, 2, 64, True, 0, torch.float32),
              (2, 80, 4, 1, 16, True, 32, torch.float32),
-             (2, 130, 8, 2, 64, True, 48, torch.bfloat16),
+             (2, 130, 8, 2, 64, True, 48, bf16),
              (1, 257, 4, 4, 128, True, 0, torch.float32),
              (1, 65, 4, 4, 80, True, 0, torch.float32),
              (2, 100, 4, 2, 64, False, 0, torch.float32),
-             (2, 100, 4, 2, 16, False, 0, torch.bfloat16)]
+             (2, 100, 4, 2, 16, False, 0, bf16),
+             (2, 1, 4, 2, 64, True, 0, bf16),
+             (2, 63, 4, 4, 80, True, 33, bf16),
+             (1, 129, 10, 1, 128, True, 1, bf16),
+             (2, 200, 4, 2, 16, True, 64, bf16),
+             (1, 200, 10, 1, 256, False, 100, bf16),
+             (2, 129, 4, 2, 64, False, 0, bf16),
+             (1, 63, 2, 1, 256, True, 2048, bf16),
+             (1, 4097, 10, 1, 256, True, 2048, bf16),
+             (1, 4097, 2, 2, 128, True, 0, bf16)]
     for b, s, hq, hkv, d, causal, window, dtype in cases:
         q, k, v = qkv(b, s, hq, hkv, d, dtype)
         got = fa.flash_attention(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
-        hold("flash_attention", got, fa.flash_attention_plain(
-            q, k, v, causal=causal, window=window), tol[dtype],
-            f"({b},{s},{hq}/{hkv},{d}) causal={causal} w={window} "
-            f"{str(dtype)[6:]}")
-    before = fa.flash_attention.launches
-    try:
-        fa.flash_attention(*qkv(1, 8, 2, 1, 320, torch.float32))
-    except ValueError as e:
-        check(fa.flash_attention.launches == before, "launched before raising")
-        print(f"flash_attention ValueError on head_dim 320: ok ({e})")
-    else:
-        fail("flash_attention accepted head_dim 320")
+        want = fa.flash_attention_plain(q, k, v, causal=causal,
+                                        window=window)
+        what = (f"({b},{s},{hq}/{hkv},{d}) causal={causal} w={window} "
+                f"{str(dtype)[6:]}")
+        hold("flash_attention", got, want, tol[dtype], what)
+        if dtype != bf16:
+            continue
+        e = row_err(got, want)
+        print(f"{'':15s} {what:58s} row |err|/|want| {e:.3e} "
+              f"(tol {TOL_FLASH_ROW:g})")
+        check(e <= TOL_FLASH_ROW,
+              f"flash_attention {what}: row error {e} > {TOL_FLASH_ROW}")
+        if causal and 1 < window <= (s - 1) // 128 * 128:
+            # the bar's power: planted wrong kernels that lose the window's
+            # edge tile (a query tile past the first one has its band
+            # clipped), or one key of each full window
+            for wrong, bad in (
+                    ("edge tile dropped",
+                     flash_edge_tile_dropped(torch, q, k, v, window)),
+                    ("window one key short", fa.flash_attention_plain(
+                        q, k, v, causal=True, window=window - 1))):
+                e_bad = row_err(bad, want)
+                print(f"{'':15s} {'planted wrong kernel: ' + wrong:58s} "
+                      f"row |err|/|want| {e_bad:.3e}, max|err| "
+                      f"{err(bad, want):.3e}")
+                check(e_bad > TOL_FLASH_ROW,
+                      f"the row bar passes a wrong kernel ({wrong}) at "
+                      f"{what}")
+    for d, dtype in ((320, torch.float32), (20, bf16)):
+        before = fa.flash_attention.launches
+        try:
+            fa.flash_attention(*qkv(1, 8, 2, 1, d, dtype))
+        except ValueError as e:
+            check("head_dim" in str(e), f"head_dim {d}: wrong message {e}")
+            check(fa.flash_attention.launches == before,
+                  "launched before raising")
+            print(f"flash_attention ValueError on head_dim {d} "
+                  f"{str(dtype)[6:]}: ok ({e})")
+        else:
+            fail(f"flash_attention accepted head_dim {d} in {dtype}")
 
     for b, s, d, with_h0 in ((SERVE_BATCH, SERVE_PROMPT, 2560, True),
                              (SERVE_BATCH, 1, 2560, True),
@@ -691,8 +818,9 @@ def phase_attention_kernels(torch) -> dict:
     qpos = torch.arange(s, device=dev)[:, None]
     kpos = torch.arange(s, device=dev)[None, :]
     band = (kpos <= qpos) & (qpos - kpos < window)
-    for dtype, elt, peak in ((torch.bfloat16, 2, BF16_FLOPS),
-                             (torch.float32, 4, FP32_FLOPS)):
+    for dtype, elt, peak, kname in (
+            (torch.bfloat16, 2, BF16_FLOPS, "flash_attention_bf16_kernel"),
+            (torch.float32, 4, FP32_FLOPS, "flash_attention_kernel")):
         q, k, v = qkv(b, s, hq, hkv, d, dtype)
 
         def kernel():
@@ -703,7 +831,8 @@ def phase_attention_kernels(torch) -> dict:
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                 attn_mask=band, enable_gqa=True)
         lib_err = err(library().transpose(1, 2), kernel())
-        b_ms, b_by = bound(*flash_cost(b, s, hq, hkv, d, window, elt), peak)
+        nbytes, flops = flash_cost(b, s, hq, hkv, d, window, elt)
+        b_ms, b_by = bound(nbytes, flops, peak)
         out[str(dtype)[6:]] = {
             "ms": time_ms(torch, kernel, reps=10, rounds=3, warmup=2),
             "plain_ms": time_ms(torch, lambda: fa.flash_attention_plain(
@@ -711,14 +840,19 @@ def phase_attention_kernels(torch) -> dict:
                 warmup=1),
             "library_ms": time_ms(torch, library, reps=10, rounds=3,
                                   warmup=2),
-            "device_ms": device_ms(torch, kernel, "flash_attention_kernel",
-                                   calls=3),
+            "device_ms": device_ms(torch, kernel, kname, calls=3),
             "bound_ms": b_ms, "bound_by": b_by,
             "shape": f"q ({b},{s},{hq},{d}) k/v ({b},{s},{hkv},{d}) "
                      f"{str(dtype)[6:]}, causal, window {window}"}
-        print(f"flash_attention {out[str(dtype)[6:]]['shape']}: library "
+        t = out[str(dtype)[6:]]
+        dev_t = t["device_ms"] if t["device_ms"] is not None else t["ms"]
+        print(f"flash_attention {t['shape']}: library "
               f"(scaled_dot_product_attention, band mask) vs kernel "
-              f"max|diff| {lib_err:.3e}")
+              f"max|diff| {lib_err:.3e}; {flops:.4e} flops over the band: "
+              f"{flops / dev_t / 1e9:.1f} TFLOP/s "
+              f"({'device' if t['device_ms'] is not None else 'per call'}), "
+              f"{b_ms / dev_t * 100:.1f} % of the bound; library "
+              f"{t['library_ms']:.4f} ms in this run")
     flash = dict(out["bfloat16"], fp32=out["float32"])
     for b, s, d, reps in ((SERVE_BATCH, SERVE_PROMPT, 2560, 1),
                           (SERVE_BATCH, 1, 2560, 100)):
@@ -1430,6 +1564,10 @@ def main() -> None:
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": k["library_ms"],
             "device_ms": k["device_ms"], "shape": k["shape"]})
+        if name == "flash_attention":    # the fp32 entry at the same shape
+            rows[-1]["fp32"] = {f: k["fp32"][f] for f in (
+                "ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
+                "bound_by")}
     print("\nphase wall times: " + ", ".join(f"{label} {sec:.2f} s"
                                              for label, sec in walls))
     print(f"all phases passed in {time.perf_counter() - t_start:.1f}s")

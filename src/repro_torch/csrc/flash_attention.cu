@@ -10,40 +10,70 @@
 //
 //   q (B, S, Hq, D), k / v (B, T, Hkv, D), g = Hq / Hkv (GQA: the kv head
 //   of q head h is h / g), all in one dtype (fp32 or bf16), contiguous in
-//   the JAX layout. The rows are read in place by strides: no copy to
-//   (B*H, S, D) and no padding of S or D. Masks on absolute positions:
-//   t < T; causal: t <= s; window w > 0: s - t < w. fp32 online softmax
-//   (running max m, denominator l, accumulator acc), out = acc / max(l,
-//   1e-30), written in q's dtype (bf16 rounds to nearest even).
+//   the JAX layout. The rows are read in place: no copy to (B*H, S, D) and
+//   no padding of S or D in memory. Masks on absolute positions: t < T;
+//   causal: t <= s; window w > 0: s - t < w. fp32 online softmax (running
+//   max m, denominator l, accumulator acc), out = acc / max(l, 1e-30),
+//   written in q's dtype (bf16 rounds to nearest even).
 //
 // What bounds it on an H100: operations. At the served prefill (B = 4,
-// S = 4096, Hq = 10, Hkv = 1, D = 256, window 2048) the band holds
+// S = 4096, Hq = 10, Hkv = 1, D = 256, window 2048, bf16) the band holds
 // 6 292 480 (query, key) pairs per (batch, head): 4 * D * pairs * B * Hq
 // = 2.58e11 flops, 0.261 ms at the 989 TFLOP/s bf16 tensor-core peak,
 // against 184.5 MB of q, k, v and out, 0.055 ms at 3.35 TB/s.
 //
-// What the design does about it: the only saving this first kernel takes
-// is the one the TPU kernel exists for: key tiles outside the causal /
-// window band are never loaded or multiplied. Block (q tile of kBQ rows,
-// q head, batch) loops only over the key tiles from
-// floor(max(0, q0 - w + 1) / kBK) to the last query row of the tile. The
-// arithmetic runs in fp32 on CUDA cores (67 TFLOP/s peak), register-tiled:
-// each of the 256 threads owns 4 query rows x 2 keys of the score tile and
-// the same 4 rows x D/16 lanes of the accumulator, so a row's max and sum
-// reduce over the 16 threads of a half warp with shuffles, and each thread
-// rescales only its own accumulator rows. q (pre-scaled) and k tiles sit
-// transposed in shared memory, so a thread's 4 rows (keys) are one float4
-// (float2) load; v and the probability tile feed the P.V product the same
-// way. Lanes past D and rows past S / T are zero-filled, never read from
-// device memory. Tensor cores (wgmma), TMA and a pipelined ring of tiles
-// are later work. Nothing is allocated here: the Python wrapper allocates
-// the output; the launch goes on the caller's stream and every entry
-// returns cudaGetLastError().
+// Both kernels keep the saving the TPU kernel exists for: key tiles
+// outside the causal / window band are never loaded or multiplied. A block
+// (a tile of query rows, a q head, a batch) loops only over the key tiles
+// from floor(max(0, q0 - w + 1) / BK) to the tile of its last query row.
+//
+// bf16 (flash_attention_bf16_kernel): the tensor cores. A block of 384
+// threads holds 128 query rows: two consumer warpgroups of 64 rows each and
+// one producer warpgroup, which gives its registers to the consumers
+// (setmaxnreg 24 / 240). One producer thread loads q once and then every
+// key tile of the band, k and v (64 keys x DP), with TMA
+// (cp.async.bulk.tensor over the (D, H, S, B) view of each tensor, 64 x 64
+// boxes, 128-byte swizzle; lanes past D and rows past S or T arrive as
+// zeros) into a 2-stage ring, each stage with a "full" mbarrier (the TMA's
+// byte count) and an "empty" one (all 256 consumer threads). Each consumer
+// warpgroup computes S = q k^T with wgmma m64n64k16 from shared memory
+// (both operands K-major, DP / 16 k-steps); masks only the key tiles that
+// cross the diagonal, the window's edge or T (two compares a score against
+// the row's live columns), and skips those wholly outside its own 64 rows'
+// band; runs the online softmax in registers on the accumulator layout (a
+// row's 64 scores lie in the 4 threads of a quad; exp2 of the scores scaled
+// by D^-1/2 log2(e) in one FFMA; masked scores are a finite -1e30 that never
+// reaches exp2 as 0 - 0); rescales its 64 x DP fp32 accumulator only where
+// a row's max moved; rounds P to bf16 in registers and adds P v with wgmma
+// m64nDPk16, P the register operand and v MN-major from shared memory (the
+// transpose bit). The tensor maps are encoded on the host per call
+// (cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint: no
+// -lcuda) and passed as __grid_constant__ parameters. DP = D rounded up to
+// 64, 128 or 256; the entry needs D % 8 == 0 (TMA's 16-byte strides).
+//
+// fp32 (flash_attention_kernel<DP>): CUDA cores (67 TFLOP/s peak);
+// the fp32 path is held at 2e-5, which TF32 (10-bit mantissa) cannot meet.
+// Register-tiled: each of the 256 threads owns 4 query rows x 2 keys of a
+// 64 x 32 score tile and the same 4 rows x D/16 lanes of the accumulator,
+// so a row's max and sum reduce over the 16 threads of a half warp with
+// shuffles. q (pre-scaled) and k tiles sit transposed in shared memory, so
+// a thread's 4 rows (keys) are one float4 (float2) load; v and the
+// probability tile feed the P.V product the same way. Lanes past D and rows
+// past S / T are zero-filled, never read from device memory.
+//
+// Nothing is allocated here: the Python wrapper allocates the output; the
+// launch goes on the caller's stream and every entry returns a CUDA error
+// code (cudaGetLastError() after the launch).
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
+
+// ---------------------------------------------------------------------------
+// fp32: CUDA cores
+// ---------------------------------------------------------------------------
 
 constexpr int kBQ = 64;        // query rows per block
 constexpr int kBK = 32;        // keys per tile
@@ -51,15 +81,6 @@ constexpr int kThreads = 256;  // 16 (ty: 4 rows each) x 16 (tx)
 constexpr int kQS = kBQ + 4;   // padded row strides of the transposed
 constexpr int kKS = kBK + 4;   // tiles (multiples of 4: float4 aligned)
 constexpr float kNeg = -1e30f;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
 
 // DP = D rounded up to 64, 128 or 256 (lanes past D are zeros).
 template <int DP>
@@ -69,12 +90,14 @@ constexpr size_t smem_bytes() {
 }
 
 // grid (ceil(S / kBQ), Hq, B), kThreads threads, smem_bytes<DP>() dynamic.
-template <typename T, int DP>
+template <int DP>
 __global__ void __launch_bounds__(kThreads)
-    flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v, T* __restrict__ out,
-                           int S, int T_len, int Hq, int Hkv, int D,
-                           float scale, int causal, int window) {
+    flash_attention_kernel(const float* __restrict__ q,
+                           const float* __restrict__ k,
+                           const float* __restrict__ v,
+                           float* __restrict__ out, int S, int T_len,
+                           int Hq, int Hkv, int D, float scale, int causal,
+                           int window) {
   constexpr int NC = DP / 16;  // accumulator lanes per thread and row
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;             // [DP][kQS]  q tile, transposed, scaled
@@ -89,16 +112,16 @@ __global__ void __launch_bounds__(kThreads)
   const int q0 = blockIdx.x * kBQ;
   const long long q_step = (long long)Hq * D;   // one sequence position
   const long long k_step = (long long)Hkv * D;
-  const T* qb = q + ((long long)b * S * Hq + h) * D;
-  const T* kb = k + ((long long)b * T_len * Hkv + hk) * D;
-  const T* vb = v + ((long long)b * T_len * Hkv + hk) * D;
+  const float* qb = q + ((long long)b * S * Hq + h) * D;
+  const float* kb = k + ((long long)b * T_len * Hkv + hk) * D;
+  const float* vb = v + ((long long)b * T_len * Hkv + hk) * D;
 
   // q tile: element (r, d) -> qs[d][r], d fastest across threads
   for (int i = tid; i < kBQ * DP; i += kThreads) {
     const int r = i / DP, d = i % DP;
     const int s = q0 + r;
     qs[d * kQS + r] =
-        (s < S && d < D) ? to_f32(qb[s * q_step + d]) * scale : 0.f;
+        (s < S && d < D) ? qb[s * q_step + d] * scale : 0.f;
   }
 
   float acc[4][NC];
@@ -122,8 +145,8 @@ __global__ void __launch_bounds__(kThreads)
       const int c = i / DP, d = i % DP;
       const int t = k0 + c;
       const bool in = t < T_len && d < D;
-      ks[d * kKS + c] = in ? to_f32(kb[t * k_step + d]) : 0.f;
-      vs[c * DP + d] = in ? to_f32(vb[t * k_step + d]) : 0.f;
+      ks[d * kKS + c] = in ? kb[t * k_step + d] : 0.f;
+      vs[c * DP + d] = in ? vb[t * k_step + d] : 0.f;
     }
     __syncthreads();
 
@@ -206,48 +229,561 @@ __global__ void __launch_bounds__(kThreads)
     const int s = q0 + ty * 4 + i;
     if (s >= S) continue;
     const float den = fmaxf(l[i], 1e-30f);
-    T* o = out + ((long long)b * S + s) * q_step + (long long)h * D;
+    float* o = out + ((long long)b * S + s) * q_step + (long long)h * D;
 #pragma unroll
     for (int j = 0; j < DP / 64; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int d = j * 64 + tx * 4 + e;
-        if (d < D) store(o + d, acc[i][j * 4 + e] / den);
+        if (d < D) o[d] = acc[i][j * 4 + e] / den;
       }
   }
 }
 
-template <typename T, int DP>
+template <int DP>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
            int S, int T_len, int Hq, int Hkv, int D, float scale, int causal,
            int window, void* stream) {
   const size_t smem = smem_bytes<DP>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<T, DP>,
+      flash_attention_kernel<DP>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)((S + kBQ - 1) / kBQ), (unsigned)Hq, (unsigned)B);
-  flash_attention_kernel<T, DP><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), S, T_len, Hq, Hkv, D,
-      scale, causal, window);
+  flash_attention_kernel<DP><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), S, T_len, Hq,
+      Hkv, D, scale, causal, window);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
 int dispatch(const void* q, const void* k, const void* v, void* out, int B,
              int S, int T_len, int Hq, int Hkv, int D, float scale,
              int causal, int window, void* stream) {
   if (D <= 64)
-    return launch<T, 64>(q, k, v, out, B, S, T_len, Hq, Hkv, D, scale, causal,
-                         window, stream);
+    return launch<64>(q, k, v, out, B, S, T_len, Hq, Hkv, D, scale, causal,
+                      window, stream);
   if (D <= 128)
-    return launch<T, 128>(q, k, v, out, B, S, T_len, Hq, Hkv, D, scale,
-                          causal, window, stream);
+    return launch<128>(q, k, v, out, B, S, T_len, Hq, Hkv, D, scale, causal,
+                       window, stream);
   if (D <= 256)
-    return launch<T, 256>(q, k, v, out, B, S, T_len, Hq, Hkv, D, scale,
-                          causal, window, stream);
+    return launch<256>(q, k, v, out, B, S, T_len, Hq, Hkv, D, scale, causal,
+                       window, stream);
   return (int)cudaErrorInvalidValue;
+}
+
+
+// ---------------------------------------------------------------------------
+// bf16: wgmma, TMA, a 2-stage ring, warp specialisation
+// ---------------------------------------------------------------------------
+
+constexpr int kTQ = 128;          // query rows per block (2 x 64)
+constexpr int kTK = 64;           // keys per tile
+constexpr int kStages = 2;        // ring depth
+constexpr int kBox = 64 * 64 * 2; // one TMA box: 64 rows x 64 bf16 lanes
+constexpr int kConsumers = 256;   // two warpgroups
+constexpr int kThreadsH = 384;    // + the producer warpgroup
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Shared memory of one block, in bytes from a 1024-aligned base (128-byte
+// swizzle atoms are 1024 bytes): q [2 warpgroups][DP / 64 boxes], then k
+// and v [stage][DP / 64 boxes], then the mbarriers (q, full[], empty[]).
+template <int DP>
+struct Smem {
+  static constexpr int kChunks = DP / 64;
+  static constexpr int kQ = 0;
+  static constexpr int kK = kQ + 2 * kChunks * kBox;
+  static constexpr int kV = kK + kStages * kChunks * kBox;
+  static constexpr int kBar = kV + kStages * kChunks * kBox;
+  static constexpr int kBytes = kBar + 8 * (1 + 2 * kStages) + 1024;
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Spin until the phase of parity `parity` of the barrier has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One 64 x 64 box of a (D, H, L, B) tensor map at (lane c0, head c1, row
+// c2, batch c3) into shared memory; completes `bytes` on the barrier.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile"
+      ".mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled tile: start address,
+// leading and stride byte offsets (16-byte units), layout type 1 (B128).
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Pin accumulator registers here: reads after a wgmma.wait_group (and
+// writes before a wgmma) must not be moved across it by the compiler.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// D (64 x 64, fp32) = A (64 x 16) . B (64 x 16)^T (+ D if scale_d), bf16
+// A and B from shared memory, both K-major.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 64, fp32) += A (64 x 16, bf16 in registers) . B (16 x 64),
+// B from shared memory, MN-major (the transpose bit).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 128, fp32) += A (64 x 16, bf16 in registers) . B (16 x 128),
+// B from shared memory, MN-major (the transpose bit).
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 256, fp32) += A (64 x 16, bf16 in registers) . B (16 x 256),
+// B from shared memory, MN-major (the transpose bit).
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int DP>
+__device__ __forceinline__ void wgmma_rs(float (&o)[DP / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  if constexpr (DP == 64) wgmma_rs_n64(o, a, db);
+  if constexpr (DP == 128) wgmma_rs_n128(o, a, db);
+  if constexpr (DP == 256) wgmma_rs_n256(o, a, db);
+}
+
+// grid (ceil(S / kTQ), Hq, B), kThreadsH threads, Smem<DP>::kBytes dynamic.
+// Accumulator layout (wgmma m64nN, fp32): thread t of a warpgroup holds rows
+// r = 16 (t / 32) + (t % 32) / 4 and r + 8; register 4j + e is column
+// 8j + 2 (t % 4) + (e & 1) of row r (e < 2) or r + 8 (e >= 2).
+template <int DP>
+__global__ void __launch_bounds__(kThreadsH, 1)
+    flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
+                                const __grid_constant__ CUtensorMap tm_k,
+                                const __grid_constant__ CUtensorMap tm_v,
+                                __nv_bfloat16* __restrict__ out, int S,
+                                int T_len, int Hq, int Hkv, int D,
+                                float scale_log2, int causal, int window) {
+  using L = Smem<DP>;
+  constexpr int NC = L::kChunks;
+  constexpr uint32_t kStageBytes = 2 * NC * kBox;  // k and v of one tile
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t sq = base + L::kQ, sk = base + L::kK, sv = base + L::kV;
+  const uint32_t bar_q = base + L::kBar;
+  const uint32_t bar_full = bar_q + 8, bar_empty = bar_full + 8 * kStages;
+
+  // the heaviest q tiles (latest rows) first
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTQ;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (Hq / Hkv);
+  // the band: key tiles [t_begin, t_begin + n_tiles) hold every live pair
+  const int q_last = min(q0 + kTQ, S) - 1;
+  const int k_begin = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int k_end = causal ? min(T_len, q_last + 1) : T_len;
+  const int t_begin = k_begin / kTK;
+  const int n_tiles = max(0, (k_end + kTK - 1) / kTK - t_begin);
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    mbar_init(bar_q, 1);
+#pragma unroll
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(bar_full + 8 * st, 1);
+      mbar_init(bar_empty + 8 * st, kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= kConsumers) {
+    // producer warpgroup: one thread issues every load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (tid == kConsumers) {
+      mbar_expect_tx(bar_q, 2 * NC * kBox);
+      for (int w = 0; w < 2; ++w)
+        for (int c = 0; c < NC; ++c)
+          tma_load(sq + (w * NC + c) * kBox, &tm_q, bar_q, c * 64, h,
+                   q0 + 64 * w, b);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int st = i % kStages;
+        const uint32_t full = bar_full + 8 * st;
+        mbar_wait(bar_empty + 8 * st, ((i / kStages) & 1) ^ 1);
+        mbar_expect_tx(full, kStageBytes);
+        const int k0 = (t_begin + i) * kTK;
+        for (int c = 0; c < NC; ++c) {
+          tma_load(sk + (st * NC + c) * kBox, &tm_k, full, c * 64, hk, k0, b);
+          tma_load(sv + (st * NC + c) * kBox, &tm_v, full, c * 64, hk, k0, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroups 0 and 1: query rows r0 .. r0 + 63
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+  const int wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
+  const int r0 = q0 + 64 * wg;
+  const int row_a = r0 + 16 * warp + lane / 4;  // and row_a + 8
+  const int col_t = 2 * (lane % 4);
+  const bool live = r0 < S;
+  const uint32_t qa = sq + wg * NC * kBox;
+
+  float o[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
+  float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
+
+  mbar_wait(bar_q, 0);
+  for (int i = 0; i < n_tiles; ++i) {
+    const int st = i % kStages;
+    mbar_wait(bar_full + 8 * st, (i / kStages) & 1);
+    const int k0 = (t_begin + i) * kTK;
+    // tiles wholly outside this warpgroup's band are skipped
+    const bool skip = !live || (causal && k0 > r0 + 63) ||
+                      (window > 0 && k0 + kTK - 1 <= r0 - window);
+    if (!skip) {
+      const uint32_t ka = sk + st * NC * kBox, va = sv + st * NC * kBox;
+      float s[32];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        const uint32_t off = (kk / 4) * kBox + (kk % 4) * 32;
+        wgmma_ss_n64(s, sw128_desc(qa + off, 16, 1024),
+                     sw128_desc(ka + off, 16, 1024), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(s);
+
+      // masks only on tiles that cross T, the diagonal or the window's
+      // edge: row r's live keys are the columns [lo, hi], counted from this
+      // thread's first column of the tile
+      if (k0 + kTK > T_len || (causal && k0 + kTK - 1 > r0) ||
+          (window > 0 && k0 <= r0 + 63 - window)) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = row_a + 8 * r, c0 = k0 + col_t;
+          const int hi = (causal ? min(row, T_len - 1) : T_len - 1) - c0;
+          const int lo = window > 0 ? row - window + 1 - c0 : -kTK;
+#pragma unroll
+          for (int j = 0; j < 32; ++j) {
+            const int c = 8 * (j / 4) + (j & 1);
+            if (((j >> 1) & 1) == r && (c < lo || c > hi)) s[j] = kNeg;
+          }
+        }
+      }
+
+      // online softmax, row by row (the quad's 4 threads hold a row), on
+      // the raw scores; p = exp2(s * D^-1/2 log2(e) - m * D^-1/2 log2(e))
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = m[r];
+#pragma unroll
+        for (int j = 0; j < 32; ++j)
+          if (((j >> 1) & 1) == r) mx = fmaxf(mx, s[j]);
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        // a row with no live key yet keeps p = exp2(-1e30 * scale) = 0
+        const float m_use = mx == kNeg ? 0.f : mx;
+        const float m_scaled = m_use * scale_log2;
+        const float corr = exp2f(m[r] * scale_log2 - m_scaled);
+        m[r] = mx;
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < 32; ++j)
+          if (((j >> 1) & 1) == r) {
+            s[j] = exp2f(fmaf(s[j], scale_log2, -m_scaled));
+            sum += s[j];
+          }
+        l[r] = l[r] * corr + sum;
+        if (corr != 1.f) {
+#pragma unroll
+          for (int j = 0; j < DP / 8; ++j) {
+            o[4 * j + 2 * r] *= corr;
+            o[4 * j + 2 * r + 1] *= corr;
+          }
+        }
+      }
+
+      // P (bf16) as wgmma's register operand: k-step kk covers keys
+      // 16 kk .. 16 kk + 15, accumulator registers 8 kk .. 8 kk + 7. All of
+      // P is packed before the first product (no register writes between
+      // the wgmmas of one group).
+      uint32_t p[kTK / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kTK / 16; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          p[kk][e] = pack_bf16(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1]);
+      fence_regs(o);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kTK / 16; ++kk)
+        wgmma_rs<DP>(o, p[kk],
+                     sw128_desc(va + kk * 16 * 128, 64 * 128, 1024));
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(o);
+    }
+    mbar_arrive(bar_empty + 8 * st);
+  }
+
+  // out = o / max(l, 1e-30) in bf16; rows past S are never written
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const int row = row_a + 8 * r;
+    if (row >= S) continue;
+    const float den = fmaxf(l[r], 1e-30f);
+    __nv_bfloat16* dst = out + ((long long)b * S + row) * Hq * D +
+                         (long long)h * D;
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      const int col = 8 * j + col_t;
+      if (col < D)
+        *reinterpret_cast<__nv_bfloat162*>(dst + col) = __floats2bfloat162_rn(
+            __fdiv_rn(o[4 * j + 2 * r], den),
+            __fdiv_rn(o[4 * j + 2 * r + 1], den));
+    }
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver the runtime already loaded (no
+// -lcuda at link time); null if the driver has none.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The (D, H, L, B) view of a contiguous bf16 (B, L, H, D) tensor, in
+// 64-lane x 64-row boxes with 128-byte swizzle; out-of-range lanes and rows
+// read as zeros.
+bool encode_map(EncodeTiled encode, CUtensorMap* map, const void* base, int D,
+                int H, int L, int B) {
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)L,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {2ull * D, 2ull * D * H, 2ull * D * H * L};
+  const cuuint32_t box[4] = {64, 1, 64, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(base), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int DP>
+int launch_bf16(const void* q, const void* k, const void* v, void* out, int B,
+                int S, int T_len, int Hq, int Hkv, int D, float scale,
+                int causal, int window, void* stream) {
+  const EncodeTiled encode = encode_tiled();
+  if (!encode) return (int)cudaErrorNotSupported;
+  CUtensorMap tm_q, tm_k, tm_v;
+  if (!encode_map(encode, &tm_q, q, D, Hq, S, B) ||
+      !encode_map(encode, &tm_k, k, D, Hkv, T_len, B) ||
+      !encode_map(encode, &tm_v, v, D, Hkv, T_len, B))
+    return (int)cudaErrorInvalidValue;
+  const int smem = Smem<DP>::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_attention_bf16_kernel<DP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)((S + kTQ - 1) / kTQ), (unsigned)Hq, (unsigned)B);
+  flash_attention_bf16_kernel<DP>
+      <<<grid, kThreadsH, smem, (cudaStream_t)stream>>>(
+          tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(out), S, T_len, Hq,
+          Hkv, D, scale * kLog2e, causal, window);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -256,21 +792,32 @@ extern "C" {
 
 // Every entry: contiguous device buffers q (B, S, Hq, D), k / v
 // (B, T, Hkv, D), out (B, S, Hq, D) on the stream's device, Hq % Hkv == 0,
-// 0 < D <= 256; the Python wrapper checks shapes, types and devices first.
+// T >= 1, 0 < D <= 256; the bf16 entry also needs D % 8 == 0 and 16-byte
+// aligned buffers. The Python wrapper checks shapes, types and devices
+// first.
 int flash_attention_f32(const void* q, const void* k, const void* v,
                         void* out, int B, int S, int T_len, int Hq, int Hkv,
                         int D, float scale, int causal, int window,
                         void* stream) {
-  return dispatch<float>(q, k, v, out, B, S, T_len, Hq, Hkv, D, scale, causal,
-                         window, stream);
+  return dispatch(q, k, v, out, B, S, T_len, Hq, Hkv, D, scale, causal,
+                  window, stream);
 }
 
 int flash_attention_bf16(const void* q, const void* k, const void* v,
                          void* out, int B, int S, int T_len, int Hq, int Hkv,
                          int D, float scale, int causal, int window,
                          void* stream) {
-  return dispatch<__nv_bfloat16>(q, k, v, out, B, S, T_len, Hq, Hkv, D, scale,
-                                 causal, window, stream);
+  if (D % 8 || T_len < 1) return (int)cudaErrorInvalidValue;
+  if (D <= 64)
+    return launch_bf16<64>(q, k, v, out, B, S, T_len, Hq, Hkv, D, scale,
+                           causal, window, stream);
+  if (D <= 128)
+    return launch_bf16<128>(q, k, v, out, B, S, T_len, Hq, Hkv, D, scale,
+                            causal, window, stream);
+  if (D <= 256)
+    return launch_bf16<256>(q, k, v, out, B, S, T_len, Hq, Hkv, D, scale,
+                            causal, window, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

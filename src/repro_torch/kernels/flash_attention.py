@@ -7,15 +7,18 @@ The torch counterpart of ``repro.kernels.flash_attention``:
   softmax, scores scaled by the true ``D ** -0.5``, masks on absolute
   positions (query s and key t both count from 0: the prefill layout).
 
-The kernel (``csrc/flash_attention.cu``) reads the JAX layout in place by
-strides: no copy to (B*H, S, D), no padding of S or D (the TPU wrapper's
-padding to blocks and 128 lanes is not carried over; the kernel masks the
-ragged edge itself), and key tiles outside the causal / window band are
-never loaded. The wrapper checks its arguments, then asks
-``_backend.use_kernel`` per call: a CPU tensor runs the plain torch
-version beside it, a CUDA tensor launches the kernel (or raises: no
-fallback). ``flash_attention.launches`` counts the launches. The kernel's
-design and bound are noted in the CUDA source.
+The kernels (``csrc/flash_attention.cu``) read the JAX layout in place:
+no copy to (B*H, S, D), no padding of S or D (the TPU wrapper's padding to
+blocks and 128 lanes is not carried over; the kernels mask the ragged edge
+themselves), and key tiles outside the causal / window band are never
+loaded. bf16 runs on the tensor cores (wgmma, TMA loads into a pipelined
+ring), which needs a head_dim that is a multiple of 8 (16-byte rows for
+TMA) and 16-byte aligned buffers; fp32 runs on CUDA cores, any head_dim up
+to 256. The wrapper checks its arguments, then asks ``_backend.use_kernel``
+per call: a CPU tensor runs the plain torch version beside it, a CUDA
+tensor launches the kernel of its dtype (or raises: no fallback).
+``flash_attention.launches`` counts the launches. The kernels' design and
+bound are noted in the CUDA source.
 """
 from __future__ import annotations
 
@@ -96,10 +99,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     t, hkv = k.shape[1], k.shape[2]
     if d > _MAX_D:
         raise ValueError(f"head_dim {d} exceeds the kernel's {_MAX_D}")
+    bf16 = q.dtype == torch.bfloat16
+    if bf16 and d % 8:
+        raise ValueError(f"head_dim {d}: the bf16 kernel's TMA loads need a "
+                         "multiple of 8 (16-byte rows)")
     require_operands(q.device, q=q, k=k, v=v)
+    if bf16 and any(x.data_ptr() % 16 for x in (q, k, v)):
+        raise ValueError("the bf16 kernel's TMA loads need 16-byte aligned "
+                         "q, k and v")
     out = torch.empty_like(q)
-    if out.numel() == 0:
-        return out
+    if out.numel() == 0 or t == 0:
+        return out.zero_()     # no key: the plain version's zeros
     _build.launch("flash_attention", _ENTRY[q.dtype], _ARGS, q.device,
                   q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                   b, s, t, hq, hkv, d, d**-0.5, int(causal), int(window))

@@ -284,6 +284,45 @@ def test_flash_attention_contracts():
         fa.flash_attention(q.double(), k.double(), v.double())
 
 
+@pytest.mark.parametrize("d,dtype,entry", [
+    (20, torch.bfloat16, None), (36, torch.bfloat16, None),
+    (320, torch.float32, None), (20, torch.float32, "flash_attention_f32"),
+    (80, torch.bfloat16, "flash_attention_bf16"),
+    (256, torch.bfloat16, "flash_attention_bf16")])
+def test_flash_attention_kernel_path_head_dims(monkeypatch, d, dtype, entry):
+    """On the kernel path (dispatch patched to the card's answer, the launch
+    recorded instead of made): bf16 takes D % 8 == 0 up to 256 on the
+    tensor-core entry, fp32 any D up to 256 on the CUDA-core one; any other
+    head_dim raises ValueError naming it before any launch."""
+    launched = []
+    monkeypatch.setattr(fa, "use_kernel", lambda dev: True)
+    monkeypatch.setattr(fa._build, "launch",
+                        lambda name, e, *args: launched.append(e))
+    q = torch.zeros((1, 8, 2, d), dtype=dtype)
+    kv = torch.zeros((1, 8, 1, d), dtype=dtype)
+    before = fa.flash_attention.launches
+    if entry is None:
+        with pytest.raises(ValueError, match="head_dim"):
+            fa.flash_attention(q, kv, kv)
+        assert launched == [] and fa.flash_attention.launches == before
+    else:
+        fa.flash_attention(q, kv, kv)
+        assert launched == [entry]
+        assert fa.flash_attention.launches == before + 1
+
+
+def test_flash_attention_bf16_kernel_path_needs_16_byte_alignment(
+        monkeypatch):
+    monkeypatch.setattr(fa, "use_kernel", lambda dev: True)
+    monkeypatch.setattr(fa._build, "launch", lambda *args: pytest.fail(
+        "launched a misaligned operand"))
+    store = torch.zeros(2 * 8 * 64 + 1, dtype=torch.bfloat16)
+    q = store[1:].view(1, 8, 2, 64)        # 2 bytes off 16-byte alignment
+    kv = torch.zeros((1, 8, 1, 64), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="aligned"):
+        fa.flash_attention(q, kv, kv)
+
+
 def _ab(b, s, d, seed=0):
     rng = np.random.default_rng(seed)
     a = 1.0 / (1.0 + np.exp(-rng.normal(size=(b, s, d))))
