@@ -6,8 +6,9 @@ entry points a user calls:
 
 * the paper's wireless D-PSGD run: Eq. 2 capacities, Algorithm 2 rates at
   λ targets {0.1, 0.8}, then the full 21 840-parameter CNN trained with
-  D-PSGD on 6 nodes at batch 25 over the 60 000-image synthetic set, with
-  every gossip mix in the CUDA kernels of ``csrc/gossip_mix.cu``;
+  D-PSGD on 6 nodes at batch 25 over the 60 000-image synthetic set, each
+  step replayed as one CUDA graph, with every gossip mix in the CUDA
+  kernels of ``csrc/gossip_mix.cu``;
 * serving recurrentgemma-2b at its published widths and full depth
   (``launch.serve.generate``: a 4096-token prompt at batch 4, then 32
   greedy tokens), with local attention's prefill in the CUDA kernel of
@@ -33,7 +34,11 @@ Phases, each of which ends the run with a nonzero exit if it fails:
               bf16 (wgmma) kernels must not spill;
 3. kernels  — each kernel against its plain torch version at the main
               paths' shapes and at edge shapes, its ValueError contracts,
-              and its time beside its bound, plain and library times
+              and its time beside its bound, plain and library times; the
+              four kernels of the D-PSGD step also inside a CUDA graph
+              (``graph_ms``: 100 captured calls), beside the library call
+              captured the same way, and the host time of each piece of an
+              eager rows-mix call, the earlier launch path and this one
               (3: gossip mixes, 3b: flash and rglru, flash in bf16 also at
               the tensor-core kernel's tile edges, with its TFLOP/s over
               the band and share of the bound, 3c: rwkv6_scan, and
@@ -41,10 +46,16 @@ Phases, each of which ends the run with a nonzero exit if it fails:
               int8 quantize / dequantize, bit-equal, in the TPU kernels'
               256-lane format through ``ops`` and the 2048-lane wire
               format, timed at the path's message and at (64, 1 048 576));
-4. slice    — the paper run; the gossip_mix launch counter must grow by
-              one launch per step, and the first 5 steps rerun on the CPU
-              (plain versions) from the card's state must agree on losses
-              to 1e-4 and on the mixed parameters to 1e-5;
+4. slice    — the paper run, each λ target's 40 steps twice in turns:
+              the eager body, then the entry point, whose step is a CUDA
+              graph (steps/s of both); the gossip_mix launch counter must
+              grow by one launch per graphed step; graphed against eager on
+              the card in lockstep (losses 1e-4, parameters 1e-5); the
+              first 5 steps rerun on the CPU (plain versions) from the
+              card's state must agree on losses to 1e-4 and on the mixed
+              parameters to 1e-5; the card's time per graphed step (CUDA
+              events) and the profiler's busy time, each with its idle
+              share;
 5. compressed — 4 rounds of int8 error-feedback D-PSGD with one dead
               node; the gossip_mix_q8 counter must grow, and one more step
               must agree with the CPU (q bit-equal, parameters to 1e-5);
@@ -69,7 +80,10 @@ Phases, each of which ends the run with a nonzero exit if it fails:
               rwkv6 kernel's bar);
 10. simulated training — ``simulate_dpsgd_cnn`` over 60 000 / 10 000
               images with ``measure_compute=True`` (each round stamped with
-              the card's own step time): on ``compressed_int8`` the
+              the card's own step time), each scenario twice in turns: with
+              the step builders patched to their eager bodies (the "before"
+              run, here only), then as the port runs it (CUDA graphs). In
+              both runs: on ``compressed_int8`` the
               quantize, dequantize and gossip_mix_q8 counters each grow by
               exactly the round count, on ``static`` gossip_mix does and the
               codec does not; each trace's communication fields equal the
@@ -78,7 +92,8 @@ Phases, each of which ends the run with a nonzero exit if it fails:
               losses 1e-4, parameters and residuals 1e-5 on every node row
               whose max-pools and ReLUs card and CPU route alike); rounds,
               simulated seconds, accuracy and host ms per round split into
-              simulator, step and the rest.
+              simulator, step and the rest, for both runs (the lockstep
+              rounds are the graphed run's).
 
 Each phase prints its wall time. The last lines are the card's
 ``nvidia-smi`` name and power limit, one JSON line with every kernel's
@@ -107,6 +122,8 @@ N_TRAIN, N_TEST = 60_000, 10_000     # SyntheticFashion's paper defaults
 STEPS = 40                           # D-PSGD steps per λ target
 CPU_STEPS = 5                        # steps rerun on the CPU
 PROFILE_STEPS = 10                   # steps under the profiler
+STEADY_STEPS = 200                   # graphed steps past the first replays
+TIMING_REPEATS = 3                   # eager / graphed pairs per λ target
 COMPRESSED_ROUNDS = 4
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM data sheet
 FP32_FLOPS = 67e12                   # H100 SXM, fp32 outside tensor cores
@@ -183,6 +200,64 @@ def time_ms(torch, fn, reps: int = 100, rounds: int = 5,
         start.record()
         for _ in range(reps):
             fn()
+        end.record()
+        end.synchronize()
+        per_call.append(start.elapsed_time(end) / reps)
+    return statistics.median(per_call)
+
+
+def paired_ms(torch, fn, library, reps: int = 100,
+              rounds: int = 9) -> tuple[float, float]:
+    """``time_ms`` of a kernel's eager call and of its library call, taken
+    in turns (kernel, library, library, kernel, ...) so that a stall of the
+    shared host falls on both alike: the median per call of each."""
+    for f in (fn, library):
+        for _ in range(10):
+            f()
+    torch.cuda.synchronize()
+    per_call = ([], [])
+    for i in range(rounds):
+        order = (0, 1) if i % 2 == 0 else (1, 0)
+        for j in order:
+            f = (fn, library)[j]
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(reps):
+                f()
+            end.record()
+            end.synchronize()
+            per_call[j].append(start.elapsed_time(end) / reps)
+    return statistics.median(per_call[0]), statistics.median(per_call[1])
+
+
+def graph_ms(torch, fn, reps: int = 100, rounds: int = 5) -> float:
+    """``reps`` back-to-back calls of ``fn`` captured into one CUDA graph
+    (after warm-up calls on the capture's side stream), the graph replayed
+    ``rounds`` times between CUDA events: the median per call. What a call
+    costs inside the D-PSGD step's graph, with no host dispatch. Captures
+    on the port's one capture stream (a new stream per capture would leave
+    a cuBLAS workspace behind for each)."""
+    from repro_torch import graphs
+
+    side = graphs._side_stream(torch.device("cuda", 0))
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    per_call = []
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
         end.record()
         end.synchronize()
         per_call.append(start.elapsed_time(end) / reps)
@@ -510,17 +585,24 @@ def phase_kernels(torch) -> dict:
             fail(f"gossip_mix_q8 accepted a bad {what} on CUDA tensors")
     torch.cuda.synchronize()
 
-    # times at the main path's shapes
+    # times at the main path's shapes: "ms" the eager wrapper call, "graph_ms"
+    # the call inside a CUDA graph (as the step replays it), each beside the
+    # one-call library equivalent timed the same way
     m = k = N_NODES
     n = 21_840
     bufs, w = randn(k, n), softmax_rows(m, k)
     b_ms, b_by = bound(*rows_cost(m, k, n, 4))
-    mix = {"ms": time_ms(torch, lambda: gm.gossip_mix_rows(w, bufs)),
+    eager_ms, library_ms = paired_ms(
+        torch, lambda: gm.gossip_mix_rows(w, bufs),
+        lambda: torch.matmul(w, bufs))
+    mix = {"ms": eager_ms,
            "plain_ms": time_ms(torch,
                                lambda: gm.gossip_mix_rows_plain(w, bufs)),
-           "library_ms": time_ms(torch, lambda: torch.matmul(w, bufs)),
+           "library_ms": library_ms,
+           "graph_ms": graph_ms(torch, lambda: gm.gossip_mix_rows(w, bufs)),
+           "library_graph_ms": graph_ms(torch, lambda: torch.matmul(w, bufs)),
            "device_ms": device_ms(torch, lambda: gm.gossip_mix_rows(w, bufs),
-                                  "gossip_mix_rows_kernel"),
+                                  "gossip_mix_rows"),
            "bound_ms": b_ms, "bound_by": b_by,
            "shape": f"W ({m}x{k}) fp32, bufs ({k}x{n}) fp32"}
     q, s = quantize_int8_rows(randn(k, n, scale=0.3))
@@ -533,26 +615,199 @@ def phase_kernels(torch) -> dict:
           "plain_ms": time_ms(torch, lambda: gm.gossip_mix_q8_rows_plain(
               w_self, w_off, x, q, s)),
           "library_ms": None,
+          "graph_ms": graph_ms(torch, lambda: gm.gossip_mix_q8_rows(
+              w_self, w_off, x, q, s)),
+          "library_graph_ms": None,
           "device_ms": device_ms(torch, lambda: gm.gossip_mix_q8_rows(
               w_self, w_off, x, q, s), "gossip_mix_q8_rows_kernel"),
           "bound_ms": b_ms, "bound_by": b_by,
           "shape": f"self ({m}x{n}) fp32, q ({k}x{q.shape[1]}) int8"}
     for name, t in (("gossip_mix", mix), ("gossip_mix_q8", q8)):
-        dms = "not measured" if t["device_ms"] is None \
-            else f"{t['device_ms'] * 1e3:.2f} us"
-        lib = "none" if t["library_ms"] is None \
-            else f"{t['library_ms'] * 1e3:.2f} us"
-        print(f"{name:14s} {t['shape']}: {t['ms'] * 1e3:.2f} us/call "
-              f"(device {dms}) | plain {t['plain_ms'] * 1e3:.2f} us | "
-              f"library {lib} | bound {t['bound_ms'] * 1e3:.3f} us "
-              f"({t['bound_by']})")
+        print_times(name, t)
+    against_library("gossip_mix", mix, "torch.matmul")
+    launch_path(torch, w, bufs)
     mix["max_abs_err"], q8["max_abs_err"] = errs["gossip_mix"], \
         errs["gossip_mix_q8"]
     return {"gossip_mix": mix, "gossip_mix_q8": q8}
 
 
+def print_times(name: str, t: dict) -> None:
+    """One kernel's times at the path's shape, in microseconds."""
+    def us(v):
+        return "none" if v is None else f"{v * 1e3:.2f} us"
+    dms = "not measured" if t["device_ms"] is None else us(t["device_ms"])
+    print(f"{name:15s} {t['shape']}: {us(t['ms'])}/call (device {dms}; in "
+          f"a graph {us(t['graph_ms'])}) | plain {us(t['plain_ms'])} | "
+          f"library {us(t['library_ms'])} (in a graph "
+          f"{us(t['library_graph_ms'])}) | bound {t['bound_ms'] * 1e3:.3f} "
+          f"us ({t['bound_by']})")
+
+
+def against_library(name: str, t: dict, library: str) -> None:
+    """Print (host times vary between calls, so nothing fails on them)
+    whether a kernel is at or under its one-call library equivalent in a
+    graph, and at most 1.5x it as an eager call, both in this run."""
+    in_graph = t["graph_ms"] / t["library_graph_ms"]
+    eager = t["ms"] / t["library_ms"]
+    print(f"{name:15s} against {library}: in a graph {in_graph:.3f}x "
+          f"({'at or under' if in_graph <= 1 else 'ABOVE'}), eager "
+          f"{eager:.3f}x ({'within' if eager <= 1.5 else 'OVER'} 1.5x)")
+
+
+def launch_path(torch, w, bufs, calls: int = 10_000) -> None:
+    """Where an eager call of the rows mix spends its host time: each piece
+    of the call timed alone over ``calls`` calls (time.perf_counter_ns),
+    as the wrapper and launch helper did it before the lean launch path
+    ("before", rebuilt here for the comparison) and as they do it now
+    ("after"). The
+    ctypes call launches the kernel each time."""
+    from repro_torch.kernels import _backend, _build
+    from repro_torch.kernels import gossip_mix as gm
+
+    dev = bufs.device
+    m, n = w.shape[0], bufs.shape[1]
+    out = torch.empty((m, n), device=dev)
+    fn = _build._ENTRIES[("gossip_mix", "gossip_mix_rows_f32")]
+    ptrs = (w.data_ptr(), bufs.data_ptr(), out.data_ptr(), m, w.shape[1], n)
+    lock = _build._LOCK
+
+    def old_probe():
+        return tuple(torch.cuda.get_device_capability(torch.device(dev))) \
+            >= (9, 0)
+
+    def old_checks():
+        w32 = w.to(torch.float32).contiguous()
+        _backend.require_operands(dev, w=w32, bufs=bufs)
+
+    def new_checks():
+        _backend.refuse_grad("gossip_mix_rows", w=w, bufs=bufs)
+        _backend.require_operands(dev, w=w, bufs=bufs)
+
+    def old_lookup():
+        with lock:
+            lib = _build._LOADED["gossip_mix"]
+        return getattr(lib, "gossip_mix_rows_f32")
+
+    def old_device():
+        with torch.cuda.device(dev):
+            pass
+
+    def old_call():
+        if w.dim() != 2 or bufs.dim() != 2 or w.shape[1] != bufs.shape[0]:
+            raise ValueError
+        old_probe()
+        old_checks()
+        o = torch.empty((m, n), dtype=bufs.dtype, device=dev)
+        f = old_lookup()
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            f(*ptrs[:2], o.data_ptr(), *ptrs[3:], stream)
+        return o
+
+    index = dev.index
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    pieces = (
+        ("probe", old_probe, lambda: _backend.use_kernel(dev)),
+        ("checks", old_checks, new_checks),
+        ("output allocation",
+         lambda: torch.empty((m, n), dtype=bufs.dtype, device=dev),
+         lambda: torch.empty_like(bufs)),
+        ("library lookup (lock, getattr)", old_lookup,
+         lambda: _build._ENTRIES.get(("gossip_mix", "gossip_mix_rows_f32"))),
+        ("device context", old_device,
+         lambda: torch._C._cuda_getDevice() == index),
+        ("stream query", lambda: torch.cuda.current_stream(dev).cuda_stream,
+         lambda: torch._C._cuda_getCurrentRawStream(index)),
+        ("ctypes call (the launch)", lambda: fn(*ptrs, stream),
+         lambda: fn(*ptrs, stream)),
+        ("whole call", old_call, lambda: gm.gossip_mix_rows(w, bufs)))
+
+    def per_call_us(f):
+        for _ in range(100):
+            f()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter_ns()
+        for _ in range(calls):
+            f()
+        t = (time.perf_counter_ns() - t0) / calls / 1e3
+        torch.cuda.synchronize()
+        return t
+    print(f"launch path of one gossip_mix_rows call, host us per call over "
+          f"{calls} calls (before: the earlier path; after: this one):")
+    for label, before, after in pieces:
+        b, a = per_call_us(before), per_call_us(after)
+        print(f"   {label:32s} before {b:8.3f}  after {a:8.3f}")
+
+
+def eager_train(torch, params, data, w, steps: int, eta: float = 0.05,
+                seed: int = 0):
+    """``wireless_dpsgd.train`` with the eager body: the same numpy batch
+    draws, each step ``dpsgd.dpsgd_step`` called directly (no graph).
+    Returns (params, losses (steps, n), seconds up to the last result)."""
+    from repro_torch.core import dpsgd
+    from repro_torch.examples import wireless_dpsgd as ex
+    from repro_torch.models import cnn
+
+    n = data.x.shape[0]
+    w_t = torch.as_tensor(w, dtype=torch.float32, device=data.x.device)
+    cfg = dpsgd.DPSGDConfig(eta=eta)
+    rng = np.random.default_rng(seed)
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        idx = rng.integers(0, data.per_node, size=(n, ex.BATCH))
+        params, loss = dpsgd.dpsgd_step(cnn.cnn_loss, params,
+                                        ex._batch(data, idx), w_t, cfg)
+        losses.append(loss)
+    out = torch.stack(losses)
+    torch.cuda.synchronize()
+    return params, out, time.perf_counter() - t0
+
+
+def graphed_step_split(torch, step, params, data, w_t,
+                       calls: int = 200) -> None:
+    """Host time of each piece of a graphed D-PSGD step as train() runs
+    it, each timed alone (the card idle before each call, so no piece
+    waits on it) over ``calls`` calls: the batch draw and gather, the
+    signature (flatten the arguments, key the captured graph), the copy-in
+    to the static inputs, the replay, and the outputs' clone."""
+    from repro_torch import graphs
+    from repro_torch.examples import wireless_dpsgd as ex
+
+    rng = np.random.default_rng(0)
+
+    def draw():
+        return ex._batch(data, rng.integers(0, data.per_node,
+                                            size=(N_NODES, ex.BATCH)))
+    batch = draw()
+    leaves, structure = graphs._flatten_args((params, batch, w_t))
+    entry = step._entry(w_t.device, leaves, structure)
+
+    def signature():
+        lv, st = graphs._flatten_args((params, batch, w_t))
+        step._entry(w_t.device, lv, st)
+
+    def host_us(fn):
+        total = 0
+        for _ in range(calls):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter_ns()
+            fn()
+            total += time.perf_counter_ns() - t0
+        torch.cuda.synchronize()
+        return total / calls / 1e3
+    pieces = [("batch draw and gather", draw), ("signature", signature),
+              ("copy-in", lambda: entry.load(leaves)),
+              ("replay", entry.graph.replay), ("output clone", entry.fresh),
+              ("whole step (the four above)",
+               lambda: step(params, batch, w_t))]
+    print(f"host us per graphed step, each piece alone over {calls} calls: "
+          + ", ".join(f"{label} {host_us(fn):.2f}" for label, fn in pieces))
+
+
 def phase_slice(torch) -> dict:
-    phase("4. slice: the paper run on the card")
+    phase("4. slice: the paper run on the card, eager and as a CUDA graph")
     from repro_torch.core import dpsgd, rate_opt
     from repro_torch.examples import wireless_dpsgd as ex
     from repro_torch.kernels import gossip_mix as gm
@@ -563,22 +818,46 @@ def phase_slice(torch) -> dict:
     data = ex.load_data(N_NODES, N_TRAIN, N_TEST, device="cuda")
     print(f"data: {N_TRAIN} train / {N_TEST} test images "
           f"({data.per_node} per node) in {time.perf_counter() - t0:.1f}s")
-    # warm-up (cuDNN plans, vmap) outside the counted run
-    ex.train(ex.init_params(N_NODES, device="cuda"), data,
-             rate_opt.solve(cap, cnn.MODEL_BITS, 0.8).w, 3)
+    # warm-up (cuDNN plans, vmap, a first capture) outside the counted runs
+    w_warm = rate_opt.solve(cap, cnn.MODEL_BITS, 0.8).w
+    ex.train(ex.init_params(N_NODES, device="cuda"), data, w_warm, 3)
+    eager_train(torch, ex.init_params(N_NODES, device="cuda"), data, w_warm,
+                3)
 
-    gm.gossip_mix_rows.launches = gm.gossip_mix_q8_rows.launches = 0
-    results = [ex.run_target(cap, lam_t, data, STEPS)
-               for lam_t in ex.LAMBDA_TARGETS]
-    torch.cuda.synchronize()
-    launches = {"gossip_mix": gm.gossip_mix_rows.launches,
-                "gossip_mix_q8": gm.gossip_mix_q8_rows.launches}
-    want = STEPS * len(results)           # one mix launch per step
-    print(f"launches: {launches} (gossip_mix expected {want})")
-    check(launches["gossip_mix"] == want,
-          f"gossip_mix launched {launches['gossip_mix']} times, want {want}")
+    # the same STEPS steps per λ target twice, in turns: the eager body,
+    # then the entry point (run_target -> train), whose step is a graph;
+    # the pair TIMING_REPEATS times (a shared host stalls a run now and
+    # then), every run printed, the medians compared
+    results, times, launches = [], [], {"gossip_mix": 0, "gossip_mix_q8": 0}
+    for lam_t in ex.LAMBDA_TARGETS:
+        w = rate_opt.solve(cap, cnn.MODEL_BITS, lam_t).w
+        runs = []
+        for rep in range(TIMING_REPEATS):
+            e_run = eager_train(torch, ex.init_params(N_NODES, device="cuda"),
+                                data, w, STEPS)
+            gm.gossip_mix_rows.launches = gm.gossip_mix_q8_rows.launches = 0
+            g_run = ex.run_target(cap, lam_t, data, STEPS, verbose=rep == 0)
+            torch.cuda.synchronize()
+            got = {"gossip_mix": gm.gossip_mix_rows.launches,
+                   "gossip_mix_q8": gm.gossip_mix_q8_rows.launches}
+            check(got["gossip_mix"] == STEPS, f"gossip_mix launched "
+                  f"{got['gossip_mix']} times, want {STEPS}")
+            if rep == 0:
+                print(f"λ target {lam_t}: launches {got} (gossip_mix "
+                      f"expected {STEPS}, one per step)")
+                for k in launches:
+                    launches[k] += got[k]
+            runs.append((e_run, g_run))
+        results.append(runs[0][1])
+        times.append(([e[2] for e, _ in runs],
+                      [g["t_compute_s"] for _, g in runs]))
+        print(f"λ target {lam_t}: free-running max|loss diff| (not held): "
+              f"graphed vs eager "
+              f"{err(runs[0][1]['losses'], runs[0][0][1]):.3e}, two eager "
+              f"runs {err(runs[1][0][1], runs[0][0][1]):.3e}, two graphed "
+              f"runs {err(runs[1][1]['losses'], runs[0][1]['losses']):.3e}")
 
-    for r in results:
+    for r, (e_s, g_s) in zip(results, times):
         losses = r["losses"]
         check(losses.shape == (STEPS, N_NODES), f"losses {losses.shape}")
         check(bool(torch.isfinite(losses).all()), "non-finite loss")
@@ -586,11 +865,40 @@ def phase_slice(torch) -> dict:
         first, last = float(losses[:5].mean()), float(losses[-5:].mean())
         check(last < first, f"λ={r['lambda_target']}: loss did not fall "
               f"({first:.4f} -> {last:.4f})")
+        g_rate = STEPS / statistics.median(g_s)
+        e_rate = STEPS / statistics.median(e_s)
         print(f"λ target {r['lambda_target']}: λ={r['sol'].lam:.4f}, "
               f"t_com={r['t_com_s']:.3f}s for {STEPS} steps, "
-              f"accuracy {r['accuracy']:.4f}, compute "
-              f"{r['t_compute_s']:.4f}s, {STEPS / r['t_compute_s']:.2f} "
-              f"steps/s, loss {first:.4f} -> {last:.4f}")
+              f"accuracy {r['accuracy']:.4f}, loss {first:.4f} -> "
+              f"{last:.4f}; compute of {TIMING_REPEATS} runs in turns, "
+              f"graphed {', '.join(f'{t:.4f}' for t in g_s)} s, eager "
+              f"{', '.join(f'{t:.4f}' for t in e_s)} s; medians "
+              f"{g_rate:.2f} vs {e_rate:.2f} steps/s: {g_rate / e_rate:.2f}x "
+              f"({'at least' if g_rate >= 4 * e_rate else 'UNDER'} 4x)")
+
+    # graphed against eager on the card, in lockstep: each step starts
+    # both from the graphed run's state, on the same batch
+    cfg = dpsgd.DPSGDConfig(eta=0.05)
+    step = dpsgd.make_dpsgd_step(cnn.cnn_loss, cfg)
+    g_loss = g_param = 0.0
+    for r in results:
+        w_t = torch.as_tensor(r["sol"].w, dtype=torch.float32, device="cuda")
+        params = ex.init_params(N_NODES, device="cuda")
+        rng = np.random.default_rng(0)
+        for _ in range(STEPS):
+            b = ex._batch(data, rng.integers(0, data.per_node,
+                                             size=(N_NODES, ex.BATCH)))
+            p_e, l_e = dpsgd.dpsgd_step(cnn.cnn_loss, params, b, w_t, cfg)
+            params, l_g = step(params, b, w_t)
+            g_loss = max(g_loss, err(l_g, l_e))
+            g_param = max(g_param, max(err(a, c) for a, c in zip(
+                dpsgd._leaves(params), dpsgd._leaves(p_e))))
+    print(f"graphed vs eager on the card, {STEPS} steps per λ target in "
+          f"lockstep: max|loss diff| {g_loss:.3e}, max|param diff| "
+          f"{g_param:.3e}")
+    check(g_loss <= 1e-4, f"graphed and eager losses differ by {g_loss}")
+    check(g_param <= TOL_FP32,
+          f"graphed and eager parameters differ by {g_param}")
 
     # The first steps again on the CPU (plain versions), in lockstep: each
     # step starts card and CPU from the card's state and batch. Run free,
@@ -599,7 +907,6 @@ def phase_slice(torch) -> dict:
     # so the free-running gap is printed but not held.
     cpu = ex.NodeData(data.x.cpu(), data.y.cpu(), data.test_x[:1].cpu(),
                       data.test_y[:1].cpu())
-    step = dpsgd.make_dpsgd_step(cnn.cnn_loss, dpsgd.DPSGDConfig(eta=0.05))
     to_cpu = lambda t: dpsgd._tree_map(lambda x: x.cpu(), t)  # noqa: E731
     lock_loss = lock_param = free = 0.0
     for r in results:
@@ -624,19 +931,69 @@ def phase_slice(torch) -> dict:
     check(lock_param <= TOL_FP32,
           f"card and CPU mixed parameters differ by {lock_param}")
 
-    # where a step's time goes: device busy time from a profiler trace of
-    # PROFILE_STEPS steps against the host-clock step time of the run
-    wall_ms = 1e3 * min(r["t_compute_s"] / STEPS for r in results)
-    rows = device_profile(torch, lambda: ex.train(
-        ex.init_params(N_NODES, device="cuda"), data, results[0]["sol"].w,
-        PROFILE_STEPS), PROFILE_STEPS)
-    if not rows:
-        print("profile: no device time in the trace (not measured)")
-    else:
-        busy_ms = sum(r[1] for r in rows)
-        print(f"profile of {PROFILE_STEPS} steps: device busy {busy_ms:.4f} "
-              f"ms/step vs {wall_ms:.4f} ms/step wall, idle share "
-              f"{1 - busy_ms / wall_ms:.3f}; top kernels (ms/step):")
+    # where a graphed step's time goes: the profiler's device busy time
+    # over PROFILE_STEPS steps as train() runs them (batch gather, copy-in,
+    # replay, the outputs' clone), and the card's time per step from CUDA
+    # events around PROFILE_STEPS steps on batches gathered first (the host
+    # stays ahead of the card), each against the run's wall time per step
+    wall = {"graphed": 1e3 * statistics.median(times[0][1]) / STEPS,
+            "eager": 1e3 * statistics.median(times[0][0]) / STEPS}
+    w_t = torch.as_tensor(results[0]["sol"].w, dtype=torch.float32,
+                          device="cuda")
+    params = ex.init_params(N_NODES, device="cuda")
+    batches = [ex._batch(data, np.random.default_rng(i).integers(
+        0, data.per_node, size=(N_NODES, ex.BATCH)))
+        for i in range(PROFILE_STEPS)]
+    step.prepare(params, batches[0], w_t)
+
+    def graphed_steps():
+        p, rng = params, np.random.default_rng(0)
+        for _ in range(PROFILE_STEPS):
+            p, _ = step(p, ex._batch(data, rng.integers(
+                0, data.per_node, size=(N_NODES, ex.BATCH))), w_t)
+
+    def graphed_on_batches():
+        p = params
+        for b in batches:
+            p, _ = step(p, b, w_t)
+
+    def eager_steps():
+        p = params
+        for b in batches:
+            p, _ = dpsgd.dpsgd_step(cnn.cnn_loss, p, b, w_t, cfg)
+    dev_ms = time_ms(torch, graphed_on_batches, reps=1, rounds=5,
+                     warmup=2) / PROFILE_STEPS
+    # the same step object past its first replays: STEADY_STEPS steps as
+    # train() runs them (each run_target captures a fresh step, and its
+    # 40 steps include the first replays of that capture)
+    p, rng = params, np.random.default_rng(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(STEADY_STEPS):
+        p, _ = step(p, ex._batch(data, rng.integers(
+            0, data.per_node, size=(N_NODES, ex.BATCH))), w_t)
+    torch.cuda.synchronize()
+    steady = 1e3 * (time.perf_counter() - t0) / STEADY_STEPS
+    print(f"graphed step: {dev_ms:.4f} ms of card time per step (CUDA "
+          f"events over {PROFILE_STEPS} steps on batches gathered first) "
+          f"vs {wall['graphed']:.4f} ms wall in the entry point's run (idle "
+          f"share {1 - dev_ms / wall['graphed']:.3f}) and {steady:.4f} ms "
+          f"wall over {STEADY_STEPS} steps of one prepared step, "
+          f"{1e3 / steady:.2f} steps/s (idle share "
+          f"{1 - dev_ms / steady:.3f})")
+    graphed_step_split(torch, step, params, data, w_t)
+    busy = {}
+    for label, run in (("graphed", graphed_steps), ("eager", eager_steps)):
+        rows = device_profile(torch, run, PROFILE_STEPS)
+        if not rows:
+            print(f"profile ({label}): no device time in the trace "
+                  "(not measured)")
+            continue
+        busy[label] = sum(r[1] for r in rows)
+        print(f"profile of {PROFILE_STEPS} {label} steps: device busy "
+              f"{busy[label]:.4f} ms/step in {sum(r[2] for r in rows)} "
+              f"launches vs {wall[label]:.4f} ms/step wall, idle share "
+              f"{1 - busy[label] / wall[label]:.3f}; top kernels (ms/step):")
         for name, ms, calls in rows[:8]:
             print(f"   {ms:.4f} ms  {calls:3d}x  {name[:90]}")
     return {"cap": cap, "data": data, "results": results,
@@ -1084,25 +1441,27 @@ def phase_quantize_kernels(torch) -> dict:
                  library, dequantize_cost(rows, length, block, 4),
                  "dequantize_int8_kernel")):
             b_ms, b_by = bound(*cost)
-            t = {"ms": time_ms(torch, kernel, reps=reps),
+            path = rows == N_NODES      # the path's shape: the JSON row
+            eager_ms, lib_ms = (time_ms(torch, kernel, reps=reps), None) \
+                if lib is None else paired_ms(torch, kernel, lib, reps=reps)
+            t = {"ms": eager_ms,
                  "plain_ms": time_ms(torch, plain, reps=reps),
-                 "library_ms": None if lib is None
-                 else time_ms(torch, lib, reps=reps),
+                 "library_ms": lib_ms,
+                 "graph_ms": graph_ms(torch, kernel) if path else None,
+                 "library_graph_ms": graph_ms(torch, lib)
+                 if path and lib is not None else None,
                  "device_ms": device_ms(torch, kernel, kname, calls=reps),
                  "bound_ms": b_ms, "bound_by": b_by,
                  "max_abs_err": errs[name],
                  "shape": f"({rows}, {length}) fp32, {block}-lane blocks"}
-            dms = "not measured" if t["device_ms"] is None \
-                else f"{t['device_ms'] * 1e3:.2f} us"
-            rate = "" if t["device_ms"] is None else \
-                f", {cost[0] / t['device_ms'] / 1e9:.1f} TB/s"
-            lib_us = "none" if lib is None \
-                else f"{t['library_ms'] * 1e3:.2f} us"
-            print(f"{name:15s} {t['shape']}: {t['ms'] * 1e3:.2f} us/call "
-                  f"(device {dms}{rate}) | plain {t['plain_ms'] * 1e3:.2f} us"
-                  f" | library {lib_us} | bound {b_ms * 1e3:.3f} us ({b_by})")
-            if rows == N_NODES:         # the path's shape: the JSON row
+            print_times(name, t)
+            if t["device_ms"] is not None:
+                print(f"{'':15s} device rate "
+                      f"{cost[0] / t['device_ms'] / 1e9:.1f} TB/s")
+            if path:
                 out[name] = t
+    against_library("dequantize_int8", out["dequantize_int8"],
+                    "int8 payload * scales")
     return out
 
 
@@ -1347,10 +1706,14 @@ def phase_simulated_training(torch) -> dict:
                        n_train=1200, n_test=300, device="cuda")
     torch.cuda.synchronize()
 
-    # the first SIM_CPU_ROUNDS compressed steps are captured (the card's
-    # inputs and outputs) for the lockstep rerun on the CPU below
+    # the first SIM_CPU_ROUNDS compressed steps of the graphed run are
+    # captured (the card's inputs and outputs) for the lockstep rerun on
+    # the CPU below
     captured = []
-    factory = dpsgd.make_dpsgd_compressed_step
+    builders = {name: getattr(dpsgd, name) for name in (
+        "make_dpsgd_step", "make_dpsgd_masked_step",
+        "make_dpsgd_compressed_step")}
+    factory = builders["make_dpsgd_compressed_step"]
 
     def capturing(*args, **kw):
         step = factory(*args, **kw)
@@ -1360,12 +1723,34 @@ def phase_simulated_training(torch) -> dict:
             if len(captured) < SIM_CPU_ROUNDS:
                 captured.append(((params, batch, w, live, res), out))
             return out
+        run.prepare = step.prepare
         return run
 
+    # the "before" run: each builder returns its eager body (a plain
+    # function, which simulate_dpsgd_cnn calls without a capture), for the
+    # comparison only
+    eager = {
+        "make_dpsgd_step": lambda loss_fn, config=dpsgd.DPSGDConfig(): (
+            lambda p, b, w: dpsgd.dpsgd_step(loss_fn, p, b, w, config)),
+        "make_dpsgd_masked_step":
+            lambda loss_fn, config=dpsgd.DPSGDConfig(): (
+                lambda p, b, w, live: dpsgd.dpsgd_masked_step(
+                    loss_fn, p, b, w, live, config)),
+        "make_dpsgd_compressed_step":
+            lambda loss_fn, quant, config=dpsgd.DPSGDConfig(): (
+                lambda p, b, w, live, res: dpsgd.dpsgd_masked_compressed_step(
+                    loss_fn, p, b, w, live, res, quant, config))}
+
     out = {}
-    for name in ("compressed_int8", "static"):
+    for name, variant in (("compressed_int8", "eager"),
+                          ("compressed_int8", "graphed"),
+                          ("static", "eager"), ("static", "graphed")):
+        label = f"{name} ({variant})"
         cfg = get_scenario(name)
-        dpsgd.make_dpsgd_compressed_step = capturing
+        patch = dict(eager) if variant == "eager" else \
+            {"make_dpsgd_compressed_step": capturing}
+        for attr, fn in patch.items():
+            setattr(dpsgd, attr, fn)
         try:
             for fn in counters.values():
                 fn.launches = 0
@@ -1377,7 +1762,8 @@ def phase_simulated_training(torch) -> dict:
             wall = time.perf_counter() - t0
             launches = {k: fn.launches for k, fn in counters.items()}
         finally:
-            dpsgd.make_dpsgd_compressed_step = factory
+            for attr, fn in builders.items():
+                setattr(dpsgd, attr, fn)
         s = trace.summary()
         rounds = s["rounds"]
         compressed = cfg.payload.mode == "int8"
@@ -1385,17 +1771,17 @@ def phase_simulated_training(torch) -> dict:
                  "gossip_mix_q8": rounds, "gossip_mix": 0} if compressed else
                 {"quantize_int8": 0, "dequantize_int8": 0,
                  "gossip_mix_q8": 0, "gossip_mix": rounds})
-        print(f"{name}: launches {launches} (expected {want})")
-        check(launches == want, f"{name}: launches {launches}, want {want}")
+        print(f"{label}: launches {launches} (expected {want})")
+        check(launches == want, f"{label}: launches {launches}, want {want}")
         check(rounds == SIM_EPOCHS * N_TRAIN // N_NODES // 25,
-              f"{name}: {rounds} rounds")
+              f"{label}: {rounds} rounds")
         check(all(np.isfinite(r.loss) for r in trace.records),
-              f"{name}: non-finite loss")
+              f"{label}: non-finite loss")
         check(all(bool(torch.isfinite(x).all())
                   for x in dpsgd._leaves(params)),
-              f"{name}: non-finite parameters")
+              f"{label}: non-finite parameters")
         check(s["final_acc"] is not None and 0.0 <= s["final_acc"] <= 1.0,
-              f"{name}: accuracy {s['final_acc']}")
+              f"{label}: accuracy {s['final_acc']}")
 
         # the communication plane: the CPU simulator, charged the card's
         # measured compute per round (fading blocks follow the simulated
@@ -1410,10 +1796,10 @@ def phase_simulated_training(torch) -> dict:
                   "payload_mode")
         diff = [(a.round, f) for a, b in zip(trace.records, replay.records)
                 for f in fields if getattr(a, f) != getattr(b, f)]
-        print(f"{name}: communication fields of {rounds} rounds equal to the "
+        print(f"{label}: communication fields of {rounds} rounds equal to the "
               f"CPU simulator's: {not diff}")
         check(not diff and len(replay.records) == rounds,
-              f"{name}: the trace's communication differs from the CPU's at "
+              f"{label}: the trace's communication differs from the CPU's at "
               f"{diff[:5]}")
         t_plan = time.perf_counter()
         sim = WirelessSimulator(cfg)           # the initial Algorithm 2 plan
@@ -1423,18 +1809,27 @@ def phase_simulated_training(torch) -> dict:
         plan_s = t_sim - t_plan
         step_ms = s["total_compute_s"] * 1e3 / rounds
         wall_ms = wall * 1e3 / rounds
-        print(f"{name}: {rounds} rounds, simulated {s['t_end_s']:.4f} s "
+        print(f"{label}: {rounds} rounds, simulated {s['t_end_s']:.4f} s "
               f"(communication {s['total_comm_s']:.4f} s + the card's "
               f"measured compute {s['total_compute_s']:.4f} s), outage "
               f"{s['outage_rate']:.4f}, final accuracy {s['final_acc']:.4f}, "
               f"loss {trace.records[0].loss:.4f} -> "
               f"{trace.records[-1].loss:.4f}")
-        print(f"{name}: host {wall_ms:.4f} ms per round = simulator "
+        print(f"{label}: host {wall_ms:.4f} ms per round = simulator "
               f"{sim_ms:.4f} (driver-less run, after a {plan_s:.4f} s "
               f"initial plan) + step {step_ms:.4f} (synchronized) + the rest "
               f"{wall_ms - sim_ms - step_ms:.4f} (batch gather, evaluation "
               f"every {cfg.eval_every_rounds} rounds on {N_TEST} images)")
-        out[name] = {"launches": launches}
+        split = {"host_ms": wall_ms, "step_ms": step_ms, "sim_ms": sim_ms}
+        out.setdefault(name, {})[variant] = split
+        if variant == "graphed":
+            out[name]["launches"] = launches
+    for name in ("compressed_int8", "static"):
+        e, g = out[name]["eager"], out[name]["graphed"]
+        print(f"{name}: host ms per round graphed {g['host_ms']:.4f} vs "
+              f"eager {e['host_ms']:.4f} "
+              f"({'below' if g['host_ms'] < e['host_ms'] else 'NOT below'});"
+              f" step {g['step_ms']:.4f} vs {e['step_ms']:.4f} ms")
 
     # the first compressed rounds again on the CPU (plain versions), in
     # lockstep: each from the card's input state
@@ -1563,6 +1958,8 @@ def main() -> None:
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": k["library_ms"],
+            "graph_ms": k.get("graph_ms"),
+            "library_graph_ms": k.get("library_graph_ms"),
             "device_ms": k["device_ms"], "shape": k["shape"]})
         if name == "flash_attention":    # the fp32 entry at the same shape
             rows[-1]["fp32"] = {f: k["fp32"][f] for f in (

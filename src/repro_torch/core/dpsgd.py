@@ -35,6 +35,16 @@ The mix is lowered onto the hand-written kernels of ``kernels.gossip_mix``
 
 Also supports ``local_steps`` H >= 1 (Cooperative-SGD generalization; H=1 ==
 paper) and arbitrary W (row-stochastic, Metropolis, fully-connected).
+
+The ``make_*`` builders are the counterpart of the JAX package's jitted
+steps: each returns a ``graphs.GraphedStep``, which on CUDA inputs captures
+its eager body (``dpsgd_step``, ``dpsgd_masked_step``,
+``dpsgd_masked_compressed_step``) into one CUDA graph per input signature
+and replays it, and on CPU inputs runs the body as it is. A churn that
+changes n is a new signature and a new capture; ``step.prepare(*args)``
+captures ahead of a measured call. The gathered batch is copied into the
+graph's static buffers (the step does not see the data set), as are W and
+``live``, which may arrive as numpy per round.
 """
 from __future__ import annotations
 
@@ -44,6 +54,7 @@ from typing import Any, Callable, Iterator
 import numpy as np
 import torch
 
+from ..graphs import GraphedStep
 from ..kernels.gossip_mix import gossip_mix_q8_rows, gossip_mix_rows
 from .compression import dequantize_int8_rows, quantize_int8_rows
 
@@ -430,34 +441,37 @@ def dpsgd_masked_compressed_step(
 def make_dpsgd_step(
     loss_fn: Callable[[PyTree, PyTree], torch.Tensor],
     config: DPSGDConfig = DPSGDConfig(),
-) -> Callable[[PyTree, PyTree, Any], tuple[PyTree, torch.Tensor]]:
-    """Bind loss_fn/config once; returns (params, batches, W) -> step."""
+) -> GraphedStep:
+    """Bind loss_fn/config once; returns (params, batches, W) -> step, a
+    CUDA graph per input signature on the card (``GraphedStep``)."""
     def step(node_params, node_batches, w):
         return dpsgd_step(loss_fn, node_params, node_batches, w, config)
-    return step
+    return GraphedStep(step)
 
 
 def make_dpsgd_masked_step(
     loss_fn: Callable[[PyTree, PyTree], torch.Tensor],
     config: DPSGDConfig = DPSGDConfig(),
-):
+) -> GraphedStep:
     """Bind loss_fn/config once; returns
-    ``(params, batches, w, live) -> (params, losses)``."""
+    ``(params, batches, w, live) -> (params, losses)``, graphed on the
+    card."""
     def step(node_params, node_batches, w, live):
         return dpsgd_masked_step(loss_fn, node_params, node_batches, w, live,
                                  config)
-    return step
+    return GraphedStep(step)
 
 
 def make_dpsgd_compressed_step(
     loss_fn: Callable[[PyTree, PyTree], torch.Tensor],
     quant,
     config: DPSGDConfig = DPSGDConfig(),
-):
+) -> GraphedStep:
     """Bind (loss_fn, quant, config) once; returns
-    ``(params, batches, w, live, residuals) -> (params, residuals, losses)``."""
+    ``(params, batches, w, live, residuals) -> (params, residuals, losses)``,
+    graphed on the card."""
     def step(node_params, node_batches, w, live, residuals):
         return dpsgd_masked_compressed_step(
             loss_fn, node_params, node_batches, w, live, residuals, quant,
             config)
-    return step
+    return GraphedStep(step)

@@ -81,9 +81,12 @@ def init_params(n_nodes: int, seed: int = 0,
 
 
 def _batch(data: NodeData, idx: np.ndarray) -> dict:
-    """Node i's minibatch is ``split_i[idx[i]]``, gathered on the device."""
+    """Node i's minibatch is ``split_i[idx[i]]``, gathered on the device.
+    The indices go up without waiting for the device (CUDA stages a
+    pageable source before the call returns), so on a card the host draws
+    the next batch while a step runs."""
     dev = data.x.device
-    idx_t = torch.from_numpy(idx).to(dev)
+    idx_t = torch.from_numpy(idx).to(dev, non_blocking=True)
     rows = torch.arange(idx.shape[0], device=dev)[:, None]
     return {"images": data.x[rows, idx_t], "labels": data.y[rows, idx_t]}
 
@@ -93,10 +96,13 @@ def train(params: dict, data: NodeData, w: np.ndarray, steps: int,
     """Step 4: ``steps`` D-PSGD iterations with mixing matrix ``w``.
     Minibatch indices come from ``np.random.default_rng(seed)`` exactly as
     in the JAX example. Returns (params, per-step losses (steps, n), the
-    compute seconds up to the device's last result)."""
+    compute seconds up to the device's last result). On the card the step
+    is a CUDA graph, captured before the clock starts (as ``jax.jit``
+    compiles the JAX example's step before its first result)."""
     step = dpsgd.make_dpsgd_step(cnn.cnn_loss, DPSGDConfig(eta=eta))
     n = data.x.shape[0]
     w_t = torch.as_tensor(w, dtype=torch.float32, device=data.x.device)
+    step.prepare(params, _batch(data, np.zeros((n, BATCH), np.int64)), w_t)
     rng = np.random.default_rng(seed)
     losses = []
     t0 = time.perf_counter()

@@ -14,6 +14,14 @@ missing source, all together, and waits for them. The library is loaded
 with ``ctypes``; :func:`launch` passes every pointer and the stream as
 ``c_void_p``. Nothing is compiled or loaded at import time: the CPU has no
 ``nvcc`` and never calls :func:`load`.
+
+A launch costs little more than the ctypes call itself: each ``(source,
+entry)`` is resolved once into a typed ctypes function (argtypes set), the
+lock is taken only while a source is first built and loaded, the device
+context is entered only when the tensor's device is not the current one,
+and the current stream's raw handle is read on every call without building
+a ``torch.cuda.Stream``. Read per call, the handle is the capture stream
+while a CUDA graph is being captured, so the launch lands in the graph.
 """
 from __future__ import annotations
 
@@ -37,6 +45,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LOADED: dict[str, ctypes.CDLL] = {}
+_ENTRIES: dict[tuple[str, str], ctypes._CFuncPtr] = {}
 _LOCK = threading.RLock()
 
 
@@ -96,6 +105,9 @@ def build(names=SOURCES) -> list[str]:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built first if needed."""
+    lib = _LOADED.get(name)
+    if lib is not None:
+        return lib
     with _LOCK:
         lib = _LOADED.get(name)
         if lib is None:
@@ -105,18 +117,29 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
+def _entry(name: str, entry: str, argtypes: tuple):
+    """C entry ``entry`` of ``csrc/<name>.cu`` as a typed ctypes function:
+    every argument as given plus the stream (``c_void_p``), an ``int``
+    CUDA error back. Without argtypes ctypes would pass each pointer as a
+    32-bit int."""
+    fn = getattr(load(name), entry)
+    fn.argtypes = (*argtypes, ctypes.c_void_p)
+    fn.restype = ctypes.c_int
+    _ENTRIES[(name, entry)] = fn
+    return fn
+
+
 def launch(name: str, entry: str, argtypes: tuple, device: torch.device,
            *args) -> None:
     """Call C entry ``entry`` of ``csrc/<name>.cu`` with ``args`` and the
-    current stream of ``device``; raises if it returns a CUDA error. The
-    argtypes are set before the first call: ctypes would otherwise pass
-    each pointer as a 32-bit int."""
-    fn = getattr(load(name), entry)
-    if fn.argtypes is None:
-        fn.argtypes = (*argtypes, ctypes.c_void_p)
-        fn.restype = ctypes.c_int
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*args, stream)
+    current stream of ``device``; raises if it returns a CUDA error."""
+    fn = _ENTRIES.get((name, entry)) or _entry(name, entry, argtypes)
+    current = torch._C._cuda_getDevice()
+    index = current if device.index is None else device.index
+    if index == current:
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     if err:
         raise RuntimeError(f"{entry} launch failed: CUDA error {err}")

@@ -27,7 +27,7 @@ import ctypes
 import torch
 
 from . import _build
-from ._backend import require_operands, use_kernel
+from ._backend import refuse_grad, require_operands, use_kernel
 
 __all__ = ["flash_attention", "flash_attention_plain"]
 
@@ -103,6 +103,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if bf16 and d % 8:
         raise ValueError(f"head_dim {d}: the bf16 kernel's TMA loads need a "
                          "multiple of 8 (16-byte rows)")
+    refuse_grad("flash_attention", q=q, k=k, v=v)
     require_operands(q.device, q=q, k=k, v=v)
     if bf16 and any(x.data_ptr() % 16 for x in (q, k, v)):
         raise ValueError("the bf16 kernel's TMA loads need 16-byte aligned "

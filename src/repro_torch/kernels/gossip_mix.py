@@ -25,14 +25,14 @@ import ctypes
 import torch
 
 from . import _build
-from ._backend import require_operands, use_kernel
+from ._backend import refuse_grad, require_operands, use_kernel
 
 __all__ = ["gossip_mix", "gossip_mix_q8", "gossip_mix_rows",
            "gossip_mix_q8_rows", "gossip_mix_rows_plain",
            "gossip_mix_q8_rows_plain"]
 
 _SB = 2048          # int8 scale-block lanes (== core.compression._BLOCK)
-_MAX_K = 4096       # one weight row lives in shared memory (<= 16 KB)
+_MAX_K = 4096       # a block's weight rows live in shared memory
 _MAX_M = 65535      # output rows run on gridDim.y
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -63,21 +63,26 @@ def gossip_mix_rows(w: torch.Tensor, bufs: torch.Tensor) -> torch.Tensor:
                          f"{tuple(w.shape)} and bufs {tuple(bufs.shape)}")
     if bufs.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"bufs must be float32 or bfloat16, got {bufs.dtype}")
-    if not use_kernel(bufs.device):
+    device = bufs.device
+    if not use_kernel(device):
         return gossip_mix_rows_plain(w, bufs)
     m, k = w.shape
     if k > _MAX_K or m > _MAX_M:
         raise ValueError(f"W {tuple(w.shape)} exceeds the kernel's limits "
                          f"(K <= {_MAX_K}, M <= {_MAX_M})")
-    w = w.to(torch.float32).contiguous()
-    require_operands(bufs.device, w=w, bufs=bufs)
+    refuse_grad("gossip_mix_rows", w=w, bufs=bufs)
+    if w.dtype != torch.float32:
+        w = w.to(torch.float32)
+    if not w.is_contiguous():
+        w = w.contiguous()
+    require_operands(device, w=w, bufs=bufs)
     n = bufs.shape[1]
-    out = torch.empty((m, n), dtype=bufs.dtype, device=bufs.device)
+    out = torch.empty_like(bufs) if m == k else bufs.new_empty((m, n))
     if m == 0 or n == 0:
         return out
     name = ("gossip_mix_rows_f32" if bufs.dtype == torch.float32
             else "gossip_mix_rows_bf16")
-    _build.launch("gossip_mix", name, _ROWS_ARGS, bufs.device, w.data_ptr(),
+    _build.launch("gossip_mix", name, _ROWS_ARGS, device, w.data_ptr(),
                   bufs.data_ptr(), out.data_ptr(), m, k, n)
     gossip_mix_rows.launches += 1
     return out
@@ -150,6 +155,8 @@ def gossip_mix_q8_rows(w_self: torch.Tensor, w_off: torch.Tensor,
     if k > _MAX_K - 1 or m > _MAX_M:
         raise ValueError(f"{m} rows x {k} payloads exceed the kernel's "
                          f"limits (K < {_MAX_K}, M <= {_MAX_M})")
+    refuse_grad("gossip_mix_q8_rows", w_self=w_self, w_off=w_off,
+                self_buf=self_buf, scales=scales)
     w_self = w_self.to(torch.float32).contiguous()
     w_off = w_off.to(torch.float32).contiguous()
     self_buf = self_buf.to(torch.float32)

@@ -30,7 +30,7 @@ import ctypes
 import torch
 
 from . import _build
-from ._backend import require_operands, use_kernel
+from ._backend import refuse_grad, require_operands, use_kernel
 
 __all__ = ["quantize_int8", "dequantize_int8", "quantize_int8_plain",
            "dequantize_int8_plain", "BLOCKS"]
@@ -110,6 +110,7 @@ def quantize_int8(x: torch.Tensor, block: int = 256
     _check_quantize(x, block)
     if not use_kernel(x.device):
         return quantize_int8_plain(x, block)
+    refuse_grad("quantize_int8", x=x)
     x = x.contiguous()
     require_operands(x.device, x=x)
     rows, lanes = x.shape
@@ -155,18 +156,23 @@ def dequantize_int8(q: torch.Tensor, scales: torch.Tensor, block: int = 256,
     version on the CPU."""
     length = q.shape[-1] if length is None else int(length)
     _check_dequantize(q, scales, block, length, dtype)
-    if not use_kernel(q.device):
+    device = q.device
+    if not use_kernel(device):
         return dequantize_int8_plain(q, scales, block, length, dtype)
-    scales = scales.to(torch.float32).contiguous()
-    require_operands(q.device, q=q, scales=scales)
+    refuse_grad("dequantize_int8", scales=scales)
+    if scales.dtype != torch.float32:
+        scales = scales.to(torch.float32)
+    if not scales.is_contiguous():
+        scales = scales.contiguous()
+    require_operands(device, q=q, scales=scales)
     rows, lanes = q.shape
     if rows * _blocks(length, 2048) > _MAX_GRID:
         raise ValueError(f"q {tuple(q.shape)} exceeds the kernel's grid")
-    out = torch.empty((rows, length), dtype=dtype, device=q.device)
+    out = scales.new_empty((rows, length), dtype=dtype)
     if out.numel() == 0:
         return out
     _build.launch("quantize", f"dequantize_int8_{_DTYPES[dtype]}_b{block}",
-                  _DQ_ARGS, q.device, q.data_ptr(), scales.data_ptr(),
+                  _DQ_ARGS, device, q.data_ptr(), scales.data_ptr(),
                   out.data_ptr(), rows, lanes, scales.shape[1], length)
     dequantize_int8.launches += 1
     return out

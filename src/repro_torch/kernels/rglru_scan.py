@@ -21,7 +21,7 @@ from typing import Optional
 import torch
 
 from . import _build
-from ._backend import require_operands, use_kernel
+from ._backend import refuse_grad, require_operands, use_kernel
 
 __all__ = ["rglru_scan", "rglru_scan_plain"]
 
@@ -64,6 +64,7 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor,
     _check(a, b, h0)
     if not use_kernel(a.device):
         return rglru_scan_plain(a, b, h0)
+    refuse_grad("rglru_scan", a=a, b=b, h0=h0)
     a32 = a.to(torch.float32).contiguous()
     b32 = b.to(torch.float32).contiguous()
     h32 = None if h0 is None else h0.to(torch.float32).contiguous()

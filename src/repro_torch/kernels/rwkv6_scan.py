@@ -28,7 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from ._backend import require_operands, use_kernel
+from ._backend import refuse_grad, require_operands, use_kernel
 
 __all__ = ["rwkv6_scan", "rwkv6_scan_plain", "MAX_D"]
 
@@ -118,6 +118,7 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(r, k, v, w, u, s0)
     if not use_kernel(r.device):
         return rwkv6_scan_plain(r, k, v, w, u, s0, chunk)
+    refuse_grad("rwkv6_scan", r=r, k=k, v=v, w=w, u=u, s0=s0)
     # fp32, contiguous and 16-byte aligned: the kernel reads float4 rows
     xs = [x.to(torch.float32).contiguous() for x in (r, k, v, w, u)]
     r32, k32, v32, w32, u32 = (x if x.data_ptr() % 16 == 0 else x.clone()

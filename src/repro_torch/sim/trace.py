@@ -838,7 +838,9 @@ def simulate_dpsgd_cnn(
     The node splits and the test set move to ``device`` once; each round
     gathers its minibatch there (``driver_batch_indices``, the JAX
     package's draws). Initial parameters come from ``cnn.cnn_init`` seeded
-    with ``cfg.seed``.
+    with ``cfg.seed``. On a card the step is a CUDA graph per signature
+    (``dpsgd.make_*``); a churn that changes n captures a new one before
+    the round's clock starts, so a capture is never charged as compute.
     """
     dev = resolve_device(device)
     compute_clock = compute_clock or time.perf_counter
@@ -901,16 +903,22 @@ def simulate_dpsgd_cnn(
         active = (torch.ones(n_live, dtype=torch.bool, device=dev)
                   if ctx.active is None
                   else torch.as_tensor(ctx.active, device=dev))
+        if compressed:
+            run, args = cstep, (state["params"], b, ctx.w_eff, active,
+                                state["residuals"])
+        elif faulty:
+            run, args = mstep, (state["params"], b, ctx.w_eff, active)
+        else:
+            run, args = step, (state["params"], b, ctx.w_eff)
+        prepare = getattr(run, "prepare", None)     # a GraphedStep's
+        if prepare is not None:
+            prepare(*args)      # a new signature's capture is not compute
         sync()
         t0 = compute_clock()
         if compressed:
-            state["params"], state["residuals"], losses = cstep(
-                state["params"], b, ctx.w_eff, active, state["residuals"])
-        elif faulty:
-            state["params"], losses = mstep(state["params"], b, ctx.w_eff,
-                                            active)
+            state["params"], state["residuals"], losses = run(*args)
         else:
-            state["params"], losses = step(state["params"], b, ctx.w_eff)
+            state["params"], losses = run(*args)
         sync()
         out = {"loss": float(losses.mean())}
         if measure_compute:

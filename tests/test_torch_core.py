@@ -8,6 +8,8 @@ scales on the same input.
 """
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")  # the reference's CI installs no torch
 import torch
 
 from repro.core import bound as r_bound

@@ -10,6 +10,8 @@ flash fp32 2e-5, bf16 3e-2; rglru 1e-4; rwkv6 5e-4.
 import jax.numpy as jnp
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")  # the reference's CI installs no torch
 import torch
 
 from repro.core.compression import quantize_int8 as jax_quantize_int8
@@ -490,3 +492,56 @@ def test_rwkv6_contracts(case):
     with pytest.raises(ValueError, match=match):
         rw.rwkv6_scan(*args)
     assert rw.rwkv6_scan.launches == before
+
+
+# ---------------------------------------------------------------------------
+# No backward kernel yet: the kernel path refuses inputs that need a gradient
+# ---------------------------------------------------------------------------
+
+def _grad_cases():
+    """(wrapper, its module, a call with the input named last requiring
+    grad) for every kernel wrapper, at tiny shapes."""
+    from repro_torch.kernels import quantize as qz
+    q8 = torch.zeros((2, 2048), dtype=torch.int8)
+    return {
+        "gossip_mix_rows": (gm.gossip_mix_rows, gm, lambda g: gm.gossip_mix_rows(
+            torch.ones(2, 3), torch.ones(3, 16, requires_grad=g))),
+        "gossip_mix_q8_rows": (gm.gossip_mix_q8_rows, gm,
+                               lambda g: gm.gossip_mix_q8_rows(
+            torch.ones(2), torch.ones(2, 2), torch.ones(2, 16, requires_grad=g),
+            q8, torch.ones(2, 1))),
+        "quantize_int8": (qz.quantize_int8, qz, lambda g: qz.quantize_int8(
+            torch.ones(2, 300, requires_grad=g), 256)),
+        "dequantize_int8": (qz.dequantize_int8, qz, lambda g: qz.dequantize_int8(
+            q8, torch.ones(2, 1, requires_grad=g), 2048)),
+        "flash_attention": (fa.flash_attention, fa, lambda g: fa.flash_attention(
+            torch.zeros(1, 8, 2, 16, requires_grad=g), torch.zeros(1, 8, 1, 16),
+            torch.zeros(1, 8, 1, 16))),
+        "rglru_scan": (rg.rglru_scan, rg, lambda g: rg.rglru_scan(
+            torch.ones(1, 4, 8), torch.ones(1, 4, 8, requires_grad=g))),
+        "rwkv6_scan": (rw.rwkv6_scan, rw, lambda g: rw.rwkv6_scan(
+            *(torch.ones(1, 4, 2, 8) for _ in range(4)),
+            torch.ones(2, 8, requires_grad=g))),
+    }
+
+
+@pytest.mark.parametrize("name", list(_grad_cases()))
+def test_kernel_path_refuses_inputs_that_need_a_gradient(monkeypatch, name):
+    """On the kernel path (dispatch patched to the card's answer, the
+    launch recorded instead of made) a wrapper raises before any launch
+    when autograd is on and an input requires grad: its output, filled
+    through ctypes, would silently carry no grad_fn. Under no_grad, or
+    with inputs that need none, it launches as before."""
+    wrapper, mod, call = _grad_cases()[name]
+    launched = []
+    monkeypatch.setattr(mod, "use_kernel", lambda dev: True)
+    monkeypatch.setattr(mod._build, "launch",
+                        lambda name, e, *args: launched.append(e))
+    before = wrapper.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        call(True)
+    assert launched == [] and wrapper.launches == before
+    with torch.no_grad():
+        call(True)
+    call(False)
+    assert len(launched) == 2 and wrapper.launches == before + 2

@@ -1,6 +1,7 @@
 """The CUDA kernels (gossip mix, flash attention in fp32 and on the
 tensor cores in bf16, RG-LRU scan, RWKV-6 scan, int8 quantize / dequantize)
-against their plain torch versions, on an sm_90 card (every test here skips
+against their plain torch versions, and the D-PSGD steps as CUDA graphs
+against their eager bodies, on an sm_90 card (every test here skips
 without one).
 
 Imports neither ``jax`` nor ``repro``, so it runs on a machine with only
@@ -15,7 +16,10 @@ of its norm. The int8 codec is
 bit-equal: q, scales and the dequantized output ``torch.equal`` (finite
 inputs).
 """
+import numpy as np
 import pytest
+
+pytest.importorskip("torch")  # the reference's CI installs no torch
 import torch
 
 from repro_torch.core import compression as comp
@@ -69,6 +73,24 @@ def test_gossip_mix_rows_kernel_matches_plain(sm90, m, k, n, dtype):
     assert gm.gossip_mix_rows.launches == before + 1
     assert got.dtype == tdt and got.device.type == "cuda"
     assert _err(got.cpu(), gm.gossip_mix_rows_plain(w, bufs)) < TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 6, 8, 9])
+@pytest.mark.parametrize("k", [1, 6, 12])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gossip_mix_rows_one_pass_and_grid_y_forms(sm90, m, k, dtype):
+    """M <= 8 takes the one-pass kernel (every input byte read once), M = 9
+    the grid-y form; both at ragged and aligned N, 1 to 21 843 lanes."""
+    tdt = DTYPES[dtype]
+    for n in (1, 3, 21_840, 21_843):
+        g = torch.Generator().manual_seed(100 * m + 10 * k + n)
+        bufs = torch.randn((k, n), generator=g).to(tdt)
+        w = torch.softmax(torch.randn((m, k), generator=g), -1)
+        got = gm.gossip_mix_rows(w.to(sm90), bufs.to(sm90))
+        torch.cuda.synchronize()
+        assert got.shape == (m, n) and got.dtype == tdt
+        assert _err(got.cpu(), gm.gossip_mix_rows_plain(w, bufs)) < TOL[dtype]
 
 
 @pytest.mark.cuda
@@ -306,3 +328,156 @@ def test_quantize_kernel_contracts(sm90):
             call()
     assert (qz.quantize_int8.launches, qz.dequantize_int8.launches) == before
 
+
+
+# ---------------------------------------------------------------------------
+# The D-PSGD steps as CUDA graphs (repro_torch.graphs)
+# ---------------------------------------------------------------------------
+
+def _step_inputs(n, seed, device, b=8):
+    """Distinct per-node CNN parameters, a batch and a row-stochastic W
+    (numpy float64, as the simulator hands it over), made from a seed."""
+    from repro_torch.core import dpsgd
+    from repro_torch.models import cnn
+
+    g = torch.Generator().manual_seed(seed)
+    base = cnn.cnn_init(g, device="cpu")
+    params = dpsgd._tree_map(
+        lambda p: (p[None].repeat(n, *([1] * p.dim()))
+                   + 0.01 * torch.randn((n, *p.shape), generator=g)
+                   ).to(device), base)
+    rng = np.random.default_rng(seed)
+    batch = {"images": torch.from_numpy(rng.normal(
+                 size=(n, b, 1, 28, 28)).astype(np.float32)).to(device),
+             "labels": torch.from_numpy(rng.integers(
+                 0, 10, size=(n, b)).astype(np.int32)).to(device)}
+    w = rng.random((n, n)) + np.eye(n)
+    return params, batch, w / w.sum(1, keepdims=True)
+
+
+def _graph_cases():
+    from repro_torch.core import dpsgd
+    from repro_torch.core.compression import QuantConfig
+    from repro_torch.models import cnn
+
+    cfg, int8 = dpsgd.DPSGDConfig(eta=0.05), QuantConfig(mode="int8")
+    return {
+        "dense": (lambda: dpsgd.make_dpsgd_step(cnn.cnn_loss, cfg),
+                  lambda *a: dpsgd.dpsgd_step(cnn.cnn_loss, *a, cfg)),
+        "masked": (lambda: dpsgd.make_dpsgd_masked_step(cnn.cnn_loss, cfg),
+                   lambda *a: dpsgd.dpsgd_masked_step(cnn.cnn_loss, *a, cfg)),
+        "compressed": (
+            lambda: dpsgd.make_dpsgd_compressed_step(cnn.cnn_loss, int8, cfg),
+            lambda *a: dpsgd.dpsgd_masked_compressed_step(
+                cnn.cnn_loss, *a, int8, cfg))}
+
+
+def _flat(out):
+    from repro_torch.core import dpsgd
+    if isinstance(out, dict):
+        return dpsgd._leaves(out)
+    if isinstance(out, (tuple, list)):
+        return [x for o in out for x in _flat(o)]
+    return [out]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["dense", "masked", "compressed"])
+def test_graphed_step_matches_eager_body_and_outputs_stay_put(sm90, kind):
+    """Five graphed steps at n = 6, then five at n = 5 (a new signature,
+    a second capture), each held against the eager body on the same
+    inputs (losses 1e-4, parameters 1e-5, the int8 payload's rounding
+    included); what step k returned is unchanged after step k + 1. W
+    arrives as pageable numpy each step."""
+    from repro_torch.core import dpsgd
+
+    build, body = _graph_cases()[kind]
+    step = build()
+    for n in (6, 5):
+        params, batch, w = _step_inputs(n, seed=n, device=sm90)
+        live = np.arange(n) != 1
+        res = dpsgd.zero_residuals(params)
+        kept = []
+        for k in range(5):
+            args = (params, batch, w) + {
+                "dense": (), "masked": (live,), "compressed": (live, res)}[kind]
+            got, want = step(*args), body(*args)
+            torch.cuda.synchronize()
+            leaves, ref = _flat(got), _flat(want)
+            assert len(leaves) == len(ref)
+            for a, b_ in zip(leaves, ref):
+                assert a.shape == b_.shape and a.dtype == b_.dtype
+                assert _err(a, b_) <= 1e-5
+            kept.append((got, [t.clone() for t in leaves]))
+            params = got[0]
+            res = got[1] if kind == "compressed" else res
+            batch = {"images": batch["images"].flip(1),
+                     "labels": batch["labels"].flip(1)}
+        torch.cuda.synchronize()
+        for got, copy in kept:
+            assert all(torch.equal(a, c) for a, c in zip(_flat(got), copy))
+    assert step.signatures == 2
+
+
+@pytest.mark.cuda
+def test_graphed_step_counts_one_capture_delta_per_replay(sm90):
+    """The warm-up and the capture launch nothing that counts; each replay
+    adds what the capture saw: one quantize, one dequantize and one q8
+    receive per int8 round."""
+    build, _ = _graph_cases()["compressed"]
+    from repro_torch.core import dpsgd
+
+    step = build()
+    params, batch, w = _step_inputs(6, seed=0, device=sm90)
+    live = torch.ones(6, dtype=torch.bool, device=sm90)
+    res = dpsgd.zero_residuals(params)
+    counters = (qz.quantize_int8, qz.dequantize_int8, gm.gossip_mix_q8_rows,
+                gm.gossip_mix_rows)
+    before = [f.launches for f in counters]
+    step.prepare(params, batch, w, live, res)
+    assert [f.launches for f in counters] == before
+    for r in range(1, 4):
+        params, res, _ = step(params, batch, w, live, res)
+        assert [f.launches - b for f, b in zip(counters, before)] == \
+            [r, r, r, 0]
+
+
+@pytest.mark.cuda
+def test_graphed_loop_with_the_host_ahead_matches_a_synchronised_loop(sm90):
+    """Thirty graphed steps issued back to back, as train() issues them
+    (indices uploaded without a sync, the host running ahead of the card),
+    end bit-equal to the same steps synchronised one by one, with cuDNN
+    held to deterministic algorithms: no step reads an input, a static
+    buffer or an output that a later step has already overwritten."""
+    from repro_torch.core import dpsgd
+    from repro_torch.examples import wireless_dpsgd as ex
+    from repro_torch.models import cnn
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        g = torch.Generator().manual_seed(7)
+        data = ex.NodeData(torch.randn((6, 200, 1, 28, 28), generator=g).to(sm90),
+                           torch.randint(0, 10, (6, 200), generator=g,
+                                         dtype=torch.int32).to(sm90),
+                           torch.zeros((1, 1, 28, 28), device=sm90),
+                           torch.zeros((1,), dtype=torch.int32, device=sm90))
+        w = torch.full((6, 6), 1 / 6, device=sm90)
+        step = dpsgd.make_dpsgd_step(cnn.cnn_loss, dpsgd.DPSGDConfig(eta=0.05))
+        runs = []
+        for sync in (False, True):
+            params = ex.init_params(6, device=sm90)
+            rng = np.random.default_rng(0)
+            losses = []
+            for _ in range(30):
+                idx = rng.integers(0, data.per_node, size=(6, ex.BATCH))
+                params, loss = step(params, ex._batch(data, idx), w)
+                losses.append(loss)
+                if sync:
+                    torch.cuda.synchronize()
+            torch.cuda.synchronize()
+            runs.append(_flat(params) + losses)
+        assert step.signatures == 1
+        assert all(torch.equal(a, b) for a, b in zip(*runs))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic

@@ -18,6 +18,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")  # the reference's CI installs no torch
 import torch
 
 from repro.configs.base import ModelConfig as JaxModelConfig

@@ -19,6 +19,8 @@ they write and against the JAX oracle ``quantize_int8_ref`` on every lane.
 import jax.numpy as jnp
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")  # the reference's CI installs no torch
 import torch
 
 from repro.core import compression as jcomp

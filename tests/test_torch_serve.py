@@ -23,6 +23,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")  # the reference's CI installs no torch
 import torch
 
 from repro.configs import get_config as j_get_config

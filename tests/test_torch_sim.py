@@ -17,6 +17,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
+pytest.importorskip("torch")  # the reference's CI installs no torch
+
 from examples import sim_scenarios as r_example
 from repro.checkpoint import ckpt as r_ckpt
 from repro.core import access_opt as r_access

@@ -21,6 +21,8 @@ import functools
 import jax
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")  # the reference's CI installs no torch
 import torch
 
 from repro.core import dpsgd as r_dpsgd

@@ -19,6 +19,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")  # the reference's CI installs no torch
 import torch
 
 from repro.core import channel as r_channel
