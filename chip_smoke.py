@@ -41,8 +41,12 @@ Phases, each of which ends the run with a nonzero exit if it fails:
               eager rows-mix call, the earlier launch path and this one
               (3: gossip mixes, 3b: flash and rglru, flash in bf16 also at
               the tensor-core kernel's tile edges, with its TFLOP/s over
-              the band and share of the bound, 3c: rwkv6_scan, and
-              its state handoff to the one-token decode step, 3d: the
+              the band and share of the bound, rglru also at S across its
+              chained scan's 32-step chunks, each time with its share of
+              the bound and the scan's memset counted, 3c: rwkv6_scan,
+              also in the served and a weak decay regime at the served
+              shape and at S one short of and one past its 16-step chunk,
+              and its state handoff to the one-token decode step, 3d: the
               int8 quantize / dequantize, bit-equal, in the TPU kernels'
               256-lane format through ``ops`` and the 2048-lane wire
               format, timed at the path's message and at (64, 1 048 576));
@@ -284,16 +288,19 @@ def device_profile(torch, run, calls: int) -> list[tuple[str, float, int]]:
     return sorted(rows, key=lambda r: -r[1])
 
 
-def device_ms(torch, fn, kernel_name: str, calls: int = 50):
-    """Device time per call of the kernels whose name contains
-    ``kernel_name``; None if the trace shows none."""
+def device_ms(torch, fn, kernel_name, calls: int = 50):
+    """Device time per call of every device operation a call makes whose
+    name contains ``kernel_name`` (a string, or a tuple of name fragments:
+    a wrapper's kernels, memsets and second passes all count); None if the
+    trace shows none."""
     fn()
+    names = (kernel_name,) if isinstance(kernel_name, str) else kernel_name
 
     def run():
         for _ in range(calls):
             fn()
     ms = sum(r[1] for r in device_profile(torch, run, calls)
-             if kernel_name in r[0])
+             if any(n in r[0] for n in names))
     return ms if ms > 0 else None
 
 
@@ -1156,9 +1163,13 @@ def phase_attention_kernels(torch) -> dict:
         else:
             fail(f"flash_attention accepted head_dim {d} in {dtype}")
 
+    # the served prefill and decode shapes, then S across the chained
+    # scan's 32-step chunks (33, 65: one and two chunks past a boundary)
     for b, s, d, with_h0 in ((SERVE_BATCH, SERVE_PROMPT, 2560, True),
                              (SERVE_BATCH, 1, 2560, True),
-                             (3, 37, 100, False), (2, 70, 100, True)):
+                             (3, 37, 100, False), (2, 70, 100, True),
+                             (2, 33, 2560, True), (SERVE_BATCH, 65, 2560, True),
+                             (3, 65, 300, False)):
         a = torch.sigmoid(torch.randn((b, s, d), generator=gen, device=dev))
         x = torch.randn((b, s, d), generator=gen, device=dev)
         h0 = torch.randn((b, d), generator=gen, device=dev) if with_h0 \
@@ -1224,8 +1235,10 @@ def phase_attention_kernels(torch) -> dict:
             "plain_ms": time_ms(torch, lambda: rg.rglru_scan_plain(a, x, h0),
                                 reps=reps, rounds=3, warmup=1),
             "library_ms": None,
+            # the chained scan's memset of its flags counts too
             "device_ms": device_ms(torch, lambda: rg.rglru_scan(a, x, h0),
-                                   "rglru_scan_kernel", calls=10),
+                                   ("rglru_scan_kernel", "Memset"),
+                                   calls=10),
             "bound_ms": b_ms, "bound_by": b_by,
             "shape": f"a, b ({b},{s},{d}) fp32, h0 ({b},{d})"}
     rglru = dict(out[SERVE_PROMPT], decode=out[1])
@@ -1236,9 +1249,12 @@ def phase_attention_kernels(torch) -> dict:
             else f"{t['device_ms']:.4f} ms"
         lib = "none" if t["library_ms"] is None \
             else f"{t['library_ms']:.4f} ms"
+        dev_t = t["device_ms"] if t["device_ms"] is not None else t["ms"]
         print(f"{name:15s} {t['shape']}: {t['ms']:.4f} ms/call "
               f"(device {dms}) | plain {t['plain_ms']:.4f} ms | library "
-              f"{lib} | bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+              f"{lib} | bound {t['bound_ms']:.4f} ms ({t['bound_by']}), "
+              f"{t['bound_ms'] / dev_t * 100:.1f} % of it "
+              f"({'device' if t['device_ms'] is not None else 'per call'})")
     flash["max_abs_err"] = errs["flash_attention"]
     rglru["max_abs_err"] = errs["rglru_scan"]
     return {"flash_attention": flash, "rglru_scan": rglru}
@@ -1252,23 +1268,39 @@ def phase_rwkv_kernel(torch) -> dict:
     gen = torch.Generator(device=dev).manual_seed(0)
     worst = 0.0
 
-    def inputs(b, s, h, d):
-        """Drawn as tests/test_kernels.py:110-114 draws them, plus s0."""
-        r, k, v = (torch.randn((b, s, h, d), generator=gen, device=dev)
-                   for _ in range(3))
-        w = torch.exp(-torch.exp(torch.randn((b, s, h, d), generator=gen,
-                                             device=dev) * 0.5))
-        u = torch.randn((h, d), generator=gen, device=dev) * 0.1
-        s0 = torch.randn((b, h, d, d), generator=gen, device=dev)
+    def inputs(b, s, h, d, regime="test"):
+        """Drawn as tests/test_kernels.py:110-114 draws them, plus s0; or
+        with the decays of a regime: "served", log w = -exp(U(0.5, 2) +
+        N(0, 1)) as models/rwkv6.py's w0 and LoRA give them (the 1e-12
+        floor of w live), or "weak", log w ~ -1e-3 (a ~1000-step memory)
+        with k scaled by sqrt(1 - w^2), so that the state keeps the unit
+        scale the absolute bar was set for."""
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device=dev)
+        r, k, v = (randn(b, s, h, d) for _ in range(3))
+        if regime == "served":
+            lw = -torch.exp(0.5 + 1.5 * torch.rand(
+                (b, s, h, d), generator=gen, device=dev) + randn(b, s, h, d))
+        elif regime == "weak":
+            lw = -1e-3 * torch.exp(0.1 * randn(b, s, h, d))
+            k = k * torch.sqrt(-torch.expm1(2 * lw))
+        else:
+            lw = -torch.exp(randn(b, s, h, d) * 0.5)
+        w = torch.exp(lw)
+        u = randn(h, d) * 0.1
+        s0 = randn(b, h, d, d)
         return r, k, v, w, u, s0
 
-    # the served shape (B = 4, S = 4096, H = 64, D = 64), then edge shapes:
-    # S in {1, 33}, D in {8, 16, 32}, H = 1
+    # the served shape (B = 4, S = 4096, H = 64, D = 64), in both decay
+    # regimes too, then edge shapes: S in {1, 33}, D in {8, 16, 32}, H = 1,
+    # and S one short of the kernel's 16-step chunk and one past it
     cfg = (SERVE_BATCH, SERVE_PROMPT, 64, 64)
-    cases = [(*cfg, True), (*cfg, False)] + [
-        (2, s, 1, d, d != 16) for s in (1, 33) for d in (8, 16, 32)]
-    for b, s, h, d, with_s0 in cases:
-        r, k, v, w, u, s0 = inputs(b, s, h, d)
+    cases = [(*cfg, True, "test"), (*cfg, False, "test"),
+             (*cfg, True, "served"), (*cfg, True, "weak")] + [
+        (2, s, 1, d, d != 16, "test") for s in (1, 33) for d in (8, 16, 32)
+    ] + [(2, s, 2, 64, True, "served") for s in (15, 17)]
+    for b, s, h, d, with_s0, regime in cases:
+        r, k, v, w, u, s0 = inputs(b, s, h, d, regime)
         s0 = s0 if with_s0 else None
         y, st = rw.rwkv6_scan(r, k, v, w, u, s0)
         torch.cuda.synchronize()
@@ -1278,7 +1310,8 @@ def phase_rwkv_kernel(torch) -> dict:
               f"rwkv6_scan ({b},{s},{h},{d}): {y.shape}/{st.shape}")
         e = max(err(y, want_y), err(st, want_s))
         print(f"rwkv6_scan     ({b},{s},{h},{d}) s0={with_s0!s:5s} "
-              f"max|err| y and state {e:.3e} (tol {TOL_RWKV:g})")
+              f"{regime:6s} decays: max|err| y and state {e:.3e} "
+              f"(tol {TOL_RWKV:g})")
         check(e <= TOL_RWKV, f"rwkv6_scan ({b},{s},{h},{d}): max|err| {e}")
         worst = max(worst, e)
     # the handoff decode reads: the kernel's final state after S steps and
@@ -1332,9 +1365,12 @@ def phase_rwkv_kernel(torch) -> dict:
            "max_abs_err": worst}
     dms = "not measured" if out["device_ms"] is None \
         else f"{out['device_ms']:.4f} ms"
+    dev_t = out["device_ms"] if out["device_ms"] is not None else out["ms"]
     print(f"rwkv6_scan     {out['shape']}: {out['ms']:.4f} ms/call (device "
           f"{dms}) | plain (chunk {RWKV_CHUNK}) {out['plain_ms']:.4f} ms | "
-          f"library none | bound {b_ms:.4f} ms ({b_by})")
+          f"library none | bound {b_ms:.4f} ms ({b_by}), "
+          f"{b_ms / dev_t * 100:.1f} % of it "
+          f"({'device' if out['device_ms'] is not None else 'per call'})")
     return {"rwkv6_scan": out}
 
 
@@ -1961,10 +1997,11 @@ def main() -> None:
             "graph_ms": k.get("graph_ms"),
             "library_graph_ms": k.get("library_graph_ms"),
             "device_ms": k["device_ms"], "shape": k["shape"]})
-        if name == "flash_attention":    # the fp32 entry at the same shape
-            rows[-1]["fp32"] = {f: k["fp32"][f] for f in (
-                "ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
-                "bound_by")}
+        for extra in ("fp32", "decode"):  # flash's fp32 entry, rglru's S = 1
+            if extra in k:
+                rows[-1][extra] = {f: k[extra][f] for f in (
+                    "ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
+                    "bound_by", "shape")}
     print("\nphase wall times: " + ", ".join(f"{label} {sec:.2f} s"
                                              for label, sec in walls))
     print(f"all phases passed in {time.perf_counter() - t_start:.1f}s")

@@ -57,7 +57,7 @@ def rwkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """r,k,v,w (B,S,H,D); u (H,D) -> (y (B,S,H,D), state (B,H,D,D)).
     ``s0`` (B,H,D,D) fp32 is the initial state (zeros without it).
     ``chunk`` is the plain version's chunk length (clamped as the JAX
-    wrapper clamps it); the kernel walks the exact recurrence."""
+    wrapper clamps it); the kernel takes its own 16-step chunks."""
     chunk = min(chunk, max(8, r.shape[1]))
     return _rw.rwkv6_scan(r, k, v, w, u, s0, chunk)
 

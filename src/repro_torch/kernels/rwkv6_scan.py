@@ -1,4 +1,4 @@
-"""RWKV-6 WKV recurrence as a hand-written CUDA kernel.
+"""RWKV-6 WKV scan as a hand-written CUDA kernel.
 
 The torch counterpart of ``repro.kernels.rwkv6_scan`` (and of the model's
 ``wkv_chunked``, whose initial state it takes):
@@ -8,11 +8,20 @@ The torch counterpart of ``repro.kernels.rwkv6_scan`` (and of the model's
   S_t = diag(w_t) S_{t-1} + k_t v_t^T and
   y_t = r_t^T (S_{t-1} + diag(u) k_t v_t^T), S_{-1} = s0 (0 without it).
 
-The kernel (``csrc/rwkv6_scan.cu``) walks the exact recurrence in fp32,
-one block per (batch, head) holding the state in registers, and reads
-r, k, v, w and writes y in place in the (B, S, H, D) layout: the TPU
-wrapper's transposes to (B*H, S, D) and its padding of S are not carried
-over. The plain torch version beside it is the chunked algorithm of
+The kernel (``csrc/rwkv6_scan.cu``) takes the chunked form of the TPU
+kernel, its products on the tensor cores: one CTA per (batch, head) walks
+chunks of 16 steps, 4 producer warps (a 3-stage cp.async ring of the r,
+k, v, w rows; the decay products, floored at w = 1e-12 as in the TPU
+kernel; the pairwise diagonal of each 8-step half; the quadrant below its
+midpoint) a chunk ahead of D / 16 consumer warps that hold the state in
+their registers (y from it and the attention tile, then the state
+update). Every product runs on ``mma.sync`` in 3xTF32 (hi/lo splits,
+~fp32 accuracy), its decays referenced at the chunk's start, end or
+midpoint so that every factor is a product of w <= 1 (e^{sum log w}, no
+exponent > 0). It reads r, k, v, w and writes y in place in the (B, S, H,
+D) layout and masks a ragged last chunk itself: the TPU wrapper's
+transposes to (B*H, S, D) and its padding of S are not carried over. The
+plain torch version beside it is the chunked algorithm of
 ``repro.models.rwkv6.wkv_chunked``. The wrapper checks its arguments,
 then asks ``_backend.use_kernel`` per call: a CPU tensor runs the plain
 version, a CUDA tensor launches the kernel (or raises: no fallback).
@@ -32,7 +41,7 @@ from ._backend import refuse_grad, require_operands, use_kernel
 
 __all__ = ["rwkv6_scan", "rwkv6_scan_plain", "MAX_D"]
 
-MAX_D = 128   # the kernel's widest head (32 rows per thread)
+MAX_D = 128   # the kernel's widest head
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGS = (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I)
@@ -113,13 +122,13 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                ) -> tuple[torch.Tensor, torch.Tensor]:
     """r, k, v, w (B, S, H, D), u (H, D), s0 (B, H, D, D) fp32 | None ->
     (y (B, S, H, D) in r's dtype, s_final (B, H, D, D) fp32). Kernel on an
-    sm_90 card (the exact recurrence; ``chunk`` is the plain version's
-    only), plain version on the CPU."""
+    sm_90 card (its own chunk; ``chunk`` is the plain version's only),
+    plain version on the CPU."""
     _check(r, k, v, w, u, s0)
     if not use_kernel(r.device):
         return rwkv6_scan_plain(r, k, v, w, u, s0, chunk)
     refuse_grad("rwkv6_scan", r=r, k=k, v=v, w=w, u=u, s0=s0)
-    # fp32, contiguous and 16-byte aligned: the kernel reads float4 rows
+    # fp32, contiguous and 16-byte aligned: the kernel copies 16-byte rows
     xs = [x.to(torch.float32).contiguous() for x in (r, k, v, w, u)]
     r32, k32, v32, w32, u32 = (x if x.data_ptr() % 16 == 0 else x.clone()
                                for x in xs)

@@ -11,8 +11,8 @@ with the data-dependent per-channel decay
 Token-shift mixing uses static lerp weights (mu_*), the JAX package's
 documented simplification of the full Finch recipe. Prefill (and
 teacher-forced ``apply``) runs the WKV recurrence in a kernel
-(``kernels.ops.rwkv6``: the exact recurrence on the card, the chunked
-plain version on the CPU); decode is the exact single-step recurrence
+(``kernels.ops.rwkv6``: the chunked form on the card's tensor cores, the
+chunked plain version on the CPU); decode is the exact single-step recurrence
 ``wkv_step`` in plain torch, as in the JAX package.
 
 Channel-mix:  k = relu(W_k x_k)^2; out = sigmoid(W_r x_r) * (W_v k).

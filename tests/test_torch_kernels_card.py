@@ -193,7 +193,11 @@ def test_flash_attention_kernel_refuses_wide_heads(sm90, d, dtype):
 @pytest.mark.parametrize("b,s,d,with_h0", [(4, 1, 2560, True),
                                            (2, 70, 100, True),
                                            (3, 37, 100, False),
-                                           (2, 600, 256, True)])
+                                           (2, 600, 256, True),
+                                           # S across the chained scan's
+                                           # 32-step chunks
+                                           (2, 33, 2560, True),
+                                           (3, 65, 300, False)])
 def test_rglru_scan_kernel_matches_plain(sm90, b, s, d, with_h0):
     g = torch.Generator().manual_seed(s + d)
     a = torch.sigmoid(torch.randn((b, s, d), generator=g))
@@ -206,6 +210,36 @@ def test_rglru_scan_kernel_matches_plain(sm90, b, s, d, with_h0):
     assert rg.rglru_scan.launches == before + 1
     assert got.dtype == torch.float32 and got.shape == (b, s, d)
     assert _err(got.cpu(), rg.rglru_scan_plain(a, x, h0)) < 1e-4
+
+
+@pytest.mark.cuda
+def test_rglru_scan_captured_in_a_graph_is_right_on_every_replay(sm90):
+    """The chained scan's flags and ticket are zeroed by the call itself
+    (a memset captured with the kernel), so a CUDA graph of one call gives
+    the plain version's result on each replay, new inputs included."""
+    g = torch.Generator().manual_seed(7)
+    b, s, d = 2, 100, 256
+    draw = lambda: (torch.sigmoid(torch.randn((b, s, d), generator=g)),  # noqa
+                    torch.randn((b, s, d), generator=g),
+                    torch.randn((b, d), generator=g))
+    host = draw()
+    a, x, h0 = (t.to(sm90) for t in host)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        rg.rglru_scan(a, x, h0)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = rg.rglru_scan(a, x, h0)
+    for replay in range(2):
+        if replay:
+            host = draw()
+            for dev_t, new in zip((a, x, h0), host):
+                dev_t.copy_(new)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert _err(out.cpu(), rg.rglru_scan_plain(*host)) < 1e-4, replay
 
 
 def _rkvw(b, s, h, d, seed):
@@ -240,6 +274,41 @@ def test_rwkv6_scan_kernel_matches_plain(sm90, b, s, h, d, with_s0):
     assert y.shape == (b, s, h, d) and st.shape == (b, h, d, d)
     assert y.dtype == st.dtype == torch.float32
     # chunk 32, the model's: the chunked form's rounding grows with chunk
+    want_y, want_s = rw.rwkv6_scan_plain(r, k, v, w, u, s0, 32)
+    assert _err(y.cpu(), want_y) < 5e-4 and _err(st.cpu(), want_s) < 5e-4
+
+
+def _rkvw_regime(b, s, h, d, regime, seed):
+    """r, k, v ~ N(0, 1), u ~ N(0, 0.01), s0 ~ N(0, 1), and the decays of
+    one regime: the served one, log w = -exp(U(0.5, 2) + N(0, 1)) (the
+    1e-12 floor of w live), or a weak one, log w ~ -1e-3 with k scaled by
+    sqrt(1 - w^2) so that the state keeps unit scale over its ~1000-step
+    memory (the absolute bar was set for outputs of standard deviation
+    ~8)."""
+    rng = np.random.default_rng(seed)
+    r, k, v = (rng.normal(size=(b, s, h, d)) for _ in range(3))
+    if regime == "served":
+        lw = -np.exp(rng.uniform(0.5, 2.0, size=(b, s, h, d))
+                     + rng.normal(size=(b, s, h, d)))
+    else:
+        lw = -1e-3 * np.exp(0.1 * rng.normal(size=(b, s, h, d)))
+        k = k * np.sqrt(-np.expm1(2 * lw))
+    u = rng.normal(size=(h, d)) * 0.1
+    s0 = rng.normal(size=(b, h, d, d))
+    return tuple(torch.from_numpy(x.astype(np.float32))
+                 for x in (r, k, v, np.exp(lw), u, s0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("regime", ["served", "weak"])
+@pytest.mark.parametrize("b,s,h", [(2, 15, 4), (2, 17, 4), (1, 4097, 4)])
+def test_rwkv6_scan_kernel_in_both_decay_regimes(sm90, regime, b, s, h):
+    """S one short of the kernel's 16-step chunk, one past it, and a
+    served prompt plus one, at the served head size, against the plain
+    version (chunk 32) at 5e-4."""
+    r, k, v, w, u, s0 = _rkvw_regime(b, s, h, 64, regime, seed=s)
+    y, st = rw.rwkv6_scan(*(x.to(sm90) for x in (r, k, v, w, u, s0)))
+    torch.cuda.synchronize()
     want_y, want_s = rw.rwkv6_scan_plain(r, k, v, w, u, s0, 32)
     assert _err(y.cpu(), want_y) < 5e-4 and _err(st.cpu(), want_s) < 5e-4
 
