@@ -21,8 +21,9 @@ entry points a user calls:
 * training through the wireless simulator (``sim.simulate_dpsgd_cnn``, the
   driver behind Fig. 3's accuracy against simulated time) at the paper's
   size, one epoch of 400 rounds on ``compressed_int8`` and on ``static``,
-  with every int8 round's quantize and error-feedback dequantize in the
-  CUDA kernels of ``csrc/quantize.cu`` and its receive in ``gossip_mix_q8``.
+  every int8 round in two CUDA kernels: the send (quantize with its error
+  feedback, ``quantize_int8_ef`` of ``csrc/quantize.cu``) and the receive
+  (``gossip_mix_q8`` with W whole, launched as a programmatic dependent).
 
 Phases, each of which ends the run with a nonzero exit if it fails:
 
@@ -39,7 +40,14 @@ Phases, each of which ends the run with a nonzero exit if it fails:
               (``graph_ms``: 100 captured calls), beside the library call
               captured the same way, and the host time of each piece of an
               eager rows-mix call, the earlier launch path and this one
-              (3: gossip mixes, 3b: flash and rglru, flash in bf16 also at
+              (3: gossip mixes, the q8 receive also with W whole at K of 1,
+              6, 8 and 9 and a ragged N, waiting first and as the round
+              launches it behind the send, timed in the round's variant,
+              and the int8 round's chain in a
+              CUDA graph of 100 rounds, the unfused sequence of device
+              operations against this one's two launches, in turns, bit-
+              equal outputs, us and operations per round;
+              3b: flash and rglru, flash in bf16 also at
               the tensor-core kernel's tile edges, with its TFLOP/s over
               the band and share of the bound, rglru also at S across its
               chained scan's 32-step chunks, each time with its share of
@@ -49,7 +57,12 @@ Phases, each of which ends the run with a nonzero exit if it fails:
               and its state handoff to the one-token decode step, 3d: the
               int8 quantize / dequantize, bit-equal, in the TPU kernels'
               256-lane format through ``ops`` and the 2048-lane wire
-              format, timed at the path's message and at (64, 1 048 576));
+              format, timed at the path's message and at (64, 1 048 576),
+              with their launches in this phase; the int8 round's send
+              bit-equal (q, scales, new residual) to its plain version and
+              to the unfused sequence of launches at ragged lengths, one
+              dead node, error feedback on and off, timed at the path's
+              message);
 4. slice    — the paper run, each λ target's 40 steps twice in turns:
               the eager body, then the entry point, whose step is a CUDA
               graph (steps/s of both); the gossip_mix launch counter must
@@ -61,8 +74,10 @@ Phases, each of which ends the run with a nonzero exit if it fails:
               events) and the profiler's busy time, each with its idle
               share;
 5. compressed — 4 rounds of int8 error-feedback D-PSGD with one dead
-              node; the gossip_mix_q8 counter must grow, and one more step
-              must agree with the CPU (q bit-equal, parameters to 1e-5);
+              node; the send and gossip_mix_q8 counters must grow by the
+              round count and quantize_int8 / dequantize_int8 not at all,
+              and one more step must agree with the CPU (q bit-equal,
+              parameters to 1e-5);
 6. serving  — recurrentgemma-2b served at (4, 4096, 32) in bf16: tokens
               (4, 32), finite logits, exactly 8 flash and 576 rglru
               launches; prefill s, decode tok/s, peak memory, the decode
@@ -87,10 +102,11 @@ Phases, each of which ends the run with a nonzero exit if it fails:
               the card's own step time), each scenario twice in turns: with
               the step builders patched to their eager bodies (the "before"
               run, here only), then as the port runs it (CUDA graphs). In
-              both runs: on ``compressed_int8`` the
-              quantize, dequantize and gossip_mix_q8 counters each grow by
-              exactly the round count, on ``static`` gossip_mix does and the
-              codec does not; each trace's communication fields equal the
+              both runs: on ``compressed_int8`` the send and gossip_mix_q8
+              counters each grow by exactly the round count and quantize,
+              dequantize and gossip_mix not at all, on ``static`` gossip_mix
+              does and the codec does not; each trace's communication
+              fields equal the
               CPU simulator's charged the same compute; the first 5
               compressed rounds rerun on the CPU in lockstep (q bit-equal,
               losses 1e-4, parameters and residuals 1e-5 on every node row
@@ -101,7 +117,9 @@ Phases, each of which ends the run with a nonzero exit if it fails:
 
 Each phase prints its wall time. The last lines are the card's
 ``nvidia-smi`` name and power limit, one JSON line with every kernel's
-numbers, and ``{"ok": true, "device": ...}``.
+numbers (quantize_int8 and dequantize_int8, off the int8 round now,
+count 0 launches there and phase 3d's checks under ``check_launches``), and
+``{"ok": true, "device": ...}``.
 
 Run from the repository root:  python3 chip_smoke.py
 """
@@ -362,6 +380,17 @@ def quantize_cost(rows: int, length: int, block: int,
         6.0 * rows * nb * block
 
 
+def send_cost(rows: int, length: int) -> tuple[float, float]:
+    """quantize_int8_ef: flat and res (rows, length) fp32 and the live mask
+    read once; q (rows, Lp) int8, one fp32 scale per 2048-lane block and
+    new_res (rows, length) fp32 written once; ~9 operations per lane
+    (add, |x|, max, the quotient, round, two clamps, the dequantize
+    multiply, the residual)."""
+    nb = -(-length // 2048)
+    return 8 * rows * length + rows + rows * nb * 2048 + 4 * rows * nb \
+        + 4 * rows * length, 9.0 * rows * nb * 2048
+
+
 def dequantize_cost(rows: int, length: int, block: int,
                     elt: int) -> tuple[float, float]:
     """dequantize_int8: the int8 lanes below ``length`` and one scale per
@@ -506,6 +535,7 @@ def phase_kernels(torch) -> dict:
     phase("3. kernels against their plain versions")
     from repro_torch.core.compression import quantize_int8_rows
     from repro_torch.kernels import gossip_mix as gm
+    from repro_torch.kernels import quantize as qz
 
     dev = torch.device("cuda")
     gen = torch.Generator(device="cpu").manual_seed(0)
@@ -567,6 +597,24 @@ def phase_kernels(torch) -> dict:
     hold("gossip_mix_q8", gm.gossip_mix_q8_rows(w_self, w_off, x, q, s),
          gm.gossip_mix_q8_rows_plain(w_self, w_off, x, q, s), TOL_FP32,
          f"rows n={N_NODES} (N={n}, Np={q.shape[1]})")
+    # the int8 round's receive, W taken whole: the path's shape, a ragged
+    # N, and K one payload, a whole group of 8 and one past it; each
+    # waiting first, and as the round launches it (right behind the send,
+    # W and flat loaded ahead of the wait, one dead node), against the
+    # plain receive of the same q and scales
+    for k, n in ((N_NODES, 21_840), (N_NODES, 21_843), (1, 21_840),
+                 (8, 21_840), (9, 21_840), (9, 8195)):
+        q, s = quantize_int8_rows(randn(k, n, scale=0.3))
+        x, wfull = randn(k, n, scale=0.3), softmax_rows(k, k)
+        hold("gossip_mix_q8", gm.gossip_mix_q8_w(wfull, x, q, s),
+             gm.gossip_mix_q8_w_plain(wfull, x, q, s), TOL_FP32,
+             f"W whole ({k}x{k}) (N={n}, Np={q.shape[1]})")
+        res = randn(k, n, scale=1e-3)
+        live = torch.arange(k, device=dev) != k - 1
+        mixed, _ = gm.gossip_mix_int8_round(x, res, wfull, live)
+        q, s, _ = qz.quantize_int8_ef(x, res, live)
+        hold("gossip_mix_q8", mixed, gm.gossip_mix_q8_w_plain(wfull, x, q, s),
+             TOL_FP32, f"the round's ({k}x{k}) (N={n}, Np={q.shape[1]})")
 
     # the ValueError contracts of repro/kernels/gossip_mix.py:143-153
     qz = torch.zeros((2, 4096), dtype=torch.int8, device=dev)
@@ -614,28 +662,115 @@ def phase_kernels(torch) -> dict:
            "shape": f"W ({m}x{k}) fp32, bufs ({k}x{n}) fp32"}
     q, s = quantize_int8_rows(randn(k, n, scale=0.3))
     x = randn(m, n, scale=0.3)
-    w_self = torch.diagonal(w).contiguous()
-    w_off = w - torch.diag(w_self)
     b_ms, b_by = bound(*q8_cost(m, k, n))
-    q8 = {"ms": time_ms(torch, lambda: gm.gossip_mix_q8_rows(
-              w_self, w_off, x, q, s)),
-          "plain_ms": time_ms(torch, lambda: gm.gossip_mix_q8_rows_plain(
-              w_self, w_off, x, q, s)),
+
+    def receive():
+        # the variant the round launches: W and self loaded ahead of the
+        # wait (each call here waits on the one before, which writes
+        # neither)
+        return gm.gossip_mix_q8_w(w, x, q, s, after_send=True)
+    q8 = {"ms": time_ms(torch, receive),
+          "plain_ms": time_ms(torch, lambda: gm.gossip_mix_q8_w_plain(
+              w, x, q, s)),
           "library_ms": None,
-          "graph_ms": graph_ms(torch, lambda: gm.gossip_mix_q8_rows(
-              w_self, w_off, x, q, s)),
+          "graph_ms": graph_ms(torch, receive),
           "library_graph_ms": None,
-          "device_ms": device_ms(torch, lambda: gm.gossip_mix_q8_rows(
-              w_self, w_off, x, q, s), "gossip_mix_q8_rows_kernel"),
+          "device_ms": device_ms(torch, receive, "gossip_mix_q8_rows_kernel"),
           "bound_ms": b_ms, "bound_by": b_by,
-          "shape": f"self ({m}x{n}) fp32, q ({k}x{q.shape[1]}) int8"}
+          "shape": f"W ({m}x{k}) whole, self ({m}x{n}) fp32, q "
+                   f"({k}x{q.shape[1]}) int8, the round's variant (W and "
+                   f"self loaded ahead of the wait)"}
     for name, t in (("gossip_mix", mix), ("gossip_mix_q8", q8)):
         print_times(name, t)
     against_library("gossip_mix", mix, "torch.matmul")
     launch_path(torch, w, bufs)
+    int8_round_chain(torch, randn, softmax_rows)
     mix["max_abs_err"], q8["max_abs_err"] = errs["gossip_mix"], \
         errs["gossip_mix_q8"]
     return {"gossip_mix": mix, "gossip_mix_q8": q8}
+
+
+def unfused_round(torch, flat, res, w, live):
+    """The int8 round (error feedback on) as the port ran it before the
+    send took its error feedback and the receive took W whole: the kept
+    codec and q8 wrappers plus torch ops, one device operation each."""
+    from repro_torch.core.compression import (dequantize_int8_rows,
+                                              quantize_int8_rows)
+    from repro_torch.kernels import gossip_mix as gm
+
+    carried = flat + res
+    diag = torch.diagonal(w)
+    off = w - torch.diag(diag)
+    q, scale = quantize_int8_rows(carried)
+    deq = dequantize_int8_rows(q, scale, carried.shape[1])
+    mixed = gm.gossip_mix_q8_rows(diag, off, flat, q, scale)
+    new_res = torch.where(live[:, None], carried - deq,
+                          torch.zeros((), dtype=flat.dtype,
+                                      device=flat.device))
+    return mixed, new_res
+
+
+def int8_round_chain(torch, randn, softmax_rows, rounds: int = 15) -> dict:
+    """The int8 round's chain (flat, res, W, live) -> (mixed, new_res) at
+    the paper's message, one dead node: the unfused sequence against this
+    one (``dpsgd._compress_and_mix``), equal outputs, each as 100 rounds
+    captured into one CUDA graph, the two graphs replayed in turns; us per
+    round and device operations per round (profiler, one eager round)."""
+    from repro_torch.core import dpsgd
+    from repro_torch.core.compression import QuantConfig
+    from repro_torch.graphs import _side_stream
+
+    n = 21_840
+    flat, res = randn(N_NODES, n, scale=0.3), randn(N_NODES, n, scale=1e-3)
+    w = softmax_rows(N_NODES, N_NODES)
+    live = torch.arange(N_NODES, device=flat.device) != N_NODES - 1
+    int8 = QuantConfig(mode="int8")
+    chains = (("unfused sequence",
+               lambda: unfused_round(torch, flat, res, w, live)),
+              ("this one", lambda: dpsgd._compress_and_mix(
+                  flat, res, w, live, int8)))
+    (m0, r0), (m1, r1) = (fn() for _, fn in chains)
+    torch.cuda.synchronize()
+    check(torch.equal(m0, m1) and torch.equal(r0, r1),
+          "the int8 round differs from the unfused sequence")
+    side = _side_stream(flat.device)
+    graphs = []
+    for _, fn in chains:
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(3):
+                fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            for _ in range(100):
+                fn()
+        graph.replay()
+        graphs.append(graph)
+    torch.cuda.synchronize()
+    per_round = ([], [])
+    for r in range(rounds):
+        for i in ((0, 1) if r % 2 == 0 else (1, 0)):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            graphs[i].replay()
+            end.record()
+            end.synchronize()
+            per_round[i].append(start.elapsed_time(end) / 100 * 1e3)
+    out = {}
+    print(f"int8 round (flat, res, W, live) -> (mixed, new_res), "
+          f"({N_NODES}, {n}) fp32, outputs bit-equal; 100 rounds in a CUDA "
+          f"graph, {rounds} replays in turns:")
+    for (label, fn), times in zip(chains, per_round):
+        ops = device_profile(torch, fn, 1)
+        launches = sum(c for _, _, c in ops)
+        out[label] = {"us": statistics.median(times), "launches": launches}
+        print(f"   {label:18s} {statistics.median(times):8.3f} us per round "
+              f"(min {min(times):.3f}, max {max(times):.3f}), {launches} "
+              f"device operations per round: "
+              + ", ".join(f"{c}x {name[:40]}" for name, _, c in ops))
+    return out
 
 
 def print_times(name: str, t: dict) -> None:
@@ -1013,6 +1148,7 @@ def phase_compressed(torch, sl: dict) -> int:
     from repro_torch.core.compression import QuantConfig, quantize_int8_rows
     from repro_torch.examples import wireless_dpsgd as ex
     from repro_torch.kernels import gossip_mix as gm
+    from repro_torch.kernels import quantize as qz
     from repro_torch.models import cnn
 
     data, sol = sl["data"], sl["results"][0]["sol"]     # the λ = 0.1 run
@@ -1030,15 +1166,24 @@ def phase_compressed(torch, sl: dict) -> int:
         return ex._batch(data, rng.integers(0, data.per_node,
                                             size=(N_NODES, ex.BATCH)))
 
-    gm.gossip_mix_rows.launches = gm.gossip_mix_q8_rows.launches = 0
+    counters = {"quantize_int8_ef": qz.quantize_int8_ef,
+                "quantize_int8": qz.quantize_int8,
+                "dequantize_int8": qz.dequantize_int8,
+                "gossip_mix_q8": gm.gossip_mix_q8_rows,
+                "gossip_mix": gm.gossip_mix_rows}
+    for fn in counters.values():
+        fn.launches = 0
     for r in range(COMPRESSED_ROUNDS):
         params, res, losses = step(params, batch(), w, live, res)
     torch.cuda.synchronize()
-    launches = gm.gossip_mix_q8_rows.launches
-    print(f"{COMPRESSED_ROUNDS} rounds: gossip_mix_q8 launches {launches}, "
+    counts = {k: fn.launches for k, fn in counters.items()}
+    want = {"quantize_int8_ef": COMPRESSED_ROUNDS, "quantize_int8": 0,
+            "dequantize_int8": 0, "gossip_mix_q8": COMPRESSED_ROUNDS,
+            "gossip_mix": 0}
+    print(f"{COMPRESSED_ROUNDS} rounds: launches {counts} (expected {want}), "
           f"losses {[round(float(v), 4) for v in losses]}")
-    check(launches == COMPRESSED_ROUNDS,
-          f"gossip_mix_q8 launched {launches} times, want {COMPRESSED_ROUNDS}")
+    check(counts == want, f"launches {counts}, want {want}")
+    launches = counts["gossip_mix_q8"]
     leaves = dpsgd._leaves(params) + dpsgd._leaves(res) + [losses]
     check(all(bool(torch.isfinite(t).all()) for t in leaves),
           "non-finite parameters, residuals or losses")
@@ -1375,7 +1520,8 @@ def phase_rwkv_kernel(torch) -> dict:
 
 
 def phase_quantize_kernels(torch) -> dict:
-    phase("3d. quantize_int8 and dequantize_int8 against their plain versions")
+    phase("3d. the int8 codec and the int8 round's send against their plain "
+          "versions")
     from repro_torch.core import compression as comp
     from repro_torch.kernels import ops
     from repro_torch.kernels import quantize as qz
@@ -1383,6 +1529,8 @@ def phase_quantize_kernels(torch) -> dict:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     bf16 = torch.bfloat16
+    for fn in (qz.quantize_int8, qz.dequantize_int8):   # this phase's count
+        fn.launches = 0
 
     def same(what, got, want):
         """Check ``got`` bit-equal to ``want``; max|err| of each pair."""
@@ -1424,6 +1572,35 @@ def phase_quantize_kernels(torch) -> dict:
                  [qp, sp, dp])
         if (rows, length) == (N_NODES, 21_840):     # the path's message
             errs = {"quantize_int8": max(e[:2]), "dequantize_int8": e[2]}
+    # the int8 round's send (error feedback in the same launch) against its
+    # plain version and against the unfused sequence of launches (the
+    # kept codec wrappers plus torch ops): ragged lengths, one dead node,
+    # error feedback on and off
+    for rows, length in ((N_NODES, 21_840), (N_NODES, 21_843), (3, 2049),
+                         (1, 1)):
+        for dead in (False, True):
+            for ef in (True, False):
+                flat = randn(rows, length, scale=0.3)
+                res = randn(rows, length, scale=1e-3)
+                live = torch.ones(rows, dtype=torch.bool, device=dev)
+                live[-1] = not dead
+                got = qz.quantize_int8_ef(flat, res, live, ef)
+                carried = flat + res if ef else flat
+                q, s = comp.quantize_int8_rows(carried)
+                deq = comp.dequantize_int8_rows(q, s, length)
+                unfused = (q, s, torch.where(
+                    live[:, None], carried - deq if ef else res,
+                    torch.zeros((), dtype=flat.dtype, device=dev)))
+                torch.cuda.synchronize()
+                what = (f"send ({rows}, {length}), "
+                        f"{'one dead node' if dead else 'all live'}, "
+                        f"feedback {'on' if ef else 'off'}")
+                e = same(f"{what}: plain",
+                         got, qz.quantize_int8_ef_plain(flat, res, live, ef))
+                same(f"{what}: unfused sequence", got, unfused)
+                if (rows, length, dead, ef) == (N_NODES, 21_840, True, True):
+                    errs["quantize_int8_ef"] = max(e)
+
     # the ValueError contracts, raised before any launch
     qz8 = torch.zeros((2, 512), dtype=torch.int8, device=dev)
     for what, call, match in (
@@ -1435,14 +1612,21 @@ def phase_quantize_kernels(torch) -> dict:
             ("3 scales for 2 blocks", lambda: qz.dequantize_int8(
                 qz8, torch.ones((2, 3), device=dev)), "one per block"),
             ("a length past the payload", lambda: qz.dequantize_int8(
-                qz8, torch.ones((2, 2), device=dev), length=600), "fit")):
-        before = (qz.quantize_int8.launches, qz.dequantize_int8.launches)
+                qz8, torch.ones((2, 2), device=dev), length=600), "fit"),
+            ("a send of ragged res", lambda: qz.quantize_int8_ef(
+                randn(2, 9), randn(2, 8), torch.ones(2, dtype=torch.bool,
+                                                     device=dev)), "one"),
+            ("a send of a float mask", lambda: qz.quantize_int8_ef(
+                randn(2, 9), randn(2, 9), torch.ones(2, device=dev)),
+             "bool")):
+        counted = (qz.quantize_int8, qz.dequantize_int8, qz.quantize_int8_ef)
+        before = [fn.launches for fn in counted]
         try:
             call()
         except ValueError as e:
             check(match in str(e), f"int8 codec {what}: wrong message {e}")
-            check((qz.quantize_int8.launches, qz.dequantize_int8.launches)
-                  == before, f"int8 codec {what}: launched before raising")
+            check([fn.launches for fn in counted] == before,
+                  f"int8 codec {what}: launched before raising")
             print(f"quantize       ValueError on {what}: ok")
         else:
             fail(f"int8 codec accepted {what} on CUDA tensors")
@@ -1498,6 +1682,33 @@ def phase_quantize_kernels(torch) -> dict:
                 out[name] = t
     against_library("dequantize_int8", out["dequantize_int8"],
                     "int8 payload * scales")
+    # this phase's launches of the two TPU-contract kernels, the checks and
+    # timings above: kept apart from the main path's count (the int8 round
+    # runs the send instead, so that count is 0)
+    for name in ("quantize_int8", "dequantize_int8"):
+        out[name]["check_launches"] = getattr(qz, name).launches
+
+    # the send at the path's message, one dead node, feedback on
+    rows, length = N_NODES, 21_840
+    flat = randn(rows, length, scale=0.3)
+    res = randn(rows, length, scale=1e-3)
+    live = torch.arange(rows, device=dev) != rows - 1
+    b_ms, b_by = bound(*send_cost(rows, length))
+    t = {"ms": time_ms(torch, lambda: qz.quantize_int8_ef(flat, res, live)),
+         "plain_ms": time_ms(torch, lambda: qz.quantize_int8_ef_plain(
+             flat, res, live)),
+         "library_ms": None,
+         "graph_ms": graph_ms(torch, lambda: qz.quantize_int8_ef(
+             flat, res, live)),
+         "library_graph_ms": None,
+         "device_ms": device_ms(torch, lambda: qz.quantize_int8_ef(
+             flat, res, live), "quantize_int8_ef_kernel"),
+         "bound_ms": b_ms, "bound_by": b_by,
+         "max_abs_err": errs["quantize_int8_ef"],
+         "shape": f"flat, res ({rows}, {length}) fp32, one dead node, "
+                  f"2048-lane blocks"}
+    print_times("quantize_int8_ef", t)
+    out["quantize_int8_ef"] = t
     return out
 
 
@@ -1729,7 +1940,8 @@ def phase_simulated_training(torch) -> dict:
     from repro_torch.sim import (WirelessSimulator, get_scenario,
                                  simulate_dpsgd_cnn)
 
-    counters = {"quantize_int8": qz.quantize_int8,
+    counters = {"quantize_int8_ef": qz.quantize_int8_ef,
+                "quantize_int8": qz.quantize_int8,
                 "dequantize_int8": qz.dequantize_int8,
                 "gossip_mix_q8": gm.gossip_mix_q8_rows,
                 "gossip_mix": gm.gossip_mix_rows}
@@ -1803,10 +2015,12 @@ def phase_simulated_training(torch) -> dict:
         s = trace.summary()
         rounds = s["rounds"]
         compressed = cfg.payload.mode == "int8"
-        want = ({"quantize_int8": rounds, "dequantize_int8": rounds,
-                 "gossip_mix_q8": rounds, "gossip_mix": 0} if compressed else
-                {"quantize_int8": 0, "dequantize_int8": 0,
-                 "gossip_mix_q8": 0, "gossip_mix": rounds})
+        want = ({"quantize_int8_ef": rounds, "quantize_int8": 0,
+                 "dequantize_int8": 0, "gossip_mix_q8": rounds,
+                 "gossip_mix": 0} if compressed else
+                {"quantize_int8_ef": 0, "quantize_int8": 0,
+                 "dequantize_int8": 0, "gossip_mix_q8": 0,
+                 "gossip_mix": rounds})
         print(f"{label}: launches {launches} (expected {want})")
         check(launches == want, f"{label}: launches {launches}, want {want}")
         check(rounds == SIM_EPOCHS * N_TRAIN // N_NODES // 25,
@@ -1981,6 +2195,8 @@ def main() -> None:
              served["launches"]["rglru_scan"]),
             ("rwkv6_scan", "rwkv6_scan", "rwkv6_scan.py:87",
              served_rwkv["launches"]["rwkv6_scan"]),
+            ("quantize_int8_ef", "quantize", "quantize.py:53",
+             int8_run["quantize_int8_ef"]),
             ("quantize_int8", "quantize", "quantize.py:53",
              int8_run["quantize_int8"]),
             ("dequantize_int8", "quantize", "quantize.py:85",
@@ -1997,6 +2213,8 @@ def main() -> None:
             "graph_ms": k.get("graph_ms"),
             "library_graph_ms": k.get("library_graph_ms"),
             "device_ms": k["device_ms"], "shape": k["shape"]})
+        if "check_launches" in k:         # launches not of the main path
+            rows[-1]["check_launches"] = k["check_launches"]
         for extra in ("fp32", "decode"):  # flash's fp32 entry, rglru's S = 1
             if extra in k:
                 rows[-1][extra] = {f: k[extra][f] for f in (

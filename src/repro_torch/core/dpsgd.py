@@ -22,12 +22,14 @@ The mix is lowered onto the hand-written kernels of ``kernels.gossip_mix``
   concatenated into one (n, total) buffer per dtype (the CNN: one launch
   over (6, 21 840)); element for element the same arithmetic as mixing
   each leaf on its own.
-* the int8 round of ``_mix_compressed_*`` — three launches: the
-  quantize and the error-feedback dequantize of ``kernels.quantize`` (at
-  the wire format's 2048-lane blocks, through
-  ``compression.quantize_int8_rows`` / ``dequantize_int8_rows``), then
-  ``gossip_mix_q8_rows`` (exact fp32 self term, int8 neighbor payloads
-  dequantized in the kernel).
+* the int8 round of ``_mix_compressed_*`` — ``gossip_mix_int8_round``,
+  two launches back to back: the send, ``kernels.quantize.
+  quantize_int8_ef`` (the quantize of ``flat + res`` in the wire format's
+  2048-lane blocks and the new error-feedback residual, dead rows zeroed,
+  in one kernel), then the receive, ``gossip_mix_q8_w`` (W taken whole:
+  exact fp32 self term on its diagonal, int8 neighbor payloads
+  dequantized in the kernel), launched as a programmatic dependent of
+  the send.
 * the bf16 receive — one ``gossip_mix_rows`` launch with
   ``W_cat = [diag(diag(W)) | W_off]`` (n, 2n) over the stacked fp32
   buffers ``[flat; deq]`` (2n, N): the self term exact, the neighbor terms
@@ -55,8 +57,7 @@ import numpy as np
 import torch
 
 from ..graphs import GraphedStep
-from ..kernels.gossip_mix import gossip_mix_q8_rows, gossip_mix_rows
-from .compression import dequantize_int8_rows, quantize_int8_rows
+from ..kernels.gossip_mix import gossip_mix_int8_round, gossip_mix_rows
 
 __all__ = ["DPSGDConfig", "replicate", "mix", "dpsgd_step", "make_dpsgd_step",
            "dpsgd_masked_step", "make_dpsgd_masked_step",
@@ -329,19 +330,16 @@ def _compress_and_mix(flat: torch.Tensor, res: torch.Tensor,
                       quant) -> tuple[torch.Tensor, torch.Tensor]:
     """One (n, L) fp32 buffer through the wire: returns the mixed buffer
     ``diag(W) * flat + W_off @ deq(Q(flat + res))`` and the new residual."""
+    if quant.mode == "int8":
+        return gossip_mix_int8_round(flat, res, w, live, quant.error_feedback)
+    if quant.mode != "bf16":
+        raise ValueError(f"unknown compression mode {quant.mode!r}")
     carried = flat + res if quant.error_feedback else flat
     diag = torch.diagonal(w)
     off = w - torch.diag(diag)
-    if quant.mode == "bf16":
-        deq = carried.to(torch.bfloat16).to(torch.float32)
-        mixed = gossip_mix_rows(torch.cat([torch.diag(diag), off], dim=1),
-                                torch.cat([flat, deq], dim=0))
-    elif quant.mode == "int8":
-        q, scale = quantize_int8_rows(carried)
-        deq = dequantize_int8_rows(q, scale, carried.shape[1])
-        mixed = gossip_mix_q8_rows(diag, off, flat, q, scale)
-    else:
-        raise ValueError(f"unknown compression mode {quant.mode!r}")
+    deq = carried.to(torch.bfloat16).to(torch.float32)
+    mixed = gossip_mix_rows(torch.cat([torch.diag(diag), off], dim=1),
+                            torch.cat([flat, deq], dim=0))
     new_res = carried - deq if quant.error_feedback else res
     new_res = torch.where(live[:, None], new_res,
                           torch.zeros((), dtype=new_res.dtype,

@@ -14,16 +14,20 @@
 //                 + sum_k W_off[m, k] * q[k, j] * scales[k, j / 2048]
 //       self (M, N) fp32 exact, q (K, Np) int8 with Np = N padded to whole
 //       2048-lane blocks, scales (K, Np / 2048) fp32; output (M, N) fp32.
-//       The TPU signature is M = 1 with w_self = w[0], W_off = w[1:]; the
-//       D-PSGD int8 receive is M = K = n with w_self = diag(W) and
-//       W_off = W - diag(diag(W)).
+//       The weights are read in place: w_self[m] at w_self + m * ss and
+//       W_off[m, k] at w_off + m * ldw + k, and with skip_diag set the
+//       entry k = m reads as 0. The D-PSGD int8 receive (M = K = n) passes
+//       W whole: w_self = w_off = W, ss = n + 1 (the diagonal's stride),
+//       ldw = n, skip_diag = 1, so the round builds no diag(W) and no
+//       W - diag(diag(W)). The TPU signature is M = 1 with weights = [w_self,
+//       w_off...]: w_self = weights, w_off = weights + 1, stride 1, no skip.
 //
 // What bounds them on an H100: launch latency, then bytes. Each output
 // lane costs 2K flops against (K + 1) * 4 bytes (q8: K + 8 bytes), far
 // below the ~20 flop/byte where fp32 FMA throughput would bind. At the
 // paper's sizes (n = 6 nodes, N = 21 840 parameters) the rows mix moves
 // 6 * 21 840 * 4 B in and the same out, 1.05 MB, i.e. ~0.31 us at 3.35 TB/s;
-// the q8 receive moves 524 KB self + 135 KB int8 + 524 KB out, ~0.35 us.
+// the q8 receive moves 524 KB self + 131 KB int8 + 524 KB out, ~0.35 us.
 // Both are far below a kernel launch (a few us): what a call costs is its
 // launch, on the host (the wrapper and ctypes, 30+ us before the lean path
 // of kernels/_build.py) and on the device (~2 us from launch to the last
@@ -50,22 +54,43 @@
 // 16-byte loads in blocks of 256 (the earlier grid (ceil(N / 1024), M))
 // 2.10 us, two rows of two lanes in blocks of 128 1.92 us, and a plain
 // copy of X 1.28 us. The sum over k runs in order k = 0 .. K-1 in fp32
-// (fmaf), and bf16 output rounds to nearest even. Loads are 8 bytes where the rows are aligned
-// (scalar loads on a ragged tail or a misaligned view); the TPU's
-// 8192-lane tiling and padding are not carried over: the kernels mask the
-// ragged edge themselves. In the q8 kernel a thread's 4 lanes never
-// straddle a 2048-lane scale block (4 divides 2048), so one scale load
-// serves them, and int8 lanes are dequantized in registers and never
-// written back at fp32 width. Nothing is allocated here: the Python
-// wrapper allocates the output; the launch goes on the caller's stream and
-// every entry returns cudaGetLastError().
+// (fmaf), and bf16 output rounds to nearest even. Loads are 8 bytes where
+// the rows are aligned (scalar loads on a ragged tail or a misaligned
+// view); the TPU's 8192-lane tiling and padding are not carried over: the
+// kernels mask the ragged edge themselves.
+//
+// The q8 receive runs right behind the int8 send (csrc/quantize.cu,
+// quantize_int8_ef) in every int8 round, so it is shaped for the gap
+// between two launches. Each thread owns 8 adjacent lanes of one output
+// row: two 16-byte loads of self, one 8-byte load per payload (8 | 2048,
+// so one scale serves the 8 lanes), two 16-byte stores. Its weights come
+// straight from global memory into registers (a warp reads the same
+// address, one broadcast), with no barrier ahead of any load, and all the
+// payload and scale loads of a group of up to 8 payloads are issued
+// before its FMAs (K > 8 in groups of 8, as the rows mix does). The grid is
+// (ceil(N / 1024), M) blocks of 128: 22 x 6 = 132 blocks at the paper's
+// receive, one per SM. It is launched as a programmatic dependent
+// (cudaLaunchAttributeProgrammaticStreamSerialization): its blocks may
+// start while the kernel ahead of it on the stream finishes and execute
+// griddepcontrol.wait before they read what that kernel wrote; the wait
+// returns once it has completed and its writes are visible. Every block
+// waits, also one with no lanes. In the int8 round the kernel ahead is the
+// send, which writes q, the scales and the residual and only reads flat
+// (the receive's self): there the blocks load their weights and self
+// before the wait (after_send), and only q and the scales after it. Any
+// other caller gets the wait first, right whatever ran ahead. The sum runs self first, then k = 0 .. K-1 in fp32 (fmaf
+// of the weight and q * scale, the product rounded first); int8 lanes are
+// dequantized in registers and never written back at fp32 width.
+//
+// Nothing is allocated here: the Python wrapper allocates the output; the
+// launch goes on the caller's stream and every entry returns
+// cudaGetLastError().
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;              // threads of a q8 block
 constexpr long long kScaleBlock = 2048;  // == core.compression._BLOCK
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -164,65 +189,113 @@ __global__ void __launch_bounds__(kRowThreads)
   }
 }
 
-// grid (ceil(n / (kThreads * 4)), M); 4 lanes per thread (one float4 of
-// self / out, one char4 of each payload).
-__global__ void __launch_bounds__(kThreads)
+constexpr int kQ8Threads = 128;  // threads of a q8 block
+constexpr int kQ8Lanes = 8;      // lanes per thread
+constexpr int kQ8Group = 8;      // payloads loaded before their FMAs
+
+// kQ8Group weights of row m from payload k0 on (0 past K and on the
+// skipped diagonal), straight into registers.
+__device__ __forceinline__ void q8_weights(const float* __restrict__ w_row,
+                                           int k0, int k_total, int diag,
+                                           float* wk) {
+#pragma unroll
+  for (int j = 0; j < kQ8Group; ++j) {
+    const int k = k0 + j;
+    wk[j] = (k < k_total && k != diag) ? __ldg(w_row + k) : 0.f;
+  }
+}
+
+__device__ __forceinline__ void grid_dependency_wait() {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+
+// grid (ceil(n / (kQ8Threads * kQ8Lanes)), M); 8 lanes of row m a thread.
+// kEarly: the weights and self are loaded ahead of the wait (the caller
+// guarantees that the kernel ahead writes neither); otherwise the wait
+// comes first, right for any kernel ahead.
+template <bool kEarly>
+__global__ void __launch_bounds__(kQ8Threads)
     gossip_mix_q8_rows_kernel(const float* __restrict__ w_self,
-                              const float* __restrict__ w_off,
-                              const float* __restrict__ self,
+                              long long self_stride,
+                              const float* __restrict__ w_off, long long ldw,
+                              int skip_diag, const float* __restrict__ self,
                               const int8_t* __restrict__ q,
                               const float* __restrict__ scales,
                               float* __restrict__ out, int k_total,
-                              long long n, long long np, bool vec) {
-  constexpr int V = 4;
-  extern __shared__ float w_row[];  // [0]: self weight, [1 + k]: payload k
+                              long long n, long long np, bool vec,
+                              bool q_vec) {
+  constexpr int V = kQ8Lanes;
   const int m = blockIdx.y;
-  if (threadIdx.x == 0) w_row[0] = w_self[m];
-  for (int k = threadIdx.x; k < k_total; k += blockDim.x)
-    w_row[k + 1] = w_off[(long long)m * k_total + k];
-  __syncthreads();
-
   const long long lane0 =
-      ((long long)blockIdx.x * kThreads + threadIdx.x) * V;
-  if (lane0 >= n) return;
+      ((long long)blockIdx.x * kQ8Threads + threadIdx.x) * V;
+  const bool active = lane0 < n;
+  const bool full = vec && lane0 + V <= n;
+  const float* w_row = w_off + (long long)m * ldw;
+  const int diag = skip_diag ? m : -1;
+
+  if constexpr (!kEarly) grid_dependency_wait();
+  // with kEarly, ahead of the wait: what the kernel in front does not write
+  const float ws = __ldg(w_self + (long long)m * self_stride);
+  float wk[kQ8Group];
+  q8_weights(w_row, 0, k_total, diag, wk);
+  float acc[V];
+  const float* x = self + (long long)m * n + lane0;
+  if (full) {
+    const float4 a = __ldg(reinterpret_cast<const float4*>(x));
+    const float4 b = __ldg(reinterpret_cast<const float4*>(x + 4));
+    acc[0] = a.x; acc[1] = a.y; acc[2] = a.z; acc[3] = a.w;
+    acc[4] = b.x; acc[5] = b.y; acc[6] = b.z; acc[7] = b.w;
+  } else {
+#pragma unroll
+    for (int v = 0; v < V; ++v) acc[v] = lane0 + v < n ? __ldg(x + v) : 0.f;
+  }
+#pragma unroll
+  for (int v = 0; v < V; ++v) acc[v] = __fmul_rn(ws, acc[v]);
+  // q and the scales come from the kernel in front: wait for its end
+  if constexpr (kEarly) grid_dependency_wait();
+  if (!active) return;
+
   const long long blk = lane0 / kScaleBlock;  // shared by all V lanes
   const long long n_blocks = np / kScaleBlock;
-  const float* x = self + (long long)m * n + lane0;
+  for (int k0 = 0; k0 < k_total; k0 += kQ8Group) {
+    if (k0 > 0) q8_weights(w_row, k0, k_total, diag, wk);
+    uint2 raw[kQ8Group];
+    float s[kQ8Group];
+#pragma unroll
+    for (int j = 0; j < kQ8Group; ++j) {
+      const int k = k0 + j;
+      if (k < k_total) {
+        // lane0 + 8 <= Np: the payload's padding lies inside its row
+        const int8_t* src = q + (long long)k * np + lane0;
+        if (q_vec) {
+          raw[j] = __ldg(reinterpret_cast<const uint2*>(src));
+        } else {
+          int8_t* b = reinterpret_cast<int8_t*>(&raw[j]);
+#pragma unroll
+          for (int v = 0; v < V; ++v) b[v] = src[v];
+        }
+        s[j] = __ldg(scales + (long long)k * n_blocks + blk);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kQ8Group; ++j) {
+      if (k0 + j < k_total) {
+        const int8_t* b = reinterpret_cast<const int8_t*>(&raw[j]);
+#pragma unroll
+        for (int v = 0; v < V; ++v)
+          acc[v] = fmaf(wk[j], __fmul_rn((float)b[v], s[j]), acc[v]);
+      }
+    }
+  }
   float* dst = out + (long long)m * n + lane0;
-  float acc[V];
-
-  if (vec && lane0 + V <= n) {
-    const float4 xs = __ldg(reinterpret_cast<const float4*>(x));
-    acc[0] = w_row[0] * xs.x;
-    acc[1] = w_row[0] * xs.y;
-    acc[2] = w_row[0] * xs.z;
-    acc[3] = w_row[0] * xs.w;
-    for (int k = 0; k < k_total; ++k) {
-      const char4 qv =
-          *reinterpret_cast<const char4*>(q + (long long)k * np + lane0);
-      const float s = __ldg(scales + (long long)k * n_blocks + blk);
-      const float wk = w_row[k + 1];
-      acc[0] = fmaf(wk, (float)qv.x * s, acc[0]);
-      acc[1] = fmaf(wk, (float)qv.y * s, acc[1]);
-      acc[2] = fmaf(wk, (float)qv.z * s, acc[2]);
-      acc[3] = fmaf(wk, (float)qv.w * s, acc[3]);
-    }
+  if (full) {
     *reinterpret_cast<float4*>(dst) = make_float4(acc[0], acc[1], acc[2], acc[3]);
+    *reinterpret_cast<float4*>(dst + 4) =
+        make_float4(acc[4], acc[5], acc[6], acc[7]);
   } else {
-    const long long left = n - lane0;
-#pragma unroll
-    for (int v = 0; v < V; ++v) acc[v] = v < left ? w_row[0] * x[v] : 0.f;
-    for (int k = 0; k < k_total; ++k) {
-      const int8_t* qk = q + (long long)k * np + lane0;
-      const float s = scales[(long long)k * n_blocks + blk];
-      const float wk = w_row[k + 1];
-#pragma unroll
-      for (int v = 0; v < V; ++v)
-        if (v < left) acc[v] = fmaf(wk, (float)qk[v] * s, acc[v]);
-    }
 #pragma unroll
     for (int v = 0; v < V; ++v)
-      if (v < left) dst[v] = acc[v];
+      if (lane0 + v < n) dst[v] = acc[v];
   }
 }
 
@@ -268,22 +341,40 @@ int gossip_mix_rows_bf16(const void* w, const void* bufs, void* out, int m,
   return launch_rows<__nv_bfloat16>(w, bufs, out, m, k, n, stream);
 }
 
-int gossip_mix_q8_rows(const void* w_self, const void* w_off,
-                       const void* self, const void* q, const void* scales,
-                       void* out, int m, int k, long long n, long long np,
+// The q8 receive (see the kernel): w_self read at stride ss, W_off at row
+// stride ldw, its diagonal read as 0 with skip_diag; q (k, np) int8 with
+// np a multiple of 2048, scales (k, np / 2048). Launched as a programmatic
+// dependent of the kernel ahead of it on the stream; after_send = 1 (the
+// int8 round: the send just launched, nothing since, and it wrote neither
+// the weights nor self) loads the weights and self before the wait.
+int gossip_mix_q8_rows(const void* w_self, long long ss, const void* w_off,
+                       long long ldw, int skip_diag, const void* self,
+                       const void* q, const void* scales, void* out, int m,
+                       int k, long long n, long long np, int after_send,
                        void* stream) {
-  constexpr int V = 4;
-  const bool vec = (n % V == 0) && aligned(self, 16) && aligned(out, 16) &&
-                   aligned(q, 4);
-  const long long lanes = (long long)kThreads * V;
-  const dim3 grid((unsigned)((n + lanes - 1) / lanes), (unsigned)m);
-  gossip_mix_q8_rows_kernel<<<grid, kThreads, (k + 1) * sizeof(float),
-                              (cudaStream_t)stream>>>(
-      static_cast<const float*>(w_self), static_cast<const float*>(w_off),
+  const bool vec = (n % 4 == 0) && aligned(self, 16) && aligned(out, 16);
+  const bool q_vec = aligned(q, 8);
+  const long long lanes = (long long)kQ8Threads * kQ8Lanes;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)((n + lanes - 1) / lanes), (unsigned)m);
+  cfg.blockDim = dim3(kQ8Threads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg,
+      after_send ? gossip_mix_q8_rows_kernel<true>
+                 : gossip_mix_q8_rows_kernel<false>,
+      static_cast<const float*>(w_self), ss,
+      static_cast<const float*>(w_off), ldw, skip_diag,
       static_cast<const float*>(self), static_cast<const int8_t*>(q),
       static_cast<const float*>(scales), static_cast<float*>(out), k, n, np,
-      vec);
-  return (int)cudaGetLastError();
+      vec, q_vec);
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -15,5 +15,6 @@ def counted_wrappers() -> tuple:
     """Every kernel wrapper that counts its launches in ``.launches``."""
     return (gossip_mix.gossip_mix_rows, gossip_mix.gossip_mix_q8_rows,
             quantize.quantize_int8, quantize.dequantize_int8,
+            quantize.quantize_int8_ef,
             flash_attention.flash_attention, rglru_scan.rglru_scan,
             rwkv6_scan.rwkv6_scan)

@@ -13,14 +13,24 @@ as a parameter (256 or 2048 lanes, the two instantiations of
   dtype) -> (R, length)``: ``q * scale`` in fp32, cast to ``dtype`` (fp32
   or bf16), ``length <= Lq`` lanes per row.
 
+* ``quantize_int8_ef(flat (R, L), res (R, L), live (R,), error_feedback)
+  -> (q (R, Lp), scales (R, Lp/2048), new_res (R, L))``: the int8 D-PSGD
+  round's send with its error feedback in the same launch. ``carried =
+  flat + res`` (``flat`` alone without feedback) is quantized in 2048-lane
+  blocks and ``new_res = carried - q * scale`` on live rows, +0 on dead
+  ones (``res`` on live rows without feedback): what ``flat + res``, the
+  quantize, the dequantize, the subtraction and the masking computed in
+  five launches before.
+
 ``block = 256`` is the TPU kernel's contract (``ops.quantize_int8``);
-``block = 2048`` is ``core.compression``'s wire format, which the int8
-D-PSGD round calls through ``quantize_int8_rows`` / ``dequantize_int8_rows``.
-Each wrapper checks its arguments (``ValueError`` for anything the kernel
-does not take), then asks ``_backend.use_kernel`` per call: a CPU tensor
-runs the plain torch version beside it, a CUDA tensor launches the kernel
-(or raises: no fallback). ``quantize_int8.launches`` and
-``dequantize_int8.launches`` count the launches. The kernels' design and
+``block = 2048`` is ``core.compression``'s wire format
+(``quantize_int8_rows`` / ``dequantize_int8_rows``, and
+``quantize_int8_ef``, which the int8 round calls). Each wrapper checks its
+arguments (``ValueError`` for anything the kernel does not take), then
+asks ``_backend.use_kernel`` per call: a CPU tensor runs the plain torch
+version beside it, a CUDA tensor launches the kernel (or raises: no
+fallback). ``quantize_int8.launches``, ``dequantize_int8.launches`` and
+``quantize_int8_ef.launches`` count the launches. The kernels' design and
 bound are noted in the CUDA source.
 """
 from __future__ import annotations
@@ -32,16 +42,20 @@ import torch
 from . import _build
 from ._backend import refuse_grad, require_operands, use_kernel
 
-__all__ = ["quantize_int8", "dequantize_int8", "quantize_int8_plain",
-           "dequantize_int8_plain", "BLOCKS"]
+__all__ = ["quantize_int8", "dequantize_int8", "quantize_int8_ef",
+           "quantize_int8_plain", "dequantize_int8_plain",
+           "quantize_int8_ef_plain", "BLOCKS", "WIRE_BLOCK"]
 
 BLOCKS = (256, 2048)          # the kernel's instantiations
+WIRE_BLOCK = 2048             # the int8 round's wire format
+_MAX_ROWS = 65535             # the send's rows run on gridDim.y
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _MAX_GRID = 2**31 - 1          # CUDA's gridDim.x
 
 _P, _LL = ctypes.c_void_p, ctypes.c_longlong
 _Q_ARGS = (_P, _P, _P, _LL, _LL)
 _DQ_ARGS = (_P, _P, _P, _LL, _LL, _LL, _LL)
+_EF_ARGS = (_P, _P, _P, _P, _P, _P, _LL, _LL, ctypes.c_int)
 
 
 def _blocks(lanes: int, block: int) -> int:
@@ -179,3 +193,71 @@ def dequantize_int8(q: torch.Tensor, scales: torch.Tensor, block: int = 256,
 
 
 dequantize_int8.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The int8 round's send: quantize with error feedback in the same launch
+# ---------------------------------------------------------------------------
+
+def quantize_int8_ef_plain(flat: torch.Tensor, res: torch.Tensor,
+                           live: torch.Tensor, error_feedback: bool = True
+                           ) -> tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+    """Plain torch version of the error-feedback entry: the sequence the
+    int8 round ran before it, word for word (quantize, dequantize, the
+    residual and the masking of dead rows)."""
+    carried = flat + res if error_feedback else flat
+    q, scale = quantize_int8_plain(carried, WIRE_BLOCK)
+    deq = dequantize_int8_plain(q, scale, WIRE_BLOCK, carried.shape[1])
+    new_res = carried - deq if error_feedback else res
+    new_res = torch.where(live[:, None], new_res,
+                          torch.zeros((), dtype=new_res.dtype,
+                                      device=new_res.device))
+    return q, scale, new_res
+
+
+def _check_ef(flat: torch.Tensor, res: torch.Tensor,
+              live: torch.Tensor) -> None:
+    if flat.dim() != 2 or res.shape != flat.shape:
+        raise ValueError(f"flat and res must be one (R, L) shape, got "
+                         f"{tuple(flat.shape)} and {tuple(res.shape)}")
+    if flat.dtype != torch.float32 or res.dtype != torch.float32:
+        raise ValueError(f"flat and res must be float32, got {flat.dtype} "
+                         f"and {res.dtype}")
+    if live.shape != (flat.shape[0],) or live.dtype != torch.bool:
+        raise ValueError(f"live must be a ({flat.shape[0]},) bool mask, got "
+                         f"{tuple(live.shape)} {live.dtype}")
+
+
+def quantize_int8_ef(flat: torch.Tensor, res: torch.Tensor,
+                     live: torch.Tensor, error_feedback: bool = True
+                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """flat, res (R, L) fp32, live (R,) bool -> (q (R, Lp) int8, scales
+    (R, Lp/2048) fp32, new_res (R, L) fp32), Lp = L rounded up to whole
+    2048-lane blocks. Kernel on an sm_90 card, plain version on the CPU."""
+    _check_ef(flat, res, live)
+    if not use_kernel(flat.device):
+        return quantize_int8_ef_plain(flat, res, live, error_feedback)
+    refuse_grad("quantize_int8_ef", flat=flat, res=res)
+    flat, res, live = flat.contiguous(), res.contiguous(), live.contiguous()
+    require_operands(flat.device, flat=flat, res=res, live=live)
+    rows, lanes = flat.shape
+    nb = _blocks(lanes, WIRE_BLOCK)
+    if rows > _MAX_ROWS or nb > _MAX_GRID // 8:
+        raise ValueError(f"flat {tuple(flat.shape)} exceeds the kernel's "
+                         "grid")
+    q = torch.empty((rows, nb * WIRE_BLOCK), dtype=torch.int8,
+                    device=flat.device)
+    scales = torch.empty((rows, nb), dtype=torch.float32, device=flat.device)
+    new_res = torch.empty_like(flat)
+    if flat.numel() == 0:
+        return q, scales, new_res
+    _build.launch("quantize", "quantize_int8_ef_f32_b2048", _EF_ARGS,
+                  flat.device, flat.data_ptr(), res.data_ptr(),
+                  live.data_ptr(), q.data_ptr(), scales.data_ptr(),
+                  new_res.data_ptr(), rows, lanes, int(error_feedback))
+    quantize_int8_ef.launches += 1
+    return q, scales, new_res
+
+
+quantize_int8_ef.launches = 0

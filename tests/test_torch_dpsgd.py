@@ -5,10 +5,12 @@ Parameters start as the JAX package's (``cnn_init`` under ``jax.random``)
 and cross into torch through ``convert.params_from_numpy``; batches, W and
 masks are numpy. Tolerances: losses, gradients, parameters and residuals
 1e-5; int8 payloads bit-equal and scales rtol 1e-6 on the same input.
-Multi-round int8 is held step by step (both fed the JAX state each round):
-a 1e-7 gradient difference can flip one lane's rounding, which moves a
-parameter by ~scale * W_ij, so free-running int8 trajectories are not
-comparable at 1e-5.
+The int8 round (the send with its error feedback in one kernel, the
+receive with W whole) is also held bit-equal to the unfused sequence it
+replaced. Multi-round int8 is held step by step (both fed the JAX state
+each round): a 1e-7 gradient difference can flip one lane's rounding,
+which moves a parameter by ~scale * W_ij, so free-running int8
+trajectories are not comparable at 1e-5.
 """
 import jax
 import jax.numpy as jnp
@@ -248,6 +250,49 @@ def test_int8_rounds_held_step_by_step():
         _assert_close(tr, jr)
         params = jax.tree.map(np.asarray, jp)
         res = jax.tree.map(np.asarray, jr)
+
+
+def _unfused_compress_and_mix(flat, res, w, live, quant):
+    """The int8 round as the port ran it before the send took its error
+    feedback and the receive took W whole (int8 branch only)."""
+    from repro_torch.kernels.gossip_mix import gossip_mix_q8_rows
+    carried = flat + res if quant.error_feedback else flat
+    diag = torch.diagonal(w)
+    off = w - torch.diag(diag)
+    q, scale = tcomp.quantize_int8_rows(carried)
+    deq = tcomp.dequantize_int8_rows(q, scale, carried.shape[1])
+    mixed = gossip_mix_q8_rows(diag, off, flat, q, scale)
+    new_res = carried - deq if quant.error_feedback else res
+    new_res = torch.where(live[:, None], new_res,
+                          torch.zeros((), dtype=new_res.dtype,
+                                      device=new_res.device))
+    return mixed, new_res
+
+
+@pytest.mark.parametrize("granularity", ["message", "leaf"])
+@pytest.mark.parametrize("error_feedback", [True, False])
+@pytest.mark.parametrize("dead", [False, True])
+def test_int8_round_is_the_unfused_sequence(monkeypatch, granularity,
+                                            error_feedback, dead):
+    """The int8 mixing of a round (send with error feedback, receive with
+    W whole) bit-equal to the unfused sequence it replaced, at message and
+    leaf granularity, error feedback on and off, with and without a dead
+    node: parameters and residuals ``torch.equal``."""
+    params = _torch(_node_params(7))
+    rng = np.random.default_rng(7)
+    res = td._tree_map(lambda x: torch.from_numpy(
+        (rng.normal(size=x.shape) * 1e-3).astype(np.float32)), params)
+    ids = [0, 1, 2, 4, 5] if dead else list(range(N))
+    w = td.embed_w(_w(7, n=len(ids)), ids, N)
+    live = np.isin(np.arange(N), ids)
+    quant = tcomp.QuantConfig(mode="int8", error_feedback=error_feedback,
+                              granularity=granularity)
+    got = td._mix_compressed(params, res, w, live, quant)
+    monkeypatch.setattr(td, "_compress_and_mix", _unfused_compress_and_mix)
+    want = td._mix_compressed(params, res, w, live, quant)
+    for a, b in zip(td._leaves(got[0]) + td._leaves(got[1]),
+                    td._leaves(want[0]) + td._leaves(want[1])):
+        assert a.dtype == b.dtype and torch.equal(a, b)
 
 
 def test_tree_helpers_and_contracts():

@@ -128,6 +128,130 @@ def test_gossip_mix_q8_rows_plain_matches_pallas_per_row(k):
         assert _err(got[m], want) < 1e-5
 
 
+@pytest.mark.parametrize("k", [1, 3, 6, 9])
+@pytest.mark.parametrize("n", [100, 21_840, 21_843])
+def test_gossip_mix_q8_w_plain_matches_pallas_per_row(k, n):
+    """The int8 round's receive with W (K, K) taken whole: row m is the
+    Pallas kernel (interpret mode) with weights [W[m, m], W[m, 0..K-1]] and
+    0 for the payload on the diagonal, at 1e-5."""
+    _, q, s, _ = _q8_inputs(k, n, seed=k + n)
+    rng = np.random.default_rng(k * n)
+    x = rng.normal(size=(k, n)).astype(np.float32)
+    w = rng.random((k, k)).astype(np.float32)
+    w /= w.sum(1, keepdims=True)
+    got = gm.gossip_mix_q8_w(torch.from_numpy(w), torch.from_numpy(x),
+                             torch.from_numpy(q), torch.from_numpy(s))
+    assert got.shape == (k, n) and got.dtype == torch.float32
+    for m in range(k):
+        wm = np.concatenate([w[m, m:m + 1], np.where(np.arange(k) == m, 0.0,
+                                                     w[m]).astype(np.float32)])
+        want = jops.gossip_mix_q8(jnp.asarray(x[m]), jnp.asarray(q),
+                                  jnp.asarray(s), jnp.asarray(wm))
+        assert _err(got[m], want) < 1e-5
+
+
+def _record_launches(monkeypatch):
+    """Patch the q8 and the send wrappers onto the kernel path and record
+    each launch (entry, arguments) instead of making it."""
+    from repro_torch.kernels import quantize as qz
+    launched = []
+    for mod in (gm, qz):
+        monkeypatch.setattr(mod, "use_kernel", lambda dev: True)
+    monkeypatch.setattr(gm._build, "launch",
+                        lambda name, entry, types, dev, *a:
+                        launched.append((entry, a)))
+    return launched
+
+
+def test_gossip_mix_q8_forms_pass_the_entry_their_weight_layout(monkeypatch):
+    """On the kernel path (dispatch patched, launches recorded): W whole
+    passes W as both weight pointers, the diagonal's stride n + 1, row
+    stride n and the diagonal skipped; the rows form its two tensors at
+    stride 1 and row stride K; the TPU signature (M = 1) the weights and
+    the weights one element on. None asks for the loads ahead of the
+    grid-dependency wait. Each counts one q8 launch."""
+    launched = _record_launches(monkeypatch)
+    before = gm.gossip_mix_q8_rows.launches
+    k, n = 4, 3000
+    _, q, s, wq = (torch.from_numpy(a) for a in _q8_inputs(k, n))
+    x = torch.randn(k, n)
+    w = torch.softmax(torch.randn(k, k), -1)
+    gm.gossip_mix_q8_w(w, x, q, s)
+    w_self, w_off = torch.diagonal(w).contiguous(), w.clone()
+    gm.gossip_mix_q8_rows(w_self, w_off, x, q, s)
+    gm.gossip_mix_q8(x[0], q, s, wq)
+    assert [e for e, _ in launched] == ["gossip_mix_q8_rows"] * 3
+    whole, rows, tpu = (a for _, a in launched)
+    assert whole[:5] == (w.data_ptr(), k + 1, w.data_ptr(), k, 1)
+    assert whole[5:7] == (x.data_ptr(), q.data_ptr())
+    assert whole[9:] == (k, k, n, q.shape[1], 0)
+    assert rows[:5] == (w_self.data_ptr(), 1, w_off.data_ptr(), k, 0)
+    assert rows[-1] == 0
+    assert tpu[0] == wq.data_ptr() and tpu[2] == wq.data_ptr() + 4
+    assert tpu[4] == 0 and tpu[9:] == (1, k, n, q.shape[1], 0)
+    assert gm.gossip_mix_q8_rows.launches == before + 3
+
+
+def test_int8_round_launches_the_send_then_the_receive(monkeypatch):
+    """The round on the kernel path: the send, then the receive on the
+    send's own outputs with W whole, the loads ahead of the wait asked for
+    and nothing launched between them; a W the round cannot take raises
+    before either launch."""
+    launched = _record_launches(monkeypatch)
+    n, length = 5, 3000
+    flat, res = torch.randn(n, length), torch.randn(n, length) * 1e-3
+    live = torch.arange(n) != 2
+    w = torch.softmax(torch.randn(n, n, dtype=torch.float64), -1)
+    with pytest.raises(ValueError, match="square"):
+        gm.gossip_mix_int8_round(flat, res, w[:, :4], live)
+    with pytest.raises(ValueError, match="square"):
+        gm.gossip_mix_int8_round(flat, res, w[:4, :4], live)
+    assert launched == []
+    mixed, new_res = gm.gossip_mix_int8_round(flat, res, w, live, False)
+    (send, s_args), (recv, r_args) = launched
+    assert (send, recv) == ("quantize_int8_ef_f32_b2048", "gossip_mix_q8_rows")
+    assert s_args[0] == flat.data_ptr() and s_args[-3:] == (n, length, 0)
+    q_ptr, scales_ptr, res_ptr = s_args[3:6]
+    assert res_ptr == new_res.data_ptr()
+    assert r_args[0] == r_args[2] and r_args[1] == n + 1 and r_args[3] == n
+    assert r_args[5:8] == (flat.data_ptr(), q_ptr, scales_ptr)
+    assert r_args[8] == mixed.data_ptr() and r_args[-1] == 1
+
+
+def test_int8_round_checks_devices_before_the_send(monkeypatch):
+    """On the kernel path, a W or live mask on another device than flat
+    raises before the send launches (the receive would raise only after
+    it)."""
+    launched = _record_launches(monkeypatch)
+    n, length = 3, 300
+    flat, res = torch.randn(n, length), torch.zeros(n, length)
+    live, w = torch.ones(n, dtype=torch.bool), torch.ones(n, n) / n
+    with pytest.raises(ValueError, match="w is on meta"):
+        gm.gossip_mix_int8_round(flat, res, w.to("meta"), live)
+    with pytest.raises(ValueError, match="live is on meta"):
+        gm.gossip_mix_int8_round(flat, res, w, live.to("meta"))
+    assert launched == []
+
+
+def test_gossip_mix_q8_w_contracts():
+    """W must be square and match the payload count; the payload contract
+    of the rows form; all before any launch."""
+    q = torch.zeros((2, 2048), dtype=torch.int8)
+    x, s = torch.zeros(2, 100), torch.ones(2, 1)
+    before = gm.gossip_mix_q8_rows.launches
+    with pytest.raises(ValueError, match="square"):
+        gm.gossip_mix_q8_w(torch.ones(2, 3), x, q, s)
+    with pytest.raises(ValueError, match="square"):
+        gm.gossip_mix_q8_w(torch.ones(3, 3), torch.zeros(3, 100), q, s)
+    with pytest.raises(ValueError, match="scale"):
+        gm.gossip_mix_q8_w(torch.ones(2, 2), x, q, torch.ones(2, 2))
+    with pytest.raises(ValueError, match="shorter"):
+        gm.gossip_mix_q8_w(torch.ones(2, 2), torch.zeros(2, 3000), q, s)
+    with pytest.raises(TypeError, match="int8"):
+        gm.gossip_mix_q8_w(torch.ones(2, 2), x, q.float(), s)
+    assert gm.gossip_mix_q8_rows.launches == before
+
+
 def test_gossip_mix_q8_value_errors():
     """The three contracts of repro/kernels/gossip_mix.py:143-153, raised
     before any launch."""
@@ -510,8 +634,21 @@ def _grad_cases():
                                lambda g: gm.gossip_mix_q8_rows(
             torch.ones(2), torch.ones(2, 2), torch.ones(2, 16, requires_grad=g),
             q8, torch.ones(2, 1))),
+        "gossip_mix_q8_w": (gm.gossip_mix_q8_rows, gm,
+                            lambda g: gm.gossip_mix_q8_w(
+            torch.ones(2, 2), torch.ones(2, 16, requires_grad=g), q8,
+            torch.ones(2, 1))),
+        "gossip_mix_int8_round": (gm.gossip_mix_q8_rows, gm,
+                                  lambda g: gm.gossip_mix_int8_round(
+            torch.ones(2, 16), torch.ones(2, 16), torch.ones(2, 2,
+                                                             requires_grad=g),
+            torch.ones(2, dtype=torch.bool))),
         "quantize_int8": (qz.quantize_int8, qz, lambda g: qz.quantize_int8(
             torch.ones(2, 300, requires_grad=g), 256)),
+        "quantize_int8_ef": (qz.quantize_int8_ef, qz,
+                             lambda g: qz.quantize_int8_ef(
+            torch.ones(2, 300), torch.ones(2, 300, requires_grad=g),
+            torch.ones(2, dtype=torch.bool))),
         "dequantize_int8": (qz.dequantize_int8, qz, lambda g: qz.dequantize_int8(
             q8, torch.ones(2, 1, requires_grad=g), 2048)),
         "flash_attention": (fa.flash_attention, fa, lambda g: fa.flash_attention(

@@ -1,8 +1,9 @@
 """The CUDA kernels (gossip mix, flash attention in fp32 and on the
 tensor cores in bf16, RG-LRU scan, RWKV-6 scan, int8 quantize / dequantize)
-against their plain torch versions, and the D-PSGD steps as CUDA graphs
-against their eager bodies, on an sm_90 card (every test here skips
-without one).
+against their plain torch versions, the int8 round's send and receive
+(also against the sequence of launches the round made before), and the
+D-PSGD steps as CUDA graphs against their eager bodies, on an sm_90 card
+(every test here skips without one).
 
 Imports neither ``jax`` nor ``repro``, so it runs on a machine with only
 PyTorch:  PYTHONPATH=src python -m pytest -q tests/test_torch_kernels_card.py
@@ -400,6 +401,245 @@ def test_quantize_kernel_contracts(sm90):
 
 
 # ---------------------------------------------------------------------------
+# The int8 round: the send with error feedback, the receive with W whole
+# ---------------------------------------------------------------------------
+
+def _unfused_send(flat, res, live, ef):
+    """The int8 round's send as the port ran it before the error-feedback
+    entry: the kept codec wrappers plus torch ops."""
+    carried = flat + res if ef else flat
+    q, s = comp.quantize_int8_rows(carried)
+    deq = comp.dequantize_int8_rows(q, s, carried.shape[1])
+    new_res = carried - deq if ef else res
+    return q, s, torch.where(live[:, None], new_res, torch.zeros(
+        (), dtype=new_res.dtype, device=new_res.device))
+
+
+def _send_inputs(rows, length, seed, dead):
+    g = torch.Generator().manual_seed(seed)
+    flat = torch.randn((rows, length), generator=g) * 0.3
+    res = torch.randn((rows, length), generator=g) * 1e-3
+    live = torch.ones(rows, dtype=torch.bool)
+    if dead:
+        live[-1] = False
+    return flat, res, live
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,length", [(6, 21_840), (6, 21_843),
+                                         (3, 2049), (1, 1)])
+@pytest.mark.parametrize("ef", [True, False])
+@pytest.mark.parametrize("dead", [False, True])
+def test_quantize_int8_ef_kernel_matches_plain_and_unfused_sequence(
+        sm90, rows, length, ef, dead):
+    """q, the scales and new_res bit-equal to the plain version (on the
+    CPU and on the card) and to the unfused sequence of launches."""
+    flat, res, live = _send_inputs(rows, length, rows * length, dead)
+    args = [t.to(sm90) for t in (flat, res, live)]
+    before = (qz.quantize_int8_ef.launches, qz.quantize_int8.launches,
+              qz.dequantize_int8.launches)
+    got = qz.quantize_int8_ef(*args, ef)
+    torch.cuda.synchronize()
+    assert (qz.quantize_int8_ef.launches, qz.quantize_int8.launches,
+            qz.dequantize_int8.launches) == (before[0] + 1, *before[1:])
+    assert [t.shape for t in got] == [
+        (rows, -(-length // 2048) * 2048), (rows, -(-length // 2048)),
+        (rows, length)]
+    for want in (qz.quantize_int8_ef_plain(flat, res, live, ef),
+                 qz.quantize_int8_ef_plain(*args, ef),
+                 _unfused_send(*args, ef)):
+        assert all(a.dtype == b.dtype and torch.equal(a.cpu(), b.cpu())
+                   for a, b in zip(got, want))
+
+
+def _near_half_integers(seed):
+    """Rows whose lanes sit within a few ulps of (k + 1/2) * scale, the
+    quotients where one reciprocal and the IEEE division can round apart:
+    every block's max is 100, so scale = fl(100 / 127) is inexact. Then a
+    row at magnitudes whose scale is subnormal (1e-37) and one of
+    subnormal lanes (1e-43)."""
+    rng = np.random.default_rng(seed)
+    scale = np.float32(100) / np.float32(127)
+    k = rng.integers(-127, 127, size=(3, 6144)).astype(np.float64)
+    x = np.float32((k + 0.5) * np.float64(scale))
+    steps = rng.integers(-3, 4, size=x.shape)
+    for _ in range(3):
+        up, down = steps > 0, steps < 0
+        x = np.where(up, np.nextafter(x, np.float32(np.inf)),
+                     np.where(down, np.nextafter(x, np.float32(-np.inf)), x))
+        steps = steps - np.sign(steps)
+    x[:, ::2048] = 100.0
+    tiny = rng.normal(size=(2, 6144)).astype(np.float32)
+    tiny[0] *= np.float32(1e-37)
+    tiny[1] *= np.float32(1e-43)
+    return torch.from_numpy(np.concatenate([x, tiny]).astype(np.float32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ef", [True, False])
+def test_quantize_int8_ef_kernel_at_half_integers_and_tiny_scales(sm90, ef):
+    """The send's one-reciprocal quotient must round as the IEEE division
+    does where the two can differ, and take the division outright where
+    the scale leaves the range of its proof (csrc/quantize.cu)."""
+    flat = _near_half_integers(0)
+    res = torch.zeros_like(flat) if ef else torch.randn(flat.shape)
+    live = torch.ones(flat.shape[0], dtype=torch.bool)
+    got = qz.quantize_int8_ef(*(t.to(sm90) for t in (flat, res, live)), ef)
+    torch.cuda.synchronize()
+    for want in (qz.quantize_int8_ef_plain(flat, res, live, ef),
+                 _unfused_send(*(t.to(sm90) for t in (flat, res, live)), ef)):
+        assert all(torch.equal(a.cpu(), b.cpu()) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 6, 8, 9])
+@pytest.mark.parametrize("n", [1, 8195, 21_840, 21_843])
+def test_gossip_mix_q8_w_kernel_matches_plain(sm90, k, n):
+    """The receive with W (K, K) taken whole, against its plain version at
+    1e-5: K one short of a group of 8 payloads, a whole group and one past;
+    aligned and ragged N."""
+    g = torch.Generator().manual_seed(k * n)
+    q, s = quantize_int8_rows(torch.randn((k, n), generator=g) * 4)
+    x = torch.randn((k, n), generator=g)
+    w = torch.softmax(torch.randn((k, k), generator=g), -1)
+    before = gm.gossip_mix_q8_rows.launches
+    got = gm.gossip_mix_q8_w(w.to(sm90), x.to(sm90), q.to(sm90), s.to(sm90))
+    torch.cuda.synchronize()
+    assert gm.gossip_mix_q8_rows.launches == before + 1
+    assert got.shape == (k, n) and got.dtype == torch.float32
+    assert _err(got.cpu(), gm.gossip_mix_q8_w_plain(w, x, q, s)) < 1e-5
+    # the variant the round launches (W and self loaded ahead of the wait)
+    early = gm.gossip_mix_q8_w(w.to(sm90), x.to(sm90), q.to(sm90),
+                               s.to(sm90), after_send=True)
+    torch.cuda.synchronize()
+    assert torch.equal(early, got)
+    # the same receive through the rows form (diag and W_off split)
+    diag = torch.diagonal(w).contiguous()
+    rows = gm.gossip_mix_q8_rows(diag.to(sm90), (w - torch.diag(diag)).to(
+        sm90), x.to(sm90), q.to(sm90), s.to(sm90))
+    torch.cuda.synchronize()
+    assert torch.equal(rows, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 8, 9])
+@pytest.mark.parametrize("n", [100, 21_840, 3 * 8192 + 5])
+def test_gossip_mix_q8_tpu_contract_on_the_new_body(sm90, k, n):
+    """M = 1, weights = [w_self, w_off...] (the TPU kernel's signature)
+    through the same kernel at stride 1, against the plain version."""
+    g = torch.Generator().manual_seed(k + n)
+    q, s = quantize_int8_rows(torch.randn((k, n), generator=g) * 4)
+    x = torch.randn(n, generator=g)
+    w = torch.softmax(torch.randn(k + 1, generator=g), -1)
+    got = ops.gossip_mix_q8(x.to(sm90), q.to(sm90), s.to(sm90), w.to(sm90))
+    torch.cuda.synchronize()
+    want = gm.gossip_mix_q8_rows_plain(w[:1], w[None, 1:], x[None], q, s)[0]
+    assert got.shape == (n,) and _err(got.cpu(), want) < 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 6, 8, 9])
+@pytest.mark.parametrize("n", [21_840, 21_843])
+def test_int8_round_receive_matches_plain(sm90, k, n):
+    """The round's receive, launched right behind the send with W and flat
+    loaded ahead of its wait, against the plain receive of the same q and
+    scales at 1e-5 (one dead node); the residual bit-equal to the send's."""
+    g = torch.Generator().manual_seed(k * n + 1)
+    flat = (torch.randn((k, n), generator=g) * 0.3).to(sm90)
+    res = (torch.randn((k, n), generator=g) * 1e-3).to(sm90)
+    w = torch.softmax(torch.randn((k, k), generator=g), -1).to(sm90)
+    live = torch.arange(k, device=sm90) != k - 1
+    mixed, new_res = gm.gossip_mix_int8_round(flat, res, w, live)
+    q, s, want_res = qz.quantize_int8_ef(flat, res, live)
+    torch.cuda.synchronize()
+    assert torch.equal(new_res, want_res)
+    assert _err(mixed.cpu(), gm.gossip_mix_q8_w_plain(
+        w.cpu(), flat.cpu(), q.cpu(), s.cpu())) < 1e-5
+
+
+def _round(flat, res, w, live, ef=True):
+    from repro_torch.core import dpsgd
+    from repro_torch.core.compression import QuantConfig
+    return dpsgd._compress_and_mix(flat, res, w, live, QuantConfig(
+        mode="int8", error_feedback=ef))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ef", [True, False])
+def test_int8_round_captured_graph_matches_eager(sm90, ef):
+    """The round (send, then receive) captured once into a CUDA graph and
+    replayed twice, new inputs copied in before the second replay: each
+    replay equal to the eager round on the same inputs (bit for bit: the
+    same kernels), and to the CPU's plain versions (mixed 1e-5, new_res
+    exact), and two launches a round."""
+    n, length = 6, 21_840
+    inputs = []
+    for seed in (1, 2):
+        flat, res, live = _send_inputs(n, length, seed, dead=True)
+        w = torch.softmax(torch.randn((n, n), generator=torch.Generator()
+                                      .manual_seed(seed)), -1)
+        inputs.append((flat, res, w, live))
+    static = [t.to(sm90) for t in inputs[0]]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        _round(*static, ef)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = (qz.quantize_int8_ef.launches, gm.gossip_mix_q8_rows.launches)
+    with torch.cuda.graph(graph, stream=side):
+        out = _round(*static, ef)
+    assert (qz.quantize_int8_ef.launches,
+            gm.gossip_mix_q8_rows.launches) == (before[0] + 1, before[1] + 1)
+    for cpu in inputs:
+        for dst, src in zip(static, cpu):
+            dst.copy_(src)
+        graph.replay()
+        torch.cuda.synchronize()
+        eager = _round(*[t.to(sm90) for t in cpu], ef)
+        torch.cuda.synchronize()
+        assert torch.equal(out[0], eager[0]) and torch.equal(out[1], eager[1])
+        mixed, new_res = _round(*cpu, ef)
+        assert _err(out[0].cpu(), mixed) < 1e-5
+        assert torch.equal(out[1].cpu(), new_res)
+
+
+@pytest.mark.cuda
+def test_int8_round_kernel_contracts(sm90):
+    """ValueErrors before any launch: the send's shapes, dtypes and mask,
+    the receive's W and payloads, and the round's W, shapes and devices
+    (neither kernel launched)."""
+    f = torch.zeros((2, 300), device=sm90)
+    live = torch.ones(2, dtype=torch.bool, device=sm90)
+    q = torch.zeros((2, 2048), dtype=torch.int8, device=sm90)
+    s = torch.ones((2, 1), device=sm90)
+    before = (qz.quantize_int8_ef.launches, gm.gossip_mix_q8_rows.launches)
+    for call, match in (
+            (lambda: qz.quantize_int8_ef(f, f[:, :299], live), "one"),
+            (lambda: qz.quantize_int8_ef(f.double(), f.double(), live),
+             "float32"),
+            (lambda: qz.quantize_int8_ef(f, f, live.float()), "bool"),
+            (lambda: qz.quantize_int8_ef(f, f, live[:1]), "bool"),
+            (lambda: gm.gossip_mix_q8_w(torch.ones((2, 3), device=sm90), f,
+                                        q, s), "square"),
+            (lambda: gm.gossip_mix_q8_w(torch.ones((2, 2), device=sm90), f,
+                                        q, torch.ones((2, 2), device=sm90)),
+             "scale"),
+            (lambda: gm.gossip_mix_int8_round(
+                f, f, torch.ones((2, 3), device=sm90), live), "square"),
+            (lambda: gm.gossip_mix_int8_round(f, f[:, :299], torch.ones(
+                (2, 2), device=sm90), live), "one"),
+            (lambda: gm.gossip_mix_int8_round(f, f, torch.ones((2, 2)),
+                                              live), "w is on"),
+            (lambda: gm.gossip_mix_int8_round(f, f, torch.ones(
+                (2, 2), device=sm90), live.cpu()), "live is on")):
+        with pytest.raises(ValueError, match=match):
+            call()
+    assert (qz.quantize_int8_ef.launches,
+            gm.gossip_mix_q8_rows.launches) == before
+
+
+# ---------------------------------------------------------------------------
 # The D-PSGD steps as CUDA graphs (repro_torch.graphs)
 # ---------------------------------------------------------------------------
 
@@ -491,8 +731,8 @@ def test_graphed_step_matches_eager_body_and_outputs_stay_put(sm90, kind):
 @pytest.mark.cuda
 def test_graphed_step_counts_one_capture_delta_per_replay(sm90):
     """The warm-up and the capture launch nothing that counts; each replay
-    adds what the capture saw: one quantize, one dequantize and one q8
-    receive per int8 round."""
+    adds what the capture saw: one send (the error-feedback quantize) and
+    one q8 receive per int8 round, and no quantize_int8 or dequantize."""
     build, _ = _graph_cases()["compressed"]
     from repro_torch.core import dpsgd
 
@@ -500,15 +740,15 @@ def test_graphed_step_counts_one_capture_delta_per_replay(sm90):
     params, batch, w = _step_inputs(6, seed=0, device=sm90)
     live = torch.ones(6, dtype=torch.bool, device=sm90)
     res = dpsgd.zero_residuals(params)
-    counters = (qz.quantize_int8, qz.dequantize_int8, gm.gossip_mix_q8_rows,
-                gm.gossip_mix_rows)
+    counters = (qz.quantize_int8_ef, qz.quantize_int8, qz.dequantize_int8,
+                gm.gossip_mix_q8_rows, gm.gossip_mix_rows)
     before = [f.launches for f in counters]
     step.prepare(params, batch, w, live, res)
     assert [f.launches for f in counters] == before
     for r in range(1, 4):
         params, res, _ = step(params, batch, w, live, res)
         assert [f.launches - b for f, b in zip(counters, before)] == \
-            [r, r, r, 0]
+            [r, 0, 0, r, 0]
 
 
 @pytest.mark.cuda

@@ -1,7 +1,9 @@
 """The port's int8 quantize / dequantize kernels (kernels 3-4): the plain
 versions against the JAX package's Pallas kernels (interpret mode, through
 ``repro.kernels.ops``, as tests/test_kernels.py runs them) and oracles, the
-wire codec of ``core.compression``, the contracts and the per-call dispatch.
+wire codec of ``core.compression``, the int8 round's send (quantize with
+error feedback, ``quantize_int8_ef``) against the unfused sequence it
+replaces and the JAX package's, the contracts and the per-call dispatch.
 The CUDA kernels themselves are held against their plain versions on the
 card, in test_torch_kernels_card.py.
 
@@ -203,7 +205,7 @@ def test_non_cpu_tensor_never_falls_back_to_plain():
     assert (qz.quantize_int8.launches, qz.dequantize_int8.launches) == (0, 0)
 
 
-@pytest.mark.parametrize("which", ["quantize", "dequantize"])
+@pytest.mark.parametrize("which", ["quantize", "dequantize", "send"])
 def test_raise_below_sm90(monkeypatch, which):
     """Asked about a CUDA device below (9, 0), the dispatch raises before
     any launch (the probe is patched; the host tensors are never touched)."""
@@ -212,11 +214,132 @@ def test_raise_below_sm90(monkeypatch, which):
     cuda0 = torch.device("cuda", 0)
     monkeypatch.setattr(qz, "use_kernel",
                         lambda dev: _backend.use_kernel(cuda0))
-    before = (qz.quantize_int8.launches, qz.dequantize_int8.launches)
+    counted = (qz.quantize_int8, qz.dequantize_int8, qz.quantize_int8_ef)
+    before = [fn.launches for fn in counted]
     with pytest.raises(RuntimeError, match="capability"):
         if which == "quantize":
             qz.quantize_int8(torch.ones(2, 300), 2048)
+        elif which == "send":
+            qz.quantize_int8_ef(torch.ones(2, 300), torch.ones(2, 300),
+                                torch.ones(2, dtype=torch.bool))
         else:
             qz.dequantize_int8(torch.zeros(2, 2048, dtype=torch.int8),
                                torch.ones(2, 1), 2048)
-    assert (qz.quantize_int8.launches, qz.dequantize_int8.launches) == before
+    assert [fn.launches for fn in counted] == before
+
+
+# ---------------------------------------------------------------------------
+# The int8 round's send: quantize with error feedback in one launch
+# ---------------------------------------------------------------------------
+
+def _send_inputs(rows, length, dead, seed=0):
+    rng = np.random.default_rng(seed + rows * length)
+    flat = torch.from_numpy((rng.normal(size=(rows, length)) * 0.3
+                             ).astype(np.float32))
+    res = torch.from_numpy((rng.normal(size=(rows, length)) * 1e-3
+                            ).astype(np.float32))
+    live = torch.ones(rows, dtype=torch.bool)
+    if dead:
+        live[rows // 2] = False
+    return flat, res, live
+
+
+def _unfused_send(flat, res, live, ef):
+    """The round's send as the port computed it before the fused entry:
+    the wire codec's quantize and dequantize, then the residual and the
+    masking of dead rows, each its own operation."""
+    carried = flat + res if ef else flat
+    q, s = tcomp.quantize_int8_rows(carried)
+    deq = tcomp.dequantize_int8_rows(q, s, carried.shape[1])
+    new_res = carried - deq if ef else res
+    new_res = torch.where(live[:, None], new_res,
+                          torch.zeros((), dtype=new_res.dtype))
+    return q, s, new_res
+
+
+SEND_SHAPES = [(6, 21_840), (6, 21_843), (3, 2049), (1, 1), (4, 5000)]
+
+
+@pytest.mark.parametrize("rows,length", SEND_SHAPES)
+@pytest.mark.parametrize("ef", [True, False])
+@pytest.mark.parametrize("dead", [False, True])
+def test_send_plain_is_the_unfused_sequence_and_the_jax_packages(
+        rows, length, ef, dead):
+    """``quantize_int8_ef_plain`` (and the CPU dispatch of its wrapper)
+    bit-equal to the unfused torch sequence, with
+    ragged lengths, a dead node and error feedback on and off; q bit-equal
+    to the JAX package's wire codec on the same carried buffer, the
+    scales and the new residual equal to its sequence's
+    (``repro.core.dpsgd``'s int8 branch)."""
+    flat, res, live = _send_inputs(rows, length, dead)
+    want = _unfused_send(flat, res, live, ef)
+    for got in (qz.quantize_int8_ef_plain(flat, res, live, ef),
+                qz.quantize_int8_ef(flat, res, live, ef)):
+        assert all(a.dtype == b.dtype and torch.equal(a, b)
+                   for a, b in zip(got, want))
+    assert got[0].shape == (rows, -(-length // 2048) * 2048)
+    assert got[1].shape == (rows, -(-length // 2048))
+    assert got[2].shape == (rows, length)
+    carried = jnp.asarray((flat + res if ef else flat).numpy())
+    jq, js = jcomp.quantize_int8_rows(carried)
+    jdeq = jcomp.dequantize_int8_rows(jq, js, length)
+    jres = jnp.where(jnp.asarray(live.numpy())[:, None],
+                     carried - jdeq if ef else jnp.asarray(res.numpy()), 0.0)
+    assert torch.equal(got[0], torch.from_numpy(np.asarray(jq)))
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(js))
+    np.testing.assert_array_equal(got[2].numpy(), np.asarray(jres))
+
+
+def test_send_zeroes_dead_rows_and_passes_res_without_feedback():
+    flat, res, live = _send_inputs(4, 3000, dead=True)
+    _, _, on = qz.quantize_int8_ef(flat, res, live, True)
+    _, _, off = qz.quantize_int8_ef(flat, res, live, False)
+    dead = ~live
+    assert torch.equal(on[dead], torch.zeros_like(on[dead]))
+    assert not torch.signbit(on[dead]).any()          # +0, as torch.where
+    assert torch.equal(off[live], res[live])
+    assert torch.equal(off[dead], torch.zeros_like(off[dead]))
+
+
+@pytest.mark.parametrize("call,match", [
+    (lambda f, l: qz.quantize_int8_ef(f, f[:, :-1], l), "one"),
+    (lambda f, l: qz.quantize_int8_ef(f[0], f[0], l), "one"),
+    (lambda f, l: qz.quantize_int8_ef(f.double(), f.double(), l), "float32"),
+    (lambda f, l: qz.quantize_int8_ef(f, f.to(torch.bfloat16), l),
+     "float32"),
+    (lambda f, l: qz.quantize_int8_ef(f, f, l.float()), "bool"),
+    (lambda f, l: qz.quantize_int8_ef(f, f, l[:1]), "bool"),
+])
+def test_send_contracts_raise_value_error(call, match):
+    before = qz.quantize_int8_ef.launches
+    with pytest.raises(ValueError, match=match):
+        call(torch.zeros(3, 300), torch.ones(3, dtype=torch.bool))
+    assert qz.quantize_int8_ef.launches == before
+
+
+def test_send_on_the_kernel_path_passes_the_entry_its_operands(monkeypatch):
+    """With the dispatch patched to the card's answer and the launch
+    recorded, the wrapper allocates the wire format's outputs and hands the
+    C entry rows, lanes and the feedback flag; a CPU tensor never counts a
+    launch, and a tensor off the CPU never runs the plain version."""
+    launched = []
+    monkeypatch.setattr(qz, "use_kernel", lambda dev: True)
+    monkeypatch.setattr(qz._build, "launch",
+                        lambda name, entry, types, dev, *a:
+                        launched.append((name, entry, a)))
+    before = qz.quantize_int8_ef.launches
+    flat, res, live = _send_inputs(3, 2049, dead=True)
+    q, s, new_res = qz.quantize_int8_ef(flat, res, live, False)
+    assert q.shape == (3, 4096) and q.dtype == torch.int8
+    assert s.shape == (3, 2) and new_res.shape == (3, 2049)
+    (name, entry, args), = launched
+    assert (name, entry) == ("quantize", "quantize_int8_ef_f32_b2048")
+    assert args[:6] == (flat.data_ptr(), res.data_ptr(), live.data_ptr(),
+                        q.data_ptr(), s.data_ptr(), new_res.data_ptr())
+    assert args[6:] == (3, 2049, 0)
+    assert qz.quantize_int8_ef.launches == before + 1
+    monkeypatch.undo()
+    with pytest.raises(RuntimeError, match="device type"):
+        qz.quantize_int8_ef(*(t.to("meta") for t in (flat, res, live)))
+    qz.quantize_int8_ef(flat, res, live)
+    assert qz.quantize_int8_ef.launches == before + 1
