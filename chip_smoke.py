@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch / H100 port (``src/repro_torch``).
 
-Drives the port's four paths on one NVIDIA Hopper card, through the
+Drives the port's five paths on one NVIDIA Hopper card, through the
 entry points a user calls:
 
 * the paper's wireless D-PSGD run: Eq. 2 capacities, Algorithm 2 rates at
@@ -23,7 +23,12 @@ entry points a user calls:
   size, one epoch of 400 rounds on ``compressed_int8`` and on ``static``,
   every int8 round in two CUDA kernels: the send (quantize with its error
   feedback, ``quantize_int8_ef`` of ``csrc/quantize.cu``) and the receive
-  (``gossip_mix_q8`` with W whole, launched as a programmatic dependent).
+  (``gossip_mix_q8`` with W whole, launched as a programmatic dependent);
+* train-on-trace (``sim.train_cnn_on_traces``, Monte-Carlo families of the
+  same epoch over precomputed traces): 4 seeds of ``compressed_int8`` and
+  2 of ``fault_chaos`` (watchdog armed), one CUDA graph replayed per round
+  for the whole family, each trace's int8 round in the send and receive
+  kernels, each uncompressed round in the rows mix.
 
 Phases, each of which ends the run with a nonzero exit if it fails:
 
@@ -113,7 +118,26 @@ Phases, each of which ends the run with a nonzero exit if it fails:
               whose max-pools and ReLUs card and CPU route alike); rounds,
               simulated seconds, accuracy and host ms per round split into
               simulator, step and the rest, for both runs (the lockstep
-              rounds are the graphed run's).
+              rounds are the graphed run's);
+11. train-on-trace — ``train_cnn_on_traces`` at the same widths: (a) 4
+              seeds of ``compressed_int8`` (after a warm-up at the family's
+              width), the send and q8 counters each exactly 4 x 400, the
+              rows mix and the codec 0, one graph signature, finite losses
+              and parameters, accuracies in [0, 1], ``t_acc_s`` the
+              traces' ``t_end_s`` at the eval rounds; (b) 2 seeds of
+              ``fault_chaos``: the rows mix 2 x 400, rollbacks (2, 400, 6),
+              crashes in play; (c) the loop at S = 1 against
+              ``simulate_dpsgd_cnn`` on ``static`` and ``churn``, mean
+              losses within 1e-5 over at least the first 8 rounds; (d) the
+              first 5 family rounds of (a) rerun on the CPU in lockstep (q
+              bit-equal, losses 1e-4, parameters and residuals 1e-5); (e)
+              the round loop of (a) replayed under
+              ``torch.cuda.set_sync_debug_mode("error")`` (finite
+              losses; their distance from (a)'s printed, and one round
+              replayed twice from the same inputs); (f) the family's
+              wall seconds, host ms per round (per trace) against phase
+              10's graphed driver, one replay's card time, the loop's idle
+              share, graph captures and peak memory.
 
 Each phase prints its wall time. The last lines are the card's
 ``nvidia-smi`` name and power limit, one JSON line with every kernel's
@@ -180,6 +204,13 @@ LOCK_RWKV_LAYERS = 4
 # paper's setup (400 rounds of batch 25 on 6 nodes) per scenario
 SIM_EPOCHS = 1
 SIM_CPU_ROUNDS = 5                   # compressed rounds rerun on the CPU
+
+# train-on-trace (phase 11): families of the same epoch over precomputed
+# traces, one graph replay per round for the family
+FAMILY_INT8 = 4                      # (a) compressed_int8 seeds
+FAMILY_CHAOS = 2                     # (b) fault_chaos seeds, watchdog armed
+PARITY_ROUNDS = 8                    # (c) first rounds held within 1e-5
+FAMILY_CPU_ROUNDS = 5                # (d) family rounds rerun on the CPU
 
 
 def fail(msg: str) -> None:
@@ -2074,6 +2105,7 @@ def phase_simulated_training(torch) -> dict:
         out.setdefault(name, {})[variant] = split
         if variant == "graphed":
             out[name]["launches"] = launches
+    out["ds"] = ds
     for name in ("compressed_int8", "static"):
         e, g = out[name]["eager"], out[name]["graphed"]
         print(f"{name}: host ms per round graphed {g['host_ms']:.4f} vs "
@@ -2114,6 +2146,243 @@ def phase_simulated_training(torch) -> dict:
     check(worst["params"] <= TOL_FP32 and worst["residuals"] <= TOL_FP32,
           f"card and CPU parameters or residuals differ: {worst}")
     return out
+
+
+def phase_train_on_trace(torch, simulated: dict) -> dict:
+    phase("11. train-on-trace on the card: Monte-Carlo families over "
+          "precomputed traces")
+    from repro_torch.core import dpsgd
+    from repro_torch.core.compression import quantize_int8_rows
+    from repro_torch.kernels import gossip_mix as gm
+    from repro_torch.kernels import quantize as qz
+    from repro_torch.sim import (batch as tb, get_scenario, precompute_traces,
+                                 simulate_dpsgd_cnn, train_cnn_on_traces)
+
+    ds = simulated["ds"]
+    dev = torch.device("cuda")
+    counters = {"quantize_int8_ef": qz.quantize_int8_ef,
+                "quantize_int8": qz.quantize_int8,
+                "dequantize_int8": qz.dequantize_int8,
+                "gossip_mix_q8": gm.gossip_mix_q8_rows,
+                "gossip_mix": gm.gossip_mix_rows}
+    rounds = SIM_EPOCHS * N_TRAIN // N_NODES // 25
+    kw = dict(epochs=SIM_EPOCHS, ds=ds, n_test=N_TEST, device="cuda")
+
+    def counted(fn, *args, **kwargs):
+        """``fn`` with every counter set to 0 just before and read just
+        after, and its wall seconds (synchronised)."""
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0, \
+            {k: c.launches for k, c in counters.items()}
+
+    # the family step's first rounds, recorded for the CPU rerun in (d)
+    recorded = []
+    family_step = tb._family_step
+
+    def recording(*key):
+        step = family_step(*key)
+
+        def run(*args):
+            out = step(*args)
+            if len(recorded) < FAMILY_CPU_ROUNDS:
+                recorded.append((step, args, out))
+            return out
+        run.step = step
+        return run
+
+    # the loop alone: train_on_traces with its wall seconds (and the
+    # device inputs (a) built, which (e) replays)
+    loop_s, loop_args = [], []
+    train_on_traces = tb.train_on_traces
+
+    def timed(*args, **kwargs):
+        loop_args.append((args, kwargs))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = train_on_traces(*args, **kwargs)
+        torch.cuda.synchronize()
+        loop_s.append(time.perf_counter() - t0)
+        return out
+
+    # (a) a family of FAMILY_INT8 seeds of compressed_int8
+    cfgs = [get_scenario("compressed_int8", seed=s)
+            for s in range(FAMILY_INT8)]
+    t0 = time.perf_counter()
+    traces = precompute_traces(cfgs, rounds)
+    pre_s = time.perf_counter() - t0
+    # warm-up at the same family width (the graph's capture, cuDNN plans,
+    # the evaluation's vmap), outside the counted run
+    train_cnn_on_traces(cfgs, epochs=1, n_train=1200, n_test=300,
+                        device="cuda")
+    step = next(v for k, v in tb._STEPS.items() if k[0] is tb._cnn_loss
+                and k[2] == cfgs[0].payload)
+    captures = step.signatures
+    torch.cuda.reset_peak_memory_stats()
+    tb._family_step, tb.train_on_traces = recording, timed
+    try:
+        (traces_a, out_a), wall_a, launches = counted(
+            train_cnn_on_traces, cfgs, trace_batch=traces, **kw)
+    finally:
+        tb._family_step, tb.train_on_traces = family_step, train_on_traces
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want = {"quantize_int8_ef": FAMILY_INT8 * rounds, "quantize_int8": 0,
+            "dequantize_int8": 0, "gossip_mix_q8": FAMILY_INT8 * rounds,
+            "gossip_mix": 0}
+    print(f"(a) compressed_int8 x {FAMILY_INT8} seeds x {rounds} rounds: "
+          f"launches {launches} (expected {want})")
+    check(launches == want, f"(a) launches {launches}, want {want}")
+    check(step.signatures == captures == 1,
+          f"(a) {step.signatures} graphs after the run, {captures} before")
+    check(np.isfinite(out_a["losses"]).all(), "(a) non-finite loss")
+    check(all(bool(torch.isfinite(x).all()) for p in out_a["final_params"]
+              for x in dpsgd._leaves(p)), "(a) non-finite parameters")
+    acc = out_a["acc"]
+    check(acc.shape == (FAMILY_INT8, len(out_a["eval_rounds"]))
+          and ((0.0 <= acc) & (acc <= 1.0)).all(), f"(a) accuracies {acc}")
+    check(np.array_equal(out_a["t_acc_s"],
+                         traces.t_end_s[:, out_a["eval_rounds"]]),
+          "(a) t_acc_s is not the traces' t_end_s at eval_rounds")
+    loop_ms = loop_s[0] * 1e3 / rounds
+    print(f"(a) losses {out_a['losses'][:, 0].round(4).tolist()} -> "
+          f"{out_a['losses'][:, -1].round(4).tolist()}, final accuracy "
+          f"{acc[:, -1].round(4).tolist()}, simulated "
+          f"{traces.t_end_s[:, -1].round(4).tolist()} s")
+
+    # (b) a family of FAMILY_CHAOS seeds of fault_chaos, watchdog armed
+    chaos = [get_scenario("fault_chaos", seed=s) for s in range(FAMILY_CHAOS)]
+    (traces_b, out_b), wall_b, launches_b = counted(
+        train_cnn_on_traces, chaos, **kw)
+    want_b = {"quantize_int8_ef": 0, "quantize_int8": 0,
+              "dequantize_int8": 0, "gossip_mix_q8": 0,
+              "gossip_mix": FAMILY_CHAOS * rounds}
+    crashed = int((traces_b.active != traces_b.live).sum())
+    rb = out_b["rollbacks"]
+    print(f"(b) fault_chaos x {FAMILY_CHAOS} seeds: launches {launches_b} "
+          f"(expected {want_b}), {crashed} crashed (live, not active) node "
+          f"rounds, rollbacks {None if rb is None else rb.shape} with "
+          f"{0 if rb is None else int(rb.sum())} events, {wall_b:.2f} s")
+    check(launches_b == want_b, f"(b) launches {launches_b}, want {want_b}")
+    check(rb is not None and rb.shape == (FAMILY_CHAOS, rounds, N_NODES),
+          f"(b) rollbacks {None if rb is None else rb.shape}")
+    check(crashed > 0 and np.isfinite(out_b["losses"]).all(),
+          "(b) no crash in play or a non-finite loss")
+
+    # (c) the loop at S = 1 against the per-round driver, same card, same
+    # call (compute charged at compute_s_per_round: one trace each)
+    parity = {}
+    for name in ("static", "churn"):
+        cfg = get_scenario(name)
+        trace, _ = simulate_dpsgd_cnn(cfg, epochs=SIM_EPOCHS, ds=ds,
+                                      n_test=N_TEST, device="cuda")
+        tr_c, out_c = train_cnn_on_traces([cfg], **kw)
+        driver = np.array([r.loss for r in trace.records])
+        diff = np.abs(out_c["losses"][0] - driver)
+        agree = int(np.argmax(diff > 1e-5)) if (diff > 1e-5).any() \
+            else len(diff)
+        same_live = [r.n_live for r in trace.records] == \
+            tr_c.live[0].sum(-1).tolist()
+        print(f"(c) {name}: loop against driver, max|mean loss diff| over "
+              f"the first {PARITY_ROUNDS} rounds "
+              f"{diff[:PARITY_ROUNDS].max():.3e}, the first {agree} of "
+              f"{len(diff)} rounds within 1e-5, max over all "
+              f"{diff.max():.3e}; live counts equal: {same_live}; final "
+              f"node {tr_c.live[0, -1].sum()}")
+        check(same_live and agree >= PARITY_ROUNDS,
+              f"(c) {name}: the loop leaves the driver at round {agree}")
+        parity[name] = {"first_rounds_max_diff":
+                        float(diff[:PARITY_ROUNDS].max()),
+                        "rounds_within": agree, "max_diff": float(diff.max())}
+
+    # (d) the first recorded rounds of (a) again on the CPU, in lockstep
+    check(len(recorded) == FAMILY_CPU_ROUNDS,
+          f"(d) recorded {len(recorded)} rounds")
+    to_cpu = lambda t: None if t is None else dpsgd._tree_map(  # noqa: E731
+        lambda x: x.cpu(), t)
+    worst = {"loss": 0.0, "params": 0.0, "residuals": 0.0}
+    for step_r, args, out in recorded:
+        cpu = step_r(*(to_cpu(a) for a in args))     # CPU: the eager body
+        worst["loss"] = max(worst["loss"], err(out["losses"].cpu(),
+                                               cpu["losses"]))
+        worst["params"] = max(worst["params"], max(
+            err(a.cpu(), b) for a, b in zip(dpsgd._leaves(out["params"]),
+                                            dpsgd._leaves(cpu["params"]))))
+        worst["residuals"] = max(worst["residuals"], max(
+            err(a.cpu(), b) for a, b in zip(dpsgd._leaves(out["res"]),
+                                            dpsgd._leaves(cpu["res"]))))
+        params, res = args[0], args[1]
+        carried = torch.cat([(a + b).reshape(FAMILY_INT8 * N_NODES, -1)
+                             for a, b in zip(dpsgd._leaves(params),
+                                             dpsgd._leaves(res))], 1)
+        q_g, s_g = quantize_int8_rows(carried)
+        q_c, s_c = quantize_int8_rows(carried.cpu())
+        check(torch.equal(q_g.cpu(), q_c) and torch.equal(s_g.cpu(), s_c),
+              "(d) int8 payload or scales differ card vs CPU")
+    print(f"(d) first {FAMILY_CPU_ROUNDS} family rounds card vs CPU in "
+          f"lockstep: q and scales bit-equal, max|loss diff| "
+          f"{worst['loss']:.3e}, max|param diff| {worst['params']:.3e}, "
+          f"max|residual diff| {worst['residuals']:.3e}")
+    check(worst["loss"] <= 1e-4, f"(d) card and CPU losses differ: {worst}")
+    check(worst["params"] <= TOL_FP32 and worst["residuals"] <= TOL_FP32,
+          f"(d) card and CPU parameters or residuals differ: {worst}")
+
+    # (e) the round loop of (a) again, its inputs on the card, under the
+    # sync debug mode: a host read inside the loop raises
+    (loss_fn, params0, *arrays, batches, config), loop_kw = loop_args[0]
+    arrays = [torch.as_tensor(a, device=dev) for a in arrays]
+    loop_kw["active_seq"] = torch.as_tensor(loop_kw["active_seq"], device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, losses_e, _ = tb.train_on_traces(loss_fn, params0, *arrays,
+                                            batches, config, **loop_kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    live = traces.live
+    mean_e = np.where(live, losses_e.cpu().numpy().astype(np.float64),
+                      0.0).sum(-1) / live.sum(-1)
+    diff_e = np.abs(mean_e - out_a["losses"])
+    print(f"(e) the round loop of (a) under set_sync_debug_mode('error'): "
+          f"no host synchronisation; its mean losses against (a)'s: "
+          f"max|diff| {diff_e[:, :PARITY_ROUNDS].max():.3e} over the first "
+          f"{PARITY_ROUNDS} rounds, {diff_e.max():.3e} over all, bit-equal "
+          f"{np.array_equal(mean_e, out_a['losses'])}")
+    check(np.isfinite(mean_e).all() and mean_e.shape == live.shape[:2],
+          f"(e) the replayed loop's losses: {mean_e.shape}, finite "
+          f"{np.isfinite(mean_e).all()}")
+
+    # (f) measurements: the family's graph replayed alone (device ms per
+    # round) against the loop's host ms per round
+    entry = next(iter(step._entries.values()))
+    # is one replay repeatable? the same static inputs, replayed twice
+    entry.graph.replay()
+    first_out = [f.clone() for f in entry.flats]
+    entry.graph.replay()
+    repeat = max(err(a, b) for a, b in zip(first_out, entry.flats))
+    print(f"(e) one family round replayed twice from the same inputs: "
+          f"max|diff| of its outputs {repeat:.3e}")
+    replay_ms = time_ms(torch, entry.graph.replay, reps=20, rounds=5,
+                        warmup=3)
+    driver_ms = simulated["compressed_int8"]["graphed"]["host_ms"]
+    per_trace = loop_ms / FAMILY_INT8
+    idle = 1.0 - replay_ms / loop_ms
+    print(f"(f) family of {FAMILY_INT8}: precompute {pre_s:.4f} s, "
+          f"train_cnn_on_traces {wall_a:.4f} s wall (the loop "
+          f"{loop_s[0]:.4f} s: {loop_ms:.4f} host ms per round, "
+          f"{per_trace:.4f} per round per trace, against phase 10's "
+          f"graphed driver {driver_ms:.4f} ms per round); one replay of the "
+          f"family's round {replay_ms:.4f} ms on the card, idle share of the "
+          f"loop {idle:.4f}; graph captures (signatures) {step.signatures}; "
+          f"peak memory {peak:.3f} GiB")
+    return {"launches": launches, "launches_b": launches_b,
+            "parity": parity, "lockstep": worst, "loop_ms": loop_ms,
+            "per_trace_ms": per_trace, "replay_ms": replay_ms,
+            "idle": idle, "wall_s": wall_a, "peak_gib": peak,
+            "driver_ms": driver_ms, "repeat": repeat}
 
 
 def main() -> None:
@@ -2182,6 +2451,7 @@ def main() -> None:
                             n_layers=LOCK_RWKV_LAYERS), TOL_RWKV, True)
     simulated = run("10", phase_simulated_training, torch)
     int8_run = simulated["compressed_int8"]["launches"]
+    run("11", phase_train_on_trace, torch, simulated)
 
     rows = []
     for name, source, replaces, launches in (

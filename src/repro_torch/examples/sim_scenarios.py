@@ -15,18 +15,20 @@ setup (n=6 nodes, 200 m square, the 21 840-param CNN message):
 3. ``--margin-sweep`` — sweep ``fading_margin_bps`` under the fading
    scenario: the §II-B margin becomes a real dial between outage rate
    (too little headroom) and airtime (too much).
-4. ``--mac-compare`` — TDM vs random access head to head: the CNN trained
-   through both MAC planes on the same placement, accuracy stamped with
-   each plane's own simulated clock.
-5. ``--policy-compare`` — TDM vs uniform random access vs BASS subgraph
+4. ``--train-sweep SCENARIO --seeds N`` — the train-on-trace plane:
+   channel realizations for N seeds precomputed driver-less, then the
+   whole Monte-Carlo family trained on ``--device`` with one graph replay
+   per round for the family (``sim.batch.train_cnn_on_traces``); prints
+   the per-seed accuracy-vs-simulated-time curves.
+5. ``--mac-compare`` — TDM vs random access head to head: the CNN trained
+   through both MAC planes on the same placement in one
+   ``train_cnn_on_traces`` family, accuracy stamped with each plane's own
+   simulated clock.
+6. ``--policy-compare`` — TDM vs uniform random access vs BASS subgraph
    sampling on the same fading world, accuracy vs each policy's own
    simulated clock plus a time-to-accuracy summary.
 
-The two compare demos train each scenario through the per-round driver
-(``sim.simulate_dpsgd_cnn``, compute charged at ``compute_s_per_round``),
-which shares the JAX package's batched train-on-trace path's sampling
-contract; the batched path itself, ``--train-sweep``, waits for ROADMAP
-Queue 1 item 2, and ``--scale`` (the jitted scan engine) for item 4.
+``--scale`` (the jitted scan engine) waits for ROADMAP Queue 1 item 4.
 
 ``--scenario PATTERN`` restricts the ``--compare`` table to scenarios whose
 name matches the glob. ``--payload MODE`` overrides the gossip payload
@@ -41,7 +43,13 @@ Usage:
     PYTHONPATH=src python -m repro_torch.examples.sim_scenarios \\
         --train compressed_int8 --device cpu --epochs 1
     PYTHONPATH=src python -m repro_torch.examples.sim_scenarios --margin-sweep
+    PYTHONPATH=src python -m repro_torch.examples.sim_scenarios \\
+        --train-sweep fading --seeds 4
+    PYTHONPATH=src python -m repro_torch.examples.sim_scenarios \\
+        --train-sweep static --epochs 1 --device cpu
     PYTHONPATH=src python -m repro_torch.examples.sim_scenarios --mac-compare
+    PYTHONPATH=src python -m repro_torch.examples.sim_scenarios \\
+        --policy-compare --device cpu
 """
 from __future__ import annotations
 
@@ -49,7 +57,7 @@ import argparse
 import fnmatch
 
 from ..sim import (QuantConfig, WirelessSimulator, get_scenario,
-                   list_scenarios, simulate_dpsgd_cnn)
+                   list_scenarios, simulate_dpsgd_cnn, train_cnn_on_traces)
 
 
 def _fetch(name: str, payload: str | None, **overrides):
@@ -91,13 +99,6 @@ def compare(rounds: int, solver: str, pattern: str = "*",
               f"{s['failures']:>5d} {s['final_n_live']:>5d}")
 
 
-def _train_each(cfgs, epochs: int, device: str) -> list:
-    """Each scenario through the per-round driver at the compare demos'
-    size (600 / 150 images); compute charged at ``compute_s_per_round``."""
-    return [simulate_dpsgd_cnn(cfg, epochs=epochs, n_train=600, n_test=150,
-                               device=device)[0] for cfg in cfgs]
-
-
 def mac_compare(epochs: int, payload: str | None = None,
                 device: str = "cuda") -> None:
     """Same placement, same CNN, two MACs: accuracy vs each plane's own
@@ -105,16 +106,17 @@ def mac_compare(epochs: int, payload: str | None = None,
     cfgs = [_fetch("static", payload, eval_every_rounds=2),
             _fetch("ra_static", payload, eval_every_rounds=2),
             _fetch("ra_capture", payload, eval_every_rounds=2)]
-    traces = _train_each(cfgs, epochs, device)
+    traces, out = train_cnn_on_traces(cfgs, epochs=epochs, n_train=600,
+                                      n_test=150, device=device)
     print("scenario,mac,t_sim_s,accuracy")
-    for cfg, trace in zip(cfgs, traces):
+    for k, cfg in enumerate(cfgs):
         mac = "ra" if cfg.mac_kind == "random_access" else "tdm"
-        for t, acc in trace.accuracy_curve():
+        for t, acc in out["curves"][k]:
             print(f"{cfg.name},{mac},{t:.2f},{acc:.4f}")
-    for cfg, trace in zip(cfgs, traces):
-        s = trace.summary()
+    for k, cfg in enumerate(cfgs):
+        s = traces.traces[k].trace.summary()
         print(f"# {cfg.name}: comm {s['total_comm_s']:.1f}s, "
-              f"final acc {s['final_acc']:.4f}")
+              f"final acc {out['acc'][k, -1]:.4f}")
 
 
 def policy_compare(epochs: int, payload: str | None = None,
@@ -126,18 +128,19 @@ def policy_compare(epochs: int, payload: str | None = None,
     cfgs = [_fetch("fading", payload, eval_every_rounds=2),
             _fetch("ra_fading", payload, eval_every_rounds=2),
             _fetch("bass_fading", payload, eval_every_rounds=2)]
-    traces = _train_each(cfgs, epochs, device)
+    traces, out = train_cnn_on_traces(cfgs, epochs=epochs, n_train=600,
+                                      n_test=150, device=device)
     print("scenario,policy,t_sim_s,accuracy")
-    for cfg, trace in zip(cfgs, traces):
-        for t, acc in trace.accuracy_curve():
+    for k, cfg in enumerate(cfgs):
+        for t, acc in out["curves"][k]:
             print(f"{cfg.name},{cfg.resolved_policy()},{t:.2f},{acc:.4f}")
-    target = min(trace.summary()["final_acc"] for trace in traces)
-    for cfg, trace in zip(cfgs, traces):
-        s = trace.summary()
-        tta = next((t for t, a in trace.accuracy_curve() if a >= target),
+    target = float(out["acc"][:, -1].min())
+    for k, cfg in enumerate(cfgs):
+        s = traces.traces[k].trace.summary()
+        tta = next((t for t, a in out["curves"][k] if a >= target),
                    float("inf"))
         print(f"# {cfg.name} ({cfg.resolved_policy()}): comm "
-              f"{s['total_comm_s']:.1f}s, final acc {s['final_acc']:.4f},"
+              f"{s['total_comm_s']:.1f}s, final acc {out['acc'][k, -1]:.4f},"
               f" reaches acc {target:.3f} at {tta:.1f}s sim")
 
 
@@ -155,6 +158,29 @@ def train(name: str, epochs: int, solver: str, payload: str | None = None,
     print("t_sim_s,accuracy")
     for t, acc in trace.accuracy_curve():
         print(f"{t:.2f},{acc:.4f}")
+
+
+def train_sweep(name: str, seeds: int, epochs: int, solver: str,
+                payload: str | None = None, device: str = "cuda") -> None:
+    """Monte-Carlo accuracy-vs-simulated-time family, one graph replay per
+    round for the whole family."""
+    import time
+
+    cfgs = [_fetch(name, payload, seed=s, solver=solver, eval_every_rounds=2)
+            for s in range(seeds)]
+    t0 = time.perf_counter()
+    traces, out = train_cnn_on_traces(cfgs, epochs=epochs, n_train=600,
+                                      n_test=300, device=device)
+    dt = time.perf_counter() - t0
+    print(f"# {name} on {device}: {seeds} seeds x {traces.n_rounds} rounds "
+          f"in {dt:.2f}s wall (one graph replay per round)")
+    print("seed,t_sim_s,accuracy")
+    for s, curve in enumerate(out["curves"]):
+        for t, acc in curve:
+            print(f"{s},{t:.2f},{acc:.4f}")
+    final = out["acc"][:, -1]
+    print(f"# final accuracy over seeds: mean {final.mean():.4f} "
+          f"min {final.min():.4f} max {final.max():.4f}")
 
 
 def margin_sweep(rounds: int, solver: str, payload: str | None = None) -> None:
@@ -178,7 +204,8 @@ def main(argv: list[str] | None = None) -> None:
     mode.add_argument("--train", metavar="SCENARIO", choices=list_scenarios())
     mode.add_argument("--train-sweep", metavar="SCENARIO",
                       choices=list_scenarios(),
-                      help="not ported yet (ROADMAP Queue 1 item 2)")
+                      help="Monte-Carlo family via the batched "
+                           "train-on-trace path")
     mode.add_argument("--margin-sweep", action="store_true")
     mode.add_argument("--scale", type=int, metavar="N",
                       help="not ported yet (ROADMAP Queue 1 item 4)")
@@ -196,24 +223,27 @@ def main(argv: list[str] | None = None) -> None:
                         "training demos need a concrete mode)")
     p.add_argument("--rounds", type=int, default=20)
     p.add_argument("--epochs", type=int, default=2)
+    p.add_argument("--seeds", type=int, default=4,
+                   help="channel seeds for --train-sweep")
     p.add_argument("--solver", default="greedy",
                    help="rate_opt method for (re)plans; 'auto' = exact")
     p.add_argument("--device", default="cuda",
                    help="device of the training demos ('cpu' runs the "
                         "kernels' plain versions)")
     args = p.parse_args(argv)
-    if args.train_sweep:
-        p.error("--train-sweep trains through sim/batch.py (train-on-trace),"
-                " which is not ported yet: ROADMAP Queue 1 item 2")
     if args.scale:
         p.error("--scale runs the jitted scan engine (sim/jit_trace.py), "
                 "which is not ported yet: ROADMAP Queue 1 item 4")
-    if args.payload == "auto" and (args.train or args.mac_compare
+    if args.payload == "auto" and (args.train or args.train_sweep
+                                   or args.mac_compare
                                    or args.policy_compare):
         p.error("--payload auto is comm-only (--compare / --margin-sweep); "
                 "pick none/bf16/int8 for the training demos")
     if args.train:
         train(args.train, args.epochs, args.solver, args.payload, args.device)
+    elif args.train_sweep:
+        train_sweep(args.train_sweep, args.seeds, args.epochs, args.solver,
+                    args.payload, args.device)
     elif args.margin_sweep:
         margin_sweep(args.rounds, args.solver, args.payload)
     elif args.mac_compare:

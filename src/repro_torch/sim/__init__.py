@@ -26,15 +26,21 @@ Modules:
   sampled collision-free broadcast groups planned by ``core.sched_opt``)
 * ``scenario`` — named scenario registry (static/fading/mobile/churn/mixed
   + the ``ra_*`` random-access and ``bass_*`` subgraph-sampling families)
+* ``batch``    — train-on-trace: families of D-PSGD runs over
+  precomputed traces (``train_cnn_on_traces``, ``train_model_on_traces``)
 * ``trace``    — event loop, per-round traces, accuracy-vs-simulated-time,
   driver-less ``precompute_trace`` (fixed-shape channel realizations)
 
 The torch counterpart of ``repro.sim``: every module above is numpy copied
 verbatim, and ``trace.simulate_dpsgd_cnn`` trains on the port's D-PSGD
-steps. Train-on-trace (``sim/batch.py``) and the jitted scan engine are
-not ported yet (ROADMAP Queue 1), so their names are not exported.
+steps. ``batch`` is train-on-trace: a Monte-Carlo family of D-PSGD runs
+over precomputed traces, one graphed round body per round on the card.
+The jitted scan engine (``sim/jit_trace.py``) is not ported yet (ROADMAP
+Queue 1 item 4).
 """
 from ..core.compression import QuantConfig
+from .batch import (ModelAdapter, train_cnn_on_traces, train_model_on_traces,
+                    train_on_trace, train_on_trace_reference, train_on_traces)
 from .events import Event, EventKind, EventQueue, SimClock
 from .fading import FadingChannel, FadingParams
 from .faults import FaultParams, FaultSchedule, RoundFaults
@@ -55,6 +61,8 @@ from .trace import (RoundContext, RoundRecord, SimTrace, TraceBatch,
 
 __all__ = [
     "QuantConfig",
+    "ModelAdapter", "train_cnn_on_traces", "train_model_on_traces",
+    "train_on_trace", "train_on_trace_reference", "train_on_traces",
     "Event", "EventKind", "EventQueue", "SimClock",
     "FadingChannel", "FadingParams",
     "FaultParams", "FaultSchedule", "RoundFaults",

@@ -1,0 +1,631 @@
+"""Batched train-on-trace: Monte-Carlo D-PSGD training over precomputed
+wireless traces.
+
+The per-round driver (``trace.simulate_dpsgd_cnn``) interleaves the channel
+plane and training: one simulator round, one step and one synchronisation
+per mixing round. For Monte-Carlo sweeps over fading/mobility/churn seeds
+the channel realization does not depend on the parameters at all, so this
+module decouples the two:
+
+1. ``trace.precompute_trace`` runs the simulator driver-less and emits
+   fixed-shape arrays — stacked realized mixing matrices ``w_eff``
+   (rounds, n, n), live-node masks, and simulated-time stamps.
+2. ``train_on_trace`` consumes them in one round loop on the device
+   (``core.dpsgd.dpsgd_masked_step`` per round: dead nodes keep identity W
+   rows and zero gradient weight, so churn needs no reshape).
+3. ``train_on_traces`` / ``train_cnn_on_traces`` run a whole (S,) family
+   of traces per round: one accuracy-vs-simulated-time curve per trace.
+
+The torch counterpart of ``repro.sim.batch``. The JAX package's
+``lax.scan`` under ``vmap`` becomes a round loop whose body — the S
+traces' masked (or compressed) steps one after another, the watchdog's
+rollback and the first live node's snapshot — is one ``graphs.GraphedStep``:
+on the card one CUDA graph replayed per round for the whole family, with
+every gossip mix in the hand-written kernels (``gossip_mix_rows`` on
+uncompressed rounds; the int8 round's send ``quantize_int8_ef`` and receive
+``gossip_mix_q8`` on int8 rounds), S launches of each per round. The
+traces are never mixed through one block-diagonal W: a poisoned trace
+would leak NaN into the others through its zero weights (0 * NaN = NaN).
+The loop reads nothing back from the device; the one synchronisation is
+where ``train_model_on_traces`` brings the results to the host.
+
+Parity: on any trace the loop realizes exactly the per-round driver's
+update sequence (same batches, same W order), so per-round losses match
+the driver to float tolerance.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..core import dpsgd
+from ..core.compression import QuantConfig
+from ..core.dpsgd import DPSGDConfig, _tree_map, node_axis_size
+from ..device import resolve_device
+from ..graphs import GraphedStep
+from .scenario import ScenarioConfig, get_scenario
+from .trace import (TraceBatch, TrainTrace, driver_batch_indices,
+                    precompute_traces)
+
+__all__ = ["train_on_trace", "train_on_traces", "train_on_trace_reference",
+           "ModelAdapter", "train_model_on_traces", "train_cnn_on_traces"]
+
+PyTree = Any
+
+_NO_PAYLOAD = QuantConfig(mode="none")
+EVAL_CHUNK = 8          # snapshots per vmapped evaluation call
+
+# one graphed round body per (loss_fn, config, payload, snapshot, watchdog):
+# repeated sweeps replay the graphs captured by the first, as the JAX
+# package's calls hit one jit cache entry
+_STEPS: dict = {}
+
+
+def _nonfinite_rows(node_params: PyTree) -> torch.Tensor:
+    """(n,) bool: nodes whose parameters contain any NaN/inf leaf entry.
+
+    ``node_axis_size`` enforces the shape contract first: every leaf must
+    lead with the same node axis. Before that check, a ragged tree (one
+    leaf per node, or a transposed stack) would have silently OR-reduced
+    the wrong axis and rolled back the wrong rows."""
+    n = node_axis_size(node_params, "watchdog node_params")
+    leaves = dpsgd._leaves(node_params)
+    flags = torch.zeros(n, dtype=torch.bool, device=leaves[0].device)
+    for p in leaves:
+        flags = flags | ~torch.isfinite(p.reshape(n, -1)).all(dim=1)
+    return flags
+
+
+def _row_where(mask: torch.Tensor, a: PyTree, b: PyTree) -> PyTree:
+    """Per-leaf ``where`` on the leading node axis (shape contract: every
+    leaf of ``a``/``b`` leads with a node axis matching ``mask``)."""
+    n = node_axis_size(a, "_row_where operands")
+    if tuple(mask.shape) != (n,):
+        raise ValueError(
+            f"row mask has shape {tuple(mask.shape)} but the operands' node "
+            f"axis is {n}")
+
+    def _sel(x, y):
+        return torch.where(mask.reshape(n, *([1] * (x.dim() - 1))), x, y)
+    return _tree_map(_sel, a, b)
+
+
+def _stack(trees: list) -> PyTree:
+    return _tree_map(lambda *xs: torch.stack(xs), trees[0], *trees[1:])
+
+
+def _family_body(loss_fn, config, payload, collect_node0, watchdog):
+    """One round of an (S,) family: each trace's step in turn (its own W,
+    mask, batch and residuals), then the watchdog's rollback to the
+    round's input rows and the snapshot of row ``first[s]``. Outputs are
+    stacked on the family axis."""
+    compressed = payload.mode != "none"
+
+    def body(params, res, batch, w, active, first):
+        out: dict = {"params": [], "losses": [], "res": [], "node0": [],
+                     "rollbacks": []}
+        for s in range(w.shape[0]):
+            p = _tree_map(lambda x: x[s], params)
+            b = _tree_map(lambda x: x[s], batch)
+            if compressed:
+                new_p, new_r, losses = dpsgd.dpsgd_masked_compressed_step(
+                    loss_fn, p, b, w[s], active[s],
+                    _tree_map(lambda x: x[s], res), payload, config)
+            else:
+                new_p, losses = dpsgd.dpsgd_masked_step(
+                    loss_fn, p, b, w[s], active[s], config)
+            if watchdog:
+                bad = _nonfinite_rows(new_p)
+                new_p = _row_where(bad, p, new_p)
+                if compressed:
+                    new_r = _row_where(bad, dpsgd.zero_residuals(new_r),
+                                       new_r)
+                out["rollbacks"].append(bad)
+            if collect_node0:
+                row = first[s].reshape(1)
+                out["node0"].append(_tree_map(
+                    lambda x: x.index_select(0, row)[0], new_p))
+            out["params"].append(new_p)
+            out["losses"].append(losses)
+            if compressed:
+                out["res"].append(new_r)
+        return {k: _stack(v) for k, v in out.items() if v}
+    return body
+
+
+def _family_step(loss_fn, config, payload, collect_node0,
+                 watchdog) -> GraphedStep:
+    key = (loss_fn, config, payload, collect_node0, watchdog)
+    step = _STEPS.get(key)
+    if step is None:
+        step = _STEPS[key] = GraphedStep(_family_body(*key))
+    return step
+
+
+def _train_family(loss_fn, params, w_seq, live_seq, batch_seq, config,
+                  collect_node0, payload, active_seq, watchdog,
+                  what: str = "train_on_trace"):
+    """The round loop over an (S,) family: ``params`` leaves (S, n, ...),
+    ``w_seq`` (S, rounds, n, n), masks (S, rounds, n), batch leaves
+    (S, rounds, n, ...). Everything moves to the parameters' device once;
+    each round replays the family's graphed body on slices of it, with no
+    read back to the host."""
+    if payload.mode == "auto":
+        raise ValueError(
+            f"{what} needs a concrete payload mode; \"auto\" is "
+            "resolved by the joint planner at simulation time — train with "
+            "the mode the plan actually picked")
+    compressed = payload.mode != "none"
+    dev = dpsgd._device_of(params)
+    w = torch.as_tensor(w_seq, dtype=torch.float32, device=dev)
+    live = torch.as_tensor(live_seq, dtype=torch.bool, device=dev)
+    # crashed-but-alive nodes (fault plane) skip their gradient; without a
+    # fault plane the two masks coincide
+    grad_mask = live if active_seq is None else torch.as_tensor(
+        active_seq, dtype=torch.bool, device=dev)
+    batch = _tree_map(lambda x: torch.as_tensor(x, device=dev), batch_seq)
+    # first live row per round (original-id order), computed on the device
+    first = live.to(torch.int32).argmax(-1) if collect_node0 else None
+    step = _family_step(loss_fn, config, payload, collect_node0, watchdog)
+
+    res = dpsgd.zero_residuals(params) if compressed else None
+    losses, node0, rollbacks = [], [], []
+    for r in range(w.shape[1]):
+        out = step(params, res, _tree_map(lambda x: x[:, r], batch),
+                   w[:, r], grad_mask[:, r],
+                   None if first is None else first[:, r])
+        params, res = out["params"], out.get("res")
+        # copies: a view would keep the round's whole output buffer alive
+        losses.append(out["losses"].clone())
+        if collect_node0:
+            node0.append(_tree_map(torch.clone, out["node0"]))
+        if watchdog:
+            rollbacks.append(out["rollbacks"].clone())
+    outs = (params, torch.stack(losses, 1))
+    if collect_node0:
+        outs += (_tree_map(lambda *xs: torch.stack(xs, 1), *node0),)
+    if watchdog:
+        outs += (torch.stack(rollbacks, 1),)
+    return outs
+
+
+def train_on_trace(
+    loss_fn: Callable[[PyTree, PyTree], Any],
+    node_params: PyTree,
+    w_seq,
+    live_seq,
+    batch_seq: PyTree,
+    config: DPSGDConfig = DPSGDConfig(),
+    collect_node0: bool = False,
+    payload: QuantConfig = _NO_PAYLOAD,
+    active_seq=None,
+    watchdog: bool = False,
+):
+    """Train over one precomputed trace, one graphed round body per round.
+
+    ``w_seq`` (rounds, n, n) and ``live_seq`` (rounds, n) come from a
+    ``TrainTrace``; ``batch_seq`` leaves carry (rounds, n, ...) per-round
+    per-node minibatches (dead rows may hold arbitrary filler — their
+    gradients are masked off). Arrays may be numpy or tensors; they move
+    to the device of ``node_params`` once. Returns ``(final_params,
+    losses)`` with ``losses`` (rounds, n) raw per-node losses (mask with
+    ``live_seq`` before aggregating), plus per-round snapshots of the first
+    live node's parameters when ``collect_node0`` (for post-hoc accuracy
+    curves), as tensors on that device. The snapshot stack costs
+    O(rounds x |node params|) device memory.
+
+    ``payload`` selects the gossip compression of
+    ``core.dpsgd.dpsgd_masked_compressed_step``: with a quantized mode the
+    loop carries per-node error-feedback residuals (zero-initialized,
+    masked for dead nodes) alongside the parameters; ``mode="none"`` (the
+    default) runs the exact ``dpsgd_masked_step`` body unchanged.
+
+    ``active_seq`` (rounds, n), when given, is the gradient mask instead of
+    ``live_seq`` — the fault plane's "live but crashed this round" nodes
+    keep stale parameters (identity W rows) without taking a local step,
+    while ``live_seq`` still decides whose parameters the ``collect_node0``
+    snapshot tracks (the first *churn*-live node, matching the per-round
+    driver's row 0 regardless of transient crashes).
+
+    ``watchdog`` arms a per-node convergence guard: after each round, any
+    node whose parameters picked up a NaN/inf rolls back to its last
+    finite parameters (error-feedback residuals reset to zero on rollback
+    so poisoned quantization error cannot re-infect it). Returns one extra
+    (rounds, n) bool array of rollback events as the last output.
+    """
+    one = lambda x: torch.as_tensor(x)[None]              # noqa: E731
+    outs = _train_family(
+        loss_fn, _tree_map(lambda p: p[None], node_params), one(w_seq),
+        one(live_seq), _tree_map(one, batch_seq), config, collect_node0,
+        payload, None if active_seq is None else one(active_seq), watchdog)
+    # (final, losses[, node0_snaps][, rollbacks]) — extras in that order
+    return tuple(_tree_map(lambda x: x[0], o) for o in outs)
+
+
+def train_on_traces(
+    loss_fn: Callable[[PyTree, PyTree], Any],
+    node_params: PyTree,
+    w_seq,
+    live_seq,
+    batch_seq: PyTree,
+    config: DPSGDConfig = DPSGDConfig(),
+    collect_node0: bool = False,
+    params_batched: bool = False,
+    payload: QuantConfig = _NO_PAYLOAD,
+    active_seq=None,
+    watchdog: bool = False,
+):
+    """``train_on_trace`` over a leading Monte-Carlo axis.
+
+    Every array gains a leading (S,) axis (``TraceBatch`` layout). With
+    ``params_batched`` the initial parameters carry the axis too (per-seed
+    inits); otherwise one init is shared by every trace. One graphed round
+    body steps all S traces, each on its own state, so each round is one
+    graph replay for the whole family; every output gains the (S,) axis.
+    """
+    s = int(np.shape(w_seq)[0])
+    params = node_params if params_batched else _tree_map(
+        lambda p: p[None].expand(s, *p.shape).clone(), node_params)
+    return _train_family(loss_fn, params, w_seq, live_seq, batch_seq,
+                         config, collect_node0, payload, active_seq,
+                         watchdog, what="train_on_traces")
+
+
+def train_on_trace_reference(
+    loss_fn: Callable[[PyTree, PyTree], Any],
+    node_params: PyTree,
+    w_seq,
+    live_seq,
+    batch_seq: PyTree,
+    config: DPSGDConfig = DPSGDConfig(),
+    payload: QuantConfig = _NO_PAYLOAD,
+    active_seq=None,
+):
+    """Per-round reference for ``train_on_trace``: a host-side loop calling
+    one built D-PSGD step per round (``dpsgd.make_dpsgd_masked_step`` /
+    ``make_dpsgd_compressed_step``, a CUDA graph each on the card) and
+    reading each round's losses back — exactly the update sequence the
+    round loop realizes, kept as the parity oracle for any model (the
+    CNN's analogue is ``trace.simulate_dpsgd_cnn``, which also runs the
+    channel plane live). Same inputs as ``train_on_trace``; returns
+    ``(final_params, losses)`` with ``losses`` (rounds, n) raw per-node
+    numpy. No watchdog/snapshot variants — use ``train_on_trace``."""
+    if payload.mode == "auto":
+        raise ValueError(
+            "train_on_trace_reference needs a concrete payload mode")
+    compressed = payload.mode != "none"
+    dev = dpsgd._device_of(node_params)
+    if compressed:
+        step = dpsgd.make_dpsgd_compressed_step(loss_fn, payload, config)
+        res = dpsgd.zero_residuals(node_params)
+    else:
+        step = dpsgd.make_dpsgd_masked_step(loss_fn, config)
+    w_seq = np.asarray(w_seq)
+    grad_mask = np.asarray(live_seq if active_seq is None else active_seq)
+    params, losses = node_params, []
+    for r in range(w_seq.shape[0]):
+        b = _tree_map(lambda x, r=r: torch.as_tensor(x[r], device=dev),
+                      batch_seq)
+        w = torch.as_tensor(w_seq[r], dtype=torch.float32, device=dev)
+        act = torch.as_tensor(grad_mask[r], device=dev)
+        if compressed:
+            params, res, l = step(params, b, w, act, res)
+        else:
+            params, l = step(params, b, w, act)
+        losses.append(l.detach().cpu().numpy())
+    return params, np.stack(losses)
+
+
+def _driver_batches(cfg: ScenarioConfig, tr: TrainTrace, shard_x: np.ndarray,
+                    shard_y: np.ndarray, batch: int):
+    """Per-round minibatch tensors replaying exactly the per-round driver's
+    sampling (``trace.driver_batch_indices`` is the shared contract):
+    compacted row k maps to the k-th live original id. Dead rows repeat
+    their shard's row 0 (inert filler)."""
+    n, rounds = tr.n_nodes, tr.n_rounds
+    if shard_x.shape[0] != n or shard_y.shape[0] != n:
+        # shards are indexed by original node id below; a shard stack of
+        # any other width would silently feed node i node j's data
+        raise ValueError(
+            f"data shards cover {shard_x.shape[0]} nodes "
+            f"(labels: {shard_y.shape[0]}) but the trace has {n}")
+    per_node = shard_x.shape[1]
+    imgs = np.empty((rounds, n, batch, *shard_x.shape[2:]), shard_x.dtype)
+    labs = np.empty((rounds, n, batch), shard_y.dtype)
+    imgs[:] = shard_x[None, :, 0, None]
+    labs[:] = shard_y[None, :, 0, None]
+    for r in range(rounds):
+        ids = np.flatnonzero(tr.live[r])
+        idx = driver_batch_indices(cfg.seed, r, ids.size, per_node, batch)
+        for k, i in enumerate(ids):
+            imgs[r, i] = shard_x[i, idx[k]]
+            labs[r, i] = shard_y[i, idx[k]]
+    return imgs, labs
+
+
+def _cnn_loss(p, b):
+    """Module-level loss, so repeated ``train_cnn_on_traces`` calls key the
+    same graphed round body (a per-call lambda would capture anew every
+    sweep)."""
+    from ..models import cnn
+    return cnn.cnn_loss(p, b)
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelAdapter:
+    """What ``train_model_on_traces`` needs to train *any* tree model on a
+    wireless trace — the training plane is model-agnostic; all model
+    specifics live behind these callables:
+
+    * ``init_params(seed) -> params`` — one node's parameter tree.
+    * ``loss_fn(params, batch) -> scalar`` — vmapped over the node axis by
+      the D-PSGD step. Must be a **stable callable object** (module-level
+      function or a closure built once): it keys the graphed round body,
+      so a fresh lambda per call would capture anew every sweep.
+    * ``batch_fn(cfg, trace) -> tree`` of (rounds, n_nodes, ...) numpy
+      arrays — per-round per-node minibatches replaying the shared
+      sampling contract (``trace.driver_batch_indices``); dead rows may
+      hold inert filler.
+    * ``eval_fn(params) -> scalar`` (optional) — one node's eval metric,
+      vmapped over chunks of snapshots; None skips the accuracy curve.
+    * ``model_bits`` — fp32 wire bits of one message; scenario configs are
+      snapped to it so Eq. 3 charges the airtime of *this* model.
+    * ``param_shapes`` — leaf shapes as a tuple of tuples, forwarded to
+      ``ScenarioConfig.model_shapes`` so per-leaf payload framing charges
+      exact wire bits; empty () keeps the config's flat accounting (the
+      CNN instance does, preserving every flat-accounting trace
+      bit-for-bit).
+    """
+    name: str
+    init_params: Callable[[int], PyTree]
+    loss_fn: Callable[[PyTree, PyTree], Any]
+    batch_fn: Callable[[ScenarioConfig, TrainTrace], PyTree]
+    eval_fn: Optional[Callable[[PyTree], Any]] = None
+    model_bits: float = 0.0
+    param_shapes: tuple = ()
+
+
+def _cnn_adapter(shard_x: np.ndarray, shard_y: np.ndarray, batch: int,
+                 test_x, test_y, device) -> ModelAdapter:
+    """The paper's CNN as a ``ModelAdapter`` (data shards baked in; the
+    test set moves to ``device`` once)."""
+    from ..models import cnn
+
+    dev = resolve_device(device)
+    test_x = torch.as_tensor(test_x, device=dev)
+    test_y = torch.as_tensor(test_y, device=dev)
+
+    def init_params(seed: int) -> PyTree:
+        # the driver's init (trace.simulate_dpsgd_cnn): a family of one
+        # starts where the driver starts
+        return cnn.cnn_init(torch.Generator().manual_seed(seed), dev)
+
+    def batch_fn(cfg: ScenarioConfig, tr: TrainTrace) -> PyTree:
+        imgs, labs = _driver_batches(cfg, tr, shard_x, shard_y, batch)
+        return {"images": imgs, "labels": labs}
+
+    def eval_fn(p: PyTree):
+        return cnn.cnn_accuracy(p, test_x, test_y)
+
+    return ModelAdapter(
+        name="cnn", init_params=init_params, loss_fn=_cnn_loss,
+        batch_fn=batch_fn, eval_fn=eval_fn,
+        model_bits=float(cnn.MODEL_BITS), param_shapes=())
+
+
+def _evaluate(eval_fn: Callable, snaps: PyTree, chunk: int) -> torch.Tensor:
+    """``eval_fn`` over the leading axis of ``snaps``, ``chunk`` snapshots
+    per vmapped call: the activations of a whole family's snapshots at
+    once (the paper's 10 000 test images: ~230 MB a snapshot for conv1's
+    output alone) would not fit on the card."""
+    count = dpsgd._leaves(snaps)[0].shape[0]
+    vm = torch.func.vmap(eval_fn)
+    return torch.cat([
+        vm(_tree_map(lambda p, i=i: p[i:i + chunk], snaps))
+        for i in range(0, count, chunk)])
+
+
+def _family_inputs(adapter: ModelAdapter, cfgs: list, traces: TraceBatch,
+                   n_nodes: int, dev: torch.device):
+    """Per-seed initial node parameters (S, n, ...) and the batch tree
+    (S, rounds, n, ...) on ``dev``."""
+    built = [adapter.batch_fn(c, t) for c, t in zip(cfgs, traces.traces)]
+    batches = _tree_map(lambda *xs: torch.from_numpy(np.stack(xs)).to(dev),
+                        *built)
+    params0 = _stack([dpsgd.replicate(
+        _tree_map(lambda p: torch.as_tensor(p).to(dev),
+                  adapter.init_params(c.seed)), n_nodes) for c in cfgs])
+    return params0, batches
+
+
+def train_model_on_traces(
+    adapter: ModelAdapter,
+    configs: Sequence,
+    n_rounds: int,
+    eta: float = 0.05,
+    trace_batch: Optional[TraceBatch] = None,
+    engine: str = "event",
+    mesh=None,
+    device: str | torch.device = "cuda",
+) -> tuple[TraceBatch, dict]:
+    """Train any ``ModelAdapter`` over a family of precomputed channel
+    realizations, one graph replay per round for the family — the
+    tree-general core that ``train_cnn_on_traces`` wraps for the paper's
+    CNN.
+
+    ``configs`` is a sequence of ``ScenarioConfig``/names sharing
+    ``n_nodes``, ``eval_every_rounds``, ``payload``, and ``watchdog``;
+    each config's ``model_bits`` (and ``model_shapes``, when the adapter
+    declares ``param_shapes``) is snapped to the adapter's model so the
+    comm plane charges this model's airtime. Pass ``trace_batch`` to
+    reuse already-precomputed traces — they must have been realized under
+    the snapped configs (provenance-checked).
+
+    Training runs on ``device`` (``"cuda"`` unless the caller asks for the
+    CPU); the snapshots are evaluated ``EVAL_CHUNK`` at a time. ``mesh``
+    (pod mode) is not ported yet.
+
+    Returns ``(traces, out)`` like ``train_cnn_on_traces``: masked mean
+    ``losses`` (S, rounds), eval-round metrics ``acc`` (S, E) with
+    simulated-time stamps ``t_acc_s`` (None when the adapter has no
+    ``eval_fn``), ``curves``, per-trace compacted ``final_params``, and
+    watchdog ``rollbacks``."""
+    from ..checkpoint.ckpt import compact_nodes
+
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh: laying the family out over a device mesh (pod mode, "
+            "_shard_family) is not ported yet (ROADMAP Queue 1 item 5)")
+    dev = resolve_device(device)
+    cfgs = [get_scenario(c) if isinstance(c, str) else c for c in configs]
+    if not cfgs:
+        raise ValueError("train_model_on_traces needs at least one config")
+    n_nodes = cfgs[0].n_nodes
+    eval_every = cfgs[0].eval_every_rounds
+    payload = cfgs[0].payload
+    watchdog = cfgs[0].watchdog
+    for c in cfgs:
+        if c.n_nodes != n_nodes or c.eval_every_rounds != eval_every:
+            raise ValueError("configs must share n_nodes/eval_every_rounds")
+        if c.payload != payload:
+            # one round body serves the whole family; the quantization
+            # mode is baked into it, so mixed-payload families must split
+            raise ValueError("configs must share the payload QuantConfig")
+        if c.watchdog != watchdog:
+            # like payload: the rollback guard changes the round body
+            raise ValueError("configs must share the watchdog setting")
+    if adapter.model_bits:
+        snap = {}
+        if adapter.param_shapes:
+            snap["model_shapes"] = adapter.param_shapes
+        cfgs = [c if (abs(c.model_bits - adapter.model_bits) <= 0.5
+                      and (not adapter.param_shapes
+                           or c.model_shapes == adapter.param_shapes))
+                else c.replace(model_bits=float(adapter.model_bits), **snap)
+                for c in cfgs]
+
+    traces = (trace_batch if trace_batch is not None
+              else precompute_traces(cfgs, n_rounds, engine=engine))
+    if (traces.n_traces != len(cfgs) or traces.n_rounds != n_rounds
+            or traces.n_nodes != n_nodes):
+        raise ValueError(
+            f"trace batch shape ({traces.n_traces}, {traces.n_rounds}, "
+            f"{traces.n_nodes}) does not match ({len(cfgs)}, {n_rounds}, "
+            f"{n_nodes})")
+    for c, t in zip(cfgs, traces.traces):
+        # provenance, not just shape: a trace realized under any other
+        # config (seed, churn rate, fading, solver, model_bits, ...) would
+        # silently pair foreign W sequences and time stamps with this
+        # config's minibatch stream
+        if t.cfg != c:
+            raise ValueError(
+                f"trace realized under {t.cfg} cannot train config {c}")
+
+    params0, batches = _family_inputs(adapter, cfgs, traces, n_nodes, dev)
+    out_arrays = train_on_traces(
+        adapter.loss_fn, params0, traces.w_eff, traces.live, batches,
+        DPSGDConfig(eta=eta), collect_node0=True, params_batched=True,
+        payload=payload, active_seq=traces.active, watchdog=watchdog)
+    if watchdog:
+        finals, losses, snaps, rollbacks = out_arrays
+    else:
+        finals, losses, snaps = out_arrays
+        rollbacks = None
+
+    eval_rounds = [r for r in range(n_rounds)
+                   if (r + 1) % eval_every == 0 or r + 1 == n_rounds]
+    s_count = traces.n_traces
+    if adapter.eval_fn is not None:
+        idx = torch.as_tensor(eval_rounds, device=dev)
+        sel = _tree_map(lambda p: p.index_select(1, idx).reshape(
+            (s_count * len(eval_rounds),) + tuple(p.shape[2:])), snaps)
+        accs = _evaluate(adapter.eval_fn, sel, EVAL_CHUNK)
+    # the loop's one synchronisation: results to the host
+    live = traces.live                                    # (S, rounds, n)
+    raw = losses.detach().cpu().numpy().astype(np.float64)  # (S, rounds, n)
+    # where, not multiply: dead-row filler may legally produce NaN losses
+    masked = np.where(live, raw, 0.0)
+    mean_losses = masked.sum(-1) / live.sum(-1)           # masked driver mean
+    if adapter.eval_fn is not None:
+        accs = accs.detach().cpu().numpy().astype(np.float64).reshape(
+            s_count, len(eval_rounds))
+        t_acc = traces.t_end_s[:, eval_rounds]
+        curves = [list(zip(t_acc[s].tolist(), accs[s].tolist()))
+                  for s in range(s_count)]
+    else:
+        accs, t_acc, curves = None, None, None
+    final_params = [
+        compact_nodes(_tree_map(lambda p, s=s: p[s], finals), live[s, -1])
+        for s in range(s_count)]
+    return traces, {
+        "losses": mean_losses,
+        "acc": accs,
+        "t_acc_s": t_acc,
+        "eval_rounds": eval_rounds,
+        "curves": curves,
+        "final_params": final_params,
+        # (S, rounds, n) bool watchdog rollback events, None when disarmed
+        "rollbacks": (rollbacks.cpu().numpy() if rollbacks is not None
+                      else None),
+    }
+
+
+def train_cnn_on_traces(
+    configs: Sequence,
+    epochs: int = 2,
+    batch: int = 25,
+    eta: float = 0.05,
+    n_train: int = 1200,
+    n_test: int = 300,
+    ds=None,
+    trace_batch: Optional[TraceBatch] = None,
+    engine: str = "event",
+    device: str | torch.device = "cuda",
+) -> tuple[TraceBatch, dict]:
+    """The batched counterpart of ``trace.simulate_dpsgd_cnn``: train the
+    paper's CNN over a family of precomputed channel realizations, one
+    graph replay per round for the whole family on ``device``.
+
+    ``configs`` is a sequence of ``ScenarioConfig``/names — typically one
+    scenario at several seeds (a fading Monte-Carlo sweep). All must share
+    ``n_nodes`` and ``eval_every_rounds``. Pass ``trace_batch`` to reuse
+    already-precomputed traces (it must have ``epochs * iters_per_epoch``
+    rounds). ``engine`` is forwarded to ``precompute_traces`` (only
+    ``"event"`` is ported).
+
+    Returns ``(traces, out)`` where ``out`` has per-trace masked mean
+    ``losses`` (S, rounds), eval-round accuracies ``acc`` (S, E) with their
+    simulated-time stamps ``t_acc_s`` (S, E), ``curves`` (list of
+    accuracy-vs-simulated-time point lists, the driver's
+    ``SimTrace.accuracy_curve`` analogue), and ``final_params`` (per-trace
+    node-stacked params compacted to the surviving nodes).
+
+    This is the CNN instance of ``train_model_on_traces`` (data shards,
+    loss, and accuracy eval packaged by ``_cnn_adapter``); the adapter
+    keeps ``param_shapes=()`` so configs and traces stay bit-identical to
+    the flat accounting.
+    """
+    from ..data import SyntheticFashion, node_splits
+
+    dev = resolve_device(device)
+    cfgs = [get_scenario(c) if isinstance(c, str) else c for c in configs]
+    if not cfgs:
+        raise ValueError("train_cnn_on_traces needs at least one config")
+    n_nodes = cfgs[0].n_nodes
+
+    ds = ds or SyntheticFashion(n_train=n_train, n_test=n_test, seed=0)
+    shards = node_splits(ds.train_x, ds.train_y, n_nodes, seed=0)
+    shard_x = np.stack([x for x, _ in shards])
+    shard_y = np.stack([y for _, y in shards])
+    per_node = shard_x.shape[1]
+    iters_per_epoch = max(per_node // batch, 1)
+    n_rounds = iters_per_epoch * epochs
+
+    adapter = _cnn_adapter(shard_x, shard_y, batch, ds.test_x[:n_test],
+                           ds.test_y[:n_test], dev)
+    return train_model_on_traces(
+        adapter, cfgs, n_rounds, eta=eta, trace_batch=trace_batch,
+        engine=engine, device=dev)

@@ -11,6 +11,7 @@ which is fast enough at 6 rounds. The example's comm-only tables print the
 same text as the JAX package's example.
 """
 import dataclasses
+import re
 
 import jax
 import jax.numpy as jnp
@@ -238,7 +239,6 @@ def test_example_tables_print_the_reference_text(capsys, argv):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--train-sweep", "static"], "Queue 1 item 2"),
     (["--scale", "64"], "Queue 1 item 4"),
     (["--train", "static", "--payload", "auto"], "comm-only")])
 def test_example_refuses_unported_modes(capsys, argv, match):
@@ -260,8 +260,9 @@ def test_example_trains_on_the_cpu(capsys):
     ("--mac-compare", ("static", "ra_static", "ra_capture")),
     ("--policy-compare", ("fading", "ra_fading", "bass_fading"))])
 def test_example_compare_demos_on_the_cpu(capsys, flag, names):
-    """Each scenario through the per-round driver: 600 images over 6 nodes
-    at batch 25 is 4 rounds, evaluated every 2, then one summary line."""
+    """The scenarios as one train-on-trace family: 600 images over 6 nodes
+    at batch 25 is 4 rounds, evaluated every 2, then one summary line
+    each."""
     t_example.main([flag, "--device", "cpu", "--epochs", "1"])
     lines = capsys.readouterr().out.strip().splitlines()
     assert lines[0].startswith("scenario,")
@@ -269,3 +270,56 @@ def test_example_compare_demos_on_the_cpu(capsys, flag, names):
         n for n in names for _ in range(2)]
     assert len(lines) == 10
     assert all(ln.startswith(f"# {n}") for ln, n in zip(lines[7:], names))
+
+
+_ACC = re.compile(r"(acc|accuracy|mean|min|max) (\d+\.\d+)")
+
+
+def _same_line(got: str, want: str, n_test: int) -> bool:
+    """One printed line of a training demo: the text and every time
+    exactly, each accuracy (``acc``/``mean``/``min``/``max`` x, or a
+    row's last field) within one test image."""
+    tol = 1.0 / n_test + 1e-4            # two prints rounded to 4 places
+    if "," in want and not want.startswith("#"):
+        *head_g, acc_g = got.split(",")
+        *head_w, acc_w = want.split(",")
+        if head_g != head_w:
+            return False
+        try:
+            return abs(float(acc_g) - float(acc_w)) <= tol
+        except ValueError:              # the header
+            return acc_g == acc_w
+    if _ACC.sub("", got) != _ACC.sub("", want):
+        return False
+    return all(abs(float(a) - float(b)) <= tol for (_, a), (_, b) in
+               zip(_ACC.findall(got), _ACC.findall(want)))
+
+
+@pytest.mark.parametrize("argv,n_test", [
+    (["--train-sweep", "static", "--epochs", "1"], 300),
+    (["--mac-compare", "--epochs", "1"], 150),
+    (["--policy-compare", "--epochs", "1"], 150)],
+    ids=["train-sweep", "mac-compare", "policy-compare"])
+def test_example_training_demos_print_the_reference_lines(
+        capsys, monkeypatch, argv, n_test):
+    """The train-on-trace demos (``train_cnn_on_traces`` in both packages)
+    from the JAX package's initial parameters: the reference's lines, the
+    simulated times exactly and the accuracies within one test image;
+    only the reference's wall-time line differs."""
+    from repro.models import cnn as r_cnn
+    from repro_torch.models import cnn as t_cnn
+
+    r_example.main(argv)
+    want = capsys.readouterr().out.strip().splitlines()
+    monkeypatch.setattr(t_cnn, "cnn_init", lambda gen, device="cuda": (
+        params_from_numpy(jax.tree.map(np.asarray, r_cnn.cnn_init(
+            jax.random.key(gen.initial_seed()))), device)))
+    t_example.main(argv + ["--device", "cpu"])
+    got = capsys.readouterr().out.strip().splitlines()
+    if argv[0] == "--train-sweep":
+        assert want[0].startswith("# static: 4 seeds x 4 rounds in ")
+        assert got[0].startswith("# static on cpu: 4 seeds x 4 rounds in ")
+        want, got = want[1:], got[1:]
+    assert len(got) == len(want) >= 8
+    for g, w in zip(got, want):
+        assert _same_line(g, w, n_test), (g, w)

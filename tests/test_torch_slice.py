@@ -130,6 +130,19 @@ def test_slice_runs_without_jax_or_repro_loaded():
         "trace, _ = sim.simulate_dpsgd_cnn(sim.get_scenario('compressed_int8'),"
         " epochs=1, n_train=300, n_test=30, device='cpu')\n"
         "assert len(trace.records) == 2, trace.records\n"
+        "import numpy as np\n"
+        "from repro_torch.sim import batch\n"
+        "from repro_torch.models import cnn\n"
+        "from repro_torch.core import dpsgd\n"
+        "import torch\n"
+        "p0 = dpsgd.replicate(cnn.cnn_init(torch.Generator().manual_seed(0),"
+        " 'cpu'), 3)\n"
+        "rng = np.random.default_rng(0)\n"
+        "b = {'images': rng.normal(size=(2, 3, 4, 1, 28, 28))"
+        ".astype(np.float32), 'labels': rng.integers(0, 10, (2, 3, 4))}\n"
+        "final, losses = batch.train_on_trace(batch._cnn_loss, p0, "
+        "np.stack([np.full((3, 3), 1 / 3)] * 2), np.ones((2, 3), bool), b)\n"
+        "assert tuple(losses.shape) == (2, 3), losses.shape\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"
