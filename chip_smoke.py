@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch / H100 port (``src/repro_torch``).
 
-Drives the port's five paths on one NVIDIA Hopper card, through the
+Drives the port's seven paths on one NVIDIA Hopper card, through the
 entry points a user calls:
 
 * the paper's wireless D-PSGD run: Eq. 2 capacities, Algorithm 2 rates at
@@ -28,7 +28,16 @@ entry points a user calls:
   same epoch over precomputed traces): 4 seeds of ``compressed_int8`` and
   2 of ``fault_chaos`` (watchdog armed), one CUDA graph replayed per round
   for the whole family, each trace's int8 round in the send and receive
-  kernels, each uncompressed round in the rows mix.
+  kernels, each uncompressed round in the rows mix;
+* serving deepseek-v2-lite-16b at its published widths and full depth
+  (27 layers of MLA, 26 of them MoE of 64 experts top-6 plus 2 shared;
+  15.5 B parameters, cast to bf16 as they are drawn), every MLA prefill's
+  attention in the flash kernel (D 192, v 128 padded to it);
+* serving seamless-m4t-large-v2's encoder-decoder at its published widths
+  (12 + 12 layers, d_model 1024; the prompt's 4096 positions as 2048
+  source frames and 2048 target tokens), its encoder's bidirectional,
+  its decoder's causal and its cross attention's prefill in the flash
+  kernel.
 
 Phases, each of which ends the run with a nonzero exit if it fails:
 
@@ -54,8 +63,11 @@ Phases, each of which ends the run with a nonzero exit if it fails:
               equal outputs, us and operations per round;
               3b: flash and rglru, flash in bf16 also at
               the tensor-core kernel's tile edges, with its TFLOP/s over
-              the band and share of the bound, rglru also at S across its
-              chained scan's 32-step chunks, each time with its share of
+              the band and share of the bound, and at the MLA and
+              encoder-decoder shapes (D 192 with v 128, 16 heads of 64
+              causal and not, T != S both ways) in bf16 and fp32, the
+              served ones timed beside SDPA and their bound, rglru also
+              at S across its chained scan's 32-step chunks, each time with its share of
               the bound and the scan's memset counted, 3c: rwkv6_scan,
               also in the served and a weak decay regime at the served
               shape and at S one short of and one past its 16-step chunk,
@@ -137,12 +149,33 @@ Phases, each of which ends the run with a nonzero exit if it fails:
               replayed twice from the same inputs); (f) the family's
               wall seconds, host ms per round (per trace) against phase
               10's graphed driver, one replay's card time, the loop's idle
-              share, graph captures and peak memory.
+              share, graph captures and peak memory;
+12. serving deepseek-v2-lite-16b — at (4, 4096, 32) in bf16: exactly 27
+              flash launches (one per MLA layer in prefill, none in
+              decode), a second serve from the same seed with identical
+              tokens (the MoE combine uses no atomics), the readings of 6,
+              the (token, expert) pairs each MoE layer's prefill drops
+              at the config's capacity factor, and a decode step's
+              time against the floor of reading every weight once;
+13. deepseek correctness — (a) as 9(a), at capacity factor
+              n_experts / top_k (drop-free: teacher forcing holds only
+              where no pair is dropped); (b) card against CPU in lockstep
+              at the smoke widths (1e-4);
+14. serving seamless-m4t-large-v2 — at (4, 4096, 32) in bf16, the
+              prompt as 2048 source frames and 2048 target tokens:
+              exactly 36 flash launches (12 encoder, 12 decoder self, 12
+              cross attention in prefill; none in decode), the readings
+              of 6;
+15. encoder-decoder correctness — (a) as 7(a), prompt 2048 over 2048
+              source frames; (b) as 13(b).
 
 Each phase prints its wall time. The last lines are the card's
 ``nvidia-smi`` name and power limit, one JSON line with every kernel's
 numbers (quantize_int8 and dequantize_int8, off the int8 round now,
-count 0 launches there and phase 3d's checks under ``check_launches``), and
+count 0 launches there and phase 3d's checks under ``check_launches``;
+flash's ``launches`` are phase 6's, its ``launches_by_path`` add phases
+12 and 14, and its ``mla``, ``cross`` and ``decoder`` keys time the new
+prefill shapes), and
 ``{"ok": true, "device": ...}``.
 
 Run from the repository root:  python3 chip_smoke.py
@@ -193,6 +226,28 @@ WARM_PROMPT = 256                    # warm-up generate, same widths
 DECODE_PROFILE_STEPS = 10
 TF_PROMPT, TF_STEPS = 4096, 3        # 7(a): teacher forcing, batch 1, fp32
 LOCK_BATCH, LOCK_PROMPT, LOCK_STEPS = 2, 80, 4   # 7(b): card vs CPU
+
+# flash at the MLA and encoder-decoder slice's shapes (phase 3b): (B, S, T,
+# H, D, Dv, causal); held against the plain version in bf16 and fp32, and
+# the served prefill shapes timed in bf16
+NEW_FLASH_TIMED = {
+    "mla": (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 16, 192, 128, True),
+    "cross": (SERVE_BATCH, SERVE_PROMPT // 2, SERVE_PROMPT // 2, 16, 64, 64,
+              False),
+    "decoder": (SERVE_BATCH, SERVE_PROMPT // 2, SERVE_PROMPT // 2, 16, 64,
+                64, True)}
+NEW_FLASH_CASES = [*NEW_FLASH_TIMED.values(),
+                   (2, 33, 100, 16, 64, 64, False),
+                   (2, 100, 33, 16, 64, 64, False),
+                   (1, 300, 300, 16, 192, 128, True),
+                   (2, 129, 700, 4, 64, 64, False)]
+
+# the MLA + MoE and encoder-decoder slice (phases 12-15): the same prompt,
+# batch and tokens; 13(b) and 15(b) at the smoke widths, held at the
+# serving tests' cache bar
+MLA_ARCH = "deepseek-v2-lite-16b"
+ENCDEC_ARCH = "seamless-m4t-large-v2"
+LOCK_TOL = 1e-4
 
 # the rwkv slice (phases 8-9): rwkv6-7b at its published widths, the same
 # prompt, batch and tokens; 9(b) at the smoke widths with 4 layers
@@ -385,6 +440,17 @@ def flash_cost(b: int, s: int, hq: int, hkv: int, d: int, window: int,
     pairs = sum(min(q + 1, window) if window else q + 1 for q in range(s))
     return elt * (2 * b * s * hq * d + 2 * b * s * hkv * d), \
         4.0 * d * pairs * b * hq
+
+
+def attn_cost(b: int, s: int, t: int, h: int, d: int, dv: int,
+              causal: bool, elt: int) -> tuple[float, float]:
+    """flash_attention_gqa with Hq = Hkv = h (MHA): q (B, S, H, D), k
+    (B, T, H, D), v (B, T, H, Dv) read once and out (B, S, H, Dv) written
+    once; 2 D + 2 Dv flops per (query, key) pair (q.k, then p.v), over the
+    causal triangle (S == T) or all S x T pairs."""
+    pairs = s * (s + 1) // 2 if causal else s * t
+    return elt * b * h * (s * d + t * d + t * dv + s * dv), \
+        (2.0 * d + 2.0 * dv) * pairs * b * h
 
 
 def rglru_cost(b: int, s: int, d: int) -> tuple[float, float]:
@@ -1250,6 +1316,7 @@ def phase_attention_kernels(torch) -> dict:
     phase("3b. flash_attention and rglru_scan against their plain versions")
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
     from repro_torch.kernels import rglru_scan as rg
 
     dev = torch.device("cuda")
@@ -1339,6 +1406,34 @@ def phase_attention_kernels(torch) -> dict:
         else:
             fail(f"flash_attention accepted head_dim {d} in {dtype}")
 
+    # the shapes of the MLA and encoder-decoder prefills, through the
+    # entry the models call (ops: v narrower than q and k is zero-padded
+    # to q's D there, the output cut back): deepseek-v2-lite-16b's MLA (D
+    # 192, v 128, 16 heads, causal; the bf16 kernel's DP = 256 instance,
+    # whose 4th 64-lane TMA box lies wholly past D), seamless's encoder
+    # and cross attention (16 heads of 64, non-causal, T = S = 2048) and
+    # decoder (causal), and cross attention with T != S both ways
+    for dtype in (bf16, torch.float32):
+        for b, s, t, h, d, dv, causal in NEW_FLASH_CASES:
+            q, k = (torch.randn((b, n, h, d), generator=gen, device=dev
+                                ).to(dtype) for n in (s, t))
+            v = torch.randn((b, t, h, dv), generator=gen, device=dev
+                            ).to(dtype)
+            got = ops.flash_attention_gqa(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            want = fa.flash_attention_plain(
+                q, k, F.pad(v, (0, d - dv)), causal=causal)[..., :dv]
+            what = (f"({b},{s}x{t},{h},{d}/{dv}) causal={causal} "
+                    f"{str(dtype)[6:]}")
+            hold("flash_attention", got, want.contiguous(), tol[dtype], what)
+            if dtype == bf16:
+                e = row_err(got, want)
+                print(f"{'':15s} {what:58s} row |err|/|want| {e:.3e} "
+                      f"(tol {TOL_FLASH_ROW:g})")
+                check(e <= TOL_FLASH_ROW, f"flash_attention {what}: row "
+                      f"error {e} > {TOL_FLASH_ROW}")
+            del q, k, v, got, want
+
     # the served prefill and decode shapes, then S across the chained
     # scan's 32-step chunks (33, 65: one and two chunks past a boundary)
     for b, s, d, with_h0 in ((SERVE_BATCH, SERVE_PROMPT, 2560, True),
@@ -1398,6 +1493,46 @@ def phase_attention_kernels(torch) -> dict:
               f"{b_ms / dev_t * 100:.1f} % of the bound; library "
               f"{t['library_ms']:.4f} ms in this run")
     flash = dict(out["bfloat16"], fp32=out["float32"])
+    # the new prefill shapes in bf16 (the served dtype) beside SDPA on the
+    # same inputs and their bound; the work counts 2 D + 2 Dv flops a
+    # (query, key) pair (MLA: 2 x 192 + 2 x 128; the kernel, on v padded
+    # to 192 and both products over its DP = 256 tile, does 2 x 256 +
+    # 2 x 256, which caps it at 62.5 % of this bound)
+    for key, (b, s, t, h, d, dv, causal) in NEW_FLASH_TIMED.items():
+        q, k = (torch.randn((b, n, h, d), generator=gen, device=dev
+                            ).to(bf16) for n in (s, t))
+        v = torch.randn((b, t, h, dv), generator=gen, device=dev).to(bf16)
+
+        def kernel():
+            return ops.flash_attention_gqa(q, k, v, causal=causal)
+
+        def library():
+            return F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                is_causal=causal)
+        lib_err = err(library().transpose(1, 2), kernel())
+        nbytes, flops = attn_cost(b, s, t, h, d, dv, causal, 2)
+        b_ms, b_by = bound(nbytes, flops, BF16_FLOPS)
+        t_ = {"ms": time_ms(torch, kernel, reps=10, rounds=3, warmup=2),
+              "plain_ms": time_ms(torch, lambda: fa.flash_attention_plain(
+                  q, k, F.pad(v, (0, d - dv)), causal=causal), reps=2,
+                  rounds=3, warmup=1),
+              "library_ms": time_ms(torch, library, reps=10, rounds=3,
+                                    warmup=2),
+              # every device operation of the call: v's padding counts
+              "device_ms": device_ms(torch, kernel, "", calls=3),
+              "bound_ms": b_ms, "bound_by": b_by,
+              "shape": f"q ({b},{s},{h},{d}) k ({b},{t},{h},{d}) v "
+                       f"({b},{t},{h},{dv}) bf16, "
+                       f"{'causal' if causal else 'non-causal'}"}
+        flash[key] = t_
+        dev_t = t_["device_ms"] if t_["device_ms"] is not None else t_["ms"]
+        print(f"flash_attention [{key}] {t_['shape']}: library "
+              f"(scaled_dot_product_attention) vs kernel max|diff| "
+              f"{lib_err:.3e}; {flops:.4e} flops of work: "
+              f"{flops / dev_t / 1e9:.1f} TFLOP/s, {b_ms / dev_t * 100:.1f} "
+              f"% of the bound")
+        del q, k, v
     for b, s, d, reps in ((SERVE_BATCH, SERVE_PROMPT, 2560, 1),
                           (SERVE_BATCH, 1, 2560, 100)):
         a = torch.sigmoid(torch.randn((b, s, d), generator=gen, device=dev))
@@ -1420,6 +1555,7 @@ def phase_attention_kernels(torch) -> dict:
     rglru = dict(out[SERVE_PROMPT], decode=out[1])
     for name, t in (("flash_attention", flash),
                     ("flash_attention", flash["fp32"]),
+                    *(("flash_attention", flash[k]) for k in NEW_FLASH_TIMED),
                     ("rglru_scan", rglru), ("rglru_scan", rglru["decode"])):
         dms = "not measured" if t["device_ms"] is None \
             else f"{t['device_ms']:.4f} ms"
@@ -1744,25 +1880,47 @@ def phase_quantize_kernels(torch) -> dict:
 
 
 def phase_serve(torch, title: str, arch: str, counters: dict, want: dict,
-                why: str) -> dict:
+                why: str, repeat: bool = False) -> dict:
     """Serve ``arch`` at its published widths at (SERVE_BATCH,
     SERVE_PROMPT, SERVE_GEN) in bf16 through ``launch.serve.generate``;
     ``counters`` are the kernel wrappers of its path, each of which must
-    launch exactly ``want[name]`` times."""
+    launch exactly ``want[name]`` times. With ``repeat``, a second serve
+    from the same seed must give the same tokens."""
     phase(title)
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch import serve
-    from repro_torch.models import build, transformer
+    from repro_torch.models import build, moe, transformer
 
     cfg = get_config(arch)
-    kinds = transformer.layer_kinds(cfg)
+    kinds = [transformer._mixer_kind(cfg, k)
+             for k in transformer.layer_kinds(cfg)]
+    if cfg.is_encdec:
+        kinds = ["encoder"] * cfg.encoder_layers + \
+            ["decoder (self + cross)"] * (cfg.n_layers - cfg.encoder_layers)
     mix = ", ".join(f"{kinds.count(k)} {k}" for k in sorted(set(kinds)))
+    extra = ""
+    if cfg.mla is not None:
+        m = cfg.mla
+        extra += (f"; MLA kv_lora {m.kv_lora_rank}, qk {m.qk_nope_dim} + "
+                  f"{m.qk_rope_dim} rope, v {m.v_head_dim}")
+    if cfg.moe is not None:
+        mc = cfg.moe
+        extra += (f"; layers {cfg.first_k_dense}.. MoE: {mc.n_experts} "
+                  f"experts top-{mc.top_k} + {mc.n_shared} shared, expert "
+                  f"d_ff {mc.d_ff_expert}, capacity factor "
+                  f"{mc.capacity_factor} ({moe.capacity(SERVE_PROMPT, mc)} "
+                  f"slots an expert and row at the prompt), dense d_ff "
+                  f"{cfg.dense_d_ff}")
+    if cfg.is_encdec:
+        extra += (f"; the prompt's {SERVE_PROMPT} positions as "
+                  f"{SERVE_PROMPT // 2} source frames and "
+                  f"{SERVE_PROMPT // 2} target tokens")
     print(f"{cfg.name}: {cfg.n_layers} layers ({mix}), d_model "
           f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads x "
           f"{cfg.head_dim}, d_ff {cfg.d_ff}, window {cfg.window}, vocab "
           f"{cfg.vocab_size}, {cfg.dtype} compute, {cfg.param_dtype} "
-          f"weights; batch {SERVE_BATCH}, prompt {SERVE_PROMPT}, "
+          f"weights{extra}; batch {SERVE_BATCH}, prompt {SERVE_PROMPT}, "
           f"{SERVE_GEN} tokens")
     # warm-up at the same widths (cuBLAS handles, the allocator's pools)
     serve.generate(cfg, batch=SERVE_BATCH, prompt_len=WARM_PROMPT, gen=2,
@@ -1789,23 +1947,70 @@ def phase_serve(torch, title: str, arch: str, counters: dict, want: dict,
           f"steps = {out['tok_per_s']:.2f} tok/s, peak device memory "
           f"{peak / 2**30:.3f} GiB ({peak} bytes); sample "
           f"{tokens[0, :8].tolist()}")
+    if repeat:
+        again = serve.generate(cfg, batch=SERVE_BATCH,
+                               prompt_len=SERVE_PROMPT, gen=SERVE_GEN,
+                               device="cuda")
+        same = torch.equal(again["tokens"], tokens)
+        print(f"a second serve from the same seed: tokens "
+              f"{'identical' if same else 'DIFFER'} ({tokens.numel()} "
+              f"tokens); logits max|diff| "
+              f"{err(again['logits'], out['logits']):.3e}")
+        check(same, "two serves from the same seed gave different tokens")
+        del again
 
     # where the time goes: one profiled prefill, then DECODE_PROFILE_STEPS
     # decode steps timed on the host clock and again under the profiler
     api = build(cfg, "cuda")
     rng = torch.Generator(device="cuda").manual_seed(1)
-    params = serve.serving_params(cfg, api.init(rng))
-    print(f"parameters: {sum(t.numel() for t in tree_leaves(params))}")
+    params = serve.init_serving_params(api, rng)
+    leaves = tree_leaves(params)
+    print(f"parameters: {sum(t.numel() for t in leaves)}")
+    # decode reads every weight each step (the table too: tied logits, or
+    # the head); MoE layers every expert's, as the dispatch buffer holds
+    # a slot of every expert
+    step_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    if not cfg.tie_embeddings:
+        emb = params["embed"]["embedding"]
+        step_bytes -= emb.numel() * emb.element_size()
+    floor_ms = step_bytes / HBM_BYTES_PER_S * 1e3
+    expert_bytes = sum(
+        t.numel() * t.element_size() for layer in params.get("unit", [])
+        for name, t in layer.get("moe", {}).items() if name.startswith("ew_"))
+    print(f"a decode step reads {step_bytes / 1e9:.3f} GB of weights: at "
+          f"least {floor_ms:.3f} ms at {HBM_BYTES_PER_S / 1e12:.2f} TB/s"
+          + (f"; of it every expert's, {expert_bytes / 1e9:.3f} GB "
+             f"({expert_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms)"
+             if expert_bytes else ""))
     inputs = api.make_inputs(ShapeConfig("serve", SERVE_PROMPT, SERVE_BATCH,
                                          "prefill"), rng,
                              batch_override=SERVE_BATCH)
-    max_len = SERVE_PROMPT + 2 * DECODE_PROFILE_STEPS + 1
+    base = inputs["tokens"].shape[1]     # the target prompt's length
+    max_len = base + 2 * DECODE_PROFILE_STEPS + 1
     state = {}
 
     def prefill():
         state["logits"], state["cache"] = api.prefill(params, inputs,
                                                       max_len=max_len)
     rows = device_profile(torch, prefill, 1)
+    if cfg.moe is not None:
+        # what the served capacity drops: the same prefill again, each MoE
+        # layer's routing counted beside it (moe_apply itself unchanged)
+        drops, real = [], moe.moe_apply
+
+        def counting(p, x, cfg_, mcfg):
+            r = moe.moe_route(p, x, cfg_, mcfg)
+            drops.append(int((~r["keep"]).sum()))
+            return real(p, x, cfg_, mcfg)
+        moe.moe_apply = counting
+        try:
+            prefill()
+        finally:
+            moe.moe_apply = real
+        pairs = SERVE_BATCH * SERVE_PROMPT * cfg.moe.top_k
+        print(f"(token, expert) pairs dropped past capacity in the prefill "
+              f"at capacity factor {cfg.moe.capacity_factor}, per MoE layer "
+              f"(of {pairs}): {drops}; {sum(drops)} in all")
     if not rows:
         print("prefill profile: no device time in the trace (not measured)")
     else:
@@ -1823,12 +2028,14 @@ def phase_serve(torch, title: str, arch: str, counters: dict, want: dict,
             tok = torch.argmax(state["logits"], -1)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    decode(SERVE_PROMPT)
+    decode(base)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / DECODE_PROFILE_STEPS
     drows = device_profile(torch, lambda: decode(
-        SERVE_PROMPT + DECODE_PROFILE_STEPS), DECODE_PROFILE_STEPS)
+        base + DECODE_PROFILE_STEPS), DECODE_PROFILE_STEPS)
     idle = None
+    print(f"decode: {wall_ms:.4f} ms/step wall against the weights' floor "
+          f"of {floor_ms:.4f} ms/step")
     if not drows:
         print("decode profile: no device time in the trace (not measured)")
     else:
@@ -1844,7 +2051,8 @@ def phase_serve(torch, title: str, arch: str, counters: dict, want: dict,
     torch.cuda.empty_cache()
     return {"launches": launches, "prefill_s": out["prefill_s"],
             "tok_per_s": out["tok_per_s"], "peak_bytes": peak,
-            "decode_idle_share": idle}
+            "decode_idle_share": idle, "decode_ms": wall_ms,
+            "decode_floor_ms": floor_ms}
 
 
 def phase_served_correctness(torch, title: str, arch: str, counters: dict,
@@ -1853,60 +2061,96 @@ def phase_served_correctness(torch, title: str, arch: str, counters: dict,
     """(a) fp32 teacher forcing of ``arch`` at full width and depth; (b)
     card against CPU in lockstep at ``lock_cfg``, held at ``lock_tol``.
     Both must launch every kernel of ``counters``. With ``shape_noise``,
-    (a) also measures what the GEMMs' shapes alone change (see there)."""
+    (a) also measures what the GEMMs' shapes alone change (see there).
+    An encoder-decoder's prompt is its target tokens, over source frames
+    of the same length (half the decoder-only prompt); a MoE's capacity
+    factor in (a) is n_experts / top_k (see there)."""
     phase(title)
     import dataclasses
 
     from repro_torch.configs import get_config
-    from repro_torch.models import build, transformer
+    from repro_torch.models import build, encdec, moe, transformer
 
     def ran():
         return {name: fn.launches for name, fn in counters.items()}
 
     # (a) teacher forcing at full width and depth, in fp32 (same widths,
     # only the compute type differs): prefill (the kernels) and decode
-    # (plain torch: the ring-buffer einsum, the one-token WKV step) against
+    # (plain torch: the ring-buffer einsum, the one-token WKV step, MLA's
+    # absorbed form, cross attention on the cached encoder K/V) against
     # apply's logits at the same positions. fp32 end to end (TF32 off):
     # held at tests/test_serve.py's 2e-4, room for summation order over the
     # layers (2.4e-5 measured on an H100 for recurrentgemma-2b), not for a
     # wrong band, ring or carried state.
     cfg = dataclasses.replace(get_config(arch), dtype="float32")
+    prompt = TF_PROMPT // 2 if cfg.is_encdec else TF_PROMPT
+    note = ""
+    if cfg.moe is not None:
+        # Teacher forcing holds only where no (token, expert) pair is
+        # dropped: a drop depends on the row's length, which differs
+        # between the prefill, each one-token step and apply. At the
+        # config's factor random weights may overflow an expert's slots,
+        # so (a) runs at capacity factor n_experts / top_k: cap >= S,
+        # drop-free by construction, the same code path. (The served
+        # prefill's drops at the real factor are counted in its phase.)
+        mc = cfg.moe
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            mc, capacity_factor=mc.n_experts / mc.top_k))
+        caps = {n: moe.capacity(n, cfg.moe) for n in
+                (1, prompt, prompt + TF_STEPS)}
+        check(all(c >= n for n, c in caps.items()),
+              f"capacities {caps} leave room for drops")
+        note = (f", capacity factor {cfg.moe.capacity_factor:.4f} = "
+                f"n_experts / top_k (the config's {mc.capacity_factor}: "
+                f"drop-free, cap per row length {caps})")
     api = build(cfg, "cuda")
     rng = torch.Generator(device="cuda").manual_seed(2)
     params = api.init(rng)
-    tokens = torch.randint(0, cfg.vocab_size, (1, TF_PROMPT + TF_STEPS),
+    tokens = torch.randint(0, cfg.vocab_size, (1, prompt + TF_STEPS),
                            generator=rng, device="cuda")
+    batch = {"tokens": tokens[:, :prompt]}
+    if cfg.is_encdec:
+        src = torch.randn((1, prompt, cfg.d_model), generator=rng,
+                          device="cuda")
+        batch["src_embeds"] = src
+
+        def apply(t):
+            return encdec.apply(cfg, params, src, t)
+    else:
+        def apply(t):
+            return transformer.apply(cfg, params, t)
     for fn in counters.values():
         fn.launches = 0
-    logits, cache = api.prefill(params, {"tokens": tokens[:, :TF_PROMPT]},
-                                max_len=TF_PROMPT + TF_STEPS)
+    logits, cache = api.prefill(params, batch, max_len=prompt + TF_STEPS)
     served = [logits]
     for i in range(TF_STEPS):
-        logits, cache = api.decode_step(params, tokens[:, TF_PROMPT + i],
-                                        cache, TF_PROMPT + i)
+        logits, cache = api.decode_step(params, tokens[:, prompt + i],
+                                        cache, prompt + i)
         served.append(logits)
-    full = transformer.apply(cfg, params, tokens)
-    errs = [err(got, full[:, TF_PROMPT - 1 + i])
+    full = apply(tokens)
+    errs = [err(got, full[:, prompt - 1 + i])
             for i, got in enumerate(served)]
-    scale = float(full[:, TF_PROMPT - 1:].abs().max())
-    print(f"(a) {cfg.name} fp32, batch 1, prompt {TF_PROMPT}, {TF_STEPS} "
-          f"decode steps: max|served - apply| per position "
-          f"{[f'{e:.3e}' for e in errs]} (logits up to {scale:.3f}); "
-          f"launches {ran()}")
+    scale = float(full[:, prompt - 1:].abs().max())
+    print(f"(a) {cfg.name} fp32, batch 1, prompt {prompt}"
+          f"{f' over {prompt} source frames' if cfg.is_encdec else ''}, "
+          f"{TF_STEPS} decode steps{note}: max|served - apply| per "
+          f"position {[f'{e:.3e}' for e in errs]} (logits up to "
+          f"{scale:.3f}); launches {ran()}")
     bar = 2e-4
     if shape_noise:
         # A model that amplifies rounding (rwkv6-7b's random weights at
         # full depth) moves its logits when only the GEMMs' row counts
-        # change (cuBLAS picks another kernel and summation order). apply
-        # over the prompt alone has the prefill's shapes: the prefill is
-        # held to it at 2e-4. apply over the prompt against apply over the
-        # whole sequence, at the prompt's last position, is the same
-        # computation with other shapes: that floor bounds the decode
-        # steps, whose one-row GEMMs no apply shares. The carried state
-        # itself is held exactly in phase 3c (the handoff check).
-        short = transformer.apply(cfg, params, tokens[:, :TF_PROMPT])[:, -1]
+        # change (cuBLAS picks another kernel and summation order); in a
+        # MoE such a change can also move a token past a near-tie of its
+        # router. apply over the prompt alone has the prefill's shapes: the
+        # prefill is held to it at 2e-4. apply over the prompt against
+        # apply over the whole sequence, at the prompt's last position, is
+        # the same computation with other shapes: that floor bounds the
+        # decode steps, whose one-row GEMMs no apply shares. The carried
+        # state itself is held exactly in phase 3c (the handoff check).
+        short = apply(tokens[:, :prompt])[:, -1]
         same = err(served[0], short)
-        floor = err(short, full[:, TF_PROMPT - 1])
+        floor = err(short, full[:, prompt - 1])
         bar = 2e-4 + 3 * floor
         print(f"    prefill vs apply over the prompt alone (same shapes): "
               f"{same:.3e}; apply vs apply, shapes only (the floor): "
@@ -1917,25 +2161,29 @@ def phase_served_correctness(torch, title: str, arch: str, counters: dict,
     check(max(errs) <= bar, f"served logits differ from apply by {errs}")
     check(all(n > 0 for n in ran().values()),
           "teacher forcing did not run the kernels")
-    del params, cache, full, served
+    del params, cache, full, served, apply, batch
     torch.cuda.empty_cache()
 
     # (b) card (kernels) against CPU (plain versions) in lockstep at the
     # smoke widths. Each decode step starts both from the card's cache.
     # fp32 on both sides, held at the bar of the path's loosest kernel.
     cfg = lock_cfg
-    params_c = transformer.init_params(cfg, torch.Generator().manual_seed(3),
-                                       "cpu")
-    params_g = tree_to(params_c, "cuda")
     api_c, api_g = build(cfg, "cpu"), build(cfg, "cuda")
-    tokens = torch.randint(0, cfg.vocab_size, (LOCK_BATCH, LOCK_PROMPT),
-                           generator=torch.Generator().manual_seed(4))
+    params_c = api_c.init(torch.Generator().manual_seed(3))
+    params_g = tree_to(params_c, "cuda")
+    gen = torch.Generator().manual_seed(4)
+    batch_c = {"tokens": torch.randint(0, cfg.vocab_size,
+                                       (LOCK_BATCH, LOCK_PROMPT),
+                                       generator=gen)}
+    if cfg.is_encdec:
+        batch_c["src_embeds"] = torch.randn(
+            (LOCK_BATCH, LOCK_PROMPT, cfg.d_model), generator=gen)
+    batch_g = tree_to(batch_c, "cuda")
     max_len = LOCK_PROMPT + LOCK_STEPS + 1
     for fn in counters.values():
         fn.launches = 0
-    lg, cg = api_g.prefill(params_g, {"tokens": tokens.cuda()},
-                           max_len=max_len)
-    lc, cc = api_c.prefill(params_c, {"tokens": tokens}, max_len=max_len)
+    lg, cg = api_g.prefill(params_g, batch_g, max_len=max_len)
+    lc, cc = api_c.prefill(params_c, batch_c, max_len=max_len)
     worst = {"logits": err(lg.cpu(), lc),
              "cache": max(err(a.cpu(), b) for a, b in
                           zip(tree_leaves(cg), tree_leaves(cc)))}
@@ -2453,6 +2701,39 @@ def main() -> None:
     int8_run = simulated["compressed_int8"]["launches"]
     run("11", phase_train_on_trace, torch, simulated)
 
+    # the MLA + MoE and encoder-decoder slice: every attention of their
+    # prefills in the flash kernel, none in decode
+    torch.cuda.empty_cache()
+    print(f"\ndevice memory held before phase 12: "
+          f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
+    flash_only = {"flash_attention": fa.flash_attention}
+    n_mla = get_config(MLA_ARCH).n_layers
+    served_mla = run("12", phase_serve, torch,
+                     "12. serving deepseek-v2-lite-16b (MLA + MoE) at full "
+                     "width on the card", MLA_ARCH, flash_only,
+                     {"flash_attention": n_mla},
+                     f"flash once per MLA layer in prefill ({n_mla}), none "
+                     f"in the {SERVE_GEN - 1} decode steps (the absorbed "
+                     f"low-rank step is plain torch)", True)
+    run("13", phase_served_correctness, torch,
+        "13. correctness of the served deepseek path", MLA_ARCH, flash_only,
+        reduce_for_smoke(get_config(MLA_ARCH)), LOCK_TOL, True)
+    n_enc = get_config(ENCDEC_ARCH).encoder_layers
+    n_dec = get_config(ENCDEC_ARCH).n_layers - n_enc
+    served_encdec = run("14", phase_serve, torch,
+                        "14. serving seamless-m4t-large-v2 "
+                        "(encoder-decoder) at full width on the card",
+                        ENCDEC_ARCH, flash_only,
+                        {"flash_attention": n_enc + 2 * n_dec},
+                        f"flash in prefill once per encoder layer "
+                        f"(non-causal, {n_enc}) and twice per decoder layer "
+                        f"(causal self and non-causal cross attention, "
+                        f"{2 * n_dec}); none in the {SERVE_GEN - 1} decode "
+                        f"steps")
+    run("15", phase_served_correctness, torch,
+        "15. correctness of the served encoder-decoder path", ENCDEC_ARCH,
+        flash_only, reduce_for_smoke(get_config(ENCDEC_ARCH)), LOCK_TOL)
+
     rows = []
     for name, source, replaces, launches in (
             ("gossip_mix", "gossip_mix", "gossip_mix.py:62",
@@ -2485,7 +2766,16 @@ def main() -> None:
             "device_ms": k["device_ms"], "shape": k["shape"]})
         if "check_launches" in k:         # launches not of the main path
             rows[-1]["check_launches"] = k["check_launches"]
-        for extra in ("fp32", "decode"):  # flash's fp32 entry, rglru's S = 1
+        if name == "flash_attention":     # each served path's own count
+            rows[-1]["launches_by_path"] = {
+                f"{SERVE_ARCH} (phase 6)": launches,
+                f"{MLA_ARCH} (phase 12)":
+                    served_mla["launches"]["flash_attention"],
+                f"{ENCDEC_ARCH} (phase 14)":
+                    served_encdec["launches"]["flash_attention"]}
+        # flash's fp32 entry and its MLA / encoder-decoder shapes, rglru's
+        # S = 1
+        for extra in ("fp32", *NEW_FLASH_TIMED, "decode"):
             if extra in k:
                 rows[-1][extra] = {f: k[extra][f] for f in (
                     "ms", "device_ms", "plain_ms", "library_ms", "bound_ms",

@@ -39,15 +39,26 @@ def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, window: int = 0,
                         positions: Optional[torch.Tensor] = None
                         ) -> torch.Tensor:
-    """q (B,S,Hq,D), k/v (B,T,Hkv,D) -> (B,S,Hq,D). Query and key
-    positions count from 0 (prefill); a ``positions`` tensor, where the
-    caller has one, must be ``arange(S)``, and is checked. No padding: the
-    kernel masks the ragged edge of S, T and D itself."""
+    """q (B,S,Hq,D), k (B,T,Hkv,D), v (B,T,Hkv,Dv) -> (B,S,Hq,Dv) with
+    Dv <= D. Query
+    and key positions count from 0 (prefill, or no positions at all:
+    cross attention, where T may differ from S); a ``positions`` tensor,
+    where the caller has one, must be ``arange(S)``, and is checked. No
+    padding of S, T or D: the kernel masks their ragged edge itself. A
+    narrower v (MLA: D 192, Dv 128) is zero-padded to D and the output
+    sliced back to Dv: zero lanes of v give zero output lanes, and the
+    scores keep q's true D ** -0.5."""
     if positions is not None and not torch.equal(
             positions, torch.arange(q.shape[1], device=positions.device)):
         raise ValueError("flash_attention_gqa assumes positions "
                          "arange(S) (a prefill from position 0)")
-    return _fa.flash_attention(q, k, v, causal=causal, window=window)
+    d, dv = q.shape[-1], v.shape[-1]
+    if dv > d:
+        raise ValueError(f"v's head_dim {dv} exceeds q's {d}")
+    if dv < d:
+        v = torch.nn.functional.pad(v, (0, d - dv))
+    out = _fa.flash_attention(q, k, v, causal=causal, window=window)
+    return out[..., :dv] if dv < d else out
 
 
 def rwkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

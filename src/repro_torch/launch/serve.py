@@ -5,17 +5,23 @@ The torch counterpart of ``repro.launch.serve``, on the card by default:
       --batch 4 --prompt-len 64 --gen 32
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --smoke
 
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --smoke \
+      --arch deepseek-v2-lite-16b        # or seamless-m4t-large-v2
+
 The default ``--arch`` is ``rwkv6-7b``, as in the JAX entry point.
 
 Weights are random, drawn on the device from a ``torch.Generator`` seeded
-with ``seed``. Before the prompt runs, every weight leaf that each use
-casts to ``cfg.dtype`` is cast once (bit-identical to casting at each
-use, and it keeps eager decode from casting the fp32 weights every step);
-the leaves whose uses read them in fp32 stay fp32 (``_FP32_LEAVES``).
+with ``seed``. Every weight leaf that each use casts to ``cfg.dtype`` is
+cast once, as it is drawn (bit-identical to casting at each use, and it
+keeps eager decode from casting the fp32 weights every step; drawing a
+layer and casting it before the next is drawn keeps the fp32 tree from
+ever being whole: deepseek-v2-lite-16b's is 62 GB); the leaves whose uses
+read them in fp32 stay fp32 (``_FP32_LEAVES``).
 """
 from __future__ import annotations
 
 import argparse
+import functools
 import time
 from typing import Callable, Optional
 
@@ -27,7 +33,7 @@ from ..device import resolve_device
 from ..models import build
 from ..models.layers import torch_dtype
 
-__all__ = ["main", "generate", "serving_params"]
+__all__ = ["main", "generate", "serving_params", "init_serving_params"]
 
 # Leaves read in fp32 at use: a bf16 round trip would change results.
 _FP32_LEAVES = frozenset({
@@ -55,6 +61,13 @@ def serving_params(cfg, params):
     return walk(params)
 
 
+def init_serving_params(api, gen: torch.Generator):
+    """``serving_params(cfg, api.init(gen))``, bit for bit, with each piece
+    cast as it is drawn: the same draws in the same order, so the peak is
+    the cast tree and one fp32 layer."""
+    return api.init(gen, cast=functools.partial(serving_params, api.cfg))
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -72,7 +85,7 @@ def generate(cfg, *, batch: int, prompt_len: int, gen: int, seed: int = 0,
     dev = resolve_device(device)
     api = build(cfg, dev)
     rng = torch.Generator(device=dev).manual_seed(seed)
-    params = serving_params(cfg, api.init(rng))
+    params = init_serving_params(api, rng)
     shape = ShapeConfig("serve", prompt_len, batch, "prefill")
     inputs = api.make_inputs(shape, rng, batch_override=batch)
 

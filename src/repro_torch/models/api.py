@@ -1,18 +1,18 @@
 """Uniform model facade: every architecture exposes the same five functions.
 
-The torch counterpart of ``repro.models.api`` for the decoder-only
-families (lm, hybrid, ssm, vlm):
+The torch counterpart of ``repro.models.api``:
 
-* ``init(gen) -> params``                (drawn from a ``torch.Generator``)
+* ``init(gen, cast=None) -> params``     (drawn from a ``torch.Generator``;
+                                          ``cast`` applied as drawn)
 * ``loss(params, batch) -> scalar``      (teacher-forced, forward only)
 * ``prefill(params, batch) -> (logits, cache)``
 * ``decode_step(params, token, cache, index) -> (logits, cache)``
 * ``make_inputs(shape, gen) -> batch``   (synthetic, for smoke runs)
 
-``batch`` layouts: {"tokens": (B, S)}, plus "patch_embeds" (B, P, d) for
-the vision frontend. Encoder-decoder configs raise ``NotImplementedError``
-(they come with a later slice), as do the layer kinds this slice does not
-port (``transformer.check_supported``).
+``batch`` layouts per family:
+  lm / moe / ssm / hybrid: {"tokens": (B, S)}
+  vlm:                     {"tokens": (B, S), "patch_embeds": (B, P, d)}
+  encdec:                  {"src_embeds": (B, S/2, d), "tokens": (B, S/2)}
 """
 from __future__ import annotations
 
@@ -23,7 +23,7 @@ import torch
 
 from ..configs.base import ModelConfig, ShapeConfig
 from ..device import resolve_device
-from . import transformer
+from . import encdec, transformer
 from .layers import torch_dtype
 
 PyTree = Any
@@ -57,14 +57,43 @@ def _lm_make_inputs(cfg: ModelConfig, shape: ShapeConfig,
     return out
 
 
+def _encdec_make_inputs(cfg: ModelConfig, shape: ShapeConfig,
+                        gen: torch.Generator, device: str | torch.device,
+                        batch_override: Optional[int] = None) -> dict:
+    """A shape of S positions as S / 2 source frames and S / 2 target
+    tokens (at least 8 each), as the JAX package maps it."""
+    device = resolve_device(device)
+    b = batch_override or shape.global_batch
+    half = max(shape.seq_len // 2, 8)
+    src = torch.randn((b, half, cfg.d_model), generator=gen,
+                      device=gen.device)
+    tokens = torch.randint(0, cfg.vocab_size, (b, half), generator=gen,
+                           device=gen.device)
+    return {"src_embeds": src.to(device=device,
+                                 dtype=torch_dtype(cfg.dtype)),
+            "tokens": tokens.to(device)}
+
+
 def build(cfg: ModelConfig, device: str | torch.device = "cuda") -> ModelAPI:
     """The facade of ``cfg`` with ``init`` and ``make_inputs`` placing
     tensors on ``device`` (checked when they are called)."""
     if cfg.is_encdec:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder models are not ported yet; they "
-            "come with the mla/moe/encdec slice (ROADMAP Queue 1 item 3)")
-    transformer.check_supported(cfg)
+        def loss(params, batch):
+            return encdec.encdec_loss(cfg, params, batch)
+
+        def prefill(params, batch, max_len=None):
+            return encdec.prefill(cfg, params, batch["src_embeds"],
+                                  batch["tokens"], max_len=max_len)
+
+        def decode(params, token, cache, index):
+            return encdec.decode_step(cfg, params, token, cache, index)
+
+        return ModelAPI(
+            cfg, lambda gen, cast=None: encdec.init_params(cfg, gen, device,
+                                                           cast),
+            loss, prefill, decode,
+            lambda shape, gen, batch_override=None: _encdec_make_inputs(
+                cfg, shape, gen, device, batch_override))
 
     def loss(params, batch):
         return transformer.lm_loss(cfg, params, batch)
@@ -78,7 +107,8 @@ def build(cfg: ModelConfig, device: str | torch.device = "cuda") -> ModelAPI:
         return transformer.decode_step(cfg, params, token, cache, index)
 
     return ModelAPI(
-        cfg, lambda gen: transformer.init_params(cfg, gen, device), loss,
+        cfg, lambda gen, cast=None: transformer.init_params(cfg, gen, device,
+                                                            cast), loss,
         prefill, decode,
         lambda shape, gen, batch_override=None: _lm_make_inputs(
             cfg, shape, gen, device, batch_override))

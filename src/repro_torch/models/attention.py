@@ -1,21 +1,25 @@
-"""Attention token mixers: GQA global / local (sliding window).
+"""Attention token mixers: GQA global / local (sliding window) and cross
+attention.
 
-The torch counterpart of ``repro.models.attention`` for kinds ``global``
-and ``local`` (``cross`` waits for the encoder-decoder slice).
+The torch counterpart of ``repro.models.attention``.
 
-Train / prefill (``cache_index is None``) lowers both kinds to the
+Train / prefill (``cache_index is None``) lowers every kind to the
 flash-attention kernel (``kernels.ops.flash_attention_gqa``): ``local``
 with ``window=cfg.window`` where the JAX package calls
 ``local_block_attention``, ``global`` with ``window=0`` where it calls
-``chunked_attention``. The kernel skips key tiles outside the band; on the
-CPU its plain version runs. ``chunked_attention`` and
-``local_block_attention`` are kept, in plain torch, as the JAX package's
-two lowerings of the same computation (the tests hold them against the
-JAX functions of the same names).
+``chunked_attention`` (causal, or bidirectional in an encoder:
+``causal_override=False``), and ``cross`` non-causal over the encoder
+output (T source frames against S target positions, no rotary). The
+kernel skips key tiles outside the band; on the CPU its plain version
+runs. ``chunked_attention`` and ``local_block_attention`` are kept, in
+plain torch, as the JAX package's two lowerings of the same computation
+(the tests hold them against the JAX functions of the same names).
 
 Decode: single-token attention against a cache, in plain torch as in the
 JAX package. Global layers keep a full (B, L, Hkv, D) cache; local layers
-keep a ring buffer of ``window`` slots with explicit position tags.
+keep a ring buffer of ``window`` slots with explicit position tags; cross
+attention reads the encoder K/V its prefill cached (``chunked_attention``,
+one query).
 """
 from __future__ import annotations
 
@@ -49,7 +53,7 @@ def attn_init(gen: torch.Generator, cfg: ModelConfig,
 
 def init_attn_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                     dtype, device: torch.device) -> dict:
-    """Cache tree for one attention layer. ``kind``: global|local."""
+    """Cache tree for one self-attention layer. ``kind``: global|local."""
     length = (min(cfg.window, max_len) if kind == "local" and cfg.window
               else max_len)
     shape = (batch, length, cfg.n_kv_heads, cfg.head_dim)
@@ -156,21 +160,43 @@ def attn_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *, kind: str,
                positions: torch.Tensor,
                cache: Optional[dict] = None,
                cache_index: Optional[int] = None,
+               kv_src: Optional[torch.Tensor] = None,
                causal_override: Optional[bool] = None
                ) -> tuple[torch.Tensor, Optional[dict]]:
     """One attention mixer. Modes:
 
     * train / prefill: ``cache_index is None``; x is (B,S,D); a given
       ``cache`` is filled from position 0;
-    * decode: ``cache_index`` (int) given, x is (B,1,D).
+    * decode: ``cache_index`` (int) given, x is (B,1,D);
+    * cross: ``kind == 'cross'`` with ``kv_src`` (B,T,D), the encoder
+      output (its K/V replace a given ``cache``), or without it, the K/V
+      cached at prefill.
     """
-    if kind not in ("global", "local"):
-        raise NotImplementedError(
-            f"attention kind {kind!r}: the port has global and local; cross "
-            "attention comes with the encoder-decoder slice (ROADMAP Queue 1)")
     dt = torch_dtype(cfg.dtype)
     b, s, _ = x.shape
     q = dense(p["wq"], x, dt).reshape(b, s, cfg.n_heads, cfg.head_dim)
+
+    if kind == "cross":
+        if kv_src is not None:
+            t = kv_src.shape[1]
+            k = dense(p["wk"], kv_src, dt).reshape(b, t, cfg.n_kv_heads,
+                                                   cfg.head_dim)
+            v = dense(p["wv"], kv_src, dt).reshape(b, t, cfg.n_kv_heads,
+                                                   cfg.head_dim)
+            if cache is not None:
+                cache = {"k": k.to(dt), "v": v.to(dt)}
+            # every source frame is visible: positions play no part
+            out = ops.flash_attention_gqa(q.contiguous(), k.contiguous(),
+                                          v.contiguous(), causal=False)
+        else:
+            k, v = cache["k"], cache["v"]
+            zeros = torch.zeros((1,), dtype=torch.int32, device=x.device)
+            out = chunked_attention(q, k, v, causal=False,
+                                    q_positions=zeros.expand(s),
+                                    k_positions=zeros.expand(k.shape[1]))
+        y = dense(p["wo"], out.to(dt).reshape(b, s, cfg.q_dim), dt)
+        return y, cache
+
     k = dense(p["wk"], x, dt).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
     v = dense(p["wv"], x, dt).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
     q = rope(q, positions, cfg.rope_theta, cfg.rope_fraction)

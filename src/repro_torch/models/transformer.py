@@ -1,7 +1,10 @@
 """Decoder-only LM assembly over heterogeneous layers.
 
-The torch counterpart of ``repro.models.transformer`` for layer kinds
-``global``, ``local``, ``rglru`` and ``rwkv``. Layers are grouped as
+The torch counterpart of ``repro.models.transformer``: layer kinds
+``global`` (``mla`` where the config has MLA), ``local``, ``rglru`` and
+``rwkv``, a MoE MLP at and past ``first_k_dense`` where the config has
+MoE, and cross attention in the encoder-decoder's decoder layers
+(``models.encdec``). Layers are grouped as
 ``prologue + repeats x pattern-unit + tail`` with the JAX layout:
 
 * prologue = ``first_k_dense`` unrolled layers,
@@ -11,33 +14,32 @@ The torch counterpart of ``repro.models.transformer`` for layer kinds
 The JAX package's ``lax.scan`` over the unit becomes a Python loop over
 ``repeats`` that indexes the stacked params and caches and restacks the
 new caches in the same layout. Every layer is pre-norm residual:
-x += mixer(norm1(x)); x += mlp(norm2(x)). RWKV layers use (time-mix,
-channel-mix) as (mixer, mlp) and have no ``mlp`` of their own. Kinds
-``mla`` and ``moe`` and cross-attention raise ``NotImplementedError``
-naming the slice that ports them.
+x += mixer(norm1(x)); [x += cross(norm_cross(x))]; x += mlp(norm2(x)).
+RWKV layers use (time-mix, channel-mix) as (mixer, mlp) and have no
+``mlp`` of their own.
+
+``init_params`` takes an optional ``cast``, applied to each piece of the
+tree (the embedding, each layer, the final norm, the head) as soon as it
+is drawn, and stacked layers are written into their stack one by one: a
+served model never holds its fp32 tree beside the cast one
+(``launch.serve.init_serving_params``).
 """
 from __future__ import annotations
 
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
 import torch
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
-from . import attention, rglru, rwkv6
+from . import attention, mla, moe, rglru, rwkv6
 from .layers import (cross_entropy, embed_init, mlp, mlp_init, norm,
                      norm_init, normal, torch_dtype)
 
 PyTree = Any
 
-__all__ = ["layer_kinds", "layer_groups", "check_supported", "init_params",
-           "apply", "lm_loss", "init_cache", "prefill", "decode_step"]
-
-_LATER = {
-    "mla": "the mla/moe/encdec slice (ROADMAP Queue 1 item 3)",
-    "moe": "the mla/moe/encdec slice (ROADMAP Queue 1 item 3)",
-    "cross": "the mla/moe/encdec slice (ROADMAP Queue 1 item 3)",
-}
+__all__ = ["layer_kinds", "layer_groups", "init_params", "apply",
+           "lm_loss", "init_cache", "prefill", "decode_step"]
 
 
 # ---------------------------------------------------------------------------
@@ -57,23 +59,15 @@ def layer_groups(cfg: ModelConfig) -> tuple[int, int, int]:
     return pro, rest // u, rest % u
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what this slice does not port."""
-    missing = set()
-    if cfg.is_encdec:
-        missing.add("cross")
-    if cfg.moe is not None:
-        missing.add("moe")
-    for kind in set(cfg.pattern):
-        if kind == "global" and cfg.mla is not None:
-            missing.add("mla")
-        elif kind not in ("global", "local", "rglru", "rwkv"):
-            missing.add(kind)
-    if missing:
-        kind = sorted(missing)[0]
-        raise NotImplementedError(
-            f"{cfg.name}: layer kind {kind!r} is not ported yet; it comes "
-            f"with {_LATER.get(kind, 'a later slice')}")
+def _mixer_kind(cfg: ModelConfig, kind: str) -> str:
+    """Archs with MLA swap 'global' attention for MLA."""
+    if kind == "global" and cfg.mla is not None:
+        return "mla"
+    return kind
+
+
+def _moe_flag(cfg: ModelConfig, layer_idx: int) -> bool:
+    return cfg.moe is not None and layer_idx >= cfg.first_k_dense
 
 
 def _tree_map(fn, tree):
@@ -94,18 +88,42 @@ def _tree_stack(trees: list):
     return torch.stack(trees)
 
 
+def stack_drawn(n: int, draw: Callable[[], dict]) -> dict:
+    """``_tree_stack([draw() for _ in range(n)])``, with each draw written
+    into its slot of the stack as it comes: the peak is the stack and one
+    layer, not the stack and every layer."""
+    first = draw()
+    out = _tree_map(lambda t: t.new_empty((n, *t.shape)), first)
+
+    def put(dst, src, i):
+        if isinstance(dst, dict):
+            for k in dst:
+                put(dst[k], src[k], i)
+        else:
+            dst[i].copy_(src)
+    put(out, first, 0)
+    del first
+    for i in range(1, n):
+        put(out, draw(), i)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Single layer
 # ---------------------------------------------------------------------------
 
 def _init_layer(gen: torch.Generator, cfg: ModelConfig, kind: str,
-                device: torch.device) -> dict:
+                is_moe: bool, device: torch.device,
+                cross: bool = False) -> dict:
+    kind = _mixer_kind(cfg, kind)
     p: dict = {"norm1": norm_init(cfg.d_model, cfg.norm, device,
                                   cfg.param_dtype),
                "norm2": norm_init(cfg.d_model, cfg.norm, device,
                                   cfg.param_dtype)}
     if kind in ("global", "local"):
         p["attn"] = attention.attn_init(gen, cfg, device)
+    elif kind == "mla":
+        p["attn"] = mla.mla_init(gen, cfg, cfg.mla, device)
     elif kind == "rglru":
         p["rec"] = rglru.rglru_init(gen, cfg, cfg.rglru, device)
     elif kind == "rwkv":
@@ -113,15 +131,27 @@ def _init_layer(gen: torch.Generator, cfg: ModelConfig, kind: str,
         return p  # rwkv owns both halves (time-mix + channel-mix)
     else:
         raise ValueError(kind)
-    p["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp_kind, device,
-                        cfg.param_dtype)
+    if cross:
+        p["norm_cross"] = norm_init(cfg.d_model, cfg.norm, device,
+                                    cfg.param_dtype)
+        p["cross"] = attention.attn_init(gen, cfg, device)
+    if is_moe:
+        p["moe"] = moe.moe_init(gen, cfg, cfg.moe, device)
+    else:
+        d_ff = cfg.dense_d_ff if (cfg.moe is not None and cfg.dense_d_ff) \
+            else cfg.d_ff
+        p["mlp"] = mlp_init(gen, cfg.d_model, d_ff, cfg.mlp_kind, device,
+                            cfg.param_dtype)
     return p
 
 
 def _apply_layer(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
                  positions: torch.Tensor, cache: Optional[dict] = None,
-                 cache_index: Optional[int] = None, want_cache: bool = False
+                 cache_index: Optional[int] = None,
+                 cross_src: Optional[torch.Tensor] = None,
+                 want_cache: bool = False, encoder_mode: bool = False
                  ) -> tuple[torch.Tensor, Optional[dict]]:
+    kind = _mixer_kind(cfg, kind)
     dt = torch_dtype(cfg.dtype)
     new_cache: dict = {}
     if kind == "rwkv":
@@ -143,6 +173,14 @@ def _apply_layer(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
         y, attn_cache = attention.attn_apply(
             p["attn"], h, cfg, kind=kind, positions=positions,
             cache=cache.get("attn") if cache else None,
+            cache_index=cache_index,
+            causal_override=False if encoder_mode else None)
+        if want_cache:
+            new_cache["attn"] = attn_cache
+    elif kind == "mla":
+        y, attn_cache = mla.mla_apply(
+            p["attn"], h, cfg, m=cfg.mla, positions=positions,
+            cache=cache.get("attn") if cache else None,
             cache_index=cache_index)
         if want_cache:
             new_cache["attn"] = attn_cache
@@ -155,23 +193,49 @@ def _apply_layer(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
     else:
         raise ValueError(kind)
     x = x + y
+
+    if "cross" in p:
+        hc = norm(p["norm_cross"], x, cfg.norm)
+        yc, cross_cache = attention.attn_apply(
+            p["cross"], hc, cfg, kind="cross", positions=positions,
+            cache=cache.get("cross") if cache else None,
+            cache_index=cache_index, kv_src=cross_src)
+        x = x + yc
+        if want_cache:
+            new_cache["cross"] = cross_cache
+
     h2 = norm(p["norm2"], x, cfg.norm)
-    x = x + mlp(p["mlp"], h2, cfg.mlp_kind, dt)
+    if "moe" in p:
+        x = x + moe.moe_apply(p["moe"], h2, cfg, cfg.moe)
+    else:
+        x = x + mlp(p["mlp"], h2, cfg.mlp_kind, dt)
     return x, (new_cache if want_cache else None)
 
 
 def _init_layer_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
-                      dtype, device: torch.device) -> dict:
+                      dtype, device: torch.device, cross: bool = False,
+                      cross_len: int = 0) -> dict:
+    kind = _mixer_kind(cfg, kind)
+    c: dict = {}
     if kind in ("global", "local"):
-        return {"attn": attention.init_attn_cache(cfg, kind, batch, max_len,
-                                                  dtype, device)}
-    if kind == "rglru":
-        return {"rec": rglru.init_rglru_state(cfg, cfg.rglru, batch, dtype,
-                                              device)}
-    if kind == "rwkv":
-        return {"rwkv": rwkv6.init_rwkv_state(cfg, cfg.rwkv, batch, dtype,
-                                              device)}
-    raise ValueError(kind)
+        c["attn"] = attention.init_attn_cache(cfg, kind, batch, max_len,
+                                              dtype, device)
+    elif kind == "mla":
+        c["attn"] = mla.init_mla_cache(cfg, cfg.mla, batch, max_len, dtype,
+                                       device)
+    elif kind == "rglru":
+        c["rec"] = rglru.init_rglru_state(cfg, cfg.rglru, batch, dtype,
+                                          device)
+    elif kind == "rwkv":
+        c["rwkv"] = rwkv6.init_rwkv_state(cfg, cfg.rwkv, batch, dtype,
+                                          device)
+    else:
+        raise ValueError(kind)
+    if cross:
+        shape = (batch, cross_len, cfg.n_kv_heads, cfg.head_dim)
+        c["cross"] = {"k": torch.zeros(shape, dtype=dtype, device=device),
+                      "v": torch.zeros(shape, dtype=dtype, device=device)}
+    return c
 
 
 # ---------------------------------------------------------------------------
@@ -179,30 +243,32 @@ def _init_layer_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
 # ---------------------------------------------------------------------------
 
 def init_params(cfg: ModelConfig, gen: torch.Generator,
-                device: str | torch.device = "cuda") -> PyTree:
+                device: str | torch.device = "cuda",
+                cast: Optional[Callable[[dict], dict]] = None) -> PyTree:
     """Full parameter tree, drawn from ``gen`` on its device and placed on
-    ``device``. The pattern unit's params carry a leading repeats axis."""
+    ``device``. The pattern unit's params carry a leading repeats axis.
+    ``cast`` (a dict of tensors -> the same dict) is applied to each piece
+    as it is drawn; the pieces are drawn in the same order either way."""
     dev = resolve_device(device)
-    check_supported(cfg)
+    cast = cast or (lambda tree: tree)
     pro, repeats, tail = layer_groups(cfg)
     kinds = layer_kinds(cfg)
     u = len(cfg.pattern)
-    params: dict = {"embed": embed_init(gen, cfg.vocab_size, cfg.d_model, dev,
-                                        cfg.param_dtype)}
-    params["prologue"] = [_init_layer(gen, cfg, kinds[i], dev)
-                          for i in range(pro)]
-    params["unit"] = [
-        _tree_stack([_init_layer(gen, cfg, kinds[pro + j], dev)
-                     for _ in range(repeats)])
-        for j in range(u)] if repeats > 0 else []
-    params["tail"] = [_init_layer(gen, cfg, kinds[pro + repeats * u + i], dev)
-                      for i in range(tail)]
-    params["final_norm"] = norm_init(cfg.d_model, cfg.norm, dev,
-                                     cfg.param_dtype)
+
+    def layer(i):
+        return cast(_init_layer(gen, cfg, kinds[i], _moe_flag(cfg, i), dev))
+    params: dict = {"embed": cast(embed_init(gen, cfg.vocab_size, cfg.d_model,
+                                             dev, cfg.param_dtype))}
+    params["prologue"] = [layer(i) for i in range(pro)]
+    params["unit"] = [stack_drawn(repeats, lambda j=j: layer(pro + j))
+                      for j in range(u)] if repeats > 0 else []
+    params["tail"] = [layer(pro + repeats * u + i) for i in range(tail)]
+    params["final_norm"] = cast(norm_init(cfg.d_model, cfg.norm, dev,
+                                          cfg.param_dtype))
     if not cfg.tie_embeddings:
-        params["lm_head"] = {"w": normal(gen, (cfg.d_model, cfg.vocab_size),
-                                         dev, cfg.d_model**-0.5,
-                                         cfg.param_dtype)}
+        params["lm_head"] = cast({"w": normal(
+            gen, (cfg.d_model, cfg.vocab_size), dev, cfg.d_model**-0.5,
+            cfg.param_dtype)})
     return params
 
 
@@ -238,6 +304,8 @@ def _run_stack(cfg: ModelConfig, params: PyTree, x: torch.Tensor, *,
                positions: torch.Tensor, caches: Optional[dict] = None,
                cache_index: Optional[int] = None, want_cache: bool = False
                ) -> tuple[torch.Tensor, Optional[dict]]:
+    """The decoder-only stack (prologue, unit, tail). The encoder-decoder
+    stacks are ``models.encdec._run_stacked``."""
     pro, repeats, tail = layer_groups(cfg)
     kinds = layer_kinds(cfg)
     u = len(cfg.pattern)

@@ -11,7 +11,8 @@ PyTorch:  PYTHONPATH=src python -m pytest -q tests/test_torch_kernels_card.py
 Tolerances follow tests/test_kernels.py: gossip fp32 1e-5, bf16 3e-2;
 flash fp32 2e-5, bf16 3e-2; rglru 1e-4; rwkv6 5e-4. bf16 flash is also
 held row by row, ||got - want|| <= 2^-6 ||want|| for each output row (one
-query, one head), as chip_smoke.py holds it: rows that attend to many keys
+query, one head), as chip_smoke.py holds it (the MLA and encoder-decoder
+shapes against the plain version on the card, the others on the host): rows that attend to many keys
 are far smaller than 3e-2, and losing one key of 2048 moves a row by ~0.022
 of its norm. The int8 codec is
 bit-equal: q, scales and the dequantized output ``torch.equal`` (finite
@@ -174,6 +175,46 @@ def test_flash_attention_kernel_matches_plain(sm90, b, s, hq, hkv, d, causal,
     assert _err(got.cpu(), want) < (2e-5 if dtype == "float32" else 3e-2)
     if dtype == "bfloat16":
         assert _row_err(got.cpu(), want) <= 2.0 ** -6
+
+
+# the MLA and encoder-decoder shapes, through the entry the models call
+# (ops pads a narrower v to q's D and cuts the output back): (B, S, T, H,
+# D, Dv, causal). deepseek-v2-lite-16b's MLA (D 192 with v 128, 16 heads;
+# the bf16 kernel's DP = 256 instance, its 4th 64-lane TMA box past D),
+# seamless-m4t-large-v2's heads (16 of 64, MHA) causal and not, and cross
+# attention with T != S both ways
+_FLASH_NEW_SHAPES = [
+    (1, 300, 300, 16, 192, 128, True),
+    (4, 4096, 4096, 16, 192, 128, True),
+    (2, 33, 100, 16, 64, 64, False),
+    (2, 100, 33, 16, 64, 64, False),
+    (1, 129, 700, 16, 64, 64, False),
+    (4, 2048, 2048, 16, 64, 64, False),
+    (2, 300, 300, 16, 64, 64, True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,t,h,d,dv,causal", _FLASH_NEW_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_kernel_at_mla_and_encdec_shapes(sm90, b, s, t, h, d,
+                                                         dv, causal, dtype):
+    tdt = DTYPES[dtype]
+    g = torch.Generator(device=sm90).manual_seed(s + t + d)
+    q, k = (torch.randn((b, n, h, d), generator=g, device=sm90).to(tdt)
+            for n in (s, t))
+    v = torch.randn((b, t, h, dv), generator=g, device=sm90).to(tdt)
+    before = fa.flash_attention.launches
+    got = ops.flash_attention_gqa(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    assert got.dtype == tdt and got.shape == (b, s, h, dv)
+    want = fa.flash_attention_plain(
+        q, k, torch.nn.functional.pad(v, (0, d - dv)), causal=causal
+    )[..., :dv]
+    assert _err(got, want) < (2e-5 if dtype == "float32" else 3e-2)
+    if dtype == "bfloat16":
+        assert _row_err(got, want) <= 2.0 ** -6
 
 
 @pytest.mark.cuda

@@ -6,8 +6,9 @@ different numbers from the same seed). Tolerances:
 
 * layers (norm, mlp, rope, dense, cross_entropy): max |diff| <= 1e-6 of
   the reference's largest magnitude;
-* attention layers (prefill and decode, output and cache): 2e-5, the
-  flash tolerance of tests/test_kernels.py;
+* attention layers (prefill and decode, output and cache; self, cross
+  and MLA): 2e-5, the flash tolerance of tests/test_kernels.py; MLA's
+  compressed cache (c_kv, k_rope: two projections, no attention) 1e-5;
 * the RG-LRU layer (output and state): 1e-4, the rglru tolerance there;
 * the RWKV-6 recurrence and time-mix (output and state): 1e-4, the
   recurrent layer's bar; channel-mix 1e-6 relative, an elementwise layer.
@@ -22,17 +23,21 @@ import pytest
 pytest.importorskip("torch")  # the reference's CI installs no torch
 import torch
 
+from repro.configs.base import MLAConfig as JaxMLAConfig
 from repro.configs.base import ModelConfig as JaxModelConfig
 from repro.configs.base import RGLRUConfig as JaxRGLRUConfig
 from repro.configs.base import RWKVConfig as JaxRWKVConfig
 from repro.models import attention as j_attn
 from repro.models import layers as j_layers
+from repro.models import mla as j_mla
 from repro.models import rglru as j_rglru
 from repro.models import rwkv6 as j_rwkv
-from repro_torch.configs.base import ModelConfig, RGLRUConfig, RWKVConfig
+from repro_torch.configs.base import (MLAConfig, ModelConfig, RGLRUConfig,
+                                      RWKVConfig)
 from repro_torch.convert import params_from_numpy, params_to_numpy
 from repro_torch.models import attention as t_attn
 from repro_torch.models import layers as t_layers
+from repro_torch.models import mla as t_mla
 from repro_torch.models import rglru as t_rglru
 from repro_torch.models import rwkv6 as t_rwkv
 
@@ -44,12 +49,15 @@ def _cfgs(**kw):
     """The same configuration in both packages' dataclasses."""
     rg = kw.pop("rglru", None)
     rw = kw.pop("rwkv", None)
+    ml = kw.pop("mla", None)
     jc = JaxModelConfig(name="t", family="dense", **{**BASE, **kw},
                         rglru=JaxRGLRUConfig(**rg) if rg else None,
-                        rwkv=JaxRWKVConfig(**rw) if rw else None)
+                        rwkv=JaxRWKVConfig(**rw) if rw else None,
+                        mla=JaxMLAConfig(**ml) if ml else None)
     tc = ModelConfig(name="t", family="dense", **{**BASE, **kw},
                      rglru=RGLRUConfig(**rg) if rg else None,
-                     rwkv=RWKVConfig(**rw) if rw else None)
+                     rwkv=RWKVConfig(**rw) if rw else None,
+                     mla=MLAConfig(**ml) if ml else None)
     assert dataclasses.asdict(jc) == dataclasses.asdict(tc)
     return jc, tc
 
@@ -205,11 +213,142 @@ def test_attn_apply_prefill_then_decode(kind, s):
         assert _err(ty, jy) <= 2e-5 and _tree_err(jcache, tcache) <= 2e-5
 
 
-def test_attn_apply_refuses_cross():
-    _, tc = _cfgs()
-    with pytest.raises(NotImplementedError, match="cross"):
-        t_attn.attn_apply({}, torch.zeros(1, 2, 64), tc, kind="cross",
-                          positions=torch.arange(2))
+@pytest.mark.parametrize("s,t", [(16, 40), (33, 7), (5, 5)])
+def test_attn_apply_cross_prefill_then_decode(s, t):
+    """Cross attention: the prefill (flash, non-causal, T source frames
+    against S target positions, no rotary) caches the encoder's K/V; each
+    decode step reads them (plain torch)."""
+    jc, tc = _cfgs(qkv_bias=True)
+    p = jax.tree.map(np.asarray, j_attn.attn_init(jax.random.key(30), jc,
+                                                  cross=True))
+    tp = params_from_numpy(p, "cpu")
+    jp = jax.tree.map(jnp.asarray, p)
+    jx, tx = _both(_x(2, s + 3, 64, seed=31))
+    jsrc, tsrc = _both(_x(2, t, 64, seed=32))
+    shape = (2, t, jc.n_kv_heads, jc.head_dim)
+    jcache = {"k": jnp.zeros(shape), "v": jnp.zeros(shape)}
+    tcache = {"k": torch.zeros(shape), "v": torch.zeros(shape)}
+    pos = np.arange(s)
+    jy, jcache = j_attn.attn_apply(jp, jx[:, :s], jc, kind="cross",
+                                   positions=jnp.asarray(pos), cache=jcache,
+                                   kv_src=jsrc)
+    ty, tcache = t_attn.attn_apply(tp, tx[:, :s], tc, kind="cross",
+                                   positions=torch.from_numpy(pos),
+                                   cache=tcache, kv_src=tsrc)
+    assert _err(ty, jy) <= 2e-5 and _tree_err(jcache, tcache) <= 2e-5
+    # without a cache (apply): the same output, no cache back
+    ty2, none = t_attn.attn_apply(tp, tx[:, :s], tc, kind="cross",
+                                  positions=torch.from_numpy(pos),
+                                  kv_src=tsrc)
+    assert none is None and torch.equal(ty2, ty)
+    for i in range(3):
+        idx = s + i
+        jy, jcache = j_attn.attn_apply(
+            jp, jx[:, idx:idx + 1], jc, kind="cross",
+            positions=jnp.asarray([idx]), cache=jcache,
+            cache_index=jnp.asarray(idx))
+        ty, tcache = t_attn.attn_apply(
+            tp, tx[:, idx:idx + 1], tc, kind="cross",
+            positions=torch.tensor([idx]), cache=tcache, cache_index=idx)
+        assert _err(ty, jy) <= 2e-5 and _tree_err(jcache, tcache) <= 2e-5
+
+
+@pytest.mark.parametrize("s", [16, 33])
+def test_attn_apply_encoder_mode_is_bidirectional(s):
+    """``causal_override=False`` (the encoder): every position sees every
+    other, as the JAX package's encoder layers do."""
+    jc, tc = _cfgs()
+    p = jax.tree.map(np.asarray, j_attn.attn_init(jax.random.key(33), jc))
+    jx, tx = _both(_x(2, s, 64, seed=34))
+    pos = np.arange(s)
+    jy, _ = j_attn.attn_apply(jax.tree.map(jnp.asarray, p), jx, jc,
+                              kind="global", positions=jnp.asarray(pos),
+                              causal_override=False)
+    ty, _ = t_attn.attn_apply(params_from_numpy(p, "cpu"), tx, tc,
+                              kind="global", positions=torch.from_numpy(pos),
+                              causal_override=False)
+    causal, _ = t_attn.attn_apply(params_from_numpy(p, "cpu"), tx, tc,
+                                  kind="global",
+                                  positions=torch.from_numpy(pos))
+    assert _err(ty, jy) <= 2e-5 and _err(causal, jy) > 1e-2
+
+
+@pytest.mark.parametrize("s,t,dv,causal", [(40, 40, 16, True),
+                                           (33, 33, 8, True),
+                                           (16, 40, 24, False),
+                                           (40, 7, 16, False)])
+def test_flash_with_narrower_v_matches_chunked_attention(s, t, dv, causal):
+    """``ops.flash_attention_gqa`` with v narrower than q and k (MLA's
+    layout; v zero-padded to q's width inside ``ops``) and with T != S
+    (cross attention) against the JAX package's ``chunked_attention``,
+    which takes Dv != Dqk natively. The scale stays q's D ** -0.5."""
+    from repro_torch.kernels import ops
+    q, k, v = _x(2, s, 4, 24, seed=35), _x(2, t, 4, 24, seed=36), \
+        _x(2, t, 4, dv, seed=37)
+    jq, tq = _both(q)
+    jk, tk = _both(k)
+    jv, tv = _both(v)
+    want = j_attn.chunked_attention(jq, jk, jv, causal=causal, k_chunk=16)
+    pos = torch.arange(s) if causal else None
+    got = ops.flash_attention_gqa(tq, tk, tv, causal=causal, positions=pos)
+    assert got.shape == (2, s, 4, dv) and _err(got, want) <= 2e-5
+    with pytest.raises(ValueError, match="exceeds"):
+        ops.flash_attention_gqa(tq[..., :8], tk[..., :8], tk)
+
+
+# ---------------------------------------------------------------------------
+# MLA
+# ---------------------------------------------------------------------------
+
+MLA = dict(kv_lora_rank=32, qk_nope_dim=16, qk_rope_dim=8, v_head_dim=16)
+
+
+@pytest.mark.parametrize("s", [16, 33])
+def test_mla_apply_prefill_then_decode(s):
+    """Prefill (full heads through the flash kernel, v narrower than q and
+    k) and three decode steps (the absorbed low-rank form against the
+    compressed cache) against the JAX package."""
+    jc, tc = _cfgs(mla=MLA)
+    p = jax.tree.map(np.asarray, j_mla.mla_init(jax.random.key(40), jc,
+                                                jc.mla))
+    tp = params_from_numpy(p, "cpu")
+    jp = jax.tree.map(jnp.asarray, p)
+    jx, tx = _both(_x(2, s + 3, 64, seed=41))
+    jcache = j_mla.init_mla_cache(jc, jc.mla, 2, s + 8, jnp.float32)
+    tcache = t_mla.init_mla_cache(tc, tc.mla, 2, s + 8, torch.float32,
+                                  torch.device("cpu"))
+    assert _tree_err(jcache, tcache) == 0.0
+    pos = np.arange(s)
+    jy, jcache = j_mla.mla_apply(jp, jx[:, :s], jc, m=jc.mla,
+                                 positions=jnp.asarray(pos), cache=jcache)
+    ty, tcache = t_mla.mla_apply(tp, tx[:, :s], tc, m=tc.mla,
+                                 positions=torch.from_numpy(pos),
+                                 cache=tcache)
+    assert _err(ty, jy) <= 2e-5 and _tree_err(jcache, tcache) <= 1e-5
+    for i in range(3):
+        idx = s + i
+        jy, jcache = j_mla.mla_apply(
+            jp, jx[:, idx:idx + 1], jc, m=jc.mla,
+            positions=jnp.asarray([idx]), cache=jcache,
+            cache_index=jnp.asarray(idx))
+        ty, tcache = t_mla.mla_apply(
+            tp, tx[:, idx:idx + 1], tc, m=tc.mla,
+            positions=torch.tensor([idx]), cache=tcache, cache_index=idx)
+        assert _err(ty, jy) <= 2e-5 and _tree_err(jcache, tcache) <= 1e-5
+    # without a cache: the same prefill output, no cache back
+    ty2, none = t_mla.mla_apply(tp, tx[:, :s], tc, m=tc.mla,
+                                positions=torch.from_numpy(pos))
+    assert none is None and _err(ty2, j_mla.mla_apply(
+        jp, jx[:, :s], jc, m=jc.mla, positions=jnp.asarray(pos))[0]) <= 2e-5
+
+
+def test_mla_init_layout_matches_jax():
+    jc, tc = _cfgs(mla=MLA)
+    jp = j_mla.mla_init(jax.random.key(0), jc, jc.mla)
+    tp = t_mla.mla_init(torch.Generator().manual_seed(0), tc, tc.mla,
+                        torch.device("cpu"))
+    assert {k: tuple(v["w"].shape) for k, v in tp.items()} == \
+        {k: tuple(v["w"].shape) for k, v in jp.items()}
 
 
 # ---------------------------------------------------------------------------

@@ -1,17 +1,19 @@
 """The port's serving slice against the JAX package, on the CPU in fp32.
 
-For each decoder-only configuration whose layer kinds the port has, the
-same converted parameters and numpy tokens go through both packages'
-``apply``, ``prefill`` and three ``decode_step``s: logits within 2e-4
-(tests/test_serve.py's bar), caches within 1e-4, position tags exact. The
-configurations are tests/test_serve.py's ``hybrid``, ``local``,
-``dense`` and ``rwkv`` at seq 16 and 33 (the local window is 16, so 33
-rolls the ring buffer; 33 is a ragged multiple of rwkv's chunk), and
-``reduce_for_smoke`` of every arch of the port's kinds at seq 40 (past the
-smoke window of 32). The other archs must refuse to
-build. Then the serving entry point (``launch.serve.generate``), its
-greedy tokens against a loop over the JAX package's api, and the port's
-import hygiene and default device on this path.
+For each configuration, the same converted parameters and numpy inputs
+go through both packages' ``apply``, ``prefill`` and three
+``decode_step``s: logits within 2e-4 (tests/test_serve.py's bar), caches
+within 1e-4, position tags exact. The configurations are
+tests/test_serve.py's ``hybrid``, ``local``, ``dense`` and ``rwkv``, and
+small ``mla``, ``moe`` (a dense first layer, then MoE layers with a shared
+expert) and ``encdec`` (2 encoder and 2 decoder layers; seq source frames
+and seq target tokens) configs, at seq 16 and 33 (the local window is 16,
+so 33 rolls the ring buffer; 33 is a ragged multiple of rwkv's chunk),
+and ``reduce_for_smoke`` of every arch at seq 40 (past the smoke window
+of 32). Then the serving entry point (``launch.serve.generate``), its
+greedy tokens against a loop over the JAX package's api, its cast-as-drawn
+initialisation against casting the whole tree, and the port's import
+hygiene and default device on this path.
 """
 import dataclasses
 import os
@@ -29,31 +31,33 @@ import torch
 
 from repro.configs import get_config as j_get_config
 from repro.configs import reduce_for_smoke as j_reduce
-from repro.configs.base import ModelConfig as JaxModelConfig
-from repro.configs.base import RGLRUConfig as JaxRGLRUConfig
-from repro.configs.base import RWKVConfig as JaxRWKVConfig
+from repro.configs import base as j_base
 from repro.models import build as j_build
+from repro.models import encdec as j_encdec
 from repro.models import transformer as j_tf
-from repro_torch.configs import ARCHS, get_config, reduce_for_smoke
-from repro_torch.configs.base import ModelConfig, RGLRUConfig, RWKVConfig
+from repro_torch.configs import ARCHS, base, get_config, reduce_for_smoke
 from repro_torch.convert import params_from_numpy, params_to_numpy
 from repro_torch.launch import serve
-from repro_torch.models import build, transformer
+from repro_torch.models import build, encdec, transformer
 
 ROOT = Path(__file__).resolve().parents[1]
 BASE = dict(n_layers=4, d_model=64, n_heads=4, n_kv_heads=2, head_dim=16,
             d_ff=128, vocab_size=128, dtype="float32", param_dtype="float32")
 
 
+_SUB = {"rglru": "RGLRUConfig", "rwkv": "RWKVConfig", "mla": "MLAConfig",
+        "moe": "MoEConfig"}
+
+
 def _pair(name, family, **kw):
-    rg = kw.pop("rglru", None)
-    rw = kw.pop("rwkv", None)
-    return (JaxModelConfig(name=name, family=family, **BASE, **kw,
-                           rglru=JaxRGLRUConfig(**rg) if rg else None,
-                           rwkv=JaxRWKVConfig(**rw) if rw else None),
-            ModelConfig(name=name, family=family, **BASE, **kw,
-                        rglru=RGLRUConfig(**rg) if rg else None,
-                        rwkv=RWKVConfig(**rw) if rw else None))
+    """The same configuration in both packages' dataclasses."""
+    def make(mod):
+        sub = {k: getattr(mod, cls)(**kw[k]) if k in kw else None
+               for k, cls in _SUB.items()}
+        rest = {k: v for k, v in kw.items() if k not in _SUB}
+        return mod.ModelConfig(name=name, family=family,
+                               **{**BASE, **rest}, **sub)
+    return make(j_base), make(base)
 
 
 SERVE_CFGS = {   # tests/test_serve.py:13-33
@@ -63,13 +67,17 @@ SERVE_CFGS = {   # tests/test_serve.py:13-33
                     rglru=dict(d_rnn=64)),
     "rwkv": _pair("r", "ssm", pattern=("rwkv",),
                   rwkv=dict(head_size=16, decay_lora=8, d_ff=128)),
+    "mla": _pair("m", "dense", n_kv_heads=4,
+                 mla=dict(kv_lora_rank=32, qk_nope_dim=16, qk_rope_dim=8,
+                          v_head_dim=16)),
+    "moe": _pair("e", "moe", first_k_dense=1, dense_d_ff=96,
+                 moe=dict(n_experts=4, top_k=2, d_ff_expert=32, n_shared=1)),
+    "encdec": _pair("s", "encdec", encoder_layers=2, n_kv_heads=4,
+                    mlp_kind="gelu", norm="layernorm", frontend="audio"),
 }
-PORTED_ARCHS = ["recurrentgemma-2b", "gemma3-12b", "nemotron-4-15b",
-                "qwen2.5-14b", "qwen2-vl-2b", "rwkv6-7b", "stablelm-3b"]
-REFUSED_ARCHS = ["deepseek-v2-lite-16b", "phi3.5-moe-42b-a6.6b",
-                 "seamless-m4t-large-v2"]
+ARCH_CASES = sorted(ARCHS)
 CASES = [(n, s) for n in sorted(SERVE_CFGS) for s in (16, 33)] + \
-    [(a, 40) for a in PORTED_ARCHS]
+    [(a, 40) for a in ARCH_CASES]
 
 
 def _cfgs(name):
@@ -119,13 +127,20 @@ def jax_runs():
             tokens = jax.random.randint(jax.random.key(7), (2, seq + 3), 0,
                                         jc.vocab_size, jnp.int32)
             batch = {"tokens": tokens[:, :seq]}
-            patches = None
+            patches = src = None
             if jc.frontend == "vision":
                 patches = jax.random.normal(jax.random.key(9),
                                             (2, jc.n_patches, jc.d_model))
                 batch["patch_embeds"] = patches
-            full = jax.jit(lambda p, t, pe: j_tf.apply(
-                jc, p, t, patch_embeds=pe))(params, tokens, patches)
+            if jc.is_encdec:    # seq source frames, seq target tokens
+                src = jax.random.normal(jax.random.key(9),
+                                        (2, seq, jc.d_model))
+                batch["src_embeds"] = src
+                full = jax.jit(lambda p, s_, t: j_encdec.apply(
+                    jc, p, s_, t))(params, src, tokens)
+            else:
+                full = jax.jit(lambda p, t, pe: j_tf.apply(
+                    jc, p, t, patch_embeds=pe))(params, tokens, patches)
             logits, cache = jax.jit(lambda p, b: api.prefill(
                 p, b, max_len=seq + 8))(params, batch)
             steps = [(logits, cache)]
@@ -138,6 +153,7 @@ def jax_runs():
                         "tokens": np.asarray(tokens),
                         "patches": None if patches is None
                         else np.asarray(patches),
+                        "src": None if src is None else np.asarray(src),
                         "full": np.asarray(full), "steps": steps}
         return out[key]
     return run
@@ -153,11 +169,15 @@ def test_prefill_decode_and_apply_match_jax(jax_runs, name, seq):
     tokens = torch.tensor(ref["tokens"], dtype=torch.long)
     patches = None if ref["patches"] is None \
         else torch.tensor(ref["patches"])
-    full = transformer.apply(tc, params, tokens, patch_embeds=patches)
-    assert _err(full, ref["full"]) <= 2e-4
     batch = {"tokens": tokens[:, :seq]}
     if patches is not None:
         batch["patch_embeds"] = patches
+    if tc.is_encdec:
+        batch["src_embeds"] = torch.tensor(ref["src"])
+        full = encdec.apply(tc, params, batch["src_embeds"], tokens)
+    else:
+        full = transformer.apply(tc, params, tokens, patch_embeds=patches)
+    assert _err(full, ref["full"]) <= 2e-4
     logits, cache = api.prefill(params, batch, max_len=seq + 8)
     for i, (jlogits, jcache) in enumerate(ref["steps"]):
         if i:
@@ -181,70 +201,143 @@ def test_lm_loss_matches_jax(jax_runs):
     assert abs(float(got) - float(want)) <= 1e-5
 
 
-def test_init_layout_matches_jax():
+def test_encdec_loss_and_encode_match_jax(jax_runs):
+    ref = jax_runs("encdec", 33)
+    jc, tc = _cfgs("encdec")
+    jp = jax.tree.map(jnp.asarray, ref["params"])
+    tp = params_from_numpy(ref["params"], "cpu")
+    src, tokens = ref["src"], ref["tokens"]
+    want = j_encdec.encdec_loss(jc, jp, {"src_embeds": jnp.asarray(src),
+                                         "tokens": jnp.asarray(tokens)})
+    got = build(tc, "cpu").loss(tp, {
+        "src_embeds": torch.tensor(src),
+        "tokens": torch.tensor(tokens, dtype=torch.long)})
+    assert abs(float(got) - float(want)) <= 1e-5
+    enc_j = j_encdec.encode(jc, jp, jnp.asarray(src))
+    enc_t = encdec.encode(tc, tp, torch.tensor(src))
+    assert _err(enc_t, enc_j) <= 2e-4
+
+
+def test_encdec_make_inputs_halves_the_shape():
+    """A serving shape of S positions: S / 2 source frames of d_model in
+    the compute dtype and S / 2 target tokens (the JAX package's map)."""
+    _, tc = _cfgs("seamless-m4t-large-v2")
+    shape = base.ShapeConfig("serve", 40, 3, "prefill")
+    got = build(tc, "cpu").make_inputs(shape, torch.Generator().manual_seed(0))
+    want = j_build(_cfgs("seamless-m4t-large-v2")[0]).make_inputs(
+        shape, jax.random.key(0))
+    assert {k: tuple(v.shape) for k, v in got.items()} == \
+        {k: tuple(v.shape) for k, v in want.items()} == \
+        {"src_embeds": (3, 20, tc.d_model), "tokens": (3, 20)}
+    assert got["src_embeds"].dtype == torch.float32
+    assert int(got["tokens"].max()) < tc.vocab_size
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "rwkv6-7b",
+                                  "deepseek-v2-lite-16b",
+                                  "phi3.5-moe-42b-a6.6b",
+                                  "seamless-m4t-large-v2"])
+def test_init_layout_matches_jax(arch):
     """The port's own init draws the JAX package's tree: same paths,
     shapes and dtypes, unit params stacked over repeats (an rwkv layer has
-    no ``mlp``), and the cache of each layer kind (rwkv's shift and wkv
-    state, not an RG-LRU state)."""
-    for arch in ("recurrentgemma-2b", "rwkv6-7b"):
-        jc, tc = _cfgs(arch)
+    no ``mlp``; a MoE layer a ``moe`` in its place, past deepseek's dense
+    first layer; MLA's projections; the encoder-decoder's stacked encoder
+    and decoder, the decoder's cross attention), and the cache of each
+    layer kind (rwkv's shift and wkv state, not an RG-LRU state; MLA's
+    compressed c_kv and k_rope; the decoder's self and cross K/V)."""
+    jc, tc = _cfgs(arch)
+    if jc.is_encdec:
+        jparams = jax.eval_shape(lambda: j_encdec.init_params(
+            jc, jax.random.key(0)))
+        tparams = encdec.init_params(
+            tc, torch.Generator().manual_seed(0), "cpu")
+        jcache = jax.eval_shape(lambda: j_encdec.init_dec_cache(
+            jc, 2, 40, 20))
+        tcache = encdec.init_dec_cache(tc, 2, 40, 20, device="cpu")
+    else:
         jparams = jax.eval_shape(lambda: j_tf.init_params(
             jc, jax.random.key(0)))
         tparams = transformer.init_params(
             tc, torch.Generator().manual_seed(0), "cpu")
-        flat_j = jax.tree_util.tree_flatten_with_path(jparams)[0]
-        flat_t = jax.tree_util.tree_flatten_with_path(
-            params_to_numpy(tparams))[0]
-        assert [(p, tuple(a.shape), str(a.dtype)) for p, a in flat_j] == \
-            [(p, a.shape, str(a.dtype)) for p, a in flat_t], arch
         jcache = jax.eval_shape(lambda: j_tf.init_cache(jc, 2, 40))
         tcache = transformer.init_cache(tc, 2, 40, device="cpu")
-        assert [(p, tuple(a.shape), str(a.dtype)) for p, a in
-                jax.tree_util.tree_flatten_with_path(jcache)[0]] == \
-            [(p, a.shape, str(a.dtype)) for p, a in
-             jax.tree_util.tree_flatten_with_path(
-                 params_to_numpy(tcache))[0]], arch
+    flat_j = jax.tree_util.tree_flatten_with_path(jparams)[0]
+    flat_t = jax.tree_util.tree_flatten_with_path(
+        params_to_numpy(tparams))[0]
+    assert [(p, tuple(a.shape), str(a.dtype)) for p, a in flat_j] == \
+        [(p, a.shape, str(a.dtype)) for p, a in flat_t], arch
+    assert [(p, tuple(a.shape), str(a.dtype)) for p, a in
+            jax.tree_util.tree_flatten_with_path(jcache)[0]] == \
+        [(p, a.shape, str(a.dtype)) for p, a in
+         jax.tree_util.tree_flatten_with_path(
+             params_to_numpy(tcache))[0]], arch
 
 
-@pytest.mark.parametrize("arch", REFUSED_ARCHS)
-def test_unported_archs_refuse_to_build(arch):
-    assert arch in ARCHS
-    cfg = reduce_for_smoke(get_config(arch))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        build(cfg, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        transformer.init_params(cfg, torch.Generator(), "cpu")
+SERVED = ["recurrentgemma-2b", "rwkv6-7b", "deepseek-v2-lite-16b",
+          "phi3.5-moe-42b-a6.6b", "seamless-m4t-large-v2"]
 
 
-def test_serving_params_cast_once_and_keep_fp32_leaves():
+def _paths(tree, path=()):
+    """(path, tensor) of every leaf, in the tree's order."""
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items() for x in _paths(v, path + (k,))]
+    if isinstance(tree, list):
+        return [x for i, v in enumerate(tree) for x in _paths(v, path + (i,))]
+    return [(path, tree)]
+
+
+def _apply(cfg, params, seq=40):
+    """Teacher-forced logits of a fixed batch (source frames and target
+    tokens for the encoder-decoder)."""
+    gen = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (2, seq), generator=gen)
+    if cfg.is_encdec:
+        src = torch.randn((2, seq, cfg.d_model), generator=gen)
+        return encdec.apply(cfg, params, src, tokens)
+    return transformer.apply(cfg, params, tokens)
+
+
+@pytest.mark.parametrize("arch", SERVED)
+def test_serving_params_cast_once_and_keep_fp32_leaves(arch):
     """Casting once is bit-identical to casting at each use; the leaves
     each use reads in fp32 (norms, rglru's lam, rwkv's decay LoRA, w0, u
     and group-norm scale) stay fp32."""
     keep = {"scale", "bias", "lam", "w0", "w_lora_a", "w_lora_b", "u",
             "ln_scale"}
-    for arch in ("recurrentgemma-2b", "rwkv6-7b"):
-        cfg = dataclasses.replace(reduce_for_smoke(get_config(arch)),
-                                  dtype="bfloat16")
-        params = transformer.init_params(
-            cfg, torch.Generator().manual_seed(0), "cpu")
-        cast = serve.serving_params(cfg, params)
+    cfg = dataclasses.replace(reduce_for_smoke(get_config(arch)),
+                              dtype="bfloat16")
+    params = build(cfg, "cpu").init(torch.Generator().manual_seed(0))
+    cast = serve.serving_params(cfg, params)
+    got = _paths(cast)
+    assert len(got) == len(_paths(params)) > 10
+    for path, leaf in got:     # a leaf's dict key is its path's last
+        assert leaf.dtype == (torch.float32 if path[-1] in keep
+                              else torch.bfloat16), (arch, path)
+    a = _apply(cfg, params)
+    assert torch.equal(a, _apply(cfg, cast)), arch   # bit-identical
 
-        def leaves(tree, key=None):
-            if isinstance(tree, dict):
-                return [x for k, v in tree.items() for x in leaves(v, k)]
-            if isinstance(tree, list):
-                return [x for v in tree for x in leaves(v, key)]
-            return [(key, tree)]
-        got = leaves(cast)
-        assert len(got) == len(leaves(params)) > 20
-        for key, leaf in got:
-            assert leaf.dtype == (torch.float32 if key in keep
-                                  else torch.bfloat16), (arch, key)
-        tokens = torch.randint(0, cfg.vocab_size, (2, 40),
-                               generator=torch.Generator().manual_seed(1))
-        a = transformer.apply(cfg, params, tokens)
-        b = transformer.apply(cfg, cast, tokens)
-        assert torch.equal(a, b), arch   # casting once is bit-identical
+
+@pytest.mark.parametrize("arch", SERVED)
+def test_cast_as_drawn_init_is_bit_identical(arch):
+    """``init_serving_params`` (each piece cast as it is drawn, stacked
+    layers written into their stack one by one) gives
+    ``serving_params(cfg, api.init(gen))`` bit for bit: the same paths,
+    dtypes and values, and it leaves the generator where the whole-tree
+    draw leaves it (the same draws in the same order). The paper-size
+    param_dtype of phi3.5-moe (bf16 weights) is kept here."""
+    cfg = dataclasses.replace(reduce_for_smoke(get_config(arch)),
+                              dtype="bfloat16",
+                              param_dtype=get_config(arch).param_dtype)
+    api = build(cfg, "cpu")
+    g1, g2 = torch.Generator().manual_seed(5), torch.Generator().manual_seed(5)
+    want = _paths(serve.serving_params(cfg, api.init(g1)))
+    got = _paths(serve.init_serving_params(api, g2))
+    assert [p for p, _ in want] == [p for p, _ in got]
+    assert any(t.dtype == torch.bfloat16 for _, t in got)
+    for (path, a), (_, b) in zip(want, got):
+        assert a.dtype == b.dtype and torch.equal(a, b), path
+    assert torch.equal(torch.randn(4, generator=g1),
+                       torch.randn(4, generator=g2))
 
 
 def test_generate_on_cpu():
@@ -300,7 +393,9 @@ def test_serving_path_runs_without_jax_or_repro_loaded():
         "import sys\n"
         "from repro_torch.configs import get_config, reduce_for_smoke\n"
         "from repro_torch.launch import serve\n"
-        "for arch in ('recurrentgemma-2b', 'rwkv6-7b'):\n"
+        "for arch in ('recurrentgemma-2b', 'rwkv6-7b', "
+        "'deepseek-v2-lite-16b', 'phi3.5-moe-42b-a6.6b', "
+        "'seamless-m4t-large-v2'):\n"
         "    cfg = reduce_for_smoke(get_config(arch))\n"
         "    out = serve.generate(cfg, batch=2, prompt_len=40, gen=3, "
         "device='cpu')\n"
@@ -332,7 +427,8 @@ def test_serving_path_runs_without_jax_or_repro_loaded():
 def test_serving_entry_points_default_to_cuda_and_raise_without_it(
         monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for arch in ("recurrentgemma-2b", "rwkv6-7b"):
+    for arch in ("recurrentgemma-2b", "rwkv6-7b", "deepseek-v2-lite-16b",
+                 "seamless-m4t-large-v2"):
         cfg = reduce_for_smoke(get_config(arch))
         for call in (lambda: serve.generate(cfg, batch=1, prompt_len=4,
                                             gen=2),
