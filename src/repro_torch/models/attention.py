@@ -161,13 +161,16 @@ def attn_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *, kind: str,
                cache: Optional[dict] = None,
                cache_index: Optional[int] = None,
                kv_src: Optional[torch.Tensor] = None,
-               causal_override: Optional[bool] = None
+               causal_override: Optional[bool] = None,
+               cache_in_place: bool = False
                ) -> tuple[torch.Tensor, Optional[dict]]:
     """One attention mixer. Modes:
 
     * train / prefill: ``cache_index is None``; x is (B,S,D); a given
       ``cache`` is filled from position 0;
-    * decode: ``cache_index`` (int) given, x is (B,1,D);
+    * decode: ``cache_index`` (int) given, x is (B,1,D); the new key and
+      value go into copies of the cache's tensors, or, with
+      ``cache_in_place`` (the caller's own copy), into those tensors;
     * cross: ``kind == 'cross'`` with ``kv_src`` (B,T,D), the encoder
       output (its K/V replace a given ``cache``), or without it, the K/V
       cached at prefill.
@@ -239,12 +242,13 @@ def attn_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *, kind: str,
     # ----- decode (s == 1), plain torch -----
     idx = int(cache_index)
     length = cache["k"].shape[1]
-    kc, vc = cache["k"].clone(), cache["v"].clone()
+    new = (lambda t: t) if cache_in_place else torch.clone
+    kc, vc = new(cache["k"]), new(cache["v"])
     if "pos" in cache:  # local ring buffer
         slot = idx % length
         kc[:, slot] = k[:, 0].to(kc.dtype)
         vc[:, slot] = v[:, 0].to(vc.dtype)
-        posc = cache["pos"].clone()
+        posc = new(cache["pos"])
         posc[slot] = idx
         valid = (posc >= 0) & (posc <= idx) & (posc > idx - cfg.window)
         new_cache = {"k": kc, "v": vc, "pos": posc}

@@ -69,14 +69,28 @@ def _run_stacked(cfg: ModelConfig, stacked: dict, x: torch.Tensor, *,
                  cache_index: Optional[int] = None, want_cache: bool = False,
                  encoder_mode: bool = False
                  ) -> tuple[torch.Tensor, Optional[dict]]:
+    """The layers of a stack in turn. In decode (``cache_index`` given)
+    the cross K/V, which never change after prefill, pass through as the
+    same tensors, and the self-attention caches are copied once, as a
+    stack, each layer writing its token into its slot of the copy."""
     n = stacked["norm1"]["scale"].shape[0]
+    if cache_index is not None:
+        self_kv = _tree_map(torch.clone, caches["attn"])
+        for i in range(n):
+            x, _ = _apply_layer(
+                _tree_index(stacked, i), x, cfg, "global",
+                positions=positions, cache_index=cache_index,
+                cache={"attn": _tree_index(self_kv, i),
+                       "cross": _tree_index(caches["cross"], i)},
+                cache_in_place=True)
+        return x, {"attn": self_kv, "cross": caches["cross"]}
     new = []
     for i in range(n):
         x, nc = _apply_layer(
             _tree_index(stacked, i), x, cfg, "global", positions=positions,
             cache=_tree_index(caches, i) if caches is not None else None,
-            cache_index=cache_index, cross_src=cross_src,
-            want_cache=want_cache, encoder_mode=encoder_mode)
+            cross_src=cross_src, want_cache=want_cache,
+            encoder_mode=encoder_mode)
         new.append(nc)
     return x, (_tree_stack(new) if want_cache else None)
 
@@ -143,11 +157,13 @@ def prefill(cfg: ModelConfig, params: PyTree, src_embeds: torch.Tensor,
 
 def decode_step(cfg: ModelConfig, params: PyTree, token: torch.Tensor,
                 caches: PyTree, index: int) -> tuple[torch.Tensor, PyTree]:
-    """One target-token decode against the cached encoder K/V."""
+    """One target-token decode against the cached encoder K/V. The
+    returned caches hold ``caches``' cross K/V tensors themselves and a
+    new copy of the self-attention caches; ``caches`` is left as it was."""
     index = int(index)
     x = _embed(cfg, params, token[:, None])
     x, new_caches = _run_stacked(
         cfg, params["decoder"], x,
         positions=torch.arange(index, index + 1, device=token.device),
-        caches=caches, cache_index=index, want_cache=True)
+        caches=caches, cache_index=index)
     return _logits(cfg, params, x)[:, 0], new_caches

@@ -149,8 +149,11 @@ def _apply_layer(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
                  positions: torch.Tensor, cache: Optional[dict] = None,
                  cache_index: Optional[int] = None,
                  cross_src: Optional[torch.Tensor] = None,
-                 want_cache: bool = False, encoder_mode: bool = False
+                 want_cache: bool = False, encoder_mode: bool = False,
+                 cache_in_place: bool = False
                  ) -> tuple[torch.Tensor, Optional[dict]]:
+    """One layer. ``cache_in_place``: decode writes the self-attention
+    cache's new token into the given tensors (``attn_apply``)."""
     kind = _mixer_kind(cfg, kind)
     dt = torch_dtype(cfg.dtype)
     new_cache: dict = {}
@@ -174,7 +177,8 @@ def _apply_layer(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
             p["attn"], h, cfg, kind=kind, positions=positions,
             cache=cache.get("attn") if cache else None,
             cache_index=cache_index,
-            causal_override=False if encoder_mode else None)
+            causal_override=False if encoder_mode else None,
+            cache_in_place=cache_in_place)
         if want_cache:
             new_cache["attn"] = attn_cache
     elif kind == "mla":

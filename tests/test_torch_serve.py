@@ -218,6 +218,34 @@ def test_encdec_loss_and_encode_match_jax(jax_runs):
     assert _err(enc_t, enc_j) <= 2e-4
 
 
+def test_encdec_decode_passes_cross_kv_through_and_keeps_its_input(
+        jax_runs):
+    """A decode step hands the cross K/V on as the same tensors (the
+    encoder's K/V never change after prefill: no copy a step), writes its
+    token into a new copy of the self-attention caches, and leaves the
+    caches it was given as they were; the step's logits and caches match
+    the JAX package's (test_prefill_decode_and_apply_match_jax's bars)."""
+    ref = jax_runs("encdec", 16)
+    _, tc = _cfgs("encdec")
+    tp = params_from_numpy(ref["params"], "cpu")
+    tokens = torch.tensor(ref["tokens"], dtype=torch.long)
+    _, caches = encdec.prefill(tc, tp, torch.tensor(ref["src"]),
+                               tokens[:, :16], max_len=24)
+    before = [t.clone() for _, t in _paths(caches)]
+    logits, new = encdec.decode_step(tc, tp, tokens[:, 16], caches, 16)
+    assert new["cross"]["k"] is caches["cross"]["k"]
+    assert new["cross"]["v"] is caches["cross"]["v"]
+    assert new["attn"]["k"].data_ptr() != caches["attn"]["k"].data_ptr()
+    assert all(torch.equal(a, t) for a, (_, t) in zip(before,
+                                                      _paths(caches)))
+    assert not torch.equal(new["attn"]["k"][:, :, 16],
+                           caches["attn"]["k"][:, :, 16])
+    want_logits, want_cache = ref["steps"][1]
+    assert _err(logits, want_logits) <= 2e-4
+    cerr, tags = _cache_errs(want_cache, new)
+    assert cerr <= 1e-4 and tags
+
+
 def test_encdec_make_inputs_halves_the_shape():
     """A serving shape of S positions: S / 2 source frames of d_model in
     the compute dtype and S / 2 target tokens (the JAX package's map)."""
@@ -301,7 +329,10 @@ def _apply(cfg, params, seq=40):
 def test_serving_params_cast_once_and_keep_fp32_leaves(arch):
     """Casting once is bit-identical to casting at each use; the leaves
     each use reads in fp32 (norms, rglru's lam, rwkv's decay LoRA, w0, u
-    and group-norm scale) stay fp32."""
+    and group-norm scale) stay fp32. Every leaf is cast or kept: the cast
+    tree has as many leaves as the JAX package's tree of the same config,
+    more than 20 (phi3.5-moe's smoke tree, one MoE layer without shared
+    experts, has 16)."""
     keep = {"scale", "bias", "lam", "w0", "w_lora_a", "w_lora_b", "u",
             "ln_scale"}
     cfg = dataclasses.replace(reduce_for_smoke(get_config(arch)),
@@ -309,7 +340,10 @@ def test_serving_params_cast_once_and_keep_fp32_leaves(arch):
     params = build(cfg, "cpu").init(torch.Generator().manual_seed(0))
     cast = serve.serving_params(cfg, params)
     got = _paths(cast)
-    assert len(got) == len(_paths(params)) > 10
+    n_jax = len(jax.tree.leaves(
+        j_build(j_reduce(j_get_config(arch))).init(jax.random.key(0))))
+    assert len(got) == len(_paths(params)) == n_jax
+    assert n_jax > (15 if arch == "phi3.5-moe-42b-a6.6b" else 20)
     for path, leaf in got:     # a leaf's dict key is its path's last
         assert leaf.dtype == (torch.float32 if path[-1] in keep
                               else torch.bfloat16), (arch, path)
