@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch / H100 port (``src/repro_torch``).
 
-Drives the port's seven paths on one NVIDIA Hopper card, through the
+Drives the port's eight paths on one NVIDIA Hopper card, through the
 entry points a user calls:
 
 * the paper's wireless D-PSGD run: Eq. 2 capacities, Algorithm 2 rates at
@@ -37,7 +37,14 @@ entry points a user calls:
   (12 + 12 layers, d_model 1024; the prompt's 4096 positions as 2048
   source frames and 2048 target tokens), its encoder's bidirectional,
   its decoder's causal and its cross attention's prefill in the flash
-  kernel.
+  kernel;
+* training stablelm-3b over a precomputed wireless trace
+  (``sim.train_model_on_traces(sim.batch.transformer_adapter(...))``) at
+  its published widths (d_model 2560, 32 heads of 80, d_ff 6912, vocab
+  50 304; 1 layer: 6 fp32 replicas of 32 would not fit the card), D-PSGD
+  on 6 nodes at batch 4 x 512 tokens, each round one CUDA graph replay,
+  every attention's forward in ``csrc/flash_attention.cu`` (with its
+  log-sum-exp) and its backward in ``csrc/flash_attention_bwd.cu``.
 
 Phases, each of which ends the run with a nonzero exit if it fails:
 
@@ -46,7 +53,8 @@ Phases, each of which ends the run with a nonzero exit if it fails:
 2. build    — nvcc builds every kernel from the sources into ``build/``
               (one nvcc per source, started together); each flash entry's
               registers and spill bytes from the ptxas report, and the
-              bf16 (wgmma) kernels must not spill;
+              six bf16 (wgmma) kernels (DP 64, 128, 256, each with and
+              without the lse write) must not spill;
 3. kernels  — each kernel against its plain torch version at the main
               paths' shapes and at edge shapes, its ValueError contracts,
               and its time beside its bound, plain and library times; the
@@ -79,7 +87,15 @@ Phases, each of which ends the run with a nonzero exit if it fails:
               bit-equal (q, scales, new residual) to its plain version and
               to the unfused sequence of launches at ragged lengths, one
               dead node, error feedback on and off, timed at the path's
-              message);
+              message;
+              3e: flash_attention_bwd against its plain version (its
+              sums in float64: the oracle), bf16 and fp32, at phase 16's
+              shape (24, 512, 32, 80) causal, at
+              phase 17's, windowed D 256 with 10 q heads on 1 kv head,
+              non-causal T != S at D 64, D 192 and ragged S: fp32 2e-5,
+              bf16 3e-2 and rows 2^-6; each timed beside its bound (5
+              products a pair), its plain version and SDPA's forward and
+              backward (autograd));
 4. slice    — the paper run, each λ target's 40 steps twice in turns:
               the eager body, then the entry point, whose step is a CUDA
               graph (steps/s of both); the gossip_mix launch counter must
@@ -167,15 +183,32 @@ Phases, each of which ends the run with a nonzero exit if it fails:
               cross attention in prefill; none in decode), the readings
               of 6;
 15. encoder-decoder correctness — (a) as 7(a), prompt 2048 over 2048
-              source frames; (b) as 13(b).
+              source frames; (b) as 13(b);
+16. training stablelm-3b — at full width (1 layer), 4 rounds of
+              ``static`` after a one-round warm-up (the capture): exactly
+              one flash forward and one backward a layer per round for all
+              6 nodes, one rows mix per buffer of the mix (9 a round: the
+              leaves in buffers of at most 2^24 lanes a node), one graph
+              signature; the
+              four masked mean losses finite, the first near ln 50 304;
+              the accuracy; host ms per round, one replay's card ms, the
+              loop's idle share, peak memory beside the prediction; then
+              the per-round reference (``train_on_trace_reference``, after
+              the family's graph is freed): losses 1e-4, parameters 1e-5;
+17. training correctness — the smoke config in fp32, 3 rounds of
+              ``static`` and of ``compressed_int8`` with per-leaf int8 (the
+              send and q8 kernels once per leaf a round), every round's
+              body rerun on the CPU from the card's inputs: losses 1e-4,
+              parameters and residuals 1e-5.
 
 Each phase prints its wall time. The last lines are the card's
 ``nvidia-smi`` name and power limit, one JSON line with every kernel's
 numbers (quantize_int8 and dequantize_int8, off the int8 round now,
 count 0 launches there and phase 3d's checks under ``check_launches``;
 flash's ``launches`` are phase 6's, its ``launches_by_path`` add phases
-12 and 14, and its ``mla``, ``cross`` and ``decoder`` keys time the new
-prefill shapes), and
+12, 14 and 16, and its ``mla``, ``cross`` and ``decoder`` keys time the new
+prefill shapes; flash_attention_bwd's are phase 16's, its
+``library_ms`` SDPA's backward and ``library_fwd_ms`` its forward), and
 ``{"ok": true, "device": ...}``.
 
 Run from the repository root:  python3 chip_smoke.py
@@ -218,6 +251,9 @@ TOL_RWKV = 5e-4                          # tests/test_kernels.py
 # 0.022 of its norm, while the kernel's own roundings (P and out to bf16)
 # stay well below the bar (PERF.md, PR 15's row of the flash kernel).
 TOL_FLASH_ROW = 2.0 ** -6
+# the forward's fp32 log-sum-exp of a row against the plain version's
+# (torch.logsumexp of the same fp32 scores): rows of ~512 keys, lse ~7
+TOL_LSE = 1e-5
 
 # the serving slice (phases 6-7): recurrentgemma-2b at its published widths
 SERVE_ARCH = "recurrentgemma-2b"
@@ -266,6 +302,23 @@ FAMILY_INT8 = 4                      # (a) compressed_int8 seeds
 FAMILY_CHAOS = 2                     # (b) fault_chaos seeds, watchdog armed
 PARITY_ROUNDS = 8                    # (c) first rounds held within 1e-5
 FAMILY_CPU_ROUNDS = 5                # (d) family rounds rerun on the CPU
+
+
+# training stablelm-3b on wireless traces (phases 3e, 16, 17): its
+# published widths at a depth of 1 layer (6 fp32 replicas of its 32 layers
+# are 67 GB before any gradient; 1 layer is 1.35 GB a replica), batch 4 of
+# 512 tokens a node, the static scenario (6 nodes), 4 rounds; 17 at the
+# smoke widths, 3 rounds of static and of per-leaf int8
+TRAIN_ARCH = "stablelm-3b"
+TRAIN_LAYERS = 1
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_EVAL_BATCH = 4, 512, 8
+TRAIN_ROUNDS = 4
+# predicted before the card run of the one-output-mode loop (each round's
+# outputs fresh tensors; PERF.md)
+TRAIN_PEAK_GIB = (50.0, 55.0)
+LOCK_TRAIN_SEQ, LOCK_TRAIN_ROUNDS = 32, 3
+# the backward kernel at phase 16's shape: 6 nodes x batch 4 folded into B
+BWD_MAIN = (N_NODES * TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 32, 32, 80, True, 0)
 
 
 def fail(msg: str) -> None:
@@ -453,6 +506,25 @@ def attn_cost(b: int, s: int, t: int, h: int, d: int, dv: int,
         (2.0 * d + 2.0 * dv) * pairs * b * h
 
 
+def band_pairs(s: int, t: int, causal: bool, window: int) -> int:
+    """(query, key) pairs of the band over S queries and T keys: causal
+    t <= s, window s - t < w."""
+    q = np.arange(s)
+    lo = np.maximum(0, q - window + 1) if window else np.zeros_like(q)
+    hi = np.minimum(t, q + 1) if causal else np.full_like(q, t)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def bwd_cost(b: int, s: int, t: int, hq: int, hkv: int, d: int,
+             causal: bool, window: int, elt: int) -> tuple[float, float]:
+    """flash_attention_bwd: q, o, do (B, S, Hq, D), k, v (B, T, Hkv, D) and
+    lse fp32 (B, Hq, S) read once, dq, dk, dv written once; 5 products of D
+    multiply-adds per (query, key) pair of the band (q.k, do.v, P^T do,
+    dS^T q, dS k: 10 D flops), for every batch and q head."""
+    nbytes = elt * (4 * b * s * hq * d + 4 * b * t * hkv * d) + 4 * b * hq * s
+    return nbytes, 10.0 * d * band_pairs(s, t, causal, window) * b * hq
+
+
 def rglru_cost(b: int, s: int, d: int) -> tuple[float, float]:
     """rglru_scan: fp32 a, b in and h out (B, S, D), h0 (B, D); one
     multiply-add (2 flops) per element."""
@@ -613,9 +685,10 @@ def phase_build() -> None:
         # the flash entries by name: the bf16 (wgmma) kernels must not spill
         bf16 = []
         for entry, regs, st, ld in ptxas_entries(text):
-            m = re.search(r"(flash_attention(?:_bf16)?_kernel)ILi(\d+)E",
-                          entry)
-            label = f"{m[1]}<{m[2]}>" if m else entry
+            m = re.search(r"(flash_attention(?:_bf16)?_kernel)ILi(\d+)ELb"
+                          r"([01])E", entry)
+            label = f"{m[1]}<{m[2]}{', lse' if m[3] == '1' else ''}>" \
+                if m else entry
             print(f"   {label}: {regs} registers, spill stores {st} B, "
                   f"spill loads {ld} B")
             if "_bf16_" in label:
@@ -623,8 +696,8 @@ def phase_build() -> None:
         for line in text.splitlines():
             if "Performance Loss" in line:      # wgmma serialised by ptxas
                 print(f"   {line.strip()}")
-        check(len(bf16) == 3, f"ptxas log names {len(bf16)} bf16 flash "
-              "kernels, expected 3 (DP 64, 128, 256)")
+        check(len(bf16) == 6, f"ptxas log names {len(bf16)} bf16 flash "
+              "kernels, expected 6 (DP 64, 128, 256, with and without lse)")
         check(all(n == 0 for _, n in bf16), f"bf16 flash kernels spill: {bf16}")
 
 
@@ -2608,9 +2681,9 @@ def phase_train_on_trace(torch, simulated: dict) -> dict:
     entry = next(iter(step._entries.values()))
     # is one replay repeatable? the same static inputs, replayed twice
     entry.graph.replay()
-    first_out = [f.clone() for f in entry.flats]
+    first_out = [f.clone() for f in entry.outs]
     entry.graph.replay()
-    repeat = max(err(a, b) for a, b in zip(first_out, entry.flats))
+    repeat = max(err(a, b) for a, b in zip(first_out, entry.outs))
     print(f"(e) one family round replayed twice from the same inputs: "
           f"max|diff| of its outputs {repeat:.3e}")
     replay_ms = time_ms(torch, entry.graph.replay, reps=20, rounds=5,
@@ -2631,6 +2704,449 @@ def phase_train_on_trace(torch, simulated: dict) -> dict:
             "per_trace_ms": per_trace, "replay_ms": replay_ms,
             "idle": idle, "wall_s": wall_a, "peak_gib": peak,
             "driver_ms": driver_ms, "repeat": repeat}
+
+
+def phase_flash_backward(torch) -> dict:
+    phase("3e. flash_attention_bwd against its plain version")
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    bf16, f32 = torch.bfloat16, torch.float32
+    tol = {f32: TOL_FLASH_FP32, bf16: TOL_BF16}
+    # phase 16's shape, phase 17's (the smoke widths, fp32), then edge
+    # shapes: windowed D 256 with 10 q heads on 1 kv head (GQA summed in
+    # the kernel), non-causal T != S both ways at D 64, D 192, ragged S
+    lock = (N_NODES * TRAIN_BATCH, LOCK_TRAIN_SEQ, LOCK_TRAIN_SEQ, 4, 4, 16,
+            True, 0)
+    edges = [(2, 1000, 1000, 10, 1, 256, True, 300),
+             (2, 100, 333, 16, 16, 64, False, 0),
+             (2, 333, 100, 16, 16, 64, False, 0),
+             (1, 300, 300, 16, 16, 192, True, 0),
+             (2, 77, 77, 4, 2, 80, True, 0)]
+    cases = [(*BWD_MAIN, bf16), (*BWD_MAIN, f32), (*lock, f32)] + \
+        [(*e, dt) for e in edges for dt in (bf16, f32)]
+    worst, worst_fwd, out = 0.0, 0.0, {}
+    for b, s, t, hq, hkv, d, causal, window, dtype in cases:
+        q, do = (torch.randn((b, s, hq, d), generator=gen, device=dev)
+                 .to(dtype) for _ in range(2))
+        k, v = (torch.randn((b, t, hkv, d), generator=gen, device=dev)
+                .to(dtype) for _ in range(2))
+        what = (f"({b},{s}x{t},{hq}/{hkv},{d}) causal={causal} w={window} "
+                f"{str(dtype)[6:]}")
+        # the forward instance that writes lse, against the plain version
+        o, lse = fa._forward(q, k, v, causal, window, True)
+        o_p, lse_p = fa.flash_attention_plain(q, k, v, causal=causal,
+                                              window=window, return_lse=True)
+        torch.cuda.synchronize()
+        check(lse.shape == lse_p.shape and bool(torch.equal(
+            torch.isfinite(lse), torch.isfinite(lse_p))),
+              f"flash_attention forward {what}: lse {lse.shape}")
+        live = torch.isfinite(lse_p)
+        e_o, e_l = err(o, o_p), err(lse[live], lse_p[live])
+        line = f"out max|err| {e_o:.3e} (tol {tol[dtype]:g})"
+        check(e_o <= tol[dtype], f"flash_attention forward {what}: out "
+              f"max|err| {e_o} > {tol[dtype]}")
+        if dtype == bf16:
+            re = row_err(o, o_p)
+            line += f", row |err|/|want| {re:.3e} (tol {TOL_FLASH_ROW:g})"
+            check(re <= TOL_FLASH_ROW, f"flash_attention forward {what}: "
+                  f"row error {re} > {TOL_FLASH_ROW}")
+        line += f"; lse max|err| {e_l:.3e} (tol {TOL_LSE:g})"
+        check(e_l <= TOL_LSE, f"flash_attention forward {what}: lse "
+              f"max|err| {e_l} > {TOL_LSE}")
+        print(f"flash_attention forward with lse {what:48s} {line}")
+        worst_fwd = max(worst_fwd, e_o)
+        # the backward on the kernel's forward and on the plain one, each
+        # against the plain version's formulas summed in float64 on the
+        # same o and lse (two fp32 orders of a key's g x S-term sums differ
+        # by tens of ulps)
+        for src, (oo, ll) in (("kernel", (o, lse)), ("plain", (o_p, lse_p))):
+            got = fa.flash_attention_bwd(q, k, v, oo, ll, do, causal=causal,
+                                         window=window)
+            torch.cuda.synchronize()
+            want = fa.flash_attention_bwd_plain(q, k, v, oo, ll, do,
+                                                causal=causal, window=window,
+                                                acc_dtype=torch.float64)
+            for name, g, w_ in zip(("dq", "dk", "dv"), got, want):
+                check(g.shape == w_.shape and g.dtype == w_.dtype,
+                      f"flash_attention_bwd {what} {name}: {g.shape}/"
+                      f"{g.dtype}")
+                e = err(g, w_)
+                worst = max(worst, e)
+                line = f"max|err| {e:.3e} (tol {tol[dtype]:g})"
+                check(e <= tol[dtype], f"flash_attention_bwd {what} {name} "
+                      f"({src} forward): max|err| {e} > {tol[dtype]}")
+                if dtype == bf16:
+                    # dq of a query with one live key (the first, causal)
+                    # is 0 exactly: its softmax has no gradient, both sides
+                    # hold rounding noise with no norm to be held against;
+                    # those rows are held by the absolute bar only
+                    first = 1 if name == "dq" and causal else 0
+                    re = row_err(g[:, first:], w_[:, first:])
+                    line += (f", row |err|/|want| {re:.3e} "
+                             f"(tol {TOL_FLASH_ROW:g})")
+                    check(re <= TOL_FLASH_ROW, f"flash_attention_bwd {what} "
+                          f"{name} ({src} forward): row error {re} > "
+                          f"{TOL_FLASH_ROW}")
+                print(f"flash_attention_bwd {what:48s} {name} on the {src} "
+                      f"forward: {line}")
+            del got, want
+        del o_p, lse_p
+
+        # times: the kernel, its plain version, SDPA's forward and backward
+        # (autograd, apart), the bound of 5 products a pair
+        def kernel():
+            return fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                          window=window)
+        qq, kk, vv = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+        mask = None
+        if window or (causal and s != t):
+            qpos = torch.arange(s, device=dev)[:, None]
+            kpos = torch.arange(t, device=dev)[None, :]
+            mask = torch.ones((s, t), dtype=torch.bool, device=dev)
+            if causal:
+                mask &= kpos <= qpos
+            if window:
+                mask &= qpos - kpos < window
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                qq, kk, vv, attn_mask=mask,
+                is_causal=causal and mask is None, enable_gqa=hq != hkv)
+        lib_out = sdpa()
+        dot = do.transpose(1, 2)
+        big = b * s * hq * d >= 1 << 22
+        reps = dict(reps=3, rounds=3, warmup=1) if big else \
+            dict(reps=20, rounds=3, warmup=3)
+        elt, peak = (2, BF16_FLOPS) if dtype == bf16 else (4, FP32_FLOPS)
+        nbytes, flops = bwd_cost(b, s, t, hq, hkv, d, causal, window, elt)
+        b_ms, b_by = bound(nbytes, flops, peak)
+        t_ = {"ms": time_ms(torch, kernel, **reps),
+              "device_ms": device_ms(torch, kernel, "flash_bwd", calls=3),
+              "plain_ms": time_ms(torch, lambda: fa.flash_attention_bwd_plain(
+                  q, k, v, o, lse, do, causal=causal, window=window),
+                  reps=1, rounds=3, warmup=1),
+              "library_fwd_ms": time_ms(torch, sdpa, **reps),
+              "library_ms": time_ms(torch, lambda: torch.autograd.grad(
+                  lib_out, (qq, kk, vv), dot, retain_graph=True), **reps),
+              "bound_ms": b_ms, "bound_by": b_by,
+              "shape": f"q, do ({b},{s},{hq},{d}) k, v ({b},{t},{hkv},{d}) "
+                       f"{str(dtype)[6:]}, "
+                       f"{'causal' if causal else 'non-causal'}, "
+                       f"window {window}"}
+        dev_t = t_["device_ms"] if t_["device_ms"] is not None else t_["ms"]
+        dms = "not measured" if t_["device_ms"] is None \
+            else f"{t_['device_ms']:.4f} ms"
+        print(f"flash_attention_bwd {t_['shape']}: {t_['ms']:.4f} ms/call "
+              f"(device {dms}) | plain {t_['plain_ms']:.4f} ms | library "
+              f"(SDPA, autograd) forward {t_['library_fwd_ms']:.4f} ms, "
+              f"backward {t_['library_ms']:.4f} ms | bound "
+              f"{t_['bound_ms']:.4f} ms ({t_['bound_by']}; {flops:.4e} "
+              f"flops, {nbytes:.4e} bytes), {t_['bound_ms'] / dev_t * 100:.2f}"
+              f" % of it, {flops / dev_t / 1e9:.2f} TFLOP/s")
+        out[(b, s, t, hq, hkv, d, causal, window, str(dtype)[6:])] = t_
+        del q, k, v, o, lse, do, qq, kk, vv, lib_out
+    print(f"the forward with lse at every shape above: out max|err| "
+          f"{worst_fwd:.3e}; the backward: max|err| {worst:.3e}")
+    main = out[(*BWD_MAIN, "bfloat16")]
+    row = dict(main, max_abs_err=worst,
+               fp32={f: out[(*BWD_MAIN, "float32")][f] for f in (
+                   "ms", "device_ms", "plain_ms", "library_ms",
+                   "library_fwd_ms", "bound_ms", "bound_by", "shape")})
+    return {"flash_attention_bwd": row}
+
+
+def phase_train_lm(torch) -> dict:
+    phase(f"16. train-on-trace of {TRAIN_ARCH} at full width on the card: "
+          "D-PSGD over a precomputed wireless trace, every attention's "
+          "forward and backward in the flash kernels")
+    import dataclasses
+    import gc
+    import math
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import dpsgd
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import gossip_mix as gm
+    from repro_torch.sim import batch as tb
+    from repro_torch.sim import get_scenario, precompute_traces
+
+    full = get_config(TRAIN_ARCH)
+    mcfg = dataclasses.replace(full, n_layers=TRAIN_LAYERS)
+    ad = tb.transformer_adapter(mcfg, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                                eval_batch=TRAIN_EVAL_BATCH, device="cuda")
+    n_params = int(ad.model_bits) // 32
+    cfg = get_scenario("static", model_bits=ad.model_bits,
+                       model_shapes=ad.param_shapes,
+                       eval_every_rounds=TRAIN_ROUNDS)
+    n = cfg.n_nodes
+    replica = n_params * 4 / 1e9
+    # embedding, untied head, final LayerNorm's scale and bias; the rest is
+    # the layers'
+    outer = 2 * mcfg.vocab_size * mcfg.d_model + 2 * mcfg.d_model
+    full_params = outer + full.n_layers * (n_params - outer) // TRAIN_LAYERS
+    print(f"{TRAIN_ARCH}: published widths (d_model {mcfg.d_model}, "
+          f"{mcfg.n_heads} x {mcfg.head_dim} heads, d_ff {mcfg.d_ff}, vocab "
+          f"{mcfg.vocab_size}, untied head), depth cut {full.n_layers} -> "
+          f"{TRAIN_LAYERS} layer: D-PSGD holds one fp32 replica a node, "
+          f"{n} replicas of {full_params / 1e9:.2f} B parameters would be "
+          f"{n * 4 * full_params / 1e9:.1f} GB before any gradient; at "
+          f"{TRAIN_LAYERS} layer {n_params:,} "
+          f"parameters, {replica:.2f} GB a replica, {n * replica:.2f} GB a "
+          f"node-stacked copy. Parameters {mcfg.param_dtype}, compute "
+          f"{mcfg.dtype}; {n} nodes x batch {TRAIN_BATCH} x {TRAIN_SEQ} "
+          f"tokens, {TRAIN_ROUNDS} rounds of '{cfg.name}'")
+    print(f"predicted peak memory {TRAIN_PEAK_GIB[0]:g}-{TRAIN_PEAK_GIB[1]:g}"
+          " GiB (PERF.md, before the run)")
+    traces = precompute_traces([cfg], TRAIN_ROUNDS)
+    # the graph's capture (warm-up runs, cuBLAS plans, the kernels' first
+    # launch) outside the measured run: one round, the same signature
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tb.train_model_on_traces(ad, [cfg], 1, trace_batch=precompute_traces(
+        [cfg], 1), device="cuda")
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    print(f"after the warm-up round: {torch.cuda.memory_allocated() / 2**30:.3f}"
+          f" GiB allocated (the graph's pool and static inputs), "
+          f"{torch.cuda.memory_reserved() / 2**30:.3f} GiB reserved, peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB", flush=True)
+    key = next(k for k in tb._STEPS if k[0] is ad.loss_fn)
+    step = tb._STEPS[key]
+
+    loop_s = []
+    train_on_traces = tb.train_on_traces
+
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        res = train_on_traces(*args, **kwargs)
+        torch.cuda.synchronize()
+        loop_s.append(time.perf_counter() - t1)
+        return res
+
+    # the memory allocated as each round's step returns: past the second
+    # round, a round may add only its node-0 snapshot (nothing of an
+    # earlier round's outputs may stay alive)
+    after_round = []
+    family_step = tb._family_step
+
+    def measuring(*key):
+        step_ = family_step(*key)
+
+        def run(*args):
+            out_ = step_(*args)
+            after_round.append(torch.cuda.memory_allocated() / 2**30)
+            return out_
+        return run
+
+    counters = {"flash_attention": fa.flash_attention,
+                "flash_attention_bwd": fa.flash_attention_bwd,
+                "gossip_mix": gm.gossip_mix_rows}
+    torch.cuda.reset_peak_memory_stats()
+    tb.train_on_traces = timed
+    tb._family_step = measuring
+    try:
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, out = tb.train_model_on_traces(ad, [cfg], TRAIN_ROUNDS,
+                                          trace_batch=traces, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: c.launches for k, c in counters.items()}
+    finally:
+        tb.train_on_traces = train_on_traces
+        tb._family_step = family_step
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    snap = replica * 1e9 / 2**30
+    growth = max(b - a for a, b in zip(after_round[1:], after_round[2:]))
+    print(f"allocated as each round's step returns: "
+          f"{[round(x, 3) for x in after_round]} GiB; past the second "
+          f"round each adds at most {growth:.3f} GiB (its node-0 snapshot "
+          f"is {snap:.3f} GiB)")
+    check(len(after_round) == TRAIN_ROUNDS and growth <= snap + 1 / 16,
+          f"16: rounds keep memory alive: {after_round} GiB")
+    evals = len(out["eval_rounds"])
+    # the mix's buffers: leaves concatenated up to MIX_CONCAT_LANES a node
+    mixes = len(dpsgd.mix_groups([int(np.prod(s)) for s in ad.param_shapes]))
+    want = {"flash_attention": (TRAIN_ROUNDS + evals) * TRAIN_LAYERS,
+            "flash_attention_bwd": TRAIN_ROUNDS * TRAIN_LAYERS,
+            "gossip_mix": TRAIN_ROUNDS * mixes}
+    print(f"launches {launches} (expected {want}: per round one flash "
+          f"forward and one backward a layer for all {n} nodes (vmap folds "
+          f"the node axis into the batch) and {mixes} rows mixes (the "
+          f"leaves in buffers of at most {dpsgd.MIX_CONCAT_LANES} lanes a "
+          f"node); the forward also once a layer in the {evals} "
+          f"evaluation)")
+    check(launches == want, f"16: launches {launches}, want {want}")
+    check(step.signatures == 1, f"16: {step.signatures} graph signatures")
+    losses = out["losses"][0]
+    acc = float(out["acc"][0, -1])
+    print(f"masked mean losses {losses.tolist()} (ln V = "
+          f"{math.log(mcfg.vocab_size):.4f}); accuracy {acc:.6f} at round "
+          f"{out['eval_rounds'][-1] + 1}")
+    check(np.isfinite(losses).all() and losses.shape == (TRAIN_ROUNDS,),
+          f"16: losses {losses}")
+    check(abs(losses[0] - math.log(mcfg.vocab_size)) < 1.0,
+          f"16: the first loss {losses[0]} is not near ln V")
+    check(0.0 <= acc <= 1.0, f"16: accuracy {acc}")
+    finals = out["final_params"][0]
+    check(all(bool(torch.isfinite(x).all()) for x in dpsgd._leaves(finals)),
+          "16: non-finite parameters")
+    loop_ms = loop_s[0] * 1e3 / TRAIN_ROUNDS
+    entry = next(iter(step._entries.values()))
+    replay_ms = time_ms(torch, entry.graph.replay, reps=3, rounds=3,
+                        warmup=1)
+    idle = 1.0 - replay_ms / loop_ms
+    top = device_profile(torch, entry.graph.replay, 1)
+    busy = sum(r[1] for r in top)
+    print(f"one replay under the profiler: {busy:.4f} ms of device "
+          f"operations, the largest: " + "; ".join(
+              f"{name[:48]} {ms:.3f} ms x{count}"
+              for name, ms, count in top[:10]))
+    print(f"the loop: {loop_ms:.4f} host ms per round (train_on_traces "
+          f"{loop_s[0]:.4f} s for {TRAIN_ROUNDS} rounds), one replay of the "
+          f"round {replay_ms:.4f} ms on the card (CUDA events), idle share "
+          f"of the loop {idle:.4f}; train_model_on_traces {wall:.4f} s wall "
+          f"(init, batches, evaluation included), warm-up and capture "
+          f"{warm_s:.2f} s; peak memory {peak:.3f} GiB (predicted "
+          f"{TRAIN_PEAK_GIB[0]:g}-{TRAIN_PEAK_GIB[1]:g})")
+
+    # the family loop against the per-round reference (one graphed masked
+    # step a round, host reads between), after the family's graph is freed
+    fam_losses = losses.copy()
+    # the family's final parameters wait on the host (8 GB) while the
+    # reference runs; compared leaf by leaf on the card after it
+    finals = dpsgd._tree_map(lambda x: x.cpu(), finals)
+    del out, entry, step
+    tb._STEPS.pop(key)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tr = traces.traces[0]
+    p0 = dpsgd.replicate(ad.init_params(cfg.seed), n)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ref_final, ref_losses = tb.train_on_trace_reference(
+        ad.loss_fn, p0, tr.w_eff, tr.live, ad.batch_fn(cfg, tr),
+        dpsgd.DPSGDConfig(eta=0.05), payload=cfg.payload,
+        active_seq=tr.active)
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t0
+    ref_peak = torch.cuda.max_memory_allocated() / 2**30
+    del p0
+    ref_mean = np.where(tr.live, ref_losses, 0.0).sum(-1) / tr.live.sum(-1)
+    d_loss = float(np.abs(ref_mean - fam_losses).max())
+    d_par = max(float((a.to(b.device) - b).abs().max()) for a, b in zip(
+        dpsgd._leaves(finals), dpsgd._leaves(ref_final)))
+    print(f"the family loop against train_on_trace_reference (same card, "
+          f"{TRAIN_ROUNDS} rounds free-running): max|mean loss diff| "
+          f"{d_loss:.3e} (tol 1e-4), max|final parameter diff| {d_par:.3e} "
+          f"(tol {TOL_FP32:g}); the reference {ref_s:.2f} s with its "
+          f"capture, peak {ref_peak:.3f} GiB")
+    check(d_loss <= 1e-4, f"16: family and reference losses differ by "
+          f"{d_loss}")
+    check(d_par <= TOL_FP32, f"16: family and reference parameters differ "
+          f"by {d_par}")
+    del finals, ref_final
+    tb._STEPS.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "losses": fam_losses.tolist(), "acc": acc,
+            "loop_ms": loop_ms, "replay_ms": replay_ms, "idle": idle,
+            "busy_ms": busy,
+            "peak_gib": peak, "wall_s": wall, "d_loss": d_loss,
+            "d_par": d_par}
+
+
+def phase_train_lm_lockstep(torch) -> dict:
+    phase(f"17. correctness of the training path: {TRAIN_ARCH}'s smoke "
+          "config, card against CPU in lockstep")
+    from repro_torch.core import dpsgd
+    from repro_torch.core.compression import QuantConfig
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import gossip_mix as gm
+    from repro_torch.kernels import quantize as qz
+    from repro_torch.sim import batch as tb
+    from repro_torch.sim import get_scenario
+
+    ad = tb.transformer_adapter(TRAIN_ARCH, batch=TRAIN_BATCH,
+                                seq_len=LOCK_TRAIN_SEQ, device="cuda")
+    leaves = len(ad.param_shapes)
+    counters = {"flash_attention": fa.flash_attention,
+                "flash_attention_bwd": fa.flash_attention_bwd,
+                "gossip_mix": gm.gossip_mix_rows,
+                "quantize_int8_ef": qz.quantize_int8_ef,
+                "gossip_mix_q8": gm.gossip_mix_q8_rows}
+    to_cpu = lambda t: None if t is None else dpsgd._tree_map(  # noqa: E731
+        lambda x: x.cpu(), t)
+    rounds = LOCK_TRAIN_ROUNDS
+    result = {}
+    for name, payload in (("static", None),
+                          ("compressed_int8",
+                           QuantConfig(mode="int8", granularity="leaf"))):
+        kw = {} if payload is None else {"payload": payload}
+        cfg = get_scenario(name, model_bits=ad.model_bits,
+                           model_shapes=ad.param_shapes,
+                           eval_every_rounds=rounds, **kw)
+        recorded = []
+        family_step = tb._family_step
+
+        def recording(*key):
+            step = family_step(*key)
+
+            def run(*args):
+                out = step(*args)
+                recorded.append((step, args, out))
+                return out
+            return run
+        for c in counters.values():
+            c.launches = 0
+        tb._family_step = recording
+        try:
+            _, out = tb.train_model_on_traces(ad, [cfg], rounds,
+                                              device="cuda")
+            torch.cuda.synchronize()
+        finally:
+            tb._family_step = family_step
+        launches = {k: c.launches for k, c in counters.items()}
+        int8 = payload is not None
+        want = {"flash_attention": rounds + 1, "flash_attention_bwd": rounds,
+                "gossip_mix": 0 if int8 else rounds,
+                "quantize_int8_ef": rounds * leaves if int8 else 0,
+                "gossip_mix_q8": rounds * leaves if int8 else 0}
+        check(launches == want, f"17 {name}: launches {launches}, want {want}")
+        check(len(recorded) == rounds and np.isfinite(out["losses"]).all(),
+              f"17 {name}: {len(recorded)} rounds recorded, losses "
+              f"{out['losses']}")
+        worst = {"loss": 0.0, "params": 0.0, "residuals": 0.0}
+        for step_r, args, o in recorded:
+            cpu = step_r(*(to_cpu(a) for a in args))   # the CPU's eager body
+            worst["loss"] = max(worst["loss"], err(o["losses"].cpu(),
+                                                   cpu["losses"]))
+            worst["params"] = max(worst["params"], max(
+                err(a.cpu(), b) for a, b in zip(dpsgd._leaves(o["params"]),
+                                                dpsgd._leaves(cpu["params"]))))
+            if int8:
+                worst["residuals"] = max(worst["residuals"], max(
+                    err(a.cpu(), b) for a, b in zip(
+                        dpsgd._leaves(o["res"]), dpsgd._leaves(cpu["res"]))))
+        print(f"17 {name}{' (per-leaf int8)' if int8 else ''}: {rounds} "
+              f"rounds, launches {launches}; losses "
+              f"{out['losses'][0].tolist()}; card against CPU in lockstep: "
+              f"max|loss diff| {worst['loss']:.3e} (tol 1e-4), max|param "
+              f"diff| {worst['params']:.3e}, max|residual diff| "
+              f"{worst['residuals']:.3e} (tol {TOL_FP32:g})")
+        check(worst["loss"] <= 1e-4, f"17 {name}: losses differ: {worst}")
+        check(worst["params"] <= TOL_FP32 and worst["residuals"] <= TOL_FP32,
+              f"17 {name}: parameters or residuals differ: {worst}")
+        result[name] = {"launches": launches, **worst}
+    tb._STEPS.clear()
+    return result
 
 
 def main() -> None:
@@ -2660,6 +3176,7 @@ def main() -> None:
     kernels.update(run("3b", phase_attention_kernels, torch))
     kernels.update(run("3c", phase_rwkv_kernel, torch))
     kernels.update(run("3d", phase_quantize_kernels, torch))
+    kernels.update(run("3e", phase_flash_backward, torch))
     sl = run("4", phase_slice, torch)
     q8_launches = run("5", phase_compressed, torch, sl)
 
@@ -2734,6 +3251,14 @@ def main() -> None:
         "15. correctness of the served encoder-decoder path", ENCDEC_ARCH,
         flash_only, reduce_for_smoke(get_config(ENCDEC_ARCH)), LOCK_TOL)
 
+    # training stablelm-3b over wireless traces: every attention's forward
+    # and backward in the flash kernels
+    torch.cuda.empty_cache()
+    print(f"\ndevice memory held before phase 16: "
+          f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
+    trained = run("16", phase_train_lm, torch)
+    run("17", phase_train_lm_lockstep, torch)
+
     rows = []
     for name, source, replaces, launches in (
             ("gossip_mix", "gossip_mix", "gossip_mix.py:62",
@@ -2742,6 +3267,10 @@ def main() -> None:
              q8_launches),
             ("flash_attention", "flash_attention", "flash_attention.py:105",
              served["launches"]["flash_attention"]),
+            ("flash_attention_bwd", "flash_attention_bwd",
+             "flash_attention.py:105 (no Pallas backward: the JAX package "
+             "differentiates the plain chunked_attention instead)",
+             trained["launches"]["flash_attention_bwd"]),
             ("rglru_scan", "rglru_scan", "rglru_scan.py:59",
              served["launches"]["rglru_scan"]),
             ("rwkv6_scan", "rwkv6_scan", "rwkv6_scan.py:87",
@@ -2772,7 +3301,9 @@ def main() -> None:
                 f"{MLA_ARCH} (phase 12)":
                     served_mla["launches"]["flash_attention"],
                 f"{ENCDEC_ARCH} (phase 14)":
-                    served_encdec["launches"]["flash_attention"]}
+                    served_encdec["launches"]["flash_attention"],
+                f"{TRAIN_ARCH} training (phase 16)":
+                    trained["launches"]["flash_attention"]}
         # flash's fp32 entry and its MLA / encoder-decoder shapes, rglru's
         # S = 1
         for extra in ("fp32", *NEW_FLASH_TIMED, "decode"):
@@ -2780,6 +3311,8 @@ def main() -> None:
                 rows[-1][extra] = {f: k[extra][f] for f in (
                     "ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
                     "bound_by", "shape")}
+        if "library_fwd_ms" in k:         # the backward's library: SDPA's
+            rows[-1]["library_fwd_ms"] = k["library_fwd_ms"]
     print("\nphase wall times: " + ", ".join(f"{label} {sec:.2f} s"
                                              for label, sec in walls))
     print(f"all phases passed in {time.perf_counter() - t_start:.1f}s")

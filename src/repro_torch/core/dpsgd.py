@@ -10,10 +10,11 @@ node axis, (b) mixing with the averaging matrix W, (c) SGD update. The
 wall-clock communication cost is modeled separately by
 ``comm_model.tdm_time_s`` (measured compute + Eq. 3, as the paper does).
 
-The torch counterpart of ``repro.core.dpsgd``. Parameters are nested dicts
-of tensors; leaves are visited in sorted-key order, as ``jax.tree`` visits
-dict keys, so the concatenated message buffer has the same layout (and the
-int8 block grid the same blocks) as the JAX package's.
+The torch counterpart of ``repro.core.dpsgd``. Parameters are trees of
+dicts, lists and tuples of tensors (the transformer's layer groups are
+lists); leaves are visited in ``jax.tree``'s order, dict keys sorted and
+list items in order, so the concatenated message buffer has the same
+layout (and the int8 block grid the same blocks) as the JAX package's.
 
 The mix is lowered onto the hand-written kernels of ``kernels.gossip_mix``
 (CUDA on an sm_90 card, their plain torch versions on the CPU):
@@ -21,7 +22,9 @@ The mix is lowered onto the hand-written kernels of ``kernels.gossip_mix``
 * ``mix`` — one ``gossip_mix_rows`` launch per step over the leaves
   concatenated into one (n, total) buffer per dtype (the CNN: one launch
   over (6, 21 840)); element for element the same arithmetic as mixing
-  each leaf on its own.
+  each leaf on its own. A large model's leaves go in buffers of at most
+  ``MIX_CONCAT_LANES`` lanes (stablelm-3b at 1 layer: 9 launches, its
+  large weights mixed where they lie).
 * the int8 round of ``_mix_compressed_*`` — ``gossip_mix_int8_round``,
   two launches back to back: the send, ``kernels.quantize.
   quantize_int8_ef`` (the quantize of ``flat + res`` in the wire format's
@@ -69,13 +72,17 @@ PyTree = Any
 
 
 # ---------------------------------------------------------------------------
-# Nested-dict trees, leaves in sorted-key order (jax.tree's dict order)
+# Trees of dicts, lists and tuples, leaves in jax.tree's order: dict keys
+# sorted, list and tuple items in order
 # ---------------------------------------------------------------------------
 
 def _paths(tree: PyTree, path: str = "") -> Iterator[tuple[str, Any]]:
     if isinstance(tree, dict):
         for k in sorted(tree):
             yield from _paths(tree[k], f"{path}[{k!r}]")
+    elif isinstance(tree, (list, tuple)):
+        for i, item in enumerate(tree):
+            yield from _paths(item, f"{path}[{i}]")
     else:
         yield path, tree
 
@@ -84,21 +91,28 @@ def _leaves(tree: PyTree) -> list:
     return [leaf for _, leaf in _paths(tree)]
 
 
-def _unflatten(like: PyTree, leaves: list) -> PyTree:
-    """Rebuild ``like``'s structure from leaves in sorted-key order."""
-    it = iter(leaves)
+def _build(t: PyTree, it: Iterator) -> PyTree:
+    # module level: a nested function calling itself would be a reference
+    # cycle holding the leaves until the next garbage collection
+    if isinstance(t, dict):
+        return {k: _build(t[k], it) for k in sorted(t)}
+    if isinstance(t, (list, tuple)):
+        return type(t)(_build(item, it) for item in t)
+    return next(it)
 
-    def build(t):
-        if isinstance(t, dict):
-            return {k: build(t[k]) for k in sorted(t)}
-        return next(it)
-    return build(like)
+
+def _unflatten(like: PyTree, leaves: list) -> PyTree:
+    """Rebuild ``like``'s structure from leaves in ``_paths`` order."""
+    return _build(like, iter(leaves))
 
 
 def _tree_map(fn: Callable, tree: PyTree, *rest: PyTree) -> PyTree:
     if isinstance(tree, dict):
         return {k: _tree_map(fn, tree[k], *(r[k] for r in rest))
                 for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map(fn, item, *(r[i] for r in rest))
+                          for i, item in enumerate(tree))
     return fn(tree, *rest)
 
 
@@ -157,26 +171,54 @@ def replicate(params: PyTree, n: int) -> PyTree:
     return _tree_map(lambda p: p[None].repeat(n, *([1] * p.dim())), params)
 
 
+MIX_CONCAT_LANES = 1 << 24   # lanes a node's row of one rows-mix buffer holds
+
+
+def mix_groups(sizes: list) -> list:
+    """Leaves (by per-node size, in order) grouped for one rows-mix launch
+    each: consecutive leaves while the group holds at most
+    ``MIX_CONCAT_LANES`` lanes a node; a leaf of that size or more alone.
+    The CNN's 21 840 lanes are one group."""
+    groups: list = []
+    lanes = 0
+    for i, size in enumerate(sizes):
+        if groups and lanes + size <= MIX_CONCAT_LANES:
+            groups[-1].append(i)
+            lanes += size
+        else:
+            groups.append([i])
+            lanes = size
+    return groups
+
+
 def mix(node_params: PyTree, w) -> PyTree:
     """X <- W @ X on the leading node axis of every leaf.
 
-    Leaves of one dtype are concatenated into one (n, total) buffer and
-    mixed by one ``gossip_mix_rows`` launch; W is cast to that dtype first,
-    as the reference's ``w.astype(flat.dtype)`` does. The mixed leaves are
-    views into the output buffer."""
+    Leaves of one dtype are concatenated into (n, total) buffers of at most
+    ``MIX_CONCAT_LANES`` lanes a node (``mix_groups``; a larger leaf is its
+    own buffer, a view with no copy), each mixed by one
+    ``gossip_mix_rows`` launch: element for element the arithmetic of
+    mixing each leaf on its own, without a concatenated copy of a large
+    model (8 GB at six replicas of 0.34 B parameters). W is cast to the
+    leaves' dtype first, as the reference's ``w.astype(flat.dtype)`` does.
+    The mixed leaves are views into the output buffers."""
     leaves = _leaves(node_params)
     n = leaves[0].shape[0]
     w = _as_w(w, leaves[0].device)
     out: list = [None] * len(leaves)
     for dtype in dict.fromkeys(p.dtype for p in leaves):
         idx = [i for i, p in enumerate(leaves) if p.dtype == dtype]
-        flat = torch.cat([leaves[i].reshape(n, -1) for i in idx], dim=1)
-        mixed = gossip_mix_rows(w.to(dtype), flat)
-        offset = 0
-        for i in idx:
-            size = leaves[i][0].numel()
-            out[i] = mixed[:, offset:offset + size].reshape(leaves[i].shape)
-            offset += size
+        for group in mix_groups([leaves[i][0].numel() for i in idx]):
+            members = [idx[j] for j in group]
+            rows = [leaves[i].reshape(n, -1) for i in members]
+            flat = rows[0] if len(rows) == 1 else torch.cat(rows, dim=1)
+            mixed = gossip_mix_rows(w.to(dtype), flat)
+            offset = 0
+            for i in members:
+                size = leaves[i][0].numel()
+                out[i] = mixed[:, offset:offset + size].reshape(
+                    leaves[i].shape)
+                offset += size
     return _unflatten(node_params, out)
 
 
@@ -193,6 +235,16 @@ def _node_grads(
 
 def _sgd(params: PyTree, grads: PyTree, eta: float) -> PyTree:
     return _tree_map(lambda x, g: x - eta * g.to(x.dtype), params, grads)
+
+
+def _sgd_mixed(mixed: PyTree, grads: PyTree, eta: float) -> PyTree:
+    """``_sgd`` in place on the mix's output, which this step made: the
+    same arithmetic (x - eta g), bit for bit, without a further
+    node-stacked copy of the parameters (8 GB at six replicas of a
+    0.34 B-parameter model)."""
+    for x, g in zip(_leaves(mixed), _leaves(grads)):
+        x.sub_(eta * g.to(x.dtype))
+    return mixed
 
 
 def dpsgd_step(
@@ -215,7 +267,7 @@ def dpsgd_step(
     if h == 1:
         losses, grads = _node_grads(loss_fn, node_params, node_batches)
         if config.mix_first:
-            new_params = _sgd(mix(node_params, w), grads, config.eta)
+            new_params = _sgd_mixed(mix(node_params, w), grads, config.eta)
         else:
             # gradient-first order: X <- W (X - eta G)
             new_params = mix(_sgd(node_params, grads, config.eta), w)
@@ -277,7 +329,7 @@ def dpsgd_masked_step(
     losses, grads = _node_grads(loss_fn, node_params, node_batches)
     grads = _mask_grads(grads, live)
     if config.mix_first:
-        new_params = _sgd(mix(node_params, w), grads, config.eta)
+        new_params = _sgd_mixed(mix(node_params, w), grads, config.eta)
     else:
         new_params = mix(_sgd(node_params, grads, config.eta), w)
     return new_params, losses
@@ -429,7 +481,7 @@ def dpsgd_masked_compressed_step(
     if config.mix_first:
         mixed, new_res = _mix_compressed(node_params, residuals, w, live,
                                          quant)
-        new_params = _sgd(mixed, grads, config.eta)
+        new_params = _sgd_mixed(mixed, grads, config.eta)
     else:
         new_params, new_res = _mix_compressed(
             _sgd(node_params, grads, config.eta), residuals, w, live, quant)

@@ -14,7 +14,14 @@
 //   no padding of S or D in memory. Masks on absolute positions: t < T;
 //   causal: t <= s; window w > 0: s - t < w. fp32 online softmax (running
 //   max m, denominator l, accumulator acc), out = acc / max(l, 1e-30),
-//   written in q's dtype (bf16 rounds to nearest even).
+//   written in q's dtype (bf16 rounds to nearest even). Where the caller
+//   passes an lse buffer (training: the backward kernel of
+//   flash_attention_bwd.cu recomputes P from it), each query row's
+//   log-sum-exp of its scaled scores, lse[b, h, s] = m + log(l) in fp32
+//   ((B, Hq, S), +inf for a row with no live key), is written from the
+//   running max and sum the kernel already holds, by an instance of its
+//   own (template LSE); serving passes null and runs the instance without
+//   the write.
 //
 // What bounds it on an H100: operations. At the served prefill (B = 4,
 // S = 4096, Hq = 10, Hkv = 1, D = 256, window 2048, bf16) the band holds
@@ -51,7 +58,7 @@
 // -lcuda) and passed as __grid_constant__ parameters. DP = D rounded up to
 // 64, 128 or 256; the entry needs D % 8 == 0 (TMA's 16-byte strides).
 //
-// fp32 (flash_attention_kernel<DP>): CUDA cores (67 TFLOP/s peak);
+// fp32 (flash_attention_kernel<DP, LSE>): CUDA cores (67 TFLOP/s peak);
 // the fp32 path is held at 2e-5, which TF32 (10-bit mantissa) cannot meet.
 // Register-tiled: each of the 256 threads owns 4 query rows x 2 keys of a
 // 64 x 32 score tile and the same 4 rows x D/16 lanes of the accumulator,
@@ -81,6 +88,7 @@ constexpr int kThreads = 256;  // 16 (ty: 4 rows each) x 16 (tx)
 constexpr int kQS = kBQ + 4;   // padded row strides of the transposed
 constexpr int kKS = kBK + 4;   // tiles (multiples of 4: float4 aligned)
 constexpr float kNeg = -1e30f;
+constexpr int kInfBits = 0x7f800000;  // +inf: the lse of a row with no key
 
 // DP = D rounded up to 64, 128 or 256 (lanes past D are zeros).
 template <int DP>
@@ -90,12 +98,15 @@ constexpr size_t smem_bytes() {
 }
 
 // grid (ceil(S / kBQ), Hq, B), kThreads threads, smem_bytes<DP>() dynamic.
-template <int DP>
+// LSE: write each row's log-sum-exp (an instance apart, so that serving's
+// instance is the code it was before the backward needed lse).
+template <int DP, bool LSE>
 __global__ void __launch_bounds__(kThreads)
     flash_attention_kernel(const float* __restrict__ q,
                            const float* __restrict__ k,
                            const float* __restrict__ v,
-                           float* __restrict__ out, int S, int T_len,
+                           float* __restrict__ out,
+                           float* __restrict__ lse, int S, int T_len,
                            int Hq, int Hkv, int D, float scale, int causal,
                            int window) {
   constexpr int NC = DP / 16;  // accumulator lanes per thread and row
@@ -229,6 +240,11 @@ __global__ void __launch_bounds__(kThreads)
     const int s = q0 + ty * 4 + i;
     if (s >= S) continue;
     const float den = fmaxf(l[i], 1e-30f);
+    // m and l are the half warp's (reduced by the shuffles above)
+    if constexpr (LSE)
+      if (tx == 0)
+        lse[((long long)b * Hq + h) * S + s] =
+            l[i] > 0.f ? m[i] + logf(l[i]) : __int_as_float(kInfBits);
     float* o = out + ((long long)b * S + s) * q_step + (long long)h * D;
 #pragma unroll
     for (int j = 0; j < DP / 64; ++j)
@@ -241,34 +257,35 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <int DP>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int S, int T_len, int Hq, int Hkv, int D, float scale, int causal,
-           int window, void* stream) {
+int launch(const void* q, const void* k, const void* v, void* out, void* lse,
+           int B, int S, int T_len, int Hq, int Hkv, int D, float scale,
+           int causal, int window, void* stream) {
   const size_t smem = smem_bytes<DP>();
+  const auto kernel = lse ? flash_attention_kernel<DP, true>
+                          : flash_attention_kernel<DP, false>;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<DP>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)((S + kBQ - 1) / kBQ), (unsigned)Hq, (unsigned)B);
-  flash_attention_kernel<DP><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+  kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), S, T_len, Hq,
-      Hkv, D, scale, causal, window);
+      static_cast<const float*>(v), static_cast<float*>(out),
+      static_cast<float*>(lse), S, T_len, Hq, Hkv, D, scale, causal, window);
   return (int)cudaGetLastError();
 }
 
-int dispatch(const void* q, const void* k, const void* v, void* out, int B,
-             int S, int T_len, int Hq, int Hkv, int D, float scale,
-             int causal, int window, void* stream) {
+int dispatch(const void* q, const void* k, const void* v, void* out,
+             void* lse, int B, int S, int T_len, int Hq, int Hkv, int D,
+             float scale, int causal, int window, void* stream) {
   if (D <= 64)
-    return launch<64>(q, k, v, out, B, S, T_len, Hq, Hkv, D, scale, causal,
-                      window, stream);
+    return launch<64>(q, k, v, out, lse, B, S, T_len, Hq, Hkv, D, scale,
+                      causal, window, stream);
   if (D <= 128)
-    return launch<128>(q, k, v, out, B, S, T_len, Hq, Hkv, D, scale, causal,
-                       window, stream);
+    return launch<128>(q, k, v, out, lse, B, S, T_len, Hq, Hkv, D, scale,
+                       causal, window, stream);
   if (D <= 256)
-    return launch<256>(q, k, v, out, B, S, T_len, Hq, Hkv, D, scale, causal,
-                       window, stream);
+    return launch<256>(q, k, v, out, lse, B, S, T_len, Hq, Hkv, D, scale,
+                       causal, window, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -284,6 +301,7 @@ constexpr int kBox = 64 * 64 * 2; // one TMA box: 64 rows x 64 bf16 lanes
 constexpr int kConsumers = 256;   // two warpgroups
 constexpr int kThreadsH = 384;    // + the producer warpgroup
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // Shared memory of one block, in bytes from a 1024-aligned base (128-byte
 // swizzle atoms are 1024 bytes): q [2 warpgroups][DP / 64 boxes], then k
@@ -523,15 +541,17 @@ __device__ __forceinline__ void wgmma_rs(float (&o)[DP / 2],
 // grid (ceil(S / kTQ), Hq, B), kThreadsH threads, Smem<DP>::kBytes dynamic.
 // Accumulator layout (wgmma m64nN, fp32): thread t of a warpgroup holds rows
 // r = 16 (t / 32) + (t % 32) / 4 and r + 8; register 4j + e is column
-// 8j + 2 (t % 4) + (e & 1) of row r (e < 2) or r + 8 (e >= 2).
-template <int DP>
+// 8j + 2 (t % 4) + (e & 1) of row r (e < 2) or r + 8 (e >= 2). LSE as in
+// flash_attention_kernel.
+template <int DP, bool LSE>
 __global__ void __launch_bounds__(kThreadsH, 1)
     flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
                                 const __grid_constant__ CUtensorMap tm_k,
                                 const __grid_constant__ CUtensorMap tm_v,
-                                __nv_bfloat16* __restrict__ out, int S,
-                                int T_len, int Hq, int Hkv, int D,
-                                float scale_log2, int causal, int window) {
+                                __nv_bfloat16* __restrict__ out,
+                                float* __restrict__ lse, int S, int T_len,
+                                int Hq, int Hkv, int D, float scale_log2,
+                                int causal, int window) {
   using L = Smem<DP>;
   constexpr int NC = L::kChunks;
   constexpr uint32_t kStageBytes = 2 * NC * kBox;  // k and v of one tile
@@ -705,6 +725,12 @@ __global__ void __launch_bounds__(kThreadsH, 1)
     const int row = row_a + 8 * r;
     if (row >= S) continue;
     const float den = fmaxf(l[r], 1e-30f);
+    // lse = (m D^-1/2 log2(e) + log2 l) ln 2: m and l are the quad's
+    if constexpr (LSE)
+      if ((lane & 3) == 0)
+        lse[((long long)b * Hq + h) * S + row] =
+            l[r] > 0.f ? (m[r] * scale_log2 + log2f(l[r])) * kLn2
+                       : __int_as_float(kInfBits);
     __nv_bfloat16* dst = out + ((long long)b * S + row) * Hq * D +
                          (long long)h * D;
 #pragma unroll
@@ -763,9 +789,9 @@ bool encode_map(EncodeTiled encode, CUtensorMap* map, const void* base, int D,
 }
 
 template <int DP>
-int launch_bf16(const void* q, const void* k, const void* v, void* out, int B,
-                int S, int T_len, int Hq, int Hkv, int D, float scale,
-                int causal, int window, void* stream) {
+int launch_bf16(const void* q, const void* k, const void* v, void* out,
+                void* lse, int B, int S, int T_len, int Hq, int Hkv, int D,
+                float scale, int causal, int window, void* stream) {
   const EncodeTiled encode = encode_tiled();
   if (!encode) return (int)cudaErrorNotSupported;
   CUtensorMap tm_q, tm_k, tm_v;
@@ -774,15 +800,16 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out, int B,
       !encode_map(encode, &tm_v, v, D, Hkv, T_len, B))
     return (int)cudaErrorInvalidValue;
   const int smem = Smem<DP>::kBytes;
+  const auto kernel = lse ? flash_attention_bf16_kernel<DP, true>
+                          : flash_attention_bf16_kernel<DP, false>;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_bf16_kernel<DP>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)((S + kTQ - 1) / kTQ), (unsigned)Hq, (unsigned)B);
-  flash_attention_bf16_kernel<DP>
-      <<<grid, kThreadsH, smem, (cudaStream_t)stream>>>(
-          tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(out), S, T_len, Hq,
-          Hkv, D, scale * kLog2e, causal, window);
+  kernel<<<grid, kThreadsH, smem, (cudaStream_t)stream>>>(
+          tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(out),
+          static_cast<float*>(lse), S, T_len, Hq, Hkv, D, scale * kLog2e,
+          causal, window);
   return (int)cudaGetLastError();
 }
 
@@ -792,31 +819,31 @@ extern "C" {
 
 // Every entry: contiguous device buffers q (B, S, Hq, D), k / v
 // (B, T, Hkv, D), out (B, S, Hq, D) on the stream's device, Hq % Hkv == 0,
-// T >= 1, 0 < D <= 256; the bf16 entry also needs D % 8 == 0 and 16-byte
-// aligned buffers. The Python wrapper checks shapes, types and devices
-// first.
+// T >= 1, 0 < D <= 256; lse, a fp32 (B, Hq, S) buffer or null; the bf16
+// entry also needs D % 8 == 0 and 16-byte aligned buffers. The Python
+// wrapper checks shapes, types and devices first.
 int flash_attention_f32(const void* q, const void* k, const void* v,
-                        void* out, int B, int S, int T_len, int Hq, int Hkv,
-                        int D, float scale, int causal, int window,
-                        void* stream) {
-  return dispatch(q, k, v, out, B, S, T_len, Hq, Hkv, D, scale, causal,
+                        void* out, void* lse, int B, int S, int T_len,
+                        int Hq, int Hkv, int D, float scale, int causal,
+                        int window, void* stream) {
+  return dispatch(q, k, v, out, lse, B, S, T_len, Hq, Hkv, D, scale, causal,
                   window, stream);
 }
 
 int flash_attention_bf16(const void* q, const void* k, const void* v,
-                         void* out, int B, int S, int T_len, int Hq, int Hkv,
-                         int D, float scale, int causal, int window,
-                         void* stream) {
+                         void* out, void* lse, int B, int S, int T_len,
+                         int Hq, int Hkv, int D, float scale, int causal,
+                         int window, void* stream) {
   if (D % 8 || T_len < 1) return (int)cudaErrorInvalidValue;
   if (D <= 64)
-    return launch_bf16<64>(q, k, v, out, B, S, T_len, Hq, Hkv, D, scale,
+    return launch_bf16<64>(q, k, v, out, lse, B, S, T_len, Hq, Hkv, D, scale,
                            causal, window, stream);
   if (D <= 128)
-    return launch_bf16<128>(q, k, v, out, B, S, T_len, Hq, Hkv, D, scale,
-                            causal, window, stream);
+    return launch_bf16<128>(q, k, v, out, lse, B, S, T_len, Hq, Hkv, D,
+                            scale, causal, window, stream);
   if (D <= 256)
-    return launch_bf16<256>(q, k, v, out, B, S, T_len, Hq, Hkv, D, scale,
-                            causal, window, stream);
+    return launch_bf16<256>(q, k, v, out, lse, B, S, T_len, Hq, Hkv, D,
+                            scale, causal, window, stream);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -13,13 +13,18 @@ runs the body eagerly: the CPU has no graph, as it has no kernel.
   are copied in (one ``_foreach_copy_`` per dtype) and numpy arrays,
   lists and tuples host-to-device without waiting for the card (a copy
   from pageable memory cannot be captured). The body sees tensors where
-  the caller passed arrays; the port's bodies convert either alike. Dicts
-  are the only containers walked inside an argument; any other leaf (a
-  number, ``None``, a config) is a constant of the signature.
-* **Outputs** are fresh tensors: the graph packs the body's outputs into
-  one flat buffer per dtype, and each call clones that buffer once and
-  hands out views of the clone. Nothing a step returned is overwritten by
-  a later replay.
+  the caller passed arrays; the port's bodies convert either alike. Dicts,
+  and lists and tuples that hold tensors or dicts (the transformer's layer
+  groups), are walked inside an argument; any other leaf (a number,
+  ``None``, a config) is a constant of the signature.
+* **Outputs** are fresh tensors: each replay rewrites the body's output
+  tensors in the graph's memory, and each call copies them out into new
+  tensors, one allocation per leaf and one multi-tensor copy per dtype
+  (``_foreach_copy_``). Nothing a step returned is overwritten by a later
+  replay, and keeping one output (a round's losses) keeps nothing else of
+  its step alive. (Packing the outputs into one buffer inside the graph
+  would hold one more copy of them in the graph's pool, 8.8 GiB at six
+  replicas of a 0.34 B-parameter model, and copy them once more a replay.)
 * **Warm-up and capture.** Before a capture the body runs ``WARMUP`` times
   on a side stream (cuDNN plans, cuBLAS workspaces, the kernels' ``nvcc``
   build and ``.so`` load); then it is captured on that stream. A capture
@@ -39,7 +44,6 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
-from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 
 from .kernels import counted_wrappers
 
@@ -61,61 +65,78 @@ def _side_stream(device: torch.device):
     return side
 
 
-def _flatten_args(args: tuple) -> tuple[list, tuple]:
-    """Leaves of the step's arguments (dicts walked in sorted-key order) and
-    the hashable structure that rebuilds them."""
-    leaves: list = []
+def _is_tree(x) -> bool:
+    """A container of the parameter tree: a dict, or a list or tuple that
+    is empty or holds a tensor or another container (a list of numbers is
+    array data, as W may arrive)."""
+    if isinstance(x, dict):
+        return True
+    return isinstance(x, (list, tuple)) and (not x or any(
+        isinstance(v, torch.Tensor) or _is_tree(v) for v in x))
 
-    def walk(x):
-        if isinstance(x, dict):
-            keys = tuple(sorted(x))
-            return ("dict", keys, tuple(walk(x[k]) for k in keys))
-        leaves.append(x)
-        return None
-    return leaves, tuple(walk(a) for a in args)
+
+# The walkers are module-level functions: a nested function that calls
+# itself is a reference cycle with its closure, and the leaves list in that
+# closure (a round's input parameters) would live until the next garbage
+# collection instead of until the call returns.
+
+def _walk_args(x, leaves: list):
+    if isinstance(x, dict):
+        keys = tuple(sorted(x))
+        return ("dict", keys, tuple(_walk_args(x[k], leaves) for k in keys))
+    if _is_tree(x):
+        return (type(x).__name__, None,
+                tuple(_walk_args(v, leaves) for v in x))
+    leaves.append(x)
+    return None
+
+
+def _flatten_args(args: tuple) -> tuple[list, tuple]:
+    """Leaves of the step's arguments (dicts walked in sorted-key order,
+    lists and tuples of the tree in order) and the hashable structure that
+    rebuilds them."""
+    leaves: list = []
+    return leaves, tuple(_walk_args(a, leaves) for a in args)
+
+
+def _build(s, it):
+    """The tree of structure ``s`` with its leaves drawn from ``it``."""
+    if s is None:
+        return next(it)
+    kind, keys, children = s
+    if kind == "dict":
+        return {k: _build(c, it) for k, c in zip(keys, children)}
+    items = [_build(c, it) for c in children]
+    return tuple(items) if kind == "tuple" else items
 
 
 def _unflatten_args(structure: tuple, leaves: list) -> tuple:
     it = iter(leaves)
+    return tuple(_build(s, it) for s in structure)
 
-    def build(s):
-        if s is None:
-            return next(it)
-        _, keys, children = s
-        return {k: build(c) for k, c in zip(keys, children)}
-    return tuple(build(s) for s in structure)
+
+def _walk_out(x, leaves: list):
+    if isinstance(x, dict):
+        keys = tuple(sorted(x))
+        return ("dict", keys, tuple(_walk_out(x[k], leaves) for k in keys))
+    if isinstance(x, (tuple, list)):
+        return (type(x).__name__, None,
+                tuple(_walk_out(v, leaves) for v in x))
+    if not isinstance(x, torch.Tensor):
+        raise TypeError(f"a graphed step returns tensors, got {type(x)}")
+    leaves.append(x)
+    return None
 
 
 def _flatten_out(out) -> tuple[list, Any]:
     """Tensor leaves of the body's output (dicts, tuples and lists walked)
     and the structure that rebuilds it."""
     leaves: list = []
-
-    def walk(x):
-        if isinstance(x, dict):
-            keys = tuple(sorted(x))
-            return ("dict", keys, tuple(walk(x[k]) for k in keys))
-        if isinstance(x, (tuple, list)):
-            return (type(x).__name__, None, tuple(walk(v) for v in x))
-        if not isinstance(x, torch.Tensor):
-            raise TypeError(f"a graphed step returns tensors, got {type(x)}")
-        leaves.append(x)
-        return None
-    return leaves, walk(out)
+    return leaves, _walk_out(out, leaves)
 
 
 def _unflatten_out(structure, leaves: list):
-    it = iter(leaves)
-
-    def build(s):
-        if s is None:
-            return next(it)
-        kind, keys, children = s
-        if kind == "dict":
-            return {k: build(c) for k, c in zip(keys, children)}
-        items = [build(c) for c in children]
-        return tuple(items) if kind == "tuple" else items
-    return build(structure)
+    return _build(structure, iter(leaves))
 
 
 def _graphable(device: torch.device) -> bool:
@@ -153,13 +174,12 @@ def _static(x, device: torch.device):
 @dataclasses.dataclass
 class _Entry:
     """One captured signature: the graph, its static inputs (None where the
-    leaf is a constant), its flat outputs, and the counters' delta."""
+    leaf is a constant), the output leaves it rewrites on each replay, and
+    the counters' delta."""
 
     graph: torch.cuda.CUDAGraph
     statics: list
-    flats: list                 # one flat output buffer per dtype
-    packed: list                # per flat: the output leaves it packs
-    order: list                 # output leaf i -> (flat index, piece index)
+    outs: list                  # the body's output leaves, in the graph
     structure: Any
     delta: list
 
@@ -182,10 +202,17 @@ class _Entry:
             torch._foreach_copy_(dst, src)
 
     def fresh(self):
-        pieces = [_unflatten_dense_tensors(flat.clone(), leaves)
-                  for flat, leaves in zip(self.flats, self.packed)]
-        return _unflatten_out(self.structure,
-                              [pieces[f][i] for f, i in self.order])
+        """Copies of the outputs, each leaf its own tensor, filled by one
+        multi-tensor copy (``_foreach_copy_``) per dtype."""
+        copies = [torch.empty_like(t) for t in self.outs]
+        groups: dict = {}
+        for dst, src in zip(copies, self.outs):
+            d, s = groups.setdefault(src.dtype, ([], []))
+            d.append(dst)
+            s.append(src)
+        for d, s in groups.values():
+            torch._foreach_copy_(d, s)
+        return _unflatten_out(self.structure, copies)
 
 
 class GraphedStep:
@@ -253,21 +280,11 @@ class GraphedStep:
         torch.cuda.current_stream(device).wait_stream(side)
         warm = [fn.launches for fn in counted]
 
-        def packed():
-            out_leaves, structure = _flatten_out(self._body(*args))
-            dtypes = list(dict.fromkeys(t.dtype for t in out_leaves))
-            order, groups = [], [[] for _ in dtypes]
-            for t in out_leaves:
-                f = dtypes.index(t.dtype)
-                order.append((f, len(groups[f])))
-                groups[f].append(t)
-            flats = [_flatten_dense_tensors(g) for g in groups]
-            return flats, groups, order, structure
-
         graph = torch.cuda.CUDAGraph()
-        flats, packs, order, out_structure = _record(graph, side, packed)
+        outs, out_structure = _record(
+            graph, side, lambda: _flatten_out(self._body(*args)))
         captured = [fn.launches for fn in counted]
         for fn, n in zip(counted, before):
             fn.launches = n
-        return _Entry(graph, statics, flats, packs, order, out_structure,
+        return _Entry(graph, statics, outs, out_structure,
                       [c - w for c, w in zip(captured, warm)])

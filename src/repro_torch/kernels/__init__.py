@@ -16,5 +16,6 @@ def counted_wrappers() -> tuple:
     return (gossip_mix.gossip_mix_rows, gossip_mix.gossip_mix_q8_rows,
             quantize.quantize_int8, quantize.dequantize_int8,
             quantize.quantize_int8_ef,
-            flash_attention.flash_attention, rglru_scan.rglru_scan,
+            flash_attention.flash_attention,
+            flash_attention.flash_attention_bwd, rglru_scan.rglru_scan,
             rwkv6_scan.rwkv6_scan)

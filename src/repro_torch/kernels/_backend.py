@@ -18,7 +18,11 @@ and the capability is asked by device index.
 A wrapper whose kernel has no backward refuses, before any launch, inputs
 that would need a gradient (:func:`refuse_grad`): a kernel fills its output
 through ctypes, so on a card the output would silently carry no
-``grad_fn``. The plain versions on the CPU stay differentiable.
+``grad_fn``. These are the RG-LRU and RWKV-6 scans (their backward kernels
+are ROADMAP Queue 1 item 3(b)), the gossip mixes and the int8 codec.
+Flash attention has its backward kernel and reaches both through autograd
+Functions (``kernels/flash_attention.py``). The plain versions on the CPU
+stay differentiable.
 """
 from __future__ import annotations
 
@@ -72,6 +76,7 @@ def refuse_grad(kernel: str, **tensors) -> None:
              if t is not None and t.requires_grad]
     if needs:
         raise RuntimeError(
-            f"{kernel} has no backward kernel yet: {', '.join(needs)} "
-            "requires grad. Run it under torch.no_grad() or on detached "
-            "inputs (the plain version on the CPU is differentiable)")
+            f"{kernel} has no backward kernel yet (of the port's kernels "
+            f"only flash_attention has one): {', '.join(needs)} requires "
+            "grad. Run it under torch.no_grad() or on detached inputs (the "
+            "plain version on the CPU is differentiable)")

@@ -4,7 +4,11 @@ The torch counterpart of ``repro.models.api``:
 
 * ``init(gen, cast=None) -> params``     (drawn from a ``torch.Generator``;
                                           ``cast`` applied as drawn)
-* ``loss(params, batch) -> scalar``      (teacher-forced, forward only)
+* ``loss(params, batch) -> scalar``      (teacher-forced; differentiable
+                                          on the card and on the CPU:
+                                          attention's gradient is the
+                                          flash backward kernel or its
+                                          plain version)
 * ``prefill(params, batch) -> (logits, cache)``
 * ``decode_step(params, token, cache, index) -> (logits, cache)``
 * ``make_inputs(shape, gen) -> batch``   (synthetic, for smoke runs)

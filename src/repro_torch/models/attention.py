@@ -162,7 +162,8 @@ def attn_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *, kind: str,
                cache_index: Optional[int] = None,
                kv_src: Optional[torch.Tensor] = None,
                causal_override: Optional[bool] = None,
-               cache_in_place: bool = False
+               cache_in_place: bool = False,
+               positions_are_arange: bool = False
                ) -> tuple[torch.Tensor, Optional[dict]]:
     """One attention mixer. Modes:
 
@@ -174,6 +175,11 @@ def attn_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *, kind: str,
     * cross: ``kind == 'cross'`` with ``kv_src`` (B,T,D), the encoder
       output (its K/V replace a given ``cache``), or without it, the K/V
       cached at prefill.
+
+    Train / prefill checks that ``positions`` is ``arange(S)``, a read of
+    the device; a caller that built it so (``transformer.apply``, whose
+    training step runs inside a CUDA graph's capture) passes
+    ``positions_are_arange`` and nothing is read.
     """
     dt = torch_dtype(cfg.dtype)
     b, s, _ = x.shape
@@ -209,9 +215,10 @@ def attn_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *, kind: str,
         # ----- train / prefill: the flash kernel -----
         causal = True if causal_override is None else causal_override
         window = cfg.window if kind == "local" and cfg.window else 0
-        out = ops.flash_attention_gqa(q.contiguous(), k.contiguous(),
-                                      v.contiguous(), causal=causal,
-                                      window=window, positions=positions)
+        out = ops.flash_attention_gqa(
+            q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
+            window=window, positions=None if positions_are_arange
+            else positions)
         new_cache = None
         if cache is not None:  # prefill: write keys into the cache
             length = cache["k"].shape[1]

@@ -67,7 +67,8 @@ def _run_stacked(cfg: ModelConfig, stacked: dict, x: torch.Tensor, *,
                  cross_src: Optional[torch.Tensor] = None,
                  caches: Optional[dict] = None,
                  cache_index: Optional[int] = None, want_cache: bool = False,
-                 encoder_mode: bool = False
+                 encoder_mode: bool = False,
+                 positions_are_arange: bool = False
                  ) -> tuple[torch.Tensor, Optional[dict]]:
     """The layers of a stack in turn. In decode (``cache_index`` given)
     the cross K/V, which never change after prefill, pass through as the
@@ -90,7 +91,8 @@ def _run_stacked(cfg: ModelConfig, stacked: dict, x: torch.Tensor, *,
             _tree_index(stacked, i), x, cfg, "global", positions=positions,
             cache=_tree_index(caches, i) if caches is not None else None,
             cross_src=cross_src, want_cache=want_cache,
-            encoder_mode=encoder_mode)
+            encoder_mode=encoder_mode,
+            positions_are_arange=positions_are_arange)
         new.append(nc)
     return x, (_tree_stack(new) if want_cache else None)
 
@@ -114,7 +116,7 @@ def apply(cfg: ModelConfig, params: PyTree, src_embeds: torch.Tensor,
     x, _ = _run_stacked(
         cfg, params["decoder"], x,
         positions=torch.arange(tgt_tokens.shape[1], device=x.device),
-        cross_src=enc)
+        cross_src=enc, positions_are_arange=True)
     return _logits(cfg, params, x)
 
 

@@ -58,7 +58,8 @@ def init_mla_cache(cfg: ModelConfig, m: MLAConfig, batch: int, max_len: int,
 
 def mla_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *, m: MLAConfig,
               positions: torch.Tensor, cache: Optional[dict] = None,
-              cache_index: Optional[int] = None
+              cache_index: Optional[int] = None,
+              positions_are_arange: bool = False
               ) -> tuple[torch.Tensor, Optional[dict]]:
     dt = torch_dtype(cfg.dtype)
     b, s, _ = x.shape
@@ -79,8 +80,11 @@ def mla_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *, m: MLAConfig,
         k_full = torch.cat([k_nope, k_rope[:, :, None, :].expand(
             b, s, h, m.qk_rope_dim)], dim=-1)
         q_full = torch.cat([q_nope, q_rope], dim=-1)
-        out = ops.flash_attention_gqa(q_full, k_full, v,
-                                      causal=True, positions=positions)
+        # positions checked unless the caller built them as arange(S),
+        # as in attention.attn_apply
+        out = ops.flash_attention_gqa(
+            q_full, k_full, v, causal=True,
+            positions=None if positions_are_arange else positions)
         new_cache = None
         if cache is not None:
             ckv_c, kr_c = cache["c_kv"].clone(), cache["k_rope"].clone()

@@ -150,10 +150,13 @@ def _apply_layer(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
                  cache_index: Optional[int] = None,
                  cross_src: Optional[torch.Tensor] = None,
                  want_cache: bool = False, encoder_mode: bool = False,
-                 cache_in_place: bool = False
+                 cache_in_place: bool = False,
+                 positions_are_arange: bool = False
                  ) -> tuple[torch.Tensor, Optional[dict]]:
     """One layer. ``cache_in_place``: decode writes the self-attention
-    cache's new token into the given tensors (``attn_apply``)."""
+    cache's new token into the given tensors; ``positions_are_arange``:
+    the caller built ``positions`` as ``arange(S)``, unchecked
+    (``attn_apply``)."""
     kind = _mixer_kind(cfg, kind)
     dt = torch_dtype(cfg.dtype)
     new_cache: dict = {}
@@ -178,14 +181,16 @@ def _apply_layer(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
             cache=cache.get("attn") if cache else None,
             cache_index=cache_index,
             causal_override=False if encoder_mode else None,
-            cache_in_place=cache_in_place)
+            cache_in_place=cache_in_place,
+            positions_are_arange=positions_are_arange)
         if want_cache:
             new_cache["attn"] = attn_cache
     elif kind == "mla":
         y, attn_cache = mla.mla_apply(
             p["attn"], h, cfg, m=cfg.mla, positions=positions,
             cache=cache.get("attn") if cache else None,
-            cache_index=cache_index)
+            cache_index=cache_index,
+            positions_are_arange=positions_are_arange)
         if want_cache:
             new_cache["attn"] = attn_cache
     elif kind == "rglru":
@@ -306,7 +311,8 @@ def _logits(cfg: ModelConfig, params: PyTree, x: torch.Tensor) -> torch.Tensor:
 
 def _run_stack(cfg: ModelConfig, params: PyTree, x: torch.Tensor, *,
                positions: torch.Tensor, caches: Optional[dict] = None,
-               cache_index: Optional[int] = None, want_cache: bool = False
+               cache_index: Optional[int] = None, want_cache: bool = False,
+               positions_are_arange: bool = False
                ) -> tuple[torch.Tensor, Optional[dict]]:
     """The decoder-only stack (prologue, unit, tail). The encoder-decoder
     stacks are ``models.encdec._run_stacked``."""
@@ -317,7 +323,8 @@ def _run_stack(cfg: ModelConfig, params: PyTree, x: torch.Tensor, *,
 
     def run_layer(p, x, kind, cache):
         return _apply_layer(p, x, cfg, kind, positions=positions, cache=cache,
-                            cache_index=cache_index, want_cache=want_cache)
+                            cache_index=cache_index, want_cache=want_cache,
+                            positions_are_arange=positions_are_arange)
 
     for i, p in enumerate(params["prologue"]):
         cache = caches["prologue"][i] if caches else None
@@ -355,12 +362,14 @@ def apply(cfg: ModelConfig, params: PyTree, tokens: torch.Tensor, *,
     """Teacher-forced forward: (B, S) tokens -> (B, S, V) logits."""
     x = _embed(cfg, params, tokens, patch_embeds)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
-    x, _ = _run_stack(cfg, params, x, positions=positions)
+    x, _ = _run_stack(cfg, params, x, positions=positions,
+                      positions_are_arange=True)
     return _logits(cfg, params, x)
 
 
 def lm_loss(cfg: ModelConfig, params: PyTree, batch: dict) -> torch.Tensor:
-    """Next-token cross entropy on batch["tokens"] (B, S); forward only."""
+    """Next-token cross entropy on batch["tokens"] (B, S); differentiable
+    (``torch.func.grad``, autograd), under ``torch.func.vmap`` too."""
     tokens = batch["tokens"]
     logits = apply(cfg, params, tokens, patch_embeds=batch.get("patch_embeds"))
     return cross_entropy(logits[:, :-1], tokens[:, 1:])

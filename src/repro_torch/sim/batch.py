@@ -48,10 +48,11 @@ from ..device import resolve_device
 from ..graphs import GraphedStep
 from .scenario import ScenarioConfig, get_scenario
 from .trace import (TraceBatch, TrainTrace, driver_batch_indices,
-                    precompute_traces)
+                    model_batch_tokens, precompute_traces)
 
 __all__ = ["train_on_trace", "train_on_traces", "train_on_trace_reference",
-           "ModelAdapter", "train_model_on_traces", "train_cnn_on_traces"]
+           "ModelAdapter", "train_model_on_traces", "train_cnn_on_traces",
+           "transformer_adapter"]
 
 PyTree = Any
 
@@ -94,6 +95,10 @@ def _row_where(mask: torch.Tensor, a: PyTree, b: PyTree) -> PyTree:
 
 
 def _stack(trees: list) -> PyTree:
+    """The trees stacked on a new leading axis; one tree as a view (a
+    family of one trace holds no second copy of its node-stacked state)."""
+    if len(trees) == 1:
+        return _tree_map(lambda x: x[None], trees[0])
     return _tree_map(lambda *xs: torch.stack(xs), trees[0], *trees[1:])
 
 
@@ -152,7 +157,9 @@ def _train_family(loss_fn, params, w_seq, live_seq, batch_seq, config,
     ``w_seq`` (S, rounds, n, n), masks (S, rounds, n), batch leaves
     (S, rounds, n, ...). Everything moves to the parameters' device once;
     each round replays the family's graphed body on slices of it, with no
-    read back to the host."""
+    read back to the host. Each output leaf of a round is a tensor of its
+    own (``GraphedStep``), so the kept losses, snapshots and rollbacks
+    hold nothing else of their round."""
     if payload.mode == "auto":
         raise ValueError(
             f"{what} needs a concrete payload mode; \"auto\" is "
@@ -178,12 +185,11 @@ def _train_family(loss_fn, params, w_seq, live_seq, batch_seq, config,
                    w[:, r], grad_mask[:, r],
                    None if first is None else first[:, r])
         params, res = out["params"], out.get("res")
-        # copies: a view would keep the round's whole output buffer alive
-        losses.append(out["losses"].clone())
+        losses.append(out["losses"])
         if collect_node0:
-            node0.append(_tree_map(torch.clone, out["node0"]))
+            node0.append(out["node0"])
         if watchdog:
-            rollbacks.append(out["rollbacks"].clone())
+            rollbacks.append(out["rollbacks"])
     outs = (params, torch.stack(losses, 1))
     if collect_node0:
         outs += (_tree_map(lambda *xs: torch.stack(xs, 1), *node0),)
@@ -414,6 +420,86 @@ def _cnn_adapter(shard_x: np.ndarray, shard_y: np.ndarray, batch: int,
         name="cnn", init_params=init_params, loss_fn=_cnn_loss,
         batch_fn=batch_fn, eval_fn=eval_fn,
         model_bits=float(cnn.MODEL_BITS), param_shapes=())
+
+
+def _host_token_batches(cfg: ScenarioConfig, tr: TrainTrace, batch: int,
+                        seq_len: int, vocab: int) -> np.ndarray:
+    """Host-side per-round LM minibatch tensors, the token analogue of
+    ``_driver_batches``: compacted row k of ``trace.model_batch_tokens``
+    scatters to the k-th live original node id; dead rows stay zero-filled
+    (inert — their gradient weight is zero under the masked step)."""
+    toks = np.zeros((tr.n_rounds, tr.n_nodes, batch, seq_len), np.int32)
+    for r in range(tr.n_rounds):
+        ids = np.flatnonzero(tr.live[r])
+        toks[r, ids] = model_batch_tokens(
+            cfg.seed, r, ids.size, batch, seq_len, vocab)
+    return toks
+
+
+def transformer_adapter(arch="stablelm-3b", batch: int = 4,
+                        seq_len: int = 32, eval_batch: int = 8,
+                        device: str | torch.device = "cuda") -> ModelAdapter:
+    """A real transformer as a ``ModelAdapter``: ``arch`` by name is the
+    smoke-reduced config from ``configs/`` (a ``ModelConfig`` is taken as
+    it is), built through ``models.api.build`` on ``device``, trained on
+    the deterministic structured token stream
+    (``trace.model_batch_tokens``) and evaluated by next-token accuracy on
+    a held-out ``token_stream`` batch. ``param_shapes`` carries the
+    parameter tree's leaf shapes in the JAX package's leaf order, so
+    scenario configs charge the exact per-leaf wire framing. Inits draw
+    from a CPU generator seeded per trace (the same weights on every
+    device); attention's gradient is the flash backward kernel on the card
+    and its plain version on the CPU."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from ..configs import get_config
+    from ..configs.base import reduce_for_smoke
+    from ..data.synthetic import token_stream
+    from ..models import transformer
+    from ..models.api import build
+
+    mcfg = reduce_for_smoke(get_config(arch)) if isinstance(arch, str) \
+        else arch
+    if mcfg.is_encdec:
+        raise ValueError(
+            "transformer_adapter drives the decoder-only lm batch layout; "
+            f"config {mcfg.name!r} is encoder-decoder")
+    dev = resolve_device(device)
+    api = build(mcfg, dev)
+
+    def init_params(seed: int) -> PyTree:
+        return api.init(torch.Generator().manual_seed(seed))
+
+    # the leaf shapes without drawing a parameter (jax.eval_shape's role)
+    with FakeTensorMode():
+        shapes = transformer.init_params(mcfg, torch.Generator(), "cpu")
+    leaf_shapes = tuple(tuple(int(d) for d in leaf.shape)
+                        for leaf in dpsgd._leaves(shapes))
+    # fp32 wire lanes (the payload accounting's base dtype), whatever the
+    # in-memory param dtype — matches ScenarioConfig.model_shapes validation
+    model_bits = float(sum(
+        32 * int(np.prod(s, dtype=np.int64)) for s in leaf_shapes))
+
+    def loss_fn(p: PyTree, b: PyTree):
+        return api.loss(p, b)
+
+    def batch_fn(cfg: ScenarioConfig, tr: TrainTrace) -> PyTree:
+        return {"tokens": _host_token_batches(cfg, tr, batch, seq_len,
+                                              mcfg.vocab_size)}
+
+    eval_tokens = torch.as_tensor(next(token_stream(
+        eval_batch, seq_len, mcfg.vocab_size, seed=1)), device=dev)
+
+    def eval_fn(p: PyTree):
+        # full-sequence logits (api.prefill only returns the last position)
+        logits = transformer.apply(mcfg, p, eval_tokens)
+        pred = torch.argmax(logits[:, :-1], dim=-1)
+        return (pred == eval_tokens[:, 1:]).to(torch.float32).mean()
+
+    return ModelAdapter(
+        name=mcfg.name, init_params=init_params, loss_fn=loss_fn,
+        batch_fn=batch_fn, eval_fn=eval_fn, model_bits=model_bits,
+        param_shapes=leaf_shapes)
 
 
 def _evaluate(eval_fn: Callable, snaps: PyTree, chunk: int) -> torch.Tensor:

@@ -10,6 +10,8 @@ as a replay runs no Python. The real capture is held against the eager body
 on the card (tests/test_torch_kernels_card.py).
 """
 import contextlib
+import gc
+import weakref
 
 import numpy as np
 import pytest
@@ -159,6 +161,39 @@ def test_graph_path_replays_the_eager_body_and_hands_out_fresh_outputs(
         for got, copy in kept:
             assert all(torch.equal(a, b) for a, b in zip(_leaves(got), copy))
     assert step.signatures == 2
+
+
+def test_graph_path_gives_each_output_its_own_storage(fake_graphs):
+    """Every output leaf a step hands out is a tensor of its own, not a
+    view of a buffer shared with the other outputs: a caller that keeps
+    one round's losses keeps nothing else of that round alive."""
+    step = _builders()["masked"][0]
+    got = step(*_args("masked", _params(), _batch(), _w(), None))
+    ptrs = [t.untyped_storage().data_ptr() for t in _leaves(got)]
+    assert len(set(ptrs)) == len(ptrs)
+    assert all(t.untyped_storage().nbytes() == t.numel() * t.element_size()
+               for t in _leaves(got))
+
+
+def test_graph_path_frees_a_calls_inputs_when_it_returns(fake_graphs):
+    """A step keeps nothing of what it was given: with the garbage
+    collector off, a round's input parameters are freed as soon as the
+    caller drops them (a tree walker that calls itself from a closure
+    would hold them in a reference cycle until the next collection)."""
+    step = _builders()["masked"][0]
+    step(*_args("masked", _params(), _batch(), _w(), None))   # the capture
+    params = _params(seed=1)
+    ref = weakref.ref(_leaves(params)[0])
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        out = step(*_args("masked", params, _batch(), _w(), None))
+        del params
+        assert ref() is None
+        assert all(torch.isfinite(t).all() for t in _leaves(out))
+    finally:
+        if enabled:
+            gc.enable()
 
 
 def test_graph_path_takes_numpy_and_list_inputs(fake_graphs):

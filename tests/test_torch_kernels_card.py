@@ -831,3 +831,128 @@ def test_graphed_loop_with_the_host_ahead_matches_a_synchronised_loop(sm90):
         assert all(torch.equal(a, b) for a, b in zip(*runs))
     finally:
         torch.backends.cudnn.deterministic = deterministic
+
+
+# ---------------------------------------------------------------------------
+# Flash attention's backward kernel and the training path
+# ---------------------------------------------------------------------------
+
+# every served arch's attention shape, small in B and S: (B, S, T, Hq, Hkv,
+# D, causal, window): recurrentgemma-2b / gemma-style windowed D 256 with 10
+# q heads on 1 kv head, deepseek's MLA D 192, seamless's D 64 causal,
+# bidirectional and cross (T != S), stablelm-3b's 32 heads of 80
+_BWD_SHAPES = [
+    (1, 600, 600, 10, 1, 256, True, 256),
+    (1, 300, 300, 16, 16, 192, True, 0),
+    (2, 300, 300, 16, 16, 64, True, 0),
+    (2, 300, 300, 16, 16, 64, False, 0),
+    (2, 129, 700, 16, 16, 64, False, 0),
+    (4, 200, 200, 32, 32, 80, True, 0),
+    (2, 77, 77, 4, 2, 80, True, 0),
+]
+
+
+def _bwd_inputs(b, s, t, hq, hkv, d, tdt, device, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    q, do = (torch.randn((b, s, hq, d), generator=g, device=device).to(tdt)
+             for _ in range(2))
+    k, v = (torch.randn((b, t, hkv, d), generator=g, device=device).to(tdt)
+            for _ in range(2))
+    return q, k, v, do
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,t,hq,hkv,d,causal,window", _BWD_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_bwd_kernel_matches_plain(sm90, b, s, t, hq, hkv, d,
+                                                  causal, window, dtype):
+    """dq, dk, dv of the backward kernel against its plain version summed
+    in float64, on the same inputs (the forward kernel's out and lse): fp32
+    2e-5, bf16 3e-2 and every row within 2^-6 of its norm; one launch a
+    call."""
+    tdt = DTYPES[dtype]
+    q, k, v, do = _bwd_inputs(b, s, t, hq, hkv, d, tdt, sm90, s + t + d)
+    o, lse = fa._forward(q, k, v, causal, window, True)
+    before = fa.flash_attention_bwd.launches
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                 window=window)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_bwd.launches == before + 1
+    # the plain version's formulas summed in float64 (the oracle)
+    want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
+                                        window=window, acc_dtype=torch.float64)
+    for name, g_, w_ in zip(("dq", "dk", "dv"), got, want):
+        assert g_.shape == w_.shape and g_.dtype == tdt
+        assert _err(g_, w_) < (2e-5 if dtype == "float32" else 3e-2)
+        if dtype == "bfloat16":
+            # dq of the first query under a causal mask (one live key) is 0
+            # exactly: rounding noise on both sides, held by the absolute
+            # bar only
+            first = 1 if name == "dq" and causal else 0
+            assert _row_err(g_[:, first:], w_[:, first:]) <= 2.0 ** -6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,t,hq,hkv,d,causal,window", _BWD_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_forward_lse_matches_logsumexp(sm90, b, s, t, hq, hkv,
+                                                       d, causal, window,
+                                                       dtype):
+    """The lse the forward kernel writes for the backward: each query
+    row's log-sum-exp of its scaled, masked scores, against
+    torch.logsumexp over the plain scores in fp32 (1e-5); the output the
+    same as without lse."""
+    tdt = DTYPES[dtype]
+    q, k, v, _ = _bwd_inputs(b, s, t, hq, hkv, d, tdt, sm90, s * d)
+    o, lse = fa._forward(q, k, v, causal, window, True)
+    torch.cuda.synchronize()
+    assert lse.shape == (b, hq, s) and lse.dtype == torch.float32
+    assert torch.equal(o, fa.flash_attention(q, k, v, causal=causal,
+                                             window=window))
+    qpos = torch.arange(s, device=sm90)[:, None]
+    kpos = torch.arange(t, device=sm90)[None, :]
+    live = torch.ones((s, t), dtype=torch.bool, device=sm90)
+    if causal:
+        live &= kpos <= qpos
+    if window:
+        live &= qpos - kpos < window
+    scores = torch.einsum("bshd,bthd->bhst", q.float(), k.float(
+        ).repeat_interleave(hq // hkv, 2)) * d**-0.5
+    want = torch.logsumexp(scores.masked_fill(~live, float("-inf")), -1)
+    assert _err(lse, want) < 1e-5
+
+
+@pytest.mark.cuda
+def test_graphed_vmap_grad_through_flash_matches_eager(sm90):
+    """The D-PSGD masked step of the stablelm-3b smoke model (vmap of
+    grad_and_value over 3 nodes, through the flash Functions) as a CUDA
+    graph: three replays against the eager body on the same inputs
+    (losses 1e-4, parameters 1e-5), each replay one flash forward, one
+    backward and one rows mix."""
+    from repro_torch.configs import get_config, reduce_for_smoke
+    from repro_torch.core import dpsgd
+    from repro_torch.models import build
+
+    api = build(reduce_for_smoke(get_config("stablelm-3b")), sm90)
+    cfg = dpsgd.DPSGDConfig(eta=0.05)
+    step = dpsgd.make_dpsgd_masked_step(api.loss, cfg)
+    params = dpsgd.replicate(api.init(torch.Generator().manual_seed(0)), 3)
+    rng = np.random.default_rng(0)
+    w = np.full((3, 3), 1 / 3)
+    live = np.ones(3, bool)
+    counters = (fa.flash_attention, fa.flash_attention_bwd, gm.gossip_mix_rows)
+    for r in range(3):
+        batch = {"tokens": torch.from_numpy(rng.integers(
+            0, 512, (3, 2, 24)).astype(np.int32)).to(sm90)}
+        before = [c.launches for c in counters]
+        got = step(params, batch, w, live)
+        if r > 0:       # the first call captures: its warm-ups do not count
+            assert [c.launches - b_ for c, b_ in zip(counters, before)] == \
+                [1, 1, 1]
+        want = dpsgd.dpsgd_masked_step(api.loss, params, batch, w, live, cfg)
+        torch.cuda.synchronize()
+        assert _err(got[1], want[1]) <= 1e-4
+        for a, b_ in zip(_flat(got[0]), _flat(want[0])):
+            assert _err(a, b_) <= 1e-5
+        params = got[0]
+    assert step.signatures == 1

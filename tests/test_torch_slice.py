@@ -143,6 +143,11 @@ def test_slice_runs_without_jax_or_repro_loaded():
         "final, losses = batch.train_on_trace(batch._cnn_loss, p0, "
         "np.stack([np.full((3, 3), 1 / 3)] * 2), np.ones((2, 3), bool), b)\n"
         "assert tuple(losses.shape) == (2, 3), losses.shape\n"
+        "lm = batch.transformer_adapter('stablelm-3b', batch=2, seq_len=8, "
+        "device='cpu')\n"
+        "_, out = batch.train_model_on_traces(lm, ['static'], 1, "
+        "device='cpu')\n"
+        "assert np.isfinite(out['losses']).all(), out['losses']\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"
