@@ -52,9 +52,12 @@ Phases, each of which ends the run with a nonzero exit if it fails:
               matmuls and cuDNN convolutions, so fp32 means fp32;
 2. build    — nvcc builds every kernel from the sources into ``build/``
               (one nvcc per source, started together); each flash entry's
-              registers and spill bytes from the ptxas report, and the
-              six bf16 (wgmma) kernels (DP 64, 128, 256, each with and
-              without the lse write) must not spill;
+              registers and spill bytes from the ptxas report: no bf16
+              instance of the forward or the backward may spill or have
+              its wgmma serialised, and the six wgmma kernels of each
+              must be there (forward: DP 64, 128, 256, each with and
+              without the lse write; backward: dk / dv and dq at (DP,
+              k-steps) (64, 4), (128, 5), (128, 8));
 3. kernels  — each kernel against its plain torch version at the main
               paths' shapes and at edge shapes, its ValueError contracts,
               and its time beside its bound, plain and library times; the
@@ -92,10 +95,11 @@ Phases, each of which ends the run with a nonzero exit if it fails:
               sums in float64: the oracle), bf16 and fp32, at phase 16's
               shape (24, 512, 32, 80) causal, at
               phase 17's, windowed D 256 with 10 q heads on 1 kv head,
-              non-causal T != S at D 64, D 192 and ragged S: fp32 2e-5,
-              bf16 3e-2 and rows 2^-6; each timed beside its bound (5
-              products a pair), its plain version and SDPA's forward and
-              backward (autograd));
+              non-causal T != S at D 64, D 192, ragged S and D 128: fp32
+              2e-5, bf16 3e-2 and rows 2^-6; two calls bit-equal; each
+              timed eagerly, on the device and in a CUDA graph beside its
+              bound (5 products a pair), its plain version and SDPA's
+              forward and backward (autograd));
 4. slice    — the paper run, each λ target's 40 steps twice in turns:
               the eager body, then the entry point, whose step is a CUDA
               graph (steps/s of both); the gossip_mix launch counter must
@@ -208,7 +212,8 @@ count 0 launches there and phase 3d's checks under ``check_launches``;
 flash's ``launches`` are phase 6's, its ``launches_by_path`` add phases
 12, 14 and 16, and its ``mla``, ``cross`` and ``decoder`` keys time the new
 prefill shapes; flash_attention_bwd's are phase 16's, its
-``library_ms`` SDPA's backward and ``library_fwd_ms`` its forward), and
+``library_ms`` SDPA's backward, ``library_device_ms`` that call's
+device time and ``library_fwd_ms`` SDPA's forward), and
 ``{"ok": true, "device": ...}``.
 
 Run from the repository root:  python3 chip_smoke.py
@@ -313,9 +318,9 @@ TRAIN_ARCH = "stablelm-3b"
 TRAIN_LAYERS = 1
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_EVAL_BATCH = 4, 512, 8
 TRAIN_ROUNDS = 4
-# predicted before the card run of the one-output-mode loop (each round's
-# outputs fresh tensors; PERF.md)
-TRAIN_PEAK_GIB = (50.0, 55.0)
+# predicted before the run (PERF.md): the one-output-mode loop's 45.540 GiB
+# plus the backward's scratch, 1.5 MB more than its delta buffer was
+TRAIN_PEAK_GIB = (45.54, 45.55)
 LOCK_TRAIN_SEQ, LOCK_TRAIN_ROUNDS = 32, 3
 # the backward kernel at phase 16's shape: 6 nodes x batch 4 folded into B
 BWD_MAIN = (N_NODES * TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 32, 32, 80, True, 0)
@@ -644,23 +649,19 @@ def phase_device(torch) -> None:
           "torch.backends.cudnn.allow_tf32 = False")
 
 
-def ptxas_entries(log: str) -> list[tuple[str, int, int, int]]:
-    """(entry function, registers, spill store bytes, spill load bytes) of
-    each kernel in an ``nvcc -Xptxas -v`` report."""
-    rows, name, spill = [], None, (0, 0)
-    for line in log.splitlines():
-        m = re.search(r"Compiling entry function '(\S+)'", line)
-        if m:
-            name, spill = m.group(1), (0, 0)
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
-        if m:
-            spill = (int(m.group(1)), int(m.group(2)))
-        m = re.search(r"Used (\d+) registers", line)
-        if m and name:
-            rows.append((name, int(m.group(1)), *spill))
-            name = None
-    return rows
+def flash_label(entry: str) -> str:
+    """A flash kernel's mangled name as ``name<args>``: its template
+    arguments (DP, the lse write, the element type) in order."""
+    m = re.search(r"(?<=\d)(flash_\w+?_kernel)(?:I(.*?)E)?E?v", entry) or \
+        re.search(r"(?<=\d)(flash_\w+?_kernel)()", entry)
+    if not m:
+        return entry
+    args = []
+    for dp, lse, bf16, f32 in re.findall(
+            r"Li(\d+)E|Lb([01])E|(13__nv_bfloat16)|(f)", m[2] or ""):
+        args += [dp] if dp else ["lse"] if lse == "1" else [] if lse else \
+            ["bf16"] if bf16 else ["f32"] if f32 else []
+    return f"{m[1]}<{', '.join(args)}>" if args else m[1]
 
 
 def phase_build() -> None:
@@ -677,28 +678,33 @@ def phase_build() -> None:
         print(f"{name}: {so.relative_to(ROOT)}")
         log = so.with_suffix(".log")
         text = log.read_text() if log.exists() else ""
-        if name != "flash_attention":
+        if name not in ("flash_attention", "flash_attention_bwd"):
             for line in text.splitlines():
                 if "registers" in line or "spill" in line or "error" in line:
                     print(f"   {line.strip()}")
             continue
-        # the flash entries by name: the bf16 (wgmma) kernels must not spill
-        bf16 = []
-        for entry, regs, st, ld in ptxas_entries(text):
-            m = re.search(r"(flash_attention(?:_bf16)?_kernel)ILi(\d+)ELb"
-                          r"([01])E", entry)
-            label = f"{m[1]}<{m[2]}{', lse' if m[3] == '1' else ''}>" \
-                if m else entry
+        # the flash entries by name: no bf16 kernel may spill, and the
+        # wgmma ones must be all there (the forward's six instances; the
+        # backward's dk / dv and dq at (DP, KS) (64, 4), (128, 5), (128, 8))
+        bf16, wgmma = [], []
+        for entry, regs, st, ld in _build.ptxas_entries(text):
+            label = flash_label(entry)
             print(f"   {label}: {regs} registers, spill stores {st} B, "
                   f"spill loads {ld} B")
-            if "_bf16_" in label:
+            if "bf16" in entry or "bfloat16" in entry:
                 bf16.append((label, st + ld))
+            if "_bf16_kernel" in entry and "rows" not in entry:
+                wgmma.append(label)
         for line in text.splitlines():
             if "Performance Loss" in line:      # wgmma serialised by ptxas
                 print(f"   {line.strip()}")
-        check(len(bf16) == 6, f"ptxas log names {len(bf16)} bf16 flash "
-              "kernels, expected 6 (DP 64, 128, 256, with and without lse)")
-        check(all(n == 0 for _, n in bf16), f"bf16 flash kernels spill: {bf16}")
+        want = 6
+        check(len(wgmma) == want, f"ptxas log of {name} names {len(wgmma)} "
+              f"bf16 wgmma kernels, expected {want}: {wgmma}")
+        check(all(n == 0 for _, n in bf16),
+              f"bf16 kernels of {name} spill: {bf16}")
+        check("Performance Loss" not in text,
+              f"ptxas serialised wgmma in {name}")
 
 
 def phase_kernels(torch) -> dict:
@@ -2724,7 +2730,8 @@ def phase_flash_backward(torch) -> dict:
              (2, 100, 333, 16, 16, 64, False, 0),
              (2, 333, 100, 16, 16, 64, False, 0),
              (1, 300, 300, 16, 16, 192, True, 0),
-             (2, 77, 77, 4, 2, 80, True, 0)]
+             (2, 77, 77, 4, 2, 80, True, 0),
+             (2, 129, 129, 4, 1, 128, True, 0)]
     cases = [(*BWD_MAIN, bf16), (*BWD_MAIN, f32), (*lock, f32)] + \
         [(*e, dt) for e in edges for dt in (bf16, f32)]
     worst, worst_fwd, out = 0.0, 0.0, {}
@@ -2765,6 +2772,13 @@ def phase_flash_backward(torch) -> dict:
         for src, (oo, ll) in (("kernel", (o, lse)), ("plain", (o_p, lse_p))):
             got = fa.flash_attention_bwd(q, k, v, oo, ll, do, causal=causal,
                                          window=window)
+            if src == "kernel":     # no atomics: a second call bit-equal
+                again = fa.flash_attention_bwd(q, k, v, oo, ll, do,
+                                               causal=causal, window=window)
+                check(all(bool(torch.equal(a, b_)) for a, b_ in
+                          zip(got, again)), f"flash_attention_bwd {what}: "
+                      "two calls differ")
+                del again
             torch.cuda.synchronize()
             want = fa.flash_attention_bwd_plain(q, k, v, oo, ll, do,
                                                 causal=causal, window=window,
@@ -2826,12 +2840,20 @@ def phase_flash_backward(torch) -> dict:
         b_ms, b_by = bound(nbytes, flops, peak)
         t_ = {"ms": time_ms(torch, kernel, **reps),
               "device_ms": device_ms(torch, kernel, "flash_bwd", calls=3),
+              "graph_ms": graph_ms(torch, kernel, reps=3 if big else 20,
+                                   rounds=3),
               "plain_ms": time_ms(torch, lambda: fa.flash_attention_bwd_plain(
                   q, k, v, o, lse, do, causal=causal, window=window),
                   reps=1, rounds=3, warmup=1),
               "library_fwd_ms": time_ms(torch, sdpa, **reps),
               "library_ms": time_ms(torch, lambda: torch.autograd.grad(
                   lib_out, (qq, kk, vv), dot, retain_graph=True), **reps),
+              # every device operation of SDPA's backward call (its
+              # kernels, pre-pass and conversions), beside the kernel's
+              "library_device_ms": device_ms(
+                  torch, lambda: torch.autograd.grad(
+                      lib_out, (qq, kk, vv), dot, retain_graph=True), "",
+                  calls=3),
               "bound_ms": b_ms, "bound_by": b_by,
               "shape": f"q, do ({b},{s},{hq},{d}) k, v ({b},{t},{hkv},{d}) "
                        f"{str(dtype)[6:]}, "
@@ -2840,13 +2862,25 @@ def phase_flash_backward(torch) -> dict:
         dev_t = t_["device_ms"] if t_["device_ms"] is not None else t_["ms"]
         dms = "not measured" if t_["device_ms"] is None \
             else f"{t_['device_ms']:.4f} ms"
+        lib_d = t_["library_device_ms"]
+        lib_dev = "not measured" if lib_d is None else f"{lib_d:.4f} ms"
+        lib_ratio = "not measured" if lib_d is None or \
+            t_["device_ms"] is None else f"{t_['device_ms'] / lib_d:.2f}x"
         print(f"flash_attention_bwd {t_['shape']}: {t_['ms']:.4f} ms/call "
-              f"(device {dms}) | plain {t_['plain_ms']:.4f} ms | library "
-              f"(SDPA, autograd) forward {t_['library_fwd_ms']:.4f} ms, "
-              f"backward {t_['library_ms']:.4f} ms | bound "
+              f"(device {dms}, in a graph {t_['graph_ms']:.4f} ms) | plain "
+              f"{t_['plain_ms']:.4f} ms | library (SDPA, autograd) forward "
+              f"{t_['library_fwd_ms']:.4f} ms, backward "
+              f"{t_['library_ms']:.4f} ms (device {lib_dev}): the kernel "
+              f"{t_['ms'] / t_['library_ms']:.2f}x its time eagerly, "
+              f"{lib_ratio} on the device | bound "
               f"{t_['bound_ms']:.4f} ms ({t_['bound_by']}; {flops:.4e} "
               f"flops, {nbytes:.4e} bytes), {t_['bound_ms'] / dev_t * 100:.2f}"
               f" % of it, {flops / dev_t / 1e9:.2f} TFLOP/s")
+        if (b, s, t, hq, hkv, d, causal, window) == BWD_MAIN:
+            # the call's device operations one by one
+            for name_, ms_, n_ in device_profile(torch, kernel, 1):
+                if "flash_bwd" in name_:
+                    print(f"   {name_[:72]}: {ms_:.4f} ms x {n_}")
         out[(b, s, t, hq, hkv, d, causal, window, str(dtype)[6:])] = t_
         del q, k, v, o, lse, do, qq, kk, vv, lib_out
     print(f"the forward with lse at every shape above: out max|err| "
@@ -2854,8 +2888,9 @@ def phase_flash_backward(torch) -> dict:
     main = out[(*BWD_MAIN, "bfloat16")]
     row = dict(main, max_abs_err=worst,
                fp32={f: out[(*BWD_MAIN, "float32")][f] for f in (
-                   "ms", "device_ms", "plain_ms", "library_ms",
-                   "library_fwd_ms", "bound_ms", "bound_by", "shape")})
+                   "ms", "device_ms", "graph_ms", "plain_ms", "library_ms",
+                   "library_device_ms", "library_fwd_ms", "bound_ms",
+                   "bound_by", "shape")})
     return {"flash_attention_bwd": row}
 
 
@@ -3311,8 +3346,11 @@ def main() -> None:
                 rows[-1][extra] = {f: k[extra][f] for f in (
                     "ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
                     "bound_by", "shape")}
+                if "graph_ms" in k[extra]:
+                    rows[-1][extra]["graph_ms"] = k[extra]["graph_ms"]
         if "library_fwd_ms" in k:         # the backward's library: SDPA's
             rows[-1]["library_fwd_ms"] = k["library_fwd_ms"]
+            rows[-1]["library_device_ms"] = k["library_device_ms"]
     print("\nphase wall times: " + ", ".join(f"{label} {sec:.2f} s"
                                              for label, sec in walls))
     print(f"all phases passed in {time.perf_counter() - t_start:.1f}s")

@@ -6,14 +6,16 @@ first use with
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \\
          -shared -Xcompiler -fPIC -Xptxas -v -o build/<name>-<hash>.so
 
-into ``build/`` at the repository root, named after a hash of the source
-and the flags, so an edited source is rebuilt and an unchanged one is
-loaded as it is. nvcc's report (ptxas registers and spills) is kept beside
-the library as ``<name>-<hash>.log``. :func:`build` starts one nvcc per
-missing source, all together, and waits for them. The library is loaded
-with ``ctypes``; :func:`launch` passes every pointer and the stream as
-``c_void_p``. Nothing is compiled or loaded at import time: the CPU has no
-``nvcc`` and never calls :func:`load`.
+into ``build/`` at the repository root, named after a hash of the source,
+every ``csrc/`` header it includes (``#include "x.cuh"``, followed
+through the headers' own includes) and the flags, so an edited source or
+header is rebuilt and an unchanged one is loaded as it is. nvcc's report
+(ptxas registers and spills) is kept beside the library as
+``<name>-<hash>.log``; :func:`ptxas_entries` reads it. :func:`build`
+starts one nvcc per missing source, all together, and waits for them.
+The library is loaded with ``ctypes``; :func:`launch` passes every
+pointer and the stream as ``c_void_p``. Nothing is compiled or loaded at
+import time: the CPU has no ``nvcc`` and never calls :func:`load`.
 
 A launch costs little more than the ctypes call itself: each ``(source,
 entry)`` is resolved once into a typed ctypes function (argtypes set), the
@@ -28,6 +30,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -35,7 +38,8 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["load", "build", "launch", "SOURCES", "BUILD_DIR", "NVCC_FLAGS"]
+__all__ = ["load", "build", "launch", "ptxas_entries", "SOURCES",
+           "BUILD_DIR", "NVCC_FLAGS"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
@@ -43,6 +47,8 @@ SOURCES = ("gossip_mix", "flash_attention", "flash_attention_bwd",
            "rglru_scan", "rwkv6_scan", "quantize")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
 
 _LOADED: dict[str, ctypes.CDLL] = {}
 _ENTRIES: dict[tuple[str, str], ctypes._CFuncPtr] = {}
@@ -61,12 +67,52 @@ def _nvcc() -> str:
                        "(put the CUDA toolkit's bin/ on PATH)")
 
 
+def _includes(src: Path) -> list[Path]:
+    """The files that ``src`` includes with quotes and that exist beside
+    the file naming them, through their own includes, each once, in the
+    order they are first met (as the compiler reads them; a quoted name
+    found nowhere there is a system header, left to the toolkit)."""
+    found: list[Path] = []
+    todo = [src]
+    while todo:
+        path = todo.pop(0)
+        for name in _INCLUDE.findall(path.read_text()):
+            inc = (path.parent / name).resolve()
+            if inc.is_file() and inc not in found and inc != src.resolve():
+                found.append(inc)
+                todo.append(inc)
+    return found
+
+
 def _target(name: str) -> tuple[Path, Path]:
     """The source of ``name`` and its library, named after a hash of the
-    source and the flags."""
+    source, the headers it includes and the flags."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(src.read_bytes())
+    for inc in _includes(src):
+        digest.update(inc.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return src, BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+
+
+def ptxas_entries(log: str) -> list[tuple[str, int, int, int]]:
+    """(entry function, registers, spill store bytes, spill load bytes) of
+    each kernel in an ``nvcc -Xptxas -v`` report (the ``.log`` beside a
+    library)."""
+    rows, name, spill = [], None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name, spill = m.group(1), (0, 0)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            rows.append((name, int(m.group(1)), *spill))
+            name = None
+    return rows
 
 
 def build(names=SOURCES) -> list[str]:

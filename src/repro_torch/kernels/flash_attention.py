@@ -19,10 +19,13 @@ causal / window band are never loaded. The forward's bf16 runs on the
 tensor cores (wgmma, TMA loads into a pipelined ring), which needs a
 head_dim that is a multiple of 8 (16-byte rows for TMA) and 16-byte
 aligned buffers; fp32 runs on CUDA cores, any head_dim up to 256. The
-backward runs on CUDA cores in fp32 for both dtypes. Each wrapper checks
-its arguments, then asks ``_backend.use_kernel`` per call: a CPU tensor
-runs the plain torch version beside it, a CUDA tensor launches the kernel
-of its dtype (or raises: no fallback). ``flash_attention.launches`` and
+backward's bf16 runs on the tensor cores too at head_dim <= 128 (the same
+TMA and wgmma machinery, the same alignment; P and dS enter its products
+as two bf16 terms each, every sum in fp32), on CUDA cores in fp32 above
+that and for fp32 inputs. Each wrapper checks its arguments, then asks
+``_backend.use_kernel`` per call: a CPU tensor runs the plain torch
+version beside it, a CUDA tensor launches the kernel of its dtype (or
+raises: no fallback). ``flash_attention.launches`` and
 ``flash_attention_bwd.launches`` count the launches. The kernels' design
 and bound are noted in the CUDA sources.
 
@@ -247,8 +250,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         ) -> tuple[torch.Tensor, ...]:
     """Gradients (dq, dk, dv) of ``flash_attention`` from its output ``o``,
     its fp32 log-sum-exp ``lse`` (B, Hq, S) and the output's gradient
-    ``do``, all of the forward's shapes. Kernel on an sm_90 card (three
-    launches: the delta pre-pass, dk / dv, dq), plain version on the
+    ``do``, all of the forward's shapes. Kernel on an sm_90 card (bf16 at
+    head_dim <= 128: dq, which also sums each row's delta, then dk / dv;
+    otherwise a delta pre-pass, dk / dv, dq), plain version on the
     CPU."""
     _check(q, k, v)
     b, s, hq, d = q.shape
@@ -266,14 +270,20 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                          window=window)
     _check_kernel_shape(q, "backward")
     require_operands(q.device, q=q, k=k, v=v, o=o, lse=lse, do=do)
+    if q.dtype == torch.bfloat16 and any(x.data_ptr() % 16
+                                         for x in (q, k, v, o, do)):
+        raise ValueError("the bf16 backward kernel's TMA and 16-byte loads "
+                         "need 16-byte aligned q, k, v, o and do")
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
     if q.numel() == 0 or t == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    delta = torch.empty_like(lse)
+    # the kernels' rows of lse and delta, over S padded to whole 64-row tiles
+    scratch = torch.empty(2 * b * hq * -(-s // 64) * 64, dtype=torch.float32,
+                          device=q.device)
     _build.launch("flash_attention_bwd", _BWD_ENTRY[q.dtype], _BWD_ARGS,
                   q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                   o.data_ptr(), lse.data_ptr(), do.data_ptr(),
-                  delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                  scratch.data_ptr(), dq.data_ptr(), dk.data_ptr(),
                   dv.data_ptr(), b, s, t, hq, k.shape[2], d, d**-0.5,
                   int(causal), int(window))
     flash_attention_bwd.launches += 1

@@ -449,6 +449,183 @@ def test_flash_attention_bf16_kernel_path_needs_16_byte_alignment(
         fa.flash_attention(q, kv, kv)
 
 
+@pytest.mark.parametrize("d,dtype,entry", [
+    (16, torch.bfloat16, "flash_attention_bwd_bf16"),
+    (80, torch.bfloat16, "flash_attention_bwd_bf16"),
+    (256, torch.bfloat16, "flash_attention_bwd_bf16"),
+    (20, torch.float32, "flash_attention_bwd_f32"),
+    (20, torch.bfloat16, None), (320, torch.float32, None)])
+def test_flash_attention_bwd_kernel_path_head_dims(monkeypatch, d, dtype,
+                                                   entry):
+    """On the kernel path (dispatch patched to the card's answer, the
+    launch recorded instead of made) the backward takes the forward's head
+    dims: one launch of its dtype's entry with (B, S, T, Hq, Hkv, D) after
+    the ten pointers, or ValueError naming head_dim and no launch."""
+    launched = []
+    monkeypatch.setattr(fa, "use_kernel", lambda dev: True)
+    monkeypatch.setattr(fa._build, "launch",
+                        lambda name, e, argtypes, dev, *args:
+                        launched.append((e, args)))
+    q, o, do = (torch.zeros((2, 70, 4, d), dtype=dtype) for _ in range(3))
+    k, v = (torch.zeros((2, 33, 2, d), dtype=dtype) for _ in range(2))
+    lse = torch.zeros((2, 4, 70))
+    before = fa.flash_attention_bwd.launches
+    if entry is None:
+        with pytest.raises(ValueError, match="head_dim"):
+            fa.flash_attention_bwd(q, k, v, o, lse, do)
+        assert launched == [] and fa.flash_attention_bwd.launches == before
+        return
+    fa.flash_attention_bwd(q, k, v, o, lse, do)
+    assert [e for e, _ in launched] == [entry]
+    assert launched[0][1][10:16] == (2, 70, 33, 4, 2, d)
+    assert fa.flash_attention_bwd.launches == before + 1
+
+
+@pytest.mark.parametrize("operand", ["q", "k", "v", "o", "do"])
+def test_flash_attention_bwd_bf16_kernel_path_needs_16_byte_alignment(
+        monkeypatch, operand):
+    """The bf16 backward reads q, k, v and do through TMA and o and do with
+    16-byte loads: any of them 2 bytes off alignment raises, no launch."""
+    monkeypatch.setattr(fa, "use_kernel", lambda dev: True)
+    monkeypatch.setattr(fa._build, "launch", lambda *args: pytest.fail(
+        "launched a misaligned operand"))
+    x = {n: torch.zeros((1, 8, 2 if n in ("k", "v") else 4, 64),
+                        dtype=torch.bfloat16) for n in ("q", "k", "v", "o",
+                                                        "do")}
+    store = torch.zeros(x[operand].numel() + 1, dtype=torch.bfloat16)
+    x[operand] = store[1:].view(x[operand].shape)
+    with pytest.raises(ValueError, match="aligned"):
+        fa.flash_attention_bwd(x["q"], x["k"], x["v"], x["o"],
+                               torch.zeros((1, 4, 8)), x["do"])
+
+
+# The card tests' backward shapes that the bf16 tensor-core path takes (D <=
+# 128; tests/test_torch_kernels_card.py _BWD_SHAPES): (B, S, T, Hq, Hkv, D,
+# causal, window)
+_BWD_TC_SHAPES = [
+    (2, 300, 300, 16, 16, 64, True, 0),
+    (2, 300, 300, 16, 16, 64, False, 0),
+    (2, 129, 700, 16, 16, 64, False, 0),
+    (4, 200, 200, 32, 32, 80, True, 0),
+    (2, 77, 77, 4, 2, 80, True, 0),
+    (2, 63, 63, 4, 2, 64, True, 0),
+    (2, 63, 63, 4, 2, 64, False, 0),
+    (2, 65, 65, 4, 4, 80, True, 0),
+    (2, 65, 65, 4, 4, 80, False, 0),
+    (2, 129, 129, 4, 1, 128, True, 0),
+    (2, 129, 129, 4, 1, 128, False, 0),
+    (2, 65, 129, 4, 2, 64, True, 0),
+    (2, 63, 200, 8, 8, 128, True, 0),
+    (24, 32, 32, 4, 4, 16, True, 0),
+    (2, 129, 129, 8, 4, 64, True, 33),
+    (2, 200, 200, 4, 4, 128, False, 100),
+]
+
+
+def _bwd_bf16_inputs(b, s, t, hq, hkv, d, causal, window):
+    """bf16 q, k, v, do drawn with numpy, and the plain forward's o, lse."""
+    rng = np.random.default_rng(s + t + d)
+    q, do = (torch.from_numpy(rng.normal(size=(b, s, hq, d)).astype(
+        np.float32)).bfloat16() for _ in range(2))
+    k, v = (torch.from_numpy(rng.normal(size=(b, t, hkv, d)).astype(
+        np.float32)).bfloat16() for _ in range(2))
+    o, lse = fa.flash_attention_plain(q, k, v, causal=causal, window=window,
+                                      return_lse=True)
+    return q, k, v, o, lse, do
+
+
+def _bwd_tensor_core_arithmetic(q, k, v, o, lse, do, causal, window, terms):
+    """The bf16 tensor-core backward's arithmetic, written out in torch:
+    bf16 inputs read exactly, every sum in fp32 (delta, S, dP and the three
+    D-side products), P = exp(S D^-1/2 - lse) and dS = P (dP - delta) in
+    fp32; P and dS enter dv = P^T do, dk = D^-1/2 dS^T q and dq = D^-1/2
+    dS k as ``terms`` bf16 numbers each (1: rounded to bf16; 2: the
+    kernel's hi = bf16(x) plus lo = bf16(x - hi)); the gradients rounded to
+    bf16 once."""
+    b, s, hq, d = q.shape
+    t, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    f32 = torch.float32
+    qf = q.to(f32).reshape(b, s, hkv, g, d)
+    dof = do.to(f32).reshape(b, s, hkv, g, d)
+    kf, vf = k.to(f32), v.to(f32)
+    delta = (dof * o.to(f32).reshape(b, s, hkv, g, d)).sum(-1)
+    scores = torch.einsum("bshgd,bthd->bshgt", qf, kf) * d**-0.5
+    live = fa._mask(0, s, 0, t, causal, window, q.device)
+    p = torch.exp(scores - lse.permute(0, 2, 1).reshape(b, s, hkv, g)[
+        ..., None]).masked_fill(~live[None, :, None, None, :], 0.0)
+    dp = torch.einsum("bshgd,bthd->bshgt", dof, vf)
+    ds = p * (dp - delta[..., None])
+
+    def split(x):
+        hi = x.bfloat16().float()
+        return (hi,) if terms == 1 else (hi, (x - hi).bfloat16().float())
+    dv = sum(torch.einsum("bshgt,bshgd->bthd", x, dof) for x in split(p))
+    dk = sum(torch.einsum("bshgt,bshgd->bthd", x, qf) for x in split(ds))
+    dq = sum(torch.einsum("bshgt,bthd->bshgd", x, kf) for x in split(ds))
+    return (dq.reshape(b, s, hq, d).mul(d**-0.5).bfloat16(),
+            dk.mul(d**-0.5).bfloat16(), dv.bfloat16())
+
+
+def _bwd_errors(got, want, causal):
+    """Per gradient: max |got - want| and the worst row's ||got - want|| /
+    ||want|| (dq's first query under a causal mask, which has one live key
+    and a gradient of 0 exactly, held by the absolute error only, as the
+    card tests hold it)."""
+    out = {}
+    for name, g_, w_ in zip(("dq", "dk", "dv"), got, want):
+        first = 1 if name == "dq" and causal else 0
+        a = g_[:, first:].double().flatten(0, -2)
+        b = w_[:, first:].double().flatten(0, -2)
+        out[name] = (float((g_.double() - w_.double()).abs().max()),
+                     float(((a - b).norm(dim=-1) /
+                            b.norm(dim=-1).clamp_min(1e-30)).max()))
+    return out
+
+
+@pytest.mark.parametrize("b,s,t,hq,hkv,d,causal,window", _BWD_TC_SHAPES)
+def test_flash_attention_bwd_tensor_core_rounding_meets_the_card_bars(
+        b, s, t, hq, hkv, d, causal, window):
+    """The bf16 kernel's rounding (P and dS as two bf16 terms before the
+    three D-side products, every sum in fp32) against the plain version
+    summed in float64, at the card tests' shapes and bars: every gradient
+    within 3e-2 and every row within 2^-6 of its norm."""
+    q, k, v, o, lse, do = _bwd_bf16_inputs(b, s, t, hq, hkv, d, causal,
+                                           window)
+    got = _bwd_tensor_core_arithmetic(q, k, v, o, lse, do, causal, window,
+                                      terms=2)
+    want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
+                                        window=window,
+                                        acc_dtype=torch.float64)
+    for name, (e, re_) in _bwd_errors(got, want, causal).items():
+        assert e < 3e-2, (name, e)
+        assert re_ <= 2.0 ** -6, (name, re_)
+
+
+@pytest.mark.parametrize("shape", [(2, 300, 300, 16, 16, 64, True, 0),
+                                   (4, 200, 200, 32, 32, 80, True, 0)])
+def test_flash_attention_bwd_one_bf16_rounding_of_p_misses_the_bar(shape):
+    """Why the kernel splits P and dS into two bf16 terms: rounded once,
+    P's error (2^-9 of each term) moves dv's fp32 sum enough to land a
+    gradient of magnitude 4 to 8 on the next bf16 neighbour of the
+    float64 oracle's rounding, 2^-5 = 0.03125 away, past the 3e-2 bar,
+    while every row stays within 2^-6; with two terms the same gradients
+    stay inside both bars (the test above)."""
+    b, s, t, hq, hkv, d, causal, window = shape
+    q, k, v, o, lse, do = _bwd_bf16_inputs(*shape)
+    want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
+                                        window=window,
+                                        acc_dtype=torch.float64)
+    once = _bwd_errors(_bwd_tensor_core_arithmetic(
+        q, k, v, o, lse, do, causal, window, terms=1), want, causal)
+    twice = _bwd_errors(_bwd_tensor_core_arithmetic(
+        q, k, v, o, lse, do, causal, window, terms=2), want, causal)
+    assert once["dv"][0] == 2.0 ** -5 and once["dv"][0] > 3e-2
+    assert all(re_ <= 2.0 ** -6 for _, re_ in once.values())
+    assert all(e < 3e-2 for e, _ in twice.values())
+    assert max(e for e, _ in twice.values()) <= 2.0 ** -6
+
+
 def _ab(b, s, d, seed=0):
     rng = np.random.default_rng(seed)
     a = 1.0 / (1.0 + np.exp(-rng.normal(size=(b, s, d))))

@@ -840,7 +840,11 @@ def test_graphed_loop_with_the_host_ahead_matches_a_synchronised_loop(sm90):
 # every served arch's attention shape, small in B and S: (B, S, T, Hq, Hkv,
 # D, causal, window): recurrentgemma-2b / gemma-style windowed D 256 with 10
 # q heads on 1 kv head, deepseek's MLA D 192, seamless's D 64 causal,
-# bidirectional and cross (T != S), stablelm-3b's 32 heads of 80
+# bidirectional and cross (T != S), stablelm-3b's 32 heads of 80; then the
+# edges of the bf16 kernel's 64-row tiles (and 128-row blocks): S and T of
+# 63, 65 and 129 causal and not, T > S causal, windows on both sides of a
+# tile, and phase 17's smoke widths (D 16). tests/test_torch_kernels.py
+# holds the tensor-core path's rounding at those of D <= 128 on the CPU.
 _BWD_SHAPES = [
     (1, 600, 600, 10, 1, 256, True, 256),
     (1, 300, 300, 16, 16, 192, True, 0),
@@ -849,6 +853,17 @@ _BWD_SHAPES = [
     (2, 129, 700, 16, 16, 64, False, 0),
     (4, 200, 200, 32, 32, 80, True, 0),
     (2, 77, 77, 4, 2, 80, True, 0),
+    (2, 63, 63, 4, 2, 64, True, 0),
+    (2, 63, 63, 4, 2, 64, False, 0),
+    (2, 65, 65, 4, 4, 80, True, 0),
+    (2, 65, 65, 4, 4, 80, False, 0),
+    (2, 129, 129, 4, 1, 128, True, 0),
+    (2, 129, 129, 4, 1, 128, False, 0),
+    (2, 65, 129, 4, 2, 64, True, 0),
+    (2, 63, 200, 8, 8, 128, True, 0),
+    (24, 32, 32, 4, 4, 16, True, 0),
+    (2, 129, 129, 8, 4, 64, True, 33),
+    (2, 200, 200, 4, 4, 128, False, 100),
 ]
 
 
@@ -890,6 +905,49 @@ def test_flash_attention_bwd_kernel_matches_plain(sm90, b, s, t, hq, hkv, d,
             # bar only
             first = 1 if name == "dq" and causal else 0
             assert _row_err(g_[:, first:], w_[:, first:]) <= 2.0 ** -6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,t,hq,hkv,d,causal,window",
+                         [_BWD_SHAPES[i] for i in (0, 5, 7, 11, 14, 15, 16)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_bwd_kernel_is_deterministic(sm90, b, s, t, hq, hkv,
+                                                     d, causal, window,
+                                                     dtype):
+    """No atomics: two calls on the same inputs give bit-equal dq, dk and
+    dv (each element summed by one thread in a fixed order)."""
+    tdt = DTYPES[dtype]
+    q, k, v, do = _bwd_inputs(b, s, t, hq, hkv, d, tdt, sm90, s + t + d)
+    o, lse = fa._forward(q, k, v, causal, window, True)
+    first = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                   window=window)
+    torch.empty(1 << 20, device=sm90).fill_(1.0)   # other work between
+    again = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                   window=window)
+    torch.cuda.synchronize()
+    for a, b_ in zip(first, again):
+        assert torch.equal(a, b_)
+
+
+@pytest.mark.cuda
+def test_flash_attention_bwd_bf16_kernels_do_not_spill(sm90):
+    """ptxas's report of the backward's library: every bf16 instance
+    (the tensor-core dk / dv and dq kernels at (DP, KS) (64, 4), (80, 5)
+    and (128, 8), and the CUDA-core delta, dk / dv and dq at DP 256) with
+    0 spill bytes, and no wgmma serialised."""
+    from repro_torch.kernels import _build
+
+    _build.load("flash_attention_bwd")
+    log = _build._target("flash_attention_bwd")[1].with_suffix(".log")
+    text = log.read_text()
+    entries = _build.ptxas_entries(text)
+    bf16 = [(e, st + ld) for e, _, st, ld in entries
+            if "bf16" in e or "bfloat16" in e]
+    wgmma = [e for e, _ in bf16 if "dkdv_bf16" in e or "dq_bf16" in e]
+    assert len(wgmma) == 6, wgmma
+    assert len(bf16) == 9, bf16
+    assert all(n == 0 for _, n in bf16), bf16
+    assert "Performance Loss" not in text
 
 
 @pytest.mark.cuda
