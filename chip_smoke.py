@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch / H100 port (``src/repro_torch``).
 
-Drives the port's eight paths on one NVIDIA Hopper card, through the
+Drives the port's nine paths on one NVIDIA Hopper card, through the
 entry points a user calls:
 
 * the paper's wireless D-PSGD run: Eq. 2 capacities, Algorithm 2 rates at
@@ -44,7 +44,13 @@ entry points a user calls:
   50 304; 1 layer: 6 fp32 replicas of 32 would not fit the card), D-PSGD
   on 6 nodes at batch 4 x 512 tokens, each round one CUDA graph replay,
   every attention's forward in ``csrc/flash_attention.cu`` (with its
-  log-sum-exp) and its backward in ``csrc/flash_attention_bwd.cu``.
+  log-sum-exp) and its backward in ``csrc/flash_attention_bwd.cu``;
+* training recurrentgemma-2b (3 layers: rglru, rglru, local) and
+  rwkv6-7b (1 layer) the same way at their published widths on 3 nodes,
+  every RG-LRU scan's forward and backward in ``csrc/rglru_scan.cu`` and
+  ``csrc/rglru_scan_bwd.cu``, every RWKV-6 scan's in ``csrc/rwkv6_scan.cu``
+  and ``csrc/rwkv6_scan_bwd.cu``, recurrentgemma's local attention in the
+  flash pair.
 
 Phases, each of which ends the run with a nonzero exit if it fails:
 
@@ -100,6 +106,13 @@ Phases, each of which ends the run with a nonzero exit if it fails:
               timed eagerly, on the device and in a CUDA graph beside its
               bound (5 products a pair), its plain version and SDPA's
               forward and backward (autograd));
+              3f: rglru_scan_bwd and rwkv6_scan_bwd against their plain
+              versions summed in float64 at phases 18/19's shapes, the
+              forward rows' shapes and edges (S <= 32, ragged S, h0; s0
+              and ds_final, u per batch row, D 8 to 128, the served decay
+              regime), bar x max(1, max |oracle|) (1e-4, 5e-4), two calls
+              bit-equal, timed beside their bound and plain versions
+              (library: none);
 4. slice    — the paper run, each λ target's 40 steps twice in turns:
               the eager body, then the entry point, whose step is a CUDA
               graph (steps/s of both); the gossip_mix launch counter must
@@ -203,18 +216,31 @@ Phases, each of which ends the run with a nonzero exit if it fails:
               ``static`` and of ``compressed_int8`` with per-leaf int8 (the
               send and q8 kernels once per leaf a round), every round's
               body rerun on the CPU from the card's inputs: losses 1e-4,
-              parameters and residuals 1e-5.
+              parameters and residuals 1e-5;
+18. training recurrentgemma-2b — as 16 with 3 nodes (the scenario's
+              min_nodes) and batch 1: a round launches flash's forward
+              and backward once, the RG-LRU scan's forward and backward
+              twice (all nodes at once), 19 rows mixes; the first loss
+              between ln V and ln V + sqrt(d_model) (a tied head);
+19. training rwkv6-7b — as 18 with 1 layer and batch 4: the RWKV-6
+              scan's forward and backward once a round (u per node, one
+              per batch row), 14 rows mixes; the first loss near ln V;
+20. recurrent training correctness — 17 for both archs' smoke configs
+              (20a recurrentgemma-2b, 20b rwkv6-7b).
 
 Each phase prints its wall time. The last lines are the card's
 ``nvidia-smi`` name and power limit, one JSON line with every kernel's
 numbers (quantize_int8 and dequantize_int8, off the int8 round now,
 count 0 launches there and phase 3d's checks under ``check_launches``;
 flash's ``launches`` are phase 6's, its ``launches_by_path`` add phases
-12, 14 and 16, and its ``mla``, ``cross`` and ``decoder`` keys time the new
-prefill shapes; flash_attention_bwd's are phase 16's, its
+12, 14, 16 and 18, and its ``mla``, ``cross`` and ``decoder`` keys time the
+new prefill shapes; flash_attention_bwd's are phase 16's, its
 ``library_ms`` SDPA's backward, ``library_device_ms`` that call's
-device time and ``library_fwd_ms`` SDPA's forward), and
-``{"ok": true, "device": ...}``.
+device time and ``library_fwd_ms`` SDPA's forward; rglru_scan_bwd's and
+rwkv6_scan_bwd's are phases 18's and 19's, their ``prefill`` keys time
+the forward rows' shapes), and ``{"ok": true, "device": ...}``. The
+smoke sets ``PYTORCH_CUDA_ALLOC_CONF=expandable_segments:True`` unless
+the caller set it.
 
 Run from the repository root:  python3 chip_smoke.py
 """
@@ -318,12 +344,34 @@ TRAIN_ARCH = "stablelm-3b"
 TRAIN_LAYERS = 1
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_EVAL_BATCH = 4, 512, 8
 TRAIN_ROUNDS = 4
-# predicted before the run (PERF.md): the one-output-mode loop's 45.540 GiB
-# plus the backward's scratch, 1.5 MB more than its delta buffer was
-TRAIN_PEAK_GIB = (45.54, 45.55)
+# predicted before the run (PERF.md): 45.542 GiB less the initial
+# parameters, the round's input copy and three snapshots the loop no
+# longer holds
+TRAIN_PEAK_GIB = (30.0, 38.0)
 LOCK_TRAIN_SEQ, LOCK_TRAIN_ROUNDS = 32, 3
 # the backward kernel at phase 16's shape: 6 nodes x batch 4 folded into B
 BWD_MAIN = (N_NODES * TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 32, 32, 80, True, 0)
+
+# training the recurrent archs on wireless traces (phases 3f, 18-20): the
+# published widths at a depth of one pattern unit (recurrentgemma-2b:
+# rglru, rglru, local; rwkv6-7b: 1 layer), the static scenario with its 6
+# nodes cut to 3 (the scenario's min_nodes: the 256 000- and 65 536-token
+# embeddings make 6 replicas too many), 512 tokens, 4 rounds; 20 at the
+# smoke widths, 3 rounds of static and of per-leaf int8
+# recurrentgemma-2b's batch was cut from 2 to 1 a node: at 2 its capture
+# ran out of the card's 80 GB (the (3, 2, 512, 256 000) logits' chain and
+# the tied embedding's table-sized gradients fill the graph's pool;
+# PERF.md)
+REC_NODES = 3
+REC_TRAIN = {   # arch: (layers, batch a node, predicted peak GiB range)
+    "recurrentgemma-2b": (3, 1, (55.0, 65.0)),
+    "rwkv6-7b": (1, 4, (43.0, 49.0)),
+}
+# phase 3f: the backward kernels at phases 18/19's shapes (nodes x batch
+# folded into B), at the forward rows' shapes, then edges
+RGLRU_BWD_MAIN = (REC_NODES * REC_TRAIN["recurrentgemma-2b"][1], TRAIN_SEQ,
+                  2560)
+RWKV_BWD_MAIN = (REC_NODES * REC_TRAIN["rwkv6-7b"][1], TRAIN_SEQ, 64, 64)
 
 
 def fail(msg: str) -> None:
@@ -544,6 +592,25 @@ def rwkv_cost(b: int, s: int, h: int, d: int) -> tuple[float, float]:
         4.0 * d * d * b * h * s
 
 
+def rglru_bwd_cost(b: int, s: int, d: int,
+                   with_h0: bool) -> tuple[float, float]:
+    """rglru_scan_bwd: fp32 a, h, dh in and da, db out (B, S, D), 20 bytes a
+    lane, with h0 in and dh0 out (B, D) when given; a multiply-add for g
+    and a multiply for da per element."""
+    return 4.0 * (5 * b * s * d + (2 * b * d if with_h0 else 0)), \
+        3.0 * b * s * d
+
+
+def rwkv_bwd_cost(b: int, s: int, h: int, d: int, states: bool,
+                  u_rows: bool) -> tuple[float, float]:
+    """rwkv6_scan_bwd: fp32 r, k, v, w, dy in and dr, dk, dv, dw out (B, S,
+    H, D), u in and du out (per batch row), s0 and ds_final in and ds0 out
+    when given; twice the forward's 4 D^2 flops a (b, h, t)."""
+    nbytes = 4.0 * (9 * b * s * h * d + (b if u_rows else 1) * h * d
+                    + b * h * d + (3 * b * h * d * d if states else 0))
+    return nbytes, 2 * 4.0 * d * d * b * h * s
+
+
 def quantize_cost(rows: int, length: int, block: int,
                   elt: int) -> tuple[float, float]:
     """quantize_int8: x (rows, length) read once, q (rows, Lp) int8 and one
@@ -627,6 +694,30 @@ def tree_to(tree, device):
     if isinstance(tree, (list, tuple)):
         return [tree_to(v, device) for v in tree]
     return tree.to(device)
+
+
+def tapped(family_step, tap, keep_args: bool = False):
+    """``sim.batch._family_step`` with ``tap(step, args, out)`` called after
+    every round the family loop runs (the loop stages a round's inputs,
+    then runs it: ``GraphedStep.stage``). ``args`` is None unless
+    ``keep_args``: kept, it holds the round's inputs alive."""
+    def make(*key):
+        step = family_step(*key)
+
+        class Tapped:
+            def stage(self, *args):
+                run, kept = step.stage(*args), args if keep_args else None
+
+                def go():
+                    out = run()
+                    tap(step, kept, out)
+                    return out
+                return go
+
+            def __call__(self, *args):
+                return self.stage(*args)()
+        return Tapped()
+    return make
 
 
 # ---------------------------------------------------------------------------
@@ -2511,16 +2602,10 @@ def phase_train_on_trace(torch, simulated: dict) -> dict:
     recorded = []
     family_step = tb._family_step
 
-    def recording(*key):
-        step = family_step(*key)
-
-        def run(*args):
-            out = step(*args)
-            if len(recorded) < FAMILY_CPU_ROUNDS:
-                recorded.append((step, args, out))
-            return out
-        run.step = step
-        return run
+    def record(step, args, out):
+        if len(recorded) < FAMILY_CPU_ROUNDS:
+            recorded.append((step, args, out))
+    recording = tapped(family_step, record, keep_args=True)
 
     # the loop alone: train_on_traces with its wall seconds (and the
     # device inputs (a) built, which (e) replays)
@@ -2894,48 +2979,245 @@ def phase_flash_backward(torch) -> dict:
     return {"flash_attention_bwd": row}
 
 
-def phase_train_lm(torch) -> dict:
-    phase(f"16. train-on-trace of {TRAIN_ARCH} at full width on the card: "
-          "D-PSGD over a precomputed wireless trace, every attention's "
-          "forward and backward in the flash kernels")
+def phase_scan_backward(torch) -> dict:
+    phase("3f. rglru_scan_bwd and rwkv6_scan_bwd against their plain "
+          "versions summed in float64")
+    from repro_torch.kernels import rglru_scan as rg
+    from repro_torch.kernels import rwkv6_scan as rw
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    f64 = torch.float64
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def hold(name, got, want, bar, what):
+        """Each gradient within bar x max(1, max |oracle|); the worst
+        absolute error."""
+        worst, line = 0.0, []
+        for gname, g, w_ in zip(("da", "db", "dh0") if len(got) == 3 else
+                                ("dr", "dk", "dv", "dw", "du", "ds0"),
+                                got, want):
+            check((g is None) == (w_ is None), f"{name} {what} {gname}: "
+                  f"{'missing' if g is None else 'not expected'}")
+            if g is None:
+                continue
+            check(g.shape == w_.shape and g.dtype == torch.float32,
+                  f"{name} {what} {gname}: {g.shape} {g.dtype}")
+            scale = max(1.0, float(w_.abs().max()))
+            e = err(g, w_)
+            check(e <= bar * scale, f"{name} {what} {gname}: max|err| {e} > "
+                  f"{bar:g} x {scale:.4g}")
+            worst = max(worst, e)
+            line.append(f"{gname} {e:.3e} (of {scale:.3g})")
+        print(f"{name} {what}: max|err| " + ", ".join(line)
+              + f"; bar {bar:g} x max(1, max|oracle|)")
+        return worst
+
+    def bit_equal(name, fn, what):
+        one, two = fn(), fn()
+        check(all((x is None and y is None) or bool(torch.equal(x, y))
+                  for x, y in zip(one, two)), f"{name} {what}: two calls "
+              "differ")
+        return one
+
+    out = {}
+    # rglru: phase 18's shape, the forward row's, then S <= 32 (the
+    # one-thread walk), ragged S across the 32-step chunks, h0 given
+    worst = 0.0
+    for b, s, d, with_h0 in ((*RGLRU_BWD_MAIN, False), (6, 512, 2560, True),
+                             (SERVE_BATCH, SERVE_PROMPT, 2560, True),
+                             (SERVE_BATCH, 1, 2560, True), (3, 32, 100, False),
+                             (2, 33, 2560, True), (3, 70, 300, True),
+                             (2, 300, 100, False)):
+        a = torch.sigmoid(randn(b, s, d))
+        h0 = randn(b, d) if with_h0 else None
+        h = rg.rglru_scan(a, randn(b, s, d), h0)
+        dh = randn(b, s, d)
+        what = f"({b},{s},{d}) h0={with_h0}"
+        got = bit_equal("rglru_scan_bwd", lambda: rg.rglru_scan_bwd(
+            a, h, dh, h0), what)
+        torch.cuda.synchronize()
+        want = rg.rglru_scan_bwd_plain(a, h, dh, h0, acc_dtype=f64)
+        worst = max(worst, hold("rglru_scan_bwd", got, want, TOL_RGLRU,
+                                what))
+        if (b, s, d) in (RGLRU_BWD_MAIN, (SERVE_BATCH, SERVE_PROMPT, 2560)):
+            nbytes, flops = rglru_bwd_cost(b, s, d, with_h0)
+            b_ms, b_by = bound(nbytes, flops)
+            out[(b, s, d)] = {
+                "ms": time_ms(torch, lambda: rg.rglru_scan_bwd(a, h, dh, h0),
+                              reps=20),
+                "plain_ms": time_ms(torch, lambda: rg.rglru_scan_bwd_plain(
+                    a, h, dh, h0), reps=1, rounds=3, warmup=1),
+                "library_ms": None,
+                "device_ms": device_ms(torch, lambda: rg.rglru_scan_bwd(
+                    a, h, dh, h0), ("rglru_bwd", "Memset"), calls=10),
+                "bound_ms": b_ms, "bound_by": b_by,
+                "shape": f"a, h, dh ({b},{s},{d}) fp32"
+                         + (f", h0 ({b},{d})" if with_h0 else "")}
+        del a, h, dh, got, want
+    rglru = dict(out.pop(RGLRU_BWD_MAIN), max_abs_err=worst,
+                 prefill=out.pop((SERVE_BATCH, SERVE_PROMPT, 2560)))
+
+    # rwkv6: phase 19's shape (u per batch row, as the node axis folded into
+    # B gives it), also in the served decay regime (w down to the 1e-12
+    # floor), the forward row's shape, then ragged S, s0 and ds_final
+    # given, D 8, 16, 32 and 128
+    worst = 0.0
+    cases = [(*RWKV_BWD_MAIN, False, True, "test"),
+             (*RWKV_BWD_MAIN, True, True, "served"),
+             (SERVE_BATCH, SERVE_PROMPT, 64, 64, True, False, "test"),
+             (2, 37, 2, 64, False, False, "served"),
+             (2, 100, 4, 64, True, False, "test"),
+             (2, 45, 3, 32, True, True, "test"),
+             (2, 33, 2, 128, True, False, "served"),
+             (2, 40, 4, 16, False, True, "test"),
+             (1, 17, 2, 8, True, True, "test")]
+    for b, s, hh, d, states, u_rows, regime in cases:
+        r, k, v = (randn(b, s, hh, d) for _ in range(3))
+        if regime == "served":
+            lw = -torch.exp(0.5 + 1.5 * torch.rand(
+                (b, s, hh, d), generator=gen, device=dev) + randn(b, s, hh, d))
+        else:
+            lw = -torch.exp(randn(b, s, hh, d) * 0.5)
+        w = torch.exp(lw)
+        u = randn(b, hh, d) * 0.1 if u_rows else randn(hh, d) * 0.1
+        s0 = randn(b, hh, d, d) if states else None
+        dsf = randn(b, hh, d, d) if states else None
+        dy = randn(b, s, hh, d)
+        what = (f"({b},{s},{hh},{d}) states={states} u per row={u_rows} "
+                f"{regime}")
+        got = bit_equal("rwkv6_scan_bwd", lambda: rw.rwkv6_scan_bwd(
+            r, k, v, w, u, dy, s0, dsf), what)
+        torch.cuda.synchronize()
+        want = rw.rwkv6_scan_bwd_plain(r, k, v, w, u, dy, s0, dsf,
+                                       RWKV_CHUNK, acc_dtype=f64)
+        worst = max(worst, hold("rwkv6_scan_bwd", got, want, TOL_RWKV, what))
+        del got, want
+        if (b, s, hh, d) in (RWKV_BWD_MAIN, (SERVE_BATCH, SERVE_PROMPT, 64,
+                                             64)) and regime == "test":
+            nbytes, flops = rwkv_bwd_cost(b, s, hh, d, states, u_rows)
+            b_ms, b_by = bound(nbytes, flops)
+            out[(b, s, hh, d)] = {
+                "ms": time_ms(torch, lambda: rw.rwkv6_scan_bwd(
+                    r, k, v, w, u, dy, s0, dsf), reps=3, rounds=3, warmup=1),
+                "plain_ms": time_ms(torch, lambda: rw.rwkv6_scan_bwd_plain(
+                    r, k, v, w, u, dy, s0, dsf, RWKV_CHUNK), reps=1,
+                    rounds=3, warmup=1),
+                "library_ms": None,
+                "device_ms": device_ms(torch, lambda: rw.rwkv6_scan_bwd(
+                    r, k, v, w, u, dy, s0, dsf), "rwkv6_bwd", calls=3),
+                "bound_ms": b_ms, "bound_by": b_by,
+                "shape": f"r, k, v, w, dy ({b},{s},{hh},{d}) fp32, u "
+                         + (f"({b},{hh},{d}) per row" if u_rows else
+                            f"({hh},{d})")
+                         + (f", s0, ds_final ({b},{hh},{d},{d})" if states
+                            else "")}
+        del r, k, v, w, u, s0, dsf, dy
+    rwkv = dict(out.pop(RWKV_BWD_MAIN), max_abs_err=worst,
+                prefill=out.pop((SERVE_BATCH, SERVE_PROMPT, 64, 64)))
+    for name, t in (("rglru_scan_bwd", rglru),
+                    ("rglru_scan_bwd", rglru["prefill"]),
+                    ("rwkv6_scan_bwd", rwkv),
+                    ("rwkv6_scan_bwd", rwkv["prefill"])):
+        dms = "not measured" if t["device_ms"] is None \
+            else f"{t['device_ms']:.4f} ms"
+        dev_t = t["device_ms"] if t["device_ms"] is not None else t["ms"]
+        print(f"{name:15s} {t['shape']}: {t['ms']:.4f} ms/call (device "
+              f"{dms}) | plain {t['plain_ms']:.4f} ms | library none | bound "
+              f"{t['bound_ms']:.4f} ms ({t['bound_by']}), "
+              f"{t['bound_ms'] / dev_t * 100:.1f} % of it "
+              f"({'device' if t['device_ms'] is not None else 'per call'})")
+    return {"rglru_scan_bwd": rglru, "rwkv6_scan_bwd": rwkv}
+
+
+def train_counters() -> dict:
+    """Every kernel a training round can launch, by name."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import gossip_mix as gm
+    from repro_torch.kernels import rglru_scan as rg
+    from repro_torch.kernels import rwkv6_scan as rw
+
+    return {"flash_attention": fa.flash_attention,
+            "flash_attention_bwd": fa.flash_attention_bwd,
+            "rglru_scan": rg.rglru_scan, "rglru_scan_bwd": rg.rglru_scan_bwd,
+            "rwkv6_scan": rw.rwkv6_scan, "rwkv6_scan_bwd": rw.rwkv6_scan_bwd,
+            "gossip_mix": gm.gossip_mix_rows}
+
+
+def train_launches(mcfg, rounds: int, evals: int, mixes: int) -> dict:
+    """The launches ``rounds`` training rounds and ``evals`` evaluations of
+    ``mcfg`` make for all nodes at once (vmap folds the node axis into the
+    batch): each kind's forward once a layer a round and an evaluation, its
+    backward once a layer a round, ``mixes`` rows mixes a round."""
+    from repro_torch.models import transformer
+
+    kinds = transformer.layer_kinds(mcfg)
+    per = {"flash_attention": sum(k in ("global", "local") for k in kinds),
+           "rglru_scan": kinds.count("rglru"),
+           "rwkv6_scan": kinds.count("rwkv")}
+    want = {}
+    for name, n in per.items():
+        want[name] = (rounds + evals) * n
+        want[f"{name}_bwd"] = rounds * n
+    want["gossip_mix"] = rounds * mixes
+    return want
+
+
+def phase_train_lm(torch, label: str = "16", arch: str = TRAIN_ARCH,
+                   layers: int = TRAIN_LAYERS, n_nodes: int | None = None,
+                   batch: int = TRAIN_BATCH,
+                   peak_gib: tuple = TRAIN_PEAK_GIB) -> dict:
+    phase(f"{label}. train-on-trace of {arch} at full width on the card: "
+          "D-PSGD over a precomputed wireless trace, every attention and "
+          "scan forward and backward in the hand-written kernels")
     import dataclasses
     import gc
     import math
 
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
     from repro_torch.configs import get_config
     from repro_torch.core import dpsgd
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import gossip_mix as gm
+    from repro_torch.models import transformer
     from repro_torch.sim import batch as tb
     from repro_torch.sim import get_scenario, precompute_traces
 
-    full = get_config(TRAIN_ARCH)
-    mcfg = dataclasses.replace(full, n_layers=TRAIN_LAYERS)
-    ad = tb.transformer_adapter(mcfg, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+    full = get_config(arch)
+    mcfg = dataclasses.replace(full, n_layers=layers)
+    ad = tb.transformer_adapter(mcfg, batch=batch, seq_len=TRAIN_SEQ,
                                 eval_batch=TRAIN_EVAL_BATCH, device="cuda")
     n_params = int(ad.model_bits) // 32
+    kw = {} if n_nodes is None else {"n_nodes": n_nodes}
     cfg = get_scenario("static", model_bits=ad.model_bits,
                        model_shapes=ad.param_shapes,
-                       eval_every_rounds=TRAIN_ROUNDS)
+                       eval_every_rounds=TRAIN_ROUNDS, **kw)
     n = cfg.n_nodes
     replica = n_params * 4 / 1e9
-    # embedding, untied head, final LayerNorm's scale and bias; the rest is
-    # the layers'
-    outer = 2 * mcfg.vocab_size * mcfg.d_model + 2 * mcfg.d_model
-    full_params = outer + full.n_layers * (n_params - outer) // TRAIN_LAYERS
-    print(f"{TRAIN_ARCH}: published widths (d_model {mcfg.d_model}, "
+    # the full-depth tree's parameters, counted without drawing one
+    with FakeTensorMode():
+        full_params = sum(x.numel() for x in dpsgd._leaves(
+            transformer.init_params(full, torch.Generator(), "cpu")))
+    embed = full.vocab_size * full.d_model * (1 if full.tie_embeddings
+                                               else 2)
+    print(f"{arch}: published widths (d_model {mcfg.d_model}, "
           f"{mcfg.n_heads} x {mcfg.head_dim} heads, d_ff {mcfg.d_ff}, vocab "
-          f"{mcfg.vocab_size}, untied head), depth cut {full.n_layers} -> "
-          f"{TRAIN_LAYERS} layer: D-PSGD holds one fp32 replica a node, "
-          f"{n} replicas of {full_params / 1e9:.2f} B parameters would be "
-          f"{n * 4 * full_params / 1e9:.1f} GB before any gradient; at "
-          f"{TRAIN_LAYERS} layer {n_params:,} "
-          f"parameters, {replica:.2f} GB a replica, {n * replica:.2f} GB a "
+          f"{mcfg.vocab_size}, {'tied' if full.tie_embeddings else 'untied'}"
+          f" head), depth cut {full.n_layers} -> {layers} "
+          f"({', '.join(transformer.layer_kinds(mcfg))}): D-PSGD holds one "
+          f"fp32 replica a node; {full_params / 1e9:.2f} B parameters at full "
+          f"depth, {N_NODES} replicas "
+          f"{N_NODES * 4 * full_params / 1e9:.1f} GB "
+          f"before any gradient; at {layers} layer(s) {n_params:,} "
+          f"parameters, {replica:.2f} GB ({replica * 1e9 / 2**30:.2f} GiB) a "
+          f"replica, of which the embedding and head {embed * 4 / 1e9:.2f} "
+          f"GB ({embed / n_params * 100:.1f} %), {n * replica:.2f} GB a "
           f"node-stacked copy. Parameters {mcfg.param_dtype}, compute "
-          f"{mcfg.dtype}; {n} nodes x batch {TRAIN_BATCH} x {TRAIN_SEQ} "
-          f"tokens, {TRAIN_ROUNDS} rounds of '{cfg.name}'")
-    print(f"predicted peak memory {TRAIN_PEAK_GIB[0]:g}-{TRAIN_PEAK_GIB[1]:g}"
-          " GiB (PERF.md, before the run)")
+          f"{mcfg.dtype}; {n} nodes x batch {batch} x {TRAIN_SEQ} tokens, "
+          f"{TRAIN_ROUNDS} rounds of '{cfg.name}'")
+    print(f"predicted peak memory {peak_gib[0]:g}-{peak_gib[1]:g} GiB "
+          "(PERF.md, before the run)")
     traces = precompute_traces([cfg], TRAIN_ROUNDS)
     # the graph's capture (warm-up runs, cuBLAS plans, the kernels' first
     # launch) outside the measured run: one round, the same signature
@@ -2955,10 +3237,14 @@ def phase_train_lm(torch) -> dict:
     loop_s = []
     train_on_traces = tb.train_on_traces
 
-    def timed(*args, **kwargs):
+    def timed(loss_fn, node_params, *args, **kwargs):
+        # the initial parameters passed on with no reference kept here:
+        # the round loop drops them once its graph holds them
+        owned = [node_params]
+        del node_params
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        res = train_on_traces(*args, **kwargs)
+        res = train_on_traces(loss_fn, owned.pop(), *args, **kwargs)
         torch.cuda.synchronize()
         loop_s.append(time.perf_counter() - t1)
         return res
@@ -2969,18 +3255,10 @@ def phase_train_lm(torch) -> dict:
     after_round = []
     family_step = tb._family_step
 
-    def measuring(*key):
-        step_ = family_step(*key)
+    measuring = tapped(family_step, lambda *_: after_round.append(
+        torch.cuda.memory_allocated() / 2**30))
 
-        def run(*args):
-            out_ = step_(*args)
-            after_round.append(torch.cuda.memory_allocated() / 2**30)
-            return out_
-        return run
-
-    counters = {"flash_attention": fa.flash_attention,
-                "flash_attention_bwd": fa.flash_attention_bwd,
-                "gossip_mix": gm.gossip_mix_rows}
+    counters = train_counters()
     torch.cuda.reset_peak_memory_stats()
     tb.train_on_traces = timed
     tb._family_step = measuring
@@ -3005,34 +3283,46 @@ def phase_train_lm(torch) -> dict:
           f"round each adds at most {growth:.3f} GiB (its node-0 snapshot "
           f"is {snap:.3f} GiB)")
     check(len(after_round) == TRAIN_ROUNDS and growth <= snap + 1 / 16,
-          f"16: rounds keep memory alive: {after_round} GiB")
+          f"{label}: rounds keep memory alive: {after_round} GiB")
     evals = len(out["eval_rounds"])
     # the mix's buffers: leaves concatenated up to MIX_CONCAT_LANES a node
     mixes = len(dpsgd.mix_groups([int(np.prod(s)) for s in ad.param_shapes]))
-    want = {"flash_attention": (TRAIN_ROUNDS + evals) * TRAIN_LAYERS,
-            "flash_attention_bwd": TRAIN_ROUNDS * TRAIN_LAYERS,
-            "gossip_mix": TRAIN_ROUNDS * mixes}
-    print(f"launches {launches} (expected {want}: per round one flash "
-          f"forward and one backward a layer for all {n} nodes (vmap folds "
-          f"the node axis into the batch) and {mixes} rows mixes (the "
-          f"leaves in buffers of at most {dpsgd.MIX_CONCAT_LANES} lanes a "
-          f"node); the forward also once a layer in the {evals} "
-          f"evaluation)")
-    check(launches == want, f"16: launches {launches}, want {want}")
-    check(step.signatures == 1, f"16: {step.signatures} graph signatures")
+    want = train_launches(mcfg, TRAIN_ROUNDS, evals, mixes)
+    print(f"launches {launches} (expected {want}: per round each attention "
+          f"and scan layer's forward and backward kernel once for all {n} "
+          f"nodes (vmap folds the node axis into the batch) and {mixes} rows "
+          f"mixes (the leaves in buffers of at most "
+          f"{dpsgd.MIX_CONCAT_LANES} lanes a node); the forwards also once "
+          f"a layer in the {evals} evaluation)")
+    check(launches == want, f"{label}: launches {launches}, want {want}")
+    check(step.signatures == 1, f"{label}: {step.signatures} graph "
+          "signatures")
     losses = out["losses"][0]
     acc = float(out["acc"][0, -1])
     print(f"masked mean losses {losses.tolist()} (ln V = "
           f"{math.log(mcfg.vocab_size):.4f}); accuracy {acc:.6f} at round "
           f"{out['eval_rounds'][-1] + 1}")
     check(np.isfinite(losses).all() and losses.shape == (TRAIN_ROUNDS,),
-          f"16: losses {losses}")
-    check(abs(losses[0] - math.log(mcfg.vocab_size)) < 1.0,
-          f"16: the first loss {losses[0]} is not near ln V")
-    check(0.0 <= acc <= 1.0, f"16: accuracy {acc}")
+          f"{label}: losses {losses}")
+    ln_v = math.log(mcfg.vocab_size)
+    if mcfg.tie_embeddings:
+        # a tied head at init scores each position's own token about
+        # sqrt(d_model) above the others (the input embedding is scaled by
+        # sqrt(d_model), the head reads the same table after the final
+        # norm), in the JAX package as in the port: the first loss lies
+        # between ln V and ln V + sqrt(d_model) (PERF.md)
+        lo, hi = ln_v, ln_v + math.sqrt(mcfg.d_model)
+    else:
+        lo, hi = ln_v - 1.0, ln_v + 1.0
+    why = "tied head: ln V to ln V + sqrt(d_model)" \
+        if mcfg.tie_embeddings else "ln V within 1"
+    print(f"the first loss against [{lo:.4f}, {hi:.4f}] ({why})")
+    check(lo <= losses[0] <= hi, f"{label}: the first loss {losses[0]} is "
+          f"outside [{lo}, {hi}]")
+    check(0.0 <= acc <= 1.0, f"{label}: accuracy {acc}")
     finals = out["final_params"][0]
     check(all(bool(torch.isfinite(x).all()) for x in dpsgd._leaves(finals)),
-          "16: non-finite parameters")
+          f"{label}: non-finite parameters")
     loop_ms = loop_s[0] * 1e3 / TRAIN_ROUNDS
     entry = next(iter(step._entries.values()))
     replay_ms = time_ms(torch, entry.graph.replay, reps=3, rounds=3,
@@ -3050,13 +3340,13 @@ def phase_train_lm(torch) -> dict:
           f"of the loop {idle:.4f}; train_model_on_traces {wall:.4f} s wall "
           f"(init, batches, evaluation included), warm-up and capture "
           f"{warm_s:.2f} s; peak memory {peak:.3f} GiB (predicted "
-          f"{TRAIN_PEAK_GIB[0]:g}-{TRAIN_PEAK_GIB[1]:g})")
+          f"{peak_gib[0]:g}-{peak_gib[1]:g})")
 
     # the family loop against the per-round reference (one graphed masked
     # step a round, host reads between), after the family's graph is freed
     fam_losses = losses.copy()
-    # the family's final parameters wait on the host (8 GB) while the
-    # reference runs; compared leaf by leaf on the card after it
+    # the family's final parameters wait on the host while the reference
+    # runs; compared leaf by leaf on the card after it
     finals = dpsgd._tree_map(lambda x: x.cpu(), finals)
     del out, entry, step
     tb._STEPS.pop(key)
@@ -3083,10 +3373,10 @@ def phase_train_lm(torch) -> dict:
           f"{d_loss:.3e} (tol 1e-4), max|final parameter diff| {d_par:.3e} "
           f"(tol {TOL_FP32:g}); the reference {ref_s:.2f} s with its "
           f"capture, peak {ref_peak:.3f} GiB")
-    check(d_loss <= 1e-4, f"16: family and reference losses differ by "
+    check(d_loss <= 1e-4, f"{label}: family and reference losses differ by "
           f"{d_loss}")
-    check(d_par <= TOL_FP32, f"16: family and reference parameters differ "
-          f"by {d_par}")
+    check(d_par <= TOL_FP32, f"{label}: family and reference parameters "
+          f"differ by {d_par}")
     del finals, ref_final
     tb._STEPS.clear()
     gc.collect()
@@ -3098,25 +3388,24 @@ def phase_train_lm(torch) -> dict:
             "d_par": d_par}
 
 
-def phase_train_lm_lockstep(torch) -> dict:
-    phase(f"17. correctness of the training path: {TRAIN_ARCH}'s smoke "
+def phase_train_lm_lockstep(torch, label: str = "17",
+                            arch: str = TRAIN_ARCH) -> dict:
+    phase(f"{label}. correctness of the training path: {arch}'s smoke "
           "config, card against CPU in lockstep")
+    from repro_torch.configs import get_config, reduce_for_smoke
     from repro_torch.core import dpsgd
     from repro_torch.core.compression import QuantConfig
-    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import gossip_mix as gm
     from repro_torch.kernels import quantize as qz
     from repro_torch.sim import batch as tb
     from repro_torch.sim import get_scenario
 
-    ad = tb.transformer_adapter(TRAIN_ARCH, batch=TRAIN_BATCH,
+    ad = tb.transformer_adapter(arch, batch=TRAIN_BATCH,
                                 seq_len=LOCK_TRAIN_SEQ, device="cuda")
+    mcfg = reduce_for_smoke(get_config(arch))
     leaves = len(ad.param_shapes)
-    counters = {"flash_attention": fa.flash_attention,
-                "flash_attention_bwd": fa.flash_attention_bwd,
-                "gossip_mix": gm.gossip_mix_rows,
-                "quantize_int8_ef": qz.quantize_int8_ef,
-                "gossip_mix_q8": gm.gossip_mix_q8_rows}
+    counters = dict(train_counters(), quantize_int8_ef=qz.quantize_int8_ef,
+                    gossip_mix_q8=gm.gossip_mix_q8_rows)
     to_cpu = lambda t: None if t is None else dpsgd._tree_map(  # noqa: E731
         lambda x: x.cpu(), t)
     rounds = LOCK_TRAIN_ROUNDS
@@ -3131,14 +3420,8 @@ def phase_train_lm_lockstep(torch) -> dict:
         recorded = []
         family_step = tb._family_step
 
-        def recording(*key):
-            step = family_step(*key)
-
-            def run(*args):
-                out = step(*args)
-                recorded.append((step, args, out))
-                return out
-            return run
+        recording = tapped(family_step, lambda *x: recorded.append(x),
+                           keep_args=True)
         for c in counters.values():
             c.launches = 0
         tb._family_step = recording
@@ -3150,13 +3433,15 @@ def phase_train_lm_lockstep(torch) -> dict:
             tb._family_step = family_step
         launches = {k: c.launches for k, c in counters.items()}
         int8 = payload is not None
-        want = {"flash_attention": rounds + 1, "flash_attention_bwd": rounds,
-                "gossip_mix": 0 if int8 else rounds,
-                "quantize_int8_ef": rounds * leaves if int8 else 0,
-                "gossip_mix_q8": rounds * leaves if int8 else 0}
-        check(launches == want, f"17 {name}: launches {launches}, want {want}")
+        mixes = len(dpsgd.mix_groups([int(np.prod(x))
+                                      for x in ad.param_shapes]))
+        want = dict(train_launches(mcfg, rounds, 1, 0 if int8 else mixes),
+                    quantize_int8_ef=rounds * leaves if int8 else 0,
+                    gossip_mix_q8=rounds * leaves if int8 else 0)
+        check(launches == want, f"{label} {name}: launches {launches}, "
+              f"want {want}")
         check(len(recorded) == rounds and np.isfinite(out["losses"]).all(),
-              f"17 {name}: {len(recorded)} rounds recorded, losses "
+              f"{label} {name}: {len(recorded)} rounds recorded, losses "
               f"{out['losses']}")
         worst = {"loss": 0.0, "params": 0.0, "residuals": 0.0}
         for step_r, args, o in recorded:
@@ -3170,15 +3455,17 @@ def phase_train_lm_lockstep(torch) -> dict:
                 worst["residuals"] = max(worst["residuals"], max(
                     err(a.cpu(), b) for a, b in zip(
                         dpsgd._leaves(o["res"]), dpsgd._leaves(cpu["res"]))))
-        print(f"17 {name}{' (per-leaf int8)' if int8 else ''}: {rounds} "
-              f"rounds, launches {launches}; losses "
+        print(f"{label} {name}{' (per-leaf int8)' if int8 else ''}: {rounds} "
+              f"rounds, launches "
+              f"{ {k: v for k, v in launches.items() if v} }; losses "
               f"{out['losses'][0].tolist()}; card against CPU in lockstep: "
               f"max|loss diff| {worst['loss']:.3e} (tol 1e-4), max|param "
               f"diff| {worst['params']:.3e}, max|residual diff| "
               f"{worst['residuals']:.3e} (tol {TOL_FP32:g})")
-        check(worst["loss"] <= 1e-4, f"17 {name}: losses differ: {worst}")
+        check(worst["loss"] <= 1e-4, f"{label} {name}: losses differ: "
+              f"{worst}")
         check(worst["params"] <= TOL_FP32 and worst["residuals"] <= TOL_FP32,
-              f"17 {name}: parameters or residuals differ: {worst}")
+              f"{label} {name}: parameters or residuals differ: {worst}")
         result[name] = {"launches": launches, **worst}
     tb._STEPS.clear()
     return result
@@ -3190,7 +3477,14 @@ def main() -> None:
              "a checkout of the repository")
     sys.path.insert(0, str(SRC))
     import dataclasses
+    import os
 
+    # the training phases' graph pools and node-stacked copies fill most of
+    # the card; segments that grow in place keep freed blocks reusable
+    # (without them recurrentgemma-2b's phase 18 ran out of memory with
+    # gigabytes reserved but too fragmented for a 7.3 GiB leaf)
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
     import torch
 
     if not torch.cuda.is_available():
@@ -3212,6 +3506,7 @@ def main() -> None:
     kernels.update(run("3c", phase_rwkv_kernel, torch))
     kernels.update(run("3d", phase_quantize_kernels, torch))
     kernels.update(run("3e", phase_flash_backward, torch))
+    kernels.update(run("3f", phase_scan_backward, torch))
     sl = run("4", phase_slice, torch)
     q8_launches = run("5", phase_compressed, torch, sl)
 
@@ -3294,6 +3589,22 @@ def main() -> None:
     trained = run("16", phase_train_lm, torch)
     run("17", phase_train_lm_lockstep, torch)
 
+    # training the recurrent archs over wireless traces: every RG-LRU and
+    # RWKV-6 scan's forward and backward, and recurrentgemma's local
+    # attention, in the hand-written kernels
+    torch.cuda.empty_cache()
+    trained_rec = {}
+    for label, arch in (("18", "recurrentgemma-2b"), ("19", "rwkv6-7b")):
+        layers, batch, peak = REC_TRAIN[arch]
+        trained_rec[arch] = run(label, phase_train_lm, torch, label, arch,
+                                layers, REC_NODES, batch, peak)
+    for label, arch in (("20a", "recurrentgemma-2b"), ("20b", "rwkv6-7b")):
+        run(label, phase_train_lm_lockstep, torch, label, arch)
+    rec_launches = {**trained_rec["recurrentgemma-2b"]["launches"],
+                    **{k: v for k, v in
+                       trained_rec["rwkv6-7b"]["launches"].items()
+                       if k.startswith("rwkv6")}}
+
     rows = []
     for name, source, replaces, launches in (
             ("gossip_mix", "gossip_mix", "gossip_mix.py:62",
@@ -3308,8 +3619,17 @@ def main() -> None:
              trained["launches"]["flash_attention_bwd"]),
             ("rglru_scan", "rglru_scan", "rglru_scan.py:59",
              served["launches"]["rglru_scan"]),
+            ("rglru_scan_bwd", "rglru_scan_bwd",
+             "rglru_scan.py:59 (no Pallas backward: the JAX package "
+             "differentiates the associative scan of "
+             "models/rglru.py:linear_recurrence instead)",
+             rec_launches["rglru_scan_bwd"]),
             ("rwkv6_scan", "rwkv6_scan", "rwkv6_scan.py:87",
              served_rwkv["launches"]["rwkv6_scan"]),
+            ("rwkv6_scan_bwd", "rwkv6_scan_bwd",
+             "rwkv6_scan.py:87 (no Pallas backward: the JAX package "
+             "differentiates the chunked scan of models/rwkv6.py:wkv_chunked "
+             "instead)", rec_launches["rwkv6_scan_bwd"]),
             ("quantize_int8_ef", "quantize", "quantize.py:53",
              int8_run["quantize_int8_ef"]),
             ("quantize_int8", "quantize", "quantize.py:53",
@@ -3338,10 +3658,25 @@ def main() -> None:
                 f"{ENCDEC_ARCH} (phase 14)":
                     served_encdec["launches"]["flash_attention"],
                 f"{TRAIN_ARCH} training (phase 16)":
-                    trained["launches"]["flash_attention"]}
+                    trained["launches"]["flash_attention"],
+                "recurrentgemma-2b training (phase 18)":
+                    rec_launches["flash_attention"]}
+        if name in ("rglru_scan", "rwkv6_scan"):   # serving and training
+            rows[-1]["launches_by_path"] = {
+                f"{SERVE_ARCH if name == 'rglru_scan' else RWKV_ARCH} "
+                f"serving (phase {6 if name == 'rglru_scan' else 8})":
+                    launches,
+                f"{'recurrentgemma-2b' if name == 'rglru_scan' else RWKV_ARCH}"
+                f" training (phase {18 if name == 'rglru_scan' else 19})":
+                    rec_launches[name]}
+        if name == "flash_attention_bwd":
+            rows[-1]["launches_by_path"] = {
+                f"{TRAIN_ARCH} training (phase 16)": launches,
+                "recurrentgemma-2b training (phase 18)":
+                    rec_launches["flash_attention_bwd"]}
         # flash's fp32 entry and its MLA / encoder-decoder shapes, rglru's
         # S = 1
-        for extra in ("fp32", *NEW_FLASH_TIMED, "decode"):
+        for extra in ("fp32", *NEW_FLASH_TIMED, "decode", "prefill"):
             if extra in k:
                 rows[-1][extra] = {f: k[extra][f] for f in (
                     "ms", "device_ms", "plain_ms", "library_ms", "bound_ms",

@@ -13,7 +13,8 @@
 //
 //   r, k, v, w, y (B, S, H, D) fp32 contiguous, read and written in place
 //   (the TPU wrapper's transposes to (B*H, S, D) and its padding of S are
-//   not carried over); u (H, D); s0, s_out (B, H, D, D), s0 may be null.
+//   not carried over); u (H, D), or one per batch row; s0, s_out (B, H,
+//   D, D), s0 may be null.
 //   Decays enter as lw = log(max(w, 1e-12)), the TPU kernel's floor
 //   (rwkv6_scan.py:85); w <= 1, as the model's exp(-exp(.)) gives it.
 //
@@ -266,7 +267,7 @@ __global__ void __launch_bounds__(Plan<DP>::kThreadsAll, DP <= 64 ? 2 : 1)
                       const float* __restrict__ v, const float* __restrict__ w,
                       const float* __restrict__ u, const float* __restrict__ s0,
                       float* __restrict__ y, float* __restrict__ s_out, int S,
-                      int H, int D) {
+                      int H, int D, long long u_bstride) {
   using P = Plan<DP>;
   constexpr int C = kChunk, LD = P::LD, LDR = P::LDR, LD2 = P::LD2;
   constexpr int LDA2 = P::LDA2, NP = 32 * kProducers, NALL = P::kThreadsAll;
@@ -283,7 +284,8 @@ __global__ void __launch_bounds__(Plan<DP>::kThreadsAll, DP <= 64 ? 2 : 1)
 
   for (int i = tid; i < P::kFloats; i += NALL) sm[i] = 0.f;
   __syncthreads();
-  for (int d = tid; d < D; d += NALL) Us[d] = u[(long long)h * D + d];
+  for (int d = tid; d < D; d += NALL)
+    Us[d] = u[b * u_bstride + (long long)h * D + d];
   __syncthreads();
 
   // buffer b's arrays
@@ -619,7 +621,7 @@ __global__ void __launch_bounds__(Plan<DP>::kThreadsAll, DP <= 64 ? 2 : 1)
 template <int DP>
 int launch(const float* r, const float* k, const float* v, const float* w,
            const float* u, const float* s0, float* y, float* s_out, int B,
-           int S, int H, int D, cudaStream_t stream) {
+           int S, int H, int D, long long u_bstride, cudaStream_t stream) {
   constexpr size_t smem = Plan<DP>::kBytes;
   static bool ready = false;   // the opt-in above 48 KB, once per kernel
   if (!ready) {
@@ -631,7 +633,7 @@ int launch(const float* r, const float* k, const float* v, const float* w,
   }
   rwkv6_scan_kernel<DP>
       <<<(unsigned)(B * H), Plan<DP>::kThreadsAll, smem, stream>>>(
-          r, k, v, w, u, s0, y, s_out, S, H, D);
+          r, k, v, w, u, s0, y, s_out, S, H, D, u_bstride);
   return (int)cudaGetLastError();
 }
 
@@ -640,12 +642,15 @@ int launch(const float* r, const float* k, const float* v, const float* w,
 extern "C" {
 
 // r, k, v, w, y: contiguous (B, S, H, D) fp32 device buffers, 16-byte
-// aligned; u (H, D); s0 (B, H, D, D) fp32 or null; s_out (B, H, D, D).
+// aligned; u (H, D) with u_bstride 0 (every batch row's), or (B, H, D)
+// with u_bstride H * D (one a row: the node axis folded into B in
+// training); s0 (B, H, D, D) fp32 or null; s_out (B, H, D, D).
 // D % 8 == 0 and 8 <= D <= 128. The Python wrapper checks shapes, types
 // and devices first (and returns without a launch for an empty batch).
 int rwkv6_scan_f32(const void* r, const void* k, const void* v,
                    const void* w, const void* u, const void* s0, void* y,
-                   void* s_out, int B, int S, int H, int D, void* stream) {
+                   void* s_out, int B, int S, int H, int D,
+                   long long u_bstride, void* stream) {
   const float *rf = static_cast<const float*>(r),
               *kf = static_cast<const float*>(k),
               *vf = static_cast<const float*>(v),
@@ -656,10 +661,13 @@ int rwkv6_scan_f32(const void* r, const void* k, const void* v,
   cudaStream_t st = (cudaStream_t)stream;
   if (D % 8 != 0 || D < 8 || D > 128) return (int)cudaErrorInvalidValue;
   if (D <= 32)
-    return launch<32>(rf, kf, vf, wf, uf, s0f, yf, sf, B, S, H, D, st);
+    return launch<32>(rf, kf, vf, wf, uf, s0f, yf, sf, B, S, H, D,
+                      u_bstride, st);
   if (D <= 64)
-    return launch<64>(rf, kf, vf, wf, uf, s0f, yf, sf, B, S, H, D, st);
-  return launch<128>(rf, kf, vf, wf, uf, s0f, yf, sf, B, S, H, D, st);
+    return launch<64>(rf, kf, vf, wf, uf, s0f, yf, sf, B, S, H, D,
+                      u_bstride, st);
+  return launch<128>(rf, kf, vf, wf, uf, s0f, yf, sf, B, S, H, D,
+                      u_bstride, st);
 }
 
 }  // extern "C"

@@ -231,16 +231,29 @@ class GraphedStep:
         return None
 
     def __call__(self, *args):
+        return self.stage(*args)()
+
+    def stage(self, *args) -> Callable:
+        """Load ``args`` into the graph's static inputs (capturing first if
+        their signature is new) and return a function of no arguments that
+        replays the graph and returns fresh outputs: the caller may drop
+        its own references to ``args`` before calling it, since the static
+        inputs hold their values (a round loop then keeps no second copy
+        of its parameters while the next ones are made). On CPU inputs the
+        function runs the eager body on ``args``."""
         leaves, structure = _flatten_args(args)
         device = self._device(leaves)
         if device is None or not _graphable(device):
-            return self._body(*args)
+            return lambda: self._body(*args)
         entry = self._entry(device, leaves, structure)
         entry.load(leaves)
-        entry.graph.replay()
-        for fn, d in zip(counted_wrappers(), entry.delta):
-            fn.launches += d
-        return entry.fresh()
+
+        def run():
+            entry.graph.replay()
+            for fn, d in zip(counted_wrappers(), entry.delta):
+                fn.launches += d
+            return entry.fresh()
+        return run
 
     def prepare(self, *args) -> None:
         """Capture the graph for these arguments' signature if it is new;

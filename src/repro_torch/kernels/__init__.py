@@ -18,4 +18,5 @@ def counted_wrappers() -> tuple:
             quantize.quantize_int8_ef,
             flash_attention.flash_attention,
             flash_attention.flash_attention_bwd, rglru_scan.rglru_scan,
-            rwkv6_scan.rwkv6_scan)
+            rglru_scan.rglru_scan_bwd, rwkv6_scan.rwkv6_scan,
+            rwkv6_scan.rwkv6_scan_bwd)

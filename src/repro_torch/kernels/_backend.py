@@ -15,21 +15,22 @@ the JAX package's first answer for the life of the process). The probe is
 kept cheap instead: a ``torch.device`` the caller passes is used as it is,
 and the capability is asked by device index.
 
-A wrapper whose kernel has no backward refuses, before any launch, inputs
-that would need a gradient (:func:`refuse_grad`): a kernel fills its output
-through ctypes, so on a card the output would silently carry no
-``grad_fn``. These are the RG-LRU and RWKV-6 scans (their backward kernels
-are ROADMAP Queue 1 item 3(b)), the gossip mixes and the int8 codec.
-Flash attention has its backward kernel and reaches both through autograd
-Functions (``kernels/flash_attention.py``). The plain versions on the CPU
-stay differentiable.
+A kernel fills its output through ctypes, so on a card the output would
+silently carry no ``grad_fn``. Flash attention and the RG-LRU and RWKV-6
+scans have backward kernels: whenever autograd or a ``torch.func``
+transform is in play (:func:`traced`) their wrappers go through autograd
+Functions, whose ``vmap`` rules fold the mapped axis into the batch
+(:func:`fold`, :func:`unfold`). The gossip mixes and the int8 codec have
+none and refuse, before any launch, inputs that would need a gradient
+(:func:`refuse_grad`). The plain versions on the CPU stay
+differentiable.
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["use_kernel", "require_operands", "refuse_grad",
-           "MIN_CAPABILITY"]
+__all__ = ["use_kernel", "require_operands", "refuse_grad", "traced",
+           "fold", "unfold", "MIN_CAPABILITY"]
 
 MIN_CAPABILITY = (9, 0)
 
@@ -76,7 +77,37 @@ def refuse_grad(kernel: str, **tensors) -> None:
              if t is not None and t.requires_grad]
     if needs:
         raise RuntimeError(
-            f"{kernel} has no backward kernel yet (of the port's kernels "
-            f"only flash_attention has one): {', '.join(needs)} requires "
-            "grad. Run it under torch.no_grad() or on detached inputs (the "
-            "plain version on the CPU is differentiable)")
+            f"{kernel} has no backward kernel (the gossip mixes and the int8 "
+            f"codec have none): {', '.join(needs)} requires grad. Run it "
+            "under torch.no_grad() or on detached inputs (the plain version "
+            "on the CPU is differentiable)")
+
+
+def traced(*xs) -> bool:
+    """Autograd records this call, or a ``torch.func`` transform (vmap,
+    grad) wraps an input: the kernels, which fill their outputs through
+    ctypes, are then reached through the autograd Functions. ``None`` is
+    an absent operand."""
+    xs = [x for x in xs if x is not None]
+    if any(torch._C._functorch.is_functorch_wrapped_tensor(x) for x in xs):
+        return True
+    return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
+
+
+def fold(x, dim, n: int):
+    """A vmapped operand with its mapped axis (``dim``, or None: shared by
+    every map index) folded into the leading batch axis: (n * B, ...).
+    ``None`` (an absent operand) stays None."""
+    if x is None:
+        return None
+    x = x.unsqueeze(0).expand(n, *x.shape) if dim is None \
+        else x.movedim(dim, 0)
+    return x.reshape(n * x.shape[1], *x.shape[2:]).contiguous()
+
+
+def unfold(x, n: int):
+    """The inverse of :func:`fold` on an output: (n * B, ...) -> (n, B,
+    ...); ``None`` stays None."""
+    if x is None:
+        return None
+    return x.reshape(n, x.shape[0] // n, *x.shape[1:])

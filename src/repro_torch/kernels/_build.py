@@ -44,7 +44,8 @@ __all__ = ["load", "build", "launch", "ptxas_entries", "SOURCES",
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 SOURCES = ("gossip_mix", "flash_attention", "flash_attention_bwd",
-           "rglru_scan", "rwkv6_scan", "quantize")
+           "rglru_scan", "rglru_scan_bwd", "rwkv6_scan", "rwkv6_scan_bwd",
+           "quantize")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

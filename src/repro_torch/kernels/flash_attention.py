@@ -48,7 +48,7 @@ import ctypes
 import torch
 
 from . import _build
-from ._backend import require_operands, use_kernel
+from ._backend import fold, require_operands, traced, unfold, use_kernel
 
 __all__ = ["flash_attention", "flash_attention_plain", "flash_attention_bwd",
            "flash_attention_bwd_plain"]
@@ -182,21 +182,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Kernel on an sm_90 card, plain version on the CPU; differentiable
     (and mappable by ``torch.func.vmap``) through ``_Flash``."""
     _check(q, k, v)
-    if _traced(q, k, v):
+    if traced(q, k, v):
         return _Flash.apply(q, k, v, causal, window)[0]
     return _forward(q, k, v, causal, window, with_lse=False)[0]
 
 
 flash_attention.launches = 0
-
-
-def _traced(*xs: torch.Tensor) -> bool:
-    """Autograd records this call, or a ``torch.func`` transform (vmap,
-    grad) wraps an input: the kernels, which fill their outputs through
-    ctypes, are then reached through the autograd Functions."""
-    if any(torch._C._functorch.is_functorch_wrapped_tensor(x) for x in xs):
-        return True
-    return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
 
 
 def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
@@ -293,18 +284,6 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_attention_bwd.launches = 0
 
 
-def _fold(x: torch.Tensor, dim, n: int) -> torch.Tensor:
-    """A vmapped operand with its mapped axis (``dim``, or None: shared by
-    every map index) folded into the leading batch axis: (n * B, ...)."""
-    x = x.unsqueeze(0).expand(n, *x.shape) if dim is None \
-        else x.movedim(dim, 0)
-    return x.reshape(n * x.shape[1], *x.shape[2:]).contiguous()
-
-
-def _unfold(x: torch.Tensor, n: int) -> torch.Tensor:
-    return x.reshape(n, x.shape[0] // n, *x.shape[1:])
-
-
 class _FlashBackward(torch.autograd.Function):
     """``flash_attention_bwd`` as a Function, so the backward of ``_Flash``
     runs under ``vmap`` as one launch for every map index. Its own
@@ -326,10 +305,10 @@ class _FlashBackward(torch.autograd.Function):
     @staticmethod
     def vmap(info, in_dims, q, k, v, o, lse, do, causal, window):
         n = info.batch_size
-        args = [_fold(x, d, n) for x, d in zip((q, k, v, o, lse, do),
+        args = [fold(x, d, n) for x, d in zip((q, k, v, o, lse, do),
                                                 in_dims)]
         grads = _FlashBackward.apply(*args, causal, window)
-        return tuple(_unfold(x, n) for x in grads), (0, 0, 0)
+        return tuple(unfold(x, n) for x in grads), (0, 0, 0)
 
 
 class _Flash(torch.autograd.Function):
@@ -359,7 +338,7 @@ class _Flash(torch.autograd.Function):
     @staticmethod
     def vmap(info, in_dims, q, k, v, causal, window):
         n = info.batch_size
-        out, lse = _Flash.apply(*(_fold(x, d, n) for x, d in
+        out, lse = _Flash.apply(*(fold(x, d, n) for x, d in
                                   zip((q, k, v), in_dims[:3])),
                                 causal, window)
-        return (_unfold(out, n), _unfold(lse, n)), (0, 0)
+        return (unfold(out, n), unfold(lse, n)), (0, 0)

@@ -19,6 +19,20 @@ wrapper checks its arguments, then asks ``_backend.use_kernel`` per call:
 a CPU tensor runs the plain torch version beside it, a CUDA tensor
 launches the kernel (or raises: no fallback). ``rglru_scan.launches``
 counts one per call. The design and bound are noted in the CUDA source.
+
+* ``rglru_scan_bwd(a, h, dh, h0) -> (da, db, dh0 | None)``: its gradient
+  from the forward's output h, g_t = dh_t + a_{t+1} g_{t+1}, db_t = g_t,
+  da_t = g_t h_{t-1} (h_{-1} = h0, or 0), dh0 = a_0 g_0, in the kernel of
+  ``csrc/rglru_scan_bwd.cu`` (the forward's chained scan run backwards in
+  time, the same workspace; ``rglru_scan_bwd.launches``). The JAX package
+  differentiates its associative scan with ``jax.grad`` instead.
+
+Whenever autograd or a ``torch.func`` transform is in play, ``rglru_scan``
+goes through the ``_RGLRU`` / ``_RGLRUBackward`` Functions (saving a and
+h; b is not needed), whose ``vmap`` rules fold the node axis into B, so
+D-PSGD's ``vmap(grad_and_value(loss))`` makes one launch of each for all
+nodes. On the CPU the same Functions run the plain versions. Serving calls
+the forward kernel directly.
 """
 from __future__ import annotations
 
@@ -28,12 +42,14 @@ from typing import Optional
 import torch
 
 from . import _build
-from ._backend import refuse_grad, require_operands, use_kernel
+from ._backend import fold, require_operands, traced, unfold, use_kernel
 
-__all__ = ["rglru_scan", "rglru_scan_plain"]
+__all__ = ["rglru_scan", "rglru_scan_plain", "rglru_scan_bwd",
+           "rglru_scan_bwd_plain"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGS = (_P, _P, _P, _P, _I, _I, _I, _P, ctypes.c_longlong)
+_BWD_ARGS = (_P,) * 7 + (_I, _I, _I, _P, ctypes.c_longlong)
 CHUNK, TILE = 32, 128      # the chained scan's time chunk and channel tile
 
 
@@ -76,15 +92,39 @@ def rglru_scan_plain(a: torch.Tensor, b: torch.Tensor,
     return out.to(a.dtype)
 
 
-def rglru_scan(a: torch.Tensor, b: torch.Tensor,
-               h0: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """a, b (B, S, D), h0 (B, D) | None -> h (B, S, D) in a's dtype.
-    Kernel on an sm_90 card (the chained scan for S > CHUNK), plain
-    version on the CPU."""
-    _check(a, b, h0)
+def rglru_scan_bwd_plain(a: torch.Tensor, h: torch.Tensor, dh: torch.Tensor,
+                         h0: Optional[torch.Tensor] = None,
+                         acc_dtype: torch.dtype = torch.float32
+                         ) -> tuple:
+    """Plain torch version of the backward kernel: a reverse loop over time
+    in ``acc_dtype`` (float64 makes it the card's oracle). From the
+    forward's output h and its gradient dh: g_t = dh_t + a_{t+1} g_{t+1},
+    db_t = g_t, da_t = g_t h_{t-1} (h_{-1} = h0, or 0), dh0 = a_0 g_0.
+    Returns (da, db, dh0 or None) in a's dtype."""
+    f = acc_dtype
+    a_, h_, dh_ = (x.to(f) for x in (a, h, dh))
+    da, db = torch.empty_like(a_), torch.empty_like(a_)
+    g = torch.zeros_like(a_[:, 0])
+    s = a.shape[1]
+    for t in range(s - 1, -1, -1):
+        g = dh_[:, t] + (a_[:, t + 1] * g if t + 1 < s else 0.0)
+        db[:, t] = g
+        if t > 0:
+            da[:, t] = g * h_[:, t - 1]
+        else:
+            da[:, t] = g * h0.to(f) if h0 is not None else 0.0
+    dh0 = None
+    if h0 is not None:
+        dh0 = (a_[:, 0] * g if s else torch.zeros_like(h0, dtype=f)
+               ).to(a.dtype)
+    return da.to(a.dtype), db.to(a.dtype), dh0
+
+
+def _forward(a: torch.Tensor, b: torch.Tensor,
+             h0: Optional[torch.Tensor]) -> torch.Tensor:
+    """h: the kernel on the card, the plain version on the CPU."""
     if not use_kernel(a.device):
         return rglru_scan_plain(a, b, h0)
-    refuse_grad("rglru_scan", a=a, b=b, h0=h0)
     a32 = a.to(torch.float32).contiguous()
     b32 = b.to(torch.float32).contiguous()
     h32 = None if h0 is None else h0.to(torch.float32).contiguous()
@@ -104,4 +144,108 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor,
     return out.to(a.dtype)
 
 
+def rglru_scan(a: torch.Tensor, b: torch.Tensor,
+               h0: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """a, b (B, S, D), h0 (B, D) | None -> h (B, S, D) in a's dtype.
+    Kernel on an sm_90 card (the chained scan for S > CHUNK), plain
+    version on the CPU; differentiable (and mappable by
+    ``torch.func.vmap``) through ``_RGLRU``."""
+    _check(a, b, h0)
+    if traced(a, b, h0):
+        return _RGLRU.apply(a, b, h0)
+    return _forward(a, b, h0)
+
+
 rglru_scan.launches = 0
+
+
+def rglru_scan_bwd(a: torch.Tensor, h: torch.Tensor, dh: torch.Tensor,
+                   h0: Optional[torch.Tensor] = None) -> tuple:
+    """Gradients (da, db, dh0 or None) of ``rglru_scan`` from its output h
+    and the output's gradient dh, all (B, S, D), h0 (B, D) | None; in a's
+    dtype, computed in fp32. Kernel on an sm_90 card (the chained scan run
+    backwards for S > CHUNK), plain version on the CPU."""
+    _check(a, h, h0)
+    if dh.shape != a.shape:
+        raise ValueError(f"dh {tuple(dh.shape)} must match a "
+                         f"{tuple(a.shape)}")
+    if not use_kernel(a.device):
+        return rglru_scan_bwd_plain(a, h, dh, h0)
+    a32, h32, dh32 = (x.to(torch.float32).contiguous() for x in (a, h, dh))
+    h0c = None if h0 is None else h0.to(torch.float32).contiguous()
+    require_operands(a.device, a=a32, h=h32, dh=dh32, h0=h0c)
+    da, db = torch.empty_like(a32), torch.empty_like(a32)
+    dh0 = None if h0 is None else torch.zeros_like(h0c)
+    if da.numel() == 0:
+        return da.to(a.dtype), db.to(a.dtype), \
+            None if dh0 is None else dh0.to(a.dtype)
+    bsz, s, d = a32.shape
+    nbytes = workspace_bytes(bsz, s, d)
+    ws = torch.empty(nbytes, dtype=torch.uint8, device=a.device) \
+        if nbytes else None
+    _build.launch("rglru_scan_bwd", "rglru_scan_bwd_f32", _BWD_ARGS,
+                  a.device, a32.data_ptr(), h32.data_ptr(),
+                  None if h0c is None else h0c.data_ptr(), dh32.data_ptr(),
+                  da.data_ptr(), db.data_ptr(),
+                  None if dh0 is None else dh0.data_ptr(), bsz, s, d,
+                  None if ws is None else ws.data_ptr(), nbytes)
+    rglru_scan_bwd.launches += 1
+    return da.to(a.dtype), db.to(a.dtype), \
+        None if dh0 is None else dh0.to(a.dtype)
+
+
+rglru_scan_bwd.launches = 0
+
+
+class _RGLRUBackward(torch.autograd.Function):
+    """``rglru_scan_bwd`` as a Function, so the backward of ``_RGLRU`` runs
+    under ``vmap`` as one launch for every map index. Its own backward (a
+    double backward) is not provided."""
+
+    @staticmethod
+    def forward(a, h, dh, h0):
+        return rglru_scan_bwd(a, h, dh, h0)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError("the RG-LRU scan has no double backward")
+
+    @staticmethod
+    def vmap(info, in_dims, a, h, dh, h0):
+        n = info.batch_size
+        da, db, dh0 = _RGLRUBackward.apply(
+            *(fold(x, d, n) for x, d in zip((a, h, dh, h0), in_dims)))
+        return (unfold(da, n), unfold(db, n), unfold(dh0, n)), \
+            (0, 0, None if dh0 is None else 0)
+
+
+class _RGLRU(torch.autograd.Function):
+    """The forward kernel, keeping (a, h, h0) for the backward kernel."""
+
+    @staticmethod
+    def forward(a, b, h0):
+        return _forward(a, b, h0)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        a, b, h0 = inputs
+        ctx.save_for_backward(a, output, h0)
+        ctx.dtypes = (b.dtype, None if h0 is None else h0.dtype)
+
+    @staticmethod
+    def backward(ctx, dh):
+        a, h, h0 = ctx.saved_tensors
+        da, db, dh0 = _RGLRUBackward.apply(a, h, dh.contiguous(), h0)
+        bdt, hdt = ctx.dtypes
+        return da, db.to(bdt), None if dh0 is None else dh0.to(hdt)
+
+    @staticmethod
+    def vmap(info, in_dims, a, b, h0):
+        n = info.batch_size
+        out = _RGLRU.apply(*(fold(x, d, n) for x, d in
+                             zip((a, b, h0), in_dims)))
+        return unfold(out, n), 0

@@ -150,22 +150,28 @@ def _family_step(loss_fn, config, payload, collect_node0,
     return step
 
 
-def _train_family(loss_fn, params, w_seq, live_seq, batch_seq, config,
+def _train_family(loss_fn, owned, w_seq, live_seq, batch_seq, config,
                   collect_node0, payload, active_seq, watchdog,
                   what: str = "train_on_trace"):
-    """The round loop over an (S,) family: ``params`` leaves (S, n, ...),
+    """The round loop over an (S,) family: ``owned`` a list holding the
+    initial parameters, leaves (S, n, ...), which the loop pops, so that
+    it holds their only reference and drops them once the first round's
+    graph has taken them in (callers keep none: a node-stacked copy of
+    recurrentgemma-2b's 3-layer cut is 10.2 GiB);
     ``w_seq`` (S, rounds, n, n), masks (S, rounds, n), batch leaves
     (S, rounds, n, ...). Everything moves to the parameters' device once;
     each round replays the family's graphed body on slices of it, with no
     read back to the host. Each output leaf of a round is a tensor of its
     own (``GraphedStep``), so the kept losses, snapshots and rollbacks
-    hold nothing else of their round."""
+    hold nothing else of their round. ``collect_node0`` True keeps every
+    round's snapshot, a collection of round indices only those rounds'."""
     if payload.mode == "auto":
         raise ValueError(
             f"{what} needs a concrete payload mode; \"auto\" is "
             "resolved by the joint planner at simulation time — train with "
             "the mode the plan actually picked")
     compressed = payload.mode != "none"
+    params = owned.pop()
     dev = dpsgd._device_of(params)
     w = torch.as_tensor(w_seq, dtype=torch.float32, device=dev)
     live = torch.as_tensor(live_seq, dtype=torch.bool, device=dev)
@@ -176,17 +182,22 @@ def _train_family(loss_fn, params, w_seq, live_seq, batch_seq, config,
     batch = _tree_map(lambda x: torch.as_tensor(x, device=dev), batch_seq)
     # first live row per round (original-id order), computed on the device
     first = live.to(torch.int32).argmax(-1) if collect_node0 else None
-    step = _family_step(loss_fn, config, payload, collect_node0, watchdog)
+    step = _family_step(loss_fn, config, payload, bool(collect_node0),
+                        watchdog)
 
     res = dpsgd.zero_residuals(params) if compressed else None
     losses, node0, rollbacks = [], [], []
     for r in range(w.shape[1]):
-        out = step(params, res, _tree_map(lambda x: x[:, r], batch),
-                   w[:, r], grad_mask[:, r],
-                   None if first is None else first[:, r])
+        run = step.stage(params, res, _tree_map(lambda x: x[:, r], batch),
+                         w[:, r], grad_mask[:, r],
+                         None if first is None else first[:, r])
+        # the graph's static inputs hold them now: no second copy of the
+        # parameters lives while the round makes the next
+        params = res = None
+        out = run()
         params, res = out["params"], out.get("res")
         losses.append(out["losses"])
-        if collect_node0:
+        if collect_node0 and (collect_node0 is True or r in collect_node0):
             node0.append(out["node0"])
         if watchdog:
             rollbacks.append(out["rollbacks"])
@@ -220,8 +231,9 @@ def train_on_trace(
     losses)`` with ``losses`` (rounds, n) raw per-node losses (mask with
     ``live_seq`` before aggregating), plus per-round snapshots of the first
     live node's parameters when ``collect_node0`` (for post-hoc accuracy
-    curves), as tensors on that device. The snapshot stack costs
-    O(rounds x |node params|) device memory.
+    curves), as tensors on that device: every round's for True, or only
+    the rounds of a collection of round indices. The snapshot stack costs
+    O(rounds kept x |node params|) device memory.
 
     ``payload`` selects the gossip compression of
     ``core.dpsgd.dpsgd_masked_compressed_step``: with a quantized mode the
@@ -244,7 +256,7 @@ def train_on_trace(
     """
     one = lambda x: torch.as_tensor(x)[None]              # noqa: E731
     outs = _train_family(
-        loss_fn, _tree_map(lambda p: p[None], node_params), one(w_seq),
+        loss_fn, [_tree_map(lambda p: p[None], node_params)], one(w_seq),
         one(live_seq), _tree_map(one, batch_seq), config, collect_node0,
         payload, None if active_seq is None else one(active_seq), watchdog)
     # (final, losses[, node0_snaps][, rollbacks]) — extras in that order
@@ -273,9 +285,10 @@ def train_on_traces(
     graph replay for the whole family; every output gains the (S,) axis.
     """
     s = int(np.shape(w_seq)[0])
-    params = node_params if params_batched else _tree_map(
-        lambda p: p[None].expand(s, *p.shape).clone(), node_params)
-    return _train_family(loss_fn, params, w_seq, live_seq, batch_seq,
+    owned = [node_params if params_batched else _tree_map(
+        lambda p: p[None].expand(s, *p.shape).clone(), node_params)]
+    del node_params     # the round loop drops them once its graph has them
+    return _train_family(loss_fn, owned, w_seq, live_seq, batch_seq,
                          config, collect_node0, payload, active_seq,
                          watchdog, what="train_on_traces")
 
@@ -610,23 +623,28 @@ def train_model_on_traces(
             raise ValueError(
                 f"trace realized under {t.cfg} cannot train config {c}")
 
-    params0, batches = _family_inputs(adapter, cfgs, traces, n_nodes, dev)
+    eval_rounds = [r for r in range(n_rounds)
+                   if (r + 1) % eval_every == 0 or r + 1 == n_rounds]
+    inputs = list(_family_inputs(adapter, cfgs, traces, n_nodes, dev))
+    batches = inputs.pop()
+    # the initial parameters handed over with no reference kept here (the
+    # round loop drops them once its graph has them), and only the
+    # evaluated rounds' snapshots kept (a snapshot is a whole replica: 3.4
+    # GiB for recurrentgemma-2b's 3-layer cut)
     out_arrays = train_on_traces(
-        adapter.loss_fn, params0, traces.w_eff, traces.live, batches,
-        DPSGDConfig(eta=eta), collect_node0=True, params_batched=True,
-        payload=payload, active_seq=traces.active, watchdog=watchdog)
+        adapter.loss_fn, inputs.pop(), traces.w_eff, traces.live, batches,
+        DPSGDConfig(eta=eta), collect_node0=tuple(eval_rounds),
+        params_batched=True, payload=payload, active_seq=traces.active,
+        watchdog=watchdog)
     if watchdog:
         finals, losses, snaps, rollbacks = out_arrays
     else:
         finals, losses, snaps = out_arrays
         rollbacks = None
 
-    eval_rounds = [r for r in range(n_rounds)
-                   if (r + 1) % eval_every == 0 or r + 1 == n_rounds]
     s_count = traces.n_traces
     if adapter.eval_fn is not None:
-        idx = torch.as_tensor(eval_rounds, device=dev)
-        sel = _tree_map(lambda p: p.index_select(1, idx).reshape(
+        sel = _tree_map(lambda p: p.reshape(
             (s_count * len(eval_rounds),) + tuple(p.shape[2:])), snaps)
         accs = _evaluate(adapter.eval_fn, sel, EVAL_CHUNK)
     # the loop's one synchronisation: results to the host

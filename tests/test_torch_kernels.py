@@ -719,13 +719,14 @@ def test_new_kernels_raise_below_sm90(monkeypatch, kernel):
 def test_build_lists_every_source_and_names_each_library():
     assert _build.SOURCES == ("gossip_mix", "flash_attention",
                               "flash_attention_bwd", "rglru_scan",
-                              "rwkv6_scan", "quantize")
+                              "rglru_scan_bwd", "rwkv6_scan",
+                              "rwkv6_scan_bwd", "quantize")
     libs = set()
     for name in _build.SOURCES:
         src, so = _build._target(name)
         assert src.exists() and so.name.startswith(f"{name}-")
         libs.add(so.name)
-    assert len(libs) == 6
+    assert len(libs) == 8
 
 
 # ---------------------------------------------------------------------------
@@ -798,7 +799,7 @@ def test_rwkv6_contracts(case):
 
 # ---------------------------------------------------------------------------
 # Kernels with no backward: the kernel path refuses inputs that need a
-# gradient (flash attention has its backward kernel)
+# gradient (flash attention and the two scans have backward kernels)
 # ---------------------------------------------------------------------------
 
 def _grad_cases():
@@ -848,29 +849,36 @@ def test_kernel_path_refuses_inputs_that_need_a_gradient(monkeypatch, name):
     backward raises before any launch when autograd is on and an input
     requires grad: its output, filled through ctypes, would silently carry
     no grad_fn. Under no_grad, or with inputs that need none, it launches
-    as before. flash_attention has its backward kernel: a forward that
-    needs a gradient launches the forward entry with an lse buffer, and
-    ``.backward()`` launches the backward entry."""
+    as before. flash_attention, rglru_scan and rwkv6_scan have backward
+    kernels: a forward that needs a gradient launches the forward entry
+    (flash's with an lse buffer), and ``.backward()`` launches the
+    backward entry."""
     wrapper, mod, call = _grad_cases()[name]
     launched = []
     monkeypatch.setattr(mod, "use_kernel", lambda dev: True)
     monkeypatch.setattr(mod._build, "launch",
                         lambda name, e, *args: launched.append((e, args)))
     before = wrapper.launches
-    if name == "flash_attention":
-        bwd_before = fa.flash_attention_bwd.launches
+    backward = {"flash_attention": fa.flash_attention_bwd,
+                "rglru_scan": rg.rglru_scan_bwd,
+                "rwkv6_scan": rw.rwkv6_scan_bwd}.get(name)
+    if backward is not None:
+        entry = f"{name}_f32"
+        bwd_before = backward.launches
         out = call(True)
-        # args: argtypes, device, then q, k, v, out, lse pointers
-        assert [e for e, _ in launched] == ["flash_attention_f32"]
-        assert launched[0][1][6] != 0 and out.grad_fn is not None
+        out = out[0] if isinstance(out, tuple) else out
+        assert [e for e, _ in launched] == [entry] and out.grad_fn is not None
+        if name == "flash_attention":
+            # args: argtypes, device, then q, k, v, out, lse pointers
+            assert launched[0][1][6] != 0
         out.sum().backward()
-        assert [e for e, _ in launched] == ["flash_attention_f32",
-                                            "flash_attention_bwd_f32"]
-        assert fa.flash_attention_bwd.launches == bwd_before + 1
+        assert [e for e, _ in launched] == [entry, f"{name}_bwd_f32"]
+        assert backward.launches == bwd_before + 1
         with torch.no_grad():
             call(True)
         call(False)
-        assert [args[6] for _, args in launched[2:]] == [0, 0]
+        if name == "flash_attention":
+            assert [args[6] for _, args in launched[2:]] == [0, 0]
         assert len(launched) == 4 and wrapper.launches == before + 3
         return
     with pytest.raises(RuntimeError, match="no backward"):

@@ -1,5 +1,6 @@
 """The CUDA kernels (gossip mix, flash attention in fp32 and on the
-tensor cores in bf16, RG-LRU scan, RWKV-6 scan, int8 quantize / dequantize)
+tensor cores in bf16, RG-LRU and RWKV-6 scans and their backward kernels,
+int8 quantize / dequantize)
 against their plain torch versions, the int8 round's send and receive
 (also against the sequence of launches the round made before), and the
 D-PSGD steps as CUDA graphs against their eager bodies, on an sm_90 card
@@ -1014,3 +1015,111 @@ def test_graphed_vmap_grad_through_flash_matches_eager(sm90):
             assert _err(a, b_) <= 1e-5
         params = got[0]
     assert step.signatures == 1
+
+
+# ---------------------------------------------------------------------------
+# The scans' backward kernels, against their plain versions summed in
+# float64, at chip_smoke.py phase 3f's shapes
+# ---------------------------------------------------------------------------
+
+def _held(got, want, bar):
+    """max |got - want| <= bar x max(1, max |want|) for every gradient."""
+    for g, w_ in zip(got, want):
+        assert (g is None) == (w_ is None)
+        if g is not None:
+            assert g.shape == w_.shape and g.dtype == torch.float32
+            assert _err(g, w_) <= bar * max(1.0, float(w_.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,d,with_h0", [
+    (6, 512, 2560, False), (4, 4096, 2560, True), (4, 1, 2560, True),
+    (3, 32, 100, False), (2, 33, 2560, True), (3, 70, 300, True),
+    (2, 300, 100, False)])
+def test_rglru_scan_bwd_kernel_matches_float64_plain(sm90, b, s, d, with_h0):
+    gen = torch.Generator(device=sm90).manual_seed(s + d)
+    a = torch.sigmoid(torch.randn((b, s, d), generator=gen, device=sm90))
+    h0 = torch.randn((b, d), generator=gen, device=sm90) if with_h0 else None
+    h = rg.rglru_scan(a, torch.randn((b, s, d), generator=gen, device=sm90),
+                      h0)
+    dh = torch.randn((b, s, d), generator=gen, device=sm90)
+    before = rg.rglru_scan_bwd.launches
+    got = rg.rglru_scan_bwd(a, h, dh, h0)
+    again = rg.rglru_scan_bwd(a, h, dh, h0)
+    torch.cuda.synchronize()
+    assert rg.rglru_scan_bwd.launches == before + 2
+    assert all(x is None and y is None or torch.equal(x, y)
+               for x, y in zip(got, again))
+    _held(got, rg.rglru_scan_bwd_plain(a, h, dh, h0,
+                                       acc_dtype=torch.float64), 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,d,states,u_rows,regime", [
+    (12, 512, 64, 64, False, True, "test"),
+    (12, 512, 64, 64, True, True, "served"),
+    (4, 4096, 64, 64, True, False, "test"),
+    (2, 37, 2, 64, False, False, "served"),
+    (2, 45, 3, 32, True, True, "test"),
+    (2, 33, 2, 128, True, False, "served"),
+    (2, 40, 4, 16, False, True, "test"),
+    (1, 17, 2, 8, True, True, "test")])
+def test_rwkv6_scan_bwd_kernel_matches_float64_plain(sm90, b, s, h, d, states,
+                                                     u_rows, regime):
+    gen = torch.Generator(device=sm90).manual_seed(s + d)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=sm90)
+    r, k, v, dy = (randn(b, s, h, d) for _ in range(4))
+    if regime == "served":
+        lw = -torch.exp(0.5 + 1.5 * torch.rand((b, s, h, d), generator=gen,
+                                               device=sm90)
+                        + randn(b, s, h, d))
+    else:
+        lw = -torch.exp(randn(b, s, h, d) * 0.5)
+    w = torch.exp(lw)
+    u = randn(b, h, d) * 0.1 if u_rows else randn(h, d) * 0.1
+    s0, dsf = (randn(b, h, d, d), randn(b, h, d, d)) if states else (None,
+                                                                      None)
+    before = rw.rwkv6_scan_bwd.launches
+    got = rw.rwkv6_scan_bwd(r, k, v, w, u, dy, s0, dsf)
+    again = rw.rwkv6_scan_bwd(r, k, v, w, u, dy, s0, dsf)
+    torch.cuda.synchronize()
+    assert rw.rwkv6_scan_bwd.launches == before + 2
+    assert all(x is None and y is None or torch.equal(x, y)
+               for x, y in zip(got, again))
+    _held(got, rw.rwkv6_scan_bwd_plain(r, k, v, w, u, dy, s0, dsf, 32,
+                                       acc_dtype=torch.float64), 5e-4)
+
+
+@pytest.mark.cuda
+def test_scans_train_through_their_kernels_under_vmap_of_grad(sm90):
+    """vmap(grad_and_value) over 3 nodes on the card, u a node's own: one
+    forward and one backward launch of each scan for all nodes, and the
+    gradients equal a loop over nodes (each its own launches) within the
+    scans' bars."""
+    gen = torch.Generator(device=sm90).manual_seed(7)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=sm90)
+    a, x = torch.sigmoid(randn(3, 2, 70, 64)), randn(3, 2, 70, 64)
+    r, k, v = (randn(3, 2, 40, 2, 16) for _ in range(3))
+    w, u = torch.exp(-torch.exp(randn(3, 2, 40, 2, 16) * 0.5)), randn(3, 2, 16)
+
+    def loss(a_, x_, r_, k_, v_, w_, u_):
+        y, _ = rw.rwkv6_scan(r_, k_, v_, w_, u_)
+        return (rg.rglru_scan(a_, x_) ** 2).sum() + (y ** 2).sum()
+    counters = (rg.rglru_scan, rg.rglru_scan_bwd, rw.rwkv6_scan,
+                rw.rwkv6_scan_bwd)
+    before = [c.launches for c in counters]
+    grads, losses = torch.func.vmap(torch.func.grad_and_value(
+        loss, argnums=tuple(range(7))))(a, x, r, k, v, w, u)
+    torch.cuda.synchronize()
+    assert [c.launches - n for c, n in zip(counters, before)] == [1] * 4
+    for i in range(3):
+        g, l_ = torch.func.grad_and_value(loss, argnums=tuple(range(7)))(
+            a[i], x[i], r[i], k[i], v[i], w[i], u[i])
+        assert abs(float(l_ - losses[i])) <= 1e-4 * max(1.0, abs(float(l_)))
+        for n, (gi, gv) in enumerate(zip(g, grads)):
+            bar = 1e-4 if n < 2 else 5e-4
+            assert _err(gi, gv[i]) <= bar * max(1.0, float(gi.abs().max()))

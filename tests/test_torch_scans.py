@@ -19,7 +19,20 @@ JAX package (the Pallas kernel in interpret mode, or ``ref.rwkv6_ref`` /
   carry-in by looking back over its predecessors, composing aggregates
   until it meets an end value (or h0 before the first chunk).
 
-Tolerances as tests/test_kernels.py: rwkv6 5e-4, rglru 1e-4 (absolute).
+and the two backward kernels, ``csrc/rglru_scan_bwd.cu`` and
+``csrc/rwkv6_scan_bwd.cu``, held against their plain versions summed in
+float64 (the card's oracles):
+
+* ``rglru_bwd_chained``: the same chained scan run backwards in time over
+  the coefficient a shifted by one step, each carry-in composed from a
+  fixed reach of aggregates onto an end value.
+* ``rwkv6_bwd_walks``: the exact recurrences, three walks per (b, h): S
+  forward (dr, du; S saved before every 8 steps), G backward (dk, ds0,
+  and dw = sum_e G_t S_{t-1} with S_{t-1} rebuilt from its checkpoint),
+  G^T backward (dv).
+
+Tolerances as tests/test_kernels.py: rwkv6 5e-4, rglru 1e-4 (absolute;
+the backward ones of max(1, max |oracle|)).
 Two decay regimes for rwkv6, drawn with numpy from a seed: the served one,
 log w = -exp(U(0.5, 2) + N(0, 1)) (models/rwkv6.py's w0 with the LoRA's
 spread), where the 1e-12 floor of w is live; and a weak one, log w ~ -1e-3
@@ -267,3 +280,146 @@ def test_rglru_workspace_covers_every_chunk_record():
     recs = 4 * 20 * 128
     assert rg.workspace_bytes(4, 4096, 2560) == 16 + 4 * recs + 12 * recs * 128
     assert rg.workspace_bytes(2, 33, 100) == 16 + 4 * 4 + 12 * 4 * 128
+
+
+# ---------------------------------------------------------------------------
+# The backward kernels
+# ---------------------------------------------------------------------------
+
+def _held(got, want, bar):
+    """max |got - want| <= bar x max(1, max |want|), per gradient."""
+    for g, w_ in zip(got, want):
+        assert (g is None) == (w_ is None)
+        if g is not None:
+            scale = max(1.0, float(w_.abs().max()))
+            assert _err(g, w_) <= bar * scale
+
+
+def rglru_bwd_chained(a, h, dh, h0=None, chunk=32, reach=8):
+    """The backward kernel's chained scan in fp32: g_t = dh_t + a_{t+1}
+    g_{t+1} over chunks taken latest first. A chunk's aggregate maps its
+    carry-in g_{t1+1} to g_{t0}; its carry-in composes the aggregates of
+    the next ``reach`` - 1 later chunks onto the end value of the
+    ``reach``-th (or onto g_S = 0 near the last chunk). Then db = g,
+    da_t = g_t h_{t-1} (h0 or 0 before the first step), dh0 = a_0 g_0."""
+    a32, h32, g32 = (x.to(torch.float32) for x in (a, h, dh))
+    bsz, s, d = a32.shape
+    n = -(-s // chunk)
+    coef = torch.cat([a32[:, 1:], torch.zeros((bsz, 1, d))], 1)
+    g_all = torch.empty_like(a32)
+    agg, ends = {}, {}
+    for rev in range(n):
+        c = n - 1 - rev
+        span = slice(c * chunk, min((c + 1) * chunk, s))
+        cc, gc = coef[:, span], g32[:, span]
+        ca, cb = torch.ones((bsz, d)), torch.zeros((bsz, d))
+        for i in range(cc.shape[1] - 1, -1, -1):
+            cb = cc[:, i] * cb + gc[:, i]
+            ca = ca * cc[:, i]
+        agg[rev] = (ca, cb)
+        acc_a, acc_b = torch.ones((bsz, d)), torch.zeros((bsz, d))
+        for p in range(rev - 1, max(rev - reach, -1), -1):
+            acc_b = acc_a * agg[p][1] + acc_b
+            acc_a = acc_a * agg[p][0]
+        g = acc_a * ends[rev - reach] + acc_b if rev >= reach else acc_b
+        for i in range(cc.shape[1] - 1, -1, -1):
+            g = cc[:, i] * g + gc[:, i]
+            g_all[:, c * chunk + i] = g
+        ends[rev] = g
+    hprev = torch.cat([torch.zeros((bsz, 1, d)) if h0 is None
+                       else h0.to(torch.float32)[:, None], h32[:, :-1]], 1)
+    dh0 = None if h0 is None else a32[:, 0] * g_all[:, 0]
+    return g_all * hprev, g_all, dh0
+
+
+@pytest.mark.parametrize("s", [1, 31, 33, 65, 300])
+@pytest.mark.parametrize("reach", [1, 8])
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_rglru_bwd_chained_model_matches_the_float64_oracle(s, reach,
+                                                            with_h0):
+    """The backward's chained scan (S over one to ten chunks: the look-back
+    at a reach of 8 meets the last chunk and end values alike) against
+    rglru_scan_bwd_plain summed in float64, and the fp32 plain version
+    against autograd through the forward's plain loop."""
+    from repro_torch.kernels import rglru_scan as rg
+    a, x, h0 = _rglru_inputs(2, s, 40, seed=s + reach, with_h0=with_h0)
+    dh = torch.from_numpy(np.random.default_rng(s).normal(
+        size=(2, s, 40)).astype(np.float32))
+    h = rglru_scan_plain(a, x, h0)
+    want = rg.rglru_scan_bwd_plain(a, h, dh, h0, acc_dtype=torch.float64)
+    _held(rglru_bwd_chained(a, h, dh, h0, reach=reach), want, RGLRU_TOL)
+    leaves = [t.clone().requires_grad_() for t in (a, x, h0)
+              if t is not None]
+    out = rglru_scan_plain(*leaves, *([None] if h0 is None else []))
+    auto = torch.autograd.grad(out, leaves, dh)
+    got = rg.rglru_scan_bwd_plain(a, h, dh, h0)
+    _held([g for g in got if g is not None], auto, 1e-5)
+
+
+def rwkv6_bwd_walks(r, k, v, w, u, dy, s0=None, ds_final=None, ck=8):
+    """The backward kernel's three walks in fp32, per (b, h) all at once.
+    Walk 1 carries S forward (dr_t = S_{t-1} dy_t + c_t u k_t, c_t =
+    dy_t . v_t; du += c_t r_t k_t), saving S before every ``ck`` steps;
+    walk 2 carries G backward from ds_final (dk_t = G_t v_t + c_t u r_t,
+    dw_t = sum_e G_t S_{t-1} with S_{t-1} the checkpoint advanced t mod
+    ``ck`` steps, 0 where w < 1e-12; ds0 = G_{-1}); walk 3 carries G^T
+    (dv_t = G_t^T k_t + (r_t . u k_t) dy_t). u is (H, D) or per row."""
+    f = torch.float32
+    r, k, v, w, dy = (x.to(f) for x in (r, k, v, w, dy))
+    b, s, h, d = r.shape
+    uu = (u[None] if u.dim() == 2 else u).to(f)
+    wf = torch.clamp(w, min=1e-12)
+    st = torch.zeros((b, h, d, d)) if s0 is None else s0.to(f).clone()
+    ckpts, dr = {}, torch.empty_like(r)
+    du = torch.zeros((b, h, d))
+    for t in range(s):
+        if t % ck == 0:
+            ckpts[t // ck] = st.clone()
+        c = (v[:, t] * dy[:, t]).sum(-1, keepdim=True)
+        dr[:, t] = torch.einsum("bhde,bhe->bhd", st, dy[:, t]) \
+            + uu * k[:, t] * c
+        du += r[:, t] * k[:, t] * c
+        st = wf[:, t, ..., None] * st + k[:, t, ..., None] * v[:, t, :, None]
+    g = torch.zeros((b, h, d, d)) if ds_final is None else ds_final.clone()
+    dk, dw, dv = (torch.empty_like(r) for _ in range(3))
+    for t in range(s - 1, -1, -1):
+        sp = ckpts[t // ck].clone()
+        for m in range(t // ck * ck, t):
+            sp = wf[:, m, ..., None] * sp \
+                + k[:, m, ..., None] * v[:, m, :, None]
+        c = (v[:, t] * dy[:, t]).sum(-1, keepdim=True)
+        dk[:, t] = torch.einsum("bhde,bhe->bhd", g, v[:, t]) \
+            + uu * r[:, t] * c
+        dw[:, t] = torch.where(w[:, t] >= 1e-12, (g * sp).sum(-1), 0.0)
+        bonus = (r[:, t] * uu * k[:, t]).sum(-1, keepdim=True)
+        dv[:, t] = torch.einsum("bhde,bhd->bhe", g, k[:, t]) \
+            + bonus * dy[:, t]
+        g = wf[:, t, ..., None] * g + r[:, t, ..., None] * dy[:, t, :, None]
+    return dr, dk, dv, dw, du, None if s0 is None else g
+
+
+@pytest.mark.parametrize("regime", ["served", "weak"])
+@pytest.mark.parametrize("s", [1, 8, 9, 37])
+@pytest.mark.parametrize("states", [False, True])
+def test_rwkv6_bwd_walks_match_the_float64_oracle(regime, s, states):
+    """The backward's three walks (S one past, at and across its 8-step
+    checkpoints; s0 and ds_final given or not; u per batch row with the
+    states) against rwkv6_scan_bwd_plain in float64, 5e-4 of each
+    gradient's largest |value|; so is the fp32 plain version. In the
+    served regime some w sit near the 1e-12 floor: dw is a product of G
+    and S in both, divided by nothing."""
+    from repro_torch.kernels import rwkv6_scan as rw
+    r, k, v, w, u, s0 = (torch.from_numpy(x) for x in _rwkv_inputs(
+        2, s, 2, 16, regime, seed=s))
+    rng = np.random.default_rng(s + 1)
+    dy = torch.from_numpy(rng.normal(size=r.shape).astype(np.float32))
+    dsf = torch.from_numpy(rng.normal(size=s0.shape).astype(np.float32)) \
+        if states else None
+    if states:
+        u = u[None] * torch.tensor([1.0, -0.5])[:, None, None]
+    s0 = s0 if states else None
+    want = rw.rwkv6_scan_bwd_plain(r, k, v, w, u, dy, s0, dsf, chunk=16,
+                                   acc_dtype=torch.float64)
+    _held(rwkv6_bwd_walks(r, k, v, w, u, dy, s0, dsf), want, RWKV_TOL)
+    _held(rw.rwkv6_scan_bwd_plain(r, k, v, w, u, dy, s0, dsf, chunk=16),
+          want, RWKV_TOL)

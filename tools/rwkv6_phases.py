@@ -126,7 +126,7 @@ def main() -> None:
     def run_stamped():
         err = stamped(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
                       u.data_ptr(), s0.data_ptr(), y.data_ptr(),
-                      s_out.data_ptr(), b, s, h, d,
+                      s_out.data_ptr(), b, s, h, d, 0,
                       torch.cuda.current_stream().cuda_stream)
         if err:
             sys.exit(f"launch failed: CUDA error {err}")
