@@ -3024,13 +3024,14 @@ def phase_scan_backward(torch) -> dict:
 
     out = {}
     # rglru: phase 18's shape, the forward row's, then S <= 32 (the
-    # one-thread walk), ragged S across the 32-step chunks, h0 given
+    # one-thread walk), ragged S across the 32-step chunks, h0 given, D % 4
+    # != 0 (the 4-byte path of the wider loads)
     worst = 0.0
     for b, s, d, with_h0 in ((*RGLRU_BWD_MAIN, False), (6, 512, 2560, True),
                              (SERVE_BATCH, SERVE_PROMPT, 2560, True),
                              (SERVE_BATCH, 1, 2560, True), (3, 32, 100, False),
                              (2, 33, 2560, True), (3, 70, 300, True),
-                             (2, 300, 100, False)):
+                             (2, 300, 100, False), (3, 70, 101, True)):
         a = torch.sigmoid(randn(b, s, d))
         h0 = randn(b, d) if with_h0 else None
         h = rg.rglru_scan(a, randn(b, s, d), h0)
@@ -3062,8 +3063,9 @@ def phase_scan_backward(torch) -> dict:
 
     # rwkv6: phase 19's shape (u per batch row, as the node axis folded into
     # B gives it), also in the served decay regime (w down to the 1e-12
-    # floor), the forward row's shape, then ragged S, s0 and ds_final
-    # given, D 8, 16, 32 and 128
+    # floor), the forward row's shape, then ragged S (across the 16-step
+    # chunks and the 64-step workspace groups), s0 and ds_final given, D 8,
+    # 16, 32 and 128
     worst = 0.0
     cases = [(*RWKV_BWD_MAIN, False, True, "test"),
              (*RWKV_BWD_MAIN, True, True, "served"),
@@ -3073,7 +3075,10 @@ def phase_scan_backward(torch) -> dict:
              (2, 45, 3, 32, True, True, "test"),
              (2, 33, 2, 128, True, False, "served"),
              (2, 40, 4, 16, False, True, "test"),
-             (1, 17, 2, 8, True, True, "test")]
+             (1, 17, 2, 8, True, True, "test"),
+             (2, 63, 3, 64, True, True, "served"),
+             (2, 65, 3, 64, True, True, "test"),
+             (2, 129, 2, 64, True, True, "served")]
     for b, s, hh, d, states, u_rows, regime in cases:
         r, k, v = (randn(b, s, hh, d) for _ in range(3))
         if regime == "served":

@@ -24,8 +24,10 @@ counts one per call. The design and bound are noted in the CUDA source.
   from the forward's output h, g_t = dh_t + a_{t+1} g_{t+1}, db_t = g_t,
   da_t = g_t h_{t-1} (h_{-1} = h0, or 0), dh0 = a_0 g_0, in the kernel of
   ``csrc/rglru_scan_bwd.cu`` (the forward's chained scan run backwards in
-  time, the same workspace; ``rglru_scan_bwd.launches``). The JAX package
-  differentiates its associative scan with ``jax.grad`` instead.
+  time, the same workspace; each CTA's h rows fetched before its
+  look-back, 16 bytes an access where D % 4 == 0;
+  ``rglru_scan_bwd.launches``). The JAX
+  package differentiates its associative scan with ``jax.grad`` instead.
 
 Whenever autograd or a ``torch.func`` transform is in play, ``rglru_scan``
 goes through the ``_RGLRU`` / ``_RGLRUBackward`` Functions (saving a and
@@ -54,14 +56,16 @@ CHUNK, TILE = 32, 128      # the chained scan's time chunk and channel tile
 
 
 def workspace_bytes(bsz: int, s: int, d: int) -> int:
-    """Bytes of the chained scan's workspace for (B, S, D): a ticket, and
+    """Bytes of the chained scans' workspace for (B, S, D): a ticket, and
     per chunk record (batch, tile, chunk) a flag and TILE floats each of
-    the aggregate's A and B and the chunk's end value; 0 for S <= CHUNK,
-    which the one-thread-per-channel kernel takes."""
+    the aggregate's A and B and the chunk's end value, the flags padded to
+    16 bytes (the backward kernel reads its records 16 bytes at a time; the
+    forward's need no more); 0 for S <= CHUNK, which the
+    one-thread-per-channel kernels take."""
     if s <= CHUNK:
         return 0
     recs = bsz * -(-d // TILE) * -(-s // CHUNK)
-    return 16 + 4 * recs + 12 * recs * TILE
+    return 16 + -(-4 * recs // 16) * 16 + 12 * recs * TILE
 
 
 def _check(a: torch.Tensor, b: torch.Tensor,

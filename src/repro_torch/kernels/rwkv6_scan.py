@@ -31,12 +31,20 @@ bound are noted in the CUDA source. u may also be given per batch row,
 own parameter and the node axis is folded into B.
 
 * ``rwkv6_scan_bwd(r, k, v, w, u, dy, s0, ds_final) -> (dr, dk, dv, dw,
-  du (B, H, D) per batch row, ds0 | None)``: its gradient, in the kernel of
-  ``csrc/rwkv6_scan_bwd.cu`` (``rwkv6_scan_bwd.launches``). The JAX
-  package differentiates ``wkv_chunked`` with ``jax.grad`` instead; the
-  plain version beside the kernel takes the same chunks, with every step's
-  state and state gradient formed whole, so that dw is their product
-  (no division by w).
+  du (B, H, D) per batch row, ds0 | None)``: its gradient, in the three
+  launches of ``csrc/rwkv6_scan_bwd.cu`` (``rwkv6_scan_bwd.launches``
+  counts one a call): the forward's chunked form run backwards, 16-step
+  chunks on the tensor cores in 3xTF32. Two walks save the state before
+  and its gradient after every group of BWD_GROUP chunks (64 steps; every
+  chunk at D 128) in a workspace this wrapper allocates
+  (``bwd_workspace_bytes``: 203 MB at rwkv6-7b's training shape, B 12, S
+  512, beside 906 MB of inputs and outputs); a CTA per group rebuilds the
+  chunks' states and gradients from them and forms every gradient, dw as
+  the product of G and S expanded into four terms (no division by w);
+  a last launch sums du over the groups. The JAX package differentiates
+  ``wkv_chunked`` with ``jax.grad`` instead; the plain version beside the
+  kernel takes the same chunks, with every step's state and state
+  gradient formed whole, so that dw is their product.
 
 Whenever autograd or a ``torch.func`` transform is in play, ``rwkv6_scan``
 goes through the ``_RWKV6`` / ``_RWKV6Backward`` Functions, whose
@@ -66,7 +74,8 @@ FLOOR_W = 1e-12  # decays enter as log(max(w, FLOOR_W)), as in the TPU kernel
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGS = (_P,) * 8 + (_I, _I, _I, _I, ctypes.c_longlong)
 _BWD_ARGS = (_P,) * 15 + (_I,) * 4 + (ctypes.c_longlong,) * 2
-BWD_CHUNK = 8    # the backward kernel's checkpoint interval (steps)
+BWD_CHUNK = 16   # the backward kernel's chunk (steps)
+BWD_GROUP = 4    # its workspace interval in chunks (1 at D > 64)
 
 
 def _check(r, k, v, w, u, s0) -> None:
@@ -277,11 +286,14 @@ def rwkv6_scan_bwd_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def bwd_workspace_bytes(b: int, s: int, h: int, d: int) -> int:
-    """Bytes of the backward kernel's workspace: the forward state before
-    every BWD_CHUNK steps of each (b, h), (DP, DP) fp32 with DP = d rounded
-    up to 16, 32, 64 or 128."""
+    """Bytes of the backward kernel's workspace: per (b, h) and group of
+    BWD_GROUP chunks (one chunk at d > 64), the state before the group and
+    the state's gradient after it, (DP, DP) fp32 each with DP = d rounded
+    up to 16, 32, 64 or 128, and the group's part of du, DP fp32."""
     dp = next(x for x in (16, 32, 64, 128) if d <= x)
-    return 4 * b * h * -(-s // BWD_CHUNK) * dp * dp
+    group = BWD_GROUP if dp <= 64 else 1
+    groups = -(-(-(-s // BWD_CHUNK)) // group)
+    return 4 * b * h * groups * dp * (2 * dp + 1)
 
 
 def _check_bwd(r, dy, ds_final) -> None:

@@ -1035,7 +1035,7 @@ def _held(got, want, bar):
 @pytest.mark.parametrize("b,s,d,with_h0", [
     (6, 512, 2560, False), (4, 4096, 2560, True), (4, 1, 2560, True),
     (3, 32, 100, False), (2, 33, 2560, True), (3, 70, 300, True),
-    (2, 300, 100, False)])
+    (2, 300, 100, False), (3, 512, 2560, False), (3, 70, 101, True)])
 def test_rglru_scan_bwd_kernel_matches_float64_plain(sm90, b, s, d, with_h0):
     gen = torch.Generator(device=sm90).manual_seed(s + d)
     a = torch.sigmoid(torch.randn((b, s, d), generator=gen, device=sm90))
@@ -1063,7 +1063,10 @@ def test_rglru_scan_bwd_kernel_matches_float64_plain(sm90, b, s, d, with_h0):
     (2, 45, 3, 32, True, True, "test"),
     (2, 33, 2, 128, True, False, "served"),
     (2, 40, 4, 16, False, True, "test"),
-    (1, 17, 2, 8, True, True, "test")])
+    (1, 17, 2, 8, True, True, "test"),
+    (2, 63, 3, 64, True, True, "served"),
+    (2, 65, 3, 64, True, True, "test"),
+    (2, 129, 2, 64, True, True, "served")])
 def test_rwkv6_scan_bwd_kernel_matches_float64_plain(sm90, b, s, h, d, states,
                                                      u_rows, regime):
     gen = torch.Generator(device=sm90).manual_seed(s + d)
