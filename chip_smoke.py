@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch / H100 port (``src/repro_torch``).
 
-Drives the port's nine paths on one NVIDIA Hopper card, through the
+Drives the port's ten paths on one NVIDIA Hopper card, through the
 entry points a user calls:
 
 * the paper's wireless D-PSGD run: Eq. 2 capacities, Algorithm 2 rates at
@@ -50,7 +50,14 @@ entry points a user calls:
   every RG-LRU scan's forward and backward in ``csrc/rglru_scan.cu`` and
   ``csrc/rglru_scan_bwd.cu``, every RWKV-6 scan's in ``csrc/rwkv6_scan.cu``
   and ``csrc/rwkv6_scan_bwd.cu``, recurrentgemma's local attention in the
-  flash pair.
+  flash pair;
+* the scan trace engine (``sim.jit_trace.precompute_trace_scan``, the
+  large-n path of ``precompute_trace(engine="scan")``): a whole trace's
+  TDM rounds in one launch of the float64 round-loop kernel of
+  ``csrc/trace_scan.cu``, at ``examples/sim_scenarios.py --scale 1024``'s
+  configuration (fading, Rayleigh gains only, 1024 nodes, 30 rounds), and
+  train-on-trace through it (``train_cnn_on_traces(engine="scan")``) at
+  256 nodes.
 
 Phases, each of which ends the run with a nonzero exit if it fails:
 
@@ -226,7 +233,27 @@ Phases, each of which ends the run with a nonzero exit if it fails:
               scan's forward and backward once a round (u per node, one
               per batch row), 14 rows mixes; the first loss near ln V;
 20. recurrent training correctness — 17 for both archs' smoke configs
-              (20a recurrentgemma-2b, 20b rwkv6-7b).
+              (20a recurrentgemma-2b, 20b rwkv6-7b);
+21. the scan trace engine — (a) the round-loop kernel against its plain
+              version on the card and on the CPU, 2 rounds of static n 6,
+              fading (shadowing 0) n 6, 64 and 256 with degrade renorm
+              and naive, 70 packets (the second need word) and no
+              retransmission pass: delivered, retx, w_eff and the counts
+              (passes run, decodes decided) equal, times within 1e-12
+              relative, any decode that differs printed with its |cap -
+              rate| / rate; (b) --scale at n = 1024: the certified plan
+              once on the host, then ``precompute_trace_scan`` over 30
+              rounds with sim= (one launch), the example's line, the
+              call's ms (CUDA events), the kernel's device ms, the passes
+              and decodes, set-up, copy-out and host epilogue seconds,
+              rounds/s, peak memory; its first 2 rounds held against the
+              plain version on the card; (c) ``train_cnn_on_traces`` over 2
+              fading seeds at n = 256 with engine="scan", 50 images a node
+              (2 rounds): the round loop launched once a seed, the rows
+              mix every round at W (256 x 256), every round rerun on the
+              CPU in lockstep (losses 1e-4, parameters 1e-5); the rows mix
+              at W (256 x 256) x (256 x 21 840) fp32 timed beside
+              ``torch.matmul``, eager and in a graph.
 
 Each phase prints its wall time. The last lines are the card's
 ``nvidia-smi`` name and power limit, one JSON line with every kernel's
@@ -238,7 +265,10 @@ new prefill shapes; flash_attention_bwd's are phase 16's, its
 ``library_ms`` SDPA's backward, ``library_device_ms`` that call's
 device time and ``library_fwd_ms`` SDPA's forward; rglru_scan_bwd's and
 rwkv6_scan_bwd's are phases 18's and 19's, their ``prefill`` keys time
-the forward rows' shapes), and ``{"ok": true, "device": ...}``. The
+the forward rows' shapes; gossip_mix's ``w256`` times the rows mix at
+phase 21 (c)'s W; trace_scan's are phase 21 (b)'s, its ``plain_ms`` the
+plain version's over the first 2 rounds, beside the kernel's
+``ms_held_rounds``), and ``{"ok": true, "device": ...}``. The
 smoke sets ``PYTORCH_CUDA_ALLOC_CONF=expandable_segments:True`` unless
 the caller set it.
 
@@ -372,6 +402,28 @@ REC_TRAIN = {   # arch: (layers, batch a node, predicted peak GiB range)
 RGLRU_BWD_MAIN = (REC_NODES * REC_TRAIN["recurrentgemma-2b"][1], TRAIN_SEQ,
                   2560)
 RWKV_BWD_MAIN = (REC_NODES * REC_TRAIN["rwkv6-7b"][1], TRAIN_SEQ, 64, 64)
+
+# the scan trace engine (phase 21): (a) the round loop's kernel against its
+# plain version on the card and on the CPU, TRACE_HELD_ROUNDS rounds of
+# each case; (b) examples/sim_scenarios.py --scale's configuration, fading
+# with Rayleigh gains only, TRACE_N nodes and TRACE_ROUNDS rounds, its first
+# TRACE_HELD_ROUNDS held against the plain version on the card; (c) a
+# train-on-trace family of TRACE_SEEDS fading seeds at TRACE_TRAIN_N nodes
+# through the scan engine, TRACE_PER_NODE images a node (2 batches of 25:
+# 2 rounds), every round rerun on the CPU in lockstep
+TRACE_N, TRACE_ROUNDS, TRACE_HELD_ROUNDS = 1024, 30, 2
+TRACE_TRAIN_N, TRACE_SEEDS, TRACE_PER_NODE = 256, 2, 50
+NO_SHADOW = {"fading.shadowing_sigma_db": 0.0}
+TRACE_CASES = [      # (scenario, n, overrides, degrade modes)
+    ("static", 6, {}, ("renorm",)),
+    ("fading", 6, {}, ("renorm", "naive")),
+    ("fading", 64, {}, ("renorm", "naive")),
+    ("fading", 256, {}, ("renorm", "naive")),
+    ("fading", 6, {"model_bits": 70 * 32768.0 - 100}, ("renorm",)),  # P 70
+    ("fading", 64, {"mac.max_retx_rounds": 0}, ("renorm",))]
+TOL_TIME = 1e-12                     # relative: the running sum's association
+FP64_FLOPS = 34e12                   # H100 SXM data sheet, fp64 outside the
+                                     # tensor cores
 
 
 def fail(msg: str) -> None:
@@ -3476,6 +3528,340 @@ def phase_train_lm_lockstep(torch, label: str = "17",
     return result
 
 
+# ---------------------------------------------------------------------------
+# The scan trace engine
+# ---------------------------------------------------------------------------
+
+def run_trace(torch, fn, arrays, args, device, rounds: int) -> list:
+    """``fn`` (the round loop's wrapper or its plain version) on ``arrays``
+    moved to ``device``: its six outputs and its counts (passes run,
+    decodes decided), on the host."""
+    counts = torch.zeros(2, dtype=torch.int64, device=device)
+    out = fn(*(torch.as_tensor(a, device=device) for a in arrays),
+             n_rounds=rounds, counts=counts, **args)
+    return [x.cpu() for x in out] + [counts.cpu()]
+
+
+def decode_margin(torch, arrays, args, r: int, i: int, j: int) -> float:
+    """Smallest |cap - rate| / rate over receiver j's decodes of
+    transmitter i's packets in round r, from the gains the plain version
+    draws on the CPU (recorded as it draws them: every pass of every
+    transmitter draws once)."""
+    from repro_torch.kernels import trace_scan as ts
+
+    drawn, gains = [], ts._rayleigh_gains
+
+    def record(seed, blocks, tx, n):
+        g = gains(seed, blocks, tx, n)
+        if tx == i:
+            drawn.append(g[:, j])
+        return g
+    ts._rayleigh_gains = record
+    try:
+        run_trace(torch, ts.round_scan_plain, arrays, args,
+                  torch.device("cpu"), r + 1)
+    finally:
+        ts._rayleigh_gains = gains
+    passes = args["passes"]
+    g = torch.cat(drawn[r * passes:(r + 1) * passes])
+    rate, bw = float(arrays[0][i]), args["bandwidth_hz"]
+    cap = bw * torch.log2(1.0 + float(arrays[3][i, j]) * g / bw)
+    return float(((cap - rate).abs() / rate).min())
+
+
+def hold_trace(torch, what: str, arrays, args, got: list, want: list,
+               against: str, worst: dict) -> None:
+    """The round loop's outputs against ``want``'s: delivered, retx, w_eff
+    and the counts equal, times within TOL_TIME relative. Any decode that
+    differs is printed with its margin and fails the phase."""
+    bad = (got[3] != want[3]).nonzero().tolist()
+    for r, i, j in bad[:10]:
+        margin = (decode_margin(torch, arrays, args, r, i, j)
+                  if args["fading_on"] else "none (static decode table)")
+        print(f"   decode differs: round {r}, transmitter {i}, receiver "
+              f"{j}: kernel {bool(got[3][r, i, j])}, {against} "
+              f"{bool(want[3][r, i, j])}; min |cap - rate| / rate {margin}")
+    t_rel = t_abs = 0.0
+    for k in (1, 2, 5):                     # t_start, t_comm, t_end
+        d = (got[k] - want[k]).abs()
+        t_abs = max(t_abs, float(d.max()) if d.numel() else 0.0)
+        if d.numel():
+            t_rel = max(t_rel, float((d / want[k].abs().clamp_min(
+                1e-300)).max()))
+    same = {"retx": torch.equal(got[4], want[4]),
+            "w_eff": torch.equal(got[0], want[0]),
+            "counts": torch.equal(got[6], want[6])}
+    print(f"{what} against {against}: delivered "
+          f"{'equal' if not bad else f'{len(bad)} DIFFER'}, "
+          + ", ".join(f"{k} {'equal' if v else 'DIFFER'}"
+                      for k, v in same.items())
+          + f", times max rel {t_rel:.3e} (abs {t_abs:.3e} s; tol "
+          f"{TOL_TIME:g}); {int(got[6][0])} passes, {int(got[6][1])} "
+          f"decodes, retx {got[4].tolist()}")
+    check(not bad and all(same.values()) and t_rel <= TOL_TIME,
+          f"{what} against {against}: {len(bad)} decodes differ, {same}, "
+          f"times {t_rel}")
+    worst["t_rel"] = max(worst["t_rel"], t_rel)
+    worst["t_abs"] = max(worst["t_abs"], t_abs)
+
+
+def trace_cost(n: int, p: int, rounds: int, fading: bool,
+               decodes: int) -> tuple[float, float]:
+    """The round loop's kernel: rates, sizes, recv and the SNR (or decode)
+    table read once, delivered, t_start, t_comm, retx and t_end written
+    once; 9 fp64 operations a decode it decides (the gain's scale, log1p,
+    its negation, the product, the division, the sum, log2, the product by
+    B and the comparison; a library function counted as one)."""
+    nbytes = (8 * n + 8 * p + n * n + (8 if fading else 1) * n * n
+              + rounds * n * n + 24 * rounds + 8)
+    return nbytes, 9.0 * decodes if fading else 0.0
+
+
+def phase_trace_scan(torch) -> dict:
+    phase("21. the scan trace engine: its round loop in one CUDA kernel, "
+          f"--scale at n = {TRACE_N}, train-on-trace through it")
+    from repro_torch.core import dpsgd
+    from repro_torch.core.topology import spectral_lambda
+    from repro_torch.data import SyntheticFashion
+    from repro_torch.kernels import gossip_mix as gm
+    from repro_torch.kernels import quantize as qz
+    from repro_torch.kernels import trace_scan as ts
+    from repro_torch.sim import (WirelessSimulator, batch as tb,
+                                 get_scenario, jit_trace, train_cnn_on_traces)
+
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+    worst = {"t_rel": 0.0, "t_abs": 0.0}
+
+    # (a) the kernel against its plain version on the card and on the CPU;
+    # the plain loop runs once a case on each device, and each degrade
+    # mode's w_eff is assembled from its delivered as the plain version
+    # assembles it (the loop never reads the mode)
+    t0 = time.perf_counter()
+    for name, n, kw, degrades in TRACE_CASES:
+        cfg = get_scenario(name, n_nodes=n,
+                           **({} if name == "static" else NO_SHADOW), **kw)
+        arrays, args = jit_trace.scan_inputs(cfg, WirelessSimulator(cfg))
+        plain = {device: run_trace(torch, ts.round_scan_plain, arrays,
+                                   {**args, "degrade": degrades[0]}, device,
+                                   TRACE_HELD_ROUNDS) for device in (dev, cpu)}
+        for degrade in degrades:
+            a = {**args, "degrade": degrade}
+            what = (f"(a) {name} n={n} P={a['n_pkts']} passes={a['passes']} "
+                    f"{degrade}")
+            before = ts.round_scan.launches
+            got = run_trace(torch, ts.round_scan, arrays, a, dev,
+                            TRACE_HELD_ROUNDS)
+            check(ts.round_scan.launches == before + 1,
+                  f"{what}: {ts.round_scan.launches - before} launches")
+            for against, device in (("the plain version on the card", dev),
+                                    ("the plain version on the CPU", cpu)):
+                want = list(plain[device])
+                want[0] = ts.assemble_w(want[3], torch.as_tensor(arrays[4]),
+                                        degrade)
+                hold_trace(torch, what, arrays, a, got, want, against, worst)
+    print(f"(a) {time.perf_counter() - t0:.2f} s")
+
+    # (b) --scale's configuration at n = TRACE_N: the certified plan on the
+    # host once, then precompute_trace_scan through the kernel
+    cfg = get_scenario("fading", n_nodes=TRACE_N, **NO_SHADOW)
+    t0 = time.perf_counter()
+    sim = WirelessSimulator(cfg)
+    plan_s = time.perf_counter() - t0
+    sol = sim.solution
+    certified = sol.lam == spectral_lambda(sol.w)
+    check(certified and sol.feasible,
+          f"(b) the n = {TRACE_N} plan: certified {certified}, feasible "
+          f"{sol.feasible}")
+    arrays, args = jit_trace.scan_inputs(cfg, sim)
+    seen = {}
+    round_scan = jit_trace.round_scan
+
+    def timed(*a, **k):
+        counts = torch.zeros(2, dtype=torch.int64, device=dev)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        h0 = time.perf_counter()
+        start.record()
+        out = round_scan(*a, counts=counts, **k)
+        end.record()
+        end.synchronize()
+        seen.update(call_ms=start.elapsed_time(end),
+                    host_s=time.perf_counter() - h0, out=out,
+                    counts=counts.cpu(), back=time.perf_counter())
+        return out
+    for c in (ts.round_scan, gm.gossip_mix_rows):
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    jit_trace.round_scan = timed
+    try:
+        t0 = time.perf_counter()
+        tr = jit_trace.precompute_trace_scan(cfg, TRACE_ROUNDS, sim=sim,
+                                             device="cuda")
+        t_end = time.perf_counter()
+    finally:
+        jit_trace.round_scan = round_scan
+    launches_b = ts.round_scan.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    trace_s = t_end - t0
+    t1 = time.perf_counter()
+    for x in seen["out"]:
+        x.cpu()
+    copy_s = time.perf_counter() - t1
+    epilogue_s = t_end - seen["back"] - copy_s
+    setup_s = trace_s - seen["host_s"] - (t_end - seen["back"])
+    s = tr.trace.summary()
+    print(f"(b) # n={TRACE_N}: plan {plan_s:.2f}s (lambda {sol.lam:.4f} <= "
+          f"{cfg.lambda_target} target, feasible={sol.feasible}, "
+          f"certified={certified}), {TRACE_ROUNDS} rounds in {trace_s:.2f}s "
+          f"({TRACE_ROUNDS / trace_s:.2f} rounds/s), outage "
+          f"{s['outage_rate']:.1%}, comm {s['total_comm_s']:.1f}s sim")
+    check(launches_b == 1, f"(b) {launches_b} launches of the round loop, "
+          "want 1")
+    w = tr.w_eff
+    check(w.shape == (TRACE_ROUNDS, TRACE_N, TRACE_N)
+          and np.isfinite(w).all() and np.allclose(w.sum(-1), 1.0)
+          and (np.diff(tr.t_start_s) > 0).all() and s["retx_packets"] > 0,
+          f"(b) trace: w_eff {w.shape}, finite {np.isfinite(w).all()}, "
+          f"retx {s['retx_packets']}")
+    passes_run, decodes = (int(x) for x in seen["counts"])
+    b_ms, b_by = bound(*trace_cost(TRACE_N, args["n_pkts"], TRACE_ROUNDS,
+                                   True, decodes), peak=FP64_FLOPS)
+    dev_arrays = [torch.as_tensor(a, device=dev) for a in arrays]
+    prof = device_profile(torch, lambda: ts.round_scan(
+        *dev_arrays, n_rounds=TRACE_ROUNDS, **args), 1)
+    kernel_ms = sum(r[1] for r in prof if "trace_scan_kernel" in r[0]) or None
+    print(f"(b) the round loop's call {seen['call_ms']:.4f} ms (CUDA events;"
+          f" the kernel alone {kernel_ms} ms on the device, profiler), "
+          f"{passes_run} transmitter passes ({seen['call_ms'] * 1e3 / passes_run:.4f}"
+          f" us each: the chain), {decodes} decodes; bound {b_ms:.4f} ms "
+          f"({b_by}); set-up {setup_s:.4f} s, copy-out {copy_s:.4f} s, host "
+          f"epilogue (lambda estimate, records) {epilogue_s:.4f} s; peak "
+          f"memory {peak:.3f} GiB")
+    # the first rounds held against the plain version on the card
+    t1 = time.perf_counter()
+    first = run_trace(torch, ts.round_scan, arrays, args, dev,
+                      TRACE_HELD_ROUNDS)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t1) * 1e3
+    t1 = time.perf_counter()
+    plain = run_trace(torch, ts.round_scan_plain, arrays, args, dev,
+                      TRACE_HELD_ROUNDS)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t1) * 1e3
+    hold_trace(torch, f"(b) n={TRACE_N}, first {TRACE_HELD_ROUNDS} rounds",
+               arrays, args, first, plain, "the plain version on the card",
+               worst)
+    full = seen["out"]
+    check(torch.equal(full[3][:TRACE_HELD_ROUNDS].cpu(), first[3])
+          and torch.equal(full[1][:TRACE_HELD_ROUNDS].cpu(), first[1]),
+          "(b) the 30-round trace's first rounds differ from a 2-round run")
+    print(f"(b) {TRACE_HELD_ROUNDS} rounds: kernel {first_ms:.2f} ms, plain "
+          f"version on the card {plain_ms:.2f} ms (host clock, synchronised)")
+
+    # (c) train-on-trace at n = TRACE_TRAIN_N through the scan engine
+    cfgs = [get_scenario("fading", n_nodes=TRACE_TRAIN_N, seed=s, **NO_SHADOW)
+            for s in range(TRACE_SEEDS)]
+    ds = SyntheticFashion(n_train=TRACE_TRAIN_N * TRACE_PER_NODE,
+                          n_test=1000, seed=0)
+    rounds = TRACE_PER_NODE // 25
+    recorded, shapes = [], []
+    family_step, mix = tb._family_step, dpsgd.gossip_mix_rows
+
+    def record(step, args_, out):
+        recorded.append((step, args_, out))
+
+    def mix_seen(w_, bufs):
+        shapes.append((tuple(w_.shape), tuple(bufs.shape)))
+        return mix(w_, bufs)
+    counters = {"trace_scan": ts.round_scan,
+                "gossip_mix": gm.gossip_mix_rows,
+                "gossip_mix_q8": gm.gossip_mix_q8_rows,
+                "quantize_int8_ef": qz.quantize_int8_ef}
+    for c in counters.values():
+        c.launches = 0
+    tb._family_step = tapped(family_step, record, keep_args=True)
+    dpsgd.gossip_mix_rows = mix_seen
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        traces, out = train_cnn_on_traces(cfgs, epochs=1, ds=ds, n_test=1000,
+                                          engine="scan", device="cuda")
+        torch.cuda.synchronize()
+    finally:
+        tb._family_step, dpsgd.gossip_mix_rows = family_step, mix
+    train_s = time.perf_counter() - t0
+    launches_c = {k: c.launches for k, c in counters.items()}
+    want = {"trace_scan": TRACE_SEEDS, "gossip_mix": TRACE_SEEDS * rounds,
+            "gossip_mix_q8": 0, "quantize_int8_ef": 0}
+    n = TRACE_TRAIN_N
+    print(f"(c) fading x {TRACE_SEEDS} seeds at n={n}, {rounds} rounds "
+          f"through the scan engine in {train_s:.2f} s: launches "
+          f"{launches_c} (expected {want}); rows mix W and buffers "
+          f"{sorted(set(shapes))}; losses {out['losses'].round(4).tolist()}, "
+          f"accuracy {out['acc'][:, -1].round(4).tolist()}")
+    check(launches_c == want, f"(c) launches {launches_c}, want {want}")
+    check(shapes and all(w_ == (n, n) for w_, _ in shapes),
+          f"(c) the rows mix ran at {set(shapes)}, not W ({n} x {n})")
+    check(np.isfinite(out["losses"]).all() and traces.w_eff.shape
+          == (TRACE_SEEDS, rounds, n, n), f"(c) losses {out['losses']}")
+    to_cpu = lambda t: None if t is None else dpsgd._tree_map(  # noqa: E731
+        lambda x: x.cpu(), t)
+    lock = {"loss": 0.0, "params": 0.0}
+    for step_r, args_, out_r in recorded:
+        ref = step_r(*(to_cpu(a) for a in args_))   # CPU: the eager body
+        lock["loss"] = max(lock["loss"], err(out_r["losses"].cpu(),
+                                             ref["losses"]))
+        lock["params"] = max(lock["params"], max(
+            err(a.cpu(), b) for a, b in zip(dpsgd._leaves(out_r["params"]),
+                                            dpsgd._leaves(ref["params"]))))
+    print(f"(c) its {len(recorded)} family rounds card vs CPU in lockstep: "
+          f"max|loss diff| {lock['loss']:.3e} (tol 1e-4), max|param diff| "
+          f"{lock['params']:.3e} (tol {TOL_FP32:g})")
+    check(len(recorded) == rounds, f"(c) recorded {len(recorded)} rounds")
+    check(lock["loss"] <= 1e-4 and lock["params"] <= TOL_FP32,
+          f"(c) card and CPU differ: {lock}")
+
+    # row 1 at W (n x n): the rows mix against torch.matmul at this shape
+    gen = torch.Generator(device="cpu").manual_seed(21)
+    w_ = torch.softmax(torch.randn((n, n), generator=gen), -1).to(dev)
+    bufs = torch.randn((n, 21_840), generator=gen).to(dev)
+    e = err(gm.gossip_mix_rows(w_, bufs), gm.gossip_mix_rows_plain(w_, bufs))
+    check(e <= TOL_FP32, f"rows mix at W ({n} x {n}): max|err| {e}")
+    r_ms, r_by = bound(*rows_cost(n, n, 21_840, 4))
+    eager_ms, library_ms = paired_ms(torch, lambda: gm.gossip_mix_rows(w_, bufs),
+                                     lambda: torch.matmul(w_, bufs))
+    w256 = {"ms": eager_ms, "library_ms": library_ms,
+            "plain_ms": time_ms(torch, lambda: gm.gossip_mix_rows_plain(
+                w_, bufs), reps=3, rounds=3, warmup=1),
+            "graph_ms": graph_ms(torch, lambda: gm.gossip_mix_rows(w_, bufs)),
+            "library_graph_ms": graph_ms(torch,
+                                         lambda: torch.matmul(w_, bufs)),
+            "device_ms": device_ms(torch, lambda: gm.gossip_mix_rows(
+                w_, bufs), "gossip_mix_rows"),
+            "bound_ms": r_ms, "bound_by": r_by, "max_abs_err": e,
+            "shape": f"W ({n}x{n}) fp32, bufs ({n}x21840) fp32"}
+    print_times("gossip_mix", w256)
+    against_library("gossip_mix", w256, "torch.matmul")
+
+    return {"trace_scan": {
+        "max_abs_err": worst["t_abs"], "max_rel_err": worst["t_rel"],
+        "ms": seen["call_ms"], "device_ms": kernel_ms,
+        "plain_ms": plain_ms, "plain_rounds": TRACE_HELD_ROUNDS,
+        "ms_held_rounds": first_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None, "graph_ms": None, "library_graph_ms": None,
+        "passes": passes_run, "decodes": decodes,
+        "shape": f"fading n={TRACE_N}, P={args['n_pkts']}, passes "
+                 f"{args['passes']}, {TRACE_ROUNDS} rounds"},
+        "launches": {"(b) --scale": launches_b,
+                     "(c) train-on-trace": launches_c["trace_scan"]},
+        "launches_c_mix": launches_c["gossip_mix"],
+        "w256": w256,
+        "scale": {"plan_s": plan_s, "trace_s": trace_s, "setup_s": setup_s,
+                  "copy_s": copy_s, "epilogue_s": epilogue_s,
+                  "rounds_per_s": TRACE_ROUNDS / trace_s, "peak_gib": peak}}
+
+
 def main() -> None:
     if not (SRC / "repro_torch").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
@@ -3605,6 +3991,12 @@ def main() -> None:
                                 layers, REC_NODES, batch, peak)
     for label, arch in (("20a", "recurrentgemma-2b"), ("20b", "rwkv6-7b")):
         run(label, phase_train_lm_lockstep, torch, label, arch)
+
+    # the scan trace engine: the round loop's kernel, --scale at n = 1024,
+    # train-on-trace at n = 256 through it
+    torch.cuda.empty_cache()
+    traced = run("21", phase_trace_scan, torch)
+    kernels["gossip_mix"]["w256"] = traced["w256"]
     rec_launches = {**trained_rec["recurrentgemma-2b"]["launches"],
                     **{k: v for k, v in
                        trained_rec["rwkv6-7b"]["launches"].items()
@@ -3680,8 +4072,8 @@ def main() -> None:
                 "recurrentgemma-2b training (phase 18)":
                     rec_launches["flash_attention_bwd"]}
         # flash's fp32 entry and its MLA / encoder-decoder shapes, rglru's
-        # S = 1
-        for extra in ("fp32", *NEW_FLASH_TIMED, "decode", "prefill"):
+        # S = 1, the rows mix at W (256 x 256)
+        for extra in ("fp32", *NEW_FLASH_TIMED, "decode", "prefill", "w256"):
             if extra in k:
                 rows[-1][extra] = {f: k[extra][f] for f in (
                     "ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
@@ -3691,6 +4083,26 @@ def main() -> None:
         if "library_fwd_ms" in k:         # the backward's library: SDPA's
             rows[-1]["library_fwd_ms"] = k["library_fwd_ms"]
             rows[-1]["library_device_ms"] = k["library_device_ms"]
+    mix_row = next(r for r in rows if r["name"] == "gossip_mix")
+    mix_row["launches_by_path"] = {
+        "the paper run (phase 4)": mix_row["launches"],
+        f"train-on-trace at n = {TRACE_TRAIN_N} (phase 21 (c))":
+            traced["launches_c_mix"]}
+    k = traced["trace_scan"]
+    rows.append({
+        "name": "trace_scan", "route": "cuda",
+        "source": "src/repro_torch/csrc/trace_scan.cu",
+        "replaces": "src/repro/sim/jit_trace.py:123 _round_scan (no Pallas "
+                    "kernel: the JAX package compiles the round loop as one "
+                    "lax.scan)",
+        "launches": traced["launches"]["(b) --scale"],
+        "launches_by_path": traced["launches"],
+        **{f: k[f] for f in (
+            "max_abs_err", "max_rel_err", "ms", "device_ms", "plain_ms",
+            "plain_rounds", "ms_held_rounds", "bound_ms", "bound_by",
+            "library_ms", "graph_ms", "library_graph_ms", "passes",
+            "decodes", "shape")},
+        "scale": traced["scale"]})
     print("\nphase wall times: " + ", ".join(f"{label} {sec:.2f} s"
                                              for label, sec in walls))
     print(f"all phases passed in {time.perf_counter() - t_start:.1f}s")

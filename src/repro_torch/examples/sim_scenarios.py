@@ -28,7 +28,10 @@ setup (n=6 nodes, 200 m square, the 21 840-param CNN message):
    sampling on the same fading world, accuracy vs each policy's own
    simulated clock plus a time-to-accuracy summary.
 
-``--scale`` (the jitted scan engine) waits for ROADMAP Queue 1 item 4.
+7. ``--scale N`` — large-n smoke: one certified Algorithm 2 replan at N
+   nodes, then a Rayleigh-only fading trace of ``--rounds`` rounds through
+   the scan engine (``sim.jit_trace``: the round loop in one launch of
+   ``csrc/trace_scan.cu`` on ``--device``).
 
 ``--scenario PATTERN`` restricts the ``--compare`` table to scenarios whose
 name matches the glob. ``--payload MODE`` overrides the gossip payload
@@ -50,6 +53,10 @@ Usage:
     PYTHONPATH=src python -m repro_torch.examples.sim_scenarios --mac-compare
     PYTHONPATH=src python -m repro_torch.examples.sim_scenarios \\
         --policy-compare --device cpu
+    PYTHONPATH=src python -m repro_torch.examples.sim_scenarios \\
+        --scale 1024 --rounds 30
+    PYTHONPATH=src python -m repro_torch.examples.sim_scenarios \\
+        --scale 128 --rounds 2 --device cpu
 """
 from __future__ import annotations
 
@@ -183,6 +190,35 @@ def train_sweep(name: str, seeds: int, epochs: int, solver: str,
           f"min {final.min():.4f} max {final.max():.4f}")
 
 
+def scale(n: int, rounds: int, device: str = "cuda") -> None:
+    """Large-n smoke: one Algorithm 2 replan (the certified local-candidate
+    sweep above ``core.topology.ITERATIVE_MIN_N``) plus a scan-engine
+    fading trace at n nodes on ``device``, Rayleigh-only (the scan plane's
+    stateless per-block RNG carries no AR(1) shadowing)."""
+    import time
+
+    from ..core.topology import spectral_lambda
+    from ..sim.jit_trace import precompute_trace_scan
+
+    cfg = get_scenario("fading", n_nodes=n,
+                       **{"fading.shadowing_sigma_db": 0.0})
+    t0 = time.perf_counter()
+    sim = WirelessSimulator(cfg)
+    t_plan = time.perf_counter() - t0
+    sol = sim.solution
+    certified = sol.lam == spectral_lambda(sol.w)
+    t0 = time.perf_counter()
+    tr = precompute_trace_scan(cfg, rounds, sim=sim, device=device)
+    t_trace = time.perf_counter() - t0
+    s = tr.trace.summary()
+    print(f"# n={n}: plan {t_plan:.2f}s (lambda {sol.lam:.4f} <= "
+          f"{cfg.lambda_target} target, feasible={sol.feasible}, "
+          f"certified={certified}), {rounds} rounds in {t_trace:.2f}s "
+          f"({rounds / t_trace:.2f} rounds/s), outage "
+          f"{s['outage_rate']:.1%}, comm {s['total_comm_s']:.1f}s sim")
+    assert certified and sol.feasible, "large-n plan not certified-feasible"
+
+
 def margin_sweep(rounds: int, solver: str, payload: str | None = None) -> None:
     print("fading_margin_bps,feasible,outage_rate,retx_packets,comm_s")
     for margin in (0.0, 5e5, 1e6, 2e6, 3e6, 4e6):
@@ -208,7 +244,8 @@ def main(argv: list[str] | None = None) -> None:
                            "train-on-trace path")
     mode.add_argument("--margin-sweep", action="store_true")
     mode.add_argument("--scale", type=int, metavar="N",
-                      help="not ported yet (ROADMAP Queue 1 item 4)")
+                      help="large-n smoke: certified replan + scan-engine "
+                           "fading trace at N nodes (Rayleigh-only)")
     mode.add_argument("--mac-compare", action="store_true",
                       help="TDM vs random-access accuracy-vs-sim-time")
     mode.add_argument("--policy-compare", action="store_true",
@@ -228,12 +265,9 @@ def main(argv: list[str] | None = None) -> None:
     p.add_argument("--solver", default="greedy",
                    help="rate_opt method for (re)plans; 'auto' = exact")
     p.add_argument("--device", default="cuda",
-                   help="device of the training demos ('cpu' runs the "
-                        "kernels' plain versions)")
+                   help="device of the training demos and of --scale's "
+                        "trace ('cpu' runs the kernels' plain versions)")
     args = p.parse_args(argv)
-    if args.scale:
-        p.error("--scale runs the jitted scan engine (sim/jit_trace.py), "
-                "which is not ported yet: ROADMAP Queue 1 item 4")
     if args.payload == "auto" and (args.train or args.train_sweep
                                    or args.mac_compare
                                    or args.policy_compare):
@@ -244,6 +278,8 @@ def main(argv: list[str] | None = None) -> None:
     elif args.train_sweep:
         train_sweep(args.train_sweep, args.seeds, args.epochs, args.solver,
                     args.payload, args.device)
+    elif args.scale:
+        scale(args.scale, args.rounds, args.device)
     elif args.margin_sweep:
         margin_sweep(args.rounds, args.solver, args.payload)
     elif args.mac_compare:

@@ -40,6 +40,7 @@ runs the body eagerly: the CPU has no graph, as it has no kernel.
 from __future__ import annotations
 
 import dataclasses
+import gc
 from typing import Any, Callable
 
 import numpy as np
@@ -147,9 +148,19 @@ def _graphable(device: torch.device) -> bool:
 def _record(graph: torch.cuda.CUDAGraph, stream, fn: Callable):
     """Capture the launches of ``fn()`` on ``stream`` into ``graph``; returns
     what ``fn`` returned (its tensors live in the graph's memory pool and
-    are rewritten by each replay)."""
-    with torch.cuda.graph(graph, stream=stream):
-        return fn()
+    are rewritten by each replay). The cyclic garbage collector is off
+    while it captures: collected mid-capture, a dead reference cycle that
+    holds another step's graph resets that graph, which CUDA forbids while
+    a stream captures, and the capture is lost (``torch.cuda.graph`` no
+    longer collects before it begins)."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph, stream=stream):
+            return fn()
+    finally:
+        if enabled:
+            gc.enable()
 
 
 def _leaf_key(x) -> tuple:

@@ -6,7 +6,7 @@ plain version per call; ``_build`` compiles ``csrc/*.cu`` for sm_90a on
 first use. Nothing is compiled at import time.
 """
 from . import flash_attention, gossip_mix, ops, quantize, ref, rglru_scan
-from . import rwkv6_scan
+from . import rwkv6_scan, trace_scan
 
 __all__ = ["ops", "ref", "counted_wrappers"]
 
@@ -19,4 +19,4 @@ def counted_wrappers() -> tuple:
             flash_attention.flash_attention,
             flash_attention.flash_attention_bwd, rglru_scan.rglru_scan,
             rglru_scan.rglru_scan_bwd, rwkv6_scan.rwkv6_scan,
-            rwkv6_scan.rwkv6_scan_bwd)
+            rwkv6_scan.rwkv6_scan_bwd, trace_scan.round_scan)

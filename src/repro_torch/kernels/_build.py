@@ -45,7 +45,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 SOURCES = ("gossip_mix", "flash_attention", "flash_attention_bwd",
            "rglru_scan", "rglru_scan_bwd", "rwkv6_scan", "rwkv6_scan_bwd",
-           "quantize")
+           "quantize", "trace_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -35,8 +35,9 @@ The torch counterpart of ``repro.sim``: every module above is numpy copied
 verbatim, and ``trace.simulate_dpsgd_cnn`` trains on the port's D-PSGD
 steps. ``batch`` is train-on-trace: a Monte-Carlo family of D-PSGD runs
 over precomputed traces, one graphed round body per round on the card.
-The jitted scan engine (``sim/jit_trace.py``) is not ported yet (ROADMAP
-Queue 1 item 4).
+``jit_trace`` is the scan engine (``precompute_trace(engine="scan")``,
+imported as ``repro_torch.sim.jit_trace``): a whole stationary TDM trace
+in one launch of the round-loop kernel, the large-n path.
 """
 from ..core.compression import QuantConfig
 from .batch import (ModelAdapter, train_cnn_on_traces, train_model_on_traces,

@@ -564,8 +564,9 @@ def train_model_on_traces(
     the snapped configs (provenance-checked).
 
     Training runs on ``device`` (``"cuda"`` unless the caller asks for the
-    CPU); the snapshots are evaluated ``EVAL_CHUNK`` at a time. ``mesh``
-    (pod mode) is not ported yet.
+    CPU), and so does the scan engine when ``engine`` picks it; the
+    snapshots are evaluated ``EVAL_CHUNK`` at a time. ``mesh`` (pod mode)
+    is not ported yet.
 
     Returns ``(traces, out)`` like ``train_cnn_on_traces``: masked mean
     ``losses`` (S, rounds), eval-round metrics ``acc`` (S, E) with
@@ -607,7 +608,8 @@ def train_model_on_traces(
                 for c in cfgs]
 
     traces = (trace_batch if trace_batch is not None
-              else precompute_traces(cfgs, n_rounds, engine=engine))
+              else precompute_traces(cfgs, n_rounds, engine=engine,
+                                     device=dev))
     if (traces.n_traces != len(cfgs) or traces.n_rounds != n_rounds
             or traces.n_nodes != n_nodes):
         raise ValueError(
@@ -697,8 +699,10 @@ def train_cnn_on_traces(
     scenario at several seeds (a fading Monte-Carlo sweep). All must share
     ``n_nodes`` and ``eval_every_rounds``. Pass ``trace_batch`` to reuse
     already-precomputed traces (it must have ``epochs * iters_per_epoch``
-    rounds). ``engine`` is forwarded to ``precompute_traces`` (only
-    ``"event"`` is ported).
+    rounds). ``engine`` is forwarded to ``precompute_traces`` with
+    ``device`` — ``"scan"``/``"auto"`` realize eligible traces in the
+    round-loop kernel (``sim.jit_trace``), so channel plane *and* training
+    both run on the card at large n.
 
     Returns ``(traces, out)`` where ``out`` has per-trace masked mean
     ``losses`` (S, rounds), eval-round accuracies ``acc`` (S, E) with their

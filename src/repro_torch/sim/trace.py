@@ -30,8 +30,9 @@ stamped with simulated time.
 The torch counterpart of ``repro.sim.trace``: the event engine is copied
 verbatim (numpy), ``simulate_dpsgd_cnn`` runs the port's D-PSGD steps on a
 device (``"cuda"`` unless the caller asks for the CPU), with every gossip
-mix and int8 codec call on the hand-written kernels there. The jitted scan
-engine (``engine="scan"``) is not ported yet.
+mix and int8 codec call on the hand-written kernels there. The scan
+engine (``engine="scan"``, ``sim.jit_trace``) realizes a whole trace in
+one launch of the round-loop kernel of ``csrc/trace_scan.cu``.
 """
 from __future__ import annotations
 
@@ -680,20 +681,19 @@ def stack_traces(traces: list) -> TraceBatch:
 
 
 def precompute_trace(cfg, n_rounds: int, engine: str = "event",
+                     device: str | torch.device = "cuda",
                      **overrides) -> TrainTrace:
     """Realize one scenario's channel plane ahead of training. ``cfg`` is a
     ``ScenarioConfig`` or a registered scenario name (+ overrides).
 
     ``engine`` picks the round loop: ``"event"`` (default) is the host
     discrete-event loop above — every scenario, bit-stable against all
-    prior releases; ``"scan"`` compiles the whole trace into one jitted
-    ``lax.scan`` (``sim.jit_trace`` — the large-n fast path, stationary TDM
-    scenarios only, channel realizations differ from the host streams);
-    ``"auto"`` uses the scan plane whenever the scenario is eligible.
-
-    Only ``"event"`` runs in this package: the scan engine (and with it
-    ``"auto"``) is ROADMAP Queue 1 item 4 and raises
-    ``NotImplementedError``."""
+    prior releases; ``"scan"`` realizes the whole trace in one launch of
+    the round-loop kernel on ``device`` (``sim.jit_trace`` — the large-n
+    fast path, stationary TDM scenarios only, channel realizations differ
+    from the host streams); ``"auto"`` uses the scan plane whenever the
+    scenario is eligible and the event loop otherwise. Only the scan
+    engine reads ``device``."""
     if isinstance(cfg, str):
         cfg = get_scenario(cfg, **overrides)
     elif overrides:
@@ -702,18 +702,18 @@ def precompute_trace(cfg, n_rounds: int, engine: str = "event",
         raise ValueError(
             f"engine must be 'event', 'scan' or 'auto', got {engine!r}")
     if engine != "event":
-        raise NotImplementedError(
-            f"engine={engine!r}: the jitted scan engine (sim/jit_trace.py) "
-            "is not ported yet (ROADMAP Queue 1 item 4); use "
-            "engine='event'")
+        from .jit_trace import precompute_trace_scan, scan_unsupported_reason
+        if engine == "scan" or scan_unsupported_reason(cfg) is None:
+            return precompute_trace_scan(cfg, n_rounds, device=device)
     return WirelessSimulator(cfg).precompute(n_rounds)
 
 
-def precompute_traces(configs, n_rounds: int,
-                      engine: str = "event") -> TraceBatch:
+def precompute_traces(configs, n_rounds: int, engine: str = "event",
+                      device: str | torch.device = "cuda") -> TraceBatch:
     """``precompute_trace`` over a sequence of configs/names, stacked into a
     ``TraceBatch`` (the Monte-Carlo channel-realization family)."""
-    return stack_traces([precompute_trace(c, n_rounds, engine=engine)
+    return stack_traces([precompute_trace(c, n_rounds, engine=engine,
+                                          device=device)
                          for c in configs])
 
 

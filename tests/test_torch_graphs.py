@@ -228,3 +228,33 @@ def test_graph_path_counts_one_capture_delta_per_replay(fake_graphs):
     for i, (a, b) in enumerate(outs):
         assert torch.equal(a, (x + i) * 2.0)
         assert torch.equal(b["y"], x + i + 1.0)
+
+
+def test_capture_runs_with_the_cyclic_collector_off(monkeypatch):
+    """A dead cycle holding another step's CUDA graph, collected in the
+    middle of a capture, resets that graph and loses the capture: the
+    collector is off while ``_record`` captures, and back on after, also
+    when the body raises."""
+    seen = []
+    monkeypatch.setattr(torch.cuda, "graph",
+                        lambda graph, stream=None: contextlib.nullcontext())
+
+    def body():
+        seen.append(gc.isenabled())
+        return "out"
+    assert gc.isenabled()
+    assert graphs._record(None, None, body) == "out"
+    assert seen == [False] and gc.isenabled()
+
+    def fails():
+        seen.append(gc.isenabled())
+        raise RuntimeError("capture failed")
+    with pytest.raises(RuntimeError, match="capture failed"):
+        graphs._record(None, None, fails)
+    assert seen == [False, False] and gc.isenabled()
+    gc.disable()
+    try:                          # a caller's own setting is kept
+        graphs._record(None, None, body)
+        assert not gc.isenabled()
+    finally:
+        gc.enable()

@@ -720,13 +720,13 @@ def test_build_lists_every_source_and_names_each_library():
     assert _build.SOURCES == ("gossip_mix", "flash_attention",
                               "flash_attention_bwd", "rglru_scan",
                               "rglru_scan_bwd", "rwkv6_scan",
-                              "rwkv6_scan_bwd", "quantize")
+                              "rwkv6_scan_bwd", "quantize", "trace_scan")
     libs = set()
     for name in _build.SOURCES:
         src, so = _build._target(name)
         assert src.exists() and so.name.startswith(f"{name}-")
         libs.add(so.name)
-    assert len(libs) == 8
+    assert len(libs) == 9
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,6 @@
 """The CUDA kernels (gossip mix, flash attention in fp32 and on the
 tensor cores in bf16, RG-LRU and RWKV-6 scans and their backward kernels,
-int8 quantize / dequantize)
+int8 quantize / dequantize, the scan trace engine's round loop)
 against their plain torch versions, the int8 round's send and receive
 (also against the sequence of launches the round made before), and the
 D-PSGD steps as CUDA graphs against their eager bodies, on an sm_90 card
@@ -17,7 +17,9 @@ shapes against the plain version on the card, the others on the host): rows that
 are far smaller than 3e-2, and losing one key of 2048 moves a row by ~0.022
 of its norm. The int8 codec is
 bit-equal: q, scales and the dequantized output ``torch.equal`` (finite
-inputs).
+inputs). The round loop's delivered packets, retransmissions, mixing
+matrices and counts are equal to the plain version's on the card and on
+the CPU, its times within 1e-12 relative.
 """
 import numpy as np
 import pytest
@@ -32,6 +34,7 @@ from repro_torch.kernels import gossip_mix as gm, ops
 from repro_torch.kernels import quantize as qz
 from repro_torch.kernels import rglru_scan as rg
 from repro_torch.kernels import rwkv6_scan as rw
+from repro_torch.kernels import trace_scan as ts
 
 TOL = {"float32": 1e-5, "bfloat16": 3e-2}
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -1126,3 +1129,44 @@ def test_scans_train_through_their_kernels_under_vmap_of_grad(sm90):
         for n, (gi, gv) in enumerate(zip(g, grads)):
             bar = 1e-4 if n < 2 else 5e-4
             assert _err(gi, gv[i]) <= bar * max(1.0, float(gi.abs().max()))
+
+
+TRACE_CASES = [("static", 6, {}), ("fading", 6, {}),
+               ("fading", 64, {"degrade": "naive"}), ("fading", 256, {}),
+               ("fading", 6, {"model_bits": 70 * 32768.0 - 100}),
+               ("fading", 64, {"mac.max_retx_rounds": 0})]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,n,kw", TRACE_CASES)
+def test_trace_scan_kernel_matches_plain(sm90, name, n, kw):
+    """One launch per trace; delivered, retx, w_eff and the counts (passes
+    run, decodes decided) equal to the plain version's on the card and on
+    the CPU, times within 1e-12 relative (the card's cumsum may associate
+    differently)."""
+    from repro_torch.sim import scenario, trace
+    from repro_torch.sim.jit_trace import scan_inputs
+
+    cfg = scenario.get_scenario(
+        name, n_nodes=n, **({} if name == "static"
+                            else {"fading.shadowing_sigma_db": 0.0}), **kw)
+    arrays, args = scan_inputs(cfg, trace.WirelessSimulator(cfg))
+    rounds = 2
+    outs = []
+    for dev in (sm90, sm90, torch.device("cpu")):
+        counts = torch.zeros(2, dtype=torch.int64, device=dev)
+        before = ts.round_scan.launches
+        fn = ts.round_scan if not outs else ts.round_scan_plain
+        out = fn(*(torch.as_tensor(a, device=dev) for a in arrays),
+                 n_rounds=rounds, counts=counts, **args)
+        assert ts.round_scan.launches == before + (not outs)
+        outs.append([x.cpu() for x in out] + [counts.cpu()])
+    torch.cuda.synchronize()
+    got = outs[0]
+    for want in outs[1:]:
+        for k in (0, 3, 4, 6):                # w_eff, delivered, retx, counts
+            assert got[k].dtype == want[k].dtype
+            assert torch.equal(got[k], want[k]), k
+        for k in (1, 2, 5):                   # t_start, t_comm, t_end
+            assert torch.allclose(got[k], want[k], rtol=1e-12, atol=0.0), k
+    assert got[6][1] > 0

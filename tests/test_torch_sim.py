@@ -109,9 +109,11 @@ def test_stack_traces_and_scan_engine():
     assert (batch.n_traces, batch.n_rounds) == (2, 4)
     with pytest.raises(ValueError, match="homogeneous"):
         t_trace.stack_traces([traces[0], t_trace.precompute_trace("static", 3)])
+    event = t_trace.precompute_trace("static", 2)
     for engine in ("scan", "auto"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-            t_trace.precompute_trace("static", 2, engine=engine)
+        got = t_trace.precompute_trace("static", 2, engine=engine,
+                                       device="cpu")
+        assert np.array_equal(got.w_eff, event.w_eff), engine
 
 
 @pytest.mark.parametrize("seed,round_,n_live", [(0, 0, 6), (3, 17, 4)])
@@ -239,7 +241,6 @@ def test_example_tables_print_the_reference_text(capsys, argv):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--scale", "64"], "Queue 1 item 4"),
     (["--train", "static", "--payload", "auto"], "comm-only")])
 def test_example_refuses_unported_modes(capsys, argv, match):
     with pytest.raises(SystemExit):

@@ -148,6 +148,10 @@ def test_slice_runs_without_jax_or_repro_loaded():
         "_, out = batch.train_model_on_traces(lm, ['static'], 1, "
         "device='cpu')\n"
         "assert np.isfinite(out['losses']).all(), out['losses']\n"
+        "from repro_torch.sim import jit_trace\n"
+        "tr = jit_trace.precompute_trace_scan('fading', 2, device='cpu', "
+        "**{'fading.shadowing_sigma_db': 0.0})\n"
+        "assert tr.w_eff.shape == (2, 6, 6), tr.w_eff.shape\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"
