@@ -237,15 +237,24 @@ Phases, each of which ends the run with a nonzero exit if it fails:
 21. the scan trace engine — (a) the round-loop kernel against its plain
               version on the card and on the CPU, 2 rounds of static n 6,
               fading (shadowing 0) n 6, 64 and 256 with degrade renorm
-              and naive, 70 packets (the second need word) and no
-              retransmission pass: delivered, retx, w_eff and the counts
-              (passes run, decodes decided) equal, times within 1e-12
-              relative, any decode that differs printed with its |cap -
-              rate| / rate; (b) --scale at n = 1024: the certified plan
+              and naive, 70 packets (the second need word), no
+              retransmission pass and 10 000 packets (past one tile):
+              delivered, retx, w_eff and the counts (passes run, decodes
+              decided) equal, times within 1e-12 relative, any decode
+              that differs printed with its |cap - rate| / rate, the
+              decodes on the filter's exact path printed; the same for
+              stablelm-3b's phase 16 cut (~329 000 packets) through
+              ``precompute_trace(engine="scan")`` on ``static`` (phase
+              16's scenario) and ``fading``, with its µs a pass; the
+              filter's decision (``trace_decide``) at every intended
+              pair of fading n 6 and 64, at the band's edges, inside it
+              and at uniform draws, equal to the exact code's; (b)
+              --scale at n = 1024: the certified plan
               once on the host, then ``precompute_trace_scan`` over 30
               rounds with sim= (one launch), the example's line, the
               call's ms (CUDA events), the kernel's device ms, the passes
-              and decodes, set-up, copy-out and host epilogue seconds,
+              and decodes (and those on the exact path), set-up,
+              copy-out and host epilogue seconds,
               rounds/s, peak memory; its first 2 rounds held against the
               plain version on the card; (c) ``train_cnn_on_traces`` over 2
               fading seeds at n = 256 with engine="scan", 50 images a node
@@ -268,9 +277,11 @@ rwkv6_scan_bwd's are phases 18's and 19's, their ``prefill`` keys time
 the forward rows' shapes; gossip_mix's ``w256`` times the rows mix at
 phase 21 (c)'s W; trace_scan's are phase 21 (b)'s, its ``plain_ms`` the
 plain version's over the first 2 rounds, beside the kernel's
-``ms_held_rounds``), and ``{"ok": true, "device": ...}``. The
-smoke sets ``PYTORCH_CUDA_ALLOC_CONF=expandable_segments:True`` unless
-the caller set it.
+``ms_held_rounds``, its ``long_traces`` phase 21 (a)'s stablelm-3b cut,
+its ``decide_check`` the decision check's counts), and ``{"ok": true,
+"device": ...}``. The smoke sets
+``PYTORCH_CUDA_ALLOC_CONF=expandable_segments:True`` unless the caller set
+it.
 
 Run from the repository root:  python3 chip_smoke.py
 """
@@ -420,7 +431,16 @@ TRACE_CASES = [      # (scenario, n, overrides, degrade modes)
     ("fading", 64, {}, ("renorm", "naive")),
     ("fading", 256, {}, ("renorm", "naive")),
     ("fading", 6, {"model_bits": 70 * 32768.0 - 100}, ("renorm",)),  # P 70
-    ("fading", 64, {"mac.max_retx_rounds": 0}, ("renorm",))]
+    ("fading", 64, {"mac.max_retx_rounds": 0}, ("renorm",)),
+    # P 10 000: past one tile, and past the earlier whole-trace shared
+    # memory layout's cap (8 640 packets at n = 6)
+    ("fading", 6, {"model_bits": 10_000 * 32768.0 - 100}, ("renorm",))]
+# (a) also: TRAIN_ARCH's phase 16 cut (TRAIN_LAYERS layers, ~329 000
+# packets) through precompute_trace(engine="scan"), on phase 16's scenario
+# and on fading at the same packet count; the filter's decision check at
+# every intended pair of fading at these n
+TRACE_LONG_SCENARIOS = ("static", "fading")
+TRACE_DECIDE_N = (6, 64)
 TOL_TIME = 1e-12                     # relative: the running sum's association
 FP64_FLOPS = 34e12                   # H100 SXM data sheet, fp64 outside the
                                      # tensor cores
@@ -3532,14 +3552,20 @@ def phase_train_lm_lockstep(torch, label: str = "17",
 # The scan trace engine
 # ---------------------------------------------------------------------------
 
-def run_trace(torch, fn, arrays, args, device, rounds: int) -> list:
+def run_trace(torch, fn, arrays, args, device, rounds: int,
+              exact: bool = False) -> list:
     """``fn`` (the round loop's wrapper or its plain version) on ``arrays``
     moved to ``device``: its six outputs and its counts (passes run,
-    decodes decided), on the host."""
+    decodes decided), on the host; with ``exact`` (the wrapper) also the
+    decodes its kernel decided on the exact path."""
     counts = torch.zeros(2, dtype=torch.int64, device=device)
+    extra = {}
+    if exact:
+        extra["exact"] = torch.zeros(1, dtype=torch.int64, device=device)
     out = fn(*(torch.as_tensor(a, device=device) for a in arrays),
-             n_rounds=rounds, counts=counts, **args)
-    return [x.cpu() for x in out] + [counts.cpu()]
+             n_rounds=rounds, counts=counts, **args, **extra)
+    return [x.cpu() for x in out] + [counts.cpu()] + [
+        x.cpu() for x in extra.values()]
 
 
 def decode_margin(torch, arrays, args, r: int, i: int, j: int) -> float:
@@ -3597,7 +3623,9 @@ def hold_trace(torch, what: str, arrays, args, got: list, want: list,
                       for k, v in same.items())
           + f", times max rel {t_rel:.3e} (abs {t_abs:.3e} s; tol "
           f"{TOL_TIME:g}); {int(got[6][0])} passes, {int(got[6][1])} "
-          f"decodes, retx {got[4].tolist()}")
+          f"decodes"
+          + (f" ({int(got[7][0])} on the exact path)" if len(got) > 7
+             else "") + f", retx {got[4].tolist()}")
     check(not bad and all(same.values()) and t_rel <= TOL_TIME,
           f"{what} against {against}: {len(bad)} decodes differ, {same}, "
           f"times {t_rel}")
@@ -3615,6 +3643,136 @@ def trace_cost(n: int, p: int, rounds: int, fading: bool,
     nbytes = (8 * n + 8 * p + n * n + (8 if fading else 1) * n * n
               + rounds * n * n + 24 * rounds + 8)
     return nbytes, 9.0 * decodes if fading else 0.0
+
+
+def hold_long_traces(torch, worst: dict) -> dict:
+    """Phase 21 (a): TRAIN_ARCH cut to TRAIN_LAYERS layers (phase 16's
+    model; ``model_bits`` from ``transformer_adapter``, ~329 000 packets),
+    through ``precompute_trace(engine="scan", device="cuda")`` on each of
+    TRACE_LONG_SCENARIOS (``static`` is phase 16's scenario): one launch,
+    its outputs captured at the wrapper and held against the plain
+    version on the card and on the CPU with (a)'s bars, the trace's w_eff
+    equal to the captured one. Returns, per scenario, the call's ms (CUDA
+    events), passes, µs a pass (the serial running sum over the packets),
+    decodes and exact-path decodes."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import trace_scan as ts
+    from repro_torch.sim import (WirelessSimulator, batch as tb,
+                                 get_scenario, jit_trace, precompute_trace)
+
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+    mcfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TRAIN_LAYERS)
+    ad = tb.transformer_adapter(mcfg, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                                eval_batch=TRAIN_EVAL_BATCH, device="cuda")
+    round_scan, out = jit_trace.round_scan, {}
+    for name in TRACE_LONG_SCENARIOS:
+        kw = ({"eval_every_rounds": TRAIN_ROUNDS} if name == "static"
+              else NO_SHADOW)
+        cfg = get_scenario(name, model_bits=ad.model_bits,
+                           model_shapes=ad.param_shapes, **kw)
+        seen = {}
+
+        def captured(*a, **k):
+            counts = torch.zeros(2, dtype=torch.int64, device=dev)
+            exact = torch.zeros(1, dtype=torch.int64, device=dev)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            res = round_scan(*a, counts=counts, exact=exact, **k)
+            end.record()
+            end.synchronize()
+            seen.update(ms=start.elapsed_time(end), out=[
+                x.cpu() for x in res] + [counts.cpu(), exact.cpu()])
+            return res
+        before = ts.round_scan.launches
+        jit_trace.round_scan = captured
+        try:
+            tr = precompute_trace(cfg, TRACE_HELD_ROUNDS, engine="scan",
+                                  device="cuda")
+        finally:
+            jit_trace.round_scan = round_scan
+        launches = ts.round_scan.launches - before
+        arrays, args = jit_trace.scan_inputs(cfg, WirelessSimulator(cfg))
+        what = (f"(a) {TRAIN_ARCH} {TRAIN_LAYERS} layer, {name} "
+                f"n={cfg.n_nodes} P={args['n_pkts']} "
+                f"passes={args['passes']}, precompute_trace(engine='scan')")
+        check(launches == 1, f"{what}: {launches} launches, want 1")
+        got = seen["out"]
+        check(np.array_equal(tr.w_eff, got[0].numpy()),
+              f"{what}: the trace's w_eff is not the kernel's")
+        for against, device in (("the plain version on the card", dev),
+                                ("the plain version on the CPU", cpu)):
+            want = run_trace(torch, ts.round_scan_plain, arrays, args,
+                             device, TRACE_HELD_ROUNDS)
+            hold_trace(torch, what, arrays, args, got, want, against, worst)
+        passes, decodes = int(got[6][0]), int(got[6][1])
+        out[name] = {"ms": seen["ms"], "passes": passes,
+                     "us_per_pass": seen["ms"] * 1e3 / passes,
+                     "decodes": decodes, "exact": int(got[7][0]),
+                     "n_pkts": args["n_pkts"]}
+        print(f"{what}: the round loop's call {seen['ms']:.4f} ms (CUDA "
+              f"events), {passes} passes, {out[name]['us_per_pass']:.2f} us "
+              f"a pass (the running sum over {args['n_pkts']} packets on one "
+              f"thread), {decodes} decodes, {out[name]['exact']} on the "
+              f"exact path")
+    return out
+
+
+def check_decide(torch) -> dict:
+    """Phase 21 (a): the round loop's decision through ``trace_decide`` at
+    every intended pair of ``fading`` at TRACE_DECIDE_N nodes, m at the
+    card's m_lo - 1, m_lo, the middle of the band, m_hi, m_hi + 1 and 64
+    uniform draws: the filtered decision equal to the kernel's exact
+    code, the band's edges where the path changes, the exact code equal
+    to the plain version's on the CPU outside the band, the thresholds
+    the plain version's to one grid step."""
+    from repro_torch.kernels import trace_scan as ts
+    from repro_torch.sim import WirelessSimulator, get_scenario, jit_trace
+
+    dev = torch.device("cuda")
+    total = {"decisions": 0, "banded": 0, "launches": 0}
+    for n in TRACE_DECIDE_N:
+        cfg = get_scenario("fading", n_nodes=n, **NO_SHADOW)
+        (rates, _, recv, chan, _), args = jit_trace.scan_inputs(
+            cfg, WirelessSimulator(cfg))
+        i, j = np.nonzero(recv)
+        snr, rate = torch.as_tensor(chan[i, j]), torch.as_tensor(rates[i])
+        bw, k = args["bandwidth_hz"], len(i)
+        before = ts.trace_decide.launches
+        thr = ts.trace_decide(snr.to(dev), rate.to(dev), torch.zeros(
+            k, dtype=torch.int64, device=dev), bandwidth_hz=bw)[0].cpu()
+        lo, hi = thr[:, 0], thr[:, 1]
+        gen = torch.Generator().manual_seed(n)
+        m = torch.stack([lo - 1, lo, (lo + hi) // 2, hi, hi + 1,
+                         *torch.randint(0, 2**53, (64, k), generator=gen)]
+                        ).clamp(0, 2**53 - 1)
+        reps = m.shape[0]
+        thr2, filtered, exact, banded = (x.cpu() for x in ts.trace_decide(
+            snr.repeat(reps).to(dev), rate.repeat(reps).to(dev),
+            m.ravel().to(dev), bandwidth_hz=bw))
+        total["launches"] += ts.trace_decide.launches - before
+        plain_thr = ts.fade_thresholds_plain(snr, rate, bw)
+        cpu_exact = ts._exact_decode(m.ravel(), snr.repeat(reps),
+                                     rate.repeat(reps), bw)
+        b = banded.view(reps, k)
+        thr_gap = int((thr - plain_thr).abs().max())
+        same = {"filtered == exact": torch.equal(filtered, exact),
+                "edges": bool(not b[[0, 4]].any() and b[[1, 2, 3]].all()),
+                "exact == CPU outside the band": torch.equal(
+                    exact[~banded], cpu_exact[~banded]),
+                "thresholds": torch.equal(thr2, thr.repeat(reps, 1))
+                and thr_gap <= 1}
+        print(f"(a) trace_decide, fading n={n}: {k} pairs x {reps} m, "
+              f"{int(banded.sum())} in the band; "
+              + ", ".join(f"{key} {'yes' if v else 'NO'}"
+                          for key, v in same.items())
+              + f" (thresholds within {thr_gap} of the CPU's)")
+        check(all(same.values()), f"(a) trace_decide at n={n}: {same}")
+        total["decisions"] += int(banded.numel())
+        total["banded"] += int(banded.sum())
+    return total
 
 
 def phase_trace_scan(torch) -> dict:
@@ -3650,7 +3808,7 @@ def phase_trace_scan(torch) -> dict:
                     f"{degrade}")
             before = ts.round_scan.launches
             got = run_trace(torch, ts.round_scan, arrays, a, dev,
-                            TRACE_HELD_ROUNDS)
+                            TRACE_HELD_ROUNDS, exact=True)
             check(ts.round_scan.launches == before + 1,
                   f"{what}: {ts.round_scan.launches - before} launches")
             for against, device in (("the plain version on the card", dev),
@@ -3659,6 +3817,8 @@ def phase_trace_scan(torch) -> dict:
                 want[0] = ts.assemble_w(want[3], torch.as_tensor(arrays[4]),
                                         degrade)
                 hold_trace(torch, what, arrays, a, got, want, against, worst)
+    long_traces = hold_long_traces(torch, worst)
+    decide = check_decide(torch)
     print(f"(a) {time.perf_counter() - t0:.2f} s")
 
     # (b) --scale's configuration at n = TRACE_N: the certified plan on the
@@ -3678,17 +3838,19 @@ def phase_trace_scan(torch) -> dict:
 
     def timed(*a, **k):
         counts = torch.zeros(2, dtype=torch.int64, device=dev)
+        exact = torch.zeros(1, dtype=torch.int64, device=dev)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
         h0 = time.perf_counter()
         start.record()
-        out = round_scan(*a, counts=counts, **k)
+        out = round_scan(*a, counts=counts, exact=exact, **k)
         end.record()
         end.synchronize()
         seen.update(call_ms=start.elapsed_time(end),
                     host_s=time.perf_counter() - h0, out=out,
-                    counts=counts.cpu(), back=time.perf_counter())
+                    counts=counts.cpu(), exact=int(exact.cpu()[0]),
+                    back=time.perf_counter())
         return out
     for c in (ts.round_scan, gm.gossip_mix_rows):
         c.launches = 0
@@ -3734,14 +3896,15 @@ def phase_trace_scan(torch) -> dict:
     print(f"(b) the round loop's call {seen['call_ms']:.4f} ms (CUDA events;"
           f" the kernel alone {kernel_ms} ms on the device, profiler), "
           f"{passes_run} transmitter passes ({seen['call_ms'] * 1e3 / passes_run:.4f}"
-          f" us each: the chain), {decodes} decodes; bound {b_ms:.4f} ms "
+          f" us each: the chain), {decodes} decodes ({seen['exact']} on the "
+          f"exact path); bound {b_ms:.4f} ms "
           f"({b_by}); set-up {setup_s:.4f} s, copy-out {copy_s:.4f} s, host "
           f"epilogue (lambda estimate, records) {epilogue_s:.4f} s; peak "
           f"memory {peak:.3f} GiB")
     # the first rounds held against the plain version on the card
     t1 = time.perf_counter()
     first = run_trace(torch, ts.round_scan, arrays, args, dev,
-                      TRACE_HELD_ROUNDS)
+                      TRACE_HELD_ROUNDS, exact=True)
     torch.cuda.synchronize()
     first_ms = (time.perf_counter() - t1) * 1e3
     t1 = time.perf_counter()
@@ -3851,6 +4014,8 @@ def phase_trace_scan(torch) -> dict:
         "ms_held_rounds": first_ms, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": None, "graph_ms": None, "library_graph_ms": None,
         "passes": passes_run, "decodes": decodes,
+        "exact_decodes": seen["exact"], "long_traces": long_traces,
+        "decide_check": decide,
         "shape": f"fading n={TRACE_N}, P={args['n_pkts']}, passes "
                  f"{args['passes']}, {TRACE_ROUNDS} rounds"},
         "launches": {"(b) --scale": launches_b,
@@ -4101,7 +4266,8 @@ def main() -> None:
             "max_abs_err", "max_rel_err", "ms", "device_ms", "plain_ms",
             "plain_rounds", "ms_held_rounds", "bound_ms", "bound_by",
             "library_ms", "graph_ms", "library_graph_ms", "passes",
-            "decodes", "shape")},
+            "decodes", "exact_decodes", "long_traces", "decide_check",
+            "shape")},
         "scale": traced["scale"]})
     print("\nphase wall times: " + ", ".join(f"{label} {sec:.2f} s"
                                              for label, sec in walls))

@@ -13,12 +13,27 @@ unrolled), and here that scan is the kernel of ``csrc/trace_scan.cu``.
   fallback), then ``w_eff`` assembled from ``delivered`` by torch on the
   same device (``assemble_w``). Launches count in
   ``round_scan.launches``; ``counts=`` gathers the transmitter passes run
-  and the decodes decided, the work a bound is counted from.
+  and the decodes decided, the work a bound is counted from; ``exact=``
+  the decodes the kernel decided on its exact float64 path (the band of
+  its integer filter).
 * ``round_scan_plain`` is the plain torch version: the reference's
   arithmetic op for op, a Python loop over rounds, transmitters and
   passes. The one liberty, taken by the kernel too: the clock advances by
   the last element of the packets' running sum (the reference adds
-  ``d.sum()``, which may associate differently in the last bits).
+  ``d.sum()``, which may associate differently in the last bits). The
+  running sum is taken in packet order on the host whatever the device,
+  so the plain version gives the same launch times on the card as on the
+  CPU.
+* ``fade_thresholds_plain`` and ``trace_decide`` (kernel entry
+  ``trace_decide``; plain version ``trace_decide_plain``): the kernel's
+  integer filter of a fading decode. Each pair's threshold u* on the
+  uniform becomes ``(m_lo, m_hi)`` on the grid of m = h >> 11 (a relative
+  band of ``BAND`` around u*); m < m_lo fails, m > m_hi decodes, and only
+  an m in between runs the exact formula. ``trace_decide`` evaluates both
+  paths, for the tests.
+* ``smem_bytes(n, n_pkts)`` is a launch's shared memory, bounded for
+  every (n, P): the packets are tiled and, past one tile, the need words
+  live in a device workspace (``_layout``, mirroring the source's).
 * ``_mix64``, ``_uniforms`` and ``_rayleigh_gains`` are the stateless
   splitmix64 Rayleigh gains on int64 tensors (torch has no uint64 shift
   on the CPU): every right shift is masked to make it logical, the
@@ -32,17 +47,25 @@ multiplies by the reciprocal, one bit off IEEE division, and
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
 from . import _build
 from ._backend import require_operands, use_kernel
 
-__all__ = ["round_scan", "round_scan_plain", "assemble_w"]
+__all__ = ["round_scan", "round_scan_plain", "assemble_w", "smem_bytes",
+           "fade_thresholds_plain", "trace_decide", "trace_decide_plain"]
 
 _U64 = 1 << 64
-_THREADS = 512
 _SMEM_LIMIT = 227 * 1024       # dynamic shared memory a block may take
+# csrc/trace_scan.cu's constants
+BAND = 1e-9                    # the filter's relative half-width around u*
+MIN_X = 1e-4                   # smallest 2^(rate / B) - 1 it is sound at
+_LAST_M = (1 << 53) - 1
+_SINGLE_BUDGET = 160 * 1024    # one tile, all in shared memory, up to this
+_TILE_WORDS = 32               # else 2048 packets a tile
+_STAGE_MAX = 64 * 1024         # receivers staged while 20 n bytes fit
 
 
 def _s64(x: int) -> int:
@@ -137,7 +160,11 @@ def round_scan_plain(rates, sizes, recv, chan, planned_w, *, n_pkts: int,
             for p in range(passes):
                 send = (all_sent if p == 0 else need.any(1)) & active[i]
                 d = torch.where(send, durs[i], zero)
-                cs = torch.cumsum(d, 0)
+                # in packet order on the host on every device: a CUDA
+                # cumsum is a parallel scan, and at ~329 000 packets its
+                # other association moves a launch time across a
+                # coherence block, and with it a decode
+                cs = torch.cumsum(d.cpu(), 0).to(dev)
                 if counts is not None:
                     counts[0] += send.any()
                     counts[1] += (need & send[:, None]).sum()
@@ -164,30 +191,128 @@ def round_scan_plain(rates, sizes, recv, chan, planned_w, *, n_pkts: int,
 _ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
          ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
          ctypes.c_double, ctypes.c_double, ctypes.c_double, ctypes.c_double,
-         ctypes.c_uint64, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-         ctypes.c_void_p)
+         ctypes.c_uint64, ctypes.c_int) + (ctypes.c_void_p,) * 11
+
+
+def _layout(n: int, n_pkts: int) -> tuple[int, bool, bool, int]:
+    """csrc/trace_scan.cu's ``layout``: (words of 64 packets a tile, need
+    words and send masks in the device workspace, receiver lists and
+    thresholds staged in shared memory, shared bytes). One tile holds
+    every packet, need word and send mask in shared memory while that fits
+    ``_SINGLE_BUDGET``; past it the packets go ``_TILE_WORDS`` words a
+    tile, the need words (W, n) and the two send masks (2, W) to the
+    workspace."""
+    words = (n_pkts + 63) // 64
+    staged = 20 * n <= _STAGE_MAX
+    stage = 20 * n if staged else 0
+    single = stage + 8 * n * words + 16 * words + 1672 * words + 16
+    if single <= _SINGLE_BUDGET:
+        return words, False, staged, single
+    tile = min(words, _TILE_WORDS)
+    return tile, True, staged, stage + 1672 * tile + 16
 
 
 def smem_bytes(n: int, n_pkts: int) -> int:
-    """Dynamic shared memory of one launch, at most (csrc/trace_scan.cu's
-    layout): per receiver its index, mean SNR and need words; per packet
-    its duration, launch time and block hash; the warps' OR partials."""
-    words = (n_pkts + 63) // 64
-    return (n * (4 + 8 + 8 * words) + n_pkts * 24
-            + (_THREADS // 32 + 1) * words * 8 + 64)
+    """Dynamic shared memory of one launch (csrc/trace_scan.cu's layout):
+    per staged receiver its index and thresholds; per packet of a tile its
+    duration, launch time and block hash; per word of a tile the warps'
+    partial send masks and the tile's send word; on one tile also the need
+    words and send masks. At most ~117 KB past one tile, whatever P is."""
+    return _layout(n, n_pkts)[3]
+
+
+def fade_thresholds_plain(snr: torch.Tensor, rate: torch.Tensor,
+                          bandwidth_hz: float) -> torch.Tensor:
+    """(..., 2) int64 ``(m_lo, m_hi)`` of each (mean SNR, rate): u* =
+    -expm1(-g*), g* = B (2^(rate / B) - 1) / snr the gain at which the
+    capacity meets the rate, and m_lo = floor(u* (1 - BAND) 2^53), m_hi =
+    ceil(u* (1 + BAND) 2^53), clipped to [0, 2^53). The whole range where
+    snr <= 0, 2^(rate / B) - 1 < MIN_X or a value is not finite: every
+    decode of such a pair exact. csrc/trace_scan.cu's ``fade_threshold``
+    in the same operations (its expm1 may differ by an ulp: any threshold
+    this close is as sound)."""
+    bw = torch.tensor(bandwidth_hz, dtype=torch.float64, device=snr.device)
+    x = torch.expm1(rate / bw * math.log(2.0))
+    g = bw * x / snr
+    u = -torch.expm1(-g)
+    lo = torch.floor(u * (1.0 - BAND) * 2.0 ** 53)
+    hi = torch.ceil(u * (1.0 + BAND) * 2.0 ** 53)
+    ok = ((snr > 0) & torch.isfinite(snr) & (x >= MIN_X) & torch.isfinite(x)
+          & torch.isfinite(g) & torch.isfinite(lo) & torch.isfinite(hi))
+    lo = torch.where(ok, lo.clamp(min=0.0), 0.0)
+    hi = torch.where(ok, hi.clamp(max=float(_LAST_M)), float(_LAST_M))
+    return torch.stack([lo, hi], -1).to(torch.int64)
+
+
+def _exact_decode(m: torch.Tensor, snr: torch.Tensor, rate: torch.Tensor,
+                  bandwidth_hz: float) -> torch.Tensor:
+    """The exact decision at m = h >> 11, as round_scan_plain decides."""
+    bw = torch.tensor(bandwidth_hz, dtype=torch.float64, device=m.device)
+    g = -torch.log1p(-(m.to(torch.float64) * 2.0 ** -53))
+    return bandwidth_hz * torch.log2(1.0 + snr * g / bw) >= rate
+
+
+def trace_decide_plain(snr, rate, m, *, bandwidth_hz: float):
+    """Plain version of ``trace_decide``."""
+    thr = fade_thresholds_plain(snr, rate, bandwidth_hz)
+    exact = _exact_decode(m, snr, rate, bandwidth_hz)
+    banded = (m >= thr[..., 0]) & (m <= thr[..., 1])
+    filtered = torch.where(banded, exact, m > thr[..., 1])
+    return thr, filtered, exact, banded
+
+
+_DECIDE_ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_int, ctypes.c_double, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p)
+
+
+def trace_decide(snr, rate, m, *, bandwidth_hz: float):
+    """The round loop's fading decision on (N,) float64 ``snr`` (mean SNR)
+    and ``rate``, (N,) int64 ``m`` in [0, 2^53): ``(thr (N, 2) int64,
+    filtered, exact, banded)``, the bools (N,) the filter's decision (the
+    two compares, the exact formula inside the band), the exact formula's,
+    and whether m fell in the band. The kernel's own ``decide`` on a CUDA
+    tensor (one launch, counted in ``trace_decide.launches``), the plain
+    version on the CPU. Only tests call it: random hashes almost never
+    reach the band."""
+    n = snr.shape[0] if snr.dim() == 1 else -1
+    for name, t, dtype in (("snr", snr, torch.float64),
+                           ("rate", rate, torch.float64),
+                           ("m", m, torch.int64)):
+        if tuple(t.shape) != (n,) or t.dtype != dtype:
+            raise ValueError(f"{name} must be ({n},) {dtype}, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+    device = snr.device
+    if not use_kernel(device):
+        return trace_decide_plain(snr, rate, m, bandwidth_hz=bandwidth_hz)
+    require_operands(device, snr=snr, rate=rate, m=m)
+    thr = torch.empty((n, 2), dtype=torch.int64, device=device)
+    filtered, exact, banded = (torch.empty(n, dtype=torch.bool,
+                                           device=device) for _ in range(3))
+    _build.launch("trace_scan", "trace_decide", _DECIDE_ARGS, device,
+                  snr.data_ptr(), rate.data_ptr(), m.data_ptr(), n,
+                  bandwidth_hz, thr.data_ptr(), filtered.data_ptr(),
+                  exact.data_ptr(), banded.data_ptr())
+    trace_decide.launches += 1
+    return thr, filtered, exact, banded
+
+
+trace_decide.launches = 0
 
 
 def round_scan(rates, sizes, recv, chan, planned_w, *, n_pkts: int,
                passes: int, fading_on: bool, coherence_s: float,
                bandwidth_hz: float, overhead_s: float, compute_s: float,
-               degrade: str, seed: int, n_rounds: int, counts=None):
+               degrade: str, seed: int, n_rounds: int, counts=None,
+               exact=None):
     """One trace's TDM rounds: rates (n,), sizes (P,), planned_w (n, n)
     float64, recv (n, n) bool, chan (n, n) float64 mean SNR under fading
     (``fading_on``) else the bool decode table. Returns ``(w_eff (R, n, n)
     float64, t_start (R,), t_comm (R,) float64, delivered (R, n, n) bool,
     retx (R,) int64, t_end () float64)`` on the inputs' device. Kernel on
-    an sm_90 card, plain version on the CPU."""
+    an sm_90 card, plain version on the CPU. ``exact``, a (1,) int64
+    tensor, gains the decodes the kernel decided on its exact path; the
+    plain version has no filter and leaves it as it is."""
     n = rates.shape[0] if rates.dim() == 1 else -1
     want = {"rates": (rates, (n,), torch.float64),
             "sizes": (sizes, (n_pkts,), torch.float64),
@@ -208,6 +333,9 @@ def round_scan(rates, sizes, recv, chan, planned_w, *, n_pkts: int,
     if counts is not None and (counts.shape != (2,)
                                or counts.dtype != torch.int64):
         raise ValueError("counts must be a (2,) int64 tensor")
+    if exact is not None and (exact.shape != (1,)
+                              or exact.dtype != torch.int64):
+        raise ValueError("exact must be a (1,) int64 tensor")
     device = rates.device
     kw = dict(n_pkts=n_pkts, passes=passes, fading_on=fading_on,
               coherence_s=coherence_s, bandwidth_hz=bandwidth_hz,
@@ -216,32 +344,40 @@ def round_scan(rates, sizes, recv, chan, planned_w, *, n_pkts: int,
     if not use_kernel(device):
         return round_scan_plain(rates, sizes, recv, chan, planned_w, **kw)
     require_operands(device, rates=rates, sizes=sizes, recv=recv, chan=chan,
-                     counts=counts)
+                     counts=counts, exact=exact)
     if planned_w.device != device:          # read by torch, not the kernel
         raise ValueError(f"planned_w is on {planned_w.device}, expected "
                          f"{device}")
-    smem = smem_bytes(n, n_pkts)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"n = {n} receivers x {n_pkts} packets need "
-                         f"{smem} bytes of shared memory, over the kernel's "
-                         f"{_SMEM_LIMIT}")
     f64 = dict(dtype=torch.float64, device=device)
+    i64 = dict(dtype=torch.int64, device=device)
     delivered = torch.zeros((n_rounds, n, n), dtype=torch.bool, device=device)
     t_start = torch.empty(n_rounds, **f64)
     t_comm = torch.empty(n_rounds, **f64)
-    retx = torch.empty(n_rounds, dtype=torch.int64, device=device)
+    retx = torch.empty(n_rounds, **i64)
     t_end = torch.empty((), **f64)
+    # scratch: receiver lists, thresholds, and past one tile the need
+    # words (W, n) and the two send masks (2, W)
     lists = torch.empty((n, n + 1), dtype=torch.int32, device=device)
+    thr = torch.empty((n, n, 2), **i64)
+    words = (n_pkts + 63) // 64
+    tiled = _layout(n, n_pkts)[1]
+    need_ws = torch.empty((words, n), **i64) if tiled else None
+    send_ws = torch.empty((2, words), **i64) if tiled else None
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
     _build.launch(
         "trace_scan", "trace_scan", _ARGS, device, rates.data_ptr(),
         sizes.data_ptr(), recv.data_ptr(), chan.data_ptr(), int(fading_on),
         n, n_pkts, passes, coherence_s, bandwidth_hz, overhead_s, compute_s,
         seed % _U64, n_rounds, delivered.data_ptr(), t_start.data_ptr(),
         t_comm.data_ptr(), retx.data_ptr(), t_end.data_ptr(),
-        lists.data_ptr(), None if counts is None else counts.data_ptr())
+        lists.data_ptr(), thr.data_ptr(), ptr(need_ws), ptr(send_ws),
+        ptr(counts), ptr(exact))
     round_scan.launches += 1
     return (assemble_w(delivered, planned_w, degrade), t_start, t_comm,
             delivered, retx, t_end)
 
 
 round_scan.launches = 0
+

@@ -1131,10 +1131,33 @@ def test_scans_train_through_their_kernels_under_vmap_of_grad(sm90):
             assert _err(gi, gv[i]) <= bar * max(1.0, float(gi.abs().max()))
 
 
+def _stablelm_one_layer_bits() -> float:
+    """stablelm-3b cut to 1 layer (chip_smoke.py phase 16's model) in fp32
+    wire bits, as ``sim.batch.transformer_adapter`` counts them, without
+    drawing a parameter."""
+    import dataclasses
+
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import dpsgd
+    from repro_torch.models import transformer
+
+    cfg = dataclasses.replace(get_config("stablelm-3b"), n_layers=1)
+    with FakeTensorMode():
+        tree = transformer.init_params(cfg, torch.Generator(), "cpu")
+    return float(sum(32 * x.numel() for x in dpsgd._leaves(tree)))
+
+
+# past one tile: 10 000 packets (over the earlier whole-trace layout's cap
+# of 8 640 at n = 6) and stablelm-3b's 1-layer cut (~329 000), 2 rounds
+# each
 TRACE_CASES = [("static", 6, {}), ("fading", 6, {}),
                ("fading", 64, {"degrade": "naive"}), ("fading", 256, {}),
                ("fading", 6, {"model_bits": 70 * 32768.0 - 100}),
-               ("fading", 64, {"mac.max_retx_rounds": 0})]
+               ("fading", 64, {"mac.max_retx_rounds": 0}),
+               ("fading", 6, {"model_bits": 10_000 * 32768.0 - 100}),
+               ("fading", 6, {"model_bits": "stablelm-3b, 1 layer"})]
 
 
 @pytest.mark.cuda
@@ -1142,23 +1165,28 @@ TRACE_CASES = [("static", 6, {}), ("fading", 6, {}),
 def test_trace_scan_kernel_matches_plain(sm90, name, n, kw):
     """One launch per trace; delivered, retx, w_eff and the counts (passes
     run, decodes decided) equal to the plain version's on the card and on
-    the CPU, times within 1e-12 relative (the card's cumsum may associate
-    differently)."""
+    the CPU, times within 1e-12 relative (the plain version's running sum
+    is sequential on both devices, as the kernel's); the exact-path count
+    is a small share of the decodes."""
     from repro_torch.sim import scenario, trace
     from repro_torch.sim.jit_trace import scan_inputs
 
+    if isinstance(kw.get("model_bits"), str):
+        kw = {"model_bits": _stablelm_one_layer_bits()}
     cfg = scenario.get_scenario(
         name, n_nodes=n, **({} if name == "static"
                             else {"fading.shadowing_sigma_db": 0.0}), **kw)
     arrays, args = scan_inputs(cfg, trace.WirelessSimulator(cfg))
     rounds = 2
     outs = []
+    exact = torch.zeros(1, dtype=torch.int64, device=sm90)
     for dev in (sm90, sm90, torch.device("cpu")):
         counts = torch.zeros(2, dtype=torch.int64, device=dev)
         before = ts.round_scan.launches
         fn = ts.round_scan if not outs else ts.round_scan_plain
+        extra = {} if outs else {"exact": exact}
         out = fn(*(torch.as_tensor(a, device=dev) for a in arrays),
-                 n_rounds=rounds, counts=counts, **args)
+                 n_rounds=rounds, counts=counts, **args, **extra)
         assert ts.round_scan.launches == before + (not outs)
         outs.append([x.cpu() for x in out] + [counts.cpu()])
     torch.cuda.synchronize()
@@ -1170,3 +1198,80 @@ def test_trace_scan_kernel_matches_plain(sm90, name, n, kw):
         for k in (1, 2, 5):                   # t_start, t_comm, t_end
             assert torch.allclose(got[k], want[k], rtol=1e-12, atol=0.0), k
     assert got[6][1] > 0
+    assert 0 <= int(exact) <= max(10, int(got[6][1]) // 10_000)
+
+
+@pytest.mark.cuda
+def test_trace_scan_layout_matches_the_source(sm90):
+    """``kernels.trace_scan._layout`` (the workspaces the wrapper
+    allocates, ``smem_bytes``) equal to the compiled source's own
+    (its host entry ``trace_scan_layout``), and bounded for every (n,
+    P)."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    fn = _build.load("trace_scan").trace_scan_layout
+    fn.argtypes = (ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
+    fn.restype = None
+    out = (ctypes.c_longlong * 4)()
+    for n in (1, 6, 64, 256, 1024, 3276, 3277, 20_000, 30_000):
+        for n_pkts in (1, 22, 64, 65, 70, 2048, 6600, 8641, 10_000, 329_000):
+            fn(n, n_pkts, out)
+            want = ts._layout(n, n_pkts)
+            assert (int(out[0]), bool(out[1]), bool(out[2]), int(out[3])) \
+                == want, (n, n_pkts)
+            assert want[3] <= ts._SMEM_LIMIT
+
+
+def _decide_cases(n):
+    """(snr, rate) of every intended pair of ``fading`` at n nodes, and the
+    bandwidth."""
+    from repro_torch.sim import scenario, trace
+    from repro_torch.sim.jit_trace import scan_inputs
+
+    cfg = scenario.get_scenario("fading", n_nodes=n,
+                                **{"fading.shadowing_sigma_db": 0.0})
+    (rates, _, recv, chan, _), args = scan_inputs(
+        cfg, trace.WirelessSimulator(cfg))
+    i, j = np.nonzero(recv)
+    return chan[i, j], rates[i], args["bandwidth_hz"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [6, 64])
+def test_trace_decide_filter_equals_exact_on_card(sm90, n):
+    """The kernel's filtered decision equals its exact float64 code at m_lo
+    - 1, m_lo, m_hi, m_hi + 1, inside the band and at uniform draws; the
+    band's edges are where the path changes; outside the band the card's
+    exact decision is the CPU's; the card's thresholds are the plain
+    version's to one grid step."""
+    snr, rate, bw = _decide_cases(n)
+    k = len(snr)
+    s, r = torch.from_numpy(snr).to(sm90), torch.from_numpy(rate).to(sm90)
+    thr, *_ = ts.trace_decide(s, r, torch.zeros(k, dtype=torch.int64,
+                                                 device=sm90),
+                              bandwidth_hz=bw)
+    thr = thr.cpu()
+    want = ts.fade_thresholds_plain(torch.from_numpy(snr),
+                                    torch.from_numpy(rate), bw)
+    assert int((thr - want).abs().max()) <= 1
+    lo, hi = thr[:, 0], thr[:, 1]
+    gen = torch.Generator().manual_seed(n)
+    cols = [lo - 1, lo, (lo + hi) // 2, hi, hi + 1,
+            *torch.randint(0, 2**53, (64, k), generator=gen)]
+    m = torch.stack(cols).clamp(0, 2**53 - 1)
+    reps = m.shape[0]
+    before = ts.trace_decide.launches
+    thr2, filtered, exact, banded = (x.cpu() for x in ts.trace_decide(
+        s.repeat(reps), r.repeat(reps), m.ravel().to(sm90), bandwidth_hz=bw))
+    torch.cuda.synchronize()
+    assert ts.trace_decide.launches == before + 1
+    assert torch.equal(thr2, thr.repeat(reps, 1))
+    assert torch.equal(filtered, exact)
+    banded = banded.view(reps, k)
+    assert not banded[[0, 4]].any() and banded[[1, 2, 3]].all()
+    outside = ~banded.ravel()
+    cpu = ts._exact_decode(m.ravel(), torch.from_numpy(snr).repeat(reps),
+                           torch.from_numpy(rate).repeat(reps), bw)
+    assert torch.equal(exact[outside], cpu[outside])

@@ -12,11 +12,15 @@ and the port is held against it field for field, fading included:
 takes the running sum's last element, which may associate differently in
 the last bits). The splitmix64 hash is bit-equal, on inputs whose top
 bit is set too (where an arithmetic shift would differ from a logical
-one); the gains -log1p(-u) agree to the two libraries' log1p. A numpy model of the CUDA kernel's algorithm (receiver lists, need
-bits in words of 64 packets, the pass that sends nothing ending a
-transmitter, packet-major pairs) is held equal to the plain version here,
-since the kernel itself only runs on the card
-(``tests/test_torch_kernels_card.py``, ``chip_smoke.py`` phase 21).
+one); the gains -log1p(-u) agree to the two libraries' log1p. A numpy
+model of the CUDA kernel's algorithm (receiver lists and integer
+thresholds, tiles of packets with the running sum carried across them,
+the pass that sends nothing ending a transmitter, decodes filtered by the
+thresholds with the exact formula inside the band) is held equal to the
+plain version here, since the kernel itself only runs on the card
+(``tests/test_torch_kernels_card.py``, ``chip_smoke.py`` phase 21); the
+filter's decision is held against the exact formula at the thresholds,
+at the flip point and at random draws.
 """
 import dataclasses
 import functools
@@ -274,25 +278,47 @@ def _mix64_np(z):
         return z ^ (z >> np.uint64(31))
 
 
+def _thresholds_np(snr, rate, bw):
+    """csrc/trace_scan.cu's ``fade_threshold`` in numpy: (m_lo, m_hi) on
+    the grid of m = h >> 11 around u* = -expm1(-g*), the whole range where
+    the band is not sound or a value is not finite."""
+    last = float(2**53 - 1)
+    with np.errstate(all="ignore"):
+        x = np.expm1(rate / bw * np.log(2.0))
+        g = bw * x / snr
+        u = -np.expm1(-g)
+        lo = np.floor(u * (1.0 - ts.BAND) * 2.0**53)
+        hi = np.ceil(u * (1.0 + ts.BAND) * 2.0**53)
+    ok = ((snr > 0) & np.isfinite(snr) & (x >= ts.MIN_X) & np.isfinite(x)
+          & np.isfinite(g) & np.isfinite(lo) & np.isfinite(hi))
+    return (np.where(ok, np.maximum(lo, 0.0), 0.0).astype(np.int64),
+            np.where(ok, np.minimum(hi, last), last).astype(np.int64))
+
+
 def _kernel_model(rates, sizes, recv, chan, *, n_pkts, passes, fading_on,
                   coherence_s, bandwidth_hz, overhead_s, compute_s, seed,
-                  n_rounds):
+                  n_rounds, tile_words=None):
     """csrc/trace_scan.cu's algorithm in numpy, step for step: each row's
-    receiver list, need bits per receiver as words of 64 packets, the send
-    mask their OR, the running sum over the packets in order, one block
-    hash per sent packet, packet-major pairs decided only where a need bit
-    is set, and the first pass with nothing to send ending the
-    transmitter's passes. Returns delivered, t_start, t_comm, retx, t_end
-    and the counts (passes run, decodes decided)."""
-    n, words = len(rates), (n_pkts + 63) // 64
-    full = [(1 << 64) - 1] * words
-    if n_pkts % 64:
-        full[-1] = (1 << (n_pkts % 64)) - 1
+    receiver list and (fading) its pairs' integer thresholds; per pass the
+    send mask the OR of the receivers' need bits, the first pass with
+    nothing to send ending the transmitter's passes; the packets tile by
+    tile (``tile_words`` words of 64, the launch's layout by default), the
+    running sum over a tile's sent packets carried from tile to tile in
+    packet order, one block hash per sent packet, and a decode for each
+    sent packet a receiver still needs: m = h >> 11 below m_lo fails,
+    above m_hi decodes, in between the exact formula (counted). Vectorised
+    within a tile. Every filtered decision is also held against the exact
+    formula. Returns delivered, t_start, t_comm, retx, t_end, the counts
+    (passes run, decodes decided) and the exact-path count."""
+    n = len(rates)
+    tile = 64 * (tile_words or ts._layout(n, n_pkts)[0])
     lists = [np.flatnonzero(recv[i]) for i in range(n)]
+    thr = [_thresholds_np(chan[i, lst], rates[i], bandwidth_hz)
+           if fading_on else None for i, lst in enumerate(lists)]
     delivered = np.zeros((n_rounds, n, n), bool)
     t_start, t_comm = np.zeros(n_rounds), np.zeros(n_rounds)
     retx = np.zeros(n_rounds, np.int64)
-    clock, steps, pairs = np.float64(0.0), 0, 0
+    clock, steps, pairs, banded = np.float64(0.0), 0, 0, 0
     for r in range(n_rounds):
         start = clock
         for i in range(n):
@@ -300,64 +326,62 @@ def _kernel_model(rates, sizes, recv, chan, *, n_pkts, passes, fading_on,
             if not (np.isfinite(rate) and rate > 0):
                 continue
             lst = lists[i]
-            need = [list(full) for _ in lst]
+            need = np.ones((n_pkts, len(lst)), bool)
             durs = sizes / rate + overhead_s
+            pair = (np.minimum(i, lst) * n + np.maximum(i, lst)).astype(
+                np.uint64)
             for p in range(passes):
-                send = list(full) if p == 0 else [
-                    functools.reduce(operator.or_, (nd[w] for nd in need), 0)
-                    for w in range(words)]
-                if not any(send):
+                send = np.ones(n_pkts, bool) if p == 0 else need.any(1)
+                if not send.any():
                     break
                 steps += 1
                 if p > 0:
-                    retx[r] += sum(bin(s).count("1") for s in send)
-                sent = [bool(send[k // 64] >> (k % 64) & 1)
-                        for k in range(n_pkts)]
-                cs, ttx = np.float64(0.0), np.zeros(n_pkts)
-                for k in range(n_pkts):
-                    d = durs[k] if sent[k] else np.float64(0.0)
-                    cs = cs + d
-                    ttx[k] = clock + (cs - d)
-                bk = {}
-                for k in range(n_pkts):
-                    if sent[k] and fading_on:
-                        blk = np.uint64(int(np.floor(ttx[k] / coherence_s)))
-                        bk[k] = _mix64_np(np.uint64(seed) ^ _mix64_np(blk))
+                    retx[r] += send.sum()
+                cs = np.float64(0.0)
+                for k0 in range(0, n_pkts, tile):
+                    sent = k0 + np.flatnonzero(send[k0:k0 + tile])
+                    if not sent.size:
+                        continue
+                    d = durs[sent]
+                    run = np.cumsum(np.concatenate([[cs], d]))[1:]
+                    ttx = clock + (run - d)
+                    cs = run[-1]
+                    nb = need[sent]
+                    pairs += int(nb.sum())
+                    if fading_on:
+                        blk = np.floor(ttx / coherence_s).astype(np.int64)
+                        bk = _mix64_np(np.uint64(seed)
+                                       ^ _mix64_np(blk.view(np.uint64)))
+                        m = (_mix64_np(bk[:, None] ^ pair[None, :])
+                             >> np.uint64(11)).astype(np.int64)
+                        lo, hi = thr[i]
+                        band = nb & (m >= lo) & (m <= hi)
+                        g = -np.log1p(-(m * 2.0 ** -53))
+                        exact = bandwidth_hz * np.log2(
+                            1.0 + chan[i, lst] * g / bandwidth_hz) >= rate
+                        ok = np.where(band, exact, m > hi)
+                        assert np.array_equal(ok[nb], exact[nb])
+                        banded += int(band.sum())
+                    else:
+                        ok = np.broadcast_to(chan[i, lst], nb.shape)
+                    need[sent] = nb & ~ok
                 clock = clock + cs
-                for k in range(n_pkts):
-                    for jj, j in enumerate(lst):
-                        bit = 1 << (k % 64)
-                        if not (sent[k] and need[jj][k // 64] & bit):
-                            continue
-                        pairs += 1
-                        if fading_on:
-                            pair = np.uint64(min(i, j) * n + max(i, j))
-                            h = _mix64_np(bk[k] ^ pair)
-                            u = np.float64(h >> np.uint64(11)) * 2.0 ** -53
-                            g = -np.log1p(-u)
-                            cap = bandwidth_hz * np.log2(
-                                1.0 + chan[i, j] * g / bandwidth_hz)
-                            ok = cap >= rate
-                        else:
-                            ok = chan[i, j]
-                        if ok:
-                            need[jj][k // 64] &= ~bit
-            for jj, j in enumerate(lst):
-                delivered[r, i, j] = not any(need[jj])
+            delivered[r, i, lst] = ~need.any(0)
         t_start[r], t_comm[r] = start, clock - start
         clock = clock + compute_s
-    return delivered, t_start, t_comm, retx, clock, (steps, pairs)
+    return delivered, t_start, t_comm, retx, clock, (steps, pairs), banded
 
 
 MODEL_CASES = [("static", 6, {}), ("fading", 6, {}),
                ("fading", 9, {"mac.max_retx_rounds": 0}),
                # 70 packets: the second need word
                ("fading", 6, {"model_bits": 70 * 32768.0 - 100}),
-               ("static", 9, {"model_bits": 130 * 32768.0})]
+               ("static", 9, {"model_bits": 130 * 32768.0}),
+               # 8641 packets: past one tile (5 tiles of 2048)
+               ("fading", 6, {"model_bits": 8641 * 32768.0 - 100})]
 
 
-@pytest.mark.parametrize("name,n,kw", MODEL_CASES)
-def test_kernel_algorithm_matches_plain(name, n, kw):
+def _held_to_plain(name, n, kw, tile_words=None):
     arrays, args = _inputs(name, n, **kw)
     args.pop("degrade")
     rounds = 2
@@ -365,8 +389,8 @@ def test_kernel_algorithm_matches_plain(name, n, kw):
     _, t0, tc, dl, rx, te = ts.round_scan_plain(
         *(torch.from_numpy(np.ascontiguousarray(a)) for a in arrays),
         n_rounds=rounds, degrade="renorm", counts=counts, **args)
-    m_dl, m_t0, m_tc, m_rx, m_te, m_counts = _kernel_model(
-        *arrays[:4], n_rounds=rounds, **args)
+    m_dl, m_t0, m_tc, m_rx, m_te, m_counts, _ = _kernel_model(
+        *arrays[:4], n_rounds=rounds, tile_words=tile_words, **args)
     assert np.array_equal(dl.numpy(), m_dl)
     assert np.array_equal(rx.numpy(), m_rx)
     # the same association, sequential in packet order: bit-equal times
@@ -375,6 +399,77 @@ def test_kernel_algorithm_matches_plain(name, n, kw):
     assert tuple(counts.tolist()) == m_counts
     assert m_counts[1] > 0 and (name == "static" or m_rx.sum() > 0
                                 or args["passes"] == 1)
+    return args
+
+
+@pytest.mark.parametrize("name,n,kw", MODEL_CASES)
+def test_kernel_algorithm_matches_plain(name, n, kw):
+    _held_to_plain(name, n, kw)
+
+
+@pytest.mark.parametrize("tile_words", [1, 2])
+def test_kernel_algorithm_tiles_match_plain(tile_words):
+    """The same with tiles forced narrow: 130 packets in 3 or 2 tiles,
+    the running sum carried across them."""
+    args = _held_to_plain("fading", 9, {"model_bits": 130 * 32768.0 - 100},
+                          tile_words)
+    assert args["n_pkts"] > 64 * tile_words
+
+
+def _real_pairs(n):
+    """(snr, rate) of every intended pair of ``fading`` at n nodes, and
+    the bandwidth."""
+    (rates, _, recv, chan, _), kw = _inputs("fading", n)
+    i, j = np.nonzero(recv)
+    return chan[i, j], rates[i], kw["bandwidth_hz"]
+
+
+def _flip_points(snr, rate, bw):
+    """The smallest m in [0, 2^53) the exact formula decodes at, by
+    bisection (2^53 where none does)."""
+    s, r = torch.from_numpy(snr), torch.from_numpy(rate)
+    lo = np.full(len(snr), -1, np.int64)           # exact False (or -1)
+    hi = np.full(len(snr), 2**53, np.int64)        # exact True (or 2^53)
+    while np.any(hi - lo > 1):
+        mid = (lo + hi) // 2
+        ok = ts._exact_decode(torch.from_numpy(mid), s, r, bw).numpy()
+        ok = ok & (mid < 2**53)
+        lo, hi = np.where(ok, lo, mid), np.where(ok, mid, hi)
+    return hi
+
+
+@pytest.mark.parametrize("n", [6, 64])
+def test_filter_decision_equals_the_exact_formula(n):
+    """On every intended pair of ``fading`` at n nodes: m at m_lo - 1,
+    m_lo, m_hi, m_hi + 1, at the exact formula's flip point (bisection)
+    and its neighbours, and at random draws (a tenth within 5000 of the
+    flip): the filtered decision equals the exact formula's. The plain
+    thresholds agree with the numpy model to one grid step, and a uniform
+    draw almost never lands in the band."""
+    snr, rate, bw = _real_pairs(n)
+    thr = ts.fade_thresholds_plain(torch.from_numpy(snr),
+                                   torch.from_numpy(rate), bw).numpy()
+    lo, hi = _thresholds_np(snr, rate, bw)
+    assert np.abs(thr[:, 0] - lo).max() <= 1
+    assert np.abs(thr[:, 1] - hi).max() <= 1
+    assert np.all(thr[:, 1] - thr[:, 0] < 2**53 - 1)   # no pair all exact
+    flip = _flip_points(snr, rate, bw)
+    assert np.all((thr[:, 0] <= flip) & (flip <= thr[:, 1]))
+    rng = np.random.default_rng(n)
+    draws = rng.integers(0, 2**53, size=(200, len(snr)), dtype=np.int64)
+    draws[:20] = flip + rng.integers(-5000, 5001, size=(20, len(snr)))
+    cols = [thr[:, 0] - 1, thr[:, 0], thr[:, 1], thr[:, 1] + 1,
+            flip - 1, flip, flip + 1, *draws]
+    m = np.clip(np.stack(cols), 0, 2**53 - 1)
+    k = m.shape[0]
+    _, filtered, exact, banded = ts.trace_decide(
+        torch.from_numpy(np.tile(snr, k)), torch.from_numpy(np.tile(rate, k)),
+        torch.from_numpy(m.ravel()), bandwidth_hz=bw)
+    assert torch.equal(filtered, exact)
+    banded = banded.numpy().reshape(k, -1)
+    assert not banded[[0, 3]].any() and banded[[1, 2, 5]].all()
+    assert banded[27:].sum() <= 1              # uniform draws: ~2e-9 each
+    assert ts.trace_decide.launches == 0
 
 
 def test_round_scan_refuses_what_the_kernel_does_not_take():
@@ -394,7 +489,16 @@ def test_round_scan_refuses_what_the_kernel_does_not_take():
             ts.round_scan(*t, n_rounds=1, **{**kw, key: val})
     with pytest.raises(ValueError, match="counts"):
         ts.round_scan(*t, n_rounds=1, counts=torch.zeros(2), **kw)
-    assert ts.smem_bytes(1024, 22) < ts._SMEM_LIMIT
+    with pytest.raises(ValueError, match="exact"):
+        ts.round_scan(*t, n_rounds=1, exact=torch.zeros(2, dtype=torch.int64),
+                      **kw)
+    exact = torch.zeros(1, dtype=torch.int64)   # the plain version: no filter
+    ts.round_scan(*t, n_rounds=1, exact=exact, **kw)
+    assert int(exact) == 0
+    # bounded for every trace: tiles of packets past one tile's worth
+    for n in (6, 256, 1024):
+        for n_pkts in (22, 8641, 10_000, 329_000):
+            assert ts.smem_bytes(n, n_pkts) <= ts._SMEM_LIMIT, (n, n_pkts)
 
 
 # ---------------------------------------------------------------------------
