@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch / H100 port (``src/repro_torch``).
 
-Drives the port's ten paths on one NVIDIA Hopper card, through the
+Drives the port's eleven paths on one NVIDIA Hopper card, through the
 entry points a user calls:
 
 * the paper's wireless D-PSGD run: Eq. 2 capacities, Algorithm 2 rates at
@@ -57,7 +57,15 @@ entry points a user calls:
   ``csrc/trace_scan.cu``, at ``examples/sim_scenarios.py --scale 1024``'s
   configuration (fading, Rayleigh gains only, 1024 nodes, 30 rounds), and
   train-on-trace through it (``train_cnn_on_traces(engine="scan")``) at
-  256 nodes.
+  256 nodes;
+* pod-mode training of qwen2-vl-2b (``launch.train.train_loop``, the
+  Mode A / Mode B steps of ``train.step``, AdamW of ``optim``, the
+  checkpoint manager) at its published widths (28 layers, d_model 1536,
+  12 q heads on 2 kv heads of 128, d_ff 8960, vocab 151 936, QKV bias,
+  tied embeddings, a 256-position vision stub): Mode A at full depth,
+  Mode B on 4 nodes cut to 4 layers, every attention's forward and
+  backward in the flash kernels at D 128 with GQA 6:1, Mode B's gossip
+  mix in the rows-mix kernel.
 
 Phases, each of which ends the run with a nonzero exit if it fails:
 
@@ -262,7 +270,36 @@ Phases, each of which ends the run with a nonzero exit if it fails:
               mix every round at W (256 x 256), every round rerun on the
               CPU in lockstep (losses 1e-4, parameters 1e-5); the rows mix
               at W (256 x 256) x (256 x 21 840) fp32 timed beside
-              ``torch.matmul``, eager and in a graph.
+              ``torch.matmul``, eager and in a graph;
+22. pod-mode training — qwen2-vl-2b at 4 nodes x batch 4 x 512 tokens:
+              (a) Mode A at full depth through ``train_loop`` (eager: a
+              graph's three copies of the state do not fit), 2 warm-up
+              and 6 timed steps, 28 flash forwards and backwards a step,
+              no rows mix, the first loss near ln V, ms a step, tokens/s,
+              peak memory, one step's CUDA-event and profiler times,
+              idle share and largest device operations; (b) Mode B cut
+              to 4 layers: ``train_loop`` with the controller's plan (the
+              node mean), then ``make_train_step`` on ring-1 with
+              compression none and int8 (one rows mix per buffer group a
+              step, flash once a layer for all nodes), its SGD step held
+              against ``core.dpsgd.dpsgd_step`` with ``plan_w`` (rtol
+              2e-4, atol 2e-5), eager against graphed in turns at 1
+              layer; (c) the smoke widths card (a CUDA graph) against CPU
+              in lockstep: Mode A and Mode B with AdamW, Mode B none,
+              bf16, int8 and microbatch 2 with SGD (losses 1e-4,
+              parameters and residuals 1e-5; where AdamW's steps lr
+              m^ / (sqrt(v^) + eps) from the card's and the CPU's own
+              moments differ by more than 5e-6, the parameters within
+              1e-5 of that difference, the largest printed with its
+              gradients; the optimizer's leaves 1e-5 of their leaf's
+              max |x|); the
+              fault drill (node 2 at step 3) card against CPU from one
+              step-0 checkpoint; a checkpoint at step 2 with a
+              ``resume=True`` restart whose steps 3-4 repeat the
+              uninterrupted losses (bit-equality printed); (c')
+              ``train_loop`` at the smoke widths eager against graphed
+              in turns (ms a step, where a graph fits); phase 3e
+              times flash's forward and backward at this shape.
 
 Each phase prints its wall time. The last lines are the card's
 ``nvidia-smi`` name and power limit, one JSON line with every kernel's
@@ -278,7 +315,9 @@ the forward rows' shapes; gossip_mix's ``w256`` times the rows mix at
 phase 21 (c)'s W; trace_scan's are phase 21 (b)'s, its ``plain_ms`` the
 plain version's over the first 2 rounds, beside the kernel's
 ``ms_held_rounds``, its ``long_traces`` phase 21 (a)'s stablelm-3b cut,
-its ``decide_check`` the decision check's counts), and ``{"ok": true,
+its ``decide_check`` the decision check's counts; flash's and its
+backward's ``qwen2_vl_train`` time phase 22's shape and their
+``launches_by_path`` and gossip_mix's add phase 22's runs), and ``{"ok": true,
 "device": ...}``. The smoke sets
 ``PYTORCH_CUDA_ALLOC_CONF=expandable_segments:True`` unless the caller set
 it.
@@ -444,6 +483,36 @@ TRACE_DECIDE_N = (6, 64)
 TOL_TIME = 1e-12                     # relative: the running sum's association
 FP64_FLOPS = 34e12                   # H100 SXM data sheet, fp64 outside the
                                      # tensor cores
+
+# pod-mode training (phase 22): qwen2-vl-2b (the pod trainer's default arch)
+# at its published widths, 4 nodes x batch 4 x 512 tokens (the sequence
+# must exceed the vision stub's 256 patch positions); (a) Mode A at full
+# depth, POD_WARM steps then POD_TIMED timed, eager (a graph would hold
+# three copies of the 18.5 GB state), POD_A_MICROBATCH microbatches; (b)
+# Mode B cut to POD_B_LAYERS of 28 layers (four fp32 replicas with AdamW's
+# moments at full depth are 74 GB before any gradient), and eager against
+# graphed in turns at POD_GRAPH_LAYERS; (c) the smoke widths card against
+# CPU in lockstep
+POD_ARCH = "qwen2-vl-2b"
+POD_NODES, POD_BATCH, POD_SEQ = 4, 4, 512
+# (a) accumulates its gradient over 4 microbatches of 4 sequences: the
+# whole batch's saved activations (~110 KB a token a layer, 93.6 MB of
+# bf16 weight casts a layer, ~620 KB a token around the logits) beside
+# the 18.5 GB state ran out of the card (76.4 GiB allocated in the
+# backward), and 2 microbatches peaked at 77.0 GiB of its 79.2 (PERF.md)
+POD_A_MICROBATCH = 4
+POD_WARM, POD_TIMED = 2, 6
+POD_B_LAYERS, POD_GRAPH_LAYERS, POD_PAIRS = 4, 1, 3
+POD_LOCK_STEPS, POD_LOCK_BATCH, POD_LOCK_SEQ = 3, 2, 32
+POD_LOCK_ETA = 1e-3      # AdamW's lr in (c)
+ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.95, 1e-8   # optim.make_optimizer's
+# predicted before the run (PERF.md): (a) 2 microbatches read 77.0 GiB,
+# 4 save half the activations; (b) 20.2 GB of state at 4 layers, ~12
+# saved, its gradient, mix and AdamW's new state
+POD_PEAK_GIB = {"a": (62.0, 72.0), "b": (45.0, 66.0)}
+# flash at qwen2-vl's training shape: 4 nodes x batch 4 folded into B,
+# 12 q heads on 2 kv heads of 128, causal (phase 3e)
+QWEN_BWD = (POD_NODES * POD_BATCH, POD_SEQ, POD_SEQ, 12, 2, 128, True, 0)
 
 
 def fail(msg: str) -> None:
@@ -715,6 +784,17 @@ def dequantize_cost(rows: int, length: int, block: int,
 
 def err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
+
+
+def bf16_ulp_excess(torch, got, want, tol: float) -> int:
+    """Elements of ``got`` farther from ``want`` than ``tol`` or one bf16
+    ulp of ``want``'s value, whichever is larger (the ulp at |x| in
+    [2^e, 2^(e+1)) is 2^(e-7))."""
+    w = want.double()
+    mag = w.abs().clamp_min(2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    bar = torch.clamp(ulp, min=tol)
+    return int(((got.double() - w).abs() > bar).sum())
 
 
 def row_err(a, b) -> float:
@@ -2889,9 +2969,9 @@ def phase_flash_backward(torch) -> dict:
              (1, 300, 300, 16, 16, 192, True, 0),
              (2, 77, 77, 4, 2, 80, True, 0),
              (2, 129, 129, 4, 1, 128, True, 0)]
-    cases = [(*BWD_MAIN, bf16), (*BWD_MAIN, f32), (*lock, f32)] + \
-        [(*e, dt) for e in edges for dt in (bf16, f32)]
-    worst, worst_fwd, out = 0.0, 0.0, {}
+    cases = [(*BWD_MAIN, bf16), (*BWD_MAIN, f32), (*QWEN_BWD, bf16),
+             (*lock, f32)] + [(*e, dt) for e in edges for dt in (bf16, f32)]
+    worst, worst_fwd, out, qwen_fwd = 0.0, 0.0, {}, None
     for b, s, t, hq, hkv, d, causal, window, dtype in cases:
         q, do = (torch.randn((b, s, hq, d), generator=gen, device=dev)
                  .to(dtype) for _ in range(2))
@@ -2947,8 +3027,20 @@ def phase_flash_backward(torch) -> dict:
                 e = err(g, w_)
                 worst = max(worst, e)
                 line = f"max|err| {e:.3e} (tol {tol[dtype]:g})"
-                check(e <= tol[dtype], f"flash_attention_bwd {what} {name} "
-                      f"({src} forward): max|err| {e} > {tol[dtype]}")
+                if (b, s, t, hq, hkv, d, causal, window) == QWEN_BWD:
+                    # GQA 6:1 sums 6 heads' 512 queries into a key's dk,
+                    # dv: |dv| reaches 4-13, where one bf16 ulp (2^-5 and
+                    # up) exceeds 3e-2; an element is held within 3e-2 or
+                    # one ulp of the oracle's value, whichever is larger
+                    ex = bf16_ulp_excess(torch, g, w_, tol[dtype])
+                    line += f", past max(tol, 1 ulp): {ex}"
+                    check(ex == 0, f"flash_attention_bwd {what} {name} "
+                          f"({src} forward): {ex} elements beyond "
+                          f"max({tol[dtype]}, one bf16 ulp)")
+                else:
+                    check(e <= tol[dtype], f"flash_attention_bwd {what} "
+                          f"{name} ({src} forward): max|err| {e} > "
+                          f"{tol[dtype]}")
                 if dtype == bf16:
                     # dq of a query with one live key (the first, causal)
                     # is 0 exactly: its softmax has no gradient, both sides
@@ -3033,6 +3125,8 @@ def phase_flash_backward(torch) -> dict:
               f"{t_['bound_ms']:.4f} ms ({t_['bound_by']}; {flops:.4e} "
               f"flops, {nbytes:.4e} bytes), {t_['bound_ms'] / dev_t * 100:.2f}"
               f" % of it, {flops / dev_t / 1e9:.2f} TFLOP/s")
+        if (b, s, t, hq, hkv, d, causal, window) == QWEN_BWD:
+            qwen_fwd = flash_forward_times(torch, q, k, v, causal, window)
         if (b, s, t, hq, hkv, d, causal, window) == BWD_MAIN:
             # the call's device operations one by one
             for name_, ms_, n_ in device_profile(torch, kernel, 1):
@@ -3043,12 +3137,62 @@ def phase_flash_backward(torch) -> dict:
     print(f"the forward with lse at every shape above: out max|err| "
           f"{worst_fwd:.3e}; the backward: max|err| {worst:.3e}")
     main = out[(*BWD_MAIN, "bfloat16")]
+    fields = ("ms", "device_ms", "graph_ms", "plain_ms", "library_ms",
+              "library_device_ms", "library_fwd_ms", "bound_ms", "bound_by",
+              "shape")
     row = dict(main, max_abs_err=worst,
-               fp32={f: out[(*BWD_MAIN, "float32")][f] for f in (
-                   "ms", "device_ms", "graph_ms", "plain_ms", "library_ms",
-                   "library_device_ms", "library_fwd_ms", "bound_ms",
-                   "bound_by", "shape")})
-    return {"flash_attention_bwd": row}
+               fp32={f: out[(*BWD_MAIN, "float32")][f] for f in fields},
+               qwen2_vl_train={f: out[(*QWEN_BWD, "bfloat16")][f]
+                               for f in fields})
+    return {"flash_attention_bwd": row,
+            "flash_attention_qwen2_vl_train": qwen_fwd}
+
+
+def flash_forward_times(torch, q, k, v, causal: bool, window: int) -> dict:
+    """The forward that training runs (it writes lse) at one shape: the
+    kernel's call, device and graph times, its plain version's, SDPA's
+    forward (no autograd; ``enable_gqa``) eagerly and on the device, and
+    the bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+
+    b, s, hq, d = q.shape
+    hkv = k.shape[2]
+    qq, kk, vv = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+
+    def kernel():
+        return fa._forward(q, k, v, causal, window, True)
+
+    def sdpa():
+        with torch.no_grad():
+            return F.scaled_dot_product_attention(
+                qq, kk, vv, is_causal=causal, enable_gqa=hq != hkv)
+    check(not window, "flash_forward_times: no window (SDPA's causal mask)")
+    elt, peak = (2, BF16_FLOPS) if q.dtype == torch.bfloat16 \
+        else (4, FP32_FLOPS)
+    nbytes, flops = flash_cost(b, s, hq, hkv, d, window, elt)
+    b_ms, b_by = bound(nbytes, flops, peak)
+    t_ = {"ms": time_ms(torch, kernel, reps=20, rounds=3, warmup=3),
+          "device_ms": device_ms(torch, kernel, "flash_attention", calls=3),
+          "graph_ms": graph_ms(torch, kernel, reps=20, rounds=3),
+          "plain_ms": time_ms(torch, lambda: fa.flash_attention_plain(
+              q, k, v, causal=causal, window=window, return_lse=True),
+              reps=1, rounds=3, warmup=1),
+          "library_ms": time_ms(torch, sdpa, reps=20, rounds=3, warmup=3),
+          "library_device_ms": device_ms(torch, sdpa, "", calls=3),
+          "bound_ms": b_ms, "bound_by": b_by,
+          "shape": f"q ({b},{s},{hq},{d}) k, v ({b},{s},{hkv},{d}) "
+                   f"{str(q.dtype)[6:]}, "
+                   f"{'causal' if causal else 'non-causal'}, with lse"}
+    dev_t = t_["device_ms"] if t_["device_ms"] is not None else t_["ms"]
+    print(f"flash_attention forward {t_['shape']}: {t_['ms']:.4f} ms/call "
+          f"(device {t_['device_ms']}, in a graph {t_['graph_ms']:.4f} ms) | "
+          f"plain {t_['plain_ms']:.4f} ms | SDPA forward "
+          f"{t_['library_ms']:.4f} ms (device {t_['library_device_ms']}) | "
+          f"bound {t_['bound_ms']:.4f} ms ({t_['bound_by']}), "
+          f"{t_['bound_ms'] / dev_t * 100:.2f} % of it, "
+          f"{flops / dev_t / 1e9:.2f} TFLOP/s")
+    return t_
 
 
 def phase_scan_backward(torch) -> dict:
@@ -4027,6 +4171,528 @@ def phase_trace_scan(torch) -> dict:
                   "rounds_per_s": TRACE_ROUNDS / trace_s, "peak_gib": peak}}
 
 
+def pod_counters() -> dict:
+    """The kernels a pod-mode step of qwen2-vl-2b launches, by name."""
+    return {k: c for k, c in train_counters().items()
+            if k in ("flash_attention", "flash_attention_bwd", "gossip_mix")}
+
+
+def pod_batch(torch, cfg, k: int, nodes: int, batch: int, seq: int,
+              mode: str) -> dict:
+    """Step ``k``'s batch as ``launch.train`` makes it."""
+    from repro_torch.launch import train as lt
+    from repro_torch.train import step as ts
+
+    b = lt._batch(cfg, _pod_run(mode), k, nodes * batch, seq,
+                  torch.device("cuda"))
+    return ts.reshape_batch_for_nodes(b, nodes) if mode == "dpsgd" else b
+
+
+def _pod_run(mode: str, optimizer: str = "adamw", eta: float = 1e-3,
+             compression: str = "none", microbatch: int = 0):
+    from repro_torch.configs import RunConfig
+
+    return RunConfig(mode=mode, optimizer=optimizer, eta=eta,
+                     compression=compression, microbatch=microbatch,
+                     lambda_target=0.8, remat="none")
+
+
+def pod_first_loss(cfg, loss: float, what: str) -> None:
+    """The first loss near ln V: for a tied head between ln V and ln V +
+    sqrt(d_model) (phase 16's rule), else within 1 of ln V."""
+    import math
+
+    ln_v = math.log(cfg.vocab_size)
+    lo, hi = (ln_v, ln_v + math.sqrt(cfg.d_model)) if cfg.tie_embeddings \
+        else (ln_v - 1.0, ln_v + 1.0)
+    print(f"{what}: the first loss {loss:.4f} against [{lo:.4f}, {hi:.4f}] "
+          f"(ln V = {ln_v:.4f})")
+    check(lo <= loss <= hi, f"{what}: the first loss {loss} is outside "
+          f"[{lo}, {hi}]")
+
+
+def pod_profile(torch, step_fn, state, batch, host_ms: float,
+                what: str) -> dict:
+    """One eager step: CUDA events around it, the profiler's busy time and
+    largest device operations, the idle share against ``host_ms``."""
+    import gc
+
+    out = step_fn(state, batch)          # warm (cuBLAS plans)
+    del out
+    gc.collect()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = step_fn(state, batch)
+    end.record()
+    end.synchronize()
+    event_ms = start.elapsed_time(end)
+    del out
+    gc.collect()
+    top = device_profile(torch, lambda: step_fn(state, batch), 1)
+    busy = sum(r[1] for r in top)
+    idle = 1.0 - busy / host_ms if host_ms else None
+    print(f"{what}: one eager step {event_ms:.2f} ms between CUDA events, "
+          f"{busy:.2f} ms of device operations (profiler), idle share "
+          f"{idle:.4f} of the loop's {host_ms:.2f} host ms a step; the "
+          f"largest: " + "; ".join(f"{n[:44]} {ms:.3f} ms x{c}"
+                                   for n, ms, c in top[:10]))
+    return {"event_ms": event_ms, "busy_ms": busy, "idle": idle,
+            "top": [(n[:80], ms, c) for n, ms, c in top[:10]]}
+
+
+def pod_loop(torch, cfg, run, nodes: int, layers_note: str, what: str,
+             peak: tuple) -> dict:
+    """``launch.train.train_loop`` at POD_NODES x POD_BATCH x POD_SEQ for
+    POD_WARM + POD_TIMED steps, eager, a loss logged each step: ms a step
+    and tokens/s over the timed steps, launches, peak memory."""
+    import math
+
+    from repro_torch.launch import train as lt
+
+    counters = pod_counters()
+    steps = POD_WARM + POD_TIMED
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.launches = 0
+    out = lt.train_loop(cfg, run, nodes=nodes, tp=1, steps=steps,
+                        batch_per_node=POD_BATCH, seq_len=POD_SEQ,
+                        ckpt_dir=None, log_every=1, device="cuda",
+                        graphed=False)
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    losses = [r["loss"] for r in out["log"]]
+    walls = [r["wall_s"] for r in out["log"]]
+    ms = (walls[-1] - walls[POD_WARM - 1]) * 1e3 / POD_TIMED
+    tokens = nodes * POD_BATCH * POD_SEQ
+    print(f"{what} ({layers_note}): {steps} steps, losses {losses}; "
+          f"{ms:.2f} ms a step over the last {POD_TIMED} (host clock, a loss "
+          f"read each step), {tokens / ms * 1e3:.0f} tokens/s; launches "
+          f"{launches}; peak {peak_gib:.3f} GiB (predicted {peak[0]:g}-"
+          f"{peak[1]:g})")
+    check(len(losses) == steps and all(math.isfinite(x) for x in losses),
+          f"{what}: losses {losses}")
+    pod_first_loss(cfg, losses[0], what)
+    return {"losses": losses, "ms": ms, "tokens_per_s": tokens / ms * 1e3,
+            "launches": launches, "peak_gib": peak_gib, "steps": steps}
+
+
+def pod_lockstep(torch, name: str, run, cfg) -> dict:
+    """POD_LOCK_STEPS steps of ``make_train_step`` at the smoke widths, a
+    CUDA graph on the card, each rerun eagerly on the CPU from the card's
+    state: losses 1e-4, parameters and residuals 1e-5, the optimizer's
+    leaves 1e-5 of their leaf's max |x|; AdamW's entries whose two steps
+    (each from its own moments) differ by more than 5e-6 held within 1e-5
+    of that difference."""
+    from repro_torch.core import dpsgd
+    from repro_torch.core.gossip import ring_plan
+    from repro_torch.graphs import GraphedStep
+    from repro_torch.models import build
+    from repro_torch.optim.schedule import constant_lr
+    from repro_torch.train import step as ts
+
+    plan = ring_plan(("data",), (POD_NODES,), 1) \
+        if run.mode == "dpsgd" else None
+    card = GraphedStep(ts.make_train_step(build(cfg, "cuda"), run, plan,
+                                          constant_lr(run.eta)))
+    host = ts.make_train_step(build(cfg, "cpu"), run, plan,
+                              constant_lr(run.eta))
+    state = ts.init_train_state(
+        build(cfg, "cuda"), run,
+        torch.Generator(device="cuda").manual_seed(1), n_nodes=POD_NODES)
+    # parameters and residuals at 1e-5, the optimizer's leaves at 1e-5 of
+    # their leaf's largest entry (v holds squared gradients). AdamW's step
+    # is lr r with r = m^ / (sqrt(v^) + eps): where sqrt(v^) is near the
+    # rounding noise of the gradient's sums, two sums of the same gradient
+    # give steps that differ by a fraction of lr. Where the two states'
+    # own moments give steps lr r more than 5e-6 apart, the parameters are
+    # held to that difference within 1e-5 (each side's update from its
+    # own moments), the entry counted and the largest printed with its
+    # gradients (g = (m' - b1 m) / (1 - b1)); every other parameter
+    # within 1e-5
+    adamw = run.optimizer == "adamw"
+    worst = {"loss": 0.0, "params": 0.0, "residual": 0.0, "opt": 0.0,
+             "params_amplified": 0.0}
+    amp_n = total_n = 0
+    amp_worst, amp_d = None, 0.0
+    losses = []
+    for k in range(POD_LOCK_STEPS):
+        batch = pod_batch(torch, cfg, k, POD_NODES, POD_LOCK_BATCH,
+                          POD_LOCK_SEQ, run.mode)
+        prev = tree_to(state, "cpu")
+        cpu_out, cpu_m = host(prev, tree_to(batch, "cpu"))
+        state, m = card(state, batch)
+        losses.append(float(m["loss"]))
+        worst["loss"] = max(worst["loss"], err(m["loss"].cpu(),
+                                               cpu_m["loss"]))
+        check(sorted(state) == sorted(cpu_out), f"22 (c) {name}: state keys")
+        check(int(state["step"]) == int(cpu_out["step"]) == k + 1,
+              f"22 (c) {name}: step counters")
+        for key in ("residual", "opt"):
+            for a, b in zip(dpsgd._leaves(state.get(key, {})),
+                            dpsgd._leaves(cpu_out.get(key, {}))):
+                scale = float(b.double().abs().max()) if key == "opt" \
+                    else 1.0
+                d = err(a.cpu(), b)
+                worst[key] = max(worst[key], d / scale if scale else
+                                 float("inf") if d else 0.0)
+        paths = [p for p, _ in dpsgd._paths(cpu_out["params"])]
+        cards = dpsgd._leaves(state["params"])
+        hosts = dpsgd._leaves(cpu_out["params"])
+        # card m, v; CPU m, v; the step's input m, v
+        opt = [[x.cpu().double() for x in dpsgd._leaves(
+            side.get("opt", {}).get(moment, {}))]
+            for side in (state, cpu_out, prev) for moment in ("m", "v")]
+        t = float(cpu_out["opt"]["t"]) if adamw else 0.0
+        for i, (a, b) in enumerate(zip(cards, hosts)):
+            d = a.cpu().double() - b.double()
+            total_n += d.numel()
+            if not adamw:
+                worst["params"] = max(worst["params"], float(d.abs().max()))
+                continue
+            r_card, r_cpu = (
+                (mm / (1 - ADAM_B1 ** t))
+                / ((vv / (1 - ADAM_B2 ** t)).sqrt() + ADAM_EPS)
+                for mm, vv in ((opt[0][i], opt[1][i]), (opt[2][i],
+                                                        opt[3][i])))
+            dr = run.eta * (r_card - r_cpu)
+            amp = dr.abs() > TOL_FP32 / 2
+            amp_n += int(amp.sum())
+            if (~amp).any():
+                worst["params"] = max(worst["params"],
+                                      float(d.abs()[~amp].max()))
+            if not amp.any():
+                continue
+            worst["params_amplified"] = max(
+                worst["params_amplified"], float((d + dr).abs()[amp].max()))
+            j = int(torch.where(amp, d.abs(), torch.zeros_like(d)).argmax())
+            if abs(float(d.reshape(-1)[j])) > amp_d:
+                amp_d = abs(float(d.reshape(-1)[j]))
+                g_card, g_cpu = (((mm - ADAM_B1 * opt[4][i])
+                                  / (1 - ADAM_B1)).reshape(-1)
+                                 for mm in (opt[0][i], opt[2][i]))
+                vhat = (opt[3][i] / (1 - ADAM_B2 ** t)).sqrt().reshape(-1)
+                amp_worst = (
+                    f"step {k + 1} {paths[i]} flat {j}: gradient card "
+                    f"{float(g_card[j]):.4e} CPU {float(g_cpu[j]):.4e} (the "
+                    f"leaf's median |g| {float(g_cpu.abs().median()):.3e}), "
+                    f"sqrt(v^) {float(vhat[j]):.3e}; parameter card "
+                    f"{float(a.reshape(-1)[j]):.9e} CPU "
+                    f"{float(b.reshape(-1)[j]):.9e}, lr r card "
+                    f"{run.eta * float(r_card.reshape(-1)[j]):.6e} CPU "
+                    f"{run.eta * float(r_cpu.reshape(-1)[j]):.6e}")
+    print(f"22 (c) {name}: {POD_LOCK_STEPS} steps, losses {losses}; card "
+          f"(a CUDA graph, {card.signatures} signature) against CPU in "
+          f"lockstep: max|loss diff| {worst['loss']:.3e} (tol {LOCK_TOL:g}), "
+          f"max|param diff| {worst['params']:.3e} (tol {TOL_FP32:g}), "
+          f"max|residual diff| {worst['residual']:.3e}, optimizer state "
+          f"max|diff| / its leaf's max|x| {worst['opt']:.3e} (tol "
+          f"{TOL_FP32:g})")
+    if adamw:
+        print(f"22 (c) {name}: {amp_n} of {total_n} parameter entries over "
+              f"the steps had card and CPU steps lr r more than "
+              f"{TOL_FP32 / 2:g} apart (max|diff| {amp_d:.3e}); their "
+              f"parameters against each side's own step: max|diff + lr dr| "
+              f"{worst['params_amplified']:.3e} (tol {TOL_FP32:g}); the "
+              f"largest: {amp_worst}")
+    check(worst["loss"] <= LOCK_TOL and max(
+        worst["params"], worst["residual"], worst["opt"],
+        worst["params_amplified"]) <= TOL_FP32,
+          f"22 (c) {name}: card and CPU differ: {worst}")
+    if run.compression != "none":
+        check(any(bool(x.any()) for x in dpsgd._leaves(state["residual"])),
+              f"22 (c) {name}: the residual stayed zero")
+    return worst
+
+
+def phase_pod_training(torch) -> dict:
+    phase("22. pod-mode training of qwen2-vl-2b on the card: the Mode A / "
+          "Mode B steps, their optimizers, checkpoints and the trainer "
+          "(launch.train)")
+    import dataclasses
+    import gc
+    import math
+    import tempfile
+
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.checkpoint import save
+    from repro_torch.configs import get_config, reduce_for_smoke
+    from repro_torch.core import dpsgd
+    from repro_torch.core.density_controller import choose_plan
+    from repro_torch.core.gossip import plan_w, ring_plan
+    from repro_torch.graphs import GraphedStep
+    from repro_torch.launch import train as lt
+    from repro_torch.models import build, transformer
+    from repro_torch.optim.schedule import constant_lr
+    from repro_torch.train import step as ts
+
+    full = get_config(POD_ARCH)
+    with FakeTensorMode():
+        sizes = [x.numel() for x in dpsgd._leaves(transformer.init_params(
+            full, torch.Generator(), "cpu"))]
+    per_layer = (sum(sizes) - full.vocab_size * full.d_model
+                 - full.d_model) / full.n_layers
+    print(f"{POD_ARCH}: published widths (d_model {full.d_model}, "
+          f"{full.n_heads} q heads on {full.n_kv_heads} kv heads of "
+          f"{full.head_dim}, d_ff {full.d_ff}, vocab {full.vocab_size}, QKV "
+          f"bias, tied embeddings, a vision stub of {full.n_patches} patch "
+          f"positions); {sum(sizes) / 1e9:.4f} B parameters a replica, the "
+          f"embedding {full.vocab_size * full.d_model / 1e6:.1f} M, "
+          f"{per_layer / 1e6:.2f} M a layer; {POD_NODES} nodes x batch "
+          f"{POD_BATCH} x {POD_SEQ} tokens a step; parameters "
+          f"{full.param_dtype}, compute {full.dtype}")
+    result: dict = {"launches": {}}
+
+    # (a) Mode A at full width and depth through the trainer
+    run_a = _pod_run("allreduce", microbatch=POD_A_MICROBATCH)
+    a = pod_loop(torch, full, run_a, POD_NODES,
+                 f"{full.n_layers} layers, {POD_A_MICROBATCH} microbatches",
+                 "22 (a) Mode A (allreduce)", POD_PEAK_GIB["a"])
+    calls = full.n_layers * POD_A_MICROBATCH * a["steps"]
+    want = {"flash_attention": calls, "flash_attention_bwd": calls,
+            "gossip_mix": 0}
+    check(a["launches"] == want, f"22 (a): launches {a['launches']}, want "
+          f"{want} (one flash forward and backward a layer a microbatch; "
+          f"Mode A mixes nothing)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    api = build(full, "cuda")
+    state = ts.init_train_state(api, run_a, torch.Generator(
+        device="cuda").manual_seed(0), n_nodes=POD_NODES)
+    a["profile"] = pod_profile(
+        torch, ts.make_train_step(api, run_a, None, constant_lr(run_a.eta)),
+        state, pod_batch(torch, full, 0, POD_NODES, POD_BATCH, POD_SEQ,
+                         "allreduce"), a["ms"], "22 (a)")
+    del state, api
+    gc.collect()
+    torch.cuda.empty_cache()
+    result["a"] = a
+    result["launches"]["(a) Mode A"] = a["launches"]
+
+    # (b) Mode B at full width, cut in depth
+    cut = dataclasses.replace(full, n_layers=POD_B_LAYERS)
+    with FakeTensorMode():
+        cut_sizes = [x.numel() for x in dpsgd._leaves(
+            transformer.init_params(cut, torch.Generator(), "cpu"))]
+    groups = len(dpsgd.mix_groups(cut_sizes))
+    run_b = _pod_run("dpsgd")
+    plan_b = choose_plan(("data",), (POD_NODES,), run_b.lambda_target,
+                         bytes_per_rank=lt.param_bytes(cut),
+                         eta=run_b.eta).plan
+    print(f"22 (b): depth cut {full.n_layers} -> {POD_B_LAYERS} layers: "
+          f"{sum(cut_sizes) / 1e6:.1f} M parameters a node, "
+          f"{POD_NODES * sum(cut_sizes) * 4 / 1e9:.2f} GB a node-stacked "
+          f"fp32 copy, {groups} rows-mix buffer groups; the controller's "
+          f"plan {plan_b.name}")
+    b = pod_loop(torch, cut, run_b, POD_NODES,
+                 f"{POD_B_LAYERS} layers, the controller's plan",
+                 "22 (b) Mode B (dpsgd)", POD_PEAK_GIB["b"])
+    mixes = 0 if plan_b.kind == "allreduce" else groups
+    want = {"flash_attention": POD_B_LAYERS * b["steps"],
+            "flash_attention_bwd": POD_B_LAYERS * b["steps"],
+            "gossip_mix": mixes * b["steps"]}
+    check(b["launches"] == want, f"22 (b): launches {b['launches']}, want "
+          f"{want} ({plan_b.name}: {mixes} rows mixes a step)")
+    result["launches"]["(b) Mode B, the controller's plan"] = b["launches"]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    api = build(cut, "cuda")
+    plan = ring_plan(("data",), (POD_NODES,), 1)
+    counters = pod_counters()
+    for comp in ("none", "int8"):
+        run = _pod_run("dpsgd", optimizer="sgd", eta=0.05, compression=comp)
+        step_fn = ts.make_train_step(api, run, plan, constant_lr(run.eta))
+        state = ts.init_train_state(api, run, torch.Generator(
+            device="cuda").manual_seed(1), n_nodes=POD_NODES)
+        # de-sync the nodes so the mix matters
+        state["params"] = dpsgd._tree_map(
+            lambda p: p * (1 + 0.01 * torch.arange(
+                POD_NODES, device=p.device, dtype=p.dtype).reshape(
+                    -1, *[1] * (p.dim() - 1))), state["params"])
+        batch = pod_batch(torch, cut, 0, POD_NODES, POD_BATCH, POD_SEQ,
+                          "dpsgd")
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters.values():
+            c.launches = 0
+        new, m = step_fn(state, batch)
+        torch.cuda.synchronize()
+        launches = {k: c.launches for k, c in counters.items()}
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        want = {"flash_attention": POD_B_LAYERS,
+                "flash_attention_bwd": POD_B_LAYERS, "gossip_mix": groups}
+        print(f"22 (b) make_train_step, {plan.name} ({comp}): loss "
+              f"{float(m['loss']):.4f}, launches {launches} (expected {want}: "
+              f"one rows mix per buffer group of at most "
+              f"{dpsgd.MIX_CONCAT_LANES} lanes a node, the compressed "
+              f"receive over [x; deq] with W_cat (4 x 8); flash once a "
+              f"layer for all nodes); peak {peak_gib:.3f} GiB")
+        check(launches == want, f"22 (b) {comp}: launches {launches}, want "
+              f"{want}")
+        check(math.isfinite(float(m["loss"])), f"22 (b) {comp}: loss")
+        result["launches"][f"(b) Mode B, {plan.name} {comp}"] = launches
+        if comp == "int8":
+            check(any(bool(x.any()) for x in dpsgd._leaves(new["residual"])),
+                  "22 (b) int8: the residual stayed zero")
+        else:
+            # Eq. 5 twice: the trainer's step against core.dpsgd's
+            ref, _ = dpsgd.dpsgd_step(api.loss, state["params"], batch,
+                                      plan_w(plan), dpsgd.DPSGDConfig(
+                                          eta=0.05))
+            bad = [i for i, (x, y) in enumerate(zip(
+                dpsgd._leaves(new["params"]), dpsgd._leaves(ref)))
+                if not torch.allclose(x, y, rtol=2e-4, atol=2e-5)]
+            d = max(err(x, y) for x, y in zip(dpsgd._leaves(new["params"]),
+                                               dpsgd._leaves(ref)))
+            print(f"22 (b) the SGD step against core.dpsgd.dpsgd_step with "
+                  f"plan_w: max|diff| {d:.3e}, leaves outside rtol 2e-4 / "
+                  f"atol 2e-5: {bad}")
+            check(not bad, f"22 (b): the trainer's step and dpsgd_step "
+                  f"differ at leaves {bad}")
+            result["b_vs_dpsgd"] = d
+            del ref
+        del new, m, state, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    del api
+
+    # (b') eager against graphed in turns where a graph fits
+    g_cfg = dataclasses.replace(full, n_layers=POD_GRAPH_LAYERS)
+    g_api = build(g_cfg, "cuda")
+    run = _pod_run("dpsgd", optimizer="sgd", eta=0.05)
+    step_fn = ts.make_train_step(g_api, run, plan, constant_lr(run.eta))
+    graphed = GraphedStep(step_fn)
+    state = ts.init_train_state(g_api, run, torch.Generator(
+        device="cuda").manual_seed(2), n_nodes=POD_NODES)
+    batch = pod_batch(torch, g_cfg, 0, POD_NODES, POD_BATCH, POD_SEQ, "dpsgd")
+    torch.cuda.reset_peak_memory_stats()
+    graphed.prepare(state, batch)
+    times = {"eager": [], "graphed": []}
+    for i in range(2 * POD_PAIRS):
+        kind = ("eager", "graphed", "graphed", "eager")[i % 4]
+        fn = step_fn if kind == "eager" else graphed
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, m = fn(state, batch)
+        float(m["loss"])
+        times[kind].append((time.perf_counter() - t0) * 1e3)
+        del out, m
+    peak_g = torch.cuda.max_memory_allocated() / 2**30
+    tokens = POD_NODES * POD_BATCH * POD_SEQ
+    med = {k: statistics.median(v) for k, v in times.items()}
+    print(f"22 (b') {POD_GRAPH_LAYERS} layer, {plan.name}, SGD, in turns: "
+          f"eager {times['eager']} ms, graphed {times['graphed']} ms; "
+          f"medians {med['eager']:.2f} / {med['graphed']:.2f} ms a step "
+          f"({tokens / med['eager'] * 1e3:.0f} / "
+          f"{tokens / med['graphed'] * 1e3:.0f} tokens/s); peak "
+          f"{peak_g:.3f} GiB with the graph held")
+    result["b_graph"] = {"eager_ms": med["eager"],
+                         "graphed_ms": med["graphed"], "peak_gib": peak_g}
+    del graphed, step_fn, fn, state, batch, g_api
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the profile of (b)'s eager step at its cut
+    api = build(cut, "cuda")
+    state = ts.init_train_state(api, run_b, torch.Generator(
+        device="cuda").manual_seed(0), n_nodes=POD_NODES)
+    b["profile"] = pod_profile(
+        torch, ts.make_train_step(api, run_b, plan_b,
+                                  constant_lr(run_b.eta)), state,
+        pod_batch(torch, cut, 0, POD_NODES, POD_BATCH, POD_SEQ, "dpsgd"),
+        b["ms"], f"22 (b) ({plan_b.name})")
+    del state, api
+    gc.collect()
+    torch.cuda.empty_cache()
+    result["b"] = b
+
+    # (c) the smoke widths, card against CPU
+    smoke = reduce_for_smoke(full)
+    result["c"] = {}
+    sgd = dict(optimizer="sgd", eta=0.05)
+    for name, run in (
+            ("Mode A, AdamW", _pod_run("allreduce", eta=POD_LOCK_ETA)),
+            ("Mode B none, AdamW", _pod_run("dpsgd", eta=POD_LOCK_ETA)),
+            ("Mode B none, SGD", _pod_run("dpsgd", **sgd)),
+            ("Mode B bf16, SGD", _pod_run("dpsgd", compression="bf16",
+                                          **sgd)),
+            ("Mode B int8, SGD", _pod_run("dpsgd", compression="int8",
+                                          **sgd)),
+            ("Mode B microbatch 2, SGD", _pod_run("dpsgd", microbatch=2,
+                                                  **sgd))):
+        result["c"][name] = pod_lockstep(torch, name, run, smoke)
+    kw = dict(nodes=POD_NODES, tp=1, batch_per_node=POD_LOCK_BATCH,
+              seq_len=POD_LOCK_SEQ, log_every=1)
+    # the fault drill from one initial state (the card's and the host's
+    # generators draw different streams): a step-0 checkpoint both resume
+    run = _pod_run("dpsgd", **sgd)
+    with tempfile.TemporaryDirectory() as ck0:
+        save(ck0, 0, ts.init_train_state(
+            build(smoke, "cuda"), run,
+            torch.Generator(device="cuda").manual_seed(run.seed),
+            n_nodes=POD_NODES))
+        card = lt.train_loop(smoke, run, steps=5, ckpt_dir=ck0,
+                             ckpt_every=100, resume=True, fail_at=3,
+                             fail_node=2, device="cuda", **kw)
+        host = lt.train_loop(smoke, run, steps=5, ckpt_dir=ck0,
+                             ckpt_every=100, resume=True, fail_at=3,
+                             fail_node=2, device="cpu", **kw)
+    drill_d = max(abs(x["loss"] - y["loss"])
+                  for x, y in zip(card["log"], host["log"]))
+    print(f"22 (c) the fault drill (node 2 dies at step 3, SGD): card "
+          f"losses {[r['loss'] for r in card['log']]}, CPU "
+          f"{[r['loss'] for r in host['log']]}: max|diff| {drill_d:.3e} "
+          f"(tol {LOCK_TOL:g}, free-running)")
+    check(len(card["log"]) == 5 and drill_d <= LOCK_TOL,
+          f"22 (c) fault drill: card {card['log']}, CPU {host['log']}")
+    run = _pod_run("dpsgd", compression="int8")
+    with tempfile.TemporaryDirectory() as ck:
+        straight = lt.train_loop(smoke, run, steps=4, ckpt_dir=None,
+                                 device="cuda", **kw)
+        lt.train_loop(smoke, run, steps=2, ckpt_dir=ck, ckpt_every=2,
+                      device="cuda", **kw)
+        resumed = lt.train_loop(smoke, run, steps=4, ckpt_dir=ck,
+                                resume=True, device="cuda", **kw)
+    got = [r["loss"] for r in resumed["log"]]
+    want = [r["loss"] for r in straight["log"][2:]]
+    same = got == want
+    d = max(abs(x - y) for x, y in zip(got, want))
+    print(f"22 (c) checkpoint at step 2, resume=True: steps 3-4 losses {got}"
+          f" against the uninterrupted {want}: "
+          f"{'bit-equal' if same else f'max|diff| {d:.3e}'}")
+    check([r["step"] for r in resumed["log"]] == [3, 4] and d <= LOCK_TOL,
+          f"22 (c) resume: {resumed['log']} against {straight['log']}")
+    result["c"]["resume_bit_equal"] = same
+    result["c"]["fault_drill_diff"] = drill_d
+    # (c') the trainer where a graph fits: the smoke widths, Mode B with
+    # AdamW and the controller's plan, eager against graphed in turns
+    run = _pod_run("dpsgd")
+    times = {"eager": [], "graphed": []}
+    for i in range(2 * POD_PAIRS):
+        kind = ("eager", "graphed", "graphed", "eager")[i % 4]
+        out = lt.train_loop(smoke, run, steps=POD_WARM + POD_TIMED,
+                            ckpt_dir=None, device="cuda",
+                            graphed=kind == "graphed", **kw)
+        walls = [r["wall_s"] for r in out["log"]]
+        times[kind].append((walls[-1] - walls[POD_WARM - 1]) * 1e3
+                           / POD_TIMED)
+    med = {k: statistics.median(v) for k, v in times.items()}
+    print(f"22 (c') train_loop at the smoke widths ({POD_NODES} nodes x "
+          f"{POD_LOCK_BATCH} x {POD_LOCK_SEQ} tokens, AdamW), ms a step over "
+          f"the last {POD_TIMED} of {POD_WARM + POD_TIMED} (a loss read each "
+          f"step), in turns: eager {times['eager']}, graphed "
+          f"{times['graphed']}; medians {med['eager']:.3f} / "
+          f"{med['graphed']:.3f} ms (graphed / eager "
+          f"{med['graphed'] / med['eager']:.4f})")
+    result["c_graph"] = {"eager_ms": med["eager"],
+                         "graphed_ms": med["graphed"]}
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result
+
+
 def main() -> None:
     if not (SRC / "repro_torch").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
@@ -4162,6 +4828,13 @@ def main() -> None:
     torch.cuda.empty_cache()
     traced = run("21", phase_trace_scan, torch)
     kernels["gossip_mix"]["w256"] = traced["w256"]
+
+    # pod-mode training of qwen2-vl-2b: Mode A and Mode B steps, the
+    # trainer, checkpoints; flash at D 128 with GQA 6:1, the rows mix
+    torch.cuda.empty_cache()
+    pod = run("22", phase_pod_training, torch)
+    kernels["flash_attention"]["qwen2_vl_train"] = kernels.pop(
+        "flash_attention_qwen2_vl_train")
     rec_launches = {**trained_rec["recurrentgemma-2b"]["launches"],
                     **{k: v for k, v in
                        trained_rec["rwkv6-7b"]["launches"].items()
@@ -4222,7 +4895,9 @@ def main() -> None:
                 f"{TRAIN_ARCH} training (phase 16)":
                     trained["launches"]["flash_attention"],
                 "recurrentgemma-2b training (phase 18)":
-                    rec_launches["flash_attention"]}
+                    rec_launches["flash_attention"],
+                **{f"{POD_ARCH} pod training {k} (phase 22)":
+                   v["flash_attention"] for k, v in pod["launches"].items()}}
         if name in ("rglru_scan", "rwkv6_scan"):   # serving and training
             rows[-1]["launches_by_path"] = {
                 f"{SERVE_ARCH if name == 'rglru_scan' else RWKV_ARCH} "
@@ -4235,16 +4910,22 @@ def main() -> None:
             rows[-1]["launches_by_path"] = {
                 f"{TRAIN_ARCH} training (phase 16)": launches,
                 "recurrentgemma-2b training (phase 18)":
-                    rec_launches["flash_attention_bwd"]}
+                    rec_launches["flash_attention_bwd"],
+                **{f"{POD_ARCH} pod training {k} (phase 22)":
+                   v["flash_attention_bwd"]
+                   for k, v in pod["launches"].items()}}
         # flash's fp32 entry and its MLA / encoder-decoder shapes, rglru's
         # S = 1, the rows mix at W (256 x 256)
-        for extra in ("fp32", *NEW_FLASH_TIMED, "decode", "prefill", "w256"):
+        # qwen2-vl-2b's pod-training shape (forward and backward)
+        for extra in ("fp32", *NEW_FLASH_TIMED, "decode", "prefill", "w256",
+                      "qwen2_vl_train"):
             if extra in k:
                 rows[-1][extra] = {f: k[extra][f] for f in (
                     "ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
                     "bound_by", "shape")}
-                if "graph_ms" in k[extra]:
-                    rows[-1][extra]["graph_ms"] = k[extra]["graph_ms"]
+                for f in ("graph_ms", "library_device_ms", "library_fwd_ms"):
+                    if f in k[extra]:
+                        rows[-1][extra][f] = k[extra][f]
         if "library_fwd_ms" in k:         # the backward's library: SDPA's
             rows[-1]["library_fwd_ms"] = k["library_fwd_ms"]
             rows[-1]["library_device_ms"] = k["library_device_ms"]
@@ -4252,7 +4933,9 @@ def main() -> None:
     mix_row["launches_by_path"] = {
         "the paper run (phase 4)": mix_row["launches"],
         f"train-on-trace at n = {TRACE_TRAIN_N} (phase 21 (c))":
-            traced["launches_c_mix"]}
+            traced["launches_c_mix"],
+        **{f"{POD_ARCH} pod training {k} (phase 22)": v["gossip_mix"]
+           for k, v in pod["launches"].items()}}
     k = traced["trace_scan"]
     rows.append({
         "name": "trace_scan", "route": "cuda",

@@ -66,7 +66,7 @@ __all__ = ["DPSGDConfig", "replicate", "mix", "dpsgd_step", "make_dpsgd_step",
            "dpsgd_masked_step", "make_dpsgd_masked_step",
            "dpsgd_masked_compressed_step",
            "make_dpsgd_compressed_step", "embed_w", "zero_residuals",
-           "node_axis_size"]
+           "node_axis_size", "receive_exact_self"]
 
 PyTree = Any
 
@@ -377,6 +377,17 @@ def _mix_compressed(
     return _mix_compressed_message(node_params, residuals, w, live, quant)
 
 
+def receive_exact_self(w: torch.Tensor, flat: torch.Tensor,
+                       deq: torch.Tensor) -> torch.Tensor:
+    """``diag(W) * flat + W_off @ deq`` for (n, L) fp32 buffers: one
+    ``gossip_mix_rows`` launch with ``W_cat = [diag(diag(W)) | W_off]``
+    (n, 2n) over the stacked ``[flat; deq]`` (2n, L), the self term exact,
+    the neighbor terms the received payloads."""
+    diag = torch.diag(torch.diagonal(w))
+    return gossip_mix_rows(torch.cat([diag, w - diag], dim=1),
+                           torch.cat([flat, deq], dim=0))
+
+
 def _compress_and_mix(flat: torch.Tensor, res: torch.Tensor,
                       w: torch.Tensor, live: torch.Tensor,
                       quant) -> tuple[torch.Tensor, torch.Tensor]:
@@ -387,11 +398,8 @@ def _compress_and_mix(flat: torch.Tensor, res: torch.Tensor,
     if quant.mode != "bf16":
         raise ValueError(f"unknown compression mode {quant.mode!r}")
     carried = flat + res if quant.error_feedback else flat
-    diag = torch.diagonal(w)
-    off = w - torch.diag(diag)
     deq = carried.to(torch.bfloat16).to(torch.float32)
-    mixed = gossip_mix_rows(torch.cat([torch.diag(diag), off], dim=1),
-                            torch.cat([flat, deq], dim=0))
+    mixed = receive_exact_self(w, flat, deq)
     new_res = carried - deq if quant.error_feedback else res
     new_res = torch.where(live[:, None], new_res,
                           torch.zeros((), dtype=new_res.dtype,

@@ -1,0 +1,263 @@
+"""End-to-end pod-mode trainer on one device.
+
+The torch counterpart of ``repro.launch.train``: the density controller
+picks the gossip plan (Eq. 8), then Mode A (``--mode allreduce``) or Mode B
+(``--mode dpsgd``, every node's state on a leading node axis) trains on
+deterministic token batches, with checkpoints, resume and a fault drill.
+
+Examples:
+  # D-PSGD LM training, 4 nodes on the card:
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-vl-2b \\
+      --smoke --nodes 4 --steps 100 --lambda-target 0.8
+
+  # on the CPU:
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu --smoke
+
+  # fully-synchronized baseline (Mode A):
+  ... --mode allreduce
+
+  # fault-tolerance drill: kill node 2 at step 40, elastic-restart:
+  ... --fail-at 40 --fail-node 2
+
+  # Mode A at full width on the card, the step eager (no CUDA graph):
+  ... --arch qwen2-vl-2b --mode allreduce --seq-len 512 --eager
+
+Checkpoints land in --ckpt-dir every --ckpt-every steps (atomic, digest
+verified, the JAX package's format); restart resumes from the latest
+complete step and the SAME data stream position (deterministic batches).
+
+The world is one process on one device: the node axis stays whole on it,
+as the reference's sharding policy keeps an undivided node axis
+unsharded. Tensor parallelism (``--tp`` > 1) and a ``torch.distributed``
+world of more than one process wait for ROADMAP Queue 1 item 5. On the
+card the step is a ``graphs.GraphedStep`` (the counterpart of ``jax.jit``;
+staging its inputs lets the loop drop its own copy of the state, the
+counterpart of ``donate_argnums``) unless ``graphed=False`` (``--eager``)
+asks for the eager step: a graph keeps its static inputs, its pool and the
+fresh outputs, three copies of the state, which a full-width state may not
+fit.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from typing import Callable
+
+import numpy as np
+import torch
+
+from ..checkpoint import CheckpointManager
+from ..checkpoint.ckpt import reshape_nodes
+from ..configs import RunConfig, get_config, reduce_for_smoke
+from ..core.density_controller import choose_plan
+from ..core.dpsgd import _leaves, _tree_map
+from ..data.pipeline import deterministic_lm_batch
+from ..device import resolve_device
+from ..graphs import GraphedStep
+from ..models import build
+from ..models.layers import torch_dtype
+from ..optim.schedule import constant_lr
+from ..runtime.fault import ElasticController
+from ..train.step import (init_train_state, make_train_step,
+                          reshape_batch_for_nodes)
+
+__all__ = ["main", "train_loop", "param_bytes", "stub_embeds"]
+
+DISTRIBUTED_ITEM = "ROADMAP Queue 1 item 5"
+
+
+def _mesh(nodes: int, tp: int) -> None:
+    """The reference's (data, model) mesh: here one process on one device,
+    the node axis whole on it."""
+    if tp > 1:
+        raise NotImplementedError(
+            f"tp={tp}: tensor parallelism over several devices is not "
+            f"ported ({DISTRIBUTED_ITEM}); the port runs every node on one "
+            "device")
+    if torch.distributed.is_available() and \
+            torch.distributed.is_initialized() and \
+            torch.distributed.get_world_size() > 1:
+        raise NotImplementedError(
+            f"a torch.distributed world of "
+            f"{torch.distributed.get_world_size()} processes: the "
+            f"distributed half of pod mode is not ported ({DISTRIBUTED_ITEM})")
+    if nodes < 1:
+        raise ValueError(f"nodes must be >= 1, got {nodes}")
+
+
+def param_bytes(cfg) -> int:
+    """Bytes of one replica's parameters, counted from their shapes
+    without drawing a weight (fake tensors)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode():
+        leaves = _leaves(build(cfg, "cpu").init(torch.Generator()))
+        return sum(x.numel() * x.element_size() for x in leaves)
+
+
+def stub_embeds(seed: int, k: int, shape: tuple, dtype: torch.dtype,
+                device: torch.device) -> torch.Tensor:
+    """The vision / audio stubs' embeddings of step ``k``: normal draws
+    from a host ``torch.Generator`` seeded by (seed, k), so every device
+    trains on the same batch, as the token batches (the reference draws
+    them from ``jax.random``; the streams differ)."""
+    mixed = int(np.random.SeedSequence([seed, k]).generate_state(1)[0])
+    gen = torch.Generator().manual_seed(mixed)
+    return torch.randn(shape, generator=gen).to(device=device, dtype=dtype)
+
+
+def _batch(cfg, run: RunConfig, k: int, global_batch: int, seq_len: int,
+           device: torch.device) -> dict:
+    host = deterministic_lm_batch(k, global_batch, seq_len, cfg.vocab_size,
+                                  seed=run.seed)
+    batch = {kk: torch.from_numpy(v).to(device) for kk, v in host.items()}
+    dt = torch_dtype(cfg.dtype)
+    if cfg.frontend == "vision":
+        batch["patch_embeds"] = stub_embeds(
+            run.seed, k, (global_batch, cfg.n_patches, cfg.d_model), dt,
+            device)
+    if cfg.is_encdec:
+        half = seq_len // 2
+        batch = {"tokens": batch["tokens"][:, :half],
+                 "src_embeds": stub_embeds(
+                     run.seed, k, (global_batch, half, cfg.d_model), dt,
+                     device)}
+    return batch
+
+
+def train_loop(cfg, run: RunConfig, *, nodes: int, tp: int, steps: int,
+               batch_per_node: int, seq_len: int, ckpt_dir: str | None,
+               ckpt_every: int = 50, fail_at: int = -1, fail_node: int = 0,
+               log_every: int = 10, resume: bool = False,
+               clock: Callable[[], float] | None = None,
+               device: str | torch.device = "cuda",
+               graphed: bool = True) -> dict:
+    # injectable wall timer (runtime/fault.py pattern): the logged `wall_s`
+    # column is deterministic when a test stubs `clock`
+    clock = clock or time.perf_counter
+    _mesh(nodes, tp)
+    if cfg.frontend == "vision" and seq_len <= cfg.n_patches:
+        raise ValueError(
+            f"seq_len {seq_len} must exceed the vision stub's {cfg.n_patches}"
+            " patch positions (the first n_patches positions take the patch "
+            "embeddings; the loss needs token positions after them)")
+    dev = resolve_device(device)
+    api = build(cfg, dev)
+    global_batch = batch_per_node * nodes
+
+    # --- Eq. 8: density controller picks the gossip plan -------------------
+    pbytes = param_bytes(cfg)
+    plan = None
+    if run.mode == "dpsgd":
+        choice = choose_plan(("data",), (nodes,), run.lambda_target,
+                             bytes_per_rank=pbytes / tp, eta=run.eta)
+        plan = choice.plan
+        print(f"[plan] {choice}", flush=True)
+
+    step_fn = make_train_step(api, run, plan, constant_lr(run.eta))
+    state = init_train_state(
+        api, run, torch.Generator(device=dev).manual_seed(run.seed),
+        n_nodes=nodes)
+
+    mgr = CheckpointManager(ckpt_dir) if ckpt_dir else None
+    start = 0
+    if resume and mgr:
+        try:
+            state, start = mgr.restore_latest(state)
+            print(f"[resume] step {start}", flush=True)
+        except FileNotFoundError:
+            pass
+
+    elastic = ElasticController(nodes, run.lambda_target, mode="pod",
+                                axis_names=("data",),
+                                bytes_per_rank=pbytes / tp)
+
+    graph_step = GraphedStep(step_fn) if graphed else None
+    metrics_log: list[dict] = []
+    t_wall = clock()
+
+    k = start
+    while k < steps:
+        batch = _batch(cfg, run, k, global_batch, seq_len, dev)
+        if run.mode == "dpsgd":
+            batch = reshape_batch_for_nodes(batch, nodes)
+        if graph_step is not None:
+            # the graph's static inputs hold the state: drop ours first
+            replay = graph_step.stage(state, batch)
+            del state
+            state, metrics = replay()
+        else:
+            state, metrics = step_fn(state, batch)
+        k += 1
+
+        if fail_at == k and run.mode == "dpsgd":
+            print(f"[fault] node {fail_node} dies at step {k}", flush=True)
+            elastic.fail(k, [fail_node])
+            state_host = _tree_map(lambda x: x.cpu(), state)
+            del state
+            survivors = elastic.survivors()
+            state_host = reshape_nodes(state_host, survivors, nodes)
+            new_plan = elastic.replan()
+            print(f"[fault] replanned: {new_plan}", flush=True)
+            state = _tree_map(lambda x: x.to(dev), state_host)
+            del state_host
+
+        if k % log_every == 0 or k == steps:
+            loss = float(metrics["loss"])
+            dt = clock() - t_wall
+            metrics_log.append({"step": k, "loss": loss, "wall_s": dt})
+            print(f"step {k:5d} loss {loss:.4f} wall {dt:7.1f}s", flush=True)
+        if mgr and k % ckpt_every == 0:
+            mgr.save(k, state)
+    if mgr:
+        mgr.wait()
+    return {"final_loss": metrics_log[-1]["loss"] if metrics_log else None,
+            "log": metrics_log}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--arch", default="qwen2-vl-2b")
+    ap.add_argument("--smoke", action="store_true",
+                    help="reduced same-family config (CPU-trainable)")
+    ap.add_argument("--nodes", type=int, default=4)
+    ap.add_argument("--tp", type=int, default=1)
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch-per-node", type=int, default=4)
+    ap.add_argument("--seq-len", type=int, default=128)
+    ap.add_argument("--mode", choices=["dpsgd", "allreduce"], default="dpsgd")
+    ap.add_argument("--lambda-target", type=float, default=0.8)
+    ap.add_argument("--eta", type=float, default=0.01)
+    ap.add_argument("--optimizer", default="adamw")
+    ap.add_argument("--compression", default="none",
+                    choices=["none", "bf16", "int8"])
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--fail-at", type=int, default=-1)
+    ap.add_argument("--fail-node", type=int, default=0)
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--eager", action="store_true",
+                    help="run the step eagerly, not as a CUDA graph (a "
+                         "graph holds three copies of the state: "
+                         "qwen2-vl-2b's full-width state does not fit)")
+    args = ap.parse_args(argv)
+
+    cfg = get_config(args.arch)
+    if args.smoke:
+        cfg = reduce_for_smoke(cfg)
+    run = RunConfig(mode=args.mode, lambda_target=args.lambda_target,
+                    eta=args.eta, optimizer=args.optimizer,
+                    compression=args.compression, remat="none")
+    out = train_loop(cfg, run, nodes=args.nodes, tp=args.tp, steps=args.steps,
+                     batch_per_node=args.batch_per_node, seq_len=args.seq_len,
+                     ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
+                     fail_at=args.fail_at, fail_node=args.fail_node,
+                     resume=args.resume, device=args.device,
+                     graphed=not args.eager)
+    print(f"final loss: {out['final_loss']}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -12,8 +12,9 @@ MoE, and cross attention in the encoder-decoder's decoder layers
 * tail = remainder layers (recurrentgemma's 26 = 8x(R,R,A) + R,R).
 
 The JAX package's ``lax.scan`` over the unit becomes a Python loop over
-``repeats`` that indexes the stacked params and caches and restacks the
-new caches in the same layout. Every layer is pre-norm residual:
+``repeats`` over the stacked params unbound once (their gradient is one
+stack; a slice taken a layer would cost a stack-sized gradient a layer)
+and the caches indexed, restacking the new caches in the same layout. Every layer is pre-norm residual:
 x += mixer(norm1(x)); [x += cross(norm_cross(x))]; x += mlp(norm2(x)).
 RWKV layers use (time-mix, channel-mix) as (mixer, mlp) and have no
 ``mlp`` of their own.
@@ -79,6 +80,20 @@ def _tree_map(fn, tree):
 
 def _tree_index(tree, i: int):
     return _tree_map(lambda t: t[i], tree)
+
+
+def _tree_unbind(tree, n: int) -> list:
+    """The ``n`` trees along the leading axis of every leaf, by one
+    ``unbind`` a leaf: its gradient is one stack of the slices' gradients,
+    where indexing each slice would add a stack-sized tensor a slice
+    (quadratic in the depth)."""
+    if isinstance(tree, dict):
+        parts = {k: _tree_unbind(v, n) for k, v in tree.items()}
+        return [{k: parts[k][i] for k in tree} for i in range(n)]
+    if isinstance(tree, (list, tuple)):
+        parts = [_tree_unbind(v, n) for v in tree]
+        return [type(tree)(p[i] for p in parts) for i in range(n)]
+    return list(torch.unbind(tree, 0))
 
 
 def _tree_stack(trees: list):
@@ -333,13 +348,13 @@ def _run_stack(cfg: ModelConfig, params: PyTree, x: torch.Tensor, *,
 
     if repeats > 0:
         unit_kinds = [kinds[pro + j] for j in range(u)]
+        unit = [_tree_unbind(params["unit"][j], repeats) for j in range(u)]
         outs: list[list] = [[] for _ in range(u)]
         for rep in range(repeats):
             for j in range(u):
                 cache_j = (_tree_index(caches["unit"][j], rep) if caches
                            else None)
-                x, nc = run_layer(_tree_index(params["unit"][j], rep), x,
-                                  unit_kinds[j], cache_j)
+                x, nc = run_layer(unit[j][rep], x, unit_kinds[j], cache_j)
                 outs[j].append(nc)
         if want_cache:
             new_caches["unit"] = [_tree_stack(o) for o in outs]

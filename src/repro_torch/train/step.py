@@ -1,0 +1,282 @@
+"""Train-step builders — the paper's technique at pod scale, on one device.
+
+The torch counterpart of ``repro.train.step``.
+
+Mode A ``allreduce``: fully-synchronized data parallelism (the paper's
+baseline, W = 11^T/n): one replica, ``grad_and_value`` of the model's loss
+over the global batch.
+
+Mode B ``dpsgd``: every node owns its own parameters — all state trees carry
+a leading **node axis** — and one step is Eq. 5:
+
+    X_{k+1} = W X_k - eta * stack_i(grad F_i(x_{k,i}; xi_i))
+
+with the gradients of all nodes in one ``torch.func.vmap`` over the node
+axis. The reference realises ``W X`` by rolls over the node-sharded axis
+(``roll_from_neighbor``, kept here and tested bit-equal); with the node axis
+whole on one device the mix is the rows-mix kernel over the plan's W
+(``core.dpsgd.mix(params, plan_w(plan))``, one launch per buffer group),
+the same sum the rolls make. The ``allreduce`` plan is the node mean,
+broadcast. Compressed gossip (bf16 / int8 messages with error feedback)
+quantizes each leaf as the reference does (int8: one scale per last-dim
+row) and receives each buffer group in one rows-mix launch over
+``[x; deq]`` with ``W_cat = [diag(diag W) | W_off]``: the self term exact,
+the neighbours the rounded payloads.
+
+The returned step is a plain function, as the reference's; the caller
+makes it a ``graphs.GraphedStep`` (the counterpart of ``jax.jit``) where it
+fits, as ``launch.train`` does.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Optional
+
+import torch
+
+from ..configs.base import RunConfig
+from ..core import dpsgd
+from ..core.gossip import GossipPlan, GossipRound, plan_w
+from ..models.api import ModelAPI
+from ..optim import make_optimizer
+
+PyTree = Any
+
+__all__ = ["roll_from_neighbor", "mix_params", "make_train_step",
+           "init_train_state", "reshape_batch_for_nodes", "REMAT_ITEM"]
+
+# activation checkpointing under torch.func waits for this ROADMAP item
+REMAT_ITEM = "ROADMAP Queue 1 item 8"
+
+
+# ---------------------------------------------------------------------------
+# Gossip over the leading node axis
+# ---------------------------------------------------------------------------
+
+def roll_from_neighbor(x: torch.Tensor, plan: GossipPlan,
+                       r: GossipRound) -> torch.Tensor:
+    """Value each node receives in round ``r``: out[i] = x[src_r(i)]."""
+    n = plan.n_nodes
+    if r.kind == "shift":
+        return torch.roll(x, r.arg[0], dims=0)
+    if r.kind == "axshift":
+        axis, s = r.arg
+        xr = x.reshape(*plan.node_shape, *x.shape[1:])
+        return torch.roll(xr, s, dims=axis).reshape(x.shape)
+    if r.kind == "xor":
+        lo = 1 << r.arg[0]
+        xr = x.reshape(n // (2 * lo), 2, lo, *x.shape[1:])
+        return torch.flip(xr, dims=(1,)).reshape(x.shape)
+    raise ValueError(r.kind)
+
+
+def _node_mean(x: torch.Tensor) -> torch.Tensor:
+    return torch.mean(x, dim=0, keepdim=True).expand(x.shape)
+
+
+def _quantize_rowwise_int8(x: torch.Tensor
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One fp32 scale per last-dim row: scale = max|x| / 127 (0 -> 1),
+    q = clip(round(x / scale), ±127). Divided by tensors (bit-equal to
+    IEEE division on the card too)."""
+    amax = torch.amax(torch.abs(x), dim=-1, keepdim=True)
+    scale = amax / torch.full_like(amax, 127.0)
+    scale = torch.where(scale == 0, torch.ones_like(scale), scale)
+    q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def _message(carried: torch.Tensor, mode: str) -> torch.Tensor:
+    """The payload a node sends, dequantized to fp32."""
+    if mode == "bf16":
+        return carried.to(torch.bfloat16).to(torch.float32)
+    if mode == "int8":
+        q, scale = _quantize_rowwise_int8(carried)
+        return q.to(torch.float32) * scale
+    raise ValueError(mode)
+
+
+def _plan_w(plan: GossipPlan, device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(plan_w(plan), dtype=torch.float32, device=device)
+
+
+def _mix_compressed(params: PyTree, residuals: PyTree, w: torch.Tensor,
+                    mode: str) -> tuple[PyTree, PyTree]:
+    """Error-feedback compressed gossip over every leaf.
+
+    message m_i = Q(x_i + e_i);  e_i' = (x_i + e_i) - m_i
+    x_i' = W_ii x_i + sum_j W_ij m_j   (self exact, neighbours compressed).
+
+    Leaves of a dtype go in the buffer groups of ``dpsgd.mix``; each group
+    is received by one rows-mix launch (``dpsgd.receive_exact_self``)."""
+    leaves = dpsgd._leaves(params)
+    res_leaves = dpsgd._leaves(residuals)
+    n = leaves[0].shape[0]
+    out: list = [None] * len(leaves)
+    res_out: list = [None] * len(leaves)
+    for dtype in dict.fromkeys(p.dtype for p in leaves):
+        idx = [i for i, p in enumerate(leaves) if p.dtype == dtype]
+        for group in dpsgd.mix_groups([leaves[i][0].numel() for i in idx]):
+            members = [idx[j] for j in group]
+            x32, deq = [], []
+            for i in members:
+                x = leaves[i].reshape(n, -1).to(torch.float32)
+                carried = x + res_leaves[i].reshape(n, -1).to(torch.float32)
+                d = _message(carried.reshape(leaves[i].shape), mode)
+                d = d.reshape(n, -1)
+                res_out[i] = (carried - d).reshape(leaves[i].shape).to(
+                    res_leaves[i].dtype)
+                x32.append(x)
+                deq.append(d)
+            mixed = dpsgd.receive_exact_self(w, _cat_lanes(x32),
+                                             _cat_lanes(deq))
+            offset = 0
+            for i in members:
+                size = leaves[i][0].numel()
+                out[i] = mixed[:, offset:offset + size].reshape(
+                    leaves[i].shape).to(leaves[i].dtype)
+                offset += size
+    return dpsgd._unflatten(params, out), dpsgd._unflatten(params, res_out)
+
+
+def _cat_lanes(rows: list) -> torch.Tensor:
+    return rows[0] if len(rows) == 1 else torch.cat(rows, dim=1)
+
+
+def mix_params(params: PyTree, residuals: Optional[PyTree],
+               plan: GossipPlan, run: RunConfig,
+               w: Optional[torch.Tensor] = None
+               ) -> tuple[PyTree, Optional[PyTree]]:
+    """Mix every node-stacked leaf by the plan: the node mean for an
+    ``allreduce`` plan, else the rows-mix kernel over ``plan_w(plan)``
+    (uncompressed) or the error-feedback compressed receive; residuals
+    pass through untouched when nothing is compressed. ``w`` is the plan's
+    W as an fp32 tensor on the parameters' device; a step of
+    ``make_train_step`` passes one made before any CUDA graph capture (a
+    host-to-device copy cannot be captured), None makes it here."""
+    if plan.kind == "allreduce":
+        return dpsgd._tree_map(_node_mean, params), residuals
+    if w is None:
+        w = _plan_w(plan, dpsgd._leaves(params)[0].device)
+    if run.compression == "none":
+        return dpsgd.mix(params, w), residuals
+    return _mix_compressed(params, residuals, w, run.compression)
+
+
+# ---------------------------------------------------------------------------
+# Step builders
+# ---------------------------------------------------------------------------
+
+def reshape_batch_for_nodes(batch: PyTree, n_nodes: int) -> PyTree:
+    """(B, ...) -> (n_nodes, B/n_nodes, ...) on every batch leaf."""
+    return dpsgd._tree_map(
+        lambda x: x.reshape(n_nodes, x.shape[0] // n_nodes, *x.shape[1:]),
+        batch)
+
+
+def _grads_fn(api: ModelAPI, run: RunConfig) -> Callable:
+    """(params, batch) -> (grads, loss), with optional microbatch gradient
+    accumulation in the reference's order (fp32 zeros, ``acc + l``,
+    ``acc_g + g`` chunk by chunk, then ``/ mb``)."""
+    value_and_grad = torch.func.grad_and_value(api.loss)
+    if not (run.microbatch and run.microbatch > 1):
+        return value_and_grad
+    mb = run.microbatch
+
+    def gfn(params, batch):
+        split = dpsgd._tree_map(
+            lambda x: x.reshape(mb, x.shape[0] // mb, *x.shape[1:]), batch)
+        device = dpsgd._leaves(params)[0].device
+        acc_l = torch.zeros((), dtype=torch.float32, device=device)
+        acc_g = dpsgd._tree_map(
+            lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                  device=device), params)
+        for i in range(mb):
+            g, l = value_and_grad(params,
+                                  dpsgd._tree_map(lambda x: x[i], split))
+            acc_l = acc_l + l
+            acc_g = dpsgd._tree_map(torch.add, acc_g, g)
+        div = torch.full((), mb, dtype=torch.float32, device=device)
+        return dpsgd._tree_map(lambda x: x / div, acc_g), acc_l / div
+    return gfn
+
+
+def make_train_step(api: ModelAPI, run: RunConfig,
+                    plan: Optional[GossipPlan], lr_fn: Callable,
+                    node_axes: Optional[tuple] = None) -> Callable:
+    """Returns ``step(state, batch) -> (state, metrics)``.
+
+    Mode A: state["params"] is a plain tree; batch (B, ...).
+    Mode B: state trees carry the leading node axis; batch (n, B/n, ...).
+    ``node_axes`` names the mesh axes of the node dim in the reference (its
+    vmap's ``spmd_axis_name``); on one device it changes nothing.
+    """
+    del node_axes
+    if run.remat != "none":
+        raise NotImplementedError(
+            f"remat={run.remat!r}: activation checkpointing under "
+            f"torch.func is not ported ({REMAT_ITEM}); pass remat='none'")
+    opt = make_optimizer(run.optimizer, momentum=run.momentum,
+                         weight_decay=run.weight_decay)
+    gfn = _grads_fn(api, run)
+
+    if run.mode == "allreduce":
+        def step(state, batch):
+            lr = lr_fn(state["step"])
+            grads, loss = gfn(state["params"], batch)
+            new_params, new_opt = opt.update(grads, state["opt"],
+                                             state["params"], lr)
+            return {**state, "params": new_params, "opt": new_opt,
+                    "step": state["step"] + 1}, {"loss": loss}
+        return step
+
+    if run.mode == "dpsgd":
+        if plan is None:
+            raise ValueError("Mode B (dpsgd) needs a gossip plan")
+        vgfn = torch.func.vmap(gfn)
+        # the plan's W on each device, made on the step's first (eager)
+        # run: a CUDA graph's capture follows its warm-up runs
+        w_on: dict = {}
+
+        def step(state, batch):
+            lr = lr_fn(state["step"])
+            grads, losses = vgfn(state["params"], batch)
+            device = state["step"].device
+            if device not in w_on:
+                w_on[device] = _plan_w(plan, device)
+            # Eq. 5: gradients at X_k, mixing of X_k, then the local update
+            mixed, new_res = mix_params(state["params"],
+                                        state.get("residual"), plan, run,
+                                        w_on[device])
+            new_params, new_opt = opt.update(grads, state["opt"], mixed, lr)
+            out = {**state, "params": new_params, "opt": new_opt,
+                   "step": state["step"] + 1}
+            if new_res is not None:
+                out["residual"] = new_res
+            return out, {"loss": losses.mean()}
+        return step
+
+    raise ValueError(run.mode)
+
+
+def init_train_state(api: ModelAPI, run: RunConfig, gen: torch.Generator,
+                     n_nodes: int = 1) -> PyTree:
+    """The initial state: parameters drawn from ``gen`` (on the API's
+    device), the optimizer's state, ``step`` a 0-d int32 tensor, and in
+    Mode B every leaf replicated over ``n_nodes`` with the error-feedback
+    residual (zeros of the parameters' dtype) iff compression is on."""
+    opt = make_optimizer(run.optimizer, momentum=run.momentum,
+                         weight_decay=run.weight_decay)
+    params = api.init(gen)
+    device = dpsgd._leaves(params)[0].device
+    state: dict = {"step": torch.zeros((), dtype=torch.int32, device=device)}
+    if run.mode == "dpsgd":
+        params = dpsgd.replicate(params, n_nodes)
+        state["params"] = params
+        state["opt"] = opt.init(params)
+        if run.compression != "none":
+            # error-feedback residual, one per node per leaf (paper ref [6])
+            state["residual"] = dpsgd._tree_map(torch.zeros_like, params)
+    else:
+        state["params"] = params
+        state["opt"] = opt.init(params)
+    return state

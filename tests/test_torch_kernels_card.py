@@ -912,6 +912,43 @@ def test_flash_attention_bwd_kernel_matches_plain(sm90, b, s, t, hq, hkv, d,
 
 
 @pytest.mark.cuda
+def test_flash_attention_at_qwen2_vl_training_shape(sm90):
+    """Pod-mode training of qwen2-vl-2b (4 nodes x batch 4 folded into B,
+    S 512, 12 q heads on 2 kv heads of 128, bf16, causal): the forward
+    with lse and the backward (the (128, 8) wgmma instance, D split over
+    the consumer warpgroups) against their plain versions at the bars
+    above (the gradients: 3e-2 or one bf16 ulp, see below; every row
+    2^-6), one launch each."""
+    b, s, hq, hkv, d = 16, 512, 12, 2, 128
+    q, k, v, do = _bwd_inputs(b, s, s, hq, hkv, d, torch.bfloat16, sm90, 27)
+    before = (fa.flash_attention.launches, fa.flash_attention_bwd.launches)
+    o, lse = fa._forward(q, k, v, True, 0, True)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention.launches, fa.flash_attention_bwd.launches) \
+        == (before[0] + 1, before[1] + 1)
+    o_p, lse_p = fa.flash_attention_plain(q, k, v, causal=True,
+                                          return_lse=True)
+    assert _err(o, o_p) < 3e-2 and _row_err(o, o_p) <= 2.0 ** -6
+    assert _err(lse, lse_p) < 1e-5
+    want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=True,
+                                        acc_dtype=torch.float64)
+    for name, g_, w_ in zip(("dq", "dk", "dv"), got, want):
+        assert g_.shape == w_.shape and g_.dtype == torch.bfloat16
+        # GQA 6:1 sums 6 heads' 512 queries into a key's dk and dv, which
+        # reach |x| of 4 to 13: there one bf16 ulp (2^-5 and up) exceeds
+        # 3e-2, and an fp32 sum near a rounding midpoint lands one ulp from
+        # the float64 oracle's rounding (0.03125 on dv on an H100).
+        # Each element within 3e-2 or one ulp of its value, the larger.
+        w64 = w_.double()
+        ulp = torch.exp2(torch.floor(torch.log2(
+            w64.abs().clamp_min(2.0 ** -126))) - 7)
+        assert bool(((g_.double() - w64).abs() <= ulp.clamp(min=3e-2)).all())
+        first = 1 if name == "dq" else 0
+        assert _row_err(g_[:, first:], w_[:, first:]) <= 2.0 ** -6
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("b,s,t,hq,hkv,d,causal,window",
                          [_BWD_SHAPES[i] for i in (0, 5, 7, 11, 14, 15, 16)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

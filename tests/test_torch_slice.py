@@ -152,6 +152,15 @@ def test_slice_runs_without_jax_or_repro_loaded():
         "tr = jit_trace.precompute_trace_scan('fading', 2, device='cpu', "
         "**{'fading.shadowing_sigma_db': 0.0})\n"
         "assert tr.w_eff.shape == (2, 6, 6), tr.w_eff.shape\n"
+        "import repro_torch.train\n"
+        "from repro_torch.configs import RunConfig, get_config, "
+        "reduce_for_smoke\n"
+        "from repro_torch.launch import train as launch_train\n"
+        "pod = launch_train.train_loop(reduce_for_smoke(get_config("
+        "'stablelm-3b')), RunConfig(remat='none', compression='int8'), "
+        "nodes=2, tp=1, steps=1, batch_per_node=1, seq_len=8, "
+        "ckpt_dir=None, device='cpu')\n"
+        "assert np.isfinite(pod['final_loss']), pod\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"
