@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch / H100 port (``src/repro_torch``).
 
-Drives the port's eleven paths on one NVIDIA Hopper card, through the
+Drives the port's twelve paths on one NVIDIA Hopper card, through the
 entry points a user calls:
 
 * the paper's wireless D-PSGD run: Eq. 2 capacities, Algorithm 2 rates at
@@ -65,7 +65,12 @@ entry points a user calls:
   tied embeddings, a 256-position vision stub): Mode A at full depth,
   Mode B on 4 nodes cut to 4 layers, every attention's forward and
   backward in the flash kernels at D 128 with GQA 6:1, Mode B's gossip
-  mix in the rows-mix kernel.
+  mix in the rows-mix kernel;
+* activation checkpointing (``RunConfig.remat`` "full" and "dots",
+  ``models.remat``) through the same train step: every family's step at
+  the smoke widths under each policy, and qwen2-vl-2b's full-depth Mode A
+  step with its whole 16 x 512 batch in one microbatch, each checkpointed
+  unit's kernels launched again in its recompute.
 
 Phases, each of which ends the run with a nonzero exit if it fails:
 
@@ -299,7 +304,27 @@ Phases, each of which ends the run with a nonzero exit if it fails:
               uninterrupted losses (bit-equality printed); (c')
               ``train_loop`` at the smoke widths eager against graphed
               in turns (ms a step, where a graph fits); phase 3e
-              times flash's forward and backward at this shape.
+              times flash's forward and backward at this shape;
+23. activation checkpointing — (a) one Mode A step (SGD) per remat
+              policy from one state at the smoke widths for qwen2-vl-2b,
+              gemma3-12b, recurrentgemma-2b, rwkv6-7b, deepseek-v2-lite-16b
+              and seamless-m4t-large-v2 (3 layers where the smoke config
+              has fewer), and a Mode B ring-1 step of qwen2-vl-2b under
+              vmap: full and dots against none (losses 1e-4, parameters
+              1e-5), the launch counters exactly none's with, under
+              full, every forward kernel call of a checkpointed unit made
+              once more (the recompute) and the backward kernels
+              unchanged; (b) qwen2-vl-2b at full depth and width, Mode A,
+              AdamW, 16 x 512 tokens: full against none at 4
+              microbatches, one step from one state (losses 1e-4,
+              parameters 1e-5 or, where the two AdamW steps split, 1e-5
+              of their difference), then none at 4 microbatches, full at
+              1 and dots at ``REMAT_MICROBATCH["dots"]`` in turns: ms a
+              step, tokens/s, peak memory, launches a step, one step's
+              CUDA-event and profiler times, idle share and largest
+              device operations; (c) Mode B at 4 layers (the
+              controller's plan), none against full in turns, ms a step
+              and peak memory.
 
 Each phase prints its wall time. The last lines are the card's
 ``nvidia-smi`` name and power limit, one JSON line with every kernel's
@@ -317,7 +342,9 @@ plain version's over the first 2 rounds, beside the kernel's
 ``ms_held_rounds``, its ``long_traces`` phase 21 (a)'s stablelm-3b cut,
 its ``decide_check`` the decision check's counts; flash's and its
 backward's ``qwen2_vl_train`` time phase 22's shape and their
-``launches_by_path`` and gossip_mix's add phase 22's runs), and ``{"ok": true,
+``launches_by_path`` and gossip_mix's add phase 22's runs; flash's, the
+scans' and their backwards' ``launches_by_path`` add phase 23's steps),
+and ``{"ok": true,
 "device": ...}``. The smoke sets
 ``PYTORCH_CUDA_ALLOC_CONF=expandable_segments:True`` unless the caller set
 it.
@@ -513,6 +540,22 @@ POD_PEAK_GIB = {"a": (62.0, 72.0), "b": (45.0, 66.0)}
 # flash at qwen2-vl's training shape: 4 nodes x batch 4 folded into B,
 # 12 q heads on 2 kv heads of 128, causal (phase 3e)
 QWEN_BWD = (POD_NODES * POD_BATCH, POD_SEQ, POD_SEQ, 12, 2, 128, True, 0)
+
+# activation checkpointing (phase 23): (a) one Mode A step per remat
+# policy from one state for a family of each kind at the smoke widths
+# (qwen2-vl-2b, rwkv6-7b and deepseek-v2-lite-16b deepened to 3 layers, as
+# tests/test_torch_remat.py, so that several units are checkpointed), SGD
+# so that the parameters carry the gradients' differences unamplified;
+# (b) qwen2-vl-2b's full-depth Mode A step at 16 x 512 tokens, AdamW, at
+# each policy's fewest microbatches that fit ("none": 1 and 2 ran out of
+# the card in phase 22; "dots": found on the card, PERF.md), in turns;
+# (c) Mode B at 4 layers, none against full
+REMAT_ARCHS = ("qwen2-vl-2b", "gemma3-12b", "recurrentgemma-2b", "rwkv6-7b",
+               "deepseek-v2-lite-16b", "seamless-m4t-large-v2")
+REMAT_DEEPER = {"qwen2-vl-2b": 3, "rwkv6-7b": 3, "deepseek-v2-lite-16b": 3}
+REMAT_BATCH, REMAT_SEQ = 4, 64
+REMAT_MICROBATCH = {"none": POD_A_MICROBATCH, "full": 1, "dots": 1}
+REMAT_TURNS = 5
 
 
 def fail(msg: str) -> None:
@@ -4302,22 +4345,9 @@ def pod_lockstep(torch, name: str, run, cfg) -> dict:
     state = ts.init_train_state(
         build(cfg, "cuda"), run,
         torch.Generator(device="cuda").manual_seed(1), n_nodes=POD_NODES)
-    # parameters and residuals at 1e-5, the optimizer's leaves at 1e-5 of
-    # their leaf's largest entry (v holds squared gradients). AdamW's step
-    # is lr r with r = m^ / (sqrt(v^) + eps): where sqrt(v^) is near the
-    # rounding noise of the gradient's sums, two sums of the same gradient
-    # give steps that differ by a fraction of lr. Where the two states'
-    # own moments give steps lr r more than 5e-6 apart, the parameters are
-    # held to that difference within 1e-5 (each side's update from its
-    # own moments), the entry counted and the largest printed with its
-    # gradients (g = (m' - b1 m) / (1 - b1)); every other parameter
-    # within 1e-5
+    # held at the lockstep bars each step (hold_step)
     adamw = run.optimizer == "adamw"
-    worst = {"loss": 0.0, "params": 0.0, "residual": 0.0, "opt": 0.0,
-             "params_amplified": 0.0}
-    amp_n = total_n = 0
-    amp_worst, amp_d = None, 0.0
-    losses = []
+    d_loss, held, losses = 0.0, None, []
     for k in range(POD_LOCK_STEPS):
         batch = pod_batch(torch, cfg, k, POD_NODES, POD_LOCK_BATCH,
                           POD_LOCK_SEQ, run.mode)
@@ -4325,86 +4355,21 @@ def pod_lockstep(torch, name: str, run, cfg) -> dict:
         cpu_out, cpu_m = host(prev, tree_to(batch, "cpu"))
         state, m = card(state, batch)
         losses.append(float(m["loss"]))
-        worst["loss"] = max(worst["loss"], err(m["loss"].cpu(),
-                                               cpu_m["loss"]))
+        d_loss = max(d_loss, err(m["loss"].cpu(), cpu_m["loss"]))
         check(sorted(state) == sorted(cpu_out), f"22 (c) {name}: state keys")
         check(int(state["step"]) == int(cpu_out["step"]) == k + 1,
               f"22 (c) {name}: step counters")
-        for key in ("residual", "opt"):
-            for a, b in zip(dpsgd._leaves(state.get(key, {})),
-                            dpsgd._leaves(cpu_out.get(key, {}))):
-                scale = float(b.double().abs().max()) if key == "opt" \
-                    else 1.0
-                d = err(a.cpu(), b)
-                worst[key] = max(worst[key], d / scale if scale else
-                                 float("inf") if d else 0.0)
-        paths = [p for p, _ in dpsgd._paths(cpu_out["params"])]
-        cards = dpsgd._leaves(state["params"])
-        hosts = dpsgd._leaves(cpu_out["params"])
-        # card m, v; CPU m, v; the step's input m, v
-        opt = [[x.cpu().double() for x in dpsgd._leaves(
-            side.get("opt", {}).get(moment, {}))]
-            for side in (state, cpu_out, prev) for moment in ("m", "v")]
-        t = float(cpu_out["opt"]["t"]) if adamw else 0.0
-        for i, (a, b) in enumerate(zip(cards, hosts)):
-            d = a.cpu().double() - b.double()
-            total_n += d.numel()
-            if not adamw:
-                worst["params"] = max(worst["params"], float(d.abs().max()))
-                continue
-            r_card, r_cpu = (
-                (mm / (1 - ADAM_B1 ** t))
-                / ((vv / (1 - ADAM_B2 ** t)).sqrt() + ADAM_EPS)
-                for mm, vv in ((opt[0][i], opt[1][i]), (opt[2][i],
-                                                        opt[3][i])))
-            dr = run.eta * (r_card - r_cpu)
-            amp = dr.abs() > TOL_FP32 / 2
-            amp_n += int(amp.sum())
-            if (~amp).any():
-                worst["params"] = max(worst["params"],
-                                      float(d.abs()[~amp].max()))
-            if not amp.any():
-                continue
-            worst["params_amplified"] = max(
-                worst["params_amplified"], float((d + dr).abs()[amp].max()))
-            j = int(torch.where(amp, d.abs(), torch.zeros_like(d)).argmax())
-            if abs(float(d.reshape(-1)[j])) > amp_d:
-                amp_d = abs(float(d.reshape(-1)[j]))
-                g_card, g_cpu = (((mm - ADAM_B1 * opt[4][i])
-                                  / (1 - ADAM_B1)).reshape(-1)
-                                 for mm in (opt[0][i], opt[2][i]))
-                vhat = (opt[3][i] / (1 - ADAM_B2 ** t)).sqrt().reshape(-1)
-                amp_worst = (
-                    f"step {k + 1} {paths[i]} flat {j}: gradient card "
-                    f"{float(g_card[j]):.4e} CPU {float(g_cpu[j]):.4e} (the "
-                    f"leaf's median |g| {float(g_cpu.abs().median()):.3e}), "
-                    f"sqrt(v^) {float(vhat[j]):.3e}; parameter card "
-                    f"{float(a.reshape(-1)[j]):.9e} CPU "
-                    f"{float(b.reshape(-1)[j]):.9e}, lr r card "
-                    f"{run.eta * float(r_card.reshape(-1)[j]):.6e} CPU "
-                    f"{run.eta * float(r_cpu.reshape(-1)[j]):.6e}")
+        held = hold_step(torch, f"step {k + 1}", state, cpu_out, prev,
+                         run.eta, adamw, held)
     print(f"22 (c) {name}: {POD_LOCK_STEPS} steps, losses {losses}; card "
           f"(a CUDA graph, {card.signatures} signature) against CPU in "
-          f"lockstep: max|loss diff| {worst['loss']:.3e} (tol {LOCK_TOL:g}), "
-          f"max|param diff| {worst['params']:.3e} (tol {TOL_FP32:g}), "
-          f"max|residual diff| {worst['residual']:.3e}, optimizer state "
-          f"max|diff| / its leaf's max|x| {worst['opt']:.3e} (tol "
-          f"{TOL_FP32:g})")
-    if adamw:
-        print(f"22 (c) {name}: {amp_n} of {total_n} parameter entries over "
-              f"the steps had card and CPU steps lr r more than "
-              f"{TOL_FP32 / 2:g} apart (max|diff| {amp_d:.3e}); their "
-              f"parameters against each side's own step: max|diff + lr dr| "
-              f"{worst['params_amplified']:.3e} (tol {TOL_FP32:g}); the "
-              f"largest: {amp_worst}")
-    check(worst["loss"] <= LOCK_TOL and max(
-        worst["params"], worst["residual"], worst["opt"],
-        worst["params_amplified"]) <= TOL_FP32,
-          f"22 (c) {name}: card and CPU differ: {worst}")
+          f"lockstep: max|loss diff| {d_loss:.3e} (tol {LOCK_TOL:g})")
+    check(d_loss <= LOCK_TOL, f"22 (c) {name}: losses differ by {d_loss}")
+    report_held(f"22 (c) {name}, card against CPU", held, adamw)
     if run.compression != "none":
         check(any(bool(x.any()) for x in dpsgd._leaves(state["residual"])),
               f"22 (c) {name}: the residual stayed zero")
-    return worst
+    return {"loss": d_loss, **held}
 
 
 def phase_pod_training(torch) -> dict:
@@ -4693,6 +4658,386 @@ def phase_pod_training(torch) -> dict:
     return result
 
 
+def remat_unit_calls(cfg) -> dict:
+    """The forward kernel calls of one step inside checkpointed units,
+    which remat "full" makes twice (the forward and the recompute): the
+    decoder-only stack's pattern units, every encoder-decoder layer."""
+    from repro_torch.models import transformer
+
+    if cfg.is_encdec:
+        n_enc = cfg.encoder_layers
+        return {"flash_attention": n_enc + 2 * (cfg.n_layers - n_enc),
+                "rglru_scan": 0, "rwkv6_scan": 0}
+    pro, repeats, _ = transformer.layer_groups(cfg)
+    kinds = transformer.layer_kinds(cfg)[pro:pro + repeats * len(cfg.pattern)]
+    return {"flash_attention": sum(k in ("global", "local") for k in kinds),
+            "rglru_scan": kinds.count("rglru"),
+            "rwkv6_scan": kinds.count("rwkv")}
+
+
+def remat_want(none: dict, unit: dict, policy: str) -> dict:
+    """A policy's launches from remat "none"'s: "full" adds each forward
+    kernel call of a checkpointed unit once more, "dots" none."""
+    if policy != "full":
+        return dict(none)
+    return {k: n + unit.get(k, 0) for k, n in none.items()}
+
+
+def remat_policy_steps(torch, what: str, cfg, api, run, state, batch,
+                       plan=None) -> dict:
+    """One step per remat policy from ``state``: full and dots held
+    against none (losses 1e-4, parameters 1e-5), the launches of each
+    against none's with the recompute's added."""
+    import dataclasses
+
+    from repro_torch.core import dpsgd
+    from repro_torch.optim.schedule import constant_lr
+    from repro_torch.train import step as ts
+
+    counters = train_counters()
+    out = {}
+    for policy in ("none", "full", "dots"):
+        step = ts.make_train_step(api, dataclasses.replace(
+            run, remat=policy), plan, constant_lr(run.eta))
+        for c in counters.values():
+            c.launches = 0
+        new, m = step(state, batch)
+        torch.cuda.synchronize()
+        out[policy] = (new["params"], m["loss"],
+                       {k: c.launches for k, c in counters.items()})
+    ref, l0, n0 = out["none"]
+    for base in ("flash_attention", "rglru_scan", "rwkv6_scan"):
+        check(n0[base] == n0[f"{base}_bwd"], f"{what}: launches {n0}: each "
+              f"forward kernel call needs its backward once")
+    unit = remat_unit_calls(cfg)
+    res = {"launches": {p: o[2] for p, o in out.items()}}
+    for policy in ("full", "dots"):
+        params, loss, n = out[policy]
+        d_loss = err(loss, l0)
+        pairs = list(zip(dpsgd._leaves(params), dpsgd._leaves(ref)))
+        d_par = max(err(a, b) for a, b in pairs)
+        bit = bool(torch.equal(loss, l0)) and all(torch.equal(a, b)
+                                                  for a, b in pairs)
+        want = remat_want(n0, unit, policy)
+        print(f"{what} {policy} against none: loss {float(loss):.6f}, "
+              f"max|loss diff| {d_loss:.3e} (tol {LOCK_TOL:g}), max|param "
+              f"diff| {d_par:.3e} (tol {TOL_FP32:g}), "
+              f"{'bit-equal' if bit else 'not bit-equal'}; launches "
+              f"{ {k: v for k, v in n.items() if v} } (none: "
+              f"{ {k: v for k, v in n0.items() if v} })")
+        check(d_loss <= LOCK_TOL and d_par <= TOL_FP32,
+              f"{what} {policy}: loss {d_loss}, parameters {d_par}")
+        check(n == want, f"{what} {policy}: launches {n}, want {want}")
+        res[policy] = {"loss_diff": d_loss, "param_diff": d_par,
+                       "bit_equal": bit}
+    return res
+
+
+def hold_step(torch, what: str, got: dict, want: dict, prev: dict,
+              lr: float, adamw: bool, held: dict | None = None) -> dict:
+    """One optimizer step from the state ``prev`` taken two ways, ``got``
+    against ``want``, at the lockstep bars (the work runs on ``want``'s
+    device; ``got``'s and ``prev``'s leaves may lie elsewhere): residuals
+    and parameters within TOL_FP32, every optimizer leaf within TOL_FP32
+    of its leaf's max |x| (AdamW's m carries the gradient: (1 - b1) g at
+    the first step, so a wrong gradient shows there). AdamW's step is
+    lr r with r = m^ / (sqrt(v^) + eps): where sqrt(v^) is near the
+    rounding noise of the gradient's sums, two sums of the same gradient
+    give steps that differ by a fraction of lr. Where the two sides' own
+    steps are more than TOL_FP32 / 2 apart, the parameters are held within
+    TOL_FP32 of that difference (each side's update from its own moments),
+    the entries counted and the largest described with its gradients
+    (g = (m' - b1 m) / (1 - b1)). ``held``, an earlier step's result, is
+    folded in: the worst of each bar over the steps."""
+    from repro_torch.core import dpsgd
+
+    held = held or {"params": 0.0, "params_amplified": 0.0,
+                    "residual": 0.0, "opt": 0.0, "amplified": 0,
+                    "entries": 0, "amp_d": 0.0, "amp_worst": None}
+    dev = dpsgd._leaves(want["params"])[0].device
+
+    def on(x):
+        return x.to(dev).double()
+
+    for key in ("residual", "opt"):
+        pairs = [dpsgd._leaves(s.get(key, {})) for s in (got, want)]
+        check(len(pairs[0]) == len(pairs[1]), f"{what}: {key} leaves")
+        for a, b in zip(*pairs):
+            d = err(a.to(dev), b)
+            scale = float(b.double().abs().max()) if key == "opt" else 1.0
+            held[key] = max(held[key], d / scale if scale else
+                            float("inf") if d else 0.0)
+    paths = [p for p, _ in dpsgd._paths(want["params"])]
+    # got's m, v; want's m, v; prev's m
+    moments = [dpsgd._leaves(s["opt"][k]) for s, k in (
+        (got, "m"), (got, "v"), (want, "m"), (want, "v"), (prev, "m"))] \
+        if adamw else []
+    t = float(want["opt"]["t"]) if adamw else 0.0
+
+    def r_of(mm, vv):
+        return (mm / (1 - ADAM_B1 ** t)) \
+            / ((vv / (1 - ADAM_B2 ** t)) ** 0.5 + ADAM_EPS)
+
+    for i, (a, b) in enumerate(zip(dpsgd._leaves(got["params"]),
+                                   dpsgd._leaves(want["params"]))):
+        d = on(a) - b.double()
+        held["entries"] += d.numel()
+        if not adamw:
+            held["params"] = max(held["params"], float(d.abs().max()))
+            continue
+        dr = lr * (r_of(on(moments[0][i]), on(moments[1][i]))
+                   - r_of(on(moments[2][i]), on(moments[3][i])))
+        amp = dr.abs() > TOL_FP32 / 2
+        held["amplified"] += int(amp.sum())
+        if (~amp).any():
+            held["params"] = max(held["params"], float(d.abs()[~amp].max()))
+        if amp.any():
+            held["params_amplified"] = max(
+                held["params_amplified"], float((d + dr).abs()[amp].max()))
+            j = int(torch.where(amp, d.abs(), torch.zeros_like(d)).argmax())
+            if abs(float(d.reshape(-1)[j])) > held["amp_d"]:
+                held["amp_d"] = abs(float(d.reshape(-1)[j]))
+                m_a, v_a, m_b, v_b, m_0 = (float(x.reshape(-1)[j])
+                                           for x in (y[i] for y in moments))
+                g_b = (on(moments[2][i]) - ADAM_B1 * on(moments[4][i])) \
+                    / (1 - ADAM_B1)
+                held["amp_worst"] = (
+                    f"{what} {paths[i]} flat {j}: gradient "
+                    f"{(m_a - ADAM_B1 * m_0) / (1 - ADAM_B1):.4e} against "
+                    f"{(m_b - ADAM_B1 * m_0) / (1 - ADAM_B1):.4e} (the "
+                    f"leaf's median |g| {float(g_b.abs().median()):.3e}), "
+                    f"sqrt(v^) {(v_b / (1 - ADAM_B2 ** t)) ** 0.5:.3e}; "
+                    f"parameter {float(a.reshape(-1)[j]):.9e} against "
+                    f"{float(b.reshape(-1)[j]):.9e}, lr r "
+                    f"{lr * r_of(m_a, v_a):.6e} against "
+                    f"{lr * r_of(m_b, v_b):.6e}")
+                del g_b
+        del d, dr, amp
+    return held
+
+
+def report_held(what: str, held: dict, adamw: bool) -> None:
+    """Print :func:`hold_step`'s result and fail past its bars."""
+    print(f"{what}: max|param diff| {held['params']:.3e} (tol "
+          f"{TOL_FP32:g}), max|residual diff| {held['residual']:.3e}, "
+          f"optimizer state max|diff| / its leaf's max|x| "
+          f"{held['opt']:.3e} (tol {TOL_FP32:g})")
+    if adamw:
+        print(f"{what}: {held['amplified']} of {held['entries']} parameter "
+              f"entries had two AdamW steps lr r more than "
+              f"{TOL_FP32 / 2:g} apart (max|diff| {held['amp_d']:.3e}); "
+              f"their parameters against each side's own step: max|diff + "
+              f"lr dr| {held['params_amplified']:.3e} (tol {TOL_FP32:g}); "
+              f"the largest: {held['amp_worst']}")
+    check(max(held["params"], held["residual"], held["opt"],
+              held["params_amplified"]) <= TOL_FP32,
+          f"{what}: the two steps differ: "
+          f"{ {k: v for k, v in held.items() if k != 'amp_worst'} }")
+
+
+def remat_in_turns(torch, what: str, steps: dict, init_state, batch,
+                   tokens: int) -> tuple[dict, object]:
+    """Each step of ``steps`` once to warm it, then REMAT_TURNS turns (the
+    order reversed every other turn), the state (``init_state()``, made
+    here: a caller's reference would keep a third state alive in every
+    step) carried through: ms a step (host clock, the loss read), peak GiB
+    of its calls, launches a step."""
+    import gc
+    import math
+
+    counters = pod_counters()
+    times = {k: [] for k in steps}
+    peak = {k: 0.0 for k in steps}
+    launches = {}
+    order = list(steps)
+    state = init_state()
+    for turn in range(REMAT_TURNS + 1):
+        for name in (order if turn % 2 == 0 else order[::-1]):
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for c in counters.values():
+                c.launches = 0
+            t0 = time.perf_counter()
+            state, m = steps[name](state, batch)
+            loss = float(m["loss"])
+            ms = (time.perf_counter() - t0) * 1e3
+            check(math.isfinite(loss), f"{what} {name}: loss {loss}")
+            peak[name] = max(peak[name],
+                             torch.cuda.max_memory_allocated() / 2**30)
+            launches[name] = {k: c.launches for k, c in counters.items()}
+            if turn:
+                times[name].append(ms)
+    out = {}
+    for name, ts_ in times.items():
+        med = statistics.median(ts_)
+        out[name] = {"ms": med, "ms_turns": ts_, "tokens_per_s":
+                     tokens / med * 1e3, "peak_gib": peak[name],
+                     "launches": launches[name]}
+        print(f"{what} {name}: {ts_} ms a step in turns, median {med:.2f} "
+              f"ms, {tokens / med * 1e3:.0f} tokens/s; peak {peak[name]:.3f}"
+              f" GiB; launches a step {launches[name]}")
+    return out, state
+
+
+def phase_remat(torch) -> dict:
+    phase("23. activation checkpointing (remat none / full / dots, "
+          "models.remat) through the kernels' recompute: every family at "
+          "the smoke widths, qwen2-vl-2b's full-depth Mode A step in one "
+          "microbatch, Mode B at 4 layers")
+    import dataclasses
+    import gc
+
+    from repro_torch.configs import RunConfig, get_config, reduce_for_smoke
+    from repro_torch.core import dpsgd
+    from repro_torch.core.density_controller import choose_plan
+    from repro_torch.core.gossip import ring_plan
+    from repro_torch.graphs import GraphedStep
+    from repro_torch.launch import train as lt
+    from repro_torch.models import build
+    from repro_torch.optim.schedule import constant_lr
+    from repro_torch.train import step as ts
+
+    result: dict = {"a": {}}
+    cuda = torch.device("cuda")
+    sgd = RunConfig(mode="allreduce", optimizer="sgd", eta=0.05,
+                    remat="none")
+    # (a) every family at the smoke widths, Mode A
+    for arch in REMAT_ARCHS:
+        cfg = reduce_for_smoke(get_config(arch))
+        if arch in REMAT_DEEPER:
+            cfg = dataclasses.replace(cfg, n_layers=REMAT_DEEPER[arch])
+        api = build(cfg, "cuda")
+        state = ts.init_train_state(api, sgd, torch.Generator(
+            device="cuda").manual_seed(0))
+        batch = lt._batch(cfg, sgd, 0, REMAT_BATCH, REMAT_SEQ, cuda)
+        result["a"][arch] = remat_policy_steps(
+            torch, f"23 (a) {arch} ({cfg.n_layers} layers) Mode A", cfg,
+            api, sgd, state, batch)
+    # Mode B ring-1 under vmap, de-synced nodes
+    cfg = dataclasses.replace(reduce_for_smoke(get_config(POD_ARCH)),
+                              n_layers=REMAT_DEEPER[POD_ARCH])
+    api = build(cfg, "cuda")
+    run = dataclasses.replace(sgd, mode="dpsgd")
+    state = ts.init_train_state(api, run, torch.Generator(
+        device="cuda").manual_seed(1), n_nodes=POD_NODES)
+    state["params"] = dpsgd._tree_map(
+        lambda p: p * (1 + 0.01 * torch.arange(
+            POD_NODES, device=p.device, dtype=p.dtype).reshape(
+                -1, *[1] * (p.dim() - 1))), state["params"])
+    batch = pod_batch(torch, cfg, 0, POD_NODES, POD_LOCK_BATCH,
+                      POD_LOCK_SEQ, "dpsgd")
+    plan = ring_plan(("data",), (POD_NODES,), 1)
+    result["a"]["Mode B"] = remat_policy_steps(
+        torch, f"23 (a) {POD_ARCH} ({cfg.n_layers} layers) Mode B ring-1 "
+        f"({POD_NODES} nodes, vmap)", cfg, api, run, state, batch, plan)
+    # the checkpoint inside a CUDA graph: the graphed step against eager
+    full_run = dataclasses.replace(run, remat="full")
+    outs = [fn(state, batch) for fn in (
+        GraphedStep(ts.make_train_step(api, full_run, plan,
+                                       constant_lr(run.eta))),
+        ts.make_train_step(api, full_run, plan, constant_lr(run.eta)))]
+    d_graph = max(err(a, b) for a, b in zip(
+        *(dpsgd._leaves(o[0]["params"]) for o in outs)))
+    d_loss = err(outs[0][1]["loss"], outs[1][1]["loss"])
+    print(f"23 (a) Mode B remat full as a CUDA graph (GraphedStep) against "
+          f"eager: max|loss diff| {d_loss:.3e}, max|param diff| "
+          f"{d_graph:.3e}")
+    check(d_loss <= LOCK_TOL and d_graph <= TOL_FP32,
+          f"23 (a) graphed remat: loss {d_loss}, parameters {d_graph}")
+    result["a_graphed_vs_eager"] = d_graph
+    del api, state, batch, outs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) qwen2-vl-2b at its published widths and full depth, Mode A
+    full = get_config(POD_ARCH)
+    api = build(full, "cuda")
+    runs = {p: dataclasses.replace(_pod_run(
+        "allreduce", microbatch=REMAT_MICROBATCH[p]), remat=p)
+        for p in ("none", "full", "dots")}
+
+    def init_state():
+        return ts.init_train_state(api, runs["none"], torch.Generator(
+            device="cuda").manual_seed(0))
+    state = init_state()
+    batch = pod_batch(torch, full, 0, POD_NODES, POD_BATCH, POD_SEQ,
+                      "allreduce")
+    tokens = POD_NODES * POD_BATCH * POD_SEQ
+    # full at POD_A_MICROBATCH against none there, one step from one state
+    # (the first result's moments wait on the host meanwhile)
+    held = {}
+    for policy in ("full", "none"):
+        step = ts.make_train_step(api, dataclasses.replace(
+            runs["none"], remat=policy), None, constant_lr(runs["none"].eta))
+        new, m = step(state, batch)
+        held[policy] = (new, m["loss"])
+        if policy == "full":
+            new["opt"] = {**new["opt"], "m": tree_to(new["opt"]["m"], "cpu"),
+                          "v": tree_to(new["opt"]["v"], "cpu")}
+        del new, m, step
+        gc.collect()
+    d_loss = err(held["full"][1], held["none"][1])
+    print(f"23 (b) {POD_ARCH} {full.n_layers} layers, full against none at "
+          f"{POD_A_MICROBATCH} microbatches, one AdamW step from one state: "
+          f"losses {float(held['full'][1]):.6f} / "
+          f"{float(held['none'][1]):.6f}, max|diff| {d_loss:.3e} (tol "
+          f"{LOCK_TOL:g})")
+    check(d_loss <= LOCK_TOL, f"23 (b) hold: loss {d_loss}")
+    result["b_hold"] = hold_step(
+        torch, "23 (b)", held["full"][0], held["none"][0], state,
+        runs["none"].eta, True)
+    report_held("23 (b) full against none", result["b_hold"], True)
+    result["b_hold"]["loss_diff"] = d_loss
+    del held, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    names = {p: f"{p} at {REMAT_MICROBATCH[p]} microbatch"
+             f"{'es' if REMAT_MICROBATCH[p] > 1 else ''}" for p in runs}
+    steps = {names[p]: ts.make_train_step(api, r, None, constant_lr(r.eta))
+             for p, r in runs.items()}
+    b, state = remat_in_turns(
+        torch, f"23 (b) {POD_ARCH} Mode A {full.n_layers} layers "
+        f"{POD_NODES * POD_BATCH} x {POD_SEQ} AdamW", steps, init_state,
+        batch, tokens)
+    for p in runs:
+        want = {"flash_attention": full.n_layers * (
+                    REMAT_MICROBATCH[p] * (2 if p == "full" else 1)),
+                "flash_attention_bwd": full.n_layers * REMAT_MICROBATCH[p],
+                "gossip_mix": 0}
+        check(b[names[p]]["launches"] == want, f"23 (b) {names[p]}: "
+              f"launches {b[names[p]]['launches']}, want {want}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        b[names[p]]["profile"] = pod_profile(
+            torch, steps[names[p]], state, batch, b[names[p]]["ms"],
+            f"23 (b) {names[p]}")
+    result["b"] = b
+    del api, state, batch, steps
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) Mode B at 4 layers, the controller's plan, none against full
+    cut = dataclasses.replace(full, n_layers=POD_B_LAYERS)
+    api = build(cut, "cuda")
+    run_b = _pod_run("dpsgd")
+    plan_b = choose_plan(("data",), (POD_NODES,), run_b.lambda_target,
+                         bytes_per_rank=lt.param_bytes(cut),
+                         eta=run_b.eta).plan
+    batch = pod_batch(torch, cut, 0, POD_NODES, POD_BATCH, POD_SEQ, "dpsgd")
+    steps = {p: ts.make_train_step(api, dataclasses.replace(run_b, remat=p),
+                                   plan_b, constant_lr(run_b.eta))
+             for p in ("none", "full")}
+    result["c"], state = remat_in_turns(
+        torch, f"23 (c) Mode B {POD_B_LAYERS} layers ({plan_b.name})",
+        steps, lambda: ts.init_train_state(api, run_b, torch.Generator(
+            device="cuda").manual_seed(0), n_nodes=POD_NODES), batch, tokens)
+    del api, state, batch, steps
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result
+
+
 def main() -> None:
     if not (SRC / "repro_torch").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
@@ -4833,6 +5178,10 @@ def main() -> None:
     # trainer, checkpoints; flash at D 128 with GQA 6:1, the rows mix
     torch.cuda.empty_cache()
     pod = run("22", phase_pod_training, torch)
+    # activation checkpointing: every family's step under remat full and
+    # dots against none, qwen2-vl-2b's full depth in one microbatch
+    torch.cuda.empty_cache()
+    remat_run = run("23", phase_remat, torch)
     kernels["flash_attention"]["qwen2_vl_train"] = kernels.pop(
         "flash_attention_qwen2_vl_train")
     rec_launches = {**trained_rec["recurrentgemma-2b"]["launches"],
@@ -4929,6 +5278,23 @@ def main() -> None:
         if "library_fwd_ms" in k:         # the backward's library: SDPA's
             rows[-1]["library_fwd_ms"] = k["library_fwd_ms"]
             rows[-1]["library_device_ms"] = k["library_device_ms"]
+    # phase 23's launches: (a) a step of each smoke family per remat
+    # policy, (b) a step of qwen2-vl-2b's full depth per policy
+    for row in rows:
+        name = row["name"]
+        if not name.startswith(("flash_attention", "rglru_scan",
+                                "rwkv6_scan")):
+            continue
+        by_path = row.setdefault("launches_by_path",
+                                 {"main path": row["launches"]})
+        by_path.update({
+            f"{arch} smoke, remat {p} (phase 23 (a))": n[name]
+            for arch, res in remat_run["a"].items()
+            for p, n in res["launches"].items() if n[name]})
+        if name.startswith("flash_attention"):
+            by_path.update({
+                f"{POD_ARCH} Mode A 28 layers, {k} (phase 23 (b), a step)":
+                    v["launches"][name] for k, v in remat_run["b"].items()})
     mix_row = next(r for r in rows if r["name"] == "gossip_mix")
     mix_row["launches_by_path"] = {
         "the paper run (phase 4)": mix_row["launches"],

@@ -30,9 +30,13 @@ from __future__ import annotations
 import torch
 
 __all__ = ["use_kernel", "require_operands", "refuse_grad", "traced",
-           "fold", "unfold", "MIN_CAPABILITY"]
+           "call", "fold", "unfold", "MIN_CAPABILITY", "tape"]
 
 MIN_CAPABILITY = (9, 0)
+
+# The tape of the "dots" checkpoint (``models.remat``) that records or
+# recomputes a unit now, else None (:func:`call` reads it).
+tape = None
 
 
 def use_kernel(device: torch.device) -> bool:
@@ -92,6 +96,19 @@ def traced(*xs) -> bool:
     if any(torch._C._functorch.is_functorch_wrapped_tensor(x) for x in xs):
         return True
     return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
+
+
+def call(cls, n_out: int, *args):
+    """A kernel wrapper's call of its autograd Function ``cls`` (``n_out``
+    tensor outputs) on ``args``: inside a "dots" checkpoint through its
+    :data:`tape` (which keeps the outputs, or hands back the kept ones in
+    the recompute), else ``cls.apply`` when :func:`traced`. None when
+    neither: the wrapper then runs its forward directly."""
+    if tape is not None:
+        return tape.kernel(cls, n_out, *args)
+    if traced(*(a for a in args if isinstance(a, torch.Tensor))):
+        return cls.apply(*args)
+    return None
 
 
 def fold(x, dim, n: int):

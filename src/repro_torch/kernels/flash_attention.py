@@ -39,7 +39,9 @@ have a ``vmap`` rule that folds the mapped axis into B, so D-PSGD's
 each for all nodes, and the ctypes kernels only ever see plain tensors.
 On the CPU the same Functions run the plain versions, so the CPU tests
 run the same wiring. Serving (no grad, no transform) calls the forward
-kernel directly and writes no ``lse``.
+kernel directly and writes no ``lse``. Inside a "dots" checkpoint
+(``models.remat``) the call goes through its tape: the forward keeps
+``_Flash``'s out and lse, the recompute takes them back.
 """
 from __future__ import annotations
 
@@ -48,7 +50,7 @@ import ctypes
 import torch
 
 from . import _build
-from ._backend import fold, require_operands, traced, unfold, use_kernel
+from ._backend import call, fold, require_operands, unfold, use_kernel
 
 __all__ = ["flash_attention", "flash_attention_plain", "flash_attention_bwd",
            "flash_attention_bwd_plain"]
@@ -182,9 +184,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Kernel on an sm_90 card, plain version on the CPU; differentiable
     (and mappable by ``torch.func.vmap``) through ``_Flash``."""
     _check(q, k, v)
-    if traced(q, k, v):
-        return _Flash.apply(q, k, v, causal, window)[0]
-    return _forward(q, k, v, causal, window, with_lse=False)[0]
+    out = call(_Flash, 2, q, k, v, causal, window)
+    if out is None:
+        out = _forward(q, k, v, causal, window, with_lse=False)
+    return out[0]
 
 
 flash_attention.launches = 0

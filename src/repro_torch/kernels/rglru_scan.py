@@ -44,7 +44,7 @@ from typing import Optional
 import torch
 
 from . import _build
-from ._backend import fold, require_operands, traced, unfold, use_kernel
+from ._backend import call, fold, require_operands, unfold, use_kernel
 
 __all__ = ["rglru_scan", "rglru_scan_plain", "rglru_scan_bwd",
            "rglru_scan_bwd_plain"]
@@ -155,9 +155,8 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor,
     version on the CPU; differentiable (and mappable by
     ``torch.func.vmap``) through ``_RGLRU``."""
     _check(a, b, h0)
-    if traced(a, b, h0):
-        return _RGLRU.apply(a, b, h0)
-    return _forward(a, b, h0)
+    out = call(_RGLRU, 1, a, b, h0)
+    return _forward(a, b, h0) if out is None else out
 
 
 rglru_scan.launches = 0

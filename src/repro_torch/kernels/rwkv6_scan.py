@@ -63,7 +63,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from ._backend import fold, require_operands, traced, unfold, use_kernel
+from ._backend import call, fold, require_operands, unfold, use_kernel
 
 __all__ = ["rwkv6_scan", "rwkv6_scan_plain", "rwkv6_scan_bwd",
            "rwkv6_scan_bwd_plain", "MAX_D", "FLOOR_W"]
@@ -187,9 +187,8 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     version's only), plain version on the CPU; differentiable (and
     mappable by ``torch.func.vmap``) through ``_RWKV6``."""
     _check(r, k, v, w, u, s0)
-    if traced(r, k, v, w, u, s0):
-        return _RWKV6.apply(r, k, v, w, u, s0, chunk)
-    return _forward(r, k, v, w, u, s0, chunk)
+    out = call(_RWKV6, 2, r, k, v, w, u, s0, chunk)
+    return _forward(r, k, v, w, u, s0, chunk) if out is None else out
 
 
 rwkv6_scan.launches = 0

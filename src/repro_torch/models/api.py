@@ -4,11 +4,14 @@ The torch counterpart of ``repro.models.api``:
 
 * ``init(gen, cast=None) -> params``     (drawn from a ``torch.Generator``;
                                           ``cast`` applied as drawn)
-* ``loss(params, batch) -> scalar``      (teacher-forced; differentiable
+* ``loss(params, batch, remat="none") -> scalar``
+                                         (teacher-forced; differentiable
                                           on the card and on the CPU:
                                           attention's gradient is the
                                           flash backward kernel or its
-                                          plain version)
+                                          plain version; ``remat`` "full"
+                                          / "dots" checkpoints each unit,
+                                          ``models.remat``)
 * ``prefill(params, batch) -> (logits, cache)``
 * ``decode_step(params, token, cache, index) -> (logits, cache)``
 * ``make_inputs(shape, gen) -> batch``   (synthetic, for smoke runs)
@@ -82,8 +85,8 @@ def build(cfg: ModelConfig, device: str | torch.device = "cuda") -> ModelAPI:
     """The facade of ``cfg`` with ``init`` and ``make_inputs`` placing
     tensors on ``device`` (checked when they are called)."""
     if cfg.is_encdec:
-        def loss(params, batch):
-            return encdec.encdec_loss(cfg, params, batch)
+        def loss(params, batch, remat="none"):
+            return encdec.encdec_loss(cfg, params, batch, remat=remat)
 
         def prefill(params, batch, max_len=None):
             return encdec.prefill(cfg, params, batch["src_embeds"],
@@ -99,8 +102,8 @@ def build(cfg: ModelConfig, device: str | torch.device = "cuda") -> ModelAPI:
             lambda shape, gen, batch_override=None: _encdec_make_inputs(
                 cfg, shape, gen, device, batch_override))
 
-    def loss(params, batch):
-        return transformer.lm_loss(cfg, params, batch)
+    def loss(params, batch, remat="none"):
+        return transformer.lm_loss(cfg, params, batch, remat=remat)
 
     def prefill(params, batch, max_len=None):
         return transformer.prefill(cfg, params, batch["tokens"],

@@ -22,10 +22,11 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
+from . import remat
 from .layers import cross_entropy, embed_init, norm, norm_init, torch_dtype
 from .transformer import (_apply_layer, _embed, _init_layer,
                           _init_layer_cache, _logits, _tree_index,
-                          _tree_map, _tree_stack, stack_drawn)
+                          _tree_map, _tree_stack, _tree_unbind, stack_drawn)
 
 PyTree = Any
 
@@ -68,12 +69,18 @@ def _run_stacked(cfg: ModelConfig, stacked: dict, x: torch.Tensor, *,
                  caches: Optional[dict] = None,
                  cache_index: Optional[int] = None, want_cache: bool = False,
                  encoder_mode: bool = False,
-                 positions_are_arange: bool = False
+                 positions_are_arange: bool = False,
+                 remat_policy: str = "none"
                  ) -> tuple[torch.Tensor, Optional[dict]]:
     """The layers of a stack in turn. In decode (``cache_index`` given)
     the cross K/V, which never change after prefill, pass through as the
     same tensors, and the self-attention caches are copied once, as a
-    stack, each layer writing its token into its slot of the copy."""
+    stack, each layer writing its token into its slot of the copy.
+    Otherwise the stack is unbound once (a slice taken a layer would cost
+    a stack-sized gradient a layer), and ``remat_policy`` != "none" (the
+    teacher-forced forward: no caches) runs each layer under
+    ``remat.checkpoint`` (the reference's ``jax.checkpoint`` of
+    ``_scan_stack``'s body)."""
     n = stacked["norm1"]["scale"].shape[0]
     if cache_index is not None:
         self_kv = _tree_map(torch.clone, caches["attn"])
@@ -85,45 +92,55 @@ def _run_stacked(cfg: ModelConfig, stacked: dict, x: torch.Tensor, *,
                        "cross": _tree_index(caches["cross"], i)},
                 cache_in_place=True)
         return x, {"attn": self_kv, "cross": caches["cross"]}
-    new = []
-    for i in range(n):
-        x, nc = _apply_layer(
-            _tree_index(stacked, i), x, cfg, "global", positions=positions,
-            cache=_tree_index(caches, i) if caches is not None else None,
+
+    def layer(p, x, cross_src, positions, cache=None):
+        return _apply_layer(
+            p, x, cfg, "global", positions=positions, cache=cache,
             cross_src=cross_src, want_cache=want_cache,
             encoder_mode=encoder_mode,
             positions_are_arange=positions_are_arange)
+    new = []
+    for i, p in enumerate(_tree_unbind(stacked, n)):
+        if remat_policy != "none":
+            x = remat.checkpoint(lambda *a: layer(*a)[0], p, x, cross_src,
+                                 positions, policy=remat_policy)
+            continue
+        x, nc = layer(p, x, cross_src, positions,
+                      _tree_index(caches, i) if caches is not None else None)
         new.append(nc)
     return x, (_tree_stack(new) if want_cache else None)
 
 
-def encode(cfg: ModelConfig, params: PyTree,
-           src_embeds: torch.Tensor) -> torch.Tensor:
+def encode(cfg: ModelConfig, params: PyTree, src_embeds: torch.Tensor, *,
+           remat: str = "none") -> torch.Tensor:
     """Bidirectional encoder over precomputed frame embeddings."""
     s = src_embeds.shape[1]
     x, _ = _run_stacked(cfg, params["encoder"],
                         src_embeds.to(torch_dtype(cfg.dtype)),
                         positions=torch.arange(s, device=src_embeds.device),
-                        encoder_mode=True)
+                        encoder_mode=True, remat_policy=remat)
     return norm(params["enc_norm"], x, cfg.norm)
 
 
 def apply(cfg: ModelConfig, params: PyTree, src_embeds: torch.Tensor,
-          tgt_tokens: torch.Tensor) -> torch.Tensor:
-    """Teacher-forced: (B,S_src,d) x (B,S_tgt) -> (B,S_tgt,V) logits."""
-    enc = encode(cfg, params, src_embeds)
+          tgt_tokens: torch.Tensor, *, remat: str = "none") -> torch.Tensor:
+    """Teacher-forced: (B,S_src,d) x (B,S_tgt) -> (B,S_tgt,V) logits.
+    ``remat``: "none" | "full" | "dots" (``models.remat``)."""
+    enc = encode(cfg, params, src_embeds, remat=remat)
     x = _embed(cfg, params, tgt_tokens)
     x, _ = _run_stacked(
         cfg, params["decoder"], x,
         positions=torch.arange(tgt_tokens.shape[1], device=x.device),
-        cross_src=enc, positions_are_arange=True)
+        cross_src=enc, positions_are_arange=True, remat_policy=remat)
     return _logits(cfg, params, x)
 
 
-def encdec_loss(cfg: ModelConfig, params: PyTree,
-                batch: dict) -> torch.Tensor:
-    """Next-token cross entropy of the target; forward only."""
-    logits = apply(cfg, params, batch["src_embeds"], batch["tokens"])
+def encdec_loss(cfg: ModelConfig, params: PyTree, batch: dict, *,
+                remat: str = "none") -> torch.Tensor:
+    """Next-token cross entropy of the target; differentiable
+    (``torch.func.grad``, autograd), under ``torch.func.vmap`` too."""
+    logits = apply(cfg, params, batch["src_embeds"], batch["tokens"],
+                   remat=remat)
     return cross_entropy(logits[:, :-1], batch["tokens"][:, 1:])
 
 

@@ -17,6 +17,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from .remat import product
+
 __all__ = ["torch_dtype", "normal", "dense_init", "dense", "norm_init",
            "norm", "mlp_init", "mlp", "embed_init", "rope", "cross_entropy"]
 
@@ -51,7 +53,7 @@ def dense_init(gen: torch.Generator, d_in: int, d_out: int,
 
 def dense(p: dict, x: torch.Tensor, compute_dtype) -> torch.Tensor:
     dt = torch_dtype(compute_dtype)
-    y = x @ p["w"].to(dt)
+    y = product(x, p["w"].to(dt))
     if "b" in p:
         y = y + p["b"].to(dt)
     return y

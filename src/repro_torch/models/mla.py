@@ -23,6 +23,7 @@ import torch
 from ..configs.base import MLAConfig, ModelConfig
 from ..kernels import ops
 from .layers import dense, dense_init, rope, torch_dtype
+from .remat import product
 
 __all__ = ["mla_init", "init_mla_cache", "mla_apply"]
 
@@ -74,9 +75,10 @@ def mla_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *, m: MLAConfig,
 
     if cache_index is None:
         # ----- train / prefill: expand to full heads, the flash kernel
-        k_nope = (c_kv @ p["w_uk"]["w"].to(dt)).reshape(b, s, h,
-                                                         m.qk_nope_dim)
-        v = (c_kv @ p["w_uv"]["w"].to(dt)).reshape(b, s, h, m.v_head_dim)
+        k_nope = product(c_kv, p["w_uk"]["w"].to(dt)).reshape(
+            b, s, h, m.qk_nope_dim)
+        v = product(c_kv, p["w_uv"]["w"].to(dt)).reshape(b, s, h,
+                                                         m.v_head_dim)
         k_full = torch.cat([k_nope, k_rope[:, :, None, :].expand(
             b, s, h, m.qk_rope_dim)], dim=-1)
         q_full = torch.cat([q_nope, q_rope], dim=-1)

@@ -31,6 +31,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig, MoEConfig
 from .layers import dense_init, mlp, mlp_init, normal, torch_dtype
+from .remat import product
 
 __all__ = ["moe_init", "moe_route", "moe_apply", "combine",
            "moe_active_params", "capacity"]
@@ -71,7 +72,7 @@ def moe_route(p: dict, x: torch.Tensor, cfg: ModelConfig,
     b, s, _ = x.shape
     e, k = mcfg.n_experts, mcfg.top_k
     cap = capacity(s, mcfg)
-    logits = (x @ p["router"]["w"].to(dt)).to(torch.float32)
+    logits = product(x, p["router"]["w"].to(dt)).to(torch.float32)
     probs = torch.softmax(logits, dim=-1)
     probs_sorted, order = torch.sort(probs, dim=-1, descending=True,
                                      stable=True)
@@ -112,10 +113,10 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: ModelConfig,
 
     # per-expert SwiGLU, batched over experts (each buffer dropped as soon
     # as the next is made: at cap = S, fp32, they are GBs each)
-    h = F.silu(torch.bmm(xe, p["ew_gate"].to(dt))) \
-        * torch.bmm(xe, p["ew_up"].to(dt))
+    h = F.silu(product(xe, p["ew_gate"].to(dt))) \
+        * product(xe, p["ew_up"].to(dt))
     del xe
-    ye = torch.bmm(h, p["ew_down"].to(dt)).view(e * b * cap, d)
+    ye = product(h, p["ew_down"].to(dt)).view(e * b * cap, d)
     del h
     y = combine(ye, r)
 

@@ -30,6 +30,7 @@ import torch.nn.functional as F
 from ..configs.base import ModelConfig, RGLRUConfig
 from ..kernels import ops
 from .layers import dense, dense_init, normal, torch_dtype
+from .remat import product
 
 __all__ = ["rglru_init", "init_rglru_state", "rglru_apply",
            "linear_recurrence"]
@@ -101,8 +102,9 @@ def rglru_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     u = _causal_conv(u_pre, p["conv_w"].to(dt), conv_state)
 
     # fused gates in compute dtype, sigmoid in fp32
-    ai = torch.einsum("bsd,dre->bsre", u, p["w_ai"].to(dt)) \
-        + p["b_ai"].to(dt)[None, None]
+    w_ai = p["w_ai"].to(dt)
+    ai = product(u, w_ai.reshape(w_ai.shape[0], -1)).reshape(
+        b, s, *w_ai.shape[1:]) + p["b_ai"].to(dt)[None, None]
     rg = torch.sigmoid(ai[..., 0].to(torch.float32))
     ig = torch.sigmoid(ai[..., 1].to(torch.float32))
     log_a = -r.c * rg * F.softplus(p["lam"].to(torch.float32))[None, None, :]

@@ -29,6 +29,7 @@ import torch.nn.functional as F
 from ..configs.base import ModelConfig, RWKVConfig
 from ..kernels import ops
 from .layers import dense, dense_init, normal, torch_dtype
+from .remat import product
 
 __all__ = ["rwkv_init", "init_rwkv_state", "rwkv_time_mix",
            "rwkv_channel_mix", "wkv_chunked", "wkv_step"]
@@ -132,7 +133,8 @@ def rwkv_time_mix(p: dict, x: torch.Tensor, cfg: ModelConfig,
     # the decay LoRA, w0, u and ln_scale are read in fp32 (serving keeps
     # those leaves fp32: launch.serve._FP32_LEAVES)
     xw = mixed(p["mu_w"]).to(f32)
-    dec_in = torch.tanh(xw @ p["w_lora_a"].to(f32)) @ p["w_lora_b"].to(f32)
+    dec_in = product(torch.tanh(product(xw, p["w_lora_a"].to(f32))),
+                     p["w_lora_b"].to(f32))
     w = torch.exp(-torch.exp(p["w0"].to(f32)[None, None] + dec_in))
 
     shp = (b, s, h, r.head_size)

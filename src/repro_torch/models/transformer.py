@@ -33,7 +33,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
-from . import attention, mla, moe, rglru, rwkv6
+from . import attention, mla, moe, remat, rglru, rwkv6
 from .layers import (cross_entropy, embed_init, mlp, mlp_init, norm,
                      norm_init, normal, torch_dtype)
 
@@ -327,10 +327,14 @@ def _logits(cfg: ModelConfig, params: PyTree, x: torch.Tensor) -> torch.Tensor:
 def _run_stack(cfg: ModelConfig, params: PyTree, x: torch.Tensor, *,
                positions: torch.Tensor, caches: Optional[dict] = None,
                cache_index: Optional[int] = None, want_cache: bool = False,
-               positions_are_arange: bool = False
+               positions_are_arange: bool = False, remat_policy: str = "none"
                ) -> tuple[torch.Tensor, Optional[dict]]:
     """The decoder-only stack (prologue, unit, tail). The encoder-decoder
-    stacks are ``models.encdec._run_stacked``."""
+    stacks are ``models.encdec._run_stacked``. ``remat_policy`` != "none"
+    (the teacher-forced forward: no caches) runs each repeat of the
+    pattern unit under ``remat.checkpoint`` (the reference's
+    ``jax.checkpoint`` of ``unit_body``); prologue and tail layers are not
+    checkpointed, as there."""
     pro, repeats, tail = layer_groups(cfg)
     kinds = layer_kinds(cfg)
     u = len(cfg.pattern)
@@ -350,7 +354,20 @@ def _run_stack(cfg: ModelConfig, params: PyTree, x: torch.Tensor, *,
         unit_kinds = [kinds[pro + j] for j in range(u)]
         unit = [_tree_unbind(params["unit"][j], repeats) for j in range(u)]
         outs: list[list] = [[] for _ in range(u)]
+
+        def unit_body(unit_params, x, positions):
+            for j in range(u):
+                x, _ = _apply_layer(
+                    unit_params[j], x, cfg, unit_kinds[j],
+                    positions=positions,
+                    positions_are_arange=positions_are_arange)
+            return x
         for rep in range(repeats):
+            if remat_policy != "none":
+                x = remat.checkpoint(
+                    unit_body, [unit[j][rep] for j in range(u)], x,
+                    positions, policy=remat_policy)
+                continue
             for j in range(u):
                 cache_j = (_tree_index(caches["unit"][j], rep) if caches
                            else None)
@@ -373,20 +390,24 @@ def _run_stack(cfg: ModelConfig, params: PyTree, x: torch.Tensor, *,
 # ---------------------------------------------------------------------------
 
 def apply(cfg: ModelConfig, params: PyTree, tokens: torch.Tensor, *,
-          patch_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Teacher-forced forward: (B, S) tokens -> (B, S, V) logits."""
+          patch_embeds: Optional[torch.Tensor] = None,
+          remat: str = "none") -> torch.Tensor:
+    """Teacher-forced forward: (B, S) tokens -> (B, S, V) logits.
+    ``remat``: "none" | "full" | "dots" (``models.remat``)."""
     x = _embed(cfg, params, tokens, patch_embeds)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     x, _ = _run_stack(cfg, params, x, positions=positions,
-                      positions_are_arange=True)
+                      positions_are_arange=True, remat_policy=remat)
     return _logits(cfg, params, x)
 
 
-def lm_loss(cfg: ModelConfig, params: PyTree, batch: dict) -> torch.Tensor:
+def lm_loss(cfg: ModelConfig, params: PyTree, batch: dict, *,
+            remat: str = "none") -> torch.Tensor:
     """Next-token cross entropy on batch["tokens"] (B, S); differentiable
     (``torch.func.grad``, autograd), under ``torch.func.vmap`` too."""
     tokens = batch["tokens"]
-    logits = apply(cfg, params, tokens, patch_embeds=batch.get("patch_embeds"))
+    logits = apply(cfg, params, tokens, patch_embeds=batch.get("patch_embeds"),
+                   remat=remat)
     return cross_entropy(logits[:, :-1], tokens[:, 1:])
 
 

@@ -42,10 +42,7 @@ from ..optim import make_optimizer
 PyTree = Any
 
 __all__ = ["roll_from_neighbor", "mix_params", "make_train_step",
-           "init_train_state", "reshape_batch_for_nodes", "REMAT_ITEM"]
-
-# activation checkpointing under torch.func waits for this ROADMAP item
-REMAT_ITEM = "ROADMAP Queue 1 item 8"
+           "init_train_state", "reshape_batch_for_nodes"]
 
 
 # ---------------------------------------------------------------------------
@@ -174,10 +171,12 @@ def reshape_batch_for_nodes(batch: PyTree, n_nodes: int) -> PyTree:
 
 
 def _grads_fn(api: ModelAPI, run: RunConfig) -> Callable:
-    """(params, batch) -> (grads, loss), with optional microbatch gradient
-    accumulation in the reference's order (fp32 zeros, ``acc + l``,
-    ``acc_g + g`` chunk by chunk, then ``/ mb``)."""
-    value_and_grad = torch.func.grad_and_value(api.loss)
+    """(params, batch) -> (grads, loss) of the loss under ``run.remat``
+    (``models.remat``), with optional microbatch gradient accumulation in
+    the reference's order (fp32 zeros, ``acc + l``, ``acc_g + g`` chunk by
+    chunk, then ``/ mb``)."""
+    value_and_grad = torch.func.grad_and_value(
+        lambda params, batch: api.loss(params, batch, remat=run.remat))
     if not (run.microbatch and run.microbatch > 1):
         return value_and_grad
     mb = run.microbatch
@@ -211,10 +210,6 @@ def make_train_step(api: ModelAPI, run: RunConfig,
     vmap's ``spmd_axis_name``); on one device it changes nothing.
     """
     del node_axes
-    if run.remat != "none":
-        raise NotImplementedError(
-            f"remat={run.remat!r}: activation checkpointing under "
-            f"torch.func is not ported ({REMAT_ITEM}); pass remat='none'")
     opt = make_optimizer(run.optimizer, momentum=run.momentum,
                          weight_decay=run.weight_decay)
     gfn = _grads_fn(api, run)

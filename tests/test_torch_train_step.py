@@ -7,14 +7,20 @@ int8: q bit-equal, scales 1e-6 relative, mixed parameters and residuals
 1e-6); ``make_train_step`` Mode A and Mode B in lockstep with the
 reference's jitted step for 3 steps (each port step starts from the
 reference's state; losses and every state leaf 1e-5) on the smoke configs
-of stablelm-3b, qwen2-vl-2b (the test's patch embeddings fed to both) and
-rwkv6-7b with int8 gossip; the Mode B step against ``core.dpsgd.dpsgd_step``
+of stablelm-3b, qwen2-vl-2b (the test's patch embeddings fed to both; also
+at remat "full" on both sides) and rwkv6-7b with int8 gossip; the default
+``RunConfig`` (remat "full") stepping bit-equal to remat "none" in Mode A
+and Mode B; ``chip_smoke.py``'s AdamW hold (``hold_step``) passing remat
+"full" against "none" and failing where one checkpointed unit's gradient
+is 1 % off; the Mode B step against ``core.dpsgd.dpsgd_step``
 with the plan's W (the twin of ``tests/test_system.py``'s
 ``test_dpsgd_equals_reference_implementation``); ``init_train_state``'s
 leaves against the reference's. Weights cross through numpy
 (``convert.params_from_numpy``); inputs are drawn with numpy from seeds.
 """
 import dataclasses
+import importlib.util
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -36,7 +42,7 @@ from repro_torch.convert import params_from_numpy
 from repro_torch.core import dpsgd as t_dpsgd
 from repro_torch.core import gossip as t_gossip
 from repro_torch.kernels import gossip_mix as gm
-from repro_torch.models import build
+from repro_torch.models import build, remat
 from repro_torch.optim.schedule import constant_lr
 from repro_torch.train import step as t_step
 
@@ -201,6 +207,7 @@ class Case:
     microbatch: int = 0
     weight_decay: float = 0.0
     eta: float = 0.05
+    remat: str = "none"
 
 
 CASES = [
@@ -212,6 +219,9 @@ CASES = [
     Case("qwen2-vl-2b", "allreduce", microbatch=2),
     Case("qwen2-vl-2b", "dpsgd", microbatch=2),
     Case("rwkv6-7b", "dpsgd", compression="int8"),
+    Case("qwen2-vl-2b", "allreduce", optimizer="adamw", eta=1e-3,
+         remat="full"),
+    Case("qwen2-vl-2b", "dpsgd", remat="full"),
 ]
 N_NODES = 4
 SEQ = 32
@@ -221,7 +231,7 @@ def _runs(case):
     kw = dict(mode=case.mode, compression=case.compression,
               optimizer=case.optimizer, momentum=0.9 if case.optimizer ==
               "momentum" else 0.0, weight_decay=case.weight_decay,
-              microbatch=case.microbatch, eta=case.eta, remat="none")
+              microbatch=case.microbatch, eta=case.eta, remat=case.remat)
     return RRunConfig(**kw), RunConfig(**kw)
 
 
@@ -303,7 +313,8 @@ def _assert_state_close(port, ref, lr):
 
 @pytest.mark.parametrize("case", CASES, ids=[
     f"{c.arch}-{c.mode}-{c.compression}-{c.optimizer}-{c.plan}"
-    f"{'-mb2' if c.microbatch else ''}" for c in CASES])
+    f"{'-mb2' if c.microbatch else ''}"
+    f"{'-remat-' + c.remat if c.remat != 'none' else ''}" for c in CASES])
 def test_train_step_lockstep_with_reference(case):
     """3 steps: each port step from the reference's state and batch; the
     loss within 1e-5 of the reference's jitted step and every leaf of the
@@ -399,12 +410,89 @@ def test_init_train_state_leaves_match_reference(mode, compression,
             assert all(not x.any() for x in t_dpsgd._leaves(tree))
 
 
-def test_remat_is_refused_until_ported():
-    api = build(reduce_for_smoke(get_config("stablelm-3b")), "cpu")
-    for remat in ("full", "dots"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-            t_step.make_train_step(api, RunConfig(remat=remat), None,
-                                   constant_lr(0.1))
+@pytest.mark.parametrize("mode", ["allreduce", "dpsgd"])
+def test_default_run_config_steps_with_remat_full(mode):
+    """``make_train_step(api, RunConfig(mode=...))`` (remat "full", the
+    default) builds and takes a step, Mode A and Mode B: its new state
+    bit-equal to the same step at remat "none"."""
+    cfg = reduce_for_smoke(get_config("stablelm-3b"))
+    api = build(cfg, "cpu")
+    run = RunConfig(mode=mode)
+    assert run.remat == "full"
+    plan = t_gossip.ring_plan(("data",), (N_NODES,), 1) \
+        if mode == "dpsgd" else None
+    state = t_step.init_train_state(api, run, torch.Generator().manual_seed(
+        3), n_nodes=N_NODES)
+    tokens = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, size=(8, SEQ)).astype(np.int32))
+    batch = {"tokens": tokens if mode == "allreduce"
+             else tokens.reshape(N_NODES, 2, SEQ)}
+    out = {}
+    for remat in ("full", "none"):
+        step = t_step.make_train_step(
+            api, dataclasses.replace(run, remat=remat), plan,
+            constant_lr(run.eta))
+        out[remat] = step(state, batch)
+    (new, metrics), (want, want_m) = out["full"], out["none"]
+    assert int(new["step"]) == 1
+    assert torch.equal(metrics["loss"], want_m["loss"])
+    for a, b in zip(t_dpsgd._leaves(new), t_dpsgd._leaves(want)):
+        assert torch.equal(a, b)
+
+
+def _chip_smoke():
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("fault", [None, 1.01], ids=["clean", "planted"])
+def test_chip_smoke_adamw_hold_catches_a_wrong_recompute_gradient(
+        fault, monkeypatch):
+    """``chip_smoke.py``'s hold of two AdamW steps (``hold_step``, phases
+    22 (c) and 23 (b)): remat "full" against "none", 2 microbatches, one
+    step from one state, passes with nothing apart (the two are
+    bit-equal); with one checkpointed unit's gradient scaled by ``fault``
+    it fails, through AdamW's m (1 - b1) g. The parameters alone cannot
+    show it: they are held to each side's own step."""
+    cs = _chip_smoke()
+    cfg = dataclasses.replace(reduce_for_smoke(get_config("qwen2-vl-2b")),
+                              n_layers=2)
+    api = build(cfg, "cpu")
+    run = cs._pod_run("allreduce", microbatch=2)
+    state = t_step.init_train_state(api, run, torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(5)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, size=(4, SEQ)).astype(np.int32)),
+        "patch_embeds": torch.from_numpy(rng.normal(size=(
+            4, cfg.n_patches, cfg.d_model)).astype(np.float32))}
+    new = {}
+    for policy in ("none", "full"):
+        if policy == "full" and fault is not None:
+            plain, calls = remat._Recompute.forward, []
+
+            def once_off(*args):
+                grads = plain(*args)
+                calls.append(1)
+                return tuple(g * fault for g in grads) if len(calls) == 1 \
+                    else grads
+            monkeypatch.setattr(remat._Recompute, "forward",
+                                staticmethod(once_off))
+        step = t_step.make_train_step(api, dataclasses.replace(
+            run, remat=policy), None, constant_lr(run.eta))
+        new[policy], _ = step(state, batch)
+    held = cs.hold_step(torch, "full against none", new["full"],
+                        new["none"], state, run.eta, True)
+    if fault is None:
+        assert held["opt"] == held["params"] == 0.0
+        cs.report_held("full against none", held, True)
+        return
+    assert max(held["params"], held["params_amplified"]) <= cs.TOL_FP32
+    assert held["opt"] > 100 * cs.TOL_FP32
+    with pytest.raises(SystemExit):
+        cs.report_held("full against none", held, True)
 
 
 def test_reshape_batch_for_nodes():
