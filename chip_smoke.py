@@ -324,8 +324,23 @@ Phases, each of which ends the run with a nonzero exit if it fails:
               CUDA-event and profiler times, idle share and largest
               device operations; (c) Mode B at 4 layers (the
               controller's plan), none against full in turns, ms a step
-              and peak memory.
+              and peak memory;
+24. inspection tooling — the dry run (``launch.dryrun``: the step on
+              data-free tensors through the kernels' shape rules, with
+              the card and then the CPU as the fake device, which must
+              agree) of each configuration phases 8, 12 and 23 read:
+              qwen2-vl-2b's full-depth Mode A step under remat full x 1
+              and none x 4, its Mode B step at 4 layers, rwkv6-7b's and
+              deepseek-v2-lite-16b's serve; each dry-run peak (offset by
+              what the card held beyond the step's own state at the
+              reset) within 10 % of the card's max_memory_allocated, its
+              kernel launches equal to the wrappers' counters, and the
+              launches ``utils.profile`` reads from the kernel names of
+              phase 23 (b)'s and the serves' profiler traces equal to
+              them too.
 
+The cost model (``kernels.cost``: every bound) and the profiler summary
+(``utils.profile``) are the package's; this script keeps no copy.
 Each phase prints its wall time. The last lines are the card's
 ``nvidia-smi`` name and power limit, one JSON line with every kernel's
 numbers (quantize_int8 and dequantize_int8, off the int8 round now,
@@ -365,6 +380,9 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
+# the port's cost model (repro_torch.kernels.cost) and profiler summary
+# (repro_torch.utils.profile), imported by main() once src/ is on the path
+cost = prof = None
 
 N_NODES = 6
 EPS = 5.0
@@ -375,9 +393,6 @@ PROFILE_STEPS = 10                   # steps under the profiler
 STEADY_STEPS = 200                   # graphed steps past the first replays
 TIMING_REPEATS = 3                   # eager / graphed pairs per λ target
 COMPRESSED_ROUNDS = 4
-HBM_BYTES_PER_S = 3.35e12            # H100 SXM data sheet
-FP32_FLOPS = 67e12                   # H100 SXM, fp32 outside tensor cores
-BF16_FLOPS = 989e12                  # H100 SXM, dense bf16 tensor cores
 TOL_FP32, TOL_BF16 = 1e-5, 3e-2      # tests/test_kernels.py
 TOL_FLASH_FP32, TOL_RGLRU = 2e-5, 1e-4   # tests/test_kernels.py
 TOL_RWKV = 5e-4                          # tests/test_kernels.py
@@ -508,8 +523,6 @@ TRACE_CASES = [      # (scenario, n, overrides, degrade modes)
 TRACE_LONG_SCENARIOS = ("static", "fading")
 TRACE_DECIDE_N = (6, 64)
 TOL_TIME = 1e-12                     # relative: the running sum's association
-FP64_FLOPS = 34e12                   # H100 SXM data sheet, fp64 outside the
-                                     # tensor cores
 
 # pod-mode training (phase 22): qwen2-vl-2b (the pod trainer's default arch)
 # at its published widths, 4 nodes x batch 4 x 512 tokens (the sequence
@@ -660,169 +673,6 @@ def graph_ms(torch, fn, reps: int = 100, rounds: int = 5) -> float:
         end.synchronize()
         per_call.append(start.elapsed_time(end) / reps)
     return statistics.median(per_call)
-
-
-def device_profile(torch, run, calls: int) -> list[tuple[str, float, int]]:
-    """Kernels in a ``torch.profiler`` trace of ``run`` (which makes
-    ``calls`` calls of the thing measured): (name, device ms per call,
-    launches per call), longest first; empty if the trace shows no device
-    time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
-    rows = []
-    for evt in prof.key_averages():
-        us = getattr(evt, "self_device_time_total",
-                     getattr(evt, "self_cuda_time_total", 0.0))
-        if us > 0:
-            rows.append((evt.key, us / 1e3 / calls, evt.count // calls))
-    return sorted(rows, key=lambda r: -r[1])
-
-
-def device_ms(torch, fn, kernel_name, calls: int = 50):
-    """Device time per call of every device operation a call makes whose
-    name contains ``kernel_name`` (a string, or a tuple of name fragments:
-    a wrapper's kernels, memsets and second passes all count); None if the
-    trace shows none."""
-    fn()
-    names = (kernel_name,) if isinstance(kernel_name, str) else kernel_name
-
-    def run():
-        for _ in range(calls):
-            fn()
-    ms = sum(r[1] for r in device_profile(torch, run, calls)
-             if any(n in r[0] for n in names))
-    return ms if ms > 0 else None
-
-
-def bound(nbytes: float, flops: float,
-          peak: float = FP32_FLOPS) -> tuple[float, str]:
-    """Least time on an H100 SXM: bytes over HBM rate vs flops over the
-    peak of their type (fp32 unless given), whichever is larger (ms, and
-    which one binds)."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
-
-
-def rows_cost(m: int, k: int, n: int, elt: int) -> tuple[float, float]:
-    """gossip_mix_rows: read W and bufs once, write out once; 2MKN flops."""
-    return 4 * m * k + elt * (k * n + m * n), 2.0 * m * k * n
-
-
-def q8_cost(m: int, k: int, n: int) -> tuple[float, float]:
-    """gossip_mix_q8_rows: weights, fp32 self, the int8 lanes < N (the
-    kernel never reads the padding), one scale per 2048-lane block in, fp32
-    out; K*N dequantize multiplies, M*N self products, 2MKN flops."""
-    nbytes = 4 * m * (k + 1) + 4 * m * n + k * n + 4 * k * -(-n // 2048) \
-        + 4 * m * n
-    return nbytes, float(k * n + m * n + 2 * m * k * n)
-
-
-def flash_cost(b: int, s: int, hq: int, hkv: int, d: int, window: int,
-               elt: int) -> tuple[float, float]:
-    """flash_attention, causal: q and out (B, S, Hq, D), k and v
-    (B, S, Hkv, D) once each; 4 D flops per (query, key) pair of the band
-    (2 for q.k, 2 for p.v), for every batch and q head."""
-    pairs = sum(min(q + 1, window) if window else q + 1 for q in range(s))
-    return elt * (2 * b * s * hq * d + 2 * b * s * hkv * d), \
-        4.0 * d * pairs * b * hq
-
-
-def attn_cost(b: int, s: int, t: int, h: int, d: int, dv: int,
-              causal: bool, elt: int) -> tuple[float, float]:
-    """flash_attention_gqa with Hq = Hkv = h (MHA): q (B, S, H, D), k
-    (B, T, H, D), v (B, T, H, Dv) read once and out (B, S, H, Dv) written
-    once; 2 D + 2 Dv flops per (query, key) pair (q.k, then p.v), over the
-    causal triangle (S == T) or all S x T pairs."""
-    pairs = s * (s + 1) // 2 if causal else s * t
-    return elt * b * h * (s * d + t * d + t * dv + s * dv), \
-        (2.0 * d + 2.0 * dv) * pairs * b * h
-
-
-def band_pairs(s: int, t: int, causal: bool, window: int) -> int:
-    """(query, key) pairs of the band over S queries and T keys: causal
-    t <= s, window s - t < w."""
-    q = np.arange(s)
-    lo = np.maximum(0, q - window + 1) if window else np.zeros_like(q)
-    hi = np.minimum(t, q + 1) if causal else np.full_like(q, t)
-    return int(np.maximum(hi - lo, 0).sum())
-
-
-def bwd_cost(b: int, s: int, t: int, hq: int, hkv: int, d: int,
-             causal: bool, window: int, elt: int) -> tuple[float, float]:
-    """flash_attention_bwd: q, o, do (B, S, Hq, D), k, v (B, T, Hkv, D) and
-    lse fp32 (B, Hq, S) read once, dq, dk, dv written once; 5 products of D
-    multiply-adds per (query, key) pair of the band (q.k, do.v, P^T do,
-    dS^T q, dS k: 10 D flops), for every batch and q head."""
-    nbytes = elt * (4 * b * s * hq * d + 4 * b * t * hkv * d) + 4 * b * hq * s
-    return nbytes, 10.0 * d * band_pairs(s, t, causal, window) * b * hq
-
-
-def rglru_cost(b: int, s: int, d: int) -> tuple[float, float]:
-    """rglru_scan: fp32 a, b in and h out (B, S, D), h0 (B, D); one
-    multiply-add (2 flops) per element."""
-    return 4.0 * (3 * b * s * d + b * d), 2.0 * b * s * d
-
-
-def rwkv_cost(b: int, s: int, h: int, d: int) -> tuple[float, float]:
-    """rwkv6_scan: fp32 r, k, v, w in and y out (B, S, H, D), s0 in and the
-    final state out (B, H, D, D); 4 D^2 flops per (b, h, t) for the exact
-    recurrence (D^2 multiply-adds for y, D^2 for the state)."""
-    return 4.0 * (5 * b * s * h * d + 2 * b * h * d * d), \
-        4.0 * d * d * b * h * s
-
-
-def rglru_bwd_cost(b: int, s: int, d: int,
-                   with_h0: bool) -> tuple[float, float]:
-    """rglru_scan_bwd: fp32 a, h, dh in and da, db out (B, S, D), 20 bytes a
-    lane, with h0 in and dh0 out (B, D) when given; a multiply-add for g
-    and a multiply for da per element."""
-    return 4.0 * (5 * b * s * d + (2 * b * d if with_h0 else 0)), \
-        3.0 * b * s * d
-
-
-def rwkv_bwd_cost(b: int, s: int, h: int, d: int, states: bool,
-                  u_rows: bool) -> tuple[float, float]:
-    """rwkv6_scan_bwd: fp32 r, k, v, w, dy in and dr, dk, dv, dw out (B, S,
-    H, D), u in and du out (per batch row), s0 and ds_final in and ds0 out
-    when given; twice the forward's 4 D^2 flops a (b, h, t)."""
-    nbytes = 4.0 * (9 * b * s * h * d + (b if u_rows else 1) * h * d
-                    + b * h * d + (3 * b * h * d * d if states else 0))
-    return nbytes, 2 * 4.0 * d * d * b * h * s
-
-
-def quantize_cost(rows: int, length: int, block: int,
-                  elt: int) -> tuple[float, float]:
-    """quantize_int8: x (rows, length) read once, q (rows, Lp) int8 and one
-    fp32 scale per block written once; ~6 operations per lane (|x|, max,
-    divide, round, two clamps)."""
-    nb = -(-length // block)
-    return elt * rows * length + rows * nb * block + 4 * rows * nb, \
-        6.0 * rows * nb * block
-
-
-def send_cost(rows: int, length: int) -> tuple[float, float]:
-    """quantize_int8_ef: flat and res (rows, length) fp32 and the live mask
-    read once; q (rows, Lp) int8, one fp32 scale per 2048-lane block and
-    new_res (rows, length) fp32 written once; ~9 operations per lane
-    (add, |x|, max, the quotient, round, two clamps, the dequantize
-    multiply, the residual)."""
-    nb = -(-length // 2048)
-    return 8 * rows * length + rows + rows * nb * 2048 + 4 * rows * nb \
-        + 4 * rows * length, 9.0 * rows * nb * 2048
-
-
-def dequantize_cost(rows: int, length: int, block: int,
-                    elt: int) -> tuple[float, float]:
-    """dequantize_int8: the int8 lanes below ``length`` and one scale per
-    block read once, (rows, length) written once; one multiply per lane."""
-    nb = -(-length // block)
-    return rows * length + 4 * rows * nb + elt * rows * length, \
-        float(rows * length)
 
 
 def err(a, b) -> float:
@@ -1108,7 +958,7 @@ def phase_kernels(torch) -> dict:
     m = k = N_NODES
     n = 21_840
     bufs, w = randn(k, n), softmax_rows(m, k)
-    b_ms, b_by = bound(*rows_cost(m, k, n, 4))
+    b_ms, b_by = cost.bound(*cost.rows_cost(m, k, n, 4))
     eager_ms, library_ms = paired_ms(
         torch, lambda: gm.gossip_mix_rows(w, bufs),
         lambda: torch.matmul(w, bufs))
@@ -1118,13 +968,13 @@ def phase_kernels(torch) -> dict:
            "library_ms": library_ms,
            "graph_ms": graph_ms(torch, lambda: gm.gossip_mix_rows(w, bufs)),
            "library_graph_ms": graph_ms(torch, lambda: torch.matmul(w, bufs)),
-           "device_ms": device_ms(torch, lambda: gm.gossip_mix_rows(w, bufs),
+           "device_ms": prof.device_ms(lambda: gm.gossip_mix_rows(w, bufs),
                                   "gossip_mix_rows"),
            "bound_ms": b_ms, "bound_by": b_by,
            "shape": f"W ({m}x{k}) fp32, bufs ({k}x{n}) fp32"}
     q, s = quantize_int8_rows(randn(k, n, scale=0.3))
     x = randn(m, n, scale=0.3)
-    b_ms, b_by = bound(*q8_cost(m, k, n))
+    b_ms, b_by = cost.bound(*cost.q8_cost(m, k, n))
 
     def receive():
         # the variant the round launches: W and self loaded ahead of the
@@ -1137,7 +987,7 @@ def phase_kernels(torch) -> dict:
           "library_ms": None,
           "graph_ms": graph_ms(torch, receive),
           "library_graph_ms": None,
-          "device_ms": device_ms(torch, receive, "gossip_mix_q8_rows_kernel"),
+          "device_ms": prof.device_ms(receive, "gossip_mix_q8_rows_kernel"),
           "bound_ms": b_ms, "bound_by": b_by,
           "shape": f"W ({m}x{k}) whole, self ({m}x{n}) fp32, q "
                    f"({k}x{q.shape[1]}) int8, the round's variant (W and "
@@ -1225,7 +1075,7 @@ def int8_round_chain(torch, randn, softmax_rows, rounds: int = 15) -> dict:
           f"({N_NODES}, {n}) fp32, outputs bit-equal; 100 rounds in a CUDA "
           f"graph, {rounds} replays in turns:")
     for (label, fn), times in zip(chains, per_round):
-        ops = device_profile(torch, fn, 1)
+        ops = prof.device_profile(fn, 1)
         launches = sum(c for _, _, c in ops)
         out[label] = {"us": statistics.median(times), "launches": launches}
         print(f"   {label:18s} {statistics.median(times):8.3f} us per round "
@@ -1588,7 +1438,7 @@ def phase_slice(torch) -> dict:
     graphed_step_split(torch, step, params, data, w_t)
     busy = {}
     for label, run in (("graphed", graphed_steps), ("eager", eager_steps)):
-        rows = device_profile(torch, run, PROFILE_STEPS)
+        rows = prof.device_profile(run, PROFILE_STEPS)
         if not rows:
             print(f"profile ({label}): no device time in the trace "
                   "(not measured)")
@@ -1823,8 +1673,9 @@ def phase_attention_kernels(torch) -> dict:
     kpos = torch.arange(s, device=dev)[None, :]
     band = (kpos <= qpos) & (qpos - kpos < window)
     for dtype, elt, peak, kname in (
-            (torch.bfloat16, 2, BF16_FLOPS, "flash_attention_bf16_kernel"),
-            (torch.float32, 4, FP32_FLOPS, "flash_attention_kernel")):
+            (torch.bfloat16, 2, cost.BF16_FLOPS,
+             "flash_attention_bf16_kernel"),
+            (torch.float32, 4, cost.FP32_FLOPS, "flash_attention_kernel")):
         q, k, v = qkv(b, s, hq, hkv, d, dtype)
 
         def kernel():
@@ -1835,8 +1686,8 @@ def phase_attention_kernels(torch) -> dict:
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                 attn_mask=band, enable_gqa=True)
         lib_err = err(library().transpose(1, 2), kernel())
-        nbytes, flops = flash_cost(b, s, hq, hkv, d, window, elt)
-        b_ms, b_by = bound(nbytes, flops, peak)
+        nbytes, flops = cost.flash_cost(b, s, hq, hkv, d, window, elt)
+        b_ms, b_by = cost.bound(nbytes, flops, peak)
         out[str(dtype)[6:]] = {
             "ms": time_ms(torch, kernel, reps=10, rounds=3, warmup=2),
             "plain_ms": time_ms(torch, lambda: fa.flash_attention_plain(
@@ -1844,7 +1695,7 @@ def phase_attention_kernels(torch) -> dict:
                 warmup=1),
             "library_ms": time_ms(torch, library, reps=10, rounds=3,
                                   warmup=2),
-            "device_ms": device_ms(torch, kernel, kname, calls=3),
+            "device_ms": prof.device_ms(kernel, kname, calls=3),
             "bound_ms": b_ms, "bound_by": b_by,
             "shape": f"q ({b},{s},{hq},{d}) k/v ({b},{s},{hkv},{d}) "
                      f"{str(dtype)[6:]}, causal, window {window}"}
@@ -1876,8 +1727,8 @@ def phase_attention_kernels(torch) -> dict:
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                 is_causal=causal)
         lib_err = err(library().transpose(1, 2), kernel())
-        nbytes, flops = attn_cost(b, s, t, h, d, dv, causal, 2)
-        b_ms, b_by = bound(nbytes, flops, BF16_FLOPS)
+        nbytes, flops = cost.attn_cost(b, s, t, h, d, dv, causal, 2)
+        b_ms, b_by = cost.bound(nbytes, flops, cost.BF16_FLOPS)
         t_ = {"ms": time_ms(torch, kernel, reps=10, rounds=3, warmup=2),
               "plain_ms": time_ms(torch, lambda: fa.flash_attention_plain(
                   q, k, F.pad(v, (0, d - dv)), causal=causal), reps=2,
@@ -1885,7 +1736,7 @@ def phase_attention_kernels(torch) -> dict:
               "library_ms": time_ms(torch, library, reps=10, rounds=3,
                                     warmup=2),
               # every device operation of the call: v's padding counts
-              "device_ms": device_ms(torch, kernel, "", calls=3),
+              "device_ms": prof.device_ms(kernel, "", calls=3),
               "bound_ms": b_ms, "bound_by": b_by,
               "shape": f"q ({b},{s},{h},{d}) k ({b},{t},{h},{d}) v "
                        f"({b},{t},{h},{dv}) bf16, "
@@ -1903,7 +1754,7 @@ def phase_attention_kernels(torch) -> dict:
         a = torch.sigmoid(torch.randn((b, s, d), generator=gen, device=dev))
         x = torch.randn((b, s, d), generator=gen, device=dev)
         h0 = torch.randn((b, d), generator=gen, device=dev)
-        b_ms, b_by = bound(*rglru_cost(b, s, d))
+        b_ms, b_by = cost.bound(*cost.rglru_cost(b, s, d))
         out[s] = {
             "ms": time_ms(torch, lambda: rg.rglru_scan(a, x, h0), reps=20),
             # the plain version is a Python loop over time: at S = 4096,
@@ -1912,7 +1763,7 @@ def phase_attention_kernels(torch) -> dict:
                                 reps=reps, rounds=3, warmup=1),
             "library_ms": None,
             # the chained scan's memset of its flags counts too
-            "device_ms": device_ms(torch, lambda: rg.rglru_scan(a, x, h0),
+            "device_ms": prof.device_ms(lambda: rg.rglru_scan(a, x, h0),
                                    ("rglru_scan_kernel", "Memset"),
                                    calls=10),
             "bound_ms": b_ms, "bound_by": b_by,
@@ -2028,13 +1879,13 @@ def phase_rwkv_kernel(torch) -> dict:
 
     # time at the served shape, with s0 (prefill passes the cache's zeros)
     r, k, v, w, u, s0 = inputs(*cfg)
-    b_ms, b_by = bound(*rwkv_cost(*cfg))
+    b_ms, b_by = cost.bound(*cost.rwkv_cost(*cfg))
     out = {"ms": time_ms(torch, lambda: rw.rwkv6_scan(r, k, v, w, u, s0),
                          reps=20),
            "plain_ms": time_ms(torch, lambda: rw.rwkv6_scan_plain(
                r, k, v, w, u, s0, RWKV_CHUNK), reps=1, rounds=3, warmup=1),
            "library_ms": None,
-           "device_ms": device_ms(torch, lambda: rw.rwkv6_scan(
+           "device_ms": prof.device_ms(lambda: rw.rwkv6_scan(
                r, k, v, w, u, s0), "rwkv6_scan_kernel", calls=10),
            "bound_ms": b_ms, "bound_by": b_by,
            "shape": "r, k, v, w (%d,%d,%d,%d) fp32, s0 (%d,%d,%d,%d)"
@@ -2182,17 +2033,17 @@ def phase_quantize_kernels(torch) -> dict:
         print(f"dequantize_int8 ({rows}, {length}), {block}-lane blocks: "
               f"library (int8 payload * scales) vs kernel max|diff| "
               f"{lib_err:.3e}")
-        for name, kernel, plain, lib, cost, kname in (
+        for name, kernel, plain, lib, work, kname in (
                 ("quantize_int8", lambda: qz.quantize_int8(x, block),
                  lambda: qz.quantize_int8_plain(x, block), None,
-                 quantize_cost(rows, length, block, 4),
+                 cost.quantize_cost(rows, length, block, 4),
                  "quantize_int8_kernel"),
                 ("dequantize_int8",
                  lambda: qz.dequantize_int8(q, s, block, length),
                  lambda: qz.dequantize_int8_plain(q, s, block, length),
-                 library, dequantize_cost(rows, length, block, 4),
+                 library, cost.dequantize_cost(rows, length, block, 4),
                  "dequantize_int8_kernel")):
-            b_ms, b_by = bound(*cost)
+            b_ms, b_by = cost.bound(*work)
             path = rows == N_NODES      # the path's shape: the JSON row
             eager_ms, lib_ms = (time_ms(torch, kernel, reps=reps), None) \
                 if lib is None else paired_ms(torch, kernel, lib, reps=reps)
@@ -2202,14 +2053,14 @@ def phase_quantize_kernels(torch) -> dict:
                  "graph_ms": graph_ms(torch, kernel) if path else None,
                  "library_graph_ms": graph_ms(torch, lib)
                  if path and lib is not None else None,
-                 "device_ms": device_ms(torch, kernel, kname, calls=reps),
+                 "device_ms": prof.device_ms(kernel, kname, calls=reps),
                  "bound_ms": b_ms, "bound_by": b_by,
                  "max_abs_err": errs[name],
                  "shape": f"({rows}, {length}) fp32, {block}-lane blocks"}
             print_times(name, t)
             if t["device_ms"] is not None:
                 print(f"{'':15s} device rate "
-                      f"{cost[0] / t['device_ms'] / 1e9:.1f} TB/s")
+                      f"{work[0] / t['device_ms'] / 1e9:.1f} TB/s")
             if path:
                 out[name] = t
     against_library("dequantize_int8", out["dequantize_int8"],
@@ -2225,7 +2076,7 @@ def phase_quantize_kernels(torch) -> dict:
     flat = randn(rows, length, scale=0.3)
     res = randn(rows, length, scale=1e-3)
     live = torch.arange(rows, device=dev) != rows - 1
-    b_ms, b_by = bound(*send_cost(rows, length))
+    b_ms, b_by = cost.bound(*cost.send_cost(rows, length))
     t = {"ms": time_ms(torch, lambda: qz.quantize_int8_ef(flat, res, live)),
          "plain_ms": time_ms(torch, lambda: qz.quantize_int8_ef_plain(
              flat, res, live)),
@@ -2233,7 +2084,7 @@ def phase_quantize_kernels(torch) -> dict:
          "graph_ms": graph_ms(torch, lambda: qz.quantize_int8_ef(
              flat, res, live)),
          "library_graph_ms": None,
-         "device_ms": device_ms(torch, lambda: qz.quantize_int8_ef(
+         "device_ms": prof.device_ms(lambda: qz.quantize_int8_ef(
              flat, res, live), "quantize_int8_ef_kernel"),
          "bound_ms": b_ms, "bound_by": b_by,
          "max_abs_err": errs["quantize_int8_ef"],
@@ -2293,6 +2144,7 @@ def phase_serve(torch, title: str, arch: str, counters: dict, want: dict,
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    base_bytes = torch.cuda.memory_allocated()     # what earlier phases hold
 
     for fn in counters.values():
         fn.launches = 0
@@ -2338,14 +2190,15 @@ def phase_serve(torch, title: str, arch: str, counters: dict, want: dict,
     if not cfg.tie_embeddings:
         emb = params["embed"]["embedding"]
         step_bytes -= emb.numel() * emb.element_size()
-    floor_ms = step_bytes / HBM_BYTES_PER_S * 1e3
+    floor_ms = step_bytes / cost.HBM_BYTES_PER_S * 1e3
     expert_bytes = sum(
         t.numel() * t.element_size() for layer in params.get("unit", [])
         for name, t in layer.get("moe", {}).items() if name.startswith("ew_"))
     print(f"a decode step reads {step_bytes / 1e9:.3f} GB of weights: at "
-          f"least {floor_ms:.3f} ms at {HBM_BYTES_PER_S / 1e12:.2f} TB/s"
+          f"least {floor_ms:.3f} ms at "
+          f"{cost.HBM_BYTES_PER_S / 1e12:.2f} TB/s"
           + (f"; of it every expert's, {expert_bytes / 1e9:.3f} GB "
-             f"({expert_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms)"
+             f"({expert_bytes / cost.HBM_BYTES_PER_S * 1e3:.3f} ms)"
              if expert_bytes else ""))
     inputs = api.make_inputs(ShapeConfig("serve", SERVE_PROMPT, SERVE_BATCH,
                                          "prefill"), rng,
@@ -2357,7 +2210,8 @@ def phase_serve(torch, title: str, arch: str, counters: dict, want: dict,
     def prefill():
         state["logits"], state["cache"] = api.prefill(params, inputs,
                                                       max_len=max_len)
-    rows = device_profile(torch, prefill, 1)
+    traced = prof.trace(prefill)
+    rows = traced["top"]
     if cfg.moe is not None:
         # what the served capacity drops: the same prefill again, each MoE
         # layer's routing counted beside it (moe_apply itself unchanged)
@@ -2380,8 +2234,11 @@ def phase_serve(torch, title: str, arch: str, counters: dict, want: dict,
         print("prefill profile: no device time in the trace (not measured)")
     else:
         print(f"profile of one prefill: device busy "
-              f"{sum(r[1] for r in rows):.4f} ms; top device operations "
-              f"(ms, launches):")
+              f"{traced['busy_ms']:.4f} ms of {traced['wall_ms']:.4f} wall, "
+              f"idle {traced['idle']:.4f}; hand-written kernels' launches "
+              f"read from the trace "
+              f"{ {k: n for k, n in traced['launches'].items() if n} }; "
+              f"top device operations (ms, launches):")
         for name, ms, calls in rows[:10]:
             print(f"   {ms:9.4f} ms  {calls:4d}x  {name[:90]}")
 
@@ -2396,7 +2253,7 @@ def phase_serve(torch, title: str, arch: str, counters: dict, want: dict,
     decode(base)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / DECODE_PROFILE_STEPS
-    drows = device_profile(torch, lambda: decode(
+    drows = prof.device_profile(lambda: decode(
         base + DECODE_PROFILE_STEPS), DECODE_PROFILE_STEPS)
     idle = None
     print(f"decode: {wall_ms:.4f} ms/step wall against the weights' floor "
@@ -2416,6 +2273,9 @@ def phase_serve(torch, title: str, arch: str, counters: dict, want: dict,
     torch.cuda.empty_cache()
     return {"launches": launches, "prefill_s": out["prefill_s"],
             "tok_per_s": out["tok_per_s"], "peak_bytes": peak,
+            "base_bytes": base_bytes, "prefill_traced": traced["launches"],
+            "state_bytes": (sum(t.numel() * t.element_size()
+                                for t in leaves), 0),
             "decode_idle_share": idle, "decode_ms": wall_ms,
             "decode_floor_ms": floor_ms}
 
@@ -3127,11 +2987,13 @@ def phase_flash_backward(torch) -> dict:
         big = b * s * hq * d >= 1 << 22
         reps = dict(reps=3, rounds=3, warmup=1) if big else \
             dict(reps=20, rounds=3, warmup=3)
-        elt, peak = (2, BF16_FLOPS) if dtype == bf16 else (4, FP32_FLOPS)
-        nbytes, flops = bwd_cost(b, s, t, hq, hkv, d, causal, window, elt)
-        b_ms, b_by = bound(nbytes, flops, peak)
+        elt, peak = (2, cost.BF16_FLOPS) if dtype == bf16 \
+            else (4, cost.FP32_FLOPS)
+        nbytes, flops = cost.bwd_cost(b, s, t, hq, hkv, d, causal, window,
+                                      elt)
+        b_ms, b_by = cost.bound(nbytes, flops, peak)
         t_ = {"ms": time_ms(torch, kernel, **reps),
-              "device_ms": device_ms(torch, kernel, "flash_bwd", calls=3),
+              "device_ms": prof.device_ms(kernel, "flash_bwd", calls=3),
               "graph_ms": graph_ms(torch, kernel, reps=3 if big else 20,
                                    rounds=3),
               "plain_ms": time_ms(torch, lambda: fa.flash_attention_bwd_plain(
@@ -3142,8 +3004,8 @@ def phase_flash_backward(torch) -> dict:
                   lib_out, (qq, kk, vv), dot, retain_graph=True), **reps),
               # every device operation of SDPA's backward call (its
               # kernels, pre-pass and conversions), beside the kernel's
-              "library_device_ms": device_ms(
-                  torch, lambda: torch.autograd.grad(
+              "library_device_ms": prof.device_ms(
+                  lambda: torch.autograd.grad(
                       lib_out, (qq, kk, vv), dot, retain_graph=True), "",
                   calls=3),
               "bound_ms": b_ms, "bound_by": b_by,
@@ -3172,7 +3034,7 @@ def phase_flash_backward(torch) -> dict:
             qwen_fwd = flash_forward_times(torch, q, k, v, causal, window)
         if (b, s, t, hq, hkv, d, causal, window) == BWD_MAIN:
             # the call's device operations one by one
-            for name_, ms_, n_ in device_profile(torch, kernel, 1):
+            for name_, ms_, n_ in prof.device_profile(kernel, 1):
                 if "flash_bwd" in name_:
                     print(f"   {name_[:72]}: {ms_:.4f} ms x {n_}")
         out[(b, s, t, hq, hkv, d, causal, window, str(dtype)[6:])] = t_
@@ -3211,18 +3073,18 @@ def flash_forward_times(torch, q, k, v, causal: bool, window: int) -> dict:
             return F.scaled_dot_product_attention(
                 qq, kk, vv, is_causal=causal, enable_gqa=hq != hkv)
     check(not window, "flash_forward_times: no window (SDPA's causal mask)")
-    elt, peak = (2, BF16_FLOPS) if q.dtype == torch.bfloat16 \
-        else (4, FP32_FLOPS)
-    nbytes, flops = flash_cost(b, s, hq, hkv, d, window, elt)
-    b_ms, b_by = bound(nbytes, flops, peak)
+    elt, peak = (2, cost.BF16_FLOPS) if q.dtype == torch.bfloat16 \
+        else (4, cost.FP32_FLOPS)
+    nbytes, flops = cost.flash_cost(b, s, hq, hkv, d, window, elt)
+    b_ms, b_by = cost.bound(nbytes, flops, peak)
     t_ = {"ms": time_ms(torch, kernel, reps=20, rounds=3, warmup=3),
-          "device_ms": device_ms(torch, kernel, "flash_attention", calls=3),
+          "device_ms": prof.device_ms(kernel, "flash_attention", calls=3),
           "graph_ms": graph_ms(torch, kernel, reps=20, rounds=3),
           "plain_ms": time_ms(torch, lambda: fa.flash_attention_plain(
               q, k, v, causal=causal, window=window, return_lse=True),
               reps=1, rounds=3, warmup=1),
           "library_ms": time_ms(torch, sdpa, reps=20, rounds=3, warmup=3),
-          "library_device_ms": device_ms(torch, sdpa, "", calls=3),
+          "library_device_ms": prof.device_ms(sdpa, "", calls=3),
           "bound_ms": b_ms, "bound_by": b_by,
           "shape": f"q ({b},{s},{hq},{d}) k, v ({b},{s},{hkv},{d}) "
                    f"{str(q.dtype)[6:]}, "
@@ -3303,15 +3165,15 @@ def phase_scan_backward(torch) -> dict:
         worst = max(worst, hold("rglru_scan_bwd", got, want, TOL_RGLRU,
                                 what))
         if (b, s, d) in (RGLRU_BWD_MAIN, (SERVE_BATCH, SERVE_PROMPT, 2560)):
-            nbytes, flops = rglru_bwd_cost(b, s, d, with_h0)
-            b_ms, b_by = bound(nbytes, flops)
+            nbytes, flops = cost.rglru_bwd_cost(b, s, d, with_h0)
+            b_ms, b_by = cost.bound(nbytes, flops)
             out[(b, s, d)] = {
                 "ms": time_ms(torch, lambda: rg.rglru_scan_bwd(a, h, dh, h0),
                               reps=20),
                 "plain_ms": time_ms(torch, lambda: rg.rglru_scan_bwd_plain(
                     a, h, dh, h0), reps=1, rounds=3, warmup=1),
                 "library_ms": None,
-                "device_ms": device_ms(torch, lambda: rg.rglru_scan_bwd(
+                "device_ms": prof.device_ms(lambda: rg.rglru_scan_bwd(
                     a, h, dh, h0), ("rglru_bwd", "Memset"), calls=10),
                 "bound_ms": b_ms, "bound_by": b_by,
                 "shape": f"a, h, dh ({b},{s},{d}) fp32"
@@ -3361,8 +3223,8 @@ def phase_scan_backward(torch) -> dict:
         del got, want
         if (b, s, hh, d) in (RWKV_BWD_MAIN, (SERVE_BATCH, SERVE_PROMPT, 64,
                                              64)) and regime == "test":
-            nbytes, flops = rwkv_bwd_cost(b, s, hh, d, states, u_rows)
-            b_ms, b_by = bound(nbytes, flops)
+            nbytes, flops = cost.rwkv_bwd_cost(b, s, hh, d, states, u_rows)
+            b_ms, b_by = cost.bound(nbytes, flops)
             out[(b, s, hh, d)] = {
                 "ms": time_ms(torch, lambda: rw.rwkv6_scan_bwd(
                     r, k, v, w, u, dy, s0, dsf), reps=3, rounds=3, warmup=1),
@@ -3370,7 +3232,7 @@ def phase_scan_backward(torch) -> dict:
                     r, k, v, w, u, dy, s0, dsf, RWKV_CHUNK), reps=1,
                     rounds=3, warmup=1),
                 "library_ms": None,
-                "device_ms": device_ms(torch, lambda: rw.rwkv6_scan_bwd(
+                "device_ms": prof.device_ms(lambda: rw.rwkv6_scan_bwd(
                     r, k, v, w, u, dy, s0, dsf), "rwkv6_bwd", calls=3),
                 "bound_ms": b_ms, "bound_by": b_by,
                 "shape": f"r, k, v, w, dy ({b},{s},{hh},{d}) fp32, u "
@@ -3592,7 +3454,7 @@ def phase_train_lm(torch, label: str = "16", arch: str = TRAIN_ARCH,
     replay_ms = time_ms(torch, entry.graph.replay, reps=3, rounds=3,
                         warmup=1)
     idle = 1.0 - replay_ms / loop_ms
-    top = device_profile(torch, entry.graph.replay, 1)
+    top = prof.device_profile(entry.graph.replay, 1)
     busy = sum(r[1] for r in top)
     print(f"one replay under the profiler: {busy:.4f} ms of device "
           f"operations, the largest: " + "; ".join(
@@ -3818,18 +3680,6 @@ def hold_trace(torch, what: str, arrays, args, got: list, want: list,
           f"times {t_rel}")
     worst["t_rel"] = max(worst["t_rel"], t_rel)
     worst["t_abs"] = max(worst["t_abs"], t_abs)
-
-
-def trace_cost(n: int, p: int, rounds: int, fading: bool,
-               decodes: int) -> tuple[float, float]:
-    """The round loop's kernel: rates, sizes, recv and the SNR (or decode)
-    table read once, delivered, t_start, t_comm, retx and t_end written
-    once; 9 fp64 operations a decode it decides (the gain's scale, log1p,
-    its negation, the product, the division, the sum, log2, the product by
-    B and the comparison; a library function counted as one)."""
-    nbytes = (8 * n + 8 * p + n * n + (8 if fading else 1) * n * n
-              + rounds * n * n + 24 * rounds + 8)
-    return nbytes, 9.0 * decodes if fading else 0.0
 
 
 def hold_long_traces(torch, worst: dict) -> dict:
@@ -4074,12 +3924,13 @@ def phase_trace_scan(torch) -> dict:
           f"(b) trace: w_eff {w.shape}, finite {np.isfinite(w).all()}, "
           f"retx {s['retx_packets']}")
     passes_run, decodes = (int(x) for x in seen["counts"])
-    b_ms, b_by = bound(*trace_cost(TRACE_N, args["n_pkts"], TRACE_ROUNDS,
-                                   True, decodes), peak=FP64_FLOPS)
+    b_ms, b_by = cost.bound(*cost.trace_cost(
+        TRACE_N, args["n_pkts"], TRACE_ROUNDS, True, decodes),
+        peak=cost.FP64_FLOPS)
     dev_arrays = [torch.as_tensor(a, device=dev) for a in arrays]
-    prof = device_profile(torch, lambda: ts.round_scan(
+    ops = prof.device_profile(lambda: ts.round_scan(
         *dev_arrays, n_rounds=TRACE_ROUNDS, **args), 1)
-    kernel_ms = sum(r[1] for r in prof if "trace_scan_kernel" in r[0]) or None
+    kernel_ms = sum(r[1] for r in ops if "trace_scan_kernel" in r[0]) or None
     print(f"(b) the round loop's call {seen['call_ms']:.4f} ms (CUDA events;"
           f" the kernel alone {kernel_ms} ms on the device, profiler), "
           f"{passes_run} transmitter passes ({seen['call_ms'] * 1e3 / passes_run:.4f}"
@@ -4178,7 +4029,7 @@ def phase_trace_scan(torch) -> dict:
     bufs = torch.randn((n, 21_840), generator=gen).to(dev)
     e = err(gm.gossip_mix_rows(w_, bufs), gm.gossip_mix_rows_plain(w_, bufs))
     check(e <= TOL_FP32, f"rows mix at W ({n} x {n}): max|err| {e}")
-    r_ms, r_by = bound(*rows_cost(n, n, 21_840, 4))
+    r_ms, r_by = cost.bound(*cost.rows_cost(n, n, 21_840, 4))
     eager_ms, library_ms = paired_ms(torch, lambda: gm.gossip_mix_rows(w_, bufs),
                                      lambda: torch.matmul(w_, bufs))
     w256 = {"ms": eager_ms, "library_ms": library_ms,
@@ -4187,7 +4038,7 @@ def phase_trace_scan(torch) -> dict:
             "graph_ms": graph_ms(torch, lambda: gm.gossip_mix_rows(w_, bufs)),
             "library_graph_ms": graph_ms(torch,
                                          lambda: torch.matmul(w_, bufs)),
-            "device_ms": device_ms(torch, lambda: gm.gossip_mix_rows(
+            "device_ms": prof.device_ms(lambda: gm.gossip_mix_rows(
                 w_, bufs), "gossip_mix_rows"),
             "bound_ms": r_ms, "bound_by": r_by, "max_abs_err": e,
             "shape": f"W ({n}x{n}) fp32, bufs ({n}x21840) fp32"}
@@ -4273,8 +4124,8 @@ def pod_profile(torch, step_fn, state, batch, host_ms: float,
     event_ms = start.elapsed_time(end)
     del out
     gc.collect()
-    top = device_profile(torch, lambda: step_fn(state, batch), 1)
-    busy = sum(r[1] for r in top)
+    traced = prof.trace(lambda: step_fn(state, batch))
+    top, busy = traced["top"], traced["busy_ms"]
     idle = 1.0 - busy / host_ms if host_ms else None
     print(f"{what}: one eager step {event_ms:.2f} ms between CUDA events, "
           f"{busy:.2f} ms of device operations (profiler), idle share "
@@ -4282,7 +4133,9 @@ def pod_profile(torch, step_fn, state, batch, host_ms: float,
           f"largest: " + "; ".join(f"{n[:44]} {ms:.3f} ms x{c}"
                                    for n, ms, c in top[:10]))
     return {"event_ms": event_ms, "busy_ms": busy, "idle": idle,
-            "top": [(n[:80], ms, c) for n, ms, c in top[:10]]}
+            "top": [(n[:80], ms, c) for n, ms, c in top[:10]],
+            "traced_launches": traced["launches"],
+            "gaps": [(ms, a[:60], b[:60]) for ms, a, b in traced["gaps"]]}
 
 
 def pod_loop(torch, cfg, run, nodes: int, layers_note: str, what: str,
@@ -4841,21 +4694,27 @@ def remat_in_turns(torch, what: str, steps: dict, init_state, batch,
     order reversed every other turn), the state (``init_state()``, made
     here: a caller's reference would keep a third state alive in every
     step) carried through: ms a step (host clock, the loss read), peak GiB
-    of its calls, launches a step."""
+    of its calls, launches a step, the state's parameter and optimizer
+    bytes."""
     import gc
     import math
 
     counters = pod_counters()
     times = {k: [] for k in steps}
     peak = {k: 0.0 for k in steps}
+    base = {}
     launches = {}
     order = list(steps)
     state = init_state()
+    state_bytes = tuple(sum(x.numel() * x.element_size()
+                            for x in tree_leaves(state[k]))
+                        for k in ("params", "opt"))
     for turn in range(REMAT_TURNS + 1):
         for name in (order if turn % 2 == 0 else order[::-1]):
             gc.collect()
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
+            base[name] = torch.cuda.memory_allocated()
             for c in counters.values():
                 c.launches = 0
             t0 = time.perf_counter()
@@ -4873,7 +4732,8 @@ def remat_in_turns(torch, what: str, steps: dict, init_state, batch,
         med = statistics.median(ts_)
         out[name] = {"ms": med, "ms_turns": ts_, "tokens_per_s":
                      tokens / med * 1e3, "peak_gib": peak[name],
-                     "launches": launches[name]}
+                     "base_bytes": base[name], "launches": launches[name],
+                     "state_bytes": state_bytes}
         print(f"{what} {name}: {ts_} ms a step in turns, median {med:.2f} "
               f"ms, {tokens / med * 1e3:.0f} tokens/s; peak {peak[name]:.3f}"
               f" GiB; launches a step {launches[name]}")
@@ -5013,6 +4873,7 @@ def phase_remat(torch) -> dict:
             torch, steps[names[p]], state, batch, b[names[p]]["ms"],
             f"23 (b) {names[p]}")
     result["b"] = b
+    result["b_names"] = names
     del api, state, batch, steps
     gc.collect()
     torch.cuda.empty_cache()
@@ -5038,6 +4899,173 @@ def phase_remat(torch) -> dict:
     return result
 
 
+# the inspection tooling on the card (phase 24): each dry-run peak within
+# INSPECT_PEAK_TOL of the card's torch.cuda.max_memory_allocated for the
+# same configuration, read where phases 8, 12 and 23 ran it
+INSPECT_PEAK_TOL = 0.10
+# qwen2-vl-2b's Mode A step (remat none, AdamW, 16 x 512) ran out of the
+# card at 1 microbatch and peaked at 77.0 GiB of its 79.2 at 2 (PR 27's
+# probe, H100 80GB HBM3, 700 W; PERF.md): the dry run's fewest
+# microbatches must answer 2, its trial at 2 within INSPECT_PEAK_TOL of
+# that peak
+POD_A_FEWEST, POD_A_FEWEST_PEAK_GIB = 2, 77.0
+
+
+def dry_cell(torch, what: str, fn) -> dict:
+    """One dry run (``launch.dryrun``) of a configuration on data-free
+    tensors, with the card as the fake device and again with the CPU: the
+    two must agree in every byte, flop and launch."""
+    t0 = time.perf_counter()
+    on_card = fn(torch.device("cuda", 0))
+    t1 = time.perf_counter()
+    on_cpu = fn(torch.device("cpu"))
+    keys = ("peak_bytes", "end_bytes", "base_bytes", "params_bytes",
+            "opt_bytes", "flops", "kernel_launches")
+    same = all(on_card[k] == on_cpu[k] for k in keys)
+    print(f"{what}: dry run {t1 - t0:.2f} s on the host (fake device "
+          f"{on_card['fake_device']}), again with the CPU as the fake device:"
+          f" {'the same' if same else 'DIFFERENT'} bytes, flops and launches")
+    check(same, f"24 {what}: the dry run differs by fake device: "
+          f"{ {k: (on_card[k], on_cpu[k]) for k in keys} }")
+    return on_card
+
+
+def hold_dry(what: str, dry: dict, rec: dict, traced: dict | None) -> dict:
+    """A dry run against the card's record ``rec`` of the same
+    configuration: the dry-run peak within INSPECT_PEAK_TOL of the card's
+    ``max_memory_allocated`` (``peak_bytes``); the parameter and optimizer
+    bytes equal to the card's state (``state_bytes``); the kernel
+    launches equal to the wrappers' counters (``launches``, by the
+    counters' labels), and the profiler's ``traced`` (read from the
+    kernels' names; None where no step was traced) equal to them too.
+    What the card held beyond the step's own state and batch at the
+    reset (``base_bytes``) is printed beside the peak, not held."""
+    names = {k: w.__name__ for k, w in train_counters().items()}
+    peak, launches = rec["peak_bytes"], rec["launches"]
+    held = rec["base_bytes"] - dry["base_bytes"]
+    rel = dry["peak_bytes"] / peak - 1.0
+    state = (dry["params_bytes"], dry["opt_bytes"])
+    dry_l = {k: dry["kernel_launches"].get(names.get(k, k), 0)
+             for k in launches}
+    traced_l = None if traced is None else \
+        {k: traced.get(names.get(k, k), 0) for k in launches}
+    print(f"{what}: peak dry {dry['peak_bytes'] / 2**30:.3f} GiB against "
+          f"max_memory_allocated {peak / 2**30:.3f} GiB: {rel * 100:+.2f} % "
+          f"(bar {INSPECT_PEAK_TOL * 100:g} %); the card held "
+          f"{held / 2**30:.3f} GiB beyond the state and batch at the reset "
+          f"(dry + that: {(dry['peak_bytes'] + held) / 2**30:.3f} GiB); "
+          f"parameter and optimizer bytes dry {state}, card "
+          f"{rec['state_bytes']}; launches dry {dry_l}, counters "
+          f"{launches}, profiler {traced_l}; flops {dry['flops']:.4e} "
+          f"({dry['flops_kernels']:.4e} in the kernels)")
+    check(abs(rel) <= INSPECT_PEAK_TOL, f"24 {what}: dry-run peak "
+          f"{dry['peak_bytes']} against {peak} bytes ({rel * 100:+.2f} %)")
+    check(state == tuple(rec["state_bytes"]), f"24 {what}: dry-run "
+          f"parameter and optimizer bytes {state}, card {rec['state_bytes']}")
+    check(dry_l == launches, f"24 {what}: dry-run launches {dry_l}, "
+          f"counters {launches}")
+    check(traced_l in (None, launches), f"24 {what}: profiler launches "
+          f"{traced_l}, counters {launches}")
+    return {"dry_peak_gib": dry["peak_bytes"] / 2**30,
+            "held_gib": held / 2**30, "card_peak_gib": peak / 2**30,
+            "rel": rel, "launches": launches, "dry_launches": dry_l,
+            "traced_launches": traced_l, "flops": dry["flops"],
+            "state_gib": sum(state) / 2**30,
+            "end_gib": dry["end_bytes"] / 2**30,
+            "collectives": dry.get("collectives")}
+
+
+def phase_inspection(torch, remat_run: dict, served: dict) -> dict:
+    """24. The inspection tooling against the card: the dry run of each
+    configuration phases 8, 12 and 23 ran (qwen2-vl-2b's full-depth Mode A
+    step under remat full x 1 and none x 4, its Mode B step at 4 layers,
+    rwkv6-7b's and deepseek-v2-lite-16b's serve), its peak against their
+    max_memory_allocated, its parameter and optimizer bytes against their
+    state's, its launches against their counters, and the profiler's
+    launches (read from the kernels' names in phase 23's and the serves'
+    traces) against the counters too; and its fewest microbatches for
+    Mode A under remat none against the card's."""
+    phase("24. inspection tooling: the dry run and the profiler summary "
+          "against the card")
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.density_controller import choose_plan
+    from repro_torch.launch import dryrun as dr
+    from repro_torch.launch import train as lt
+
+    props = torch.cuda.get_device_properties(0)
+    mem = subprocess.run(["nvidia-smi", "--query-gpu=memory.total",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    print(f"{props.name}: torch total_memory {props.total_memory} bytes "
+          f"({props.total_memory / 2**30:.3f} GiB), nvidia-smi memory.total "
+          f"{mem}; the dry run's constant for a host without a card "
+          f"{dr.H100_BYTES}")
+    out = {"capacity_bytes": props.total_memory}
+    full = get_config(POD_ARCH)
+    tokens = POD_NODES * POD_BATCH
+    cells = {}
+    for p in ("full", "none"):
+        rec = remat_run["b"][remat_run["b_names"][p]]
+        run = dataclasses.replace(_pod_run(
+            "allreduce", microbatch=REMAT_MICROBATCH[p]), remat=p)
+        what = (f"{POD_ARCH} Mode A {full.n_layers} layers, {tokens} x "
+                f"{POD_SEQ}, AdamW, remat {p} x {REMAT_MICROBATCH[p]}")
+        dry = dry_cell(torch, what, lambda dev, run=run: dr.train_cell(
+            full, run, batch=tokens, seq_len=POD_SEQ, device=dev))
+        out[f"mode_a_{p}"] = hold_dry(
+            what, dry, {**rec, "peak_bytes": rec["peak_gib"] * 2**30},
+            rec["profile"]["traced_launches"])
+        cells[p] = run, dry
+    # the fewest microbatches that fit the card, by the dry run's search
+    # from the none x 4 record
+    run, dry = cells["none"]
+    t0 = time.perf_counter()
+    m, tried = dr.fewest_microbatches(
+        full, run, dry, batch=tokens, seq_len=POD_SEQ, nodes=1, plan=None,
+        capacity=props.total_memory, device=torch.device(dry["fake_device"]))
+    at = tried.get(POD_A_FEWEST, 0) / 2**30
+    rel = at / POD_A_FEWEST_PEAK_GIB - 1.0
+    print(f"{POD_ARCH} Mode A remat none: the fewest microbatches that fit "
+          f"{props.total_memory / 2**30:.3f} GiB: {m} (the card's: "
+          f"{POD_A_FEWEST}), trials "
+          f"{ {k: round(v / 2**30, 3) for k, v in sorted(tried.items())} } "
+          f"GiB; at {POD_A_FEWEST} {at:.3f} against the card's "
+          f"{POD_A_FEWEST_PEAK_GIB} GiB: {rel * 100:+.2f} %; "
+          f"{time.perf_counter() - t0:.2f} s on the host")
+    check(m == POD_A_FEWEST, f"24: the dry run's fewest microbatches {m}, "
+          f"the card's {POD_A_FEWEST}")
+    check(abs(rel) <= INSPECT_PEAK_TOL, f"24: the dry run's trial at "
+          f"{POD_A_FEWEST} microbatches {at:.3f} GiB against the card's "
+          f"{POD_A_FEWEST_PEAK_GIB}")
+    out["fewest_microbatches"] = {"m": m, "tried_gib": {
+        k: v / 2**30 for k, v in tried.items()}, "rel": rel}
+    cut = dataclasses.replace(full, n_layers=POD_B_LAYERS)
+    run_b = _pod_run("dpsgd")
+    plan_b = choose_plan(("data",), (POD_NODES,), run_b.lambda_target,
+                         bytes_per_rank=lt.param_bytes(cut),
+                         eta=run_b.eta).plan
+    rec = remat_run["c"]["none"]
+    what = (f"{POD_ARCH} Mode B {POD_B_LAYERS} layers, {POD_NODES} nodes "
+            f"({plan_b.name}), remat none")
+    dry = dry_cell(torch, what, lambda dev: dr.train_cell(
+        cut, dataclasses.replace(run_b, remat="none"), batch=tokens,
+        seq_len=POD_SEQ, nodes=POD_NODES, plan=plan_b, device=dev))
+    # phase 23 (c) traces no step: the profiler is held on (b)'s and the
+    # serves' traces
+    out["mode_b"] = hold_dry(
+        what, dry, {**rec, "peak_bytes": rec["peak_gib"] * 2**30}, None)
+    for arch, res in served.items():
+        what = (f"{arch} serving {SERVE_BATCH} x {SERVE_PROMPT} + "
+                f"{SERVE_GEN} tokens (prefill and one decode step dry)")
+        dry = dry_cell(torch, what, lambda dev, arch=arch: dr.serve_cell(
+            get_config(arch), batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
+            max_len=SERVE_PROMPT + SERVE_GEN, device=dev))
+        out[arch] = hold_dry(what, dry, res, res["prefill_traced"])
+    return out
+
+
 def main() -> None:
     if not (SRC / "repro_torch").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
@@ -5053,6 +5081,10 @@ def main() -> None:
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
                           "expandable_segments:True")
     import torch
+
+    global cost, prof
+    from repro_torch.kernels import cost
+    from repro_torch.utils import profile as prof
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke needs a card")
@@ -5182,6 +5214,11 @@ def main() -> None:
     # dots against none, qwen2-vl-2b's full depth in one microbatch
     torch.cuda.empty_cache()
     remat_run = run("23", phase_remat, torch)
+    # the inspection tooling: the dry run's peaks and launches and the
+    # profiler's launches against what phases 8, 12 and 23 read
+    torch.cuda.empty_cache()
+    run("24", phase_inspection, torch, remat_run,
+        {RWKV_ARCH: served_rwkv, MLA_ARCH: served_mla})
     kernels["flash_attention"]["qwen2_vl_train"] = kernels.pop(
         "flash_attention_qwen2_vl_train")
     rec_launches = {**trained_rec["recurrentgemma-2b"]["launches"],

@@ -9,6 +9,18 @@ asks :func:`use_kernel` with its input's device on every call.
 * any other device raises — there is no fallback from a CUDA tensor to the
   plain version.
 
+A tensor that holds no data (a ``FakeTensor``, :func:`data_free`: the dry
+run, ``launch.dryrun``, evaluates the model in ``FakeTensorMode`` with the
+card as its fake device) takes neither: the wrapper runs its kernel path
+up to the launch — the same checks, and the same outputs and scratch
+allocated with the kernel's shapes, dtypes and strides — and, in place of
+the launch, counts it with its cost at the launch's shapes on the wrapper
+(:func:`shaped`). It launches nothing, counts nothing in ``.launches``
+and runs no plain version: the plain versions allocate what the kernels
+do not (plain flash attention its (S x T) scores), so a dry run through
+them would misstate the peak. The data-free test is a type check of the
+operand, made per call like the probe.
+
 The capability is probed per call and never cached, so a device attached or
 swapped after the first call is seen by the next one (a cached probe froze
 the JAX package's first answer for the life of the process). The probe is
@@ -28,15 +40,51 @@ differentiable.
 from __future__ import annotations
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 __all__ = ["use_kernel", "require_operands", "refuse_grad", "traced",
-           "call", "fold", "unfold", "MIN_CAPABILITY", "tape"]
+           "call", "fold", "unfold", "data_free", "counted", "shaped",
+           "MIN_CAPABILITY", "tape"]
 
 MIN_CAPABILITY = (9, 0)
 
 # The tape of the "dots" checkpoint (``models.remat``) that records or
 # recomputes a unit now, else None (:func:`call` reads it).
 tape = None
+
+
+def data_free(*xs) -> bool:
+    """True when an operand holds no data (a ``FakeTensor``, or one that a
+    ``torch.func`` transform wraps): the wrapper then runs its shape rule.
+    ``None`` is an absent operand."""
+    for x in xs:
+        while x is not None and \
+                torch._C._functorch.is_functorch_wrapped_tensor(x):
+            x = torch._C._functorch.get_unwrapped(x)
+        if isinstance(x, FakeTensor):
+            return True
+    return False
+
+
+def counted(wrapper, *kernels: str) -> None:
+    """Give a kernel wrapper its counters: ``.launches`` its real
+    launches, ``.dry_launches`` and ``.dry_flops`` the launches its shape
+    rule stood for and their flops (:func:`shaped`), and ``.kernels`` the
+    CUDA kernels of which one call launches exactly one (the profiler
+    counts the wrapper's launches by these names; its memsets, pre-passes
+    and second kernels are not counted)."""
+    wrapper.launches = wrapper.dry_launches = 0
+    wrapper.dry_flops = 0.0
+    wrapper.kernels = kernels
+
+
+def shaped(wrapper, work: tuple[float, float]) -> None:
+    """A shape rule's stand-in for one launch of ``wrapper``'s kernel (a
+    :func:`counted` wrapper): counted in ``.dry_launches``, its flops of
+    ``work`` (bytes, flops at the launch's shapes, ``kernels.cost``)
+    added to ``.dry_flops``."""
+    wrapper.dry_launches += 1
+    wrapper.dry_flops += work[1]
 
 
 def use_kernel(device: torch.device) -> bool:

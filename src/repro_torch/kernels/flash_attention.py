@@ -49,8 +49,9 @@ import ctypes
 
 import torch
 
-from . import _build
-from ._backend import call, fold, require_operands, unfold, use_kernel
+from . import _build, cost
+from ._backend import (call, counted, data_free, fold, require_operands,
+                       shaped, unfold, use_kernel)
 
 __all__ = ["flash_attention", "flash_attention_plain", "flash_attention_bwd",
            "flash_attention_bwd_plain"]
@@ -150,8 +151,9 @@ def _check_kernel_shape(q: torch.Tensor, what: str) -> None:
 def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
              window: int, with_lse: bool):
     """(out, lse or None): the kernel on the card, the plain version on
-    the CPU."""
-    if not use_kernel(q.device):
+    the CPU; on data-free tensors the kernel's outputs, unlaunched."""
+    dry = data_free(q, k, v)
+    if not dry and not use_kernel(q.device):
         if with_lse:
             return flash_attention_plain(q, k, v, causal=causal,
                                          window=window, return_lse=True)
@@ -161,7 +163,8 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
     t, hkv = k.shape[1], k.shape[2]
     _check_kernel_shape(q, "forward")
     require_operands(q.device, q=q, k=k, v=v)
-    if q.dtype == torch.bfloat16 and any(x.data_ptr() % 16 for x in (q, k, v)):
+    if not dry and q.dtype == torch.bfloat16 and \
+            any(x.data_ptr() % 16 for x in (q, k, v)):
         raise ValueError("the bf16 kernel's TMA loads need 16-byte aligned "
                          "q, k and v")
     out = torch.empty_like(q)
@@ -170,6 +173,10 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
     if out.numel() == 0 or t == 0:
         # no key: the plain version's zeros; no row has a live key
         return out.zero_(), None if lse is None else lse.fill_(float("inf"))
+    if dry:
+        shaped(flash_attention, cost.flash_gqa_cost(
+            b, s, t, hq, hkv, d, causal, window, q.element_size(), with_lse))
+        return out, lse
     _build.launch("flash_attention", _ENTRY[q.dtype], _ARGS, q.device,
                   q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                   0 if lse is None else lse.data_ptr(),
@@ -190,7 +197,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out[0]
 
 
-flash_attention.launches = 0
+counted(flash_attention, "flash_attention_bf16_kernel",
+        "flash_attention_kernel")
 
 
 def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
@@ -259,13 +267,14 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if lse.shape != (b, hq, s) or lse.dtype != torch.float32:
         raise ValueError(f"lse must be float32 {(b, hq, s)}, got "
                          f"{tuple(lse.shape)} {lse.dtype}")
-    if not use_kernel(q.device):
+    dry = data_free(q, k, v, o, lse, do)
+    if not dry and not use_kernel(q.device):
         return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
                                          window=window)
     _check_kernel_shape(q, "backward")
     require_operands(q.device, q=q, k=k, v=v, o=o, lse=lse, do=do)
-    if q.dtype == torch.bfloat16 and any(x.data_ptr() % 16
-                                         for x in (q, k, v, o, do)):
+    if not dry and q.dtype == torch.bfloat16 and \
+            any(x.data_ptr() % 16 for x in (q, k, v, o, do)):
         raise ValueError("the bf16 backward kernel's TMA and 16-byte loads "
                          "need 16-byte aligned q, k, v, o and do")
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
@@ -274,6 +283,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     # the kernels' rows of lse and delta, over S padded to whole 64-row tiles
     scratch = torch.empty(2 * b * hq * -(-s // 64) * 64, dtype=torch.float32,
                           device=q.device)
+    if dry:
+        shaped(flash_attention_bwd, cost.bwd_cost(
+            b, s, t, hq, k.shape[2], d, causal, window, q.element_size()))
+        return dq, dk, dv
     _build.launch("flash_attention_bwd", _BWD_ENTRY[q.dtype], _BWD_ARGS,
                   q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                   o.data_ptr(), lse.data_ptr(), do.data_ptr(),
@@ -284,7 +297,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq, dk, dv
 
 
-flash_attention_bwd.launches = 0
+counted(flash_attention_bwd, "flash_bwd_dq_bf16_kernel",
+        "flash_bwd_dq_kernel")
 
 
 class _FlashBackward(torch.autograd.Function):

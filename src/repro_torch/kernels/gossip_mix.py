@@ -32,9 +32,10 @@ import ctypes
 
 import torch
 
-from . import _build
+from . import _build, cost
 from . import quantize as _qz
-from ._backend import refuse_grad, require_operands, use_kernel
+from ._backend import (counted, data_free, refuse_grad, require_operands,
+                       shaped, use_kernel)
 
 __all__ = ["gossip_mix", "gossip_mix_q8", "gossip_mix_rows",
            "gossip_mix_q8_rows", "gossip_mix_q8_w", "gossip_mix_int8_round",
@@ -74,7 +75,8 @@ def gossip_mix_rows(w: torch.Tensor, bufs: torch.Tensor) -> torch.Tensor:
     if bufs.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"bufs must be float32 or bfloat16, got {bufs.dtype}")
     device = bufs.device
-    if not use_kernel(device):
+    dry = data_free(w, bufs)
+    if not dry and not use_kernel(device):
         return gossip_mix_rows_plain(w, bufs)
     m, k = w.shape
     if k > _MAX_K or m > _MAX_M:
@@ -90,6 +92,9 @@ def gossip_mix_rows(w: torch.Tensor, bufs: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(bufs) if m == k else bufs.new_empty((m, n))
     if m == 0 or n == 0:
         return out
+    if dry:
+        shaped(gossip_mix_rows, cost.rows_cost(m, k, n, bufs.element_size()))
+        return out
     name = ("gossip_mix_rows_f32" if bufs.dtype == torch.float32
             else "gossip_mix_rows_bf16")
     _build.launch("gossip_mix", name, _ROWS_ARGS, device, w.data_ptr(),
@@ -98,7 +103,7 @@ def gossip_mix_rows(w: torch.Tensor, bufs: torch.Tensor) -> torch.Tensor:
     return out
 
 
-gossip_mix_rows.launches = 0
+counted(gossip_mix_rows, "gossip_mix_rows_kernel")
 
 
 def gossip_mix(bufs: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
@@ -159,7 +164,8 @@ def gossip_mix_q8_rows(w_self: torch.Tensor, w_off: torch.Tensor,
     _check_q8(n, q_bufs, scales)
     if q_bufs.dtype != torch.int8:
         raise TypeError(f"q_bufs must be int8, got {q_bufs.dtype}")
-    if not use_kernel(self_buf.device):
+    if not data_free(w_self, w_off, self_buf, q_bufs, scales) and \
+            not use_kernel(self_buf.device):
         return gossip_mix_q8_rows_plain(w_self, w_off, self_buf, q_bufs,
                                         scales)
     if m > _MAX_M:
@@ -180,7 +186,8 @@ def _launch_q8(w_self, self_stride, w_off, skip_diag, self_buf, q_bufs,
     """Launch the q8 kernel on checked fp32 operands (``w_off`` (M, K) with
     its own row stride, ``w_self`` read at ``self_stride``; ``w_off`` None:
     W whole, ``w_self`` itself); count it. ``after_send``: load the
-    weights and ``self_buf`` ahead of the wait (see ``gossip_mix_q8_w``)."""
+    weights and ``self_buf`` ahead of the wait (see ``gossip_mix_q8_w``).
+    On data-free operands the output alone, unlaunched."""
     w_off = w_self if w_off is None else w_off
     require_operands(self_buf.device, w_self=w_self, w_off=w_off,
                      self_buf=self_buf, q_bufs=q_bufs, scales=scales)
@@ -188,6 +195,9 @@ def _launch_q8(w_self, self_stride, w_off, skip_diag, self_buf, q_bufs,
     k = q_bufs.shape[0]
     out = torch.empty((m, n), dtype=torch.float32, device=self_buf.device)
     if m == 0 or n == 0:
+        return out
+    if data_free(w_self, w_off, self_buf, q_bufs, scales):
+        shaped(gossip_mix_q8_rows, cost.q8_cost(m, k, n))
         return out
     _build.launch("gossip_mix", "gossip_mix_q8_rows", _Q8_ARGS,
                   self_buf.device, w_self.data_ptr(), self_stride,
@@ -198,7 +208,7 @@ def _launch_q8(w_self, self_stride, w_off, skip_diag, self_buf, q_bufs,
     return out
 
 
-gossip_mix_q8_rows.launches = 0
+counted(gossip_mix_q8_rows, "gossip_mix_q8_rows_kernel")
 
 
 def gossip_mix_q8_w_plain(w: torch.Tensor, self_buf: torch.Tensor,
@@ -241,7 +251,8 @@ def gossip_mix_q8_w(w: torch.Tensor, self_buf: torch.Tensor,
     send, which writes only q, the scales and the residual). By default it
     waits first."""
     _check_q8_w(w, self_buf, q_bufs, scales)
-    if not use_kernel(self_buf.device):
+    if not data_free(w, self_buf, q_bufs, scales) and \
+            not use_kernel(self_buf.device):
         return gossip_mix_q8_w_plain(w, self_buf, q_bufs, scales)
     refuse_grad("gossip_mix_q8_w", w=w, self_buf=self_buf, scales=scales)
     return _launch_q8(w.to(torch.float32).contiguous(), w.shape[0] + 1, None,
@@ -269,7 +280,7 @@ def gossip_mix_int8_round(flat: torch.Tensor, res: torch.Tensor,
         raise ValueError(f"W must be square, one row and one column per "
                          f"row of flat ({n}, {n}), at most {_MAX_M}; got "
                          f"{tuple(w.shape)}")
-    kernel = use_kernel(flat.device)
+    kernel = data_free(flat, res, w, live) or use_kernel(flat.device)
     if kernel:
         refuse_grad("gossip_mix_int8_round", w=w)
     w = w.to(torch.float32).contiguous()

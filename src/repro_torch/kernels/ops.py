@@ -11,6 +11,7 @@ from typing import Optional
 
 import torch
 
+from . import _backend
 from . import flash_attention as _fa
 from . import gossip_mix as _gm
 from . import quantize as _qz
@@ -43,13 +44,15 @@ def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Dv <= D. Query
     and key positions count from 0 (prefill, or no positions at all:
     cross attention, where T may differ from S); a ``positions`` tensor,
-    where the caller has one, must be ``arange(S)``, and is checked. No
+    where the caller has one, must be ``arange(S)``, and is checked (but
+    on a data-free tensor, which has no values to check: the dry run). No
     padding of S, T or D: the kernel masks their ragged edge itself. A
     narrower v (MLA: D 192, Dv 128) is zero-padded to D and the output
     sliced back to Dv: zero lanes of v give zero output lanes, and the
     scores keep q's true D ** -0.5."""
-    if positions is not None and not torch.equal(
-            positions, torch.arange(q.shape[1], device=positions.device)):
+    if positions is not None and not _backend.data_free(positions) and \
+            not torch.equal(positions, torch.arange(q.shape[1],
+                                                    device=positions.device)):
         raise ValueError("flash_attention_gqa assumes positions "
                          "arange(S) (a prefill from position 0)")
     d, dv = q.shape[-1], v.shape[-1]

@@ -39,8 +39,9 @@ import ctypes
 
 import torch
 
-from . import _build
-from ._backend import refuse_grad, require_operands, use_kernel
+from . import _build, cost
+from ._backend import (counted, data_free, refuse_grad, require_operands,
+                       shaped, use_kernel)
 
 __all__ = ["quantize_int8", "dequantize_int8", "quantize_int8_ef",
            "quantize_int8_plain", "dequantize_int8_plain",
@@ -122,7 +123,8 @@ def quantize_int8(x: torch.Tensor, block: int = 256
     """x (R, L) fp32|bf16 -> (q (R, Lp) int8, scales (R, Lp/block) fp32).
     Kernel on an sm_90 card, plain version on the CPU."""
     _check_quantize(x, block)
-    if not use_kernel(x.device):
+    dry = data_free(x)
+    if not dry and not use_kernel(x.device):
         return quantize_int8_plain(x, block)
     refuse_grad("quantize_int8", x=x)
     x = x.contiguous()
@@ -135,6 +137,10 @@ def quantize_int8(x: torch.Tensor, block: int = 256
     scales = torch.empty((rows, nb), dtype=torch.float32, device=x.device)
     if q.numel() == 0:
         return q, scales
+    if dry:
+        shaped(quantize_int8, cost.quantize_cost(rows, lanes, block,
+                                                 x.element_size()))
+        return q, scales
     _build.launch("quantize", f"quantize_int8_{_DTYPES[x.dtype]}_b{block}",
                   _Q_ARGS, x.device, x.data_ptr(), q.data_ptr(),
                   scales.data_ptr(), rows, lanes)
@@ -142,7 +148,7 @@ def quantize_int8(x: torch.Tensor, block: int = 256
     return q, scales
 
 
-quantize_int8.launches = 0
+counted(quantize_int8, "quantize_int8_kernel")
 
 
 # ---------------------------------------------------------------------------
@@ -171,7 +177,8 @@ def dequantize_int8(q: torch.Tensor, scales: torch.Tensor, block: int = 256,
     length = q.shape[-1] if length is None else int(length)
     _check_dequantize(q, scales, block, length, dtype)
     device = q.device
-    if not use_kernel(device):
+    dry = data_free(q, scales)
+    if not dry and not use_kernel(device):
         return dequantize_int8_plain(q, scales, block, length, dtype)
     refuse_grad("dequantize_int8", scales=scales)
     if scales.dtype != torch.float32:
@@ -185,6 +192,10 @@ def dequantize_int8(q: torch.Tensor, scales: torch.Tensor, block: int = 256,
     out = scales.new_empty((rows, length), dtype=dtype)
     if out.numel() == 0:
         return out
+    if dry:
+        shaped(dequantize_int8, cost.dequantize_cost(
+            rows, length, block, out.element_size()))
+        return out
     _build.launch("quantize", f"dequantize_int8_{_DTYPES[dtype]}_b{block}",
                   _DQ_ARGS, device, q.data_ptr(), scales.data_ptr(),
                   out.data_ptr(), rows, lanes, scales.shape[1], length)
@@ -192,7 +203,7 @@ def dequantize_int8(q: torch.Tensor, scales: torch.Tensor, block: int = 256,
     return out
 
 
-dequantize_int8.launches = 0
+counted(dequantize_int8, "dequantize_int8_kernel")
 
 
 # ---------------------------------------------------------------------------
@@ -236,7 +247,8 @@ def quantize_int8_ef(flat: torch.Tensor, res: torch.Tensor,
     (R, Lp/2048) fp32, new_res (R, L) fp32), Lp = L rounded up to whole
     2048-lane blocks. Kernel on an sm_90 card, plain version on the CPU."""
     _check_ef(flat, res, live)
-    if not use_kernel(flat.device):
+    dry = data_free(flat, res, live)
+    if not dry and not use_kernel(flat.device):
         return quantize_int8_ef_plain(flat, res, live, error_feedback)
     refuse_grad("quantize_int8_ef", flat=flat, res=res)
     flat, res, live = flat.contiguous(), res.contiguous(), live.contiguous()
@@ -252,6 +264,9 @@ def quantize_int8_ef(flat: torch.Tensor, res: torch.Tensor,
     new_res = torch.empty_like(flat)
     if flat.numel() == 0:
         return q, scales, new_res
+    if dry:
+        shaped(quantize_int8_ef, cost.send_cost(rows, lanes))
+        return q, scales, new_res
     _build.launch("quantize", "quantize_int8_ef_f32_b2048", _EF_ARGS,
                   flat.device, flat.data_ptr(), res.data_ptr(),
                   live.data_ptr(), q.data_ptr(), scales.data_ptr(),
@@ -260,4 +275,4 @@ def quantize_int8_ef(flat: torch.Tensor, res: torch.Tensor,
     return q, scales, new_res
 
 
-quantize_int8_ef.launches = 0
+counted(quantize_int8_ef, "quantize_int8_ef_kernel")

@@ -43,8 +43,9 @@ from typing import Optional
 
 import torch
 
-from . import _build
-from ._backend import call, fold, require_operands, unfold, use_kernel
+from . import _build, cost
+from ._backend import (call, counted, data_free, fold, require_operands,
+                       shaped, unfold, use_kernel)
 
 __all__ = ["rglru_scan", "rglru_scan_plain", "rglru_scan_bwd",
            "rglru_scan_bwd_plain"]
@@ -126,8 +127,10 @@ def rglru_scan_bwd_plain(a: torch.Tensor, h: torch.Tensor, dh: torch.Tensor,
 
 def _forward(a: torch.Tensor, b: torch.Tensor,
              h0: Optional[torch.Tensor]) -> torch.Tensor:
-    """h: the kernel on the card, the plain version on the CPU."""
-    if not use_kernel(a.device):
+    """h: the kernel on the card, the plain version on the CPU; on
+    data-free tensors the kernel's output and workspace, unlaunched."""
+    dry = data_free(a, b, h0)
+    if not dry and not use_kernel(a.device):
         return rglru_scan_plain(a, b, h0)
     a32 = a.to(torch.float32).contiguous()
     b32 = b.to(torch.float32).contiguous()
@@ -140,6 +143,9 @@ def _forward(a: torch.Tensor, b: torch.Tensor,
     nbytes = workspace_bytes(bsz, s, d)
     ws = torch.empty(nbytes, dtype=torch.uint8, device=a.device) \
         if nbytes else None
+    if dry:
+        shaped(rglru_scan, cost.rglru_cost(bsz, s, d))
+        return out.to(a.dtype)
     _build.launch("rglru_scan", "rglru_scan_f32", _ARGS, a.device,
                   a32.data_ptr(), b32.data_ptr(),
                   None if h32 is None else h32.data_ptr(), out.data_ptr(),
@@ -159,7 +165,7 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor,
     return _forward(a, b, h0) if out is None else out
 
 
-rglru_scan.launches = 0
+counted(rglru_scan, "rglru_scan_kernel", "rglru_scan_kernel_chained")
 
 
 def rglru_scan_bwd(a: torch.Tensor, h: torch.Tensor, dh: torch.Tensor,
@@ -172,7 +178,8 @@ def rglru_scan_bwd(a: torch.Tensor, h: torch.Tensor, dh: torch.Tensor,
     if dh.shape != a.shape:
         raise ValueError(f"dh {tuple(dh.shape)} must match a "
                          f"{tuple(a.shape)}")
-    if not use_kernel(a.device):
+    dry = data_free(a, h, dh, h0)
+    if not dry and not use_kernel(a.device):
         return rglru_scan_bwd_plain(a, h, dh, h0)
     a32, h32, dh32 = (x.to(torch.float32).contiguous() for x in (a, h, dh))
     h0c = None if h0 is None else h0.to(torch.float32).contiguous()
@@ -186,6 +193,11 @@ def rglru_scan_bwd(a: torch.Tensor, h: torch.Tensor, dh: torch.Tensor,
     nbytes = workspace_bytes(bsz, s, d)
     ws = torch.empty(nbytes, dtype=torch.uint8, device=a.device) \
         if nbytes else None
+    if dry:
+        shaped(rglru_scan_bwd, cost.rglru_bwd_cost(bsz, s, d,
+                                                   h0 is not None))
+        return da.to(a.dtype), db.to(a.dtype), \
+            None if dh0 is None else dh0.to(a.dtype)
     _build.launch("rglru_scan_bwd", "rglru_scan_bwd_f32", _BWD_ARGS,
                   a.device, a32.data_ptr(), h32.data_ptr(),
                   None if h0c is None else h0c.data_ptr(), dh32.data_ptr(),
@@ -197,7 +209,7 @@ def rglru_scan_bwd(a: torch.Tensor, h: torch.Tensor, dh: torch.Tensor,
         None if dh0 is None else dh0.to(a.dtype)
 
 
-rglru_scan_bwd.launches = 0
+counted(rglru_scan_bwd, "rglru_bwd_kernel", "rglru_bwd_kernel_chained")
 
 
 class _RGLRUBackward(torch.autograd.Function):

@@ -62,8 +62,9 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from . import _build
-from ._backend import call, fold, require_operands, unfold, use_kernel
+from . import _build, cost
+from ._backend import (call, counted, data_free, fold, require_operands,
+                       shaped, unfold, use_kernel)
 
 __all__ = ["rwkv6_scan", "rwkv6_scan_plain", "rwkv6_scan_bwd",
            "rwkv6_scan_bwd_plain", "MAX_D", "FLOOR_W"]
@@ -152,14 +153,24 @@ def rwkv6_scan_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return y.to(r.dtype), state
 
 
+def _aligned(x: torch.Tensor, dry: bool) -> bool:
+    """``x`` starts on a 16-byte boundary. A data-free tensor has no
+    address: its offset into its storage is read instead (the card's
+    allocator hands out storages on 512-byte boundaries)."""
+    if dry:
+        return x.storage_offset() * x.element_size() % 16 == 0
+    return x.data_ptr() % 16 == 0
+
+
 def _forward(r, k, v, w, u, s0, chunk):
     """(y, s_final): the kernel on the card, the plain version on the
-    CPU."""
-    if not use_kernel(r.device):
+    CPU; on data-free tensors the kernel's outputs, unlaunched."""
+    dry = data_free(r, k, v, w, u, s0)
+    if not dry and not use_kernel(r.device):
         return rwkv6_scan_plain(r, k, v, w, u, s0, chunk)
     # fp32, contiguous and 16-byte aligned: the kernel copies 16-byte rows
     xs = [x.to(torch.float32).contiguous() for x in (r, k, v, w, u)]
-    r32, k32, v32, w32, u32 = (x if x.data_ptr() % 16 == 0 else x.clone()
+    r32, k32, v32, w32, u32 = (x if _aligned(x, dry) else x.clone()
                                for x in xs)
     s0c = None if s0 is None else s0.contiguous()
     require_operands(r.device, r=r32, k=k32, v=v32, w=w32, u=u32, s0=s0c)
@@ -167,6 +178,9 @@ def _forward(r, k, v, w, u, s0, chunk):
     y = torch.empty_like(r32)
     s_out = torch.empty((b, h, d, d), dtype=torch.float32, device=r.device)
     if b * h == 0:
+        return y.to(r.dtype), s_out
+    if dry:
+        shaped(rwkv6_scan, cost.rwkv_cost(b, s, h, d))
         return y.to(r.dtype), s_out
     _build.launch("rwkv6_scan", "rwkv6_scan_f32", _ARGS, r.device,
                   r32.data_ptr(), k32.data_ptr(), v32.data_ptr(),
@@ -191,7 +205,7 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _forward(r, k, v, w, u, s0, chunk) if out is None else out
 
 
-rwkv6_scan.launches = 0
+counted(rwkv6_scan, "rwkv6_scan_kernel")
 
 
 def rwkv6_scan_bwd_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -318,11 +332,12 @@ def rwkv6_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Kernel on an sm_90 card, plain version (chunk ``chunk``) on the CPU."""
     _check(r, k, v, w, u, s0)
     _check_bwd(r, dy, ds_final)
-    if not use_kernel(r.device):
+    dry = data_free(r, k, v, w, u, dy, s0, ds_final)
+    if not dry and not use_kernel(r.device):
         return rwkv6_scan_bwd_plain(r, k, v, w, u, dy, s0, ds_final, chunk)
     xs = [x.to(torch.float32).contiguous() for x in (r, k, v, w, u, dy)]
     r32, k32, v32, w32, u32, dy32 = (
-        x if x.data_ptr() % 16 == 0 else x.clone() for x in xs)
+        x if _aligned(x, dry) else x.clone() for x in xs)
     s0c = None if s0 is None else s0.contiguous()
     dsf = None if ds_final is None else ds_final.contiguous()
     require_operands(r.device, r=r32, k=k32, v=v32, w=w32, u=u32, dy=dy32,
@@ -340,6 +355,10 @@ def rwkv6_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return (*(x.to(r.dtype) for x in (dr, dk, dv, dw)), du, ds0)
     nbytes = bwd_workspace_bytes(b, s, h, d)
     ws = torch.empty(nbytes // 4, dtype=torch.float32, device=r.device)
+    if dry:
+        shaped(rwkv6_scan_bwd, cost.rwkv_bwd_cost(
+            b, s, h, d, s0 is not None, u.dim() == 3))
+        return (*(x.to(r.dtype) for x in (dr, dk, dv, dw)), du, ds0)
     _build.launch("rwkv6_scan_bwd", "rwkv6_scan_bwd_f32", _BWD_ARGS,
                   r.device, r32.data_ptr(), k32.data_ptr(), v32.data_ptr(),
                   w32.data_ptr(), u32.data_ptr(),
@@ -352,7 +371,7 @@ def rwkv6_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (*(x.to(r.dtype) for x in (dr, dk, dv, dw)), du, ds0)
 
 
-rwkv6_scan_bwd.launches = 0
+counted(rwkv6_scan_bwd, "rwkv6_bwd_du_kernel")
 
 
 class _RWKV6Backward(torch.autograd.Function):

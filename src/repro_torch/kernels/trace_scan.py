@@ -43,6 +43,11 @@ unrolled), and here that scan is the kernel of ``csrc/trace_scan.cu``.
 Every division is by a tensor: CUDA's ``tensor / python_scalar``
 multiplies by the reciprocal, one bit off IEEE division, and
 ``floor(t / coherence_s)`` would then land in another coherence block.
+
+Neither entry has a shape rule: the round loop is on no path the dry run
+(``launch.dryrun``) evaluates, and its work depends on the data (the
+passes and decodes a trace needs), so a data-free tensor (a
+``FakeTensor``) raises here before any launch rather than stand for one.
 """
 from __future__ import annotations
 
@@ -52,7 +57,7 @@ import math
 import torch
 
 from . import _build
-from ._backend import require_operands, use_kernel
+from ._backend import counted, data_free, require_operands, use_kernel
 
 __all__ = ["round_scan", "round_scan_plain", "assemble_w", "smem_bytes",
            "fade_thresholds_plain", "trace_decide", "trace_decide_plain"]
@@ -266,6 +271,13 @@ _DECIDE_ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p)
 
 
+def _refuse_data_free(entry: str, *xs) -> None:
+    if data_free(*xs):
+        raise RuntimeError(
+            f"{entry} has no shape rule: the round loop's work depends on "
+            "its data, and no dry-run path reaches it")
+
+
 def trace_decide(snr, rate, m, *, bandwidth_hz: float):
     """The round loop's fading decision on (N,) float64 ``snr`` (mean SNR)
     and ``rate``, (N,) int64 ``m`` in [0, 2^53): ``(thr (N, 2) int64,
@@ -283,6 +295,7 @@ def trace_decide(snr, rate, m, *, bandwidth_hz: float):
             raise ValueError(f"{name} must be ({n},) {dtype}, got "
                              f"{tuple(t.shape)} {t.dtype}")
     device = snr.device
+    _refuse_data_free("trace_decide", snr, rate, m)
     if not use_kernel(device):
         return trace_decide_plain(snr, rate, m, bandwidth_hz=bandwidth_hz)
     require_operands(device, snr=snr, rate=rate, m=m)
@@ -341,6 +354,8 @@ def round_scan(rates, sizes, recv, chan, planned_w, *, n_pkts: int,
               coherence_s=coherence_s, bandwidth_hz=bandwidth_hz,
               overhead_s=overhead_s, compute_s=compute_s, degrade=degrade,
               seed=seed, n_rounds=n_rounds, counts=counts)
+    _refuse_data_free("round_scan", rates, sizes, recv, chan, planned_w,
+                      counts, exact)
     if not use_kernel(device):
         return round_scan_plain(rates, sizes, recv, chan, planned_w, **kw)
     require_operands(device, rates=rates, sizes=sizes, recv=recv, chan=chan,
@@ -379,5 +394,5 @@ def round_scan(rates, sizes, recv, chan, planned_w, *, n_pkts: int,
             delivered, retx, t_end)
 
 
-round_scan.launches = 0
+counted(round_scan, "trace_scan_kernel")
 

@@ -12,6 +12,7 @@ The torch counterpart of ``repro.models.layers``, in its layout:
 """
 from __future__ import annotations
 
+import struct
 from typing import Optional
 
 import torch
@@ -21,6 +22,25 @@ from .remat import product
 
 __all__ = ["torch_dtype", "normal", "dense_init", "dense", "norm_init",
            "norm", "mlp_init", "mlp", "embed_init", "rope", "cross_entropy"]
+
+
+def rounded_to(value: float, dtype: torch.dtype) -> float:
+    """``value`` rounded to ``dtype`` as ``torch.tensor(value, dtype=
+    dtype).item()`` rounds it (to float32, then to nearest even), reckoned
+    on the host: no tensor is made, so it holds under a dry run's
+    ``FakeTensorMode`` too, where a tensor has no value to read back."""
+    f32 = struct.unpack("<f", struct.pack("<f", value))[0]
+    if dtype == torch.float64:
+        return float(value)
+    if dtype == torch.float32:
+        return f32
+    if dtype == torch.float16:
+        return struct.unpack("<e", struct.pack("<e", f32))[0]
+    if dtype == torch.bfloat16:
+        bits = struct.unpack("<I", struct.pack("<f", f32))[0]
+        bits = (bits + 0x7FFF + ((bits >> 16) & 1)) & 0xFFFF0000
+        return struct.unpack("<f", struct.pack("<I", bits))[0]
+    raise ValueError(f"no host rounding to {dtype}")
 
 
 def torch_dtype(name: str | torch.dtype) -> torch.dtype:

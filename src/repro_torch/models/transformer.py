@@ -35,7 +35,7 @@ from ..configs.base import ModelConfig
 from ..device import resolve_device
 from . import attention, mla, moe, remat, rglru, rwkv6
 from .layers import (cross_entropy, embed_init, mlp, mlp_init, norm,
-                     norm_init, normal, torch_dtype)
+                     norm_init, normal, rounded_to, torch_dtype)
 
 PyTree = Any
 
@@ -303,9 +303,10 @@ def _embed(cfg: ModelConfig, params: PyTree, tokens: torch.Tensor,
     # package's cast-then-gather, without casting the whole table)
     e = params["embed"]["embedding"][tokens].to(dt)
     # gemma-style scaling; the scale is rounded to the compute dtype first
-    # (on the host: a product of two bf16 values is exact in the fp32 the
-    # multiply computes in, so this equals the JAX package's bf16 * bf16)
-    e = e * torch.tensor(cfg.d_model**0.5, dtype=dt).item()
+    # (on the host, without a tensor: a product of two bf16 values is exact
+    # in the fp32 the multiply computes in, so this equals the JAX
+    # package's bf16 * bf16)
+    e = e * rounded_to(cfg.d_model**0.5, dt)
     if patch_embeds is not None and cfg.frontend == "vision":
         npatch = patch_embeds.shape[1]
         e = torch.cat([patch_embeds.to(dt), e[:, npatch:]], dim=1)

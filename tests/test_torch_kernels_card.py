@@ -1312,3 +1312,128 @@ def test_trace_decide_filter_equals_exact_on_card(sm90, n):
     cpu = ts._exact_decode(m.ravel(), torch.from_numpy(snr).repeat(reps),
                            torch.from_numpy(rate).repeat(reps), bw)
     assert torch.equal(exact[outside], cpu[outside])
+
+
+# ---------------------------------------------------------------------------
+# The shape rules (data-free tensors: launch.dryrun) against the kernels
+# ---------------------------------------------------------------------------
+
+def _shape_rule_cases():
+    bf, f32 = torch.bfloat16, torch.float32
+
+    def r(*s, dt=f32, pos=False):
+        x = torch.rand(s) + 0.1 if pos else torch.randn(s)
+        return x.to(dt)
+    q8 = torch.randint(-127, 128, (4, 4096)).to(torch.int8)
+    sc = torch.rand(4, 2) + 0.1
+    live = torch.tensor([True, False, True, True])
+    return [
+        ("flash bf16 lse", lambda q, k, v: fa._forward(q, k, v, True, 0,
+                                                       True),
+         (r(2, 96, 4, 64, dt=bf), r(2, 96, 2, 64, dt=bf),
+          r(2, 96, 2, 64, dt=bf))),
+        ("flash fp32 window", lambda q, k, v: fa.flash_attention(
+            q, k, v, causal=True, window=16),
+         (r(1, 70, 2, 24), r(1, 70, 1, 24), r(1, 70, 1, 24))),
+        ("flash bwd bf16", lambda q, k, v, o, lse, do: fa.flash_attention_bwd(
+            q, k, v, o, lse, do),
+         (r(2, 80, 4, 64, dt=bf), r(2, 80, 2, 64, dt=bf),
+          r(2, 80, 2, 64, dt=bf), r(2, 80, 4, 64, dt=bf), r(2, 4, 80),
+          r(2, 80, 4, 64, dt=bf))),
+        ("flash bwd fp32", lambda q, k, v, o, lse, do: fa.flash_attention_bwd(
+            q, k, v, o, lse, do),
+         (r(1, 40, 2, 16), r(1, 40, 2, 16), r(1, 40, 2, 16), r(1, 40, 2, 16),
+          r(1, 2, 40), r(1, 40, 2, 16))),
+        ("rows bf16", gm.gossip_mix_rows, (r(4, 4), r(4, 5000, dt=bf))),
+        ("rows fp32 M != K", gm.gossip_mix_rows, (r(2, 4), r(4, 5000))),
+        ("q8 rows", gm.gossip_mix_q8_rows, (r(4), r(4, 4), r(4, 4000), q8,
+                                             sc)),
+        ("q8 w", gm.gossip_mix_q8_w, (r(4, 4), r(4, 4000), q8, sc)),
+        ("int8 round", gm.gossip_mix_int8_round, (r(4, 4000), r(4, 4000),
+                                                  r(4, 4), live)),
+        ("quantize 256", lambda x: qz.quantize_int8(x, 256), (r(4, 700),)),
+        ("quantize 2048 bf16", lambda x: qz.quantize_int8(x, 2048),
+         (r(4, 700, dt=bf),)),
+        ("dequantize", lambda q, s: qz.dequantize_int8(q, s, 2048, 4000, bf),
+         (q8, sc)),
+        ("send", qz.quantize_int8_ef, (r(4, 4000), r(4, 4000), live)),
+        ("rglru chained", rg.rglru_scan,
+         (r(2, 100, 48, pos=True) * 0.5, r(2, 100, 48), r(2, 48))),
+        ("rglru decode", rg.rglru_scan, (r(2, 1, 48, pos=True) * 0.5,
+                                         r(2, 1, 48))),
+        ("rglru bwd", rg.rglru_scan_bwd,
+         (r(2, 100, 48, pos=True) * 0.5, r(2, 100, 48), r(2, 100, 48),
+          r(2, 48))),
+        ("rwkv6", rw.rwkv6_scan,
+         (r(2, 40, 2, 64), r(2, 40, 2, 64), r(2, 40, 2, 64),
+          r(2, 40, 2, 64, pos=True) * 0.5, r(2, 2, 64), r(2, 2, 64, 64))),
+        ("rwkv6 bwd", rw.rwkv6_scan_bwd,
+         (r(2, 40, 2, 64), r(2, 40, 2, 64), r(2, 40, 2, 64),
+          r(2, 40, 2, 64, pos=True) * 0.5, r(2, 64), r(2, 40, 2, 64),
+          r(2, 2, 64, 64), r(2, 2, 64, 64))),
+    ]
+
+
+def _record(fn, args, fake: bool):
+    """Every operation ``fn(*args)`` dispatches, each with its outputs'
+    (shape, dtype, strides): the outputs it makes and the scratch it
+    allocates; and the call's own outputs. ``fake``: the same call on
+    data-free tensors with the card as their fake device."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    def meta(t):
+        return (tuple(t.shape), t.dtype, t.stride(), t.device.type)
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, a=(), kw=None):
+            out = func(*a, **(kw or {}))
+            made = [meta(t) for t in tree_leaves(out)
+                    if isinstance(t, torch.Tensor)]
+            if made:        # not a query of metadata (a fake tensor's device)
+                self.ops.append((str(func), made))
+            return out
+
+    if fake:
+        with FakeTensorMode():
+            xs = [torch.empty_strided(x.shape, x.stride(), dtype=x.dtype,
+                                      device=x.device) for x in args]
+            with Ops() as rec:
+                out = fn(*xs)
+    else:
+        with Ops() as rec:
+            out = fn(*args)
+        torch.cuda.synchronize()
+    outs = out if isinstance(out, tuple) else (out,)
+    return rec.ops, [None if t is None else meta(t) for t in outs]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,fn,args", _shape_rule_cases(),
+                         ids=[c[0] for c in _shape_rule_cases()])
+def test_shape_rule_matches_the_kernel_on_the_card(sm90, name, fn, args):
+    """On data-free tensors every wrapper runs its kernel path up to the
+    launch: the same operations, so the same outputs and the same scratch
+    (flash backward's fp32 rows, the scans' workspaces, the int8 round's
+    payload) in shape, dtype and strides as the real call on the card,
+    which launches where the shape rule notes a launch."""
+    from repro_torch.kernels import counted_wrappers
+
+    args = tuple(x.to(sm90) for x in args)
+    before = [w.launches for w in counted_wrappers()]
+    real_ops, real_out = _record(fn, args, fake=False)
+    launched = [w.launches - n for w, n in zip(counted_wrappers(), before)]
+    shaped = [w.dry_launches for w in counted_wrappers()]
+    fake_ops, fake_out = _record(fn, args, fake=True)
+    assert fake_out == real_out
+    assert fake_ops == real_ops
+    assert [w.dry_launches - n for w, n in
+            zip(counted_wrappers(), shaped)] == launched
+    assert sum(launched) >= 1
+    assert [w.launches - n for w, n in zip(counted_wrappers(), before)] == \
+        launched
