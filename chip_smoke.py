@@ -338,6 +338,33 @@ Phases, each of which ends the run with a nonzero exit if it fails:
               launches ``utils.profile`` reads from the kernel names of
               phase 23 (b)'s and the serves' profiler traces equal to
               them too.
+25. the node axis over a torch.distributed world (``launch.mesh``,
+              ``train.shardings``, ``core.gossip``'s execution half,
+              ``train.step``'s Mode B over a fleet, ``sim.batch``'s
+              mesh): (a) a world of one rank under NCCL runs
+              ``launch.train.train_loop`` at 22 (c)'s smoke widths (the
+              controller's ring-1, none and int8) and phase 17's smoke
+              family through ``train_model_on_traces(mesh=...)``, each
+              bit-equal to the one-device run with the same launches;
+              (b) each rank's receive of a four-rank ring emulated in one
+              process, through the port's receive halves
+              (``core.gossip.mix_received``, ``core.compression.
+              receive_q8``, ``core.dpsgd.receive_q8_block`` /
+              ``receive_bf16_block``) against plan_w @ X and the plain
+              versions; (c) with four cards only, worlds of 4, 2 and 3
+              ranks under torchrun (this script with ``--fleet-rank``,
+              and ``repro_torch.sim.real_model_smoke``): the fleet's
+              gossip against plan_w @ X, qwen2-vl-2b's Mode B at full
+              depth one node a card (ms a step, tokens/s, peak GiB a
+              rank, P2P bytes equal to ``utils.collectives``' reckoning)
+              and its state's whole node axis gathered to rank 0's host
+              and scattered back (a checkpoint's and the fault drill's
+              move), the real-model smoke at fleet 2, stablelm-3b's
+              compressed_int8 family at 1 layer on 6 nodes over 3 ranks,
+              and the fleet's Mode B step captured as a CUDA graph
+              (replay bit-equal to eager) with ``train_loop`` over the
+              fleet: checkpoint, resume and the fault drill. On one card
+              (c) prints that it was not run.
 
 The cost model (``kernels.cost``: every bound) and the profiler summary
 (``utils.profile``) are the package's; this script keeps no copy.
@@ -368,6 +395,7 @@ Run from the repository root:  python3 chip_smoke.py
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import statistics
@@ -5066,6 +5094,743 @@ def phase_inspection(torch, remat_run: dict, served: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The node axis over a torch.distributed world (phase 25)
+# ---------------------------------------------------------------------------
+
+# (a) a world of one on the card (NCCL): the trainer at 22 (c)'s smoke
+# widths and the smoke family of phase 17 with a mesh, bit-equal to the
+# one-device runs; (b) the per-rank receive of a four-rank ring emulated
+# in one process, each rank's buffers built as the exchange hands them
+# over, through the port's receive halves; (c) with four cards, worlds of
+# 4, 2 and 3 ranks (one card a rank) started by torchrun: the gossip,
+# qwen2-vl-2b's Mode B at full depth one node a card and its state's
+# gather to rank 0's host, the real-model smoke, stablelm-3b's
+# compressed_int8 family at 1 layer of its published widths, the Mode B
+# step's capture and train_loop over the fleet
+FLEET_CARDS = 4
+FLEET_STEPS = 4                      # (a) trainer steps
+FLEET_RECV_LANES = 1 << 22           # (b) lanes of one rank's receive
+FLEET_WARM, FLEET_TIMED = 1, 3       # (c) qwen2-vl-2b Mode B steps
+FLEET_FAMILY_RANKS = 3               # (c) 6 nodes do not divide over 4
+FLEET_CALL_S = 900                   # (c) each world's time limit
+
+
+def fleet_counters() -> dict:
+    from repro_torch.kernels import gossip_mix as gm
+    from repro_torch.kernels import quantize as qz
+
+    return {**pod_counters(), "quantize_int8_ef": qz.quantize_int8_ef,
+            "gossip_mix_q8": gm.gossip_mix_q8_rows}
+
+
+def launched(torch, fn):
+    """``fn()`` with every counter set to 0 just before it and read just
+    after: (its result, the launches)."""
+    counters = fleet_counters()
+    for c in counters.values():
+        c.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: c.launches for k, c in counters.items()}
+
+
+def fleet_world_of_one(torch) -> dict:
+    """25 (a): a world of one rank (NCCL) runs the one-device path."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config, reduce_for_smoke
+    from repro_torch.core import dpsgd
+    from repro_torch.launch import mesh as lm
+    from repro_torch.launch import train as lt
+    from repro_torch.sim import batch as tb
+    from repro_torch.sim import get_scenario, precompute_traces
+
+    smoke = reduce_for_smoke(get_config(POD_ARCH))
+    kw = dict(nodes=POD_NODES, tp=1, steps=FLEET_STEPS,
+              batch_per_node=POD_LOCK_BATCH, seq_len=POD_LOCK_SEQ,
+              ckpt_dir=None, log_every=1, device="cuda")
+    ad = tb.transformer_adapter(TRAIN_ARCH, batch=TRAIN_BATCH,
+                                seq_len=LOCK_TRAIN_SEQ, device="cuda")
+    cfg = get_scenario("static", model_bits=ad.model_bits,
+                       model_shapes=ad.param_shapes,
+                       eval_every_rounds=LOCK_TRAIN_ROUNDS)
+    traces = precompute_traces([cfg], LOCK_TRAIN_ROUNDS)
+
+    def runs(mesh) -> dict:
+        out = {}
+        for comp in ("none", "int8"):
+            out[comp] = launched(torch, lambda: lt.train_loop(
+                smoke, _pod_run("dpsgd", compression=comp), **kw))
+        tb._STEPS.clear()        # capture the family's graph afresh
+        out["family"] = launched(torch, lambda: tb.train_model_on_traces(
+            ad, [cfg], LOCK_TRAIN_ROUNDS, trace_batch=traces, mesh=mesh,
+            device="cuda")[1])
+        return out
+
+    one = runs(None)
+    with tempfile.TemporaryDirectory() as d:
+        lm.init_world("cuda", init_method=f"file://{d}/store", rank=0,
+                      world_size=1)
+        try:
+            print(f"25 (a) a world of {dist.get_world_size()} rank, backend "
+                  f"{dist.get_backend()}, every node on cuda:"
+                  f"{torch.cuda.current_device()}")
+            world = runs(lm.make_fleet_mesh(1, 1))
+        finally:
+            dist.destroy_process_group()
+    tb._STEPS.clear()
+    result = {}
+    for comp in ("none", "int8"):
+        (a, la), (b, lb) = one[comp], world[comp]
+        same = [r["loss"] for r in a["log"]] == [r["loss"] for r in b["log"]]
+        print(f"25 (a) train_loop, the controller's plan, {comp}: losses "
+              f"{[r['loss'] for r in b['log']]} in the world of one, "
+              f"{'bit-equal to' if same else 'UNLIKE'} the one-device run's;"
+              f" launches {lb} against {la}")
+        check(same and la == lb, f"25 (a) train_loop {comp}: world {b['log']}"
+              f" {lb}, one device {a['log']} {la}")
+        result[f"train_loop {comp}"] = lb
+    (a, la), (b, lb) = one["family"], world["family"]
+    same = np.array_equal(a["losses"], b["losses"]) and np.array_equal(
+        a["acc"], b["acc"]) and all(
+        torch.equal(x, y) for x, y in zip(dpsgd._leaves(a["final_params"]),
+                                          dpsgd._leaves(b["final_params"])))
+    print(f"25 (a) train_model_on_traces(mesh=(1, 1)) on static, "
+          f"{TRAIN_ARCH}'s smoke config, {LOCK_TRAIN_ROUNDS} rounds: losses "
+          f"{b['losses'][0].tolist()}, "
+          f"{'bit-equal to' if same else 'UNLIKE'} the one-device family "
+          f"(losses, accuracy, final parameters); launches {lb} against {la}")
+    check(same and la == lb, f"25 (a) family: launches {lb} against {la}")
+    result["family static"] = lb
+    return result
+
+
+def fleet_receives(torch) -> dict:
+    """25 (b): each rank's receive of a four-rank ring, one node a rank,
+    emulated in one process: for each rank, the rows each exchange hands
+    it, through the port's receive halves: ``core.gossip.mix_received``
+    (``gossip_mix_array``'s, and ``compressed_gossip_mix_array``'s bf16),
+    ``core.compression.receive_q8`` (its int8: the neighbours' sends of
+    ``quantize_int8_ef``), and the family's over gathered payloads,
+    ``core.dpsgd.receive_q8_block`` / ``receive_bf16_block``; each held
+    against its plain version and the float64 rows of plan_w @ X (of the
+    dequantized payloads)."""
+    from repro_torch.core import compression as cp
+    from repro_torch.core import dpsgd
+    from repro_torch.core.gossip import (_round_weights, mix_received,
+                                         plan_w, ring_plan)
+    from repro_torch.kernels import gossip_mix as gm
+    from repro_torch.kernels import quantize as qz
+
+    plan = ring_plan(("data",), (FLEET_CARDS,), 1)
+    n, lanes = plan.n_nodes, FLEET_RECV_LANES
+    g = torch.Generator(device="cuda").manual_seed(25)
+    x = torch.randn(n, lanes, generator=g, device="cuda")
+    res = 0.01 * torch.randn(n, lanes, generator=g, device="cuda")
+    w = torch.as_tensor(plan_w(plan), dtype=torch.float32, device="cuda")
+    w64 = w.double()
+    want = w64 @ x.double()
+    w_rank = _round_weights(plan, 1, x.device)
+    w_self, w_off = w_rank[:, 0], w_rank[:, 1:]
+    live = torch.ones(1, dtype=torch.bool, device="cuda")
+    # every rank's send: its own row through the send kernel
+    sends, s_launches = launched(torch, lambda: [
+        qz.quantize_int8_ef(x[j:j + 1], res[j:j + 1], live)
+        for j in range(n)])
+    q_all = torch.cat([q for q, _, _ in sends])
+    s_all = torch.cat([sc for _, sc, _ in sends])
+    deq_all = (q_all.double().reshape(n, -1, 2048)
+               * s_all.double()[..., None]).reshape(n, -1)[:, :lanes]
+    msg_all = x.to(torch.bfloat16)
+    worst = {k: 0.0 for k in ("rows_plain", "rows_w", "q8_plain", "q8_w",
+                              "fam_q8_plain", "fam_q8_w", "fam_bf16_plain",
+                              "fam_bf16_w")}
+
+    def worse(key, got, ref):
+        worst[key] = max(worst[key], err(got, ref))
+
+    launches = {"gossip_mix": 0, "gossip_mix_q8": 0}
+    for r in range(n):
+        # the node each round's permutation brings to rank r
+        src = [next(s for s, d in rnd.perm(plan.node_shape) if d == r)
+               for rnd in plan.rounds]
+        mine = x[r:r + 1]
+        recvs = [x[j:j + 1] for j in src]
+        q_r = [sends[j][0] for j in src]
+        s_r = [sends[j][1] for j in src]
+        (got, got8, fam8, fam16), lr = launched(torch, lambda: (
+            mix_received(mine, recvs, plan),
+            cp.receive_q8(mine, q_r, s_r, plan),
+            dpsgd.receive_q8_block(w, r, mine, q_all, s_all),
+            dpsgd.receive_bf16_block(w, r, mine, msg_all)))
+        for k in launches:
+            launches[k] += lr[k]
+        worse("rows_plain", got, gm.gossip_mix_rows_plain(
+            w_rank, torch.cat([mine, *recvs])))
+        worse("rows_w", got[0], want[r])
+        worse("q8_plain", got8, gm.gossip_mix_q8_rows_plain(
+            w_self, w_off, mine, torch.cat(q_r), torch.cat(s_r)))
+        worse("q8_w", got8[0], w_self[0].double() * x[r].double()
+              + (w_off[0].double()[:, None] * deq_all[src]).sum(0))
+        off = w64[r].clone()
+        off[r] = 0.0
+        worse("fam_q8_plain", fam8, gm.gossip_mix_q8_rows_plain(
+            w[r, r:r + 1], off[None].float(), mine, q_all, s_all))
+        worse("fam_q8_w", fam8[0], w64[r, r] * x[r].double()
+              + (off[:, None] * deq_all).sum(0))
+        w_cat = torch.cat([w[r, r:r + 1], off.float()])[None]
+        worse("fam_bf16_plain", fam16, gm.gossip_mix_rows_plain(
+            w_cat, torch.cat([mine, msg_all.float()])))
+        worse("fam_bf16_w", fam16[0], w64[r, r] * x[r].double()
+              + (off[:, None] * msg_all.double()).sum(0))
+    print(f"25 (b) the per-rank receive of a {n}-rank ring ({plan.name}, one "
+          f"node of {lanes} fp32 lanes a rank), through the port's receive "
+          f"halves: gossip.mix_received over [x; recv_1; recv_2] against its "
+          f"plain version {worst['rows_plain']:.3e}, against plan_w @ X's row"
+          f" {worst['rows_w']:.3e}; compression.receive_q8 of the "
+          f"neighbours' sends against its plain version "
+          f"{worst['q8_plain']:.3e}, against the float64 sum of the "
+          f"dequantized payloads {worst['q8_w']:.3e}; the family's "
+          f"dpsgd.receive_q8_block over the {n} gathered sends "
+          f"{worst['fam_q8_plain']:.3e} / {worst['fam_q8_w']:.3e} and "
+          f"receive_bf16_block over the bf16 messages "
+          f"{worst['fam_bf16_plain']:.3e} / {worst['fam_bf16_w']:.3e} "
+          f"(plain / float64; tol {TOL_FP32:g}); launches: send "
+          f"{s_launches['quantize_int8_ef']}, rows {launches['gossip_mix']}, "
+          f"q8 {launches['gossip_mix_q8']} (one send, two of each receive "
+          f"a rank)")
+    check(max(worst.values()) <= TOL_FP32, f"25 (b): {worst}")
+    check(s_launches["quantize_int8_ef"] == n
+          and launches["gossip_mix"] == 2 * n
+          and launches["gossip_mix_q8"] == 2 * n,
+          f"25 (b): launches send {s_launches}, receives {launches}")
+    return {"worst": worst, "launches": {
+        "quantize_int8_ef": s_launches["quantize_int8_ef"], **launches}}
+
+
+def descendants(pid: int) -> list:
+    """Every process below ``pid``, deepest first (from /proc)."""
+    out = []
+    for task in Path(f"/proc/{pid}/task").glob("*"):
+        with contextlib.suppress(OSError):
+            for child in (task / "children").read_text().split():
+                out = descendants(int(child)) + [int(child)] + out
+    return out
+
+
+def torchrun(ranks: int, args: list, what: str,
+             timeout: float = FLEET_CALL_S) -> str:
+    """One world of ``ranks`` processes, one card each (torchrun's local
+    rendezvous), within ``timeout`` s: its output, or a failure. On a
+    timeout torchrun and every process below it are killed."""
+    import os
+    import signal
+
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", str(ranks), *args]
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    proc = subprocess.Popen(cmd, cwd=str(ROOT), env=env, text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        # torchrun's ranks run in sessions of their own: kill the tree
+        for pid in [*descendants(proc.pid), proc.pid]:
+            with contextlib.suppress(ProcessLookupError):
+                os.kill(pid, signal.SIGKILL)
+        out, _ = proc.communicate()
+        print(out[-4000:])
+        fail(f"{what}: no end within {timeout:g} s")
+    if proc.returncode != 0:
+        print(out[-8000:])
+        fail(f"{what}: exit code {proc.returncode}")
+    return out
+
+
+def fleet_result(out: str, what: str) -> dict:
+    """The JSON line a world's rank 0 printed last, tagged FLEET."""
+    lines = [ln for ln in out.splitlines() if ln.startswith("FLEET ")]
+    check(bool(lines), f"{what}: no FLEET line in its output")
+    return json.loads(lines[-1][len("FLEET "):])
+
+
+def fleet_four_cards(torch) -> dict:
+    """25 (c): the worlds of 4, 2 and 3 ranks, one card a rank."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    script = str(ROOT / Path(__file__).name)
+    result = {}
+    out = torchrun(FLEET_CARDS, [script, "--fleet-rank", "four"],
+                   "25 (c) four ranks")
+    print("\n".join(ln for ln in out.splitlines()
+                    if ln.startswith("25 (c)")))
+    result["four"] = fleet_result(out, "25 (c) four ranks")
+    out = torchrun(2, ["-m", "repro_torch.sim.real_model_smoke", "--json",
+                       "--device", "cuda"], "25 (c) real_model_smoke")
+    report = json.loads([ln for ln in out.splitlines()
+                         if ln.startswith("{")][-1])
+    print(f"25 (c) real_model_smoke at fleet 2: ok {report['ok']}, "
+          f"{report['devices_spanned']} cards spanned, parity "
+          f"{report['parity']}")
+    check(report["ok"] and report["devices_spanned"] >= 2,
+          f"25 (c) real_model_smoke: {report}")
+    result["real_model_smoke"] = report
+    out = torchrun(FLEET_FAMILY_RANKS, [script, "--fleet-rank", "family"],
+                   "25 (c) the stablelm-3b family")
+    print("\n".join(ln for ln in out.splitlines()
+                    if ln.startswith("25 (c)")))
+    result["family"] = fleet_result(out, "25 (c) the stablelm-3b family")
+    # train_loop runs the fleet's Mode B step as a CUDA graph on the card
+    out = torchrun(FLEET_CARDS, [script, "--fleet-rank", "trainer"],
+                   "25 (c) the trainer", timeout=300)
+    print("\n".join(ln for ln in out.splitlines()
+                    if ln.startswith("25 (c)")))
+    result.update(fleet_result(out, "25 (c) the trainer"))
+    return result
+
+
+def phase_fleet(torch) -> dict:
+    phase("25. the node axis over a torch.distributed world: a world of one "
+          "on the card, the per-rank receives of a four-rank ring, and with "
+          "four cards the fleet's gossip, Mode B and train-on-trace")
+    result = {"a": fleet_world_of_one(torch), "b": fleet_receives(torch)}
+    if torch.cuda.device_count() >= FLEET_CARDS:
+        result["c"] = fleet_four_cards(torch)
+    else:
+        print(f"25 (c) needs {FLEET_CARDS} cards, {torch.cuda.device_count()}"
+              " visible: not run")
+    return result
+
+
+# ---------------------------------------------------------------------------
+# The ranks of 25 (c) (run under torchrun: chip_smoke.py --fleet-rank ROLE)
+# ---------------------------------------------------------------------------
+
+def rank_print(msg: str) -> None:
+    import torch.distributed as dist
+
+    if dist.get_rank() == 0:
+        print(msg, flush=True)
+
+
+def rank_gossip(torch, fleet) -> dict:
+    """The fleet's gossip_mix_tree and both compressed modes against
+    plan_w @ X (and the one-device compressed mix) gathered on rank 0."""
+    from repro_torch.core import compression as cp
+    from repro_torch.core.gossip import gossip_mix_tree, plan_w, ring_plan
+    from repro_torch.train import shardings as shr
+
+    out = {}
+    for n in (FLEET_CARDS, 2 * FLEET_CARDS):
+        plan = ring_plan(("data",), (n,), 1)
+        g = torch.Generator().manual_seed(n)
+        x = torch.randn(n, 1 << 20, generator=g).cuda()
+        res = (0.01 * torch.randn(n, 1 << 20, generator=g)).cuda()
+        lo, hi = fleet.block(n)
+        tree = {"a": x[lo:hi, :3000].reshape(-1, 30, 100),
+                "b": x[lo:hi, 3000:]}
+        mixed = shr.gather_nodes(gossip_mix_tree(tree, plan, fleet.group),
+                                 fleet, n, dst=None)
+        got = {}
+        for mode in ("bf16", "int8"):
+            cfg = cp.QuantConfig(mode=mode)
+            m, e = cp.compressed_gossip_mix_array(x[lo:hi], res[lo:hi], plan,
+                                                  cfg, fleet.group)
+            got[mode] = shr.gather_nodes({"m": m, "e": e}, fleet, n,
+                                         dst=None)
+            got[mode]["one"] = cp.compressed_gossip_mix_array(
+                x, res, plan, cfg)
+        if fleet.index != 0:
+            continue
+        want = torch.as_tensor(plan_w(plan), dtype=torch.float64,
+                               device="cuda") @ x.double()
+        d_tree = max(err(mixed["a"].reshape(n, -1), want[:, :3000]),
+                     err(mixed["b"], want[:, 3000:]))
+        d_comp = {mode: max(err(v["m"], v["one"][0]), err(v["e"], v["one"][1]))
+                  for mode, v in got.items()}
+        rank_print(f"25 (c) {plan.name} on {n} nodes, {n // fleet.size} a "
+                   f"card: gossip_mix_tree against plan_w @ X {d_tree:.3e}; "
+                   f"compressed_gossip_mix_array (mixed, residual) against "
+                   f"the one-card run: bf16 {d_comp['bf16']:.3e}, int8 "
+                   f"{d_comp['int8']:.3e} (tol {TOL_FP32:g})")
+        check(d_tree <= TOL_FP32 and max(d_comp.values()) <= TOL_FP32,
+              f"25 (c) gossip on {n} nodes: tree {d_tree}, {d_comp}")
+        out[str(n)] = {"tree": d_tree, **d_comp}
+    return out
+
+
+def rank_mode_b(torch, fleet) -> dict:
+    """qwen2-vl-2b's Mode B at full depth, one node a card, ring-1 none and
+    int8, AdamW, remat none, eager: ms a step, tokens/s, peak GiB per
+    rank, P2P bytes a step against ``utils.collectives``' reckoning."""
+    import gc
+    import math
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import dpsgd
+    from repro_torch.core.gossip import exchange, ring_plan
+    from repro_torch.launch import dryrun
+    from repro_torch.models import build
+    from repro_torch.optim.schedule import constant_lr
+    from repro_torch.train import step as ts
+    from repro_torch.utils.collectives import step_collectives
+
+    full = get_config(POD_ARCH)
+    plan = ring_plan(("data",), (FLEET_CARDS,), 1)
+    api = build(full, "cuda")
+    out = {"layers": full.n_layers, "remat": "none"}
+    if fleet.index == 0:
+        # the dry run's reckoning of one node's step, on the card's fake
+        cell = dryrun.train_cell(full, _pod_run("dpsgd"), batch=POD_BATCH,
+                                 seq_len=POD_SEQ, nodes=1,
+                                 plan=ring_plan(("data",), (1,), 1))
+        out["dry_peak_gib"] = cell["peak_bytes"] / 2**30
+    rank_print(f"25 (c) {POD_ARCH} Mode B at full depth ({full.n_layers} "
+               f"layers), {FLEET_CARDS} nodes one a card, {POD_BATCH} x "
+               f"{POD_SEQ} tokens a node, AdamW, remat none, eager; the dry "
+               f"run reckons one node's step at "
+               f"{out.get('dry_peak_gib', 0):.3f} GiB")
+    lo, hi = fleet.block(FLEET_CARDS)
+    for comp in ("none", "int8"):
+        run = _pod_run("dpsgd", compression=comp)
+        step_fn = ts.make_train_step(api, run, plan, constant_lr(run.eta),
+                                     group=fleet.group)
+        state = ts.init_train_state(api, run, torch.Generator(
+            device="cuda").manual_seed(1), n_nodes=hi - lo)
+        # de-sync the nodes so the mix matters
+        state["params"] = dpsgd._tree_map(
+            lambda p: p * (1 + 0.01 * lo), state["params"])
+        leaves = [(tuple(x.shape[1:]), str(x.dtype).removeprefix("torch."))
+                  for x in dpsgd._leaves(state["params"])]
+        reckoned = step_collectives(leaves, "dpsgd", plan=plan,
+                                    compression=comp)["collectives"][
+            "collective-permute"]["result_bytes"]
+        torch.cuda.reset_peak_memory_stats()
+        counters = fleet_counters()
+        losses, times, sent = [], [], []
+        for k in range(FLEET_WARM + FLEET_TIMED):
+            batch = dpsgd._tree_map(lambda b: b[lo:hi], pod_batch(
+                torch, full, k, FLEET_CARDS, POD_BATCH, POD_SEQ, "dpsgd"))
+            if k == FLEET_WARM:
+                for c in counters.values():
+                    c.launches = 0
+            dist.barrier()
+            torch.cuda.synchronize()
+            before = exchange.sent_bytes
+            t0 = time.perf_counter()
+            state, m = step_fn(state, batch)
+            losses.append(float(m["loss"]))
+            times.append((time.perf_counter() - t0) * 1e3)
+            sent.append(exchange.sent_bytes - before)
+            del batch, m
+        launches = {k: c.launches for k, c in counters.items() if c.launches}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        ms = statistics.median(times[FLEET_WARM:])
+        tokens = FLEET_CARDS * POD_BATCH * POD_SEQ
+        peaks = [None] * fleet.size
+        dist.all_gather_object(peaks, peak, group=fleet.group)
+        sents = [None] * fleet.size
+        dist.all_gather_object(sents, sent, group=fleet.group)
+        rank_print(f"25 (c) {POD_ARCH} Mode B {plan.name} {comp}: losses "
+                   f"{losses}; {ms:.2f} ms a step (median of "
+                   f"{FLEET_TIMED} after {FLEET_WARM}, host clock to a loss "
+                   f"read, steps {[round(t, 2) for t in times]}), "
+                   f"{tokens / ms * 1e3:.0f} tokens/s; peak GiB per rank "
+                   f"{[round(p, 3) for p in peaks]}; P2P bytes a step per "
+                   f"rank {sorted(set(b for s in sents for b in s))} against "
+                   f"utils.collectives' {reckoned}; rank 0's launches a "
+                   f"step x{FLEET_TIMED}: {launches}")
+        check(all(math.isfinite(v) for v in losses),
+              f"25 (c) Mode B {comp}: losses {losses}")
+        check(all(b == reckoned for s in sents for b in s),
+              f"25 (c) Mode B {comp}: P2P bytes {sents} against {reckoned}")
+        out[comp] = {"losses": losses, "ms": ms, "step_ms": times,
+                     "tokens_per_s": tokens / ms * 1e3, "peak_gib": peaks,
+                     "p2p_bytes": reckoned, "launches": launches}
+        del state, step_fn
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def rank_gather(torch, fleet) -> dict:
+    """What ``train_loop`` does at a checkpoint and in the fault drill,
+    at qwen2-vl-2b's full depth, one node a card, AdamW: the whole node
+    axis of the state gathered into rank 0's host memory
+    (``shardings.gather_nodes``, leaf by leaf) and scattered back: rank
+    0's device peak over its own state against the dry run's reckoning
+    (the largest leaf's whole axis), the round trip bit-equal."""
+    import gc
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import dpsgd
+    from repro_torch.models import build
+    from repro_torch.train import shardings as shr
+    from repro_torch.train import step as ts
+
+    full = get_config(POD_ARCH)
+    run = _pod_run("dpsgd")
+    lo, hi = fleet.block(FLEET_CARDS)
+    state = ts.init_train_state(build(full, "cuda"), run, torch.Generator(
+        device="cuda").manual_seed(1), n_nodes=hi - lo)
+    state["params"] = dpsgd._tree_map(lambda p: p * (1 + 0.01 * lo),
+                                      state["params"])
+    leaves = dpsgd._leaves(state)
+    state_gib = sum(x.numel() * x.element_size() for x in leaves) / 2**30
+    leaf_gib = max(x.numel() * x.element_size() for x in leaves) / 2**30
+    reckoned = FLEET_CARDS * leaf_gib
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    whole = shr.gather_nodes(state, fleet, FLEET_CARDS)
+    gather_s = time.perf_counter() - t0
+    added = (torch.cuda.max_memory_allocated() - base) / 2**30
+    on_host = whole is None or all(
+        x.device.type == "cpu" for x in dpsgd._leaves(whole))
+    own = whole is None or all(
+        torch.equal((w[lo:hi] if x.dim() else w).to(x.device), x)
+        for w, x in zip(dpsgd._leaves(whole), leaves))
+    t0 = time.perf_counter()
+    back = shr.scatter_nodes(whole, state, fleet, FLEET_CARDS)
+    scatter_s = time.perf_counter() - t0
+    del whole
+    same = all(torch.equal(a, b) for a, b in
+               zip(dpsgd._leaves(back), leaves))
+    flags = [None] * fleet.size
+    dist.all_gather_object(flags, (same, own, on_host, round(added, 3)),
+                           group=fleet.group)
+    rank_print(f"25 (c) {POD_ARCH} at full depth ({full.n_layers} layers), "
+               f"AdamW, {state_gib:.3f} GiB of state a rank: the whole "
+               f"{FLEET_CARDS}-node axis ({FLEET_CARDS * state_gib:.3f} GiB) "
+               f"gathered into rank 0's host memory in {gather_s:.2f} s, "
+               f"scattered back in {scatter_s:.2f} s; rank 0's device peak "
+               f"over its state {added:.3f} GiB against the reckoning of "
+               f"the largest leaf's whole axis, {reckoned:.3f} GiB; "
+               f"(round trip bit-equal, rank 0's rows equal, on the host, "
+               f"GiB added) per rank {flags}")
+    check(all(f[0] and f[1] and f[2] for f in flags)
+          and added <= reckoned + 0.01,
+          f"25 (c) gather: {flags}, rank 0 added {added} GiB against "
+          f"{reckoned}")
+    del state, back, leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"state_gib": state_gib, "added_gib": added,
+            "reckoned_gib": reckoned, "gather_s": gather_s,
+            "scatter_s": scatter_s}
+
+
+def rank_family(torch, fleet_mesh) -> dict:
+    """stablelm-3b's compressed_int8 family at 1 layer of its published
+    widths: 6 nodes over a fleet of 3, 4 rounds, eager: losses, ms a
+    round, peak GiB and launches per rank, and the call's trace."""
+    import dataclasses
+    import gc
+    import math
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.sim import batch as tb
+    from repro_torch.sim import get_scenario, precompute_traces
+    from repro_torch.utils import profile
+
+    mcfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TRAIN_LAYERS)
+    ad = tb.transformer_adapter(mcfg, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                                eval_batch=TRAIN_EVAL_BATCH, device="cuda")
+    cfg = get_scenario("compressed_int8", model_bits=ad.model_bits,
+                       model_shapes=ad.param_shapes,
+                       eval_every_rounds=TRAIN_ROUNDS)
+    traces = precompute_traces([cfg], TRAIN_ROUNDS)
+
+    def family(rounds: int = TRAIN_ROUNDS):
+        return tb.train_model_on_traces(
+            ad, [cfg], rounds, trace_batch=traces if rounds == TRAIN_ROUNDS
+            else precompute_traces([cfg], rounds), mesh=fleet_mesh,
+            device="cuda")[1]
+
+    family(1)                           # warm: cuBLAS plans, NCCL's rings
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    dist.barrier()
+    t0 = time.perf_counter()
+    res, launches = launched(torch, family)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    out = {"losses": res["losses"][0].tolist(),
+           "ms_a_round": wall_ms / TRAIN_ROUNDS, "nodes": cfg.n_nodes,
+           "ranks": dist.get_world_size(),
+           "launches": {k: v for k, v in launches.items() if v}}
+    traced = profile.trace(family)
+    out["busy_ms"] = traced["busy_ms"]
+    out["idle"] = 1.0 - traced["busy_ms"] / wall_ms
+    out["top"] = [(n[:60], round(ms, 3), c)
+                  for n, ms, c in traced["top"][:8]]
+    for key, value in (("peak_gib", peak), ("launches_by_rank",
+                                            out["launches"])):
+        got = [None] * dist.get_world_size()
+        dist.all_gather_object(got, value)
+        out[key] = got
+    rank_print(f"25 (c) {TRAIN_ARCH} compressed_int8 (payload "
+               f"{cfg.payload.mode}, {cfg.payload.granularity}) at "
+               f"{TRAIN_LAYERS} layer of its published widths: "
+               f"{cfg.n_nodes} nodes over a fleet of {dist.get_world_size()}"
+               f", batch {TRAIN_BATCH} x {TRAIN_SEQ} a node, {TRAIN_ROUNDS} "
+               f"rounds, eager: losses {out['losses']}; "
+               f"{out['ms_a_round']:.2f} ms a round (the call's wall over "
+               f"its rounds, its set-up, the final gathers and the "
+               f"evaluation included); peak GiB per rank "
+               f"{[round(p, 3) for p in out['peak_gib']]}; launches per "
+               f"rank {out['launches_by_rank']}; device busy "
+               f"{out['busy_ms']:.2f} ms of the call's {wall_ms:.2f} (idle "
+               f"{out['idle']:.4f}), the largest: "
+               + "; ".join(f"{n} {ms} ms x{c}" for n, ms, c in out["top"]))
+    check(all(math.isfinite(v) for v in out["losses"]),
+          f"25 (c) family: losses {out['losses']}")
+    return out
+
+
+def rank_capture(torch, fleet) -> dict:
+    """The fleet's Mode B step (P2P and the loss's all_gather inside)
+    captured as a CUDA graph, as ``train_loop`` runs it on the card: the
+    smoke widths' replay must be bit-equal to the eager step on every
+    rank."""
+    import math
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config, reduce_for_smoke
+    from repro_torch.core import dpsgd
+    from repro_torch.core.gossip import ring_plan
+    from repro_torch.graphs import GraphedStep
+    from repro_torch.models import build
+    from repro_torch.optim.schedule import constant_lr
+    from repro_torch.train import step as ts
+
+    smoke = reduce_for_smoke(get_config(POD_ARCH))
+    plan = ring_plan(("data",), (FLEET_CARDS,), 1)
+    run = _pod_run("dpsgd", compression="int8")
+    api = build(smoke, "cuda")
+    step_fn = ts.make_train_step(api, run, plan, constant_lr(run.eta),
+                                 group=fleet.group)
+    lo, hi = fleet.block(FLEET_CARDS)
+    state = ts.init_train_state(api, run, torch.Generator(
+        device="cuda").manual_seed(1), n_nodes=hi - lo)
+    batch = dpsgd._tree_map(lambda b: b[lo:hi], pod_batch(
+        torch, smoke, 0, FLEET_CARDS, POD_LOCK_BATCH, POD_LOCK_SEQ, "dpsgd"))
+    eager, m_e = step_fn(state, batch)
+    got, m_g = GraphedStep(step_fn)(state, batch)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(
+        dpsgd._leaves(got), dpsgd._leaves(eager))) and torch.equal(
+        m_g["loss"], m_e["loss"])
+    flags = [None] * fleet.size
+    dist.all_gather_object(flags, same, group=fleet.group)
+    rank_print(f"25 (c) graph capture of the fleet's Mode B step (smoke "
+               f"widths, {plan.name} int8, P2P inside the capture): replay "
+               f"bit-equal to eager (state and loss) on every rank: {flags}; "
+               f"the eager step's loss {float(m_e['loss']):.4f}")
+    check(all(flags) and math.isfinite(float(m_e["loss"])),
+          f"25 (c) capture: replay bit-equal per rank {flags}, eager loss "
+          f"{float(m_e['loss'])}")
+    return {"captured": all(flags), "ranks": flags}
+
+
+def rank_trainer(torch, fleet) -> dict:
+    """``launch.train.train_loop`` over the fleet at the smoke widths,
+    graphed as on the card by default, ring-1 int8: four steps straight,
+    then two with a checkpoint (rank 0 gathers the node axis to its host
+    and writes it) and a resume to four (rank 0 scatters it), steps 3-4
+    against the straight run's; and the fault drill (node 2 dies at step
+    3: gathered, reshaped, replanned, scattered)."""
+    import math
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config, reduce_for_smoke
+    from repro_torch.launch import train as lt
+
+    smoke = reduce_for_smoke(get_config(POD_ARCH))
+    run = _pod_run("dpsgd", compression="int8")
+    kw = dict(nodes=FLEET_CARDS, tp=1, batch_per_node=POD_LOCK_BATCH,
+              seq_len=POD_LOCK_SEQ, log_every=1, device="cuda")
+    where = [tempfile.mkdtemp() if fleet.index == 0 else None]
+    dist.broadcast_object_list(where, src=fleet.global_rank(0),
+                               group=fleet.group)
+    ck = where[0]
+    straight = lt.train_loop(smoke, run, steps=4, ckpt_dir=None, **kw)
+    lt.train_loop(smoke, run, steps=2, ckpt_dir=ck, ckpt_every=2, **kw)
+    resumed = lt.train_loop(smoke, run, steps=4, ckpt_dir=ck, resume=True,
+                            **kw)
+    drill = lt.train_loop(smoke, run, steps=5, ckpt_dir=None, fail_at=3,
+                          fail_node=2, **kw)
+    dist.barrier()
+    if fleet.index == 0:
+        shutil.rmtree(ck, ignore_errors=True)
+    got = [r["loss"] for r in resumed["log"]]
+    want = [r["loss"] for r in straight["log"][2:]]
+    d = max(abs(x - y) for x, y in zip(got, want))
+    losses = [r["loss"] for r in drill["log"]]
+    rank_print(f"25 (c) train_loop over {fleet.size} ranks (smoke widths, "
+               f"{FLEET_CARDS} nodes one a card, int8, graphed): a "
+               f"checkpoint at step 2 and resume=True, steps 3-4 losses {got}"
+               f" against the uninterrupted {want}: "
+               f"{'bit-equal' if got == want else f'max|diff| {d:.3e}'}; "
+               f"the fault drill (node 2 dies at step 3) losses {losses}")
+    check([r["step"] for r in resumed["log"]] == [3, 4] and d <= LOCK_TOL,
+          f"25 (c) resume over the fleet: {resumed['log']} against "
+          f"{straight['log']}")
+    check(len(losses) == 5 and all(math.isfinite(v) for v in losses),
+          f"25 (c) fault drill over the fleet: {drill['log']}")
+    return {"resume_bit_equal": got == want, "resume_diff": d,
+            "drill_losses": losses}
+
+
+def fleet_rank_main(role: str) -> None:
+    """One rank of a 25 (c) world; rank 0 prints the result as a FLEET
+    line."""
+    import os
+
+    sys.path.insert(0, str(SRC))
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_world, make_fleet_mesh
+    from repro_torch.train.shardings import fleet_of
+
+    init_world("cuda")
+    mesh = make_fleet_mesh(dist.get_world_size(), 1)
+    fleet = fleet_of(mesh)
+    if role == "four":
+        result = {"gossip": rank_gossip(torch, fleet),
+                  "mode_b": rank_mode_b(torch, fleet),
+                  "gather": rank_gather(torch, fleet)}
+    elif role == "family":
+        result = rank_family(torch, mesh)
+    else:
+        result = {"capture": rank_capture(torch, fleet),
+                  "trainer": rank_trainer(torch, fleet)}
+    rank_print(f"FLEET {json.dumps(result)}")
+    dist.barrier()
+    dist.destroy_process_group()
+
+
 def main() -> None:
     if not (SRC / "repro_torch").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
@@ -5219,6 +5984,10 @@ def main() -> None:
     torch.cuda.empty_cache()
     run("24", phase_inspection, torch, remat_run,
         {RWKV_ARCH: served_rwkv, MLA_ARCH: served_mla})
+    # the node axis over a torch.distributed world: a world of one, the
+    # per-rank receives of a four-rank ring, and four cards when present
+    torch.cuda.empty_cache()
+    fleet = run("25", phase_fleet, torch)
     kernels["flash_attention"]["qwen2_vl_train"] = kernels.pop(
         "flash_attention_qwen2_vl_train")
     rec_launches = {**trained_rec["recurrentgemma-2b"]["launches"],
@@ -5339,6 +6108,18 @@ def main() -> None:
             traced["launches_c_mix"],
         **{f"{POD_ARCH} pod training {k} (phase 22)": v["gossip_mix"]
            for k, v in pod["launches"].items()}}
+    # phase 25's runs: (a) a world of one, (b) a four-rank ring's receives
+    for row in rows:
+        name = {"gossip_mix": "gossip_mix", "gossip_mix_q8": "gossip_mix_q8",
+                "quantize_int8_ef": "quantize_int8_ef"}.get(row["name"])
+        if name is None:
+            continue
+        by_path = row.setdefault("launches_by_path",
+                                 {"main path": row["launches"]})
+        by_path.update({f"{path}, a world of one (phase 25 (a))": n[name]
+                        for path, n in fleet["a"].items() if n[name]})
+        by_path["a four-rank ring's per-rank receives (phase 25 (b))"] = \
+            fleet["b"]["launches"][name]
     k = traced["trace_scan"]
     rows.append({
         "name": "trace_scan", "route": "cuda",
@@ -5366,4 +6147,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--fleet-rank"]:
+        fleet_rank_main(sys.argv[2])
+    else:
+        main()

@@ -14,20 +14,33 @@ This is the torch counterpart of ``repro.core.compression``: the wire-format
 accounting is copied verbatim, and the int8 codec (2048-lane blocks) is
 ``kernels.quantize`` at ``block = 2048``: a CUDA tensor goes through the
 hand-written quantize / dequantize kernels (no fallback), a CPU tensor
-through their plain torch versions. The multi-device exchange
-(``compressed_gossip_mix_array``) comes with pod mode.
+through their plain torch versions.
+
+``compressed_gossip_mix_array`` runs a plan's compressed exchange over a
+``torch.distributed`` fleet, each rank a block of nodes (``core.gossip``'s
+layout): bf16 messages travel as bf16; int8 messages are the send of
+``kernels.quantize.quantize_int8_ef`` (row 3′: q, the scales and the new
+residual in one launch), q and the scales travel by P2P, and the receive
+is ``gossip_mix_q8_rows`` (row 2: the self term exact, the payloads
+dequantized in the kernel), split out as ``receive_q8``.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Sequence
 
 import torch
 
 from ..kernels import quantize as _qz
+from ..kernels.gossip_mix import gossip_mix_q8_rows
+from .gossip import (GossipPlan, _round_weights, gossip_mix_array,
+                     mix_received, node_block, roll_block)
 
 __all__ = ["QuantConfig", "PAYLOAD_MODES", "GRANULARITIES",
            "quantize_int8", "dequantize_int8",
            "quantize_int8_rows", "dequantize_int8_rows",
+           "compressed_gossip_mix_array", "compressed_gossip_mix_buffers",
+           "receive_q8",
            "payload_bits", "payload_bits_tree", "compression_ratio"]
 
 _BLOCK = 2048  # quantization block (per-block scales bound the error)
@@ -114,6 +127,81 @@ def dequantize_int8_rows(q: torch.Tensor, scale: torch.Tensor, l: int,
         else torch.float32
     return _qz.dequantize_int8(q, scale, block=_BLOCK, length=l,
                                dtype=kernel_dtype).to(dtype)
+
+
+def compressed_gossip_mix_array(
+    x: torch.Tensor,
+    residual: torch.Tensor,
+    plan: GossipPlan,
+    cfg: QuantConfig,
+    group=None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One error-feedback compressed mixing step for the rank's block
+    (b, L) of node buffers (``core.gossip``'s layout; ``group`` None: the
+    whole node axis here).
+
+    message m_i = Q(x_i + e_i);  e_i' = (x_i + e_i) - m_i
+    x_i' = W_ii x_i + sum_j W_ij m_j   (self term exact; neighbors compressed)
+
+    Returns (mixed, new_residual). With mode="none" (or an allreduce
+    plan) this is exact gossip and the residual passes through untouched,
+    as it does without error feedback.
+    """
+    if plan.kind == "allreduce" or cfg.mode == "none":
+        return gossip_mix_array(x, plan, group), residual
+    _, b, _ = node_block(x, plan.n_nodes, group)
+    x32 = x.to(torch.float32)
+
+    if cfg.mode == "bf16":
+        carried = x32 + residual if cfg.error_feedback else x32
+        msg = carried.to(torch.bfloat16)
+        new_residual = (carried - msg.to(torch.float32)
+                        if cfg.error_feedback else residual)
+        recvs = [roll_block(msg, plan, r, group).to(torch.float32)
+                 for r in plan.rounds]
+        return mix_received(x32, recvs, plan).to(x.dtype), new_residual
+
+    if cfg.mode == "int8":
+        live = torch.ones(b, dtype=torch.bool, device=x.device)
+        q, scale, new_residual = _qz.quantize_int8_ef(
+            x32, residual.to(torch.float32), live, cfg.error_feedback)
+        acc = receive_q8(x32, [roll_block(q, plan, r, group)
+                               for r in plan.rounds],
+                         [roll_block(scale, plan, r, group)
+                          for r in plan.rounds], plan)
+        return acc.to(x.dtype), (new_residual if cfg.error_feedback
+                                 else residual)
+
+    raise ValueError(f"unknown compression mode {cfg.mode!r}")
+
+
+def receive_q8(x32: torch.Tensor, q_recvs: Sequence[torch.Tensor],
+               s_recvs: Sequence[torch.Tensor],
+               plan: GossipPlan) -> torch.Tensor:
+    """The int8 receive half of a round on a rank: ``self_w * x +
+    nb_w * sum_rounds deq(q_r, s_r)`` for its (b, L) fp32 block, ``q_recvs``
+    / ``s_recvs`` the payloads and scales each round hands it, in one
+    ``gossip_mix_q8_rows`` launch (the self term exact)."""
+    b = x32.shape[0]
+    w_off = _round_weights(plan, b, x32.device)[:, b:]
+    w_self = torch.full((b,), plan.self_weight, dtype=torch.float32,
+                        device=x32.device)
+    return gossip_mix_q8_rows(w_self, w_off, x32, torch.cat(q_recvs, dim=0),
+                              torch.cat(s_recvs, dim=0))
+
+
+def compressed_gossip_mix_buffers(
+    buffers: dict[str, torch.Tensor],
+    residuals: dict[str, torch.Tensor],
+    plan: GossipPlan,
+    cfg: QuantConfig,
+    group=None,
+) -> tuple[dict[str, torch.Tensor], dict[str, torch.Tensor]]:
+    out, res = {}, {}
+    for k, v in buffers.items():
+        out[k], res[k] = compressed_gossip_mix_array(v, residuals[k], plan,
+                                                     cfg, group)
+    return out, res
 
 
 def payload_bits(n: int, cfg: QuantConfig, base_dtype_bits: int = 32) -> float:

@@ -41,6 +41,15 @@ The mix is lowered onto the hand-written kernels of ``kernels.gossip_mix``
 Also supports ``local_steps`` H >= 1 (Cooperative-SGD generalization; H=1 ==
 paper) and arbitrary W (row-stochastic, Metropolis, fully-connected).
 
+With ``group`` (a fleet's process group) the node axis of the state is
+this rank's block (``core.gossip.node_block``) and W stays whole (n, n):
+the mix ``all_gather``s each buffer's rows over the fleet (for int8, the
+send's payloads and scales; for bf16, the messages) and runs the rank's
+rows of W through the same rows-mix or q8 launch. Each output row is the
+kernel's in-order sum over the same columns, so a rank's rows are
+bit-equal to the one-device mix's (train-on-trace's sharded family,
+``sim.batch``).
+
 The ``make_*`` builders are the counterpart of the JAX package's jitted
 steps: each returns a ``graphs.GraphedStep``, which on CUDA inputs captures
 its eager body (``dpsgd_step``, ``dpsgd_masked_step``,
@@ -60,13 +69,17 @@ import numpy as np
 import torch
 
 from ..graphs import GraphedStep
-from ..kernels.gossip_mix import gossip_mix_int8_round, gossip_mix_rows
+from ..kernels import quantize as _qz
+from ..kernels.gossip_mix import (gossip_mix_int8_round, gossip_mix_q8_rows,
+                                  gossip_mix_rows)
+from .gossip import all_gather_nodes, node_block
 
 __all__ = ["DPSGDConfig", "replicate", "mix", "dpsgd_step", "make_dpsgd_step",
            "dpsgd_masked_step", "make_dpsgd_masked_step",
            "dpsgd_masked_compressed_step",
            "make_dpsgd_compressed_step", "embed_w", "zero_residuals",
-           "node_axis_size", "receive_exact_self"]
+           "node_axis_size", "receive_exact_self", "receive_q8_block",
+           "receive_bf16_block"]
 
 PyTree = Any
 
@@ -191,7 +204,7 @@ def mix_groups(sizes: list) -> list:
     return groups
 
 
-def mix(node_params: PyTree, w) -> PyTree:
+def mix(node_params: PyTree, w, group=None) -> PyTree:
     """X <- W @ X on the leading node axis of every leaf.
 
     Leaves of one dtype are concatenated into (n, total) buffers of at most
@@ -201,18 +214,26 @@ def mix(node_params: PyTree, w) -> PyTree:
     mixing each leaf on its own, without a concatenated copy of a large
     model (8 GB at six replicas of 0.34 B parameters). W is cast to the
     leaves' dtype first, as the reference's ``w.astype(flat.dtype)`` does.
-    The mixed leaves are views into the output buffers."""
+    The mixed leaves are views into the output buffers. With ``group``
+    and a node-blocked tree, each buffer's rows are gathered over the
+    fleet and the rank's rows of W run over them."""
     leaves = _leaves(node_params)
     n = leaves[0].shape[0]
     w = _as_w(w, leaves[0].device)
+    lo, sharded = 0, False
+    if group is not None:
+        lo, _, sharded = node_block(leaves[0], w.shape[-1], group)
+    w_rows = w[lo:lo + n] if sharded else w
     out: list = [None] * len(leaves)
     for dtype in dict.fromkeys(p.dtype for p in leaves):
         idx = [i for i, p in enumerate(leaves) if p.dtype == dtype]
-        for group in mix_groups([leaves[i][0].numel() for i in idx]):
-            members = [idx[j] for j in group]
+        for grp in mix_groups([leaves[i][0].numel() for i in idx]):
+            members = [idx[j] for j in grp]
             rows = [leaves[i].reshape(n, -1) for i in members]
             flat = rows[0] if len(rows) == 1 else torch.cat(rows, dim=1)
-            mixed = gossip_mix_rows(w.to(dtype), flat)
+            if sharded:
+                flat = all_gather_nodes(flat, w.shape[-1], group)
+            mixed = gossip_mix_rows(w_rows.to(dtype), flat)
             offset = 0
             for i in members:
                 size = leaves[i][0].numel()
@@ -312,6 +333,7 @@ def dpsgd_masked_step(
     w,
     live,
     config: DPSGDConfig = DPSGDConfig(),
+    group=None,
 ) -> tuple[PyTree, torch.Tensor]:
     """One D-PSGD iteration on a fixed-width node state under churn.
 
@@ -320,7 +342,8 @@ def dpsgd_masked_step(
     parameters unchanged and never contribute to live rows. Returned
     per-node losses are raw; mask with ``live`` before aggregating.
 
-    Only ``local_steps == 1`` is supported.
+    Only ``local_steps == 1`` is supported. With ``group`` the state,
+    batch and ``live`` are this rank's block of nodes, W whole.
     """
     if config.local_steps != 1:
         raise NotImplementedError(
@@ -329,9 +352,10 @@ def dpsgd_masked_step(
     losses, grads = _node_grads(loss_fn, node_params, node_batches)
     grads = _mask_grads(grads, live)
     if config.mix_first:
-        new_params = _sgd_mixed(mix(node_params, w), grads, config.eta)
+        new_params = _sgd_mixed(mix(node_params, w, group), grads,
+                                config.eta)
     else:
-        new_params = mix(_sgd(node_params, grads, config.eta), w)
+        new_params = mix(_sgd(node_params, grads, config.eta), w, group)
     return new_params, losses
 
 
@@ -348,6 +372,7 @@ def _mix_compressed(
     w,
     live,
     quant,
+    group=None,
 ) -> tuple[PyTree, PyTree]:
     """Quantized error-feedback mixing on the masked layout.
 
@@ -363,18 +388,26 @@ def _mix_compressed(
     tensor on its own block grid with its own residual.
     """
     if quant.mode == "none":
-        return mix(node_params, w), residuals
+        return mix(node_params, w, group), residuals
     n = node_axis_size(node_params, "node_params")
     device = _device_of(node_params)
     w = _as_w(w, device)
     live = _as_live(live, device)
-    if live.shape[0] != n or w.shape[-1] != n:
+    lo, sharded = 0, False
+    if group is not None and w.shape[-1] != n:
+        lo, _, sharded = node_block(_leaves(node_params)[0], w.shape[-1],
+                                    group)
+    if live.shape[0] != n or w.shape[0] != w.shape[-1] or \
+            (w.shape[-1] != n and not sharded):
         raise ValueError(
             f"live {tuple(live.shape)} / w {tuple(w.shape)} disagree with "
             f"the node axis n={n} of node_params")
+    fleet = (group, lo) if sharded else None
     if getattr(quant, "granularity", "message") == "leaf":
-        return _mix_compressed_leaf(node_params, residuals, w, live, quant)
-    return _mix_compressed_message(node_params, residuals, w, live, quant)
+        return _mix_compressed_leaf(node_params, residuals, w, live, quant,
+                                    fleet)
+    return _mix_compressed_message(node_params, residuals, w, live, quant,
+                                   fleet)
 
 
 def receive_exact_self(w: torch.Tensor, flat: torch.Tensor,
@@ -386,6 +419,68 @@ def receive_exact_self(w: torch.Tensor, flat: torch.Tensor,
     diag = torch.diag(torch.diagonal(w))
     return gossip_mix_rows(torch.cat([diag, w - diag], dim=1),
                            torch.cat([flat, deq], dim=0))
+
+
+def _self_and_off(w: torch.Tensor, lo: int, b: int):
+    """(W's diagonal (b,), the rank's rows of W_off (b, n)) for the rank's
+    block of ``b`` rows at row ``lo``."""
+    rows = w[lo:lo + b]
+    w_self = torch.diagonal(w)[lo:lo + b]
+    diag = torch.zeros_like(rows)
+    diag[:, lo:lo + b] = torch.diag(w_self)
+    return w_self, rows - diag
+
+
+def receive_q8_block(w: torch.Tensor, lo: int, flat: torch.Tensor,
+                     q_all: torch.Tensor,
+                     scales_all: torch.Tensor) -> torch.Tensor:
+    """The int8 receive half for the rank's (b, L) fp32 block at row ``lo``
+    of W (n, n): W's diagonal times ``flat`` exact, the rank's rows of
+    W_off over every node's payload ``q_all`` (n, Lp) and ``scales_all``
+    (the fleet's gathered sends), one ``gossip_mix_q8_rows`` launch (as
+    ``gossip_mix_q8_w`` reads W, 0 at the rank's own payloads)."""
+    w_self, off = _self_and_off(w, lo, flat.shape[0])
+    return gossip_mix_q8_rows(w_self, off, flat, q_all, scales_all)
+
+
+def receive_bf16_block(w: torch.Tensor, lo: int, flat: torch.Tensor,
+                       msg_all: torch.Tensor) -> torch.Tensor:
+    """The bf16 receive half for the rank's block: the rank's rows of
+    ``W_cat = [diag(diag W) | W_off]`` over ``[flat; msg_all]`` (every
+    node's gathered bf16 message, in fp32), one ``gossip_mix_rows``
+    launch."""
+    w_self, off = _self_and_off(w, lo, flat.shape[0])
+    return gossip_mix_rows(torch.cat([torch.diag(w_self), off], dim=1),
+                           torch.cat([flat, msg_all.to(torch.float32)],
+                                     dim=0))
+
+
+def _compress_and_mix_fleet(flat: torch.Tensor, res: torch.Tensor,
+                            w: torch.Tensor, live: torch.Tensor, quant,
+                            fleet: tuple) -> tuple[torch.Tensor,
+                                                   torch.Tensor]:
+    """``_compress_and_mix`` for the rank's (b, L) block at row ``lo`` of
+    the fleet (``fleet`` = (group, lo)), W whole (n, n): the send on the
+    block, the payloads gathered, the receive half
+    (``receive_q8_block`` / ``receive_bf16_block``)."""
+    group, lo = fleet
+    n = w.shape[-1]
+    if quant.mode == "int8":
+        q, scales, new_res = _qz.quantize_int8_ef(flat, res, live,
+                                                  quant.error_feedback)
+        return receive_q8_block(w, lo, flat, all_gather_nodes(q, n, group),
+                                all_gather_nodes(scales, n, group)), new_res
+    if quant.mode != "bf16":
+        raise ValueError(f"unknown compression mode {quant.mode!r}")
+    carried = flat + res if quant.error_feedback else flat
+    mixed = receive_bf16_block(w, lo, flat, all_gather_nodes(
+        carried.to(torch.bfloat16), n, group))
+    deq = carried.to(torch.bfloat16).to(torch.float32)
+    new_res = carried - deq if quant.error_feedback else res
+    new_res = torch.where(live[:, None], new_res,
+                          torch.zeros((), dtype=new_res.dtype,
+                                      device=new_res.device))
+    return mixed, new_res
 
 
 def _compress_and_mix(flat: torch.Tensor, res: torch.Tensor,
@@ -407,12 +502,20 @@ def _compress_and_mix(flat: torch.Tensor, res: torch.Tensor,
     return mixed, new_res
 
 
+def _wire(flat, res, w, live, quant, fleet):
+    """``_compress_and_mix``, or its fleet form for a rank's block."""
+    if fleet is None:
+        return _compress_and_mix(flat, res, w, live, quant)
+    return _compress_and_mix_fleet(flat, res, w, live, quant, fleet)
+
+
 def _mix_compressed_message(
     node_params: PyTree,
     residuals: PyTree,
     w: torch.Tensor,
     live: torch.Tensor,
     quant,
+    fleet: tuple | None = None,
 ) -> tuple[PyTree, PyTree]:
     """Concat-flat wire format: one quantized buffer per node per round."""
     leaves = _leaves(node_params)
@@ -421,7 +524,7 @@ def _mix_compressed_message(
     flat = torch.cat([p.reshape(n, -1).to(torch.float32) for p in leaves],
                      dim=1)
     res = torch.cat([r.reshape(n, -1) for r in res_leaves], dim=1)
-    mixed, new_res = _compress_and_mix(flat, res, w, live, quant)
+    mixed, new_res = _wire(flat, res, w, live, quant, fleet)
 
     out, res_out, offset = [], [], 0
     for p in leaves:
@@ -439,15 +542,16 @@ def _mix_compressed_leaf(
     w: torch.Tensor,
     live: torch.Tensor,
     quant,
+    fleet: tuple | None = None,
 ) -> tuple[PyTree, PyTree]:
     """Per-tensor wire format: each leaf quantizes with its own block grid
     and carries its own error-feedback residual (one kernel launch per
     leaf)."""
     def _one(p: torch.Tensor, r: torch.Tensor):
         n = p.shape[0]
-        mixed, new_res = _compress_and_mix(
+        mixed, new_res = _wire(
             p.reshape(n, -1).to(torch.float32), r.reshape(n, -1), w, live,
-            quant)
+            quant, fleet)
         return mixed.reshape(p.shape).to(p.dtype), new_res.reshape(p.shape)
 
     pairs = [_one(p, r) for p, r in zip(_leaves(node_params),
@@ -465,6 +569,7 @@ def dpsgd_masked_compressed_step(
     residuals: PyTree,
     quant,
     config: DPSGDConfig = DPSGDConfig(),
+    group=None,
 ) -> tuple[PyTree, PyTree, torch.Tensor]:
     """``dpsgd_masked_step`` with quantized error-feedback mixing.
 
@@ -488,11 +593,12 @@ def dpsgd_masked_compressed_step(
     grads = _mask_grads(grads, live)
     if config.mix_first:
         mixed, new_res = _mix_compressed(node_params, residuals, w, live,
-                                         quant)
+                                         quant, group)
         new_params = _sgd_mixed(mixed, grads, config.eta)
     else:
         new_params, new_res = _mix_compressed(
-            _sgd(node_params, grads, config.eta), residuals, w, live, quant)
+            _sgd(node_params, grads, config.eta), residuals, w, live, quant,
+            group)
     return new_params, new_res, losses
 
 

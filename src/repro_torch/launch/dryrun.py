@@ -58,7 +58,8 @@ Usage:
 
 Each cell writes ``<out>/card/<arch>__<shape>[tag].json`` (resumable:
 existing files are skipped unless --force). ``--mesh single`` and
-``multi`` (the reference's pod meshes) wait for ROADMAP Queue 1 item 5.
+``multi`` (the reference's pod meshes, with tensor parallelism over their
+'model' axis) wait for ROADMAP Queue 1 item 9.
 """
 from __future__ import annotations
 

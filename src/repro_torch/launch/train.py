@@ -1,4 +1,4 @@
-"""End-to-end pod-mode trainer on one device.
+"""End-to-end pod-mode trainer, on one device or over a fleet of ranks.
 
 The torch counterpart of ``repro.launch.train``: the density controller
 picks the gossip plan (Eq. 8), then Mode A (``--mode allreduce``) or Mode B
@@ -13,6 +13,11 @@ Examples:
   # on the CPU:
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --smoke
 
+  # 4 nodes over a fleet of 2 ranks (gloo on the CPU; NCCL, one card a
+  # rank, with --device cuda):
+  PYTHONPATH=src python -m torch.distributed.run --nproc_per_node 2 \\
+      -m repro_torch.launch.train --device cpu --smoke --nodes 4
+
   # fully-synchronized baseline (Mode A):
   ... --mode allreduce
 
@@ -26,25 +31,31 @@ Checkpoints land in --ckpt-dir every --ckpt-every steps (atomic, digest
 verified, the JAX package's format); restart resumes from the latest
 complete step and the SAME data stream position (deterministic batches).
 
-The world is one process on one device: the node axis stays whole on it,
-as the reference's sharding policy keeps an undivided node axis
-unsharded. Tensor parallelism (``--tp`` > 1) and a ``torch.distributed``
-world of more than one process wait for ROADMAP Queue 1 item 5. On the
-card the step is a ``graphs.GraphedStep`` (the counterpart of ``jax.jit``;
-staging its inputs lets the loop drop its own copy of the state, the
-counterpart of ``donate_argnums``) unless ``graphed=False`` (``--eager``)
-asks for the eager step: a graph keeps its static inputs, its pool and the
-fresh outputs, three copies of the state, which a full-width state may not
-fit.
+Run under torchrun (``python -m torch.distributed.run --nproc_per_node
+F``), the world of F ranks is the reference's node axis ("data"): each
+rank holds ``nodes / F`` nodes (``nodes % F == 0``) and its nodes' batch
+rows, every rank computes the controller's plan and the batches, rank 0
+gathers the node axis into its host memory, leaf by leaf, to write a
+checkpoint (the same files one process writes) and scatters it to resume
+or after the fault drill, and only rank 0 logs. Mode A splits the global batch over the ranks and all-reduces the
+gradients. Tensor parallelism (``--tp`` > 1) waits for ROADMAP Queue 1
+item 9. On the card the step is a ``graphs.GraphedStep`` (the counterpart
+of ``jax.jit``; staging its inputs lets the loop drop its own copy of the
+state, the counterpart of ``donate_argnums``) unless ``graphed=False``
+(``--eager``) asks for the eager step: a graph keeps its static inputs,
+its pool and the fresh outputs, three copies of the state, which a
+full-width state may not fit.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from typing import Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..checkpoint import CheckpointManager
 from ..checkpoint.ckpt import reshape_nodes
@@ -58,31 +69,35 @@ from ..models import build
 from ..models.layers import torch_dtype
 from ..optim.schedule import constant_lr
 from ..runtime.fault import ElasticController
+from ..train import shardings as shr
 from ..train.step import (init_train_state, make_train_step,
                           reshape_batch_for_nodes)
 
 __all__ = ["main", "train_loop", "param_bytes", "stub_embeds"]
 
-DISTRIBUTED_ITEM = "ROADMAP Queue 1 item 5"
+DISTRIBUTED_ITEM = "ROADMAP Queue 1 item 9"
 
 
-def _mesh(nodes: int, tp: int) -> None:
-    """The reference's (data, model) mesh: here one process on one device,
-    the node axis whole on it."""
+def _mesh(nodes: int, tp: int):
+    """The reference's (data, model) mesh: the started world as a
+    (fleet, 1) mesh, the node axis over its ranks; None without a world
+    (one process, the node axis whole on its device)."""
+    from .mesh import make_fleet_mesh
+
     if tp > 1:
         raise NotImplementedError(
-            f"tp={tp}: tensor parallelism over several devices is not "
-            f"ported ({DISTRIBUTED_ITEM}); the port runs every node on one "
-            "device")
-    if torch.distributed.is_available() and \
-            torch.distributed.is_initialized() and \
-            torch.distributed.get_world_size() > 1:
-        raise NotImplementedError(
-            f"a torch.distributed world of "
-            f"{torch.distributed.get_world_size()} processes: the "
-            f"distributed half of pod mode is not ported ({DISTRIBUTED_ITEM})")
+            f"tp={tp}: tensor parallelism (the 'model' mesh axis) is not "
+            f"ported ({DISTRIBUTED_ITEM}); the port carries the node axis "
+            "over the fleet's ranks only")
     if nodes < 1:
         raise ValueError(f"nodes must be >= 1, got {nodes}")
+    if not (dist.is_available() and dist.is_initialized()):
+        return None
+    fleet = dist.get_world_size()
+    if nodes % fleet:
+        raise ValueError(
+            f"{nodes} nodes do not divide over a fleet of {fleet} ranks")
+    return make_fleet_mesh(fleet, 1)
 
 
 def param_bytes(cfg) -> int:
@@ -125,6 +140,15 @@ def _batch(cfg, run: RunConfig, k: int, global_batch: int, seq_len: int,
     return batch
 
 
+def _log(fleet: shr.Fleet, msg: str) -> None:
+    if fleet.index == 0:
+        print(msg, flush=True)
+
+
+def _take_rows(batch: dict, lo: int, hi: int) -> dict:
+    return _tree_map(lambda x: x[lo:hi], batch)
+
+
 def train_loop(cfg, run: RunConfig, *, nodes: int, tp: int, steps: int,
                batch_per_node: int, seq_len: int, ckpt_dir: str | None,
                ckpt_every: int = 50, fail_at: int = -1, fail_node: int = 0,
@@ -135,7 +159,7 @@ def train_loop(cfg, run: RunConfig, *, nodes: int, tp: int, steps: int,
     # injectable wall timer (runtime/fault.py pattern): the logged `wall_s`
     # column is deterministic when a test stubs `clock`
     clock = clock or time.perf_counter
-    _mesh(nodes, tp)
+    fleet = shr.fleet_of(_mesh(nodes, tp))
     if cfg.frontend == "vision" and seq_len <= cfg.n_patches:
         raise ValueError(
             f"seq_len {seq_len} must exceed the vision stub's {cfg.n_patches}"
@@ -144,29 +168,51 @@ def train_loop(cfg, run: RunConfig, *, nodes: int, tp: int, steps: int,
     dev = resolve_device(device)
     api = build(cfg, dev)
     global_batch = batch_per_node * nodes
+    node_mode = run.mode == "dpsgd"
+    # this rank's nodes (Mode B) or its share of the batch (Mode A)
+    lo, hi = fleet.block(nodes)
+    sharded = fleet.sharded(nodes) and node_mode
 
     # --- Eq. 8: density controller picks the gossip plan -------------------
     pbytes = param_bytes(cfg)
     plan = None
-    if run.mode == "dpsgd":
+    if node_mode:
         choice = choose_plan(("data",), (nodes,), run.lambda_target,
                              bytes_per_rank=pbytes / tp, eta=run.eta)
         plan = choice.plan
-        print(f"[plan] {choice}", flush=True)
+        _log(fleet, f"[plan] {choice}")
 
-    step_fn = make_train_step(api, run, plan, constant_lr(run.eta))
+    step_fn = make_train_step(api, run, plan, constant_lr(run.eta),
+                              group=fleet.group)
+    # every node starts from the same x_0: each rank draws it from the seed
     state = init_train_state(
         api, run, torch.Generator(device=dev).manual_seed(run.seed),
-        n_nodes=nodes)
+        n_nodes=hi - lo)
 
-    mgr = CheckpointManager(ckpt_dir) if ckpt_dir else None
+    mgr = CheckpointManager(ckpt_dir) if ckpt_dir and fleet.index == 0 \
+        else None
     start = 0
-    if resume and mgr:
-        try:
-            state, start = mgr.restore_latest(state)
-            print(f"[resume] step {start}", flush=True)
-        except FileNotFoundError:
-            pass
+    if resume and ckpt_dir:
+        found = [None, None]
+        if mgr:
+            try:
+                # the file's shapes, on the host: rank 0 scatters them
+                found = list(mgr.restore_latest(_tree_map(
+                    lambda x: x.new_empty(0, device="cpu"), state)))
+            except FileNotFoundError:
+                pass
+        if fleet.size > 1:
+            flag = [found[1]]
+            dist.broadcast_object_list(flag, src=fleet.global_rank(0),
+                                       group=fleet.group)
+            found[1] = flag[0]
+        if found[1] is not None:
+            start = found[1]
+            # a replicated state (Mode A) is broadcast whole: an axis of 1
+            state = shr.scatter_nodes(found[0], state, fleet,
+                                      nodes if sharded else 1)
+            _log(fleet, f"[resume] step {start}")
+        del found
 
     elastic = ElasticController(nodes, run.lambda_target, mode="pod",
                                 axis_names=("data",),
@@ -179,8 +225,12 @@ def train_loop(cfg, run: RunConfig, *, nodes: int, tp: int, steps: int,
     k = start
     while k < steps:
         batch = _batch(cfg, run, k, global_batch, seq_len, dev)
-        if run.mode == "dpsgd":
-            batch = reshape_batch_for_nodes(batch, nodes)
+        if node_mode:
+            batch = _take_rows(reshape_batch_for_nodes(batch, nodes), lo, hi)
+        elif fleet.size > 1:
+            share = global_batch // fleet.size
+            batch = _take_rows(batch, fleet.index * share,
+                               (fleet.index + 1) * share)
         if graph_step is not None:
             # the graph's static inputs hold the state: drop ours first
             replay = graph_step.stage(state, batch)
@@ -190,25 +240,35 @@ def train_loop(cfg, run: RunConfig, *, nodes: int, tp: int, steps: int,
             state, metrics = step_fn(state, batch)
         k += 1
 
-        if fail_at == k and run.mode == "dpsgd":
-            print(f"[fault] node {fail_node} dies at step {k}", flush=True)
+        if fail_at == k and node_mode:
+            _log(fleet, f"[fault] node {fail_node} dies at step {k}")
             elastic.fail(k, [fail_node])
-            state_host = _tree_map(lambda x: x.cpu(), state)
-            del state
+            full = shr.gather_nodes(state, fleet, nodes) if sharded else state
+            state_host = None if full is None else _tree_map(
+                lambda x: x.cpu(), full)
+            del full
             survivors = elastic.survivors()
-            state_host = reshape_nodes(state_host, survivors, nodes)
+            if state_host is not None:
+                state_host = reshape_nodes(state_host, survivors, nodes)
             new_plan = elastic.replan()
-            print(f"[fault] replanned: {new_plan}", flush=True)
-            state = _tree_map(lambda x: x.to(dev), state_host)
+            _log(fleet, f"[fault] replanned: {new_plan}")
+            if sharded:
+                state = shr.scatter_nodes(state_host, state, fleet, nodes)
+            else:
+                del state
+                state = _tree_map(lambda x: x.to(dev), state_host)
             del state_host
 
         if k % log_every == 0 or k == steps:
             loss = float(metrics["loss"])
             dt = clock() - t_wall
             metrics_log.append({"step": k, "loss": loss, "wall_s": dt})
-            print(f"step {k:5d} loss {loss:.4f} wall {dt:7.1f}s", flush=True)
-        if mgr and k % ckpt_every == 0:
-            mgr.save(k, state)
+            _log(fleet, f"step {k:5d} loss {loss:.4f} wall {dt:7.1f}s")
+        if ckpt_dir and k % ckpt_every == 0:
+            full = shr.gather_nodes(state, fleet, nodes) if sharded else state
+            if mgr:
+                mgr.save(k, full)
+            del full
     if mgr:
         mgr.wait()
     return {"final_loss": metrics_log[-1]["loss"] if metrics_log else None,
@@ -242,6 +302,12 @@ def main(argv=None) -> int:
                          "graph holds three copies of the state: "
                          "qwen2-vl-2b's full-width state does not fit)")
     args = ap.parse_args(argv)
+    # under torchrun every rank starts its place in the world first
+    in_world = "WORLD_SIZE" in os.environ
+    device = args.device
+    if in_world:
+        from .mesh import init_world
+        device = init_world(args.device)
 
     cfg = get_config(args.arch)
     if args.smoke:
@@ -253,9 +319,12 @@ def main(argv=None) -> int:
                      batch_per_node=args.batch_per_node, seq_len=args.seq_len,
                      ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
                      fail_at=args.fail_at, fail_node=args.fail_node,
-                     resume=args.resume, device=args.device,
+                     resume=args.resume, device=device,
                      graphed=not args.eager)
-    print(f"final loss: {out['final_loss']}")
+    if not in_world or dist.get_rank() == 0:
+        print(f"final loss: {out['final_loss']}")
+    if in_world:
+        dist.destroy_process_group()
     return 0
 
 

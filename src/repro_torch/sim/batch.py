@@ -29,6 +29,16 @@ would leak NaN into the others through its zero weights (0 * NaN = NaN).
 The loop reads nothing back from the device; the one synchronisation is
 where ``train_model_on_traces`` brings the results to the host.
 
+Over a fleet (``mesh=``, ``launch.mesh.make_fleet_mesh``): ``_shard_family``
+lays the family out as the reference does — the node axis of the
+parameters and batches over the fleet's ranks when it divides, whole on
+every rank when not — and each round's mix by the trace's dense,
+time-varying W gathers the node rows over the fleet (for int8, the send's
+payloads and scales) and runs the rank's rows of W through row 1 or the
+q8 receive (``core.dpsgd``'s ``group`` path). The first live node's
+snapshot is summed over the ranks from its owner; losses, rollbacks and
+the final parameters are gathered once at the end.
+
 Parity: on any trace the loop realizes exactly the per-round driver's
 update sequence (same batches, same W order), so per-round losses match
 the driver to float tolerance.
@@ -40,10 +50,12 @@ from typing import Any, Callable, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core import dpsgd
 from ..core.compression import QuantConfig
 from ..core.dpsgd import DPSGDConfig, _tree_map, node_axis_size
+from ..core.gossip import all_gather_nodes
 from ..device import resolve_device
 from ..graphs import GraphedStep
 from .scenario import ScenarioConfig, get_scenario
@@ -102,12 +114,32 @@ def _stack(trees: list) -> PyTree:
     return _tree_map(lambda *xs: torch.stack(xs), trees[0], *trees[1:])
 
 
-def _family_body(loss_fn, config, payload, collect_node0, watchdog):
+def _snapshot(x: torch.Tensor, row: torch.Tensor, fleet) -> torch.Tensor:
+    """Row ``row`` (a (1,) global node index on the device) of the node
+    axis; over a fleet (``(group, lo)``) the owner's row, summed over the
+    ranks (the others add zeros)."""
+    if fleet is None:
+        return x.index_select(0, row)[0]
+    group, lo = fleet
+    b = x.shape[0]
+    local = row - lo
+    mine = (local >= 0) & (local < b)
+    got = x.index_select(0, local.clamp(0, b - 1))[0]
+    got = torch.where(mine, got, torch.zeros((), dtype=x.dtype,
+                                              device=x.device))
+    dist.all_reduce(got, op=dist.ReduceOp.SUM, group=group)
+    return got
+
+
+def _family_body(loss_fn, config, payload, collect_node0, watchdog,
+                 fleet=None):
     """One round of an (S,) family: each trace's step in turn (its own W,
     mask, batch and residuals), then the watchdog's rollback to the
     round's input rows and the snapshot of row ``first[s]``. Outputs are
-    stacked on the family axis."""
+    stacked on the family axis. ``fleet`` (group, lo): the parameters,
+    batch and mask are the rank's block of nodes from row lo, W whole."""
     compressed = payload.mode != "none"
+    group = None if fleet is None else fleet[0]
 
     def body(params, res, batch, w, active, first):
         out: dict = {"params": [], "losses": [], "res": [], "node0": [],
@@ -118,10 +150,10 @@ def _family_body(loss_fn, config, payload, collect_node0, watchdog):
             if compressed:
                 new_p, new_r, losses = dpsgd.dpsgd_masked_compressed_step(
                     loss_fn, p, b, w[s], active[s],
-                    _tree_map(lambda x: x[s], res), payload, config)
+                    _tree_map(lambda x: x[s], res), payload, config, group)
             else:
                 new_p, losses = dpsgd.dpsgd_masked_step(
-                    loss_fn, p, b, w[s], active[s], config)
+                    loss_fn, p, b, w[s], active[s], config, group)
             if watchdog:
                 bad = _nonfinite_rows(new_p)
                 new_p = _row_where(bad, p, new_p)
@@ -132,7 +164,7 @@ def _family_body(loss_fn, config, payload, collect_node0, watchdog):
             if collect_node0:
                 row = first[s].reshape(1)
                 out["node0"].append(_tree_map(
-                    lambda x: x.index_select(0, row)[0], new_p))
+                    lambda x: _snapshot(x, row, fleet), new_p))
             out["params"].append(new_p)
             out["losses"].append(losses)
             if compressed:
@@ -141,18 +173,76 @@ def _family_body(loss_fn, config, payload, collect_node0, watchdog):
     return body
 
 
+class _EagerStep:
+    """A round body run eagerly, with ``GraphedStep``'s ``stage``
+    interface."""
+
+    def __init__(self, body: Callable):
+        self._body = body
+
+    def stage(self, *args) -> Callable:
+        return lambda: self._body(*args)
+
+
 def _family_step(loss_fn, config, payload, collect_node0,
-                 watchdog) -> GraphedStep:
-    key = (loss_fn, config, payload, collect_node0, watchdog)
+                 watchdog, fleet=None):
+    """The family's round body: graphed, or eager for a family sharded
+    over a fleet (``fleet`` given): its round, the all-gathers and the
+    snapshot's all_reduce inside, hung under CUDA graph capture on four
+    H100s, so a layout over ranks runs eager, on the card and the CPU."""
+    key = (loss_fn, config, payload, collect_node0, watchdog, fleet)
+    if fleet is not None:
+        return _EagerStep(_family_body(*key))
     step = _STEPS.get(key)
     if step is None:
         step = _STEPS[key] = GraphedStep(_family_body(*key))
     return step
 
 
+def _shard_family(params0: PyTree, batches: PyTree, fleet, n: int):
+    """Lay the (S,)-batched family out on the fleet, as the reference's
+    ``_shard_family`` lays it on a mesh: node parameters (S, n, ...) and
+    batch leaves (S, rounds, n, ...) keep the rank's block of the node
+    axis when n divides over the fleet (``train.shardings.
+    node_param_specs`` with the Monte-Carlo axis in front), each a tensor
+    of its own; else every rank keeps the whole axis."""
+    if not fleet.sharded(n):
+        return params0, batches
+    lo, hi = fleet.block(n)
+    params0 = _tree_map(lambda x: x[:, lo:hi].clone(), params0)
+    batches = _tree_map(lambda x: x[:, :, lo:hi].clone()
+                        if x.dim() >= 3 and x.shape[2] == n else x, batches)
+    return params0, batches
+
+
+def _check_mesh(mesh) -> None:
+    """The mesh's 'model' axis must be 1: tensor parallelism is not
+    executed (ROADMAP Queue 1 item 9)."""
+    from ..launch.mesh import tp_size
+
+    if tp_size(mesh) > 1:
+        raise NotImplementedError(
+            f"a mesh with a 'model' axis of {tp_size(mesh)}: tensor "
+            "parallelism is not ported (ROADMAP Queue 1 item 9); use a "
+            "(fleet, 1) mesh")
+
+
+def _laid_out(owned: list, batches: PyTree, mesh, n: int):
+    """(owned, batches, fleet): the family laid out on ``mesh``'s fleet
+    (``_shard_family``), or as it is for no mesh."""
+    if mesh is None:
+        return owned, batches, None
+    from ..train.shardings import fleet_of
+
+    _check_mesh(mesh)
+    fleet = fleet_of(mesh)
+    params0, batches = _shard_family(owned.pop(), batches, fleet, n)
+    return [params0], batches, fleet
+
+
 def _train_family(loss_fn, owned, w_seq, live_seq, batch_seq, config,
                   collect_node0, payload, active_seq, watchdog,
-                  what: str = "train_on_trace"):
+                  what: str = "train_on_trace", fleet=None):
     """The round loop over an (S,) family: ``owned`` a list holding the
     initial parameters, leaves (S, n, ...), which the loop pops, so that
     it holds their only reference and drops them once the first round's
@@ -164,7 +254,12 @@ def _train_family(loss_fn, owned, w_seq, live_seq, batch_seq, config,
     read back to the host. Each output leaf of a round is a tensor of its
     own (``GraphedStep``), so the kept losses, snapshots and rollbacks
     hold nothing else of their round. ``collect_node0`` True keeps every
-    round's snapshot, a collection of round indices only those rounds'."""
+    round's snapshot, a collection of round indices only those rounds'.
+
+    ``fleet`` (a ``train.shardings.Fleet``): the parameters and batches
+    are the rank's block of the node axis (``_shard_family``), the masks
+    and W whole; the losses, rollbacks and final parameters come back
+    whole; the rounds then run eager (``_family_step``)."""
     if payload.mode == "auto":
         raise ValueError(
             f"{what} needs a concrete payload mode; \"auto\" is "
@@ -179,11 +274,18 @@ def _train_family(loss_fn, owned, w_seq, live_seq, batch_seq, config,
     # fault plane the two masks coincide
     grad_mask = live if active_seq is None else torch.as_tensor(
         active_seq, dtype=torch.bool, device=dev)
+    n = w.shape[-1]
+    sharded = fleet is not None and fleet.sharded(n)
+    body_fleet = None
+    if sharded:
+        lo, hi = fleet.block(n)
+        grad_mask = grad_mask[:, :, lo:hi]
+        body_fleet = (fleet.group, lo)
     batch = _tree_map(lambda x: torch.as_tensor(x, device=dev), batch_seq)
     # first live row per round (original-id order), computed on the device
     first = live.to(torch.int32).argmax(-1) if collect_node0 else None
     step = _family_step(loss_fn, config, payload, bool(collect_node0),
-                        watchdog)
+                        watchdog, body_fleet)
 
     res = dpsgd.zero_residuals(params) if compressed else None
     losses, node0, rollbacks = [], [], []
@@ -201,11 +303,19 @@ def _train_family(loss_fn, owned, w_seq, live_seq, batch_seq, config,
             node0.append(out["node0"])
         if watchdog:
             rollbacks.append(out["rollbacks"])
-    outs = (params, torch.stack(losses, 1))
+    losses = torch.stack(losses, 1)
+    rollbacks = torch.stack(rollbacks, 1) if watchdog else None
+    if sharded:
+        params = _tree_map(
+            lambda x: all_gather_nodes(x, n, fleet.group, dim=1), params)
+        losses = all_gather_nodes(losses, n, fleet.group, dim=2)
+        if watchdog:
+            rollbacks = all_gather_nodes(rollbacks, n, fleet.group, dim=2)
+    outs = (params, losses)
     if collect_node0:
         outs += (_tree_map(lambda *xs: torch.stack(xs, 1), *node0),)
     if watchdog:
-        outs += (torch.stack(rollbacks, 1),)
+        outs += (rollbacks,)
     return outs
 
 
@@ -220,6 +330,7 @@ def train_on_trace(
     payload: QuantConfig = _NO_PAYLOAD,
     active_seq=None,
     watchdog: bool = False,
+    mesh=None,
 ):
     """Train over one precomputed trace, one graphed round body per round.
 
@@ -253,12 +364,20 @@ def train_on_trace(
     finite parameters (error-feedback residuals reset to zero on rollback
     so poisoned quantization error cannot re-infect it). Returns one extra
     (rounds, n) bool array of rollback events as the last output.
+
+    ``mesh`` (a fleet mesh, ``launch.mesh.make_fleet_mesh``): every rank
+    passes the whole inputs and gets the whole outputs back; the rounds
+    run with the node axis over the fleet (``_shard_family``).
     """
     one = lambda x: torch.as_tensor(x)[None]              # noqa: E731
+    owned, batches, fleet = _laid_out(
+        [_tree_map(lambda p: p[None], node_params)],
+        _tree_map(one, batch_seq), mesh, int(np.shape(w_seq)[-1]))
     outs = _train_family(
-        loss_fn, [_tree_map(lambda p: p[None], node_params)], one(w_seq),
-        one(live_seq), _tree_map(one, batch_seq), config, collect_node0,
-        payload, None if active_seq is None else one(active_seq), watchdog)
+        loss_fn, owned, one(w_seq), one(live_seq), batches, config,
+        collect_node0, payload,
+        None if active_seq is None else one(active_seq), watchdog,
+        fleet=fleet)
     # (final, losses[, node0_snaps][, rollbacks]) — extras in that order
     return tuple(_tree_map(lambda x: x[0], o) for o in outs)
 
@@ -275,6 +394,7 @@ def train_on_traces(
     payload: QuantConfig = _NO_PAYLOAD,
     active_seq=None,
     watchdog: bool = False,
+    mesh=None,
 ):
     """``train_on_trace`` over a leading Monte-Carlo axis.
 
@@ -283,14 +403,17 @@ def train_on_traces(
     inits); otherwise one init is shared by every trace. One graphed round
     body steps all S traces, each on its own state, so each round is one
     graph replay for the whole family; every output gains the (S,) axis.
+    ``mesh`` as for ``train_on_trace``.
     """
     s = int(np.shape(w_seq)[0])
     owned = [node_params if params_batched else _tree_map(
         lambda p: p[None].expand(s, *p.shape).clone(), node_params)]
     del node_params     # the round loop drops them once its graph has them
+    owned, batch_seq, fleet = _laid_out(owned, batch_seq, mesh,
+                                        int(np.shape(w_seq)[-1]))
     return _train_family(loss_fn, owned, w_seq, live_seq, batch_seq,
                          config, collect_node0, payload, active_seq,
-                         watchdog, what="train_on_traces")
+                         watchdog, what="train_on_traces", fleet=fleet)
 
 
 def train_on_trace_reference(
@@ -565,8 +688,11 @@ def train_model_on_traces(
 
     Training runs on ``device`` (``"cuda"`` unless the caller asks for the
     CPU), and so does the scan engine when ``engine`` picks it; the
-    snapshots are evaluated ``EVAL_CHUNK`` at a time. ``mesh`` (pod mode)
-    is not ported yet.
+    snapshots are evaluated ``EVAL_CHUNK`` at a time. ``mesh`` (a
+    ``launch.mesh.make_fleet_mesh`` of this rank's world, 'model' 1) lays
+    the family's node axis over the fleet (``_shard_family``: sharded when
+    it divides, else whole on every rank); every rank gets the whole
+    results.
 
     Returns ``(traces, out)`` like ``train_cnn_on_traces``: masked mean
     ``losses`` (S, rounds), eval-round metrics ``acc`` (S, E) with
@@ -576,9 +702,7 @@ def train_model_on_traces(
     from ..checkpoint.ckpt import compact_nodes
 
     if mesh is not None:
-        raise NotImplementedError(
-            "mesh: laying the family out over a device mesh (pod mode, "
-            "_shard_family) is not ported yet (ROADMAP Queue 1 item 5)")
+        _check_mesh(mesh)
     dev = resolve_device(device)
     cfgs = [get_scenario(c) if isinstance(c, str) else c for c in configs]
     if not cfgs:
@@ -637,7 +761,7 @@ def train_model_on_traces(
         adapter.loss_fn, inputs.pop(), traces.w_eff, traces.live, batches,
         DPSGDConfig(eta=eta), collect_node0=tuple(eval_rounds),
         params_batched=True, payload=payload, active_seq=traces.active,
-        watchdog=watchdog)
+        watchdog=watchdog, mesh=mesh)
     if watchdog:
         finals, losses, snaps, rollbacks = out_arrays
     else:

@@ -1,4 +1,4 @@
-"""Train-step builders — the paper's technique at pod scale, on one device.
+"""Train-step builders — the paper's technique at pod scale.
 
 The torch counterpart of ``repro.train.step``.
 
@@ -23,6 +23,22 @@ row) and receives each buffer group in one rows-mix launch over
 ``[x; deq]`` with ``W_cat = [diag(diag W) | W_off]``: the self term exact,
 the neighbours the rounded payloads.
 
+Over a ``torch.distributed`` fleet (``group``, the fleet axis's process
+group) each rank holds a block of ``n / fleet`` nodes on the node axis of
+every state tree and its nodes' batch rows (``train.shardings``). The
+rank takes its gradients with the same ``vmap``; the rolls become P2P of
+the rows that cross ranks, realised as ``core.gossip.fetch_rows``: the
+rank fetches the rows its lines of ``plan_w`` reach (its own copied) —
+fp32 / bf16 rows, or the int8 payloads (int8 plus the fp32 row scales)
+and bf16 messages, dequantized on arrival as the sender dequantizes its
+own — and its rows of W (of ``W_cat`` when compressed) run over them in
+the same rows-mix launches. Dropping the columns W leaves at 0 removes
+only exact zero terms of the kernel's in-order fp32 sum, so every rank's
+rows are bit-equal to the one-device mix's. The node mean and the loss's
+mean are ``all_reduce`` / ``all_gather``; Mode A all-reduces the
+gradients of each rank's share of the batch. A fleet of one, or a node
+axis that does not divide over the fleet, runs the one-device path.
+
 The returned step is a plain function, as the reference's; the caller
 makes it a ``graphs.GraphedStep`` (the counterpart of ``jax.jit``) where it
 fits, as ``launch.train`` does.
@@ -31,11 +47,15 @@ from __future__ import annotations
 
 from typing import Any, Callable, Optional
 
+import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..configs.base import RunConfig
 from ..core import dpsgd
-from ..core.gossip import GossipPlan, GossipRound, plan_w
+from ..core.gossip import (GossipPlan, GossipRound, _fleet, fetch_rows,
+                           node_block, node_mean, plan_w)
+from ..kernels.gossip_mix import gossip_mix_rows
 from ..models.api import ModelAPI
 from ..optim import make_optimizer
 
@@ -139,9 +159,146 @@ def _cat_lanes(rows: list) -> torch.Tensor:
     return rows[0] if len(rows) == 1 else torch.cat(rows, dim=1)
 
 
+def _cols_of(w: np.ndarray, n: int, size: int) -> list:
+    """Per fleet index, the sorted node ids its rows of ``w`` reach."""
+    b = n // size
+    return [np.flatnonzero(np.any(w[p * b:(p + 1) * b] != 0, axis=0))
+            for p in range(size)]
+
+
+# (plan, fleet size, index, device, which) -> the rank's rows of W over
+# the columns it fetches, made on a step's first (eager) run: a
+# host-to-device copy cannot be captured into a CUDA graph
+_FLEET_ROWS: dict = {}
+
+
+def _rows_of(key: tuple, w: torch.Tensor, lo: int, b: int,
+             cols) -> torch.Tensor:
+    rows = _FLEET_ROWS.get(key)
+    if rows is None:
+        idx = torch.as_tensor(np.asarray(cols, dtype=np.int64),
+                              device=w.device)
+        rows = _FLEET_ROWS[key] = w[lo:lo + b].index_select(1, idx)
+    return rows
+
+
+def _mix_fleet(params: PyTree, w: torch.Tensor, plan: GossipPlan,
+               group) -> PyTree:
+    """``dpsgd.mix`` for the rank's block: each buffer group's rows the
+    rank's lines of W reach fetched from the fleet, the rank's rows of W
+    (cast to the leaves' dtype, as ``dpsgd.mix`` casts it) over them."""
+    leaves = dpsgd._leaves(params)
+    n = plan.n_nodes
+    size, index = _fleet(group)
+    b = n // size
+    lo = index * b
+    cols_of = _cols_of(plan_w(plan), n, size)
+    w_rows = _rows_of((plan, size, index, str(w.device), "w"), w, lo, b,
+                      cols_of[index])
+    out: list = [None] * len(leaves)
+    for dtype in dict.fromkeys(p.dtype for p in leaves):
+        idx = [i for i, p in enumerate(leaves) if p.dtype == dtype]
+        for grp in dpsgd.mix_groups([leaves[i][0].numel() for i in idx]):
+            members = [idx[j] for j in grp]
+            flat = _cat_lanes([leaves[i].reshape(b, -1) for i in members])
+            bufs = fetch_rows([flat], cols_of, n, group)[0]
+            mixed = gossip_mix_rows(w_rows.to(dtype), bufs)
+            del bufs
+            offset = 0
+            for i in members:
+                size_i = leaves[i][0].numel()
+                out[i] = mixed[:, offset:offset + size_i].reshape(
+                    leaves[i].shape)
+                offset += size_i
+    return dpsgd._unflatten(params, out)
+
+
+def _mix_compressed_fleet(params: PyTree, residuals: PyTree,
+                          w: torch.Tensor, plan: GossipPlan, group,
+                          mode: str) -> tuple[PyTree, PyTree]:
+    """``_mix_compressed`` for the rank's block: each node's message made
+    where the node lives, the messages its rows of W_off reach fetched as
+    they travel (bf16; int8 plus the fp32 row scales) and dequantized
+    here, then the rank's rows of ``W_cat`` over ``[x; deq]``."""
+    leaves = dpsgd._leaves(params)
+    res_leaves = dpsgd._leaves(residuals)
+    n = plan.n_nodes
+    size, index = _fleet(group)
+    b = n // size
+    lo = index * b
+    w_np = plan_w(plan)
+    w_off = w_np - np.diag(np.diag(w_np))
+    cols_of = _cols_of(w_off, n, size)
+    key = (plan, size, index, str(w.device), "w_cat")
+    w_rows = _FLEET_ROWS.get(key)
+    if w_rows is None:
+        diag = torch.diag(torch.diagonal(w))
+        keep = list(range(lo, lo + b)) + [n + int(j) for j in cols_of[index]]
+        w_rows = _rows_of(key, torch.cat([diag, w - diag], dim=1), lo, b,
+                          keep)
+    out: list = [None] * len(leaves)
+    res_out: list = [None] * len(leaves)
+    for dtype in dict.fromkeys(p.dtype for p in leaves):
+        idx = [i for i, p in enumerate(leaves) if p.dtype == dtype]
+        for grp in dpsgd.mix_groups([leaves[i][0].numel() for i in idx]):
+            members = [idx[j] for j in grp]
+            x32, wire, scales = [], [], []
+            for i in members:
+                if leaves[i].dim() < 2:
+                    raise ValueError(
+                        "a node-stacked leaf needs a per-node dim for its "
+                        f"message's row scales, got {tuple(leaves[i].shape)}")
+                x = leaves[i].reshape(b, -1).to(torch.float32)
+                carried = x + res_leaves[i].reshape(b, -1).to(torch.float32)
+                if mode == "bf16":
+                    msg = carried.to(torch.bfloat16)
+                    d = msg.to(torch.float32)
+                elif mode == "int8":
+                    q, scale = _quantize_rowwise_int8(
+                        carried.reshape(leaves[i].shape))
+                    d = (q.to(torch.float32) * scale).reshape(b, -1)
+                    msg = q.reshape(b, -1)
+                    scales.append(scale.reshape(b, -1))
+                else:
+                    raise ValueError(mode)
+                res_out[i] = (carried - d).reshape(leaves[i].shape).to(
+                    res_leaves[i].dtype)
+                x32.append(x)
+                wire.append(msg)
+            wire_t = [_cat_lanes(wire)] + ([_cat_lanes(scales)]
+                                           if scales else [])
+            got = fetch_rows(wire_t, cols_of, n, group)
+            m = got[0].shape[0]
+            if mode == "bf16":
+                deq = got[0].to(torch.float32)
+            else:
+                parts, offset, s_off = [], 0, 0
+                for i in members:
+                    shape = leaves[i].shape[1:]
+                    size_i = leaves[i][0].numel()
+                    rows = size_i // shape[-1]
+                    q = got[0][:, offset:offset + size_i].reshape(m, *shape)
+                    s = got[1][:, s_off:s_off + rows].reshape(
+                        m, *shape[:-1], 1)
+                    parts.append((q.to(torch.float32) * s).reshape(m, -1))
+                    offset += size_i
+                    s_off += rows
+                deq = _cat_lanes(parts)
+            del got
+            mixed = gossip_mix_rows(
+                w_rows, torch.cat([_cat_lanes(x32), deq], dim=0))
+            offset = 0
+            for i in members:
+                size_i = leaves[i][0].numel()
+                out[i] = mixed[:, offset:offset + size_i].reshape(
+                    leaves[i].shape).to(leaves[i].dtype)
+                offset += size_i
+    return dpsgd._unflatten(params, out), dpsgd._unflatten(params, res_out)
+
+
 def mix_params(params: PyTree, residuals: Optional[PyTree],
                plan: GossipPlan, run: RunConfig,
-               w: Optional[torch.Tensor] = None
+               w: Optional[torch.Tensor] = None, group=None
                ) -> tuple[PyTree, Optional[PyTree]]:
     """Mix every node-stacked leaf by the plan: the node mean for an
     ``allreduce`` plan, else the rows-mix kernel over ``plan_w(plan)``
@@ -150,10 +307,21 @@ def mix_params(params: PyTree, residuals: Optional[PyTree],
     W as an fp32 tensor on the parameters' device; a step of
     ``make_train_step`` passes one made before any CUDA graph capture (a
     host-to-device copy cannot be captured), None makes it here."""
+    first = dpsgd._leaves(params)[0]
+    _, _, sharded = node_block(first, plan.n_nodes, group)
     if plan.kind == "allreduce":
+        if sharded:
+            return dpsgd._tree_map(
+                lambda x: node_mean(x, plan.n_nodes, group), params), \
+                residuals
         return dpsgd._tree_map(_node_mean, params), residuals
     if w is None:
-        w = _plan_w(plan, dpsgd._leaves(params)[0].device)
+        w = _plan_w(plan, first.device)
+    if sharded:
+        if run.compression == "none":
+            return _mix_fleet(params, w, plan, group), residuals
+        return _mix_compressed_fleet(params, residuals, w, plan, group,
+                                     run.compression)
     if run.compression == "none":
         return dpsgd.mix(params, w), residuals
     return _mix_compressed(params, residuals, w, run.compression)
@@ -199,15 +367,30 @@ def _grads_fn(api: ModelAPI, run: RunConfig) -> Callable:
     return gfn
 
 
+def _fleet_mean(x: torch.Tensor, group) -> torch.Tensor:
+    """The mean of ``x`` over the fleet's ranks: ``all_reduce(SUM)``
+    divided by a tensor."""
+    size, _ = _fleet(group)
+    if size == 1:
+        return x
+    x = x.clone()
+    dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
+    return x / torch.full((), size, dtype=x.dtype, device=x.device)
+
+
 def make_train_step(api: ModelAPI, run: RunConfig,
                     plan: Optional[GossipPlan], lr_fn: Callable,
-                    node_axes: Optional[tuple] = None) -> Callable:
+                    node_axes: Optional[tuple] = None,
+                    group=None) -> Callable:
     """Returns ``step(state, batch) -> (state, metrics)``.
 
-    Mode A: state["params"] is a plain tree; batch (B, ...).
-    Mode B: state trees carry the leading node axis; batch (n, B/n, ...).
+    Mode A: state["params"] is a plain tree; batch (B, ...), with
+    ``group`` this rank's share of the global batch (the gradients and
+    the loss all-reduced to their mean over the fleet).
+    Mode B: state trees carry the leading node axis; batch (n, B/n, ...),
+    with ``group`` this rank's block of nodes on both.
     ``node_axes`` names the mesh axes of the node dim in the reference (its
-    vmap's ``spmd_axis_name``); on one device it changes nothing.
+    vmap's ``spmd_axis_name``); it changes nothing here.
     """
     del node_axes
     opt = make_optimizer(run.optimizer, momentum=run.momentum,
@@ -218,6 +401,8 @@ def make_train_step(api: ModelAPI, run: RunConfig,
         def step(state, batch):
             lr = lr_fn(state["step"])
             grads, loss = gfn(state["params"], batch)
+            grads = dpsgd._tree_map(lambda g: _fleet_mean(g, group), grads)
+            loss = _fleet_mean(loss, group)
             new_params, new_opt = opt.update(grads, state["opt"],
                                              state["params"], lr)
             return {**state, "params": new_params, "opt": new_opt,
@@ -241,12 +426,18 @@ def make_train_step(api: ModelAPI, run: RunConfig,
             # Eq. 5: gradients at X_k, mixing of X_k, then the local update
             mixed, new_res = mix_params(state["params"],
                                         state.get("residual"), plan, run,
-                                        w_on[device])
+                                        w_on[device], group)
             new_params, new_opt = opt.update(grads, state["opt"], mixed, lr)
             out = {**state, "params": new_params, "opt": new_opt,
                    "step": state["step"] + 1}
             if new_res is not None:
                 out["residual"] = new_res
+            _, _, sharded = node_block(losses, plan.n_nodes, group)
+            if sharded:
+                every = losses.new_empty(plan.n_nodes)
+                dist.all_gather_into_tensor(every, losses.contiguous(),
+                                            group=group)
+                losses = every
             return out, {"loss": losses.mean()}
         return step
 

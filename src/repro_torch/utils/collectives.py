@@ -34,8 +34,9 @@ with g the group: every node of the plan. What each step issues:
 
 The step's scalar metrics (the loss's mean, a few bytes) are left out.
 On one card the port mixes the nodes by the rows mix over ``plan_w`` and
-sends nothing: these are the bytes the distributed step (ROADMAP Queue 1
-item 5) will move, and what ``launch.dryrun`` reports.
+sends nothing; over a fleet of one node a rank (``train.step``'s Mode B)
+each rank sends these bytes (``core.gossip.exchange.sent_bytes``), and
+they are what ``launch.dryrun`` reports.
 """
 from __future__ import annotations
 

@@ -29,6 +29,8 @@ import pytest
 
 pytest.importorskip("torch")  # the reference's CI installs no torch
 import torch
+torch.set_num_threads(1)  # one intra-op thread a test process: the tests' small CPU
+# ops run faster so, and parallel test workers do not oversubscribe the cores
 
 from repro.core import compression as r_comp
 from repro.core import dpsgd as r_dpsgd
@@ -604,12 +606,24 @@ def test_foreign_trace_batch_is_refused():
             n_train=N_TRAIN, n_test=N_TEST)
 
 
+class _TPMesh:
+    """A (fleet 2, model 2) mesh's names and sizes, as a DeviceMesh gives
+    them."""
+    mesh_dim_names = ("fleet", "model")
+
+    def size(self, dim: int) -> int:
+        return 2
+
+
 def test_mesh_names_its_roadmap_item():
+    """A mesh runs the family over its fleet (``tests/test_torch_dist_
+    train.py``); one with a 'model' axis > 1 asks for tensor parallelism,
+    which raises naming its ROADMAP item before any work."""
     adapter = t_batch.ModelAdapter("quad", lambda s: None, _quad_loss,
                                    lambda c, t: None)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
         t_batch.train_model_on_traces(adapter, ["static"], ROUNDS,
-                                      mesh=object(), device="cpu")
+                                      mesh=_TPMesh(), device="cpu")
 
 
 @pytest.mark.parametrize("chunk", [1, 3, 8])

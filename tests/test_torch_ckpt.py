@@ -15,6 +15,8 @@ import pytest
 
 pytest.importorskip("torch")  # the reference's CI installs no torch
 import torch
+torch.set_num_threads(1)  # one intra-op thread a test process: the tests' small CPU
+# ops run faster so, and parallel test workers do not oversubscribe the cores
 
 from repro.checkpoint import ckpt as r_ckpt
 from repro.configs import RunConfig as RRunConfig

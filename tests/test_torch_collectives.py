@@ -20,7 +20,9 @@ from pathlib import Path
 
 import pytest
 
-pytest.importorskip("torch")
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # one intra-op thread a test process: the tests' small CPU
+# ops run faster so, and parallel test workers do not oversubscribe the cores
 pytest.importorskip("jax")
 
 import torch  # noqa: E402

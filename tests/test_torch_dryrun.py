@@ -7,7 +7,7 @@ a data-free step launches no kernel and runs no plain version; each
 wrapper's shape rule gives the plain version's shapes and dtypes; the peak
 tracker is exact on a written-out sequence of allocations; a smoke dense
 step's flops equal a count written out from its widths; ``--mesh single``
-raises naming ROADMAP Queue 1 item 5. The card holds the peaks against
+raises naming ROADMAP Queue 1 item 9. The card holds the peaks against
 ``torch.cuda.max_memory_allocated`` (``chip_smoke.py`` phase 24).
 """
 import json
@@ -21,6 +21,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # one intra-op thread a test process: the tests' small CPU
+# ops run faster so, and parallel test workers do not oversubscribe the cores
 
 from torch._subclasses.fake_tensor import FakeTensorMode  # noqa: E402
 
@@ -287,10 +289,12 @@ def test_microbatches_and_fit():
 
 
 def test_mesh_single_raises_naming_item_5(tmp_path):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    """The pod meshes' raise names the item tensor parallelism moved to
+    (Queue 1 item 9; item 5's fleet half is done)."""
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
         dr.main(["--mesh", "single", "--arch", "qwen2-vl-2b", "--shape",
                  "train_4k", "--out", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
         dr.run_cell("qwen2-vl-2b", "train_4k", "multi")
 
 

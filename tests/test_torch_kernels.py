@@ -13,6 +13,8 @@ import pytest
 
 pytest.importorskip("torch")  # the reference's CI installs no torch
 import torch
+torch.set_num_threads(1)  # one intra-op thread a test process: the tests' small CPU
+# ops run faster so, and parallel test workers do not oversubscribe the cores
 
 from repro.core.compression import quantize_int8 as jax_quantize_int8
 from repro.kernels import ops as jops

@@ -27,6 +27,8 @@ import pytest
 
 pytest.importorskip("torch")  # the reference's CI installs no torch
 import torch
+torch.set_num_threads(1)  # one intra-op thread a test process: the tests' small CPU
+# ops run faster so, and parallel test workers do not oversubscribe the cores
 
 from repro.configs import RunConfig as RRunConfig
 from repro.configs import get_config as r_get_config
@@ -112,7 +114,7 @@ def test_train_loop_refusals():
     run = RunConfig(remat="none")
     kw = dict(steps=1, batch_per_node=2, seq_len=16, ckpt_dir=None,
               device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
         t_train.train_loop(cfg, run, nodes=4, tp=2, **kw)
     vlm = get_config("qwen2-vl-2b")
     with pytest.raises(ValueError, match="patch positions"):

@@ -22,6 +22,8 @@ import pytest
 
 pytest.importorskip("torch")  # the reference's CI installs no torch
 import torch
+torch.set_num_threads(1)  # one intra-op thread a test process: the tests' small CPU
+# ops run faster so, and parallel test workers do not oversubscribe the cores
 
 from repro.configs.base import MLAConfig as JaxMLAConfig
 from repro.configs.base import ModelConfig as JaxModelConfig

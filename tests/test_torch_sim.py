@@ -18,7 +18,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-pytest.importorskip("torch")  # the reference's CI installs no torch
+torch = pytest.importorskip("torch")  # the reference's CI installs no torch
+torch.set_num_threads(1)  # one intra-op thread a test process: the tests' small CPU
+# ops run faster so, and parallel test workers do not oversubscribe the cores
 
 from examples import sim_scenarios as r_example
 from repro.checkpoint import ckpt as r_ckpt

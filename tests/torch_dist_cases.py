@@ -1,0 +1,274 @@
+"""One rank of the gloo worlds that ``tests/test_torch_dist*.py`` start.
+
+    python tests/torch_dist_cases.py <world_name> <rank> <world_size> <dir>
+
+Each rank joins the world through a ``FileStore`` under ``<dir>`` (no TCP
+port, so worlds of parallel test workers never collide), reads
+``<dir>/inputs.pkl`` (numpy inputs the test module drew), runs every case
+of ``<world_name>`` and writes ``<dir>/rank<r>.pkl``: a dict of numpy
+results, each case's outputs gathered whole. Only the port is imported
+here (``repro_torch``, never ``jax`` or ``repro``): the last case of each
+world records what ``sys.modules`` holds.
+"""
+from __future__ import annotations
+
+import os
+import pickle
+import sys
+import tempfile
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from repro_torch.configs import RunConfig, get_config, reduce_for_smoke
+from repro_torch.convert import params_from_numpy
+from repro_torch.core import compression as t_comp
+from repro_torch.core import dpsgd
+from repro_torch.core import gossip as t_gossip
+from repro_torch.launch.mesh import init_world, make_fleet_mesh
+from repro_torch.models import build
+from repro_torch.optim.schedule import constant_lr
+from repro_torch.train import shardings as shr
+from repro_torch.train import step as t_step
+
+
+def _np(tree):
+    return dpsgd._tree_map(lambda x: x.detach().cpu().numpy(), tree)
+
+
+def _plan(spec):
+    kind, names, shape, arg = spec
+    if kind == "ring":
+        return t_gossip.ring_plan(names, shape, arg)
+    if kind == "torus":
+        return t_gossip.torus_plan(names, shape)
+    if kind == "hypercube":
+        return t_gossip.hypercube_plan(names, shape)
+    if kind == "onepeer":
+        return t_gossip.onepeer_plan(names, shape, phase=arg)
+    return t_gossip.allreduce_plan(names, shape)
+
+
+def _block(x: np.ndarray, fleet: shr.Fleet) -> torch.Tensor:
+    lo, hi = fleet.block(x.shape[0])
+    return torch.from_numpy(np.ascontiguousarray(x[lo:hi]))
+
+
+def _whole(x: torch.Tensor, fleet: shr.Fleet, n: int) -> np.ndarray:
+    return shr.gather_nodes({"x": x}, fleet, n, dst=None)["x"].numpy()
+
+
+# ---------------------------------------------------------------------------
+# The world of four: gossip, compressed gossip, Mode B
+# ---------------------------------------------------------------------------
+
+def gossip_cases(inp: dict, fleet: shr.Fleet) -> dict:
+    """Every plan through ``gossip_mix_array`` and ``gossip_mix_tree``
+    (fused and per leaf) on the world's fleet."""
+    out = {}
+    for key, spec in inp["plans"].items():
+        plan = _plan(spec)
+        x = inp["x"][plan.n_nodes]
+        out[("array", key)] = _whole(t_gossip.gossip_mix_array(
+            _block(x, fleet), plan, fleet.group), fleet, plan.n_nodes)
+        if key in inp["bf16_plans"]:
+            mixed = t_gossip.gossip_mix_array(
+                _block(x, fleet).to(torch.bfloat16), plan, fleet.group)
+            out[("array_bf16", key)] = _whole(
+                mixed.to(torch.float32), fleet, plan.n_nodes)
+        tree = {k: _block(v, fleet) for k, v in inp["tree"][
+            plan.n_nodes].items()}
+        for fused in (True, False):
+            mixed = t_gossip.gossip_mix_tree(tree, plan, fleet.group,
+                                             fused=fused)
+            out[("tree", key, fused)] = {
+                k: _whole(v, fleet, plan.n_nodes) for k, v in mixed.items()}
+    return out
+
+
+def compressed_cases(inp: dict, fleet: shr.Fleet) -> dict:
+    out = {}
+    for key, (spec, mode, ef) in inp["compressed"].items():
+        plan = _plan(spec)
+        n = plan.n_nodes
+        cfg = t_comp.QuantConfig(mode=mode, error_feedback=ef)
+        x, res = inp["cx"][n], inp["cres"][n]
+        mixed, new_res = t_comp.compressed_gossip_mix_array(
+            _block(x, fleet), _block(res, fleet), plan, cfg, fleet.group)
+        bufs, ress = t_comp.compressed_gossip_mix_buffers(
+            {"float32": _block(x, fleet)}, {"float32": _block(res, fleet)},
+            plan, cfg, fleet.group)
+        assert torch.equal(bufs["float32"], mixed)
+        assert torch.equal(ress["float32"], new_res)
+        out[key] = (_whole(mixed, fleet, n), _whole(new_res, fleet, n))
+    return out
+
+
+def gather_cases(inp: dict, fleet: shr.Fleet) -> dict:
+    """``gather_nodes`` to fleet index 0 (what a checkpoint writes), to
+    every rank, and ``scatter_nodes`` back from index 0."""
+    tree = {k: _block(v, fleet) for k, v in inp["tree"][8].items()}
+    tree["step"] = torch.tensor(3)
+    to_zero = shr.gather_nodes(tree, fleet, 8)
+    every = shr.gather_nodes(tree, fleet, 8, dst=None)
+    back = shr.scatter_nodes(to_zero, tree, fleet, 8)
+    return {"to_zero": None if to_zero is None else (
+                _np(to_zero), sorted({x.device.type for x in
+                                      dpsgd._leaves(to_zero)})),
+            "every": _np(every),
+            "back": all(torch.equal(a, b) for a, b in zip(
+                dpsgd._leaves(back), dpsgd._leaves(tree)))}
+
+
+def mode_b_cases(inp: dict, groups: dict, rank: int) -> dict:
+    """Mode B steps from the given full states: the fleet's step (its
+    gathered new state and loss) and, on rank 0, the one-process step."""
+    out = {}
+    for key, case in inp["mode_b"].items():
+        cfg = reduce_for_smoke(get_config(case["arch"]))
+        run = RunConfig(**case["run"])
+        plan = _plan(case["plan"])
+        api = build(cfg, "cpu")
+        for layout, group in groups.items():
+            if group is dist.GroupMember.NON_GROUP_MEMBER:
+                continue
+            fleet = shr.fleet_of_group(group)
+            fn = t_step.make_train_step(api, run, plan,
+                                        constant_lr(run.eta), group=group)
+            one = t_step.make_train_step(api, run, plan,
+                                         constant_lr(run.eta))
+            got = []
+            for state_np, batch_np in case["steps"]:
+                state = params_from_numpy(state_np, "cpu")
+                batch = params_from_numpy(batch_np, "cpu")
+                new, metrics = fn(shr.shard_nodes(state, fleet, plan.n_nodes),
+                                  shr.shard_nodes(batch, fleet, plan.n_nodes))
+                whole = shr.gather_nodes(new, fleet, plan.n_nodes, dst=None)
+                item = {"state": _np(whole), "loss": float(metrics["loss"])}
+                if rank == 0 and layout == "4x1":
+                    ref, ref_metrics = one(state, batch)
+                    item["one"] = {"state": _np(ref),
+                                   "loss": float(ref_metrics["loss"])}
+                got.append(item)
+            out[(key, layout)] = got
+    return out
+
+
+def mesh_cases() -> dict:
+    """The builders over the world of four: a (2, 2) host mesh's names and
+    sizes; the refusals of a mesh larger than the world."""
+    from repro_torch.launch import mesh as lm
+
+    host = lm.make_host_mesh(2, 2)
+    out = {"host": (tuple(host.mesh_dim_names), lm.replica_axes(host),
+                    lm.tp_size(host), tuple(host.mesh.shape))}
+    for name, build_ in (("fleet 3x2", lambda: lm.make_fleet_mesh(3, 2)),
+                         ("production", lm.make_production_mesh),
+                         ("multi-pod", lambda: lm.make_production_mesh(
+                             multi_pod=True))):
+        try:
+            build_()
+            out[name] = None
+        except ValueError as exc:       # the refusal the test reads
+            out[name] = str(exc)
+    return out
+
+
+def world_four(inp: dict, rank: int) -> dict:
+    mesh = make_fleet_mesh(4, 1)
+    fleet = shr.fleet_of(mesh)
+    pair = dist.new_group([0, 1])
+    out = {"fleet": (fleet.size, fleet.index, fleet.ranks),
+           "mesh": mesh_cases()}
+    out["gossip"] = gossip_cases(inp, fleet)
+    out["compressed"] = compressed_cases(inp, fleet)
+    out["gather"] = gather_cases(inp, fleet)
+    out["mode_b"] = mode_b_cases(inp, {"4x1": fleet.group, "2x2": pair},
+                                 rank)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The world of two: the trainer, train-on-trace, the real-model smoke
+# ---------------------------------------------------------------------------
+
+def _train(inp: dict, ckpt: str, steps: int, resume: bool,
+           run: dict | None = None) -> dict:
+    from repro_torch.launch import train as t_train
+
+    cfg = reduce_for_smoke(get_config(inp["train"]["arch"]))
+    run = RunConfig(**(run or inp["train"]["run"]))
+    ticks = iter(range(1000))
+    return t_train.train_loop(
+        cfg, run, nodes=inp["train"]["nodes"], tp=1, steps=steps,
+        batch_per_node=2, seq_len=16, ckpt_dir=ckpt,
+        ckpt_every=inp["train"]["ckpt_every"],
+        fail_at=inp["train"]["fail_at"], fail_node=1, log_every=1,
+        resume=resume, clock=lambda: float(next(ticks)), device="cpu")
+
+
+def world_two(inp: dict, rank: int, root: str) -> dict:
+    from repro_torch.sim import batch as t_batch
+    from repro_torch.sim import real_model_smoke
+    from repro_torch.sim.scenario import get_scenario
+    from repro_torch.sim.trace import precompute_traces
+
+    out: dict = {}
+    ckpt = os.path.join(root, "ckpt_fleet")
+    first = _train(inp, ckpt, inp["train"]["steps"], False)
+    again = _train(inp, ckpt, inp["train"]["steps"] + 2, True)
+    out["train"] = (first["log"], again["log"])
+    out["mode_a"] = _train(inp, None, 3, False, inp["mode_a"])["log"]
+
+    mesh = make_fleet_mesh(2, 1)
+    adapter = t_batch.transformer_adapter("stablelm-3b", batch=2,
+                                          seq_len=16, device="cpu")
+    for name in inp["families"]:
+        cfg = get_scenario(name, model_bits=adapter.model_bits,
+                           model_shapes=adapter.param_shapes,
+                           eval_every_rounds=2)
+        tb = precompute_traces([cfg], 3, device="cpu")
+        got = {}
+        for label, m in (("fleet", mesh), ("one", None)):
+            _, res = t_batch.train_model_on_traces(
+                adapter, [cfg], 3, eta=0.05, trace_batch=tb, mesh=m,
+                device="cpu")
+            got[label] = {"losses": res["losses"], "acc": res["acc"],
+                          "final": _np(res["final_params"][0])}
+        out[("family", name)] = got
+    out["smoke"] = real_model_smoke.run(fleet=2, device="cpu", rounds=3)
+
+    # a two-rank gossip_mix_tree, then what the port imported
+    plan = t_gossip.ring_plan(("data",), (4,), 1)
+    fleet = shr.fleet_of(mesh)
+    tree = {k: _block(v, fleet) for k, v in inp["tree"].items()}
+    out["hygiene_tree"] = {k: _whole(v, fleet, 4) for k, v in
+                           t_gossip.gossip_mix_tree(tree, plan,
+                                                    fleet.group).items()}
+    out["modules"] = sorted(m for m in sys.modules
+                            if m == "jax" or m.startswith("jax.")
+                            or m == "repro" or m.startswith("repro."))
+    return out
+
+
+def main(argv) -> int:
+    name, rank, world, root = argv[1], int(argv[2]), int(argv[3]), argv[4]
+    torch.manual_seed(0)
+    init_world("cpu", init_method=f"file://{os.path.join(root, 'store')}",
+               rank=rank, world_size=world)
+    with open(os.path.join(root, "inputs.pkl"), "rb") as f:
+        inp = pickle.load(f)
+    out = (world_four(inp, rank) if name == "four"
+           else world_two(inp, rank, root))
+    dist.barrier()
+    dist.destroy_process_group()
+    fd, tmp = tempfile.mkstemp(dir=root)
+    with os.fdopen(fd, "wb") as f:
+        pickle.dump(out, f)
+    os.replace(tmp, os.path.join(root, f"rank{rank}.pkl"))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv))
