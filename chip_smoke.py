@@ -5371,7 +5371,8 @@ def fleet_four_cards(torch) -> dict:
                     if ln.startswith("25 (c)")))
     result["four"] = fleet_result(out, "25 (c) four ranks")
     out = torchrun(2, ["-m", "repro_torch.sim.real_model_smoke", "--json",
-                       "--device", "cuda"], "25 (c) real_model_smoke")
+                       "--device", "cuda", "--fleet", "2", "--model", "1"],
+                   "25 (c) real_model_smoke")
     report = json.loads([ln for ln in out.splitlines()
                          if ln.startswith("{")][-1])
     print(f"25 (c) real_model_smoke at fleet 2: ok {report['ok']}, "
@@ -5800,9 +5801,695 @@ def rank_trainer(torch, fleet) -> dict:
             "drill_losses": losses}
 
 
+# ---------------------------------------------------------------------------
+# 26. Tensor parallelism over the 'model' mesh axis
+# ---------------------------------------------------------------------------
+
+TP_CARDS = 4
+TP_NODES = 2                        # (b) qwen2-vl-2b Mode B: 2 nodes x TP 2
+TP_A_ARCH, TP_A_SIZE = "gemma3-12b", 4   # (b) Mode A, one node over 4 cards
+TP_A_BATCH, TP_A_SEQ = 4, 512
+TP_WARM, TP_TIMED = 1, 3
+TP_FAMILY_ROUNDS = 3
+# (b) the family and the twin against one card alone: losses within the
+# smoke's parity bar (a shard's own int8 blocks drifted 3.1e-4 by round 3);
+# parameters within a few int8 steps of a 2048-lane block (~6e-4 at the
+# smoke's widths): a value at a level's edge may round the other way
+# when a GEMM of other widths moves it by an ulp
+TP_FAMILY_LOSS_TOL, TP_FAMILY_PARAM_TOL = 1e-5, 2e-3
+TP_LOSS_TOL = 1e-4                  # the twin's free-running losses
+TP_CALL_S = 900
+TP_CAPTURE_S = 300                   # the capture world's time limit
+# (a) flash at the local head shapes this slice launches:
+# (B, S, T, Hq, Hkv, D, causal, window)
+TP_FLASH = {
+    "gemma3-12b at tp 4, local": (TP_A_BATCH, TP_A_SEQ, TP_A_SEQ, 4, 2, 256,
+                                  True, 1024),
+    "gemma3-12b at tp 4, global": (TP_A_BATCH, TP_A_SEQ, TP_A_SEQ, 4, 2,
+                                   256, True, 0),
+    "qwen2-vl-2b at tp 2": (POD_BATCH, POD_SEQ, POD_SEQ, 6, 1, 128, True, 0),
+}
+
+
+def tp_collectives() -> dict:
+    """The regions' collectives so far (``models.tp.COLLECTIVES``)."""
+    from repro_torch.models import tp
+
+    return {k: tuple(v) for k, v in tp.COLLECTIVES.items()}
+
+
+def tp_world_of_one(torch) -> dict:
+    """26 (a): a world of one rank (NCCL) on a (1, 1) mesh runs every step
+    through the tensor-parallel code with groups of one: Mode B none and
+    int8, Mode A, and the compressed_int8 family, each bit-equal to the
+    one-device run with the same launches."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config, reduce_for_smoke
+    from repro_torch.core import dpsgd
+    from repro_torch.core.gossip import ring_plan
+    from repro_torch.launch import mesh as lm
+    from repro_torch.launch.train import model_specs
+    from repro_torch.models import build, tp
+    from repro_torch.optim.schedule import constant_lr
+    from repro_torch.sim import batch as tb
+    from repro_torch.sim import get_scenario, precompute_traces
+    from repro_torch.train import shardings as shr
+    from repro_torch.train import step as ts
+
+    smoke = reduce_for_smoke(get_config(POD_ARCH))
+    plan = ring_plan(("data",), (POD_NODES,), 1)
+    ad = tb.transformer_adapter(TRAIN_ARCH, batch=TRAIN_BATCH,
+                                seq_len=LOCK_TRAIN_SEQ, device="cuda")
+    cfg = get_scenario("compressed_int8", model_bits=ad.model_bits,
+                       model_shapes=ad.param_shapes,
+                       eval_every_rounds=LOCK_TRAIN_ROUNDS)
+    traces = precompute_traces([cfg], LOCK_TRAIN_ROUNDS)
+    cases = (("Mode B none", "dpsgd", "none"), ("Mode B int8", "dpsgd", "int8"),
+             ("Mode A", "allreduce", "none"))
+
+    def runs(mesh) -> dict:
+        model = tp.model_of(mesh)
+        fleet = shr.fleet_of(mesh)
+        out = {}
+        for label, mode, comp in cases:
+            run = _pod_run(mode, compression=comp)
+            kw = {} if mesh is None else dict(
+                group=fleet.group, model=model,
+                specs=model_specs(smoke, model.size))
+            step = ts.make_train_step(build(smoke, "cuda", model=kw.get(
+                "model")), run, plan if mode == "dpsgd" else None,
+                constant_lr(run.eta), **kw)
+            state = ts.init_train_state(
+                build(smoke, "cuda"), run,
+                torch.Generator(device="cuda").manual_seed(26),
+                n_nodes=POD_NODES)
+            batch = pod_batch(torch, smoke, 0, POD_NODES, POD_LOCK_BATCH,
+                              POD_LOCK_SEQ, mode)
+            (new, m), n = launched(torch, lambda: step(state, batch))
+            out[label] = ([x.clone() for x in dpsgd._leaves(new)],
+                          float(m["loss"]), n)
+        tb._STEPS.clear()        # capture the family's graph afresh
+        out["family compressed_int8"] = launched(
+            torch, lambda: tb.train_model_on_traces(
+                ad, [cfg], LOCK_TRAIN_ROUNDS, trace_batch=traces, mesh=mesh,
+                device="cuda")[1])
+        return out
+
+    one = runs(None)
+    with tempfile.TemporaryDirectory() as d:
+        lm.init_world("cuda", init_method=f"file://{d}/store", rank=0,
+                      world_size=1)
+        try:
+            mesh = lm.make_fleet_mesh(1, 1)
+            before = tp_collectives()
+            world = runs(mesh)
+            issued = tp_collectives() != before
+            print(f"26 (a) a world of {dist.get_world_size()} rank on a "
+                  f"(fleet, model) = {tuple(mesh.mesh.shape)} mesh: every "
+                  f"step through the tensor-parallel code, groups of one "
+                  f"({'some' if issued else 'no'} region collective issued)")
+        finally:
+            dist.destroy_process_group()
+    tb._STEPS.clear()
+    check(not issued, "26 (a): a model axis of one issued a collective")
+    result = {}
+    for label, _, _ in cases:
+        (a, la, na), (b, lb, nb) = one[label], world[label]
+        same = la == lb and all(torch.equal(x, y) for x, y in zip(a, b))
+        print(f"26 (a) {POD_ARCH} smoke {label}: loss {lb:.6f}, the new "
+              f"state {'bit-equal to' if same else 'UNLIKE'} the one-device "
+              f"step's; launches {nb} against {na}")
+        check(same and na == nb, f"26 (a) {label}: {lb} {nb} against "
+              f"{la} {na}")
+        result[label] = nb
+    (a, la), (b, lb) = one["family compressed_int8"], \
+        world["family compressed_int8"]
+    same = np.array_equal(a["losses"], b["losses"]) and all(
+        torch.equal(x, y) for x, y in zip(dpsgd._leaves(a["final_params"]),
+                                          dpsgd._leaves(b["final_params"])))
+    print(f"26 (a) train_model_on_traces(mesh=(1, 1)) on compressed_int8, "
+          f"{TRAIN_ARCH}'s smoke config: losses {b['losses'][0].tolist()}, "
+          f"{'bit-equal to' if same else 'UNLIKE'} the one-device family; "
+          f"launches {lb} against {la}")
+    check(same and la == lb, f"26 (a) family: launches {lb} against {la}")
+    result["family compressed_int8"] = lb
+    return result
+
+
+def tp_flash(torch) -> dict:
+    """26 (a): flash forward (with lse) and backward at the local head
+    shapes tensor parallelism gives them, against their plain versions
+    under the phase 3e bars, with times beside the bound and SDPA."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    bf16 = torch.bfloat16
+    out = {}
+    for what, (b, s, t, hq, hkv, d, causal, window) in TP_FLASH.items():
+        q, do = (torch.randn((b, s, hq, d), generator=gen, device="cuda")
+                 .to(bf16) for _ in range(2))
+        k, v = (torch.randn((b, t, hkv, d), generator=gen, device="cuda")
+                .to(bf16) for _ in range(2))
+        o, lse = fa._forward(q, k, v, causal, window, True)
+        o_p, lse_p = fa.flash_attention_plain(q, k, v, causal=causal,
+                                              window=window, return_lse=True)
+        e_o, e_l = err(o, o_p), err(lse, lse_p)
+        re = row_err(o, o_p)
+        check(e_o <= TOL_BF16 and re <= TOL_FLASH_ROW and e_l <= TOL_LSE,
+              f"26 (a) flash forward {what}: out {e_o}, rows {re}, lse {e_l}")
+        got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                     window=window)
+        want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                            causal=causal, window=window,
+                                            acc_dtype=torch.float64)
+        e_b, excess = 0.0, 0
+        for g, w_ in zip(got, want):
+            e_b = max(e_b, err(g, w_))
+            # GQA sums a kv head's q heads into dk, dv: held within the bar
+            # or one bf16 ulp, whichever is larger (phase 3e's rule)
+            excess += bf16_ulp_excess(torch, g, w_, TOL_BF16)
+        check(excess == 0, f"26 (a) flash backward {what}: {excess} "
+              f"elements beyond max({TOL_BF16}, one bf16 ulp)")
+        del got, want, o_p, lse_p
+        fwd = lambda: fa._forward(q, k, v, causal, window, True)  # noqa
+        bwd = lambda: fa.flash_attention_bwd(  # noqa: E731
+            q, k, v, o, lse, do, causal=causal, window=window)
+        qq, kk, vv = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+        mask = None
+        if window:
+            qpos = torch.arange(s, device="cuda")[:, None]
+            kpos = torch.arange(t, device="cuda")[None, :]
+            mask = (kpos <= qpos) & (qpos - kpos < window)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                qq, kk, vv, attn_mask=mask, is_causal=mask is None,
+                enable_gqa=hq != hkv)
+        lib_out = sdpa()
+        dot = do.transpose(1, 2)
+        f_bytes, f_flops = cost.flash_gqa_cost(b, s, t, hq, hkv, d, causal,
+                                                window, 2, lse=True)
+        b_bytes, b_flops = cost.bwd_cost(b, s, t, hq, hkv, d, causal,
+                                         window, 2)
+        row = {
+            "shape": f"q ({b},{s},{hq},{d}) k, v ({b},{t},{hkv},{d}) bf16, "
+                     f"causal, window {window}",
+            "fwd_max_abs_err": e_o, "bwd_max_abs_err": e_b,
+            "fwd_ms": time_ms(torch, fwd, reps=10, rounds=3, warmup=2),
+            "bwd_ms": time_ms(torch, bwd, reps=5, rounds=3, warmup=1),
+            "fwd_plain_ms": time_ms(torch, lambda: fa.flash_attention_plain(
+                q, k, v, causal=causal, window=window, return_lse=True),
+                reps=1, rounds=3, warmup=1),
+            "bwd_plain_ms": time_ms(torch, lambda: fa.flash_attention_bwd_plain(
+                q, k, v, o, lse, do, causal=causal, window=window),
+                reps=1, rounds=3, warmup=1),
+            "fwd_library_ms": time_ms(torch, sdpa, reps=10, rounds=3,
+                                      warmup=2),
+            "bwd_library_ms": time_ms(torch, lambda: torch.autograd.grad(
+                lib_out, (qq, kk, vv), dot, retain_graph=True), reps=5,
+                rounds=3, warmup=1)}
+        row["fwd_bound_ms"], row["fwd_bound_by"] = cost.bound(
+            f_bytes, f_flops, cost.BF16_FLOPS)
+        row["bwd_bound_ms"], row["bwd_bound_by"] = cost.bound(
+            b_bytes, b_flops, cost.BF16_FLOPS)
+        print(f"26 (a) flash at {what}: {row['shape']}: forward max|err| "
+              f"{e_o:.3e} (rows {re:.3e}, lse {e_l:.3e}), backward "
+              f"{e_b:.3e} (0 past max({TOL_BF16:g}, 1 ulp)); forward "
+              f"{row['fwd_ms']:.4f} ms (plain {row['fwd_plain_ms']:.4f}, "
+              f"SDPA {row['fwd_library_ms']:.4f}, bound "
+              f"{row['fwd_bound_ms']:.4f} {row['fwd_bound_by']}), backward "
+              f"{row['bwd_ms']:.4f} ms (plain {row['bwd_plain_ms']:.4f}, "
+              f"SDPA {row['bwd_library_ms']:.4f}, bound "
+              f"{row['bwd_bound_ms']:.4f} {row['bwd_bound_by']})")
+        out[what] = row
+        del q, k, v, o, lse, do, qq, kk, vv, lib_out
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_four_cards(torch) -> dict:
+    """26 (b): the (fleet, model) worlds on four cards, one a rank."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    script = str(ROOT / Path(__file__).name)
+    result = {}
+    out = torchrun(TP_CARDS, ["-m", "repro_torch.sim.real_model_smoke",
+                              "--json", "--device", "cuda"],
+                   "26 (b) real_model_smoke", timeout=TP_CALL_S)
+    report = json.loads([ln for ln in out.splitlines()
+                         if ln.startswith("{")][-1])
+    print(f"26 (b) real_model_smoke at its defaults (fleet "
+          f"{report['mesh']['fleet']} x model {report['mesh']['model']}): ok "
+          f"{report['ok']}, {report['devices_spanned']} cards spanned, "
+          f"parity {report['parity']}")
+    check(report["ok"] and report["devices_spanned"] == TP_CARDS
+          and report["mesh"] == {"fleet": 2, "model": 2},
+          f"26 (b) real_model_smoke: {report}")
+    result["real_model_smoke"] = report
+    out = torchrun(TP_CARDS, [script, "--fleet-rank", "tp"],
+                   "26 (b) tensor parallelism", timeout=TP_CALL_S)
+    print("\n".join(ln for ln in out.splitlines()
+                    if ln.startswith("26 (b)")))
+    result.update(fleet_result(out, "26 (b) tensor parallelism"))
+    # last, in a world of its own with a short limit: a tensor-parallel
+    # step captured as a CUDA graph (a sharded family's all-gathers hung
+    # under capture on four H100s)
+    out = torchrun(TP_CARDS, [script, "--fleet-rank", "tp-capture"],
+                   "26 (b) capture of a tensor-parallel step",
+                   timeout=TP_CAPTURE_S)
+    print("\n".join(ln for ln in out.splitlines()
+                    if ln.startswith("26 (b)")))
+    result["capture"] = fleet_result(out, "26 (b) capture")
+    return result
+
+
+def phase_tp(torch) -> dict:
+    phase("26. tensor parallelism over the 'model' mesh axis: a (1, 1) "
+          "world through the tensor-parallel code, flash at the local head "
+          "shapes, and with four cards the (fleet, model) worlds")
+    result = {"a": tp_world_of_one(torch), "flash": tp_flash(torch)}
+    if torch.cuda.device_count() >= TP_CARDS:
+        result["b"] = tp_four_cards(torch)
+    else:
+        print(f"26 (b) needs {TP_CARDS} cards, {torch.cuda.device_count()} "
+              "visible: not run")
+    return result
+
+
+# ---------------------------------------------------------------------------
+# The ranks of 26 (b) (chip_smoke.py --fleet-rank tp, four ranks)
+# ---------------------------------------------------------------------------
+
+def rank_tp_twin_and_trainer(torch) -> dict:
+    """The pod_gossip_train twin at 2 x 2, and ``launch.train.train_loop
+    --nodes 2 --tp 2`` at the smoke widths: straight, then a checkpoint
+    at step 2 and a resume to 4 (steps 3-4 against the straight run's,
+    bit-equal on every rank), and the fault drill at step 3."""
+    import math
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config, reduce_for_smoke
+    from repro_torch.examples import pod_gossip_train
+    from repro_torch.launch import train as lt
+
+    twin = pod_gossip_train.run(nodes=TP_NODES, tp_size=2, steps=3,
+                                device="cuda", log=lambda *_: None)
+    # the same twin on this rank's card alone: seed, plan and tokens
+    alone = pod_gossip_train.run(nodes=TP_NODES, tp_size=1, steps=3,
+                                 device="cuda", log=lambda *_: None,
+                                 alone=True)
+    twin_diff = max(abs(a - b) for a, b in zip(twin["losses"],
+                                               alone["losses"]))
+    twin_flags = [None] * dist.get_world_size()
+    dist.all_gather_object(twin_flags, twin_diff)
+    smoke = reduce_for_smoke(get_config(POD_ARCH))
+    run = _pod_run("dpsgd", compression="int8")
+    kw = dict(nodes=TP_NODES, tp=2, batch_per_node=POD_LOCK_BATCH,
+              seq_len=POD_LOCK_SEQ, log_every=1, device="cuda")
+    where = [tempfile.mkdtemp() if dist.get_rank() == 0 else None]
+    dist.broadcast_object_list(where, src=0)
+    ck = where[0]
+    straight = lt.train_loop(smoke, run, steps=4, ckpt_dir=None, **kw)
+    lt.train_loop(smoke, run, steps=2, ckpt_dir=ck, ckpt_every=2, **kw)
+    resumed = lt.train_loop(smoke, run, steps=4, ckpt_dir=ck, resume=True,
+                            **kw)
+    drill = lt.train_loop(smoke, run, steps=5, ckpt_dir=None, fail_at=3,
+                          fail_node=1, **kw)
+    dist.barrier()
+    if dist.get_rank() == 0:
+        shutil.rmtree(ck, ignore_errors=True)
+    got = [r["loss"] for r in resumed["log"]]
+    want = [r["loss"] for r in straight["log"][2:]]
+    flags = [None] * dist.get_world_size()
+    dist.all_gather_object(flags, got == want)
+    losses = [r["loss"] for r in drill["log"]]
+    rank_print(f"26 (b) pod_gossip_train twin ({TP_NODES} nodes x TP 2, "
+               f"{twin['plan']}, int8): losses {twin['losses']}, one card "
+               f"alone {alone['losses']}: the largest difference per rank "
+               f"{twin_flags} (bar {TP_LOSS_TOL}); a step on rank 0: P2P "
+               f"bytes {twin['p2p_bytes']}, launches {twin['launches']}")
+    rank_print(f"26 (b) train_loop --nodes {TP_NODES} --tp 2 (smoke widths, "
+               f"int8, graphed): a checkpoint at step 2 and resume=True, steps "
+               f"3-4 losses {got} against the uninterrupted {want}: "
+               f"bit-equal per rank {flags}; the fault drill (node 1 dies at "
+               f"step 3) losses {losses}")
+    check(all(flags) and [r["step"] for r in resumed["log"]] == [3, 4],
+          f"26 (b) resume: {flags} {resumed['log']} {straight['log']}")
+    check(len(losses) == 5 and all(math.isfinite(v) for v in losses)
+          and all(math.isfinite(v) for v in twin["losses"])
+          and all(d <= TP_LOSS_TOL for d in twin_flags),
+          f"26 (b) drill {drill['log']}, twin {twin['losses']} against "
+          f"{alone['losses']} alone")
+    return {"twin": {k: twin[k] for k in ("losses", "p2p_bytes",
+                                          "launches")},
+            "twin_vs_alone": twin_flags,
+            "resume_bit_equal": all(flags), "drill_losses": losses}
+
+
+def rank_tp_family(torch, mesh) -> dict:
+    """stablelm-3b's smoke config on compressed_int8 over (fleet 2, model
+    2), eager: the int8 send and the q8 receive on the whole leaves
+    gathered over the model axis; held on every rank against the same
+    family on its card alone (same traces, seed and batches)."""
+    import math
+
+    import torch.distributed as dist
+
+    from repro_torch.core.dpsgd import _leaves
+    from repro_torch.sim import batch as tb
+    from repro_torch.sim import get_scenario, precompute_traces
+
+    ad = tb.transformer_adapter(TRAIN_ARCH, batch=TRAIN_BATCH,
+                                seq_len=LOCK_TRAIN_SEQ, device="cuda")
+    cfg = get_scenario("compressed_int8", model_bits=ad.model_bits,
+                       model_shapes=ad.param_shapes,
+                       eval_every_rounds=TP_FAMILY_ROUNDS)
+    traces = precompute_traces([cfg], TP_FAMILY_ROUNDS)
+    (_, res), launches = launched(torch, lambda: tb.train_model_on_traces(
+        ad, [cfg], TP_FAMILY_ROUNDS, trace_batch=traces, mesh=mesh,
+        device="cuda"))
+    _, one = tb.train_model_on_traces(ad, [cfg], TP_FAMILY_ROUNDS,
+                                      trace_batch=traces, device="cuda")
+    losses = res["losses"][0].tolist()
+    diff = {"losses": float(abs(res["losses"][0]
+                                - one["losses"][0]).max()),
+            "params": max(float((a.float() - b.float()).abs().max())
+                          for a, b in zip(_leaves(res["final_params"][0]),
+                                          _leaves(one["final_params"][0])))}
+    got = [None] * dist.get_world_size()
+    dist.all_gather_object(got, ({k: v for k, v in launches.items() if v},
+                                 diff))
+    rank_print(f"26 (b) {TRAIN_ARCH} smoke on compressed_int8 over (fleet "
+               f"2, model 2), {cfg.n_nodes} nodes, {TP_FAMILY_ROUNDS} "
+               f"rounds, eager: losses {losses}, one card alone "
+               f"{one['losses'][0].tolist()}; per rank the launches and the "
+               f"largest differences from the card alone (bars: losses "
+               f"{TP_FAMILY_LOSS_TOL}, parameters {TP_FAMILY_PARAM_TOL}) "
+               f"{got}")
+    check(all(math.isfinite(v) for v in losses)
+          and all(g.get("quantize_int8_ef") == TP_FAMILY_ROUNDS
+                  and g.get("gossip_mix_q8") == TP_FAMILY_ROUNDS
+                  and d["losses"] <= TP_FAMILY_LOSS_TOL
+                  and d["params"] <= TP_FAMILY_PARAM_TOL
+                  for g, d in got),
+          f"26 (b) family: {losses} {got}")
+    return {"losses": losses, "launches_by_rank": [g for g, _ in got],
+            "vs_alone": [d for _, d in got]}
+
+
+def rank_tp_steps(torch, what: str, cfg, run, plan, mesh, nodes: int,
+                  batch: int, seq: int, tokens: int,
+                  graphed: bool = False, donate: bool = False) -> dict:
+    """Warm-up and timed steps of ``make_train_step`` over ``mesh``:
+    losses, ms a step (host clock to a loss read), tokens/s, peak GiB and
+    launches per rank, P2P bytes against the reckoning for the rank's
+    shard, the regions' all-reduce and all-gather bytes a step, and one
+    traced step's busy ms and idle share. ``donate``: the step consumes
+    its state (``make_train_step``'s ``donate``, as ``launch.train``'s
+    eager step)."""
+    import math
+
+    import torch.distributed as dist
+
+    from repro_torch.core import dpsgd
+    from repro_torch.core.gossip import exchange
+    from repro_torch.launch.train import model_specs, shard_cast
+    from repro_torch.models import build, tp
+    from repro_torch.optim.schedule import constant_lr
+    from repro_torch.train import shardings as shr
+    from repro_torch.train import step as ts
+    from repro_torch.utils import profile
+    from repro_torch.utils.collectives import step_collectives
+
+    model, fleet = tp.model_of(mesh), shr.fleet_of(mesh)
+    mode_b = run.mode == "dpsgd"
+    lo, hi = fleet.block(nodes) if mode_b else (0, 1)
+    specs = model_specs(cfg, model.size)
+    step_fn = ts.make_train_step(build(cfg, "cuda", model=model), run, plan,
+                                 constant_lr(run.eta), group=fleet.group,
+                                 model=model, specs=specs, donate=donate)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = ts.init_train_state(
+        build(cfg, "cuda", model=model), run,
+        torch.Generator(device="cuda").manual_seed(1),
+        n_nodes=hi - lo, cast=shard_cast(cfg, model))
+    init_s = time.perf_counter() - t0
+    if mode_b:      # de-sync the nodes so the mix matters
+        state["params"] = dpsgd._tree_map(
+            lambda p: p * (1 + 0.01 * lo), state["params"])
+    state_gib = sum(x.numel() * x.element_size()
+                    for x in dpsgd._leaves(state)) / 2**30
+    reckoned = None
+    if mode_b:
+        leaves = [(tuple(x.shape[1:]), str(x.dtype).removeprefix("torch."))
+                  for x in dpsgd._leaves(state["params"])]
+        reckoned = step_collectives(leaves, "dpsgd", plan=plan,
+                                    compression=run.compression)[
+            "collectives"]["collective-permute"]["result_bytes"]
+    counters = fleet_counters()
+    losses, times, sent, coll = [], [], [], []
+    for k in range(TP_WARM + TP_TIMED):
+        b = pod_batch(torch, cfg, k, nodes, batch, seq, run.mode)
+        if mode_b:
+            b = dpsgd._tree_map(lambda x: x[lo:hi], b)
+        if k == TP_WARM:
+            for c in counters.values():
+                c.launches = 0
+        dist.barrier()
+        torch.cuda.synchronize()
+        before, c0 = exchange.sent_bytes, tp_collectives()
+        t1 = time.perf_counter()
+        state, m = step_fn(state, b)
+        losses.append(float(m["loss"]))
+        times.append((time.perf_counter() - t1) * 1e3)
+        sent.append(exchange.sent_bytes - before)
+        c1 = tp_collectives()
+        coll.append({kk: (c1[kk][0] - c0[kk][0], c1[kk][1] - c0[kk][1])
+                     for kk in c1})
+        del b, m
+    launches = {kk: c.launches for kk, c in counters.items() if c.launches}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ms = statistics.median(times[TP_WARM:])
+    b = pod_batch(torch, cfg, 0, nodes, batch, seq, run.mode)
+    if mode_b:
+        b = dpsgd._tree_map(lambda x: x[lo:hi], b)
+    out_state = [state]
+
+    def one():
+        out_state[0], mm = step_fn(out_state[0], b)
+        float(mm["loss"])
+    dist.barrier()
+    traced = profile.trace(one)
+    wall = traced.get("wall_ms") or ms
+    idle = 1.0 - traced["busy_ms"] / wall if wall else None
+    graph = None
+    if graphed:     # the same steps replayed as a CUDA graph, in turn
+        from repro_torch.graphs import GraphedStep
+
+        g_step, g_times, g_losses = GraphedStep(step_fn), [], []
+        for k in range(TP_WARM + TP_TIMED):
+            bk = pod_batch(torch, cfg, k, nodes, batch, seq, run.mode)
+            if mode_b:
+                bk = dpsgd._tree_map(lambda x: x[lo:hi], bk)
+            dist.barrier()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            replay = g_step.stage(out_state[0], bk)
+            out_state[0] = None
+            out_state[0], mm = replay()
+            g_losses.append(float(mm["loss"]))
+            g_times.append((time.perf_counter() - t1) * 1e3)
+            del bk, mm, replay
+        g_ms = statistics.median(g_times[TP_WARM:])
+        graph = {"ms": g_ms, "tokens_s": tokens / g_ms * 1e3,
+                 "steps_ms": g_times, "losses": g_losses}
+        del g_step
+        rank_print(f"26 (b) {what}, as a CUDA graph: {g_ms:.2f} ms a step "
+                   f"(median of {TP_TIMED} after {TP_WARM}, the first "
+                   f"capturing; steps {[round(t, 2) for t in g_times]}), "
+                   f"{tokens / g_ms * 1e3:.0f} tokens/s; losses {g_losses}")
+        check(all(math.isfinite(v) for v in g_losses),
+              f"26 (b) {what} graphed: {g_losses}")
+    peaks = [None] * dist.get_world_size()
+    dist.all_gather_object(peaks, round(peak, 3))
+    sents = [None] * dist.get_world_size()
+    dist.all_gather_object(sents, sent)
+    rank_print(f"26 (b) {what}, eager: losses {losses}; {ms:.2f} ms a step "
+               f"(median "
+               f"of {TP_TIMED} after {TP_WARM}, host clock to a loss read, "
+               f"steps {[round(t, 2) for t in times]}), "
+               f"{tokens / ms * 1e3:.0f} tokens/s; state {state_gib:.3f} GiB "
+               f"a rank (drawn and sharded in {init_s:.1f} s); peak GiB per "
+               f"rank {peaks}; P2P bytes a step per rank "
+               f"{sorted(set(x for s in sents for x in s))} against "
+               f"utils.collectives' {reckoned} for the shard; the regions' "
+               f"collectives a step (calls, bytes) {coll[-1]}; rank 0's "
+               f"launches x{TP_TIMED}: {launches}; a traced step: busy "
+               f"{traced['busy_ms']:.2f} ms of {wall:.2f} (idle "
+               f"{idle:.4f}), the largest: " + "; ".join(
+                   f"{n[:40]} {t_:.3f} ms x{c}"
+                   for n, t_, c in traced["top"][:6]))
+    check(all(math.isfinite(v) for v in losses), f"26 (b) {what}: {losses}")
+    if mode_b:
+        check(all(x == reckoned for s in sents for x in s),
+              f"26 (b) {what}: P2P bytes {sents} against {reckoned}")
+    del state, out_state, step_fn
+    return {"losses": losses, "ms": ms, "tokens_s": tokens / ms * 1e3,
+            "steps_ms": times, "state_gib": state_gib, "peak_gib": peaks,
+            "p2p_bytes": sents[0][-1] if mode_b else 0,
+            "p2p_reckoned": reckoned, "collectives": coll[-1],
+            "launches": launches, "busy_ms": traced["busy_ms"],
+            "idle": idle, "init_s": init_s, "graphed": graph,
+            "top": [(n[:60], round(t_, 3), c)
+                    for n, t_, c in traced["top"][:8]]}
+
+
+def rank_tp_allreduce(torch, mesh, shape: tuple) -> dict:
+    """The regions' all-reduce alone: a ``shape`` bf16 tensor over
+    ``mesh``'s model group, back to back after a barrier (CUDA events):
+    its ms and bus rate, against which a step's all-reduce time is
+    transfer or waiting for the slowest rank."""
+    import torch.distributed as dist
+
+    from repro_torch.models import tp
+
+    model = tp.model_of(mesh)
+    x = torch.randn(shape, device="cuda").to(torch.bfloat16)
+    dist.barrier()
+    ms = time_ms(torch, lambda: dist.all_reduce(x, group=model.group),
+                 reps=20, rounds=3, warmup=3)
+    nbytes = x.numel() * x.element_size()
+    # a ring all-reduce moves 2 (n - 1) / n of the tensor over each link
+    bus = 2 * (model.size - 1) / model.size * nbytes / ms / 1e6
+    rank_print(f"26 (b) an all-reduce of {tuple(shape)} bf16 "
+               f"({nbytes / 1e6:.2f} MB) over a model group of "
+               f"{model.size}, alone: {ms:.4f} ms, {bus:.1f} GB/s bus")
+    return {"shape": list(shape), "ms": ms, "bus_gb_s": bus}
+
+
+def rank_tp_capture(torch) -> dict:
+    """qwen2-vl-2b's smoke Mode B step (int8, 2 nodes x TP 2) captured as
+    a CUDA graph (``graphs.GraphedStep``: the regions' all-reduces, the
+    row max's, the fleet's P2P inside): the replay must be bit-equal to
+    the eager step on every rank."""
+    import math
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config, reduce_for_smoke
+    from repro_torch.core import dpsgd
+    from repro_torch.core.gossip import ring_plan
+    from repro_torch.graphs import GraphedStep
+    from repro_torch.launch.mesh import make_fleet_mesh
+    from repro_torch.launch.train import model_specs, shard_cast
+    from repro_torch.models import build, tp
+    from repro_torch.optim.schedule import constant_lr
+    from repro_torch.train import shardings as shr
+    from repro_torch.train import step as ts
+
+    mesh = make_fleet_mesh(2, 2)
+    model, fleet = tp.model_of(mesh), shr.fleet_of(mesh)
+    smoke = reduce_for_smoke(get_config(POD_ARCH))
+    plan = ring_plan(("data",), (TP_NODES,), 1)
+    run = _pod_run("dpsgd", compression="int8")
+    step_fn = ts.make_train_step(
+        build(smoke, "cuda", model=model), run, plan, constant_lr(run.eta),
+        group=fleet.group, model=model,
+        specs=model_specs(smoke, model.size))
+    lo, hi = fleet.block(TP_NODES)
+    state = ts.init_train_state(
+        build(smoke, "cuda", model=model), run,
+        torch.Generator(device="cuda").manual_seed(1), n_nodes=hi - lo,
+        cast=shard_cast(smoke, model))
+    batch = dpsgd._tree_map(lambda b: b[lo:hi], pod_batch(
+        torch, smoke, 0, TP_NODES, POD_LOCK_BATCH, POD_LOCK_SEQ, "dpsgd"))
+    eager, m_e = step_fn(state, batch)
+    got, m_g = GraphedStep(step_fn)(state, batch)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(
+        dpsgd._leaves(got), dpsgd._leaves(eager))) and torch.equal(
+        m_g["loss"], m_e["loss"])
+    flags = [None] * dist.get_world_size()
+    dist.all_gather_object(flags, same)
+    rank_print(f"26 (b) graph capture of the tensor-parallel Mode B step "
+               f"(smoke widths, {TP_NODES} nodes x TP 2, {plan.name} int8: "
+               f"the regions' all-reduces and the fleet's P2P inside): "
+               f"replay bit-equal to eager (state and loss) on every rank: "
+               f"{flags}; the eager step's loss {float(m_e['loss']):.4f}")
+    check(all(flags) and math.isfinite(float(m_e["loss"])),
+          f"26 (b) capture: replay bit-equal per rank {flags}")
+    return {"captured": all(flags), "ranks": flags}
+
+
+def rank_tp(torch) -> dict:
+    """26 (b), every rank: gemma3-12b's Mode A at TP 4 on one node,
+    published widths and depth, remat full, the step consuming its state;
+    qwen2-vl-2b's Mode B at full depth (2 nodes x TP 2, none and int8);
+    the family, the twin and the trainer at the smoke widths over (fleet
+    2, model 2)."""
+    import dataclasses
+    import gc
+    import math
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.gossip import ring_plan
+    from repro_torch.launch.mesh import make_fleet_mesh
+
+    two = make_fleet_mesh(2, 2)
+    four = make_fleet_mesh(1, TP_A_SIZE)
+    out = {"allreduce": [
+        rank_tp_allreduce(torch, two, (POD_BATCH, POD_SEQ,
+                                       get_config(POD_ARCH).d_model)),
+        rank_tp_allreduce(torch, four, (TP_A_BATCH, TP_A_SEQ,
+                                        get_config(TP_A_ARCH).d_model))]}
+    # the largest state first, before the other worlds' communicators hold
+    # their buffers on the cards
+    gemma = get_config(TP_A_ARCH)
+    run = dataclasses.replace(_pod_run("allreduce"), remat="full")
+    res = rank_tp_steps(
+        torch, f"{TP_A_ARCH} Mode A at published widths and depth (d "
+        f"{gemma.d_model}, vocab {gemma.vocab_size}, {gemma.n_layers} "
+        f"layers), --nodes 1 --tp {TP_A_SIZE}, remat full, AdamW, the state "
+        f"donated, {TP_A_BATCH} x {TP_A_SEQ} tokens", gemma, run, None,
+        four, 1, TP_A_BATCH, TP_A_SEQ, TP_A_BATCH * TP_A_SEQ, donate=True)
+    ln_v = math.log(gemma.vocab_size)
+    rank_print(f"26 (b) {TP_A_ARCH} Mode A: the first loss "
+               f"{res['losses'][0]:.4f} against ln V = {ln_v:.4f}")
+    out["mode_a"] = dict(res, ln_v=ln_v, layers=gemma.n_layers)
+    gc.collect()
+    torch.cuda.empty_cache()
+    full = get_config(POD_ARCH)
+    plan = ring_plan(("data",), (TP_NODES,), 1)
+    out["mode_b"] = {}
+    for comp in ("none", "int8"):
+        out["mode_b"][comp] = rank_tp_steps(
+            torch, f"{POD_ARCH} Mode B at full depth ({full.n_layers} "
+            f"layers), {TP_NODES} nodes x TP 2, ring-1 {comp}, AdamW, "
+            f"{POD_BATCH} x {POD_SEQ} tokens a node", full,
+            _pod_run("dpsgd", compression=comp), plan, two, TP_NODES,
+            POD_BATCH, POD_SEQ, TP_NODES * POD_BATCH * POD_SEQ,
+            graphed=comp == "none")
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["family"] = rank_tp_family(torch, two)
+    out.update(rank_tp_twin_and_trainer(torch))
+    return out
+
+
 def fleet_rank_main(role: str) -> None:
-    """One rank of a 25 (c) world; rank 0 prints the result as a FLEET
-    line."""
+    """One rank of a 25 (c) or 26 (b) world; rank 0 prints the result as
+    a FLEET line."""
     import os
 
     sys.path.insert(0, str(SRC))
@@ -5815,6 +6502,12 @@ def fleet_rank_main(role: str) -> None:
     from repro_torch.train.shardings import fleet_of
 
     init_world("cuda")
+    if role in ("tp", "tp-capture"):
+        result = rank_tp(torch) if role == "tp" else rank_tp_capture(torch)
+        rank_print(f"FLEET {json.dumps(result)}")
+        dist.barrier()
+        dist.destroy_process_group()
+        return
     mesh = make_fleet_mesh(dist.get_world_size(), 1)
     fleet = fleet_of(mesh)
     if role == "four":
@@ -5988,6 +6681,11 @@ def main() -> None:
     # per-rank receives of a four-rank ring, and four cards when present
     torch.cuda.empty_cache()
     fleet = run("25", phase_fleet, torch)
+    # tensor parallelism over the 'model' axis: a (1, 1) world through the
+    # tensor-parallel code, flash at the local head shapes, and the
+    # (fleet, model) worlds when four cards are present
+    torch.cuda.empty_cache()
+    tp_run = run("26", phase_tp, torch)
     kernels["flash_attention"]["qwen2_vl_train"] = kernels.pop(
         "flash_attention_qwen2_vl_train")
     rec_launches = {**trained_rec["recurrentgemma-2b"]["launches"],
@@ -6120,6 +6818,38 @@ def main() -> None:
                         for path, n in fleet["a"].items() if n[name]})
         by_path["a four-rank ring's per-rank receives (phase 25 (b))"] = \
             fleet["b"]["launches"][name]
+    # phase 26's runs: (a) the tensor-parallel code on a world of one, (b)
+    # the (fleet, model) worlds on four cards (rank 0's launches)
+    twin_names = {"gossip_mix": "gossip_mix_rows",
+                  "gossip_mix_q8": "gossip_mix_q8_rows"}
+    for row in rows:
+        name = row["name"]
+        if name not in ("gossip_mix", "gossip_mix_q8", "quantize_int8_ef",
+                        "flash_attention", "flash_attention_bwd"):
+            continue
+        by_path = row.setdefault("launches_by_path",
+                                 {"main path": row["launches"]})
+        by_path.update({
+            f"{path}, the tensor-parallel code on a (1, 1) world "
+            f"(phase 26 (a))": n[name]
+            for path, n in tp_run["a"].items() if n.get(name)})
+        b = tp_run.get("b")
+        if b is not None:
+            paths = {
+                f"{TRAIN_ARCH} smoke compressed_int8 over (fleet 2, model 2)"
+                f", {TP_FAMILY_ROUNDS} rounds (phase 26 (b))":
+                    b["family"]["launches_by_rank"][0].get(name, 0),
+                f"the pod_gossip_train twin, a step (phase 26 (b))":
+                    b["twin"]["launches"].get(twin_names.get(name, name), 0),
+                **{f"{POD_ARCH} Mode B {c}, 2 nodes x TP 2, "
+                   f"{TP_TIMED} steps (phase 26 (b))":
+                   b["mode_b"][c]["launches"].get(name, 0)
+                   for c in ("none", "int8")},
+                f"{TP_A_ARCH} Mode A at TP {TP_A_SIZE}, {TP_TIMED} steps "
+                f"(phase 26 (b))": b["mode_a"]["launches"].get(name, 0)}
+            by_path.update({k_: v for k_, v in paths.items() if v})
+        if name.startswith("flash_attention"):
+            row["tp_shapes"] = tp_run["flash"]
     k = traced["trace_scan"]
     rows.append({
         "name": "trace_scan", "route": "cuda",

@@ -373,6 +373,7 @@ def _mix_compressed(
     live,
     quant,
     group=None,
+    whole=None,
 ) -> tuple[PyTree, PyTree]:
     """Quantized error-feedback mixing on the masked layout.
 
@@ -386,9 +387,19 @@ def _mix_compressed(
     ``quant.granularity`` picks the wire format: ``"message"`` quantizes
     the concatenated leaves as one (n, total) buffer, ``"leaf"`` each
     tensor on its own block grid with its own residual.
+
+    ``whole`` (``(gather, shard)``, for leaves that are a rank's shards
+    over a model axis): the message is quantized on the whole leaves, as
+    one device quantizes it, and ``shard`` takes the rank's part of the
+    mixed values and residuals back.
     """
     if quant.mode == "none":
         return mix(node_params, w, group), residuals
+    if whole is not None:
+        gather, shard = whole
+        mixed, res = _mix_compressed(gather(node_params), gather(residuals),
+                                     w, live, quant, group)
+        return shard(mixed), shard(res)
     n = node_axis_size(node_params, "node_params")
     device = _device_of(node_params)
     w = _as_w(w, device)
@@ -570,6 +581,7 @@ def dpsgd_masked_compressed_step(
     quant,
     config: DPSGDConfig = DPSGDConfig(),
     group=None,
+    whole=None,
 ) -> tuple[PyTree, PyTree, torch.Tensor]:
     """``dpsgd_masked_step`` with quantized error-feedback mixing.
 
@@ -583,7 +595,7 @@ def dpsgd_masked_compressed_step(
 
     Returns ``(new_params, new_residuals, losses)``. ``quant`` has no
     default on purpose: ``QuantConfig()``'s own default mode is the lossy
-    ``"int8"``.
+    ``"int8"``. ``whole``: see ``_mix_compressed``.
     """
     if config.local_steps != 1:
         raise NotImplementedError(
@@ -593,12 +605,12 @@ def dpsgd_masked_compressed_step(
     grads = _mask_grads(grads, live)
     if config.mix_first:
         mixed, new_res = _mix_compressed(node_params, residuals, w, live,
-                                         quant, group)
+                                         quant, group, whole)
         new_params = _sgd_mixed(mixed, grads, config.eta)
     else:
         new_params, new_res = _mix_compressed(
             _sgd(node_params, grads, config.eta), residuals, w, live, quant,
-            group)
+            group, whole)
     return new_params, new_res, losses
 
 

@@ -13,9 +13,13 @@ the world from torchrun's environment (``RANK``, ``WORLD_SIZE``,
 world and never start one.
 
 Building a mesh needs every rank of the world to call the builder (the
-mesh makes one process group a dim). The ``model`` dim is laid out and
-named, but tensor parallelism is not executed: ``launch.train`` raises
-for ``tp`` > 1 (ROADMAP Queue 1 item 9).
+mesh makes one process group a dim). Each dim's group is
+``mesh.get_group(name)``: a rank's place on the ``fleet`` dim is
+``train.shardings.fleet_of(mesh)``, on the ``model`` dim (tensor
+parallelism, the ranks of one node) ``models.tp.model_of(mesh)``; each
+model coordinate has a fleet group of its own, whose ranks are not
+contiguous in the world (``(fleet, model)`` is row-major: the fleet
+group of model index m is ranks m, m + T, m + 2T, ...).
 """
 from __future__ import annotations
 

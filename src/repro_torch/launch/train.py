@@ -18,6 +18,10 @@ Examples:
   PYTHONPATH=src python -m torch.distributed.run --nproc_per_node 2 \\
       -m repro_torch.launch.train --device cpu --smoke --nodes 4
 
+  # 2 nodes, each over a 'model' axis of 2 ranks (tensor parallelism):
+  PYTHONPATH=src python -m torch.distributed.run --nproc_per_node 4 \
+      -m repro_torch.launch.train --device cpu --smoke --nodes 2 --tp 2
+
   # fully-synchronized baseline (Mode A):
   ... --mode allreduce
 
@@ -38,13 +42,24 @@ rows, every rank computes the controller's plan and the batches, rank 0
 gathers the node axis into its host memory, leaf by leaf, to write a
 checkpoint (the same files one process writes) and scatters it to resume
 or after the fault drill, and only rank 0 logs. Mode A splits the global batch over the ranks and all-reduces the
-gradients. Tensor parallelism (``--tp`` > 1) waits for ROADMAP Queue 1
-item 9. On the card the step is a ``graphs.GraphedStep`` (the counterpart
+gradients. With ``--tp T`` the world of W ranks is the reference's
+(data, model) mesh, ``make_fleet_mesh(W // T, T)``: each node (Mode B)
+or the one replica (Mode A; ``--nodes 1`` is pure tensor parallelism)
+runs over the T ranks of a ``model`` axis, every leaf the rank's shard
+of the JAX package's ``param_specs`` (drawn layer by layer and sharded as
+drawn: the whole model is never on one card), the dense decoder
+families only (any other raises naming ROADMAP Queue 1 item 9). A
+checkpoint gathers every leaf over ``model`` and then the fleet to rank
+0's host (the JAX package's global arrays, the same files one process
+writes) and scatters it back to resume or after the fault drill; the
+tensor-parallel step, its regions' all-reduces inside, is captured and
+replays bit-equal to eager (chip_smoke.py phase 26 (b)). On the card the step is a ``graphs.GraphedStep`` (the counterpart
 of ``jax.jit``; staging its inputs lets the loop drop its own copy of the
 state, the counterpart of ``donate_argnums``) unless ``graphed=False``
 (``--eager``) asks for the eager step: a graph keeps its static inputs,
 its pool and the fresh outputs, three copies of the state, which a
-full-width state may not fit.
+full-width state may not fit. The eager step consumes its state (its
+``donate``): the optimizer writes into the state's tensors.
 """
 from __future__ import annotations
 
@@ -65,7 +80,8 @@ from ..core.dpsgd import _leaves, _tree_map
 from ..data.pipeline import deterministic_lm_batch
 from ..device import resolve_device
 from ..graphs import GraphedStep
-from ..models import build
+from ..models import build, tp as _tp
+from ..models.transformer import check_dense
 from ..models.layers import torch_dtype
 from ..optim.schedule import constant_lr
 from ..runtime.fault import ElasticController
@@ -73,31 +89,75 @@ from ..train import shardings as shr
 from ..train.step import (init_train_state, make_train_step,
                           reshape_batch_for_nodes)
 
-__all__ = ["main", "train_loop", "param_bytes", "stub_embeds"]
+__all__ = ["main", "train_loop", "param_bytes", "stub_embeds",
+           "model_specs", "shard_cast", "state_specs"]
 
 DISTRIBUTED_ITEM = "ROADMAP Queue 1 item 9"
 
 
-def _mesh(nodes: int, tp: int):
+def _mesh(nodes: int, tp: int, node_mode: bool = True):
     """The reference's (data, model) mesh: the started world as a
-    (fleet, 1) mesh, the node axis over its ranks; None without a world
-    (one process, the node axis whole on its device)."""
+    (fleet, tp) mesh, the node axis over its fleet ranks, each node over
+    ``tp`` ranks of the model axis; None without a world (one process,
+    the node axis whole on its device)."""
     from .mesh import make_fleet_mesh
 
-    if tp > 1:
-        raise NotImplementedError(
-            f"tp={tp}: tensor parallelism (the 'model' mesh axis) is not "
-            f"ported ({DISTRIBUTED_ITEM}); the port carries the node axis "
-            "over the fleet's ranks only")
-    if nodes < 1:
-        raise ValueError(f"nodes must be >= 1, got {nodes}")
+    if nodes < 1 or tp < 1:
+        raise ValueError(f"nodes and tp must be >= 1, got {nodes}, {tp}")
     if not (dist.is_available() and dist.is_initialized()):
+        if tp > 1:
+            raise ValueError(
+                f"tp={tp} needs a world of ranks: {nodes} x {tp} = "
+                f"{nodes * tp} ranks, one a device (python -m "
+                f"torch.distributed.run --nproc_per_node {nodes * tp} ...)")
         return None
-    fleet = dist.get_world_size()
-    if nodes % fleet:
+    world = dist.get_world_size()
+    if world % tp:
+        raise ValueError(
+            f"a 'model' axis of {tp} does not divide the world's {world} "
+            "ranks")
+    fleet = world // tp
+    if node_mode and nodes % fleet:
         raise ValueError(
             f"{nodes} nodes do not divide over a fleet of {fleet} ranks")
-    return make_fleet_mesh(fleet, 1)
+    return make_fleet_mesh(fleet, tp)
+
+
+def model_specs(cfg, size: int):
+    """``train.shardings.param_specs`` of ``cfg``'s parameters over a model
+    axis of ``size``, from their shapes alone (fake tensors: nothing is
+    drawn)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode():
+        return shr.param_specs(build(cfg, "cpu").init(torch.Generator()),
+                               size, cfg.kv_dim)
+
+
+def shard_cast(cfg, model: "_tp.Model"):
+    """A ``cast`` for ``api.init`` that keeps this rank's shard of each
+    piece as it is drawn (``train.shardings.param_specs`` of the piece:
+    the rules read leaf and parent names only)."""
+    def cast(piece: dict) -> dict:
+        return shr.shard_model(
+            piece, shr.param_specs(piece, model.size, cfg.kv_dim), model)
+    return cast
+
+
+def state_specs(state: dict, pspecs) -> dict:
+    """One spec a leaf of a train state: the parameters' for the
+    parameters, the residual and the optimizer's moments, replicated
+    (``P()``) for the counters."""
+    out: dict = {}
+    for k, v in state.items():
+        if k in ("params", "residual"):
+            out[k] = pspecs
+        elif k == "opt":
+            out[k] = {kk: pspecs if kk in ("m", "v") else shr.P()
+                      for kk in v}
+        else:
+            out[k] = shr.P()
+    return out
 
 
 def param_bytes(cfg) -> int:
@@ -141,7 +201,8 @@ def _batch(cfg, run: RunConfig, k: int, global_batch: int, seq_len: int,
 
 
 def _log(fleet: shr.Fleet, msg: str) -> None:
-    if fleet.index == 0:
+    if fleet.index == 0 and (not dist.is_initialized()
+                             or dist.get_rank() == 0):
         print(msg, flush=True)
 
 
@@ -159,16 +220,20 @@ def train_loop(cfg, run: RunConfig, *, nodes: int, tp: int, steps: int,
     # injectable wall timer (runtime/fault.py pattern): the logged `wall_s`
     # column is deterministic when a test stubs `clock`
     clock = clock or time.perf_counter
-    fleet = shr.fleet_of(_mesh(nodes, tp))
+    node_mode = run.mode == "dpsgd"
+    if tp > 1:      # a family without tensor parallelism, before any work
+        check_dense(cfg, _tp.Model(size=tp))
+    mesh = _mesh(nodes, tp, node_mode)
+    fleet = shr.fleet_of(mesh)
+    model = _tp.model_of(mesh)
     if cfg.frontend == "vision" and seq_len <= cfg.n_patches:
         raise ValueError(
             f"seq_len {seq_len} must exceed the vision stub's {cfg.n_patches}"
             " patch positions (the first n_patches positions take the patch "
             "embeddings; the loss needs token positions after them)")
     dev = resolve_device(device)
-    api = build(cfg, dev)
+    api = build(cfg, dev, model=model if model.active else None)
     global_batch = batch_per_node * nodes
-    node_mode = run.mode == "dpsgd"
     # this rank's nodes (Mode B) or its share of the batch (Mode A)
     lo, hi = fleet.block(nodes)
     sharded = fleet.sharded(nodes) and node_mode
@@ -182,15 +247,30 @@ def train_loop(cfg, run: RunConfig, *, nodes: int, tp: int, steps: int,
         plan = choice.plan
         _log(fleet, f"[plan] {choice}")
 
+    pspecs = model_specs(cfg, tp) if model.active else None
+    # the eager step consumes its state, as the JAX trainer donates it
     step_fn = make_train_step(api, run, plan, constant_lr(run.eta),
-                              group=fleet.group)
-    # every node starts from the same x_0: each rank draws it from the seed
+                              group=fleet.group,
+                              model=model if model.active else None,
+                              specs=pspecs, donate=not graphed)
+    # every node starts from the same x_0: each rank draws it from the
+    # seed (under tensor parallelism, keeping its shard as drawn)
     state = init_train_state(
         api, run, torch.Generator(device=dev).manual_seed(run.seed),
-        n_nodes=hi - lo)
+        n_nodes=hi - lo,
+        cast=shard_cast(cfg, model) if model.active else None)
+    sspecs = state_specs(state, pspecs) if model.active else None
+    nodes_axis = nodes if sharded else 1
 
-    mgr = CheckpointManager(ckpt_dir) if ckpt_dir and fleet.index == 0 \
-        else None
+    def gathered(state):
+        """The whole state on rank 0's host (None elsewhere)."""
+        if model.active:
+            return shr.gather_state(state, sspecs, fleet, model,
+                                    nodes_axis)
+        return shr.gather_nodes(state, fleet, nodes) if sharded else state
+
+    first = fleet.index == 0 and model.index == 0
+    mgr = CheckpointManager(ckpt_dir) if ckpt_dir and first else None
     start = 0
     if resume and ckpt_dir:
         found = [None, None]
@@ -201,7 +281,11 @@ def train_loop(cfg, run: RunConfig, *, nodes: int, tp: int, steps: int,
                     lambda x: x.new_empty(0, device="cpu"), state)))
             except FileNotFoundError:
                 pass
-        if fleet.size > 1:
+        if model.active:
+            flag = [found[1]]
+            dist.broadcast_object_list(flag, src=0)
+            found[1] = flag[0]
+        elif fleet.size > 1:
             flag = [found[1]]
             dist.broadcast_object_list(flag, src=fleet.global_rank(0),
                                        group=fleet.group)
@@ -209,8 +293,12 @@ def train_loop(cfg, run: RunConfig, *, nodes: int, tp: int, steps: int,
         if found[1] is not None:
             start = found[1]
             # a replicated state (Mode A) is broadcast whole: an axis of 1
-            state = shr.scatter_nodes(found[0], state, fleet,
-                                      nodes if sharded else 1)
+            if model.active:
+                state = shr.scatter_state(found[0], state, sspecs, fleet,
+                                          model, nodes_axis)
+            else:
+                state = shr.scatter_nodes(found[0], state, fleet,
+                                          nodes_axis)
             _log(fleet, f"[resume] step {start}")
         del found
 
@@ -243,7 +331,7 @@ def train_loop(cfg, run: RunConfig, *, nodes: int, tp: int, steps: int,
         if fail_at == k and node_mode:
             _log(fleet, f"[fault] node {fail_node} dies at step {k}")
             elastic.fail(k, [fail_node])
-            full = shr.gather_nodes(state, fleet, nodes) if sharded else state
+            full = gathered(state)
             state_host = None if full is None else _tree_map(
                 lambda x: x.cpu(), full)
             del full
@@ -252,7 +340,10 @@ def train_loop(cfg, run: RunConfig, *, nodes: int, tp: int, steps: int,
                 state_host = reshape_nodes(state_host, survivors, nodes)
             new_plan = elastic.replan()
             _log(fleet, f"[fault] replanned: {new_plan}")
-            if sharded:
+            if model.active:
+                state = shr.scatter_state(state_host, state, sspecs, fleet,
+                                          model, nodes_axis)
+            elif sharded:
                 state = shr.scatter_nodes(state_host, state, fleet, nodes)
             else:
                 del state
@@ -265,7 +356,7 @@ def train_loop(cfg, run: RunConfig, *, nodes: int, tp: int, steps: int,
             metrics_log.append({"step": k, "loss": loss, "wall_s": dt})
             _log(fleet, f"step {k:5d} loss {loss:.4f} wall {dt:7.1f}s")
         if ckpt_dir and k % ckpt_every == 0:
-            full = shr.gather_nodes(state, fleet, nodes) if sharded else state
+            full = gathered(state)
             if mgr:
                 mgr.save(k, full)
             del full

@@ -30,7 +30,7 @@ import torch
 
 from ..configs.base import ModelConfig, ShapeConfig
 from ..device import resolve_device
-from . import encdec, transformer
+from . import encdec, tp, transformer
 from .layers import torch_dtype
 
 PyTree = Any
@@ -81,11 +81,18 @@ def _encdec_make_inputs(cfg: ModelConfig, shape: ShapeConfig,
             "tokens": tokens.to(device)}
 
 
-def build(cfg: ModelConfig, device: str | torch.device = "cuda") -> ModelAPI:
+def build(cfg: ModelConfig, device: str | torch.device = "cuda",
+          model: Optional[tp.Model] = None) -> ModelAPI:
     """The facade of ``cfg`` with ``init`` and ``make_inputs`` placing
-    tensors on ``device`` (checked when they are called)."""
+    tensors on ``device`` (checked when they are called). ``model`` (a
+    ``models.tp.Model``) runs ``loss`` tensor parallel on the rank's
+    shards (``train.shardings.shard_model``; None: ``tp.current()`` at
+    the call); a family that is not dense raises here under one."""
+    if model is not None:
+        transformer.check_dense(cfg, model)
     if cfg.is_encdec:
         def loss(params, batch, remat="none"):
+            transformer.check_dense(cfg, tp.resolve(model))
             return encdec.encdec_loss(cfg, params, batch, remat=remat)
 
         def prefill(params, batch, max_len=None):
@@ -103,7 +110,8 @@ def build(cfg: ModelConfig, device: str | torch.device = "cuda") -> ModelAPI:
                 cfg, shape, gen, device, batch_override))
 
     def loss(params, batch, remat="none"):
-        return transformer.lm_loss(cfg, params, batch, remat=remat)
+        return transformer.lm_loss(cfg, params, batch, remat=remat,
+                                   model=model)
 
     def prefill(params, batch, max_len=None):
         return transformer.prefill(cfg, params, batch["tokens"],

@@ -20,6 +20,15 @@ JAX package. Global layers keep a full (B, L, Hkv, D) cache; local layers
 keep a ring buffer of ``window`` slots with explicit position tags; cross
 attention reads the encoder K/V its prefill cached (``chunked_attention``,
 one query).
+
+Under tensor parallelism (``model``, ``models.tp``) the train / prefill
+path runs on the rank's q heads: ``wq`` is the rank's columns, ``wo`` its
+rows (partial sums leave by ``tp.reduce_out``), and ``wk`` / ``wv`` give
+the kv heads those q heads read: the rank's shard when it holds exactly
+them, gathered whole (``tp.gather``) when the specs split a head, or the
+replicated weight (through ``tp.copy_in``: its gradient is partial on each
+rank) when ``kv_dim`` does not divide. Decode and cross attention under
+tensor parallelism wait for ROADMAP Queue 1 item 9.
 """
 from __future__ import annotations
 
@@ -29,6 +38,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..kernels import ops
+from . import tp
 from .layers import dense, dense_init, rope, torch_dtype
 
 __all__ = ["attn_init", "init_attn_cache", "attn_apply", "chunked_attention",
@@ -153,6 +163,81 @@ def local_block_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# Tensor parallelism: the rank's heads
+# ---------------------------------------------------------------------------
+
+def head_split(cfg: ModelConfig, model: tp.Model) -> tuple[int, int, int, int]:
+    """(q0, hq, k0, hkv): the rank's first q head and their count, the
+    first kv head they read and the count of those. The q heads must
+    divide over the ranks and each of the rank's kv heads serve the same
+    number of its q heads (flash's GQA)."""
+    n, kv = cfg.n_heads, cfg.n_kv_heads
+    if n % model.size:
+        raise NotImplementedError(
+            f"{n} q heads over a 'model' axis of {model.size}: a q head "
+            f"split over ranks waits for {tp.DENSE_ITEM}")
+    hq = n // model.size
+    q0 = model.index * hq
+    g = n // kv
+    k0 = q0 // g
+    hkv = (q0 + hq - 1) // g + 1 - k0
+    if hq % hkv or any((q0 + i) // g - k0 != i // (hq // hkv)
+                       for i in range(hq)):
+        raise NotImplementedError(
+            f"GQA {n} on {kv} heads over {model.size} ranks gives rank "
+            f"{model.index} q heads of unequal kv groups "
+            f"({tp.DENSE_ITEM})")
+    return q0, hq, k0, hkv
+
+
+def _kv_of_heads(pw: dict, cfg: ModelConfig, model: tp.Model, k0: int,
+                 hkv: int) -> dict:
+    """``wk`` / ``wv`` (``w`` and any ``b``) narrowed to kv heads [k0, k0 +
+    hkv): the weight as it is on an axis of one, the rank's shard as it
+    is when it holds exactly those heads, the shards gathered whole when
+    they split a head, the replicated weight through ``tp.copy_in``."""
+    d = cfg.head_dim
+    lo, hi = k0 * d, (k0 + hkv) * d
+    if not model.active or (model.splits(cfg.kv_dim)
+                            and model.block(cfg.kv_dim) == (lo, hi)):
+        return pw
+    if model.splits(cfg.kv_dim):
+        whole = {k: tp.gather(v, model) for k, v in pw.items()}
+    else:
+        whole = {k: tp.copy_in(v, model) for k, v in pw.items()}
+    return {k: v[..., lo:hi] for k, v in whole.items()}
+
+
+def _attn_train(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
+                positions: torch.Tensor, causal_override: Optional[bool],
+                positions_are_arange: bool,
+                model: tp.Model) -> torch.Tensor:
+    """Self attention's train path (no cache) through the flash kernel,
+    on the rank's heads (``head_split``; all of them on an axis of one),
+    the output projection's partial sums reduced over the ranks."""
+    dt = torch_dtype(cfg.dtype)
+    b, s, _ = x.shape
+    d = cfg.head_dim
+    _, hq, k0, hkv = head_split(cfg, model)
+    x = tp.copy_in(x, model)
+    q = dense(p["wq"], x, dt).reshape(b, s, hq, d)
+    k = dense(_kv_of_heads(p["wk"], cfg, model, k0, hkv), x,
+              dt).reshape(b, s, hkv, d)
+    v = dense(_kv_of_heads(p["wv"], cfg, model, k0, hkv), x,
+              dt).reshape(b, s, hkv, d)
+    q = rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
+    k = rope(k, positions, cfg.rope_theta, cfg.rope_fraction)
+    causal = True if causal_override is None else causal_override
+    window = cfg.window if kind == "local" and cfg.window else 0
+    out = ops.flash_attention_gqa(
+        q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
+        window=window, positions=None if positions_are_arange
+        else positions)
+    y = dense(p["wo"], out.to(dt).reshape(b, s, hq * d), dt)
+    return tp.reduce_out(y, model)
+
+
+# ---------------------------------------------------------------------------
 # Full layer application
 # ---------------------------------------------------------------------------
 
@@ -163,7 +248,8 @@ def attn_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *, kind: str,
                kv_src: Optional[torch.Tensor] = None,
                causal_override: Optional[bool] = None,
                cache_in_place: bool = False,
-               positions_are_arange: bool = False
+               positions_are_arange: bool = False,
+               model: tp.Model = tp.ONE
                ) -> tuple[torch.Tensor, Optional[dict]]:
     """One attention mixer. Modes:
 
@@ -180,7 +266,18 @@ def attn_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *, kind: str,
     the device; a caller that built it so (``transformer.apply``, whose
     training step runs inside a CUDA graph's capture) passes
     ``positions_are_arange`` and nothing is read.
+
+    ``model``: the train path runs on the rank's heads (``_attn_train``);
+    under an active axis the other modes raise.
     """
+    if kind != "cross" and cache is None and cache_index is None:
+        return _attn_train(p, x, cfg, kind, positions, causal_override,
+                           positions_are_arange, model), None
+    if model.active:
+        raise NotImplementedError(
+            "tensor parallelism runs the train path of self attention; "
+            f"decode, prefill caches and cross attention wait for "
+            f"{tp.DENSE_ITEM}")
     dt = torch_dtype(cfg.dtype)
     b, s, _ = x.shape
     q = dense(p["wq"], x, dt).reshape(b, s, cfg.n_heads, cfg.head_dim)
@@ -212,37 +309,35 @@ def attn_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *, kind: str,
     k = rope(k, positions, cfg.rope_theta, cfg.rope_fraction)
 
     if cache_index is None:
-        # ----- train / prefill: the flash kernel -----
+        # ----- prefill: the flash kernel, the keys into the cache -----
         causal = True if causal_override is None else causal_override
         window = cfg.window if kind == "local" and cfg.window else 0
         out = ops.flash_attention_gqa(
             q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
             window=window, positions=None if positions_are_arange
             else positions)
-        new_cache = None
-        if cache is not None:  # prefill: write keys into the cache
-            length = cache["k"].shape[1]
-            new_cache = dict(cache)
-            if "pos" in cache and s >= length:
-                # local ring buffer: decode addresses slot = pos % length,
-                # so place the trailing window rolled to its ring positions
-                shift = s % length
-                kw = torch.roll(k[:, -length:], shift, dims=1)
-                vw = torch.roll(v[:, -length:], shift, dims=1)
-                pos_w = torch.roll(positions[-length:], shift)
-                new_cache["k"] = kw.to(cache["k"].dtype)
-                new_cache["v"] = vw.to(cache["v"].dtype)
+        length = cache["k"].shape[1]
+        new_cache = dict(cache)
+        if "pos" in cache and s >= length:
+            # local ring buffer: decode addresses slot = pos % length,
+            # so place the trailing window rolled to its ring positions
+            shift = s % length
+            kw = torch.roll(k[:, -length:], shift, dims=1)
+            vw = torch.roll(v[:, -length:], shift, dims=1)
+            pos_w = torch.roll(positions[-length:], shift)
+            new_cache["k"] = kw.to(cache["k"].dtype)
+            new_cache["v"] = vw.to(cache["v"].dtype)
+            new_cache["pos"] = pos_w.to(torch.int32)
+        else:
+            # global cache (length >= s) or short prompt into a ring
+            kc, vc = cache["k"].clone(), cache["v"].clone()
+            kc[:, :s] = k.to(kc.dtype)
+            vc[:, :s] = v.to(vc.dtype)
+            new_cache["k"], new_cache["v"] = kc, vc
+            if "pos" in cache:
+                pos_w = torch.nn.functional.pad(positions, (0, length - s),
+                                                value=-1)
                 new_cache["pos"] = pos_w.to(torch.int32)
-            else:
-                # global cache (length >= s) or short prompt into a ring
-                kc, vc = cache["k"].clone(), cache["v"].clone()
-                kc[:, :s] = k.to(kc.dtype)
-                vc[:, :s] = v.to(vc.dtype)
-                new_cache["k"], new_cache["v"] = kc, vc
-                if "pos" in cache:
-                    pos_w = torch.nn.functional.pad(positions, (0, length - s),
-                                                    value=-1)
-                    new_cache["pos"] = pos_w.to(torch.int32)
         y = dense(p["wo"], out.to(dt).reshape(b, s, cfg.q_dim), dt)
         return y, new_cache
 

@@ -18,10 +18,12 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from . import tp
 from .remat import product
 
 __all__ = ["torch_dtype", "normal", "dense_init", "dense", "norm_init",
-           "norm", "mlp_init", "mlp", "embed_init", "rope", "cross_entropy"]
+           "norm", "mlp_init", "mlp", "embed_init", "embed_rows", "rope",
+           "cross_entropy", "vocab_cross_entropy"]
 
 
 def rounded_to(value: float, dtype: torch.dtype) -> float:
@@ -118,7 +120,16 @@ def mlp_init(gen: torch.Generator, d_model: int, d_ff: int, kind: str,
     return p
 
 
-def mlp(p: dict, x: torch.Tensor, kind: str, compute_dtype) -> torch.Tensor:
+def mlp(p: dict, x: torch.Tensor, kind: str, compute_dtype,
+        model: tp.Model = tp.ONE, d_ff: int = 0) -> torch.Tensor:
+    """The MLP; under tensor parallelism (``model`` active and ``d_ff``,
+    the full width, dividing over it) ``w_up`` / ``w_gate`` are the rank's
+    columns and ``w_down`` its rows: x enters by ``tp.copy_in`` and the
+    partial sums leave by ``tp.reduce_out``. A width that does not divide
+    is replicated and runs whole on every rank."""
+    split = model.splits(d_ff)
+    if split:
+        x = tp.copy_in(x, model)
     # jax.nn.gelu defaults to the tanh approximation; F.gelu to the exact
     # erf form, so the approximation is named here.
     up = dense(p["w_up"], x, compute_dtype)
@@ -133,7 +144,8 @@ def mlp(p: dict, x: torch.Tensor, kind: str, compute_dtype) -> torch.Tensor:
         h = torch.square(F.relu(up))
     else:
         raise ValueError(kind)
-    return dense(p["w_down"], h, compute_dtype)
+    y = dense(p["w_down"], h, compute_dtype)
+    return tp.reduce_out(y, model) if split else y
 
 
 # ---------------------------------------------------------------------------
@@ -144,6 +156,23 @@ def embed_init(gen: torch.Generator, vocab: int, d_model: int,
                device: torch.device, dtype: str = "float32") -> dict:
     return {"embedding": normal(gen, (vocab, d_model), device,
                                 d_model**-0.5, dtype)}
+
+
+def embed_rows(table: torch.Tensor, tokens: torch.Tensor,
+               model: tp.Model = tp.ONE, vocab: int = 0) -> torch.Tensor:
+    """``table[tokens]``; under tensor parallelism with the vocab (``vocab``
+    rows in all) split over ``model``, ``table`` is the rank's rows: a
+    token outside them gives a zero row and the rows are summed over the
+    ranks (``tp.reduce_out``: one nonzero term, exact)."""
+    if not model.splits(vocab):
+        return table[tokens]
+    lo, hi = model.block(vocab)
+    local = tokens - lo
+    inside = (local >= 0) & (local < hi - lo)
+    rows = table[local.clamp(0, hi - lo - 1)]
+    rows = torch.where(inside[..., None], rows,
+                       torch.zeros((), dtype=rows.dtype, device=rows.device))
+    return tp.reduce_out(rows, model)
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
@@ -176,6 +205,34 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
     nll = logz - gold
+    return _mean_nll(nll, mask)
+
+
+def _mean_nll(nll: torch.Tensor, mask: Optional[torch.Tensor]):
     if mask is not None:
         return (nll * mask).sum() / torch.clamp(mask.sum(), min=1)
     return nll.mean()
+
+
+def vocab_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                        model: tp.Model,
+                        mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``cross_entropy`` of vocab-parallel logits: ``logits`` (..., S,
+    V / size) are the rank's block of the vocab. The max over the vocab
+    (the stable shift, not differentiated) and the sum of exponentials are
+    reduced over the ranks, and the gold logit comes from the rank that
+    holds it (the others add zero)."""
+    logits = logits.to(torch.float32)
+    width = logits.shape[-1]
+    lo = model.index * width
+    shift = tp.all_max(torch.amax(logits, dim=-1), model)
+    total = tp.reduce_out(
+        torch.sum(torch.exp(logits - shift[..., None]), dim=-1), model)
+    logz = torch.log(total) + shift
+    local = labels.long() - lo
+    inside = (local >= 0) & (local < width)
+    gold = torch.gather(logits, -1, local.clamp(0, width - 1)[..., None])
+    gold = torch.where(inside, gold[..., 0],
+                       torch.zeros((), dtype=logits.dtype,
+                                   device=logits.device))
+    return _mean_nll(logz - tp.reduce_out(gold, model), mask)

@@ -24,6 +24,15 @@ tree (the embedding, each layer, the final norm, the head) as soon as it
 is drawn, and stacked layers are written into their stack one by one: a
 served model never holds its fp32 tree beside the cast one
 (``launch.serve.init_serving_params``).
+
+Tensor parallelism (``model``, a ``models.tp.Model``; ``tp.current()``
+when none is given) runs the dense decoder families' teacher-forced
+forward on the rank's shards of the ``train.shardings.param_specs``
+layout: attention on the rank's heads, the MLPs column / row parallel,
+the embedding and the head vocab-parallel (``lm_loss``'s cross entropy
+over the vocab's blocks, ``apply`` returning the rank's block of the
+logits). Every other family under tensor parallelism raises naming
+ROADMAP Queue 1 item 9; an axis of one runs the one-device code.
 """
 from __future__ import annotations
 
@@ -33,9 +42,10 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
-from . import attention, mla, moe, remat, rglru, rwkv6
-from .layers import (cross_entropy, embed_init, mlp, mlp_init, norm,
-                     norm_init, normal, rounded_to, torch_dtype)
+from . import attention, mla, moe, remat, rglru, rwkv6, tp
+from .layers import (cross_entropy, embed_init, embed_rows, mlp, mlp_init,
+                     norm, norm_init, normal, rounded_to, torch_dtype,
+                     vocab_cross_entropy)
 
 PyTree = Any
 
@@ -166,7 +176,8 @@ def _apply_layer(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
                  cross_src: Optional[torch.Tensor] = None,
                  want_cache: bool = False, encoder_mode: bool = False,
                  cache_in_place: bool = False,
-                 positions_are_arange: bool = False
+                 positions_are_arange: bool = False,
+                 model: tp.Model = tp.ONE
                  ) -> tuple[torch.Tensor, Optional[dict]]:
     """One layer. ``cache_in_place``: decode writes the self-attention
     cache's new token into the given tensors; ``positions_are_arange``:
@@ -197,7 +208,7 @@ def _apply_layer(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
             cache_index=cache_index,
             causal_override=False if encoder_mode else None,
             cache_in_place=cache_in_place,
-            positions_are_arange=positions_are_arange)
+            positions_are_arange=positions_are_arange, model=model)
         if want_cache:
             new_cache["attn"] = attn_cache
     elif kind == "mla":
@@ -232,7 +243,7 @@ def _apply_layer(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
     if "moe" in p:
         x = x + moe.moe_apply(p["moe"], h2, cfg, cfg.moe)
     else:
-        x = x + mlp(p["mlp"], h2, cfg.mlp_kind, dt)
+        x = x + mlp(p["mlp"], h2, cfg.mlp_kind, dt, model, cfg.d_ff)
     return x, (new_cache if want_cache else None)
 
 
@@ -290,18 +301,22 @@ def init_params(cfg: ModelConfig, gen: torch.Generator,
     params["final_norm"] = cast(norm_init(cfg.d_model, cfg.norm, dev,
                                           cfg.param_dtype))
     if not cfg.tie_embeddings:
-        params["lm_head"] = cast({"w": normal(
+        # cast under its name: a cast that lays leaves out by their names
+        # (``train.shardings.param_specs``) sees the head as the head
+        params["lm_head"] = cast({"lm_head": {"w": normal(
             gen, (cfg.d_model, cfg.vocab_size), dev, cfg.d_model**-0.5,
-            cfg.param_dtype)})
+            cfg.param_dtype)}})["lm_head"]
     return params
 
 
 def _embed(cfg: ModelConfig, params: PyTree, tokens: torch.Tensor,
-           patch_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+           patch_embeds: Optional[torch.Tensor] = None,
+           model: tp.Model = tp.ONE) -> torch.Tensor:
     dt = torch_dtype(cfg.dtype)
     # the rows are gathered before the cast (bit-identical to the JAX
     # package's cast-then-gather, without casting the whole table)
-    e = params["embed"]["embedding"][tokens].to(dt)
+    e = embed_rows(params["embed"]["embedding"], tokens, model,
+                   cfg.vocab_size).to(dt)
     # gemma-style scaling; the scale is rounded to the compute dtype first
     # (on the host, without a tensor: a product of two bf16 values is exact
     # in the fp32 the multiply computes in, so this equals the JAX
@@ -313,9 +328,14 @@ def _embed(cfg: ModelConfig, params: PyTree, tokens: torch.Tensor,
     return e
 
 
-def _logits(cfg: ModelConfig, params: PyTree, x: torch.Tensor) -> torch.Tensor:
+def _logits(cfg: ModelConfig, params: PyTree, x: torch.Tensor,
+            model: tp.Model = tp.ONE) -> torch.Tensor:
+    """The logits; with the vocab split over ``model``, the rank's block
+    of them (the head's columns, or the tied table's rows)."""
     dt = torch_dtype(cfg.dtype)
     x = norm(params["final_norm"], x, cfg.norm)
+    if model.splits(cfg.vocab_size):
+        x = tp.copy_in(x, model)
     if cfg.tie_embeddings:
         logits = x @ params["embed"]["embedding"].to(dt).T
     else:
@@ -328,7 +348,8 @@ def _logits(cfg: ModelConfig, params: PyTree, x: torch.Tensor) -> torch.Tensor:
 def _run_stack(cfg: ModelConfig, params: PyTree, x: torch.Tensor, *,
                positions: torch.Tensor, caches: Optional[dict] = None,
                cache_index: Optional[int] = None, want_cache: bool = False,
-               positions_are_arange: bool = False, remat_policy: str = "none"
+               positions_are_arange: bool = False, remat_policy: str = "none",
+               model: tp.Model = tp.ONE
                ) -> tuple[torch.Tensor, Optional[dict]]:
     """The decoder-only stack (prologue, unit, tail). The encoder-decoder
     stacks are ``models.encdec._run_stacked``. ``remat_policy`` != "none"
@@ -344,7 +365,8 @@ def _run_stack(cfg: ModelConfig, params: PyTree, x: torch.Tensor, *,
     def run_layer(p, x, kind, cache):
         return _apply_layer(p, x, cfg, kind, positions=positions, cache=cache,
                             cache_index=cache_index, want_cache=want_cache,
-                            positions_are_arange=positions_are_arange)
+                            positions_are_arange=positions_are_arange,
+                            model=model)
 
     for i, p in enumerate(params["prologue"]):
         cache = caches["prologue"][i] if caches else None
@@ -361,7 +383,7 @@ def _run_stack(cfg: ModelConfig, params: PyTree, x: torch.Tensor, *,
                 x, _ = _apply_layer(
                     unit_params[j], x, cfg, unit_kinds[j],
                     positions=positions,
-                    positions_are_arange=positions_are_arange)
+                    positions_are_arange=positions_are_arange, model=model)
             return x
         for rep in range(repeats):
             if remat_policy != "none":
@@ -390,25 +412,50 @@ def _run_stack(cfg: ModelConfig, params: PyTree, x: torch.Tensor, *,
 # Public API
 # ---------------------------------------------------------------------------
 
+def check_dense(cfg: ModelConfig, model: tp.Model) -> None:
+    """Tensor parallelism runs the dense decoder families (global and
+    local attention, dense MLPs); any other family under an active
+    ``model`` raises."""
+    if not model.active:
+        return
+    kinds = {_mixer_kind(cfg, k) for k in cfg.pattern}
+    if cfg.is_encdec or cfg.moe is not None or kinds - {"global", "local"}:
+        raise NotImplementedError(
+            f"tensor parallelism (a 'model' axis of {model.size}) runs the "
+            f"dense decoder families; {cfg.name} ({cfg.family}: "
+            f"{sorted(kinds)}{', moe' if cfg.moe else ''}"
+            f"{', encoder-decoder' if cfg.is_encdec else ''}) waits for "
+            f"{tp.DENSE_ITEM}")
+
+
 def apply(cfg: ModelConfig, params: PyTree, tokens: torch.Tensor, *,
           patch_embeds: Optional[torch.Tensor] = None,
-          remat: str = "none") -> torch.Tensor:
-    """Teacher-forced forward: (B, S) tokens -> (B, S, V) logits.
-    ``remat``: "none" | "full" | "dots" (``models.remat``)."""
-    x = _embed(cfg, params, tokens, patch_embeds)
+          remat: str = "none", model: Optional[tp.Model] = None
+          ) -> torch.Tensor:
+    """Teacher-forced forward: (B, S) tokens -> (B, S, V) logits (under
+    tensor parallelism with the vocab split, the rank's (B, S, V / size)
+    block). ``remat``: "none" | "full" | "dots" (``models.remat``)."""
+    model = tp.resolve(model)
+    check_dense(cfg, model)
+    x = _embed(cfg, params, tokens, patch_embeds, model)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     x, _ = _run_stack(cfg, params, x, positions=positions,
-                      positions_are_arange=True, remat_policy=remat)
-    return _logits(cfg, params, x)
+                      positions_are_arange=True, remat_policy=remat,
+                      model=model)
+    return _logits(cfg, params, x, model)
 
 
 def lm_loss(cfg: ModelConfig, params: PyTree, batch: dict, *,
-            remat: str = "none") -> torch.Tensor:
+            remat: str = "none", model: Optional[tp.Model] = None
+            ) -> torch.Tensor:
     """Next-token cross entropy on batch["tokens"] (B, S); differentiable
     (``torch.func.grad``, autograd), under ``torch.func.vmap`` too."""
+    model = tp.resolve(model)
     tokens = batch["tokens"]
     logits = apply(cfg, params, tokens, patch_embeds=batch.get("patch_embeds"),
-                   remat=remat)
+                   remat=remat, model=model)
+    if model.splits(cfg.vocab_size):
+        return vocab_cross_entropy(logits[:, :-1], tokens[:, 1:], model)
     return cross_entropy(logits[:, :-1], tokens[:, 1:])
 
 

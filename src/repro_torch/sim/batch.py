@@ -37,7 +37,14 @@ time-varying W gathers the node rows over the fleet (for int8, the send's
 payloads and scales) and runs the rank's rows of W through row 1 or the
 q8 receive (``core.dpsgd``'s ``group`` path). The first live node's
 snapshot is summed over the ranks from its owner; losses, rollbacks and
-the final parameters are gathered once at the end.
+the final parameters are gathered once at the end. A mesh with a
+``model`` axis (tensor parallelism, the dense decoder families) also
+lays every leaf out by ``train.shardings.param_specs`` over it (the
+reference's ``node_param_specs``) and runs the family's loss under
+``models.tp.use``; the snapshots and the final parameters are gathered
+whole over it. The compressed rounds quantize the whole message,
+gathered over the model axis, so that their scale blocks are one
+device's.
 
 Parity: on any trace the loop realizes exactly the per-round driver's
 update sequence (same batches, same W order), so per-round losses match
@@ -132,14 +139,28 @@ def _snapshot(x: torch.Tensor, row: torch.Tensor, fleet) -> torch.Tensor:
 
 
 def _family_body(loss_fn, config, payload, collect_node0, watchdog,
-                 fleet=None):
+                 fleet=None, shards=None):
     """One round of an (S,) family: each trace's step in turn (its own W,
     mask, batch and residuals), then the watchdog's rollback to the
     round's input rows and the snapshot of row ``first[s]``. Outputs are
     stacked on the family axis. ``fleet`` (group, lo): the parameters,
-    batch and mask are the rank's block of nodes from row lo, W whole."""
+    batch and mask are the rank's block of nodes from row lo, W whole.
+    ``shards`` (``(model, specs)``, ``_shard_model``): the leaves are the
+    rank's shards over the model axis; a compressed round quantizes the
+    whole leaves (gathered over it, the shard taken back after), so its
+    scale blocks are one device's, and a row the watchdog finds bad on
+    any rank of the axis rolls back on all of them."""
+    from ..models import tp
+
     compressed = payload.mode != "none"
     group = None if fleet is None else fleet[0]
+    model, whole = tp.ONE, None
+    if shards is not None:
+        from ..train.shardings import gather_model, shard_model
+
+        model, specs = shards
+        whole = (lambda t: gather_model(t, specs, model, dst=None),
+                 lambda t: shard_model(t, specs, model))
 
     def body(params, res, batch, w, active, first):
         out: dict = {"params": [], "losses": [], "res": [], "node0": [],
@@ -150,12 +171,15 @@ def _family_body(loss_fn, config, payload, collect_node0, watchdog,
             if compressed:
                 new_p, new_r, losses = dpsgd.dpsgd_masked_compressed_step(
                     loss_fn, p, b, w[s], active[s],
-                    _tree_map(lambda x: x[s], res), payload, config, group)
+                    _tree_map(lambda x: x[s], res), payload, config, group,
+                    whole)
             else:
                 new_p, losses = dpsgd.dpsgd_masked_step(
                     loss_fn, p, b, w[s], active[s], config, group)
             if watchdog:
                 bad = _nonfinite_rows(new_p)
+                if model.active:
+                    bad = tp.all_max(bad.to(torch.uint8), model).bool()
                 new_p = _row_where(bad, p, new_p)
                 if compressed:
                     new_r = _row_where(bad, dpsgd.zero_residuals(new_r),
@@ -215,34 +239,54 @@ def _shard_family(params0: PyTree, batches: PyTree, fleet, n: int):
     return params0, batches
 
 
-def _check_mesh(mesh) -> None:
-    """The mesh's 'model' axis must be 1: tensor parallelism is not
-    executed (ROADMAP Queue 1 item 9)."""
-    from ..launch.mesh import tp_size
+def _model_specs(tree: PyTree, size: int):
+    """``param_specs`` of ``tree`` over a model axis of ``size`` (aligned
+    to the trailing dims: the family and node axes in front pass
+    through). A tree none of whose leaves the specs split (a model
+    without tensor parallelism: the CNN, or no tensors at all) raises: it
+    is never replicated silently."""
+    from ..models import tp
+    from ..train.shardings import param_specs, spec_leaves
 
-    if tp_size(mesh) > 1:
+    leaves = dpsgd._leaves(tree)
+    specs = param_specs(tree, size) if all(
+        hasattr(x, "ndim") for x in leaves) else None
+    if specs is None or not any("model" in sp for sp in spec_leaves(specs)):
         raise NotImplementedError(
-            f"a mesh with a 'model' axis of {tp_size(mesh)}: tensor "
-            "parallelism is not ported (ROADMAP Queue 1 item 9); use a "
-            "(fleet, 1) mesh")
+            f"a 'model' axis of {size} over a tree no leaf of which "
+            f"tensor parallelism splits: waits for {tp.DENSE_ITEM}")
+    return specs
+
+
+def _shard_model(params0: PyTree, model):
+    """(params, (model, specs)): every leaf's shard over ``model`` by
+    ``_model_specs``; (params0, None) for an axis of one."""
+    if not model.active:
+        return params0, None
+    from ..train.shardings import shard_model
+
+    specs = _model_specs(params0, model.size)
+    return shard_model(params0, specs, model), (model, specs)
 
 
 def _laid_out(owned: list, batches: PyTree, mesh, n: int):
-    """(owned, batches, fleet): the family laid out on ``mesh``'s fleet
-    (``_shard_family``), or as it is for no mesh."""
+    """(owned, batches, fleet, shards): the family laid out on ``mesh``'s
+    fleet (``_shard_family``) and model axis (``_shard_model``), or as it
+    is for no mesh."""
     if mesh is None:
-        return owned, batches, None
+        return owned, batches, None, None
+    from ..models import tp
     from ..train.shardings import fleet_of
 
-    _check_mesh(mesh)
     fleet = fleet_of(mesh)
     params0, batches = _shard_family(owned.pop(), batches, fleet, n)
-    return [params0], batches, fleet
+    params0, shards = _shard_model(params0, tp.model_of(mesh))
+    return [params0], batches, fleet, shards
 
 
 def _train_family(loss_fn, owned, w_seq, live_seq, batch_seq, config,
                   collect_node0, payload, active_seq, watchdog,
-                  what: str = "train_on_trace", fleet=None):
+                  what: str = "train_on_trace", fleet=None, shards=None):
     """The round loop over an (S,) family: ``owned`` a list holding the
     initial parameters, leaves (S, n, ...), which the loop pops, so that
     it holds their only reference and drops them once the first round's
@@ -259,7 +303,13 @@ def _train_family(loss_fn, owned, w_seq, live_seq, batch_seq, config,
     ``fleet`` (a ``train.shardings.Fleet``): the parameters and batches
     are the rank's block of the node axis (``_shard_family``), the masks
     and W whole; the losses, rollbacks and final parameters come back
-    whole; the rounds then run eager (``_family_step``)."""
+    whole; the rounds then run eager (``_family_step``). ``shards``
+    (``(model, specs)``, ``_shard_model``): every leaf is the rank's shard
+    over the model axis, the rounds run under ``models.tp.use(model)``
+    (eager), and the snapshots and final parameters come back whole."""
+    from ..models import tp
+
+    model = tp.ONE if shards is None else shards[0]
     if payload.mode == "auto":
         raise ValueError(
             f"{what} needs a concrete payload mode; \"auto\" is "
@@ -284,8 +334,11 @@ def _train_family(loss_fn, owned, w_seq, live_seq, batch_seq, config,
     batch = _tree_map(lambda x: torch.as_tensor(x, device=dev), batch_seq)
     # first live row per round (original-id order), computed on the device
     first = live.to(torch.int32).argmax(-1) if collect_node0 else None
-    step = _family_step(loss_fn, config, payload, bool(collect_node0),
-                        watchdog, body_fleet)
+    key = (loss_fn, config, payload, bool(collect_node0), watchdog,
+           body_fleet)
+    # a family over a model axis runs eager too (its capture is not tried)
+    step = _EagerStep(_family_body(*key, shards=shards)) if model.active \
+        else _family_step(*key)
 
     res = dpsgd.zero_residuals(params) if compressed else None
     losses, node0, rollbacks = [], [], []
@@ -296,7 +349,8 @@ def _train_family(loss_fn, owned, w_seq, live_seq, batch_seq, config,
         # the graph's static inputs hold them now: no second copy of the
         # parameters lives while the round makes the next
         params = res = None
-        out = run()
+        with tp.use(model):
+            out = run()
         params, res = out["params"], out.get("res")
         losses.append(out["losses"])
         if collect_node0 and (collect_node0 is True or r in collect_node0):
@@ -311,6 +365,11 @@ def _train_family(loss_fn, owned, w_seq, live_seq, batch_seq, config,
         losses = all_gather_nodes(losses, n, fleet.group, dim=2)
         if watchdog:
             rollbacks = all_gather_nodes(rollbacks, n, fleet.group, dim=2)
+    if model.active:
+        from ..train.shardings import gather_model
+
+        params = gather_model(params, shards[1], model, dst=None)
+        node0 = [gather_model(t, shards[1], model, dst=None) for t in node0]
     outs = (params, losses)
     if collect_node0:
         outs += (_tree_map(lambda *xs: torch.stack(xs, 1), *node0),)
@@ -370,14 +429,14 @@ def train_on_trace(
     run with the node axis over the fleet (``_shard_family``).
     """
     one = lambda x: torch.as_tensor(x)[None]              # noqa: E731
-    owned, batches, fleet = _laid_out(
+    owned, batches, fleet, shards = _laid_out(
         [_tree_map(lambda p: p[None], node_params)],
         _tree_map(one, batch_seq), mesh, int(np.shape(w_seq)[-1]))
     outs = _train_family(
         loss_fn, owned, one(w_seq), one(live_seq), batches, config,
         collect_node0, payload,
         None if active_seq is None else one(active_seq), watchdog,
-        fleet=fleet)
+        fleet=fleet, shards=shards)
     # (final, losses[, node0_snaps][, rollbacks]) — extras in that order
     return tuple(_tree_map(lambda x: x[0], o) for o in outs)
 
@@ -409,11 +468,12 @@ def train_on_traces(
     owned = [node_params if params_batched else _tree_map(
         lambda p: p[None].expand(s, *p.shape).clone(), node_params)]
     del node_params     # the round loop drops them once its graph has them
-    owned, batch_seq, fleet = _laid_out(owned, batch_seq, mesh,
-                                        int(np.shape(w_seq)[-1]))
+    owned, batch_seq, fleet, shards = _laid_out(owned, batch_seq, mesh,
+                                                int(np.shape(w_seq)[-1]))
     return _train_family(loss_fn, owned, w_seq, live_seq, batch_seq,
                          config, collect_node0, payload, active_seq,
-                         watchdog, what="train_on_traces", fleet=fleet)
+                         watchdog, what="train_on_traces", fleet=fleet,
+                         shards=shards)
 
 
 def train_on_trace_reference(
@@ -689,10 +749,11 @@ def train_model_on_traces(
     Training runs on ``device`` (``"cuda"`` unless the caller asks for the
     CPU), and so does the scan engine when ``engine`` picks it; the
     snapshots are evaluated ``EVAL_CHUNK`` at a time. ``mesh`` (a
-    ``launch.mesh.make_fleet_mesh`` of this rank's world, 'model' 1) lays
-    the family's node axis over the fleet (``_shard_family``: sharded when
-    it divides, else whole on every rank); every rank gets the whole
-    results.
+    ``launch.mesh.make_fleet_mesh`` of this rank's world) lays the
+    family's node axis over the fleet (``_shard_family``: sharded when it
+    divides, else whole on every rank) and, with a 'model' axis, every
+    leaf over it (``_shard_model``: tensor parallelism, the dense decoder
+    families); every rank gets the whole results.
 
     Returns ``(traces, out)`` like ``train_cnn_on_traces``: masked mean
     ``losses`` (S, rounds), eval-round metrics ``acc`` (S, E) with
@@ -700,13 +761,16 @@ def train_model_on_traces(
     ``eval_fn``), ``curves``, per-trace compacted ``final_params``, and
     watchdog ``rollbacks``."""
     from ..checkpoint.ckpt import compact_nodes
+    from ..launch.mesh import tp_size
 
-    if mesh is not None:
-        _check_mesh(mesh)
     dev = resolve_device(device)
     cfgs = [get_scenario(c) if isinstance(c, str) else c for c in configs]
     if not cfgs:
         raise ValueError("train_model_on_traces needs at least one config")
+    if mesh is not None and tp_size(mesh) > 1:
+        # a model without tensor parallelism refuses before the traces;
+        # a family that is not dense refuses in its loss (check_dense)
+        _model_specs(adapter.init_params(cfgs[0].seed), tp_size(mesh))
     n_nodes = cfgs[0].n_nodes
     eval_every = cfgs[0].eval_every_rounds
     payload = cfgs[0].payload

@@ -1,6 +1,6 @@
 """Sharded real-model train-on-trace smoke — runnable as a module.
 
-    PYTHONPATH=src python -m torch.distributed.run --nproc_per_node 2 \
+    PYTHONPATH=src python -m torch.distributed.run --nproc_per_node 4 \
         -m repro_torch.sim.real_model_smoke --json --device cpu
 
 The torch counterpart of ``repro.sim.real_model_smoke``, run with one
@@ -11,16 +11,19 @@ train-on-trace three ways:
 
 1. the per-round reference loop (``train_on_trace_reference``) — the oracle;
 2. the round loop with the node axis laid over a
-   ``launch.mesh.make_fleet_mesh`` (``sim.batch._shard_family``),
-   asserting the nodes actually span >= 2 ranks;
+   ``launch.mesh.make_fleet_mesh`` (``sim.batch._shard_family``) and each
+   node's tensors over its ``model`` axis (tensor parallelism,
+   ``sim.batch._shard_model``), asserting the final parameters actually
+   span >= 2 ranks;
 3. the full ``train_model_on_traces`` driver on the same mesh.
 
 All three must agree to the parity bound (<=1e-5 on final params and
 per-round losses). Exit code 0 + a JSON report on stdout (rank 0) when
-they do. ``devices_spanned`` counts the ranks holding a block of the node
-axis (each rank its own device: a card under NCCL, a process on the host
-under gloo). ``--model`` > 1 (tensor parallelism) raises: ROADMAP Queue 1
-item 9.
+they do. ``devices_spanned`` counts the ranks holding a part of the
+parameters: a block of the node axis, times the model axis's ranks when
+the specs split a leaf over it (each rank its own device: a card under
+NCCL, a process on the host under gloo). The defaults are the JAX
+package's: a fleet of 2 by a model axis of 2, a world of 4 ranks.
 """
 from __future__ import annotations
 
@@ -29,16 +32,14 @@ import json
 import os
 import sys
 
-TP_ITEM = "ROADMAP Queue 1 item 9"
-
 
 def run(arch: str = "stablelm-3b", scenario: str = "fading", rounds: int = 4,
-        fleet: int = 2, model: int = 1, batch: int = 2, seq_len: int = 16,
+        fleet: int = 2, model: int = 2, batch: int = 2, seq_len: int = 16,
         eta: float = 0.05, tol: float = 1e-5,
         device: str = "cuda") -> dict:
-    """Run the smoke in a started world of at least ``fleet`` ranks
-    (``launch.mesh.init_world``); every rank calls it and gets the report
-    dict (key ``ok``). The sharded round loops run eager (a sharded
+    """Run the smoke in a started world of at least ``fleet * model``
+    ranks (``launch.mesh.init_world``); every rank calls it and gets the
+    report dict (key ``ok``). The sharded round loops run eager (a sharded
     family refuses a CUDA graph, ``sim.batch``)."""
     import numpy as np
     import torch
@@ -47,16 +48,13 @@ def run(arch: str = "stablelm-3b", scenario: str = "fading", rounds: int = 4,
     from ..core import dpsgd
     from ..core.dpsgd import DPSGDConfig, _leaves
     from ..launch.mesh import make_fleet_mesh
+    from ..models import tp
     from ..train.shardings import fleet_of
     from .batch import (train_model_on_traces, train_on_trace,
                         train_on_trace_reference, transformer_adapter)
     from .scenario import get_scenario
     from .trace import precompute_traces
 
-    if model > 1:
-        raise NotImplementedError(
-            f"--model {model}: tensor parallelism is not ported ({TP_ITEM}); "
-            "the smoke lays the node axis over the fleet only")
     dev = torch.device(device)
     if dev.type == "cuda":
         dev = torch.device("cuda", torch.cuda.current_device())
@@ -83,13 +81,15 @@ def run(arch: str = "stablelm-3b", scenario: str = "fading", rounds: int = 4,
         payload=cfg.payload, active_seq=tr.active)
     ref_losses = np.asarray(ref_losses, dtype=np.float64)
 
-    # 2. the round loop with the node axis over 'fleet'
+    # 2. the round loop with the node axis over 'fleet', tensors over
+    # 'model'
     mesh = make_fleet_mesh(fleet, model)
     place = fleet_of(mesh)
     final, losses = train_on_trace(
         adapter.loss_fn, params0, tr.w_eff, tr.live, batches, config,
         payload=cfg.payload, active_seq=tr.active, mesh=mesh)
-    spanned = place.size if place.sharded(cfg.n_nodes) else 1
+    spanned = ((place.size if place.sharded(cfg.n_nodes) else 1)
+               * tp.model_of(mesh).size)
     param_diff = diff(final, ref_final)
     loss_diff = float(np.max(np.abs(
         losses.detach().cpu().numpy().astype(np.float64) - ref_losses)))
@@ -141,28 +141,23 @@ def main(argv=None) -> int:
     ap.add_argument("--arch", default="stablelm-3b")
     ap.add_argument("--scenario", default="fading")
     ap.add_argument("--rounds", type=int, default=4)
-    ap.add_argument("--fleet", type=int, default=None,
-                    help="ranks on the node axis (default: the world)")
-    ap.add_argument("--model", type=int, default=1)
+    ap.add_argument("--fleet", type=int, default=2)
+    ap.add_argument("--model", type=int, default=2)
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--seq-len", type=int, default=16)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--json", action="store_true",
                     help="emit the full report as JSON on stdout")
     args = ap.parse_args(argv)
-    if args.model > 1:
-        raise NotImplementedError(
-            f"--model {args.model}: tensor parallelism is not ported "
-            f"({TP_ITEM})")
     if "WORLD_SIZE" not in os.environ:
-        raise SystemExit("run under torchrun: python -m torch.distributed.run"
-                         " --nproc_per_node 2 -m repro_torch.sim."
-                         "real_model_smoke")
+        need = args.fleet * args.model
+        raise SystemExit(f"run under torchrun, {need} ranks: python -m "
+                         f"torch.distributed.run --nproc_per_node {need} "
+                         "-m repro_torch.sim.real_model_smoke")
     device = init_world(args.device)
     try:
         report = run(arch=args.arch, scenario=args.scenario,
-                     rounds=args.rounds,
-                     fleet=args.fleet or dist.get_world_size(),
+                     rounds=args.rounds, fleet=args.fleet,
                      model=args.model, batch=args.batch,
                      seq_len=args.seq_len, device=str(device))
     finally:

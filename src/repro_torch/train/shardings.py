@@ -9,15 +9,19 @@ serving caches shard kv-heads when divisible, else head_dim
 (``cache_specs``). A spec is a ``P``, a tuple of entries, equal entry for
 entry to the JAX package's ``PartitionSpec``.
 
-The ``model`` entries are computed, not executed: the port carries the
-node axis over the ``fleet`` ranks only (``tp`` > 1 raises in
-``launch.train``, ROADMAP Queue 1 item 9). The layout this module does
-execute is the node axis's: ``Fleet`` is a rank's place on the mesh's
-node axis, ``shard_nodes`` takes its block of every node-stacked leaf
-(the node entry of ``node_param_specs``: sharded when the node count
+Both axes are executed. The node axis: ``Fleet`` is a rank's place on the
+mesh's node axis, ``shard_nodes`` takes its block of every node-stacked
+leaf (the node entry of ``node_param_specs``: sharded when the node count
 divides over the fleet, else replicated), ``gather_nodes`` and
 ``scatter_nodes`` move the whole axis to and from one rank's host memory
-(checkpoints, the fault drill), one leaf at a time.
+(checkpoints, the fault drill), one leaf at a time. The ``model`` axis
+(tensor parallelism, ``models.tp``): ``shard_model`` takes a rank's
+slice of every leaf by its spec (the spec's entries aligned to the leaf's
+trailing dims, so node and family axes in front pass through),
+``gather_model`` is its inverse, and ``gather_state`` / ``scatter_state``
+compose the two axes: over ``model`` to the model axis's first rank,
+then over the node axis to the host of the world's first rank, leaf by
+leaf, never the whole state on one card.
 """
 from __future__ import annotations
 
@@ -29,12 +33,15 @@ import torch.distributed as dist
 
 from ..core.dpsgd import _leaves, _unflatten
 from ..core.gossip import all_gather_nodes
+from ..models import tp as _tp
 
 PyTree = Any
 
 __all__ = ["P", "param_specs", "cache_specs", "batch_specs", "prepend_axes",
-           "node_param_specs", "Fleet", "fleet_of", "fleet_of_group",
-           "shard_nodes", "gather_nodes", "scatter_nodes"]
+           "node_param_specs", "spec_leaves", "Fleet", "fleet_of",
+           "fleet_of_group", "shard_nodes", "gather_nodes", "scatter_nodes",
+           "model_dim", "shard_model", "gather_model", "gather_state",
+           "scatter_state"]
 
 
 class P(tuple):
@@ -233,6 +240,16 @@ def node_param_specs(params: PyTree, mesh,
     return _map_with_path(spec, params)
 
 
+def spec_leaves(specs: PyTree) -> list:
+    """The specs of a spec tree in ``jax.tree``'s leaf order (a ``P`` is
+    a leaf, not a tuple to walk)."""
+    if isinstance(specs, P):
+        return [specs]
+    if isinstance(specs, dict):
+        return [s for k in sorted(specs) for s in spec_leaves(specs[k])]
+    return [s for item in specs for s in spec_leaves(item)]
+
+
 # ---------------------------------------------------------------------------
 # The node axis over the fleet's ranks
 # ---------------------------------------------------------------------------
@@ -318,21 +335,23 @@ def gather_nodes(tree: PyTree, fleet: Fleet, n_nodes: int,
     if not fleet.sharded(n_nodes):
         return tree if dst is None or fleet.index == dst else None
     mine = dst is None or fleet.index == dst
-    out = []
-    for x in _leaves(tree):
-        if x.dim() == 0:
-            out.append(x if dst is None else x.cpu())
-            continue
-        if dst is None:
-            out.append(all_gather_nodes(x, n_nodes, fleet.group))
-            continue
-        full = x.new_empty((n_nodes, *x.shape[1:])) if mine else None
-        parts = list(full.chunk(fleet.size)) if mine else None
-        dist.gather(x.contiguous(), parts, dst=fleet.global_rank(dst),
-                    group=fleet.group)
-        out.append(full.cpu() if mine else None)
-        del full, parts
+    out = [_gather_leaf_nodes(x, fleet, n_nodes, dst) for x in _leaves(tree)]
     return _unflatten(tree, out) if mine else None
+
+
+def _gather_leaf_nodes(x: torch.Tensor, fleet: Fleet, n_nodes: int,
+                       dst: Optional[int]) -> Optional[torch.Tensor]:
+    """One leaf of ``gather_nodes`` (the node axis sharded)."""
+    mine = dst is None or fleet.index == dst
+    if x.dim() == 0:
+        return x if dst is None else (x.cpu() if mine else None)
+    if dst is None:
+        return all_gather_nodes(x, n_nodes, fleet.group)
+    full = x.new_empty((n_nodes, *x.shape[1:])) if mine else None
+    parts = list(full.chunk(fleet.size)) if mine else None
+    dist.gather(x.contiguous(), parts, dst=fleet.global_rank(dst),
+                group=fleet.group)
+    return full.cpu() if mine else None
 
 
 def scatter_nodes(full: Optional[PyTree], like: PyTree, fleet: Fleet,
@@ -346,20 +365,152 @@ def scatter_nodes(full: Optional[PyTree], like: PyTree, fleet: Fleet,
                                  zip(_leaves(full), _leaves(like))])
     mine = fleet.index == src
     src_leaves = _leaves(full) if mine else [None] * len(_leaves(like))
+    return _unflatten(like, [
+        _scatter_leaf_nodes(x, torch.empty_like(ref), fleet, n_nodes, src)
+        for x, ref in zip(src_leaves, _leaves(like))])
+
+
+def _scatter_leaf_nodes(x: Optional[torch.Tensor], got: torch.Tensor,
+                        fleet: Fleet, n_nodes: int,
+                        src: int) -> torch.Tensor:
+    """One leaf of ``scatter_nodes``: ``x`` (the whole leaf, on fleet index
+    ``src``) into ``got``, this rank's block."""
+    mine = fleet.index == src
+    if fleet.size == 1:
+        return got.copy_(x)
+    if got.dim() == 0 or not fleet.sharded(n_nodes):
+        if mine:
+            got.copy_(x)
+        dist.broadcast(got, src=fleet.global_rank(src), group=fleet.group)
+    else:
+        parts = None
+        if mine:
+            x = x.to(got.device)
+            parts = [c.contiguous() for c in x.chunk(fleet.size)]
+        dist.scatter(got, parts, src=fleet.global_rank(src),
+                     group=fleet.group)
+        del parts
+    return got
+
+
+# ---------------------------------------------------------------------------
+# The model axis (tensor parallelism) and both axes together
+# ---------------------------------------------------------------------------
+
+def model_dim(spec: P, ndim: int) -> Optional[int]:
+    """The dim of an ``ndim``-d leaf that ``spec`` (aligned to its trailing
+    dims) shards over ``'model'``, or None."""
+    for i, entry in enumerate(reversed(tuple(spec))):
+        names = entry if isinstance(entry, tuple) else (entry,)
+        if "model" in names:
+            return ndim - 1 - i
+    return None
+
+
+def shard_model(tree: PyTree, specs: PyTree, model) -> PyTree:
+    """This rank's slice of every leaf by its spec (``param_specs``; its
+    entries aligned to the leaf's trailing dims), each a tensor of its
+    own; a replicated leaf is kept whole (the same tensor)."""
+    if not model.active:
+        return tree
     out = []
-    for x, ref in zip(src_leaves, _leaves(like)):
+    for x, spec in zip(_leaves(tree), spec_leaves(specs)):
+        d = model_dim(spec, x.dim())
+        out.append(x if d is None else
+                   x.chunk(model.size, dim=d)[model.index].clone())
+    return _unflatten(tree, out)
+
+
+def _gather_leaf_model(x: torch.Tensor, d: Optional[int], model,
+                       dst: Optional[int]) -> Optional[torch.Tensor]:
+    """One leaf whole over ``model``: on index ``dst``'s device (None
+    elsewhere), or on every rank's for ``dst=None``."""
+    if d is None or not model.active:
+        return x if dst is None or model.index == dst else None
+    mine = dst is None or model.index == dst
+    parts = [torch.empty_like(x) for _ in range(model.size)] if mine \
+        else None
+    if dst is None:
+        dist.all_gather(parts, x.contiguous(), group=model.group)
+    else:
+        dist.gather(x.contiguous(), parts,
+                    dst=dist.get_global_rank(model.group, dst),
+                    group=model.group)
+    return torch.cat(parts, dim=d) if mine else None
+
+
+def gather_model(tree: PyTree, specs: PyTree, model,
+                 dst: Optional[int] = 0) -> Optional[PyTree]:
+    """The inverse of ``shard_model``: every leaf whole on model index
+    ``dst``'s host (None elsewhere), leaf by leaf, or on every rank's
+    device for ``dst=None``. A collective over the model group."""
+    if not model.active:
+        return tree
+    mine = dst is None or model.index == dst
+    out = []
+    for x, spec in zip(_leaves(tree), spec_leaves(specs)):
+        y = _gather_leaf_model(x, model_dim(spec, x.dim()), model, dst)
+        out.append(None if y is None else (y if dst is None else y.cpu()))
+        del y
+    return _unflatten(tree, out) if mine else None
+
+
+def gather_state(tree: PyTree, specs: PyTree, fleet: Fleet, model,
+                 n_nodes: int) -> Optional[PyTree]:
+    """Every leaf whole over both axes on the host of the rank at fleet
+    index 0 and model index 0 (None elsewhere): over ``model`` to the
+    model axis's first rank, then over the fleet among those (the node
+    axis as ``gather_nodes``), one leaf at a time. ``specs`` one spec a
+    leaf (its entries aligned to the leaf's trailing dims). A node axis
+    the fleet does not shard is whole on fleet index 0's model axis: the
+    other fleet indices gather nothing."""
+    mine = model.index == 0 and fleet.index == 0
+    if not fleet.sharded(n_nodes) and fleet.index != 0:
+        return None
+    out = []
+    for x, spec in zip(_leaves(tree), spec_leaves(specs)):
+        y = _gather_leaf_model(x, model_dim(spec, x.dim()), model, 0)
+        if y is not None:
+            y = (_gather_leaf_nodes(y, fleet, n_nodes, 0)
+                 if fleet.sharded(n_nodes) else y.cpu())
+        out.append(y)
+        del y
+    return _unflatten(tree, out) if mine else None
+
+
+def scatter_state(full: Optional[PyTree], like: PyTree, specs: PyTree,
+                  fleet: Fleet, model, n_nodes: int) -> PyTree:
+    """The inverse of ``gather_state``: ``full`` (on the host of fleet
+    index 0, model index 0; ignored elsewhere) into tensors shaped and
+    placed as ``like``'s leaves, leaf by leaf: over the fleet among the
+    model axes' first ranks, then over each model axis."""
+    refs = _leaves(like)
+    src = _leaves(full) if model.index == 0 and fleet.index == 0 \
+        else [None] * len(refs)
+    out = []
+    for x, ref, spec in zip(src, refs, spec_leaves(specs)):
+        d = model_dim(spec, ref.dim())
+        whole = list(ref.shape)
+        if d is not None and model.active:
+            whole[d] *= model.size
+        y = None
+        if model.index == 0:
+            y = _scatter_leaf_nodes(
+                x, ref.new_empty(whole), fleet, n_nodes, 0)
+        if not model.active:
+            out.append(y)
+            continue
         got = torch.empty_like(ref)
-        if ref.dim() == 0 or not fleet.sharded(n_nodes):
-            if mine:
-                got.copy_(x)
-            dist.broadcast(got, src=fleet.global_rank(src), group=fleet.group)
+        root = dist.get_global_rank(model.group, 0)
+        if d is None:
+            if model.index == 0:
+                got.copy_(y)
+            dist.broadcast(got, src=root, group=model.group)
         else:
-            parts = None
-            if mine:
-                x = x.to(ref.device)
-                parts = [c.contiguous() for c in x.chunk(fleet.size)]
-            dist.scatter(got, parts, src=fleet.global_rank(src),
-                         group=fleet.group)
+            parts = None if y is None else [
+                c.contiguous() for c in y.chunk(model.size, dim=d)]
+            dist.scatter(got, parts, src=root, group=model.group)
             del parts
         out.append(got)
+        del y
     return _unflatten(like, out)

@@ -39,6 +39,16 @@ mean are ``all_reduce`` / ``all_gather``; Mode A all-reduces the
 gradients of each rank's share of the batch. A fleet of one, or a node
 axis that does not divide over the fleet, runs the one-device path.
 
+Under tensor parallelism (``model``, a ``models.tp.Model`` of the rank's
+``model`` axis, with ``specs`` the parameters' spec tree) every state
+leaf is the rank's shard (``train.shardings.shard_model``); the loss runs
+on the shards (``models.tp``), the mixes and the node mean run over the
+fleet group on the shards as they are (each is elementwise over a
+leaf's lanes), the int8 message's row max is taken over the model group
+where a leaf's last dim is split (its scale is the whole row's, as on
+the JAX package's global array), and a gradient clip's norm sums the
+split leaves over the model group.
+
 The returned step is a plain function, as the reference's; the caller
 makes it a ``graphs.GraphedStep`` (the counterpart of ``jax.jit``) where it
 fits, as ``launch.train`` does.
@@ -56,6 +66,7 @@ from ..core import dpsgd
 from ..core.gossip import (GossipPlan, GossipRound, _fleet, fetch_rows,
                            node_block, node_mean, plan_w)
 from ..kernels.gossip_mix import gossip_mix_rows
+from ..models import tp
 from ..models.api import ModelAPI
 from ..optim import make_optimizer
 
@@ -90,24 +101,26 @@ def _node_mean(x: torch.Tensor) -> torch.Tensor:
     return torch.mean(x, dim=0, keepdim=True).expand(x.shape)
 
 
-def _quantize_rowwise_int8(x: torch.Tensor
+def _quantize_rowwise_int8(x: torch.Tensor, model: tp.Model = tp.ONE
                            ) -> tuple[torch.Tensor, torch.Tensor]:
     """One fp32 scale per last-dim row: scale = max|x| / 127 (0 -> 1),
     q = clip(round(x / scale), ±127). Divided by tensors (bit-equal to
-    IEEE division on the card too)."""
-    amax = torch.amax(torch.abs(x), dim=-1, keepdim=True)
+    IEEE division on the card too). ``model`` (active): the last dim is
+    the rank's shard of the row, whose max is taken over the ranks."""
+    amax = tp.all_max(torch.amax(torch.abs(x), dim=-1, keepdim=True), model)
     scale = amax / torch.full_like(amax, 127.0)
     scale = torch.where(scale == 0, torch.ones_like(scale), scale)
     q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
     return q, scale
 
 
-def _message(carried: torch.Tensor, mode: str) -> torch.Tensor:
+def _message(carried: torch.Tensor, mode: str,
+             model: tp.Model = tp.ONE) -> torch.Tensor:
     """The payload a node sends, dequantized to fp32."""
     if mode == "bf16":
         return carried.to(torch.bfloat16).to(torch.float32)
     if mode == "int8":
-        q, scale = _quantize_rowwise_int8(carried)
+        q, scale = _quantize_rowwise_int8(carried, model)
         return q.to(torch.float32) * scale
     raise ValueError(mode)
 
@@ -117,16 +130,20 @@ def _plan_w(plan: GossipPlan, device: torch.device) -> torch.Tensor:
 
 
 def _mix_compressed(params: PyTree, residuals: PyTree, w: torch.Tensor,
-                    mode: str) -> tuple[PyTree, PyTree]:
+                    mode: str, rows_split: Optional[list] = None
+                    ) -> tuple[PyTree, PyTree]:
     """Error-feedback compressed gossip over every leaf.
 
     message m_i = Q(x_i + e_i);  e_i' = (x_i + e_i) - m_i
     x_i' = W_ii x_i + sum_j W_ij m_j   (self exact, neighbours compressed).
 
     Leaves of a dtype go in the buffer groups of ``dpsgd.mix``; each group
-    is received by one rows-mix launch (``dpsgd.receive_exact_self``)."""
+    is received by one rows-mix launch (``dpsgd.receive_exact_self``).
+    ``rows_split``: per leaf, the ``models.tp.Model`` its last dim is
+    split over (its int8 rows' max taken over it)."""
     leaves = dpsgd._leaves(params)
     res_leaves = dpsgd._leaves(residuals)
+    rows_split = rows_split or [tp.ONE] * len(leaves)
     n = leaves[0].shape[0]
     out: list = [None] * len(leaves)
     res_out: list = [None] * len(leaves)
@@ -138,7 +155,8 @@ def _mix_compressed(params: PyTree, residuals: PyTree, w: torch.Tensor,
             for i in members:
                 x = leaves[i].reshape(n, -1).to(torch.float32)
                 carried = x + res_leaves[i].reshape(n, -1).to(torch.float32)
-                d = _message(carried.reshape(leaves[i].shape), mode)
+                d = _message(carried.reshape(leaves[i].shape), mode,
+                             rows_split[i])
                 d = d.reshape(n, -1)
                 res_out[i] = (carried - d).reshape(leaves[i].shape).to(
                     res_leaves[i].dtype)
@@ -215,13 +233,15 @@ def _mix_fleet(params: PyTree, w: torch.Tensor, plan: GossipPlan,
 
 def _mix_compressed_fleet(params: PyTree, residuals: PyTree,
                           w: torch.Tensor, plan: GossipPlan, group,
-                          mode: str) -> tuple[PyTree, PyTree]:
+                          mode: str, rows_split: Optional[list] = None
+                          ) -> tuple[PyTree, PyTree]:
     """``_mix_compressed`` for the rank's block: each node's message made
     where the node lives, the messages its rows of W_off reach fetched as
     they travel (bf16; int8 plus the fp32 row scales) and dequantized
     here, then the rank's rows of ``W_cat`` over ``[x; deq]``."""
     leaves = dpsgd._leaves(params)
     res_leaves = dpsgd._leaves(residuals)
+    rows_split = rows_split or [tp.ONE] * len(leaves)
     n = plan.n_nodes
     size, index = _fleet(group)
     b = n // size
@@ -255,7 +275,7 @@ def _mix_compressed_fleet(params: PyTree, residuals: PyTree,
                     d = msg.to(torch.float32)
                 elif mode == "int8":
                     q, scale = _quantize_rowwise_int8(
-                        carried.reshape(leaves[i].shape))
+                        carried.reshape(leaves[i].shape), rows_split[i])
                     d = (q.to(torch.float32) * scale).reshape(b, -1)
                     msg = q.reshape(b, -1)
                     scales.append(scale.reshape(b, -1))
@@ -298,7 +318,8 @@ def _mix_compressed_fleet(params: PyTree, residuals: PyTree,
 
 def mix_params(params: PyTree, residuals: Optional[PyTree],
                plan: GossipPlan, run: RunConfig,
-               w: Optional[torch.Tensor] = None, group=None
+               w: Optional[torch.Tensor] = None, group=None,
+               rows_split: Optional[list] = None
                ) -> tuple[PyTree, Optional[PyTree]]:
     """Mix every node-stacked leaf by the plan: the node mean for an
     ``allreduce`` plan, else the rows-mix kernel over ``plan_w(plan)``
@@ -306,7 +327,9 @@ def mix_params(params: PyTree, residuals: Optional[PyTree],
     pass through untouched when nothing is compressed. ``w`` is the plan's
     W as an fp32 tensor on the parameters' device; a step of
     ``make_train_step`` passes one made before any CUDA graph capture (a
-    host-to-device copy cannot be captured), None makes it here."""
+    host-to-device copy cannot be captured), None makes it here.
+    ``rows_split``: per leaf, the model axis its last dim is split over
+    (tensor parallelism: the int8 rows' max over it)."""
     first = dpsgd._leaves(params)[0]
     _, _, sharded = node_block(first, plan.n_nodes, group)
     if plan.kind == "allreduce":
@@ -321,10 +344,11 @@ def mix_params(params: PyTree, residuals: Optional[PyTree],
         if run.compression == "none":
             return _mix_fleet(params, w, plan, group), residuals
         return _mix_compressed_fleet(params, residuals, w, plan, group,
-                                     run.compression)
+                                     run.compression, rows_split)
     if run.compression == "none":
         return dpsgd.mix(params, w), residuals
-    return _mix_compressed(params, residuals, w, run.compression)
+    return _mix_compressed(params, residuals, w, run.compression,
+                           rows_split)
 
 
 # ---------------------------------------------------------------------------
@@ -378,10 +402,21 @@ def _fleet_mean(x: torch.Tensor, group) -> torch.Tensor:
     return x / torch.full((), size, dtype=x.dtype, device=x.device)
 
 
+def _model_flags(specs, model: tp.Model) -> tuple[list, list]:
+    """Per leaf of the spec tree: split over the model axis at all, and
+    the model axis its last dim is split over (``tp.ONE`` where not)."""
+    from .shardings import spec_leaves
+
+    leaves = spec_leaves(specs)
+    return (["model" in sp for sp in leaves],
+            [model if sp and sp[-1] == "model" else tp.ONE for sp in leaves])
+
+
 def make_train_step(api: ModelAPI, run: RunConfig,
                     plan: Optional[GossipPlan], lr_fn: Callable,
                     node_axes: Optional[tuple] = None,
-                    group=None) -> Callable:
+                    group=None, model: Optional[tp.Model] = None,
+                    specs=None, donate: bool = False) -> Callable:
     """Returns ``step(state, batch) -> (state, metrics)``.
 
     Mode A: state["params"] is a plain tree; batch (B, ...), with
@@ -391,10 +426,25 @@ def make_train_step(api: ModelAPI, run: RunConfig,
     with ``group`` this rank's block of nodes on both.
     ``node_axes`` names the mesh axes of the node dim in the reference (its
     vmap's ``spmd_axis_name``); it changes nothing here.
+    ``model`` (a ``models.tp.Model``) with ``specs`` (``train.shardings.
+    param_specs`` of the parameters, a spec a leaf aligned to its
+    trailing dims): tensor parallelism, every state leaf the rank's
+    shard, ``api`` built over the same ``model``. ``donate`` (the JAX
+    trainer's ``donate_argnums=(0,)``): the step consumes its state, the
+    optimizer writing into its tensors (``optim``'s ``donate``), so an
+    eager step holds one copy of the parameters and moments.
     """
     del node_axes
+    model = model or tp.ONE
+    split = rows_split = None
+    if model.active:
+        if specs is None:
+            raise ValueError("a tensor-parallel step needs the parameters' "
+                             "specs (train.shardings.param_specs)")
+        split, rows_split = _model_flags(specs, model)
     opt = make_optimizer(run.optimizer, momentum=run.momentum,
-                         weight_decay=run.weight_decay)
+                         weight_decay=run.weight_decay, model=model,
+                         sharded=split)
     gfn = _grads_fn(api, run)
 
     if run.mode == "allreduce":
@@ -404,7 +454,7 @@ def make_train_step(api: ModelAPI, run: RunConfig,
             grads = dpsgd._tree_map(lambda g: _fleet_mean(g, group), grads)
             loss = _fleet_mean(loss, group)
             new_params, new_opt = opt.update(grads, state["opt"],
-                                             state["params"], lr)
+                                             state["params"], lr, donate)
             return {**state, "params": new_params, "opt": new_opt,
                     "step": state["step"] + 1}, {"loss": loss}
         return step
@@ -426,8 +476,9 @@ def make_train_step(api: ModelAPI, run: RunConfig,
             # Eq. 5: gradients at X_k, mixing of X_k, then the local update
             mixed, new_res = mix_params(state["params"],
                                         state.get("residual"), plan, run,
-                                        w_on[device], group)
-            new_params, new_opt = opt.update(grads, state["opt"], mixed, lr)
+                                        w_on[device], group, rows_split)
+            new_params, new_opt = opt.update(grads, state["opt"], mixed, lr,
+                                             donate)
             out = {**state, "params": new_params, "opt": new_opt,
                    "step": state["step"] + 1}
             if new_res is not None:
@@ -445,14 +496,16 @@ def make_train_step(api: ModelAPI, run: RunConfig,
 
 
 def init_train_state(api: ModelAPI, run: RunConfig, gen: torch.Generator,
-                     n_nodes: int = 1) -> PyTree:
+                     n_nodes: int = 1, cast=None) -> PyTree:
     """The initial state: parameters drawn from ``gen`` (on the API's
     device), the optimizer's state, ``step`` a 0-d int32 tensor, and in
     Mode B every leaf replicated over ``n_nodes`` with the error-feedback
-    residual (zeros of the parameters' dtype) iff compression is on."""
+    residual (zeros of the parameters' dtype) iff compression is on.
+    ``cast`` is applied to each piece of the tree as it is drawn
+    (``api.init``'s; ``launch.train.shard_cast`` keeps a rank's shards)."""
     opt = make_optimizer(run.optimizer, momentum=run.momentum,
                          weight_decay=run.weight_decay)
-    params = api.init(gen)
+    params = api.init(gen, cast=cast)
     device = dpsgd._leaves(params)[0].device
     state: dict = {"step": torch.zeros((), dtype=torch.int32, device=device)}
     if run.mode == "dpsgd":

@@ -617,8 +617,10 @@ class _TPMesh:
 
 def test_mesh_names_its_roadmap_item():
     """A mesh runs the family over its fleet (``tests/test_torch_dist_
-    train.py``); one with a 'model' axis > 1 asks for tensor parallelism,
-    which raises naming its ROADMAP item before any work."""
+    train.py``) and, for the dense decoder families, each node over its
+    'model' axis (``tests/test_torch_tp.py``); a model without tensor
+    parallelism (this adapter's) under a 'model' axis > 1 raises naming
+    its ROADMAP item before any work."""
     adapter = t_batch.ModelAdapter("quad", lambda s: None, _quad_loss,
                                    lambda c, t: None)
     with pytest.raises(NotImplementedError, match="Queue 1 item 9"):

@@ -19,8 +19,8 @@ results; the one-process runs they are held against run here.
 * import hygiene: a two-rank ``gossip_mix_tree`` against ``plan_w @ X``,
   and neither ``jax`` nor ``repro`` in the ranks' ``sys.modules``.
 
-The ``launch.train`` and ``real_model_smoke`` refusals that stay (tensor
-parallelism: ROADMAP Queue 1 item 9) are held here too.
+The refusals that stay (tensor parallelism of a family that is not dense:
+ROADMAP Queue 1 item 9) are held here too.
 """
 import filecmp
 import os
@@ -39,6 +39,7 @@ torch.set_num_threads(1)  # one intra-op thread a test process: the tests' small
 from repro_torch.configs import RunConfig, get_config, reduce_for_smoke
 from repro_torch.core.gossip import plan_w, ring_plan
 from repro_torch.launch import train as t_train
+from repro_torch.sim import batch as t_batch
 from repro_torch.sim import real_model_smoke
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -189,12 +190,27 @@ def test_two_rank_gossip_tree_and_import_hygiene(world):
 
 
 def test_tensor_parallelism_raises_naming_queue_1_item_9():
-    cfg = reduce_for_smoke(get_config("stablelm-3b"))
+    """Tensor parallelism of a family that is not dense raises: the
+    trainer (MoE + MLA) before any work, the train-on-trace adapter of a
+    recurrent arch in its loss under a 'model' axis (where the family
+    loop runs it), and the model itself."""
+    from repro_torch.models import build, tp
+
+    moe = reduce_for_smoke(get_config("deepseek-v2-lite-16b"))
     with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        t_train.train_loop(cfg, RunConfig(remat="none"), nodes=4, tp=2,
+        t_train.train_loop(moe, RunConfig(remat="none"), nodes=4, tp=2,
                            steps=1, batch_per_node=2, seq_len=16,
                            ckpt_dir=None, device="cpu")
+    rec = t_batch.transformer_adapter("recurrentgemma-2b", batch=2,
+                                      seq_len=16, device="cpu")
+    tokens = {"tokens": torch.zeros((2, 16), dtype=torch.int32)}
+    with tp.use(tp.Model(size=2)), \
+            pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+        rec.loss_fn(rec.init_params(0), tokens)
     with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        real_model_smoke.run(model=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        real_model_smoke.main(["--model", "2"])
+        build(reduce_for_smoke(get_config("rwkv6-7b")), "cpu",
+              model=tp.Model(size=2))
+    # the smoke at its defaults (fleet 2 x model 2) outside a world names
+    # the ranks it needs
+    with pytest.raises(SystemExit, match="4 ranks"):
+        real_model_smoke.main([])

@@ -114,12 +114,27 @@ def test_train_loop_refusals():
     run = RunConfig(remat="none")
     kw = dict(steps=1, batch_per_node=2, seq_len=16, ckpt_dir=None,
               device="cpu")
+    rec = reduce_for_smoke(get_config("recurrentgemma-2b"))
     with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        t_train.train_loop(cfg, run, nodes=4, tp=2, **kw)
+        t_train.train_loop(rec, run, nodes=4, tp=2, **kw)
     vlm = get_config("qwen2-vl-2b")
     with pytest.raises(ValueError, match="patch positions"):
         t_train.train_loop(vlm, run, nodes=4, tp=1,
                            **{**kw, "seq_len": vlm.n_patches})
+
+
+@pytest.mark.parametrize("nodes,tp,need", [(4, 2, "4 x 2 = 8 ranks"),
+                                           (1, 4, "1 x 4 = 4 ranks")])
+def test_tensor_parallelism_without_a_world_names_the_ranks_it_needs(
+        nodes, tp, need):
+    """A dense arch under ``tp`` > 1 in one process raises ``ValueError``
+    naming the ranks its (nodes, tp) mesh needs and the launcher line."""
+    cfg = reduce_for_smoke(get_config("stablelm-3b"))
+    with pytest.raises(ValueError, match=need) as info:
+        t_train.train_loop(cfg, RunConfig(remat="none"), nodes=nodes,
+                           tp=tp, steps=1, batch_per_node=2, seq_len=16,
+                           ckpt_dir=None, device="cpu")
+    assert f"--nproc_per_node {nodes * tp}" in str(info.value)
 
 
 def test_train_loop_defaults_to_cuda(monkeypatch):

@@ -92,6 +92,37 @@ def test_optimizer_matches_reference_over_five_steps(name, kw, nodes):
         assert t_state["t"].dtype == torch.int32 and int(t_state["t"]) == 5
 
 
+@pytest.mark.parametrize("name,kw", OPT_CASES,
+                         ids=[f"{n}-{'-'.join(kw) or 'plain'}"
+                              for n, kw in OPT_CASES])
+def test_donated_update_is_bit_equal_and_in_place(name, kw):
+    """``donate=True`` writes the new parameters and moments into the
+    given tensors, each bit-equal to the functional update's, over
+    ``STEPS`` steps on node-stacked leaves (one a bfloat16 leaf); a
+    parameter whose nodes share memory (the node mean's expanded view)
+    gets a new tensor, bit-equal too."""
+    opt = make_optimizer(name, **kw)
+    params = params_from_numpy(_tree(0, 4), "cpu")
+    params["unit"][1]["scale"] = params["unit"][1]["scale"].to(
+        torch.bfloat16)
+    state = opt.init(params)
+    lr = torch.tensor(np.float32(0.05))
+    for k in range(STEPS):
+        grads = params_from_numpy(_tree(100 + k, 4), "cpu")
+        mine = t_dpsgd._tree_map(torch.clone, (params, state))
+        norm = mine[0]["final_norm"]
+        norm["scale"] = norm["scale"][:1].expand(4, -1)
+        params["final_norm"]["scale"] = norm["scale"].clone()
+        new, new_state = opt.update(grads, state, params, lr)
+        got, got_state = opt.update(grads, *mine[::-1], lr, donate=True)
+        for a, b in zip(t_dpsgd._leaves((got, got_state)),
+                        t_dpsgd._leaves((new, new_state))):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+        for a, b in zip(t_dpsgd._leaves(got), t_dpsgd._leaves(mine[0])):
+            assert (a is b) == (b is not norm["scale"])
+        params, state = new, new_state
+
+
 def test_adamw_bias_correction_is_fp32():
     """The first step, where the bias corrections 1 - beta**t (fp32, of an
     int32 t) are smallest and scale the update most, on gradients far

@@ -347,6 +347,42 @@ def test_train_step_lockstep_with_reference(case):
     assert int(t_new["step"]) == 3 and t_new["step"].dtype == torch.int32
 
 
+@pytest.mark.parametrize("mode,compression,plan_name", [
+    ("allreduce", "none", None), ("dpsgd", "int8", "ring"),
+    ("dpsgd", "none", "allreduce")])
+def test_donating_step_is_bit_equal(mode, compression, plan_name):
+    """``make_train_step(donate=True)`` consumes its state and gives the
+    state and loss of the step that does not, bit for bit, over 2 steps
+    (AdamW); Mode B under the node mean too, whose mixed leaves are
+    expanded views."""
+    cfg = reduce_for_smoke(get_config("qwen2-vl-2b"))
+    run = RunConfig(mode=mode, compression=compression, optimizer="adamw",
+                    eta=1e-3, remat="none")
+    plan = _plan_named(plan_name) if plan_name else None
+    api = build(cfg, "cpu")
+    steps = {d: t_step.make_train_step(api, run, plan, constant_lr(1e-3),
+                                       donate=d) for d in (False, True)}
+    state = t_step.init_train_state(api, run,
+                                    torch.Generator().manual_seed(0),
+                                    n_nodes=N_NODES)
+    rng = np.random.default_rng(0)
+    for _ in range(2):
+        lead = (N_NODES, 2) if mode == "dpsgd" else (4,)
+        batch = {"tokens": torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, size=(*lead, 16)).astype(np.int32))}
+        if cfg.frontend == "vision":
+            batch["patch_embeds"] = torch.from_numpy(rng.normal(
+                size=(*lead[:-1], lead[-1], cfg.n_patches, cfg.d_model))
+                .astype(np.float32))
+        want, m_want = steps[False](state, batch)
+        got, m_got = steps[True](
+            t_dpsgd._tree_map(torch.clone, state), batch)
+        assert torch.equal(m_got["loss"], m_want["loss"])
+        for a, b in zip(t_dpsgd._leaves(got), t_dpsgd._leaves(want)):
+            assert torch.equal(a, b)
+        state = want
+
+
 def test_dpsgd_step_equals_core_dpsgd():
     """Mode B trainer step == ``core.dpsgd.dpsgd_step`` with the plan's W
     (Eq. 5) for SGD on de-synced nodes, at the reference test's bars

@@ -2,6 +2,8 @@
 
     python tests/torch_dist_cases.py <world_name> <rank> <world_size> <dir>
 
+(worlds: ``four``, ``two``, ``tp``, the last for ``tests/test_torch_tp.py``)
+
 Each rank joins the world through a ``FileStore`` under ``<dir>`` (no TCP
 port, so worlds of parallel test workers never collide), reads
 ``<dir>/inputs.pkl`` (numpy inputs the test module drew), runs every case
@@ -28,6 +30,7 @@ from repro_torch.core import dpsgd
 from repro_torch.core import gossip as t_gossip
 from repro_torch.launch.mesh import init_world, make_fleet_mesh
 from repro_torch.models import build
+from repro_torch.models import tp as t_tp
 from repro_torch.optim.schedule import constant_lr
 from repro_torch.train import shardings as shr
 from repro_torch.train import step as t_step
@@ -237,7 +240,8 @@ def world_two(inp: dict, rank: int, root: str) -> dict:
             got[label] = {"losses": res["losses"], "acc": res["acc"],
                           "final": _np(res["final_params"][0])}
         out[("family", name)] = got
-    out["smoke"] = real_model_smoke.run(fleet=2, device="cpu", rounds=3)
+    out["smoke"] = real_model_smoke.run(fleet=2, model=1, device="cpu",
+                                        rounds=3)
 
     # a two-rank gossip_mix_tree, then what the port imported
     plan = t_gossip.ring_plan(("data",), (4,), 1)
@@ -252,6 +256,278 @@ def world_two(inp: dict, rank: int, root: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The world of four as (fleet 2, model 2) and (1, 4): tensor parallelism
+# ---------------------------------------------------------------------------
+
+def _tp_cfg(case: dict):
+    import dataclasses
+
+    cfg = reduce_for_smoke(get_config(case["arch"]))
+    return dataclasses.replace(cfg, **case.get("replace", {}))
+
+
+def _tp_batch(case: dict) -> dict:
+    return {k: torch.from_numpy(v) for k, v in case["batch"].items()}
+
+
+def tp_model_cases(inp: dict, meshes: dict) -> dict:
+    """Per (config, tp): the shards' shapes and their round trip, the loss,
+    the gathered logits and gradients, and remat full / dots against none
+    under tensor parallelism (bit-equality)."""
+    from repro_torch.models import transformer
+
+    out = {}
+    for key, case in inp["tp"]["models"].items():
+        cfg = _tp_cfg(case)
+        for size, mesh in meshes.items():
+            model = t_tp.model_of(mesh)
+            specs = shr.param_specs(case["params"], size, cfg.kv_dim)
+            full = params_from_numpy(case["params"], "cpu")
+            local = shr.shard_model(full, specs, model)
+            back = shr.gather_model(local, specs, model, dst=None)
+            api = build(cfg, "cpu", model=model)
+            batch = _tp_batch(case)
+            got = {"shapes": [tuple(x.shape) for x in dpsgd._leaves(local)],
+                   "round_trip": all(torch.equal(a, b) for a, b in zip(
+                       dpsgd._leaves(back), dpsgd._leaves(full)))}
+            grads = {}
+            for remat in ("none", "full", "dots"):
+                g, loss = torch.func.grad_and_value(
+                    lambda p: api.loss(p, batch, remat=remat))(local)
+                grads[remat] = (g, loss)
+            g, loss = grads["none"]
+            got["remat_equal"] = {
+                r: bool(torch.equal(grads[r][1], loss) and all(
+                    torch.equal(a, b) for a, b in zip(
+                        dpsgd._leaves(grads[r][0]), dpsgd._leaves(g))))
+                for r in ("full", "dots")}
+            logits = transformer.apply(
+                cfg, local, batch["tokens"],
+                patch_embeds=batch.get("patch_embeds"), model=model)
+            if model.splits(cfg.vocab_size):
+                logits = t_tp.gather(logits, model)
+            got["loss"] = float(loss)
+            got["logits"] = logits.detach().numpy()
+            got["grads"] = _np(shr.gather_model(g, specs, model, dst=None))
+            out[(key, size)] = got
+    return out
+
+
+def tp_mode_a_cases(inp: dict, mesh) -> dict:
+    """Mode A (AdamW with a gradient clip) over (fleet 2, model 2), each
+    step from the JAX state: the fleet splits the batch and averages the
+    gradients, each replica over its model axis; the clip's norm sums
+    the split leaves over the model group. The gathered new state and
+    the rank's own replicated leaves."""
+    from repro_torch.launch.train import state_specs
+    from repro_torch.optim import make_optimizer
+
+    case = inp["tp"]["mode_a"]
+    cfg = _tp_cfg(case)
+    model, fleet = t_tp.model_of(mesh), shr.fleet_of(mesh)
+    specs = shr.param_specs(case["steps"][0][0]["params"], model.size,
+                            cfg.kv_dim)
+    run = RunConfig(**case["run"])
+    api = build(cfg, "cpu", model=model)
+    opt = make_optimizer(run.optimizer, grad_clip=case["clip"], model=model,
+                         sharded=["model" in sp
+                                  for sp in shr.spec_leaves(specs)])
+    out = []
+    for state_np, batch_np in case["steps"]:
+        sspecs = state_specs(state_np, specs)
+        state = shr.shard_model(params_from_numpy(state_np, "cpu"), sspecs,
+                                model)
+        batch = params_from_numpy(batch_np, "cpu")
+        share = batch["tokens"].shape[0] // fleet.size
+        batch = dpsgd._tree_map(lambda x: x[fleet.index * share:
+                                            (fleet.index + 1) * share],
+                                batch)
+        grads, loss = torch.func.grad_and_value(
+            lambda p: api.loss(p, batch))(state["params"])
+        grads = dpsgd._tree_map(
+            lambda g: t_step._fleet_mean(g, fleet.group), grads)
+        params, new_opt = opt.update(grads, state["opt"], state["params"],
+                                     constant_lr(run.eta)(state["step"]))
+        new = {**state, "params": params, "opt": new_opt,
+               "step": state["step"] + 1}
+        whole = shr.gather_model(new, sspecs, model, dst=None)
+        out.append({"state": _np(whole),
+                    "loss": float(t_step._fleet_mean(loss, fleet.group)),
+                    "replicated": _replicated(new["params"], specs)})
+    return out
+
+
+def _replicated(params, specs) -> list:
+    """The rank's leaves its specs leave whole over the model axis."""
+    return [x.detach().numpy() for x, sp in
+            zip(dpsgd._leaves(params), shr.spec_leaves(specs))
+            if "model" not in sp]
+
+
+def tp_mode_b_cases(inp: dict, mesh) -> dict:
+    """Mode B over (fleet 2, model 2), none and int8, each step from the
+    JAX state: the gathered new state, the loss, the rank's replicated
+    leaves; and the int8 message's scales on the shards against a
+    one-process quantization of the same carried values."""
+    out = {}
+    model, fleet = t_tp.model_of(mesh), shr.fleet_of(mesh)
+    for key, case in inp["tp"]["mode_b"].items():
+        cfg = _tp_cfg(case)
+        run = RunConfig(**case["run"])
+        plan = _plan(case["plan"])
+        n = plan.n_nodes
+        specs = shr.param_specs(case["steps"][0][0]["params"], model.size,
+                                cfg.kv_dim)
+        from repro_torch.launch.train import state_specs
+
+        step = t_step.make_train_step(build(cfg, "cpu", model=model), run,
+                                      plan, constant_lr(run.eta),
+                                      group=fleet.group, model=model,
+                                      specs=specs)
+        got = []
+        for state_np, batch_np in case["steps"]:
+            sspecs = state_specs(state_np, specs)
+            state = shr.shard_nodes(shr.shard_model(
+                params_from_numpy(state_np, "cpu"), sspecs, model), fleet, n)
+            batch = shr.shard_nodes(params_from_numpy(batch_np, "cpu"),
+                                    fleet, n)
+            new, metrics = step(state, batch)
+            whole = shr.gather_nodes(
+                shr.gather_model(new, sspecs, model, dst=None), fleet, n,
+                dst=None)
+            item = {"state": _np(whole), "loss": float(metrics["loss"]),
+                    "replicated": _replicated(new["params"], specs)}
+            if run.compression == "int8":
+                item["scales_equal"] = _scales_equal(
+                    state, params_from_numpy(state_np, "cpu"), specs, model,
+                    fleet, n)
+            got.append(item)
+        out[key] = got
+    return out
+
+
+def _scales_equal(state, whole_np, specs, model, fleet, n) -> bool:
+    """The int8 row scales of the carried values (x + e) on the rank's
+    shards, bit-equal to the one-process quantization's rows of the same
+    values."""
+    lo, hi = fleet.block(n)
+    same = True
+    for x, e, wx, we, sp in zip(
+            dpsgd._leaves(state["params"]), dpsgd._leaves(state["residual"]),
+            dpsgd._leaves(whole_np["params"]),
+            dpsgd._leaves(whole_np["residual"]), shr.spec_leaves(specs)):
+        d = shr.model_dim(sp, x.dim())
+        split = model if d is not None and d == x.dim() - 1 else None
+        _, scale = t_step._quantize_rowwise_int8(
+            x + e, split if split is not None else t_tp.ONE)
+        _, want = t_step._quantize_rowwise_int8((wx + we)[lo:hi])
+        if d is not None and d != x.dim() - 1:
+            want = want.chunk(model.size, dim=d)[model.index]
+        same = same and torch.equal(scale, want)
+    return same
+
+
+def _wait_for(path: str, timeout: float = 600.0) -> dict:
+    """The pickle at ``path`` once it exists (written whole by a rename)."""
+    import time
+
+    t0 = time.monotonic()
+    while not os.path.exists(path):
+        if time.monotonic() - t0 > timeout:
+            raise TimeoutError(f"no {path} within {timeout:g} s")
+        time.sleep(0.2)
+    with open(path, "rb") as f:
+        return pickle.load(f)
+
+
+def tp_mode_a_trainer(inp: dict, root: str) -> dict:
+    """``train_loop --nodes 1 --tp 2 --mode allreduce`` over the (2, 2)
+    world (two replicas, each over a model axis of 2) with a checkpoint:
+    its log, and how many leaves this rank gathered over the model axis
+    (the replicated state is saved from fleet index 0's axis alone: the
+    other fleet index gathers none onto its devices)."""
+    from repro_torch.launch import train as t_train
+
+    case = inp["tp"]["trainer_a"]
+    cfg = reduce_for_smoke(get_config(case["arch"]))
+    calls = [0]
+    real = shr._gather_leaf_model
+
+    def counted(*args, **kw):
+        calls[0] += 1
+        return real(*args, **kw)
+
+    ticks = iter(range(1000))
+    shr._gather_leaf_model = counted
+    try:
+        log = t_train.train_loop(
+            cfg, RunConfig(**case["run"]), nodes=1, tp=2,
+            steps=case["steps"], batch_per_node=case["batch"],
+            seq_len=16, ckpt_dir=os.path.join(root, "ckpt_tp_a"),
+            ckpt_every=case["steps"], log_every=1,
+            clock=lambda: float(next(ticks)), device="cpu")["log"]
+    finally:
+        shr._gather_leaf_model = real
+    return {"log": log, "model_gathers": calls[0]}
+
+
+def world_tp(inp: dict, rank: int, root: str) -> dict:
+    from repro_torch.examples import pod_gossip_train
+    from repro_torch.launch import train as t_train
+    from repro_torch.sim import real_model_smoke
+
+    two = make_fleet_mesh(2, 2)
+    four = make_fleet_mesh(1, 4)
+    out = {"place": (shr.fleet_of(two).index, t_tp.model_of(two).index)}
+    out["models"] = tp_model_cases(inp, {2: two, 4: four})
+    out["smoke"] = real_model_smoke.run(fleet=2, model=2, device="cpu",
+                                        rounds=3)
+    # the compressed_int8 family over (2, 2) against the one-device
+    # reference loop: the int8 blocks are the whole leaves'
+    out["smoke_int8"] = real_model_smoke.run(
+        fleet=2, model=2, scenario="compressed_int8", device="cpu",
+        rounds=3)
+    out["trainer_a"] = tp_mode_a_trainer(inp, root)
+    train = inp["tp"]["train"]
+    cfg = reduce_for_smoke(get_config(train["arch"]))
+    ckpt = os.path.join(root, "ckpt_tp")
+    logs = []
+    for resume in (False, True):
+        if resume:      # resume from the checkpoint before the last
+            if rank == 0:
+                import shutil
+
+                shutil.rmtree(os.path.join(ckpt, f"step_{train['steps']:08d}"))
+            dist.barrier()
+        ticks = iter(range(1000))
+        logs.append(t_train.train_loop(
+            cfg, RunConfig(**train["run"]), nodes=2, tp=2,
+            steps=train["steps"],
+            batch_per_node=2, seq_len=16, ckpt_dir=ckpt,
+            ckpt_every=train["ckpt_every"], fail_at=train["fail_at"],
+            fail_node=1, log_every=1, resume=resume,
+            clock=lambda: float(next(ticks)), device="cpu")["log"])
+    out["train"] = logs
+    twin = inp["tp"]["twin"]
+    out["twin"] = pod_gossip_train.run(
+        nodes=2, tp_size=2, steps=len(twin["batches"]), device="cpu",
+        init=twin["init"], batches=twin["batches"], log=lambda *_: None)
+    out["twin_alone"] = pod_gossip_train.run(
+        nodes=2, tp_size=1, steps=len(twin["batches"]), device="cpu",
+        init=twin["init"], batches=twin["batches"], log=lambda *_: None,
+        alone=True)
+    # the JAX steps' states, which the test module writes once its jitted
+    # steps have run (while the cases above ran)
+    inp["tp"].update(_wait_for(os.path.join(root, "steps.pkl")))
+    out["mode_a"] = tp_mode_a_cases(inp, two)
+    out["mode_b"] = tp_mode_b_cases(inp, two)
+    out["modules"] = sorted(m for m in sys.modules
+                            if m == "jax" or m.startswith("jax.")
+                            or m == "repro" or m.startswith("repro."))
+    return out
+
+
 def main(argv) -> int:
     name, rank, world, root = argv[1], int(argv[2]), int(argv[3]), argv[4]
     torch.manual_seed(0)
@@ -259,8 +535,10 @@ def main(argv) -> int:
                rank=rank, world_size=world)
     with open(os.path.join(root, "inputs.pkl"), "rb") as f:
         inp = pickle.load(f)
-    out = (world_four(inp, rank) if name == "four"
-           else world_two(inp, rank, root))
+    worlds = {"four": lambda: world_four(inp, rank),
+              "two": lambda: world_two(inp, rank, root),
+              "tp": lambda: world_tp(inp, rank, root)}
+    out = worlds[name]()
     dist.barrier()
     dist.destroy_process_group()
     fd, tmp = tempfile.mkstemp(dir=root)
