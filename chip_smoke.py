@@ -2245,10 +2245,10 @@ def phase_serve(torch, title: str, arch: str, counters: dict, want: dict,
         # layer's routing counted beside it (moe_apply itself unchanged)
         drops, real = [], moe.moe_apply
 
-        def counting(p, x, cfg_, mcfg):
+        def counting(p, x, cfg_, mcfg, *model):
             r = moe.moe_route(p, x, cfg_, mcfg)
             drops.append(int((~r["keep"]).sum()))
-            return real(p, x, cfg_, mcfg)
+            return real(p, x, cfg_, mcfg, *model)
         moe.moe_apply = counting
         try:
             prefill()
@@ -5124,10 +5124,10 @@ def fleet_counters() -> dict:
             "gossip_mix_q8": gm.gossip_mix_q8_rows}
 
 
-def launched(torch, fn):
-    """``fn()`` with every counter set to 0 just before it and read just
-    after: (its result, the launches)."""
-    counters = fleet_counters()
+def launched(torch, fn, counters=None):
+    """``fn()`` with every counter (``fleet_counters()`` unless given) set
+    to 0 just before it and read just after: (its result, the launches)."""
+    counters = counters or fleet_counters()
     for c in counters.values():
         c.launches = 0
     out = fn()
@@ -5939,17 +5939,18 @@ def tp_world_of_one(torch) -> dict:
     return result
 
 
-def tp_flash(torch) -> dict:
-    """26 (a): flash forward (with lse) and backward at the local head
-    shapes tensor parallelism gives them, against their plain versions
-    under the phase 3e bars, with times beside the bound and SDPA."""
+def tp_flash(torch, shapes: dict = TP_FLASH, label: str = "26 (a)") -> dict:
+    """26 (a) (and 27 (a) on its ``shapes``): flash forward (with lse) and
+    backward at the local head shapes tensor parallelism gives them,
+    against their plain versions under the phase 3e bars, with times
+    beside the bound and SDPA."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(26)
     bf16 = torch.bfloat16
     out = {}
-    for what, (b, s, t, hq, hkv, d, causal, window) in TP_FLASH.items():
+    for what, (b, s, t, hq, hkv, d, causal, window) in shapes.items():
         q, do = (torch.randn((b, s, hq, d), generator=gen, device="cuda")
                  .to(bf16) for _ in range(2))
         k, v = (torch.randn((b, t, hkv, d), generator=gen, device="cuda")
@@ -5960,7 +5961,7 @@ def tp_flash(torch) -> dict:
         e_o, e_l = err(o, o_p), err(lse, lse_p)
         re = row_err(o, o_p)
         check(e_o <= TOL_BF16 and re <= TOL_FLASH_ROW and e_l <= TOL_LSE,
-              f"26 (a) flash forward {what}: out {e_o}, rows {re}, lse {e_l}")
+              f"{label} flash forward {what}: out {e_o}, rows {re}, lse {e_l}")
         got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
                                      window=window)
         want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do,
@@ -5972,7 +5973,7 @@ def tp_flash(torch) -> dict:
             # GQA sums a kv head's q heads into dk, dv: held within the bar
             # or one bf16 ulp, whichever is larger (phase 3e's rule)
             excess += bf16_ulp_excess(torch, g, w_, TOL_BF16)
-        check(excess == 0, f"26 (a) flash backward {what}: {excess} "
+        check(excess == 0, f"{label} flash backward {what}: {excess} "
               f"elements beyond max({TOL_BF16}, one bf16 ulp)")
         del got, want, o_p, lse_p
         fwd = lambda: fa._forward(q, k, v, causal, window, True)  # noqa
@@ -5988,7 +5989,7 @@ def tp_flash(torch) -> dict:
 
         def sdpa():
             return F.scaled_dot_product_attention(
-                qq, kk, vv, attn_mask=mask, is_causal=mask is None,
+                qq, kk, vv, attn_mask=mask, is_causal=causal and mask is None,
                 enable_gqa=hq != hkv)
         lib_out = sdpa()
         dot = do.transpose(1, 2)
@@ -5998,7 +5999,8 @@ def tp_flash(torch) -> dict:
                                          window, 2)
         row = {
             "shape": f"q ({b},{s},{hq},{d}) k, v ({b},{t},{hkv},{d}) bf16, "
-                     f"causal, window {window}",
+                     f"{'causal' if causal else 'non-causal'}, window "
+                     f"{window}",
             "fwd_max_abs_err": e_o, "bwd_max_abs_err": e_b,
             "fwd_ms": time_ms(torch, fwd, reps=10, rounds=3, warmup=2),
             "bwd_ms": time_ms(torch, bwd, reps=5, rounds=3, warmup=1),
@@ -6017,7 +6019,7 @@ def tp_flash(torch) -> dict:
             f_bytes, f_flops, cost.BF16_FLOPS)
         row["bwd_bound_ms"], row["bwd_bound_by"] = cost.bound(
             b_bytes, b_flops, cost.BF16_FLOPS)
-        print(f"26 (a) flash at {what}: {row['shape']}: forward max|err| "
+        print(f"{label} flash at {what}: {row['shape']}: forward max|err| "
               f"{e_o:.3e} (rows {re:.3e}, lse {e_l:.3e}), backward "
               f"{e_b:.3e} (0 past max({TOL_BF16:g}, 1 ulp)); forward "
               f"{row['fwd_ms']:.4f} ms (plain {row['fwd_plain_ms']:.4f}, "
@@ -6209,14 +6211,16 @@ def rank_tp_family(torch, mesh) -> dict:
 
 def rank_tp_steps(torch, what: str, cfg, run, plan, mesh, nodes: int,
                   batch: int, seq: int, tokens: int,
-                  graphed: bool = False, donate: bool = False) -> dict:
+                  graphed: bool = False, donate: bool = False,
+                  label: str = "26 (b)", replicated: bool = False) -> dict:
     """Warm-up and timed steps of ``make_train_step`` over ``mesh``:
     losses, ms a step (host clock to a loss read), tokens/s, peak GiB and
     launches per rank, P2P bytes against the reckoning for the rank's
     shard, the regions' all-reduce and all-gather bytes a step, and one
     traced step's busy ms and idle share. ``donate``: the step consumes
     its state (``make_train_step``'s ``donate``, as ``launch.train``'s
-    eager step)."""
+    eager step). ``replicated``: after the last step every leaf the specs
+    leave whole must be bit-equal across the model group's ranks."""
     import math
 
     import torch.distributed as dist
@@ -6257,7 +6261,7 @@ def rank_tp_steps(torch, what: str, cfg, run, plan, mesh, nodes: int,
         reckoned = step_collectives(leaves, "dpsgd", plan=plan,
                                     compression=run.compression)[
             "collectives"]["collective-permute"]["result_bytes"]
-    counters = fleet_counters()
+    counters = {**fleet_counters(), **train_counters()}
     losses, times, sent, coll = [], [], [], []
     for k in range(TP_WARM + TP_TIMED):
         b = pod_batch(torch, cfg, k, nodes, batch, seq, run.mode)
@@ -6315,17 +6319,17 @@ def rank_tp_steps(torch, what: str, cfg, run, plan, mesh, nodes: int,
         graph = {"ms": g_ms, "tokens_s": tokens / g_ms * 1e3,
                  "steps_ms": g_times, "losses": g_losses}
         del g_step
-        rank_print(f"26 (b) {what}, as a CUDA graph: {g_ms:.2f} ms a step "
+        rank_print(f"{label} {what}, as a CUDA graph: {g_ms:.2f} ms a step "
                    f"(median of {TP_TIMED} after {TP_WARM}, the first "
                    f"capturing; steps {[round(t, 2) for t in g_times]}), "
                    f"{tokens / g_ms * 1e3:.0f} tokens/s; losses {g_losses}")
         check(all(math.isfinite(v) for v in g_losses),
-              f"26 (b) {what} graphed: {g_losses}")
+              f"{label} {what} graphed: {g_losses}")
     peaks = [None] * dist.get_world_size()
     dist.all_gather_object(peaks, round(peak, 3))
     sents = [None] * dist.get_world_size()
     dist.all_gather_object(sents, sent)
-    rank_print(f"26 (b) {what}, eager: losses {losses}; {ms:.2f} ms a step "
+    rank_print(f"{label} {what}, eager: losses {losses}; {ms:.2f} ms a step "
                f"(median "
                f"of {TP_TIMED} after {TP_WARM}, host clock to a loss read, "
                f"steps {[round(t, 2) for t in times]}), "
@@ -6340,10 +6344,17 @@ def rank_tp_steps(torch, what: str, cfg, run, plan, mesh, nodes: int,
                f"{idle:.4f}), the largest: " + "; ".join(
                    f"{n[:40]} {t_:.3f} ms x{c}"
                    for n, t_, c in traced["top"][:6]))
-    check(all(math.isfinite(v) for v in losses), f"26 (b) {what}: {losses}")
+    check(all(math.isfinite(v) for v in losses), f"{label} {what}: {losses}")
     if mode_b:
         check(all(x == reckoned for s in sents for x in s),
-              f"26 (b) {what}: P2P bytes {sents} against {reckoned}")
+              f"{label} {what}: P2P bytes {sents} against {reckoned}")
+    same = None
+    if replicated:
+        same = replicated_equal(torch, out_state[0]["params"], specs, model)
+        rank_print(f"{label} {what}: the leaves the specs leave whole "
+                   f"bit-equal across the model ranks after the steps, per "
+                   f"rank: {same}")
+        check(all(same), f"{label} {what}: replicated leaves {same}")
     del state, out_state, step_fn
     return {"losses": losses, "ms": ms, "tokens_s": tokens / ms * 1e3,
             "steps_ms": times, "state_gib": state_gib, "peak_gib": peaks,
@@ -6351,6 +6362,7 @@ def rank_tp_steps(torch, what: str, cfg, run, plan, mesh, nodes: int,
             "p2p_reckoned": reckoned, "collectives": coll[-1],
             "launches": launches, "busy_ms": traced["busy_ms"],
             "idle": idle, "init_s": init_s, "graphed": graph,
+            "replicated_equal": same,
             "top": [(n[:60], round(t_, 3), c)
                     for n, t_, c in traced["top"][:8]]}
 
@@ -6487,9 +6499,499 @@ def rank_tp(torch) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 27. Tensor parallelism for every family's training
+# ---------------------------------------------------------------------------
+
+TPF_FAMILIES = ("deepseek-v2-lite-16b", "phi3.5-moe-42b-a6.6b",
+                "recurrentgemma-2b", "rwkv6-7b", "seamless-m4t-large-v2")
+TPF_BATCH, TPF_SEQ = 4, 512         # (b) a node's batch (Mode B), or the
+                                    # replica's (Mode A)
+TPF_NODES = 2                       # (b) Mode B and the family: 2 nodes x TP 2
+TPF_A_SIZE = 4                      # (b) Mode A: one replica over 4 cards
+TPF_FAMILY_BATCH, TPF_FAMILY_ROUNDS = 2, 3
+TPF_SMOKE_TOL = 1e-5                # (b) the smoke widths against one card:
+                                    # the loss and every gradient
+TPF_ETA = {"sgd": 0.01, "adamw": 1e-3}
+TPF_CALL_S = 480
+# (a) flash at the rank's heads of the published configs in (b):
+# (B, S, T, Hq, Hkv, D, causal, window); MLA's v is zero-padded from 128
+# to q's 192 lanes before the kernel (models/mla.py)
+TPF_FLASH = {
+    "deepseek-v2-lite-16b MLA at tp 4": (TPF_BATCH, TPF_SEQ, TPF_SEQ, 4, 4,
+                                         192, True, 0),
+    "recurrentgemma-2b local at tp 2": (TPF_BATCH, TPF_SEQ, TPF_SEQ, 5, 1,
+                                        256, True, 2048),
+    "seamless-m4t-large-v2 encoder and cross at tp 2": (
+        TPF_BATCH, TPF_SEQ // 2, TPF_SEQ // 2, 8, 8, 64, False, 0),
+    "seamless-m4t-large-v2 decoder at tp 2": (
+        TPF_BATCH, TPF_SEQ // 2, TPF_SEQ // 2, 8, 8, 64, True, 0),
+}
+# (a) the scans at the rank's channels / heads in (b): recurrentgemma-2b's
+# Mode B (one node a rank, tp 2: d_rnn 2560 / 2) and rwkv6-7b's Mode A
+# (tp 4: 64 heads / 4, the u of the one replica)
+TPF_RGLRU = (TPF_BATCH, TPF_SEQ, 2560 // 2)
+TPF_RWKV = (TPF_BATCH, TPF_SEQ, 64 // TPF_A_SIZE, 64)
+
+
+def replicated_equal(torch, params, specs, model) -> list:
+    """Per rank of the world: whether every leaf ``specs`` leave whole is
+    bit-equal across ``model``'s ranks."""
+    import torch.distributed as dist
+
+    from repro_torch.core import dpsgd
+    from repro_torch.train import shardings as shr
+
+    same = True
+    for x, sp in zip(dpsgd._leaves(params), shr.spec_leaves(specs)):
+        if "model" in sp:
+            continue
+        parts = [torch.empty_like(x) for _ in range(model.size)]
+        dist.all_gather(parts, x.contiguous(), group=model.group)
+        same = same and all(torch.equal(parts[0], y) for y in parts[1:])
+    flags = [None] * dist.get_world_size()
+    dist.all_gather_object(flags, bool(same))
+    return flags
+
+
+def tpf_world_of_one(torch) -> dict:
+    """27 (a): each new family's smoke config on a (1, 1) world (NCCL) goes
+    through the tensor-parallel code with groups of one: the loss and the
+    gradients bit-equal to the one-device code's, with the same
+    launches."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config, reduce_for_smoke
+    from repro_torch.core import dpsgd
+    from repro_torch.launch import mesh as lm
+    from repro_torch.launch.train import model_specs
+    from repro_torch.models import build, tp
+    from repro_torch.train import shardings as shr
+
+    def runs(mesh) -> dict:
+        model = tp.model_of(mesh)
+        out = {}
+        for arch in TPF_FAMILIES:
+            cfg = reduce_for_smoke(get_config(arch))
+            params = build(cfg, "cuda").init(
+                torch.Generator(device="cuda").manual_seed(27))
+            if mesh is not None:
+                params = shr.shard_model(
+                    params, model_specs(cfg, model.size), model)
+            api = build(cfg, "cuda", model=None if mesh is None else model)
+            batch = pod_batch(torch, cfg, 0, 1, POD_LOCK_BATCH, POD_LOCK_SEQ,
+                              "allreduce")
+            (g, loss), n = launched(
+                torch, lambda: torch.func.grad_and_value(
+                    lambda p: api.loss(p, batch))(params), train_counters())
+            out[arch] = ([x.clone() for x in dpsgd._leaves(g)], loss.clone(),
+                         n)
+        return out
+
+    one = runs(None)
+    with tempfile.TemporaryDirectory() as d:
+        lm.init_world("cuda", init_method=f"file://{d}/store", rank=0,
+                      world_size=1)
+        try:
+            mesh = lm.make_fleet_mesh(1, 1)
+            before = tp_collectives()
+            world = runs(mesh)
+            issued = tp_collectives() != before
+            print(f"27 (a) a world of {dist.get_world_size()} rank on a "
+                  f"(fleet, model) = {tuple(mesh.mesh.shape)} mesh: every "
+                  f"family's loss and gradient through the tensor-parallel "
+                  f"code, groups of one ({'some' if issued else 'no'} "
+                  f"region collective issued)")
+        finally:
+            dist.destroy_process_group()
+    check(not issued, "27 (a): a model axis of one issued a collective")
+    result = {}
+    for arch in TPF_FAMILIES:
+        (a, la, na), (b, lb, nb) = one[arch], world[arch]
+        same = bool(torch.equal(la, lb)) and all(
+            torch.equal(x, y) for x, y in zip(a, b))
+        nz = {k: v for k, v in nb.items() if v}
+        print(f"27 (a) {arch} smoke, the loss and its gradient: loss "
+              f"{float(lb):.6f}, {'bit-equal to' if same else 'UNLIKE'} the "
+              f"one-device code's; launches {nz} against "
+              f"{ {k: v for k, v in na.items() if v} }")
+        check(same and na == nb and any(nb.values()),
+              f"27 (a) {arch}: {float(lb)} {nb} against {float(la)} {na}")
+        result[arch] = nz
+    return result
+
+
+def tpf_scans(torch) -> dict:
+    """27 (a): the RG-LRU and RWKV-6 scans and their backward kernels at
+    the rank's shard shapes (``TPF_RGLRU``, ``TPF_RWKV``), against their
+    plain versions (the backward summed in float64), bar x max(1, max
+    |oracle|), with times beside the plain version's and the bound."""
+    from repro_torch.kernels import rglru_scan as rg
+    from repro_torch.kernels import rwkv6_scan as rw
+
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    f64 = torch.float64
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    def held(got, want, bar, what):
+        worst = 0.0
+        for g, w_ in zip(got, want):
+            if g is None:
+                continue
+            e = err(g, w_)
+            check(e <= bar * max(1.0, float(w_.abs().max())),
+                  f"27 (a) {what}: max|err| {e}")
+            worst = max(worst, e)
+        return worst
+
+    def timed(kernel, plain, names, nbytes, flops, shape, e, reps):
+        b_ms, b_by = cost.bound(nbytes, flops)
+        return {"ms": time_ms(torch, kernel, reps=reps, rounds=3, warmup=2),
+                "plain_ms": time_ms(torch, plain, reps=1, rounds=3,
+                                    warmup=1),
+                "library_ms": None,
+                "device_ms": prof.device_ms(kernel, names, calls=5),
+                "bound_ms": b_ms, "bound_by": b_by, "shape": shape,
+                "max_abs_err": e}
+
+    out = {}
+    b, s, d = TPF_RGLRU
+    a, x, dh = torch.sigmoid(randn(b, s, d)), randn(b, s, d), randn(b, s, d)
+    h = rg.rglru_scan(a, x)
+    e = held([h], [rg.rglru_scan_plain(a, x, None)], TOL_RGLRU,
+             f"rglru_scan ({b},{s},{d})")
+    shape = f"a, b ({b},{s},{d}) fp32"
+    out["rglru_scan"] = timed(
+        lambda: rg.rglru_scan(a, x), lambda: rg.rglru_scan_plain(a, x, None),
+        ("rglru_scan_kernel", "Memset"), *cost.rglru_cost(b, s, d), shape, e,
+        20)
+    e = held(rg.rglru_scan_bwd(a, h, dh, None),
+             rg.rglru_scan_bwd_plain(a, h, dh, None, acc_dtype=f64),
+             TOL_RGLRU, f"rglru_scan_bwd ({b},{s},{d})")
+    out["rglru_scan_bwd"] = timed(
+        lambda: rg.rglru_scan_bwd(a, h, dh, None),
+        lambda: rg.rglru_scan_bwd_plain(a, h, dh, None),
+        ("rglru_bwd", "Memset"), *cost.rglru_bwd_cost(b, s, d, False),
+        f"a, h, dh ({b},{s},{d}) fp32", e, 20)
+    del a, x, dh, h
+    b, s, hh, d = TPF_RWKV
+    r, k, v = (randn(b, s, hh, d) for _ in range(3))
+    w = torch.exp(-torch.exp(randn(b, s, hh, d) * 0.5))
+    u, dy = randn(hh, d) * 0.1, randn(b, s, hh, d)
+    y, _ = rw.rwkv6_scan(r, k, v, w, u)
+    want, _ = rw.rwkv6_scan_plain(r, k, v, w, u, None, RWKV_CHUNK)
+    e = held([y], [want], TOL_RWKV, f"rwkv6_scan ({b},{s},{hh},{d})")
+    shape = f"r, k, v, w ({b},{s},{hh},{d}) fp32, u ({hh},{d})"
+    out["rwkv6_scan"] = timed(
+        lambda: rw.rwkv6_scan(r, k, v, w, u),
+        lambda: rw.rwkv6_scan_plain(r, k, v, w, u, None, RWKV_CHUNK),
+        "rwkv6_scan_kernel", *cost.rwkv_cost(b, s, hh, d), shape, e, 10)
+    e = held(rw.rwkv6_scan_bwd(r, k, v, w, u, dy, None, None),
+             rw.rwkv6_scan_bwd_plain(r, k, v, w, u, dy, None, None,
+                                     RWKV_CHUNK, acc_dtype=f64),
+             TOL_RWKV, f"rwkv6_scan_bwd ({b},{s},{hh},{d})")
+    out["rwkv6_scan_bwd"] = timed(
+        lambda: rw.rwkv6_scan_bwd(r, k, v, w, u, dy, None, None),
+        lambda: rw.rwkv6_scan_bwd_plain(r, k, v, w, u, dy, None, None,
+                                        RWKV_CHUNK),
+        "rwkv6_bwd", *cost.rwkv_bwd_cost(b, s, hh, d, False, False),
+        shape + ", dy", e, 3)
+    for name, t in out.items():
+        dev_t = t["device_ms"] if t["device_ms"] is not None else t["ms"]
+        dms = "not measured" if t["device_ms"] is None \
+            else f"{t['device_ms']:.4f} ms"
+        print(f"27 (a) {name:15s} at the shard {t['shape']}: max|err| "
+              f"{t['max_abs_err']:.3e}; {t['ms']:.4f} ms/call (device "
+              f"{dms}) | plain {t['plain_ms']:.4f} ms | library none | bound "
+              f"{t['bound_ms']:.4f} ms ({t['bound_by']}), "
+              f"{t['bound_ms'] / dev_t * 100:.1f} % of it")
+    del r, k, v, w, u, dy, y, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def tpf_scan_slices(torch) -> bool:
+    """27 (a): the RWKV-6 scan and its backward kernel on rank 1's heads
+    at tp 4 (``TPF_RWKV``), taken as strided views of whole (B, S, H, D)
+    tensors as a shard's projection hands them over, bit-equal to the
+    whole call's heads. (The RG-LRU's forward takes its look-back from
+    whichever chunk has published, so two whole calls already differ in
+    the last bit: it is held against its plain version above.)"""
+    from repro_torch.kernels import rwkv6_scan as rw
+
+    gen = torch.Generator(device="cuda").manual_seed(28)
+    b, s, hh, d = TPF_RWKV
+    heads = hh * TPF_A_SIZE
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    r, k, v, dy = (randn(b, s, heads, d) for _ in range(4))
+    w = torch.exp(-torch.exp(randn(b, s, heads, d) * 0.5))
+    u = randn(heads, d) * 0.1
+    whole = (*rw.rwkv6_scan(r, k, v, w, u),
+             *rw.rwkv6_scan_bwd(r, k, v, w, u, dy)[:5])
+    lo, hi = hh, 2 * hh
+    part = (*rw.rwkv6_scan(*(x[:, :, lo:hi] for x in (r, k, v, w)),
+                           u[lo:hi]),
+            *rw.rwkv6_scan_bwd(*(x[:, :, lo:hi] for x in (r, k, v, w)),
+                               u[lo:hi], dy[:, :, lo:hi])[:5])
+    cut = (whole[0][:, :, lo:hi], whole[1][:, lo:hi],
+           *(x[:, :, lo:hi] for x in whole[2:6]), whole[6][:, lo:hi])
+    same = all(torch.equal(x, y) for x, y in zip(part, cut))
+    print(f"27 (a) rwkv6_scan and rwkv6_scan_bwd on heads [{lo}, {hi}) of "
+          f"{heads} as strided views ({b},{s},{hh},{d}): y, the final "
+          f"state, dr, dk, dv, dw and du bit-equal to the whole call's: "
+          f"{same}")
+    check(same, "27 (a) the RWKV-6 kernels on a shard's strided heads "
+          "differ from the whole call's")
+    del r, k, v, dy, w, u, whole, part, cut
+    torch.cuda.empty_cache()
+    return same
+
+
+def tpf_four_cards(torch) -> dict:
+    """27 (b): the (fleet, model) world on four cards, one a rank."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = torchrun(TP_CARDS, [str(ROOT / Path(__file__).name),
+                              "--fleet-rank", "tpf"],
+                   "27 (b) tensor parallelism of every family",
+                   timeout=TPF_CALL_S)
+    print("\n".join(ln for ln in out.splitlines()
+                    if ln.startswith("27 (b)")))
+    return fleet_result(out, "27 (b) tensor parallelism of every family")
+
+
+def phase_tpf(torch) -> dict:
+    phase("27. tensor parallelism for every family's training: each new "
+          "family through the tensor-parallel code on a (1, 1) world, the "
+          "scans and flash at the rank's shard shapes, and with four cards "
+          "the (fleet, model) worlds")
+    result = {"a": tpf_world_of_one(torch), "scans": tpf_scans(torch),
+              "slices": tpf_scan_slices(torch),
+              "flash": tp_flash(torch, TPF_FLASH, "27 (a)")}
+    if torch.cuda.device_count() >= TP_CARDS:
+        result["b"] = tpf_four_cards(torch)
+    else:
+        print(f"27 (b) needs {TP_CARDS} cards, {torch.cuda.device_count()} "
+              "visible: not run")
+    return result
+
+
+# ---------------------------------------------------------------------------
+# The ranks of 27 (b) (chip_smoke.py --fleet-rank tpf, four ranks)
+# ---------------------------------------------------------------------------
+
+def rank_tpf_smoke(torch, meshes: dict) -> dict:
+    """Every new family's smoke config at tp 2 and 4: the loss and the
+    gathered gradients against the same parameters and batch on this
+    rank's card alone, within ``TPF_SMOKE_TOL``, and the launches."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config, reduce_for_smoke
+    from repro_torch.launch.train import model_specs
+    from repro_torch.models import build, tp
+    from repro_torch.train import shardings as shr
+
+    out = {}
+    for arch in TPF_FAMILIES:
+        cfg = reduce_for_smoke(get_config(arch))
+        full = build(cfg, "cuda").init(
+            torch.Generator(device="cuda").manual_seed(27))
+        batch = pod_batch(torch, cfg, 0, 1, POD_LOCK_BATCH, POD_LOCK_SEQ,
+                          "allreduce")
+        g1, l1 = torch.func.grad_and_value(
+            lambda p: build(cfg, "cuda").loss(p, batch))(full)
+        for size, mesh in meshes.items():
+            model = tp.model_of(mesh)
+            specs = model_specs(cfg, size)
+            api = build(cfg, "cuda", model=model)
+            local = shr.shard_model(full, specs, model)
+            (g, loss), n = launched(
+                torch, lambda: torch.func.grad_and_value(
+                    lambda p: api.loss(p, batch))(local), train_counters())
+            whole = shr.gather_model(g, specs, model, dst=None)
+            # the largest gradient difference and its leaf
+            worst = max((float((a - b).abs().max()), path)
+                        for (path, a), (_, b) in zip(
+                            shr._with_path(whole), shr._with_path(g1)))
+            got = [None] * dist.get_world_size()
+            dist.all_gather_object(got, (abs(float(loss) - float(l1)),
+                                         worst[0]))
+            out[f"{arch} tp {size}"] = {
+                "loss": float(loss), "loss_diff_grad_diff": got,
+                "worst_leaf": "/".join(map(str, worst[1])),
+                "launches": {k: v for k, v in n.items() if v}}
+            rank_print(f"27 (b) {arch} smoke at tp {size}: loss "
+                       f"{float(loss):.6f}; against the card alone per rank "
+                       f"(loss difference, the largest gradient difference) "
+                       f"{got}, that gradient's leaf "
+                       f"{out[f'{arch} tp {size}']['worst_leaf']} (bar "
+                       f"{TPF_SMOKE_TOL}); rank 0's launches "
+                       f"{out[f'{arch} tp {size}']['launches']}")
+            check(all(dl <= TPF_SMOKE_TOL and dg <= TPF_SMOKE_TOL
+                      for dl, dg in got),
+                  f"27 (b) {arch} smoke at tp {size}: {got}")
+            del g, whole, local
+    return out
+
+
+def rank_tpf_family(torch, mesh) -> dict:
+    """recurrentgemma-2b's train-on-trace family at its published widths
+    and depth over (fleet 2, model 2): 2 nodes on fading, 3 rounds, eager:
+    losses, ms a round, tokens/s, peak GiB, the regions' collectives, the
+    launches per rank and the traced call's idle share."""
+    import gc
+    import math
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.sim import batch as tb
+    from repro_torch.sim import get_scenario, precompute_traces
+    from repro_torch.utils import profile
+
+    mcfg = get_config("recurrentgemma-2b")
+    ad = tb.transformer_adapter(mcfg, batch=TPF_FAMILY_BATCH,
+                                seq_len=TPF_SEQ, eval_batch=TPF_FAMILY_BATCH,
+                                device="cuda")
+    cfg = get_scenario("fading", n_nodes=TPF_NODES,
+                       model_bits=ad.model_bits, model_shapes=ad.param_shapes,
+                       eval_every_rounds=TPF_FAMILY_ROUNDS)
+
+    def family(rounds: int):
+        return tb.train_model_on_traces(
+            ad, [cfg], rounds, trace_batch=precompute_traces([cfg], rounds),
+            mesh=mesh, device="cuda")[1]
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    dist.barrier()
+    c0 = tp_collectives()
+    ran = []        # one traced call: its parameters are drawn on the host
+    t0 = time.perf_counter()
+    traced = profile.trace(lambda: ran.append(launched(
+        torch, lambda: family(TPF_FAMILY_ROUNDS),
+        {**fleet_counters(), **train_counters()})))
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    (res, launches), = ran
+    c1 = tp_collectives()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = res["losses"][0].tolist()
+    tokens = TPF_NODES * TPF_FAMILY_BATCH * TPF_SEQ * TPF_FAMILY_ROUNDS
+    wall = traced.get("wall_ms") or wall_ms
+    out = {"losses": losses, "ms_a_round": wall_ms / TPF_FAMILY_ROUNDS,
+           "tokens_s": tokens / wall_ms * 1e3, "ln_v": math.log(
+               mcfg.vocab_size),
+           "collectives": {k: (c1[k][0] - c0[k][0], c1[k][1] - c0[k][1])
+                           for k in c1},
+           "launches": {k: v for k, v in launches.items() if v},
+           "busy_ms": traced["busy_ms"],
+           "idle": 1.0 - traced["busy_ms"] / wall if wall else None,
+           "top": [(n[:60], round(t_, 3), c)
+                   for n, t_, c in traced["top"][:8]]}
+    for key, value in (("peak_gib", round(peak, 3)),
+                       ("launches_by_rank", out["launches"])):
+        got = [None] * dist.get_world_size()
+        dist.all_gather_object(got, value)
+        out[key] = got
+    rank_print(f"27 (b) recurrentgemma-2b train-on-trace at its published "
+               f"widths and depth ({mcfg.n_layers} layers) over (fleet 2, "
+               f"model 2): {cfg.n_nodes} nodes on fading, batch "
+               f"{TPF_FAMILY_BATCH} x {TPF_SEQ} a node, {TPF_FAMILY_ROUNDS} "
+               f"rounds, eager: losses {losses} (the first against ln V = "
+               f"{out['ln_v']:.4f}); {out['ms_a_round']:.2f} ms a round (the "
+               f"call's wall over its rounds: set-up, the parameters drawn "
+               f"on the host, the final gathers and the evaluation "
+               f"included), {out['tokens_s']:.0f} tokens/s; peak GiB per "
+               f"rank {out['peak_gib']}; the regions' collectives (calls, "
+               f"bytes) {out['collectives']}; launches per rank "
+               f"{out['launches_by_rank']}; the call traced: busy "
+               f"{out['busy_ms']:.2f} ms of {wall:.2f} (idle "
+               f"{out['idle']:.4f}), the largest: " + "; ".join(
+                   f"{n} {t_} ms x{c}" for n, t_, c in out["top"][:6]))
+    check(all(math.isfinite(v) for v in losses)
+          and all(g.get("rglru_scan_bwd") and g.get("flash_attention_bwd")
+                  for g in out["launches_by_rank"]),
+          f"27 (b) family: {losses} {out['launches_by_rank']}")
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def rank_tpf(torch) -> dict:
+    """27 (b), every rank: deepseek-v2-lite-16b's and rwkv6-7b's Mode A at
+    TP 4 (published widths and depth, remat full, AdamW, the state
+    donated), recurrentgemma-2b's Mode B (2 nodes x TP 2, ring-1, SGD,
+    none and int8) and seamless-m4t-large-v2's (none, AdamW), the
+    recurrentgemma-2b family over (2, 2), and every new family's smoke
+    config at tp 2 and 4 against the card alone."""
+    import dataclasses
+    import gc
+    import math
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.gossip import ring_plan
+    from repro_torch.launch.mesh import make_fleet_mesh
+
+    two = make_fleet_mesh(2, 2)
+    four = make_fleet_mesh(1, TPF_A_SIZE)
+    run_a = dataclasses.replace(_pod_run("allreduce"), remat="full")
+    plan = ring_plan(("data",), (TPF_NODES,), 1)
+    out = {}
+
+    def ran(key, cfg, res):
+        ln_v = math.log(cfg.vocab_size)
+        rank_print(f"27 (b) {key}: the first loss {res['losses'][0]:.4f} "
+                   f"against ln V = {ln_v:.4f}")
+        out[key] = dict(res, ln_v=ln_v, layers=cfg.n_layers)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # the largest states first, before the other worlds' communicators
+    # hold their buffers on the cards
+    for arch in ("deepseek-v2-lite-16b", "rwkv6-7b"):
+        cfg = get_config(arch)
+        ran(f"{arch} Mode A", cfg, rank_tp_steps(
+            torch, f"{arch} Mode A at published widths and depth (d "
+            f"{cfg.d_model}, vocab {cfg.vocab_size}, {cfg.n_layers} layers), "
+            f"--nodes 1 --tp {TPF_A_SIZE}, remat full, AdamW, the state "
+            f"donated, {TPF_BATCH} x {TPF_SEQ} tokens", cfg, run_a, None,
+            four, 1, TPF_BATCH, TPF_SEQ, TPF_BATCH * TPF_SEQ, donate=True,
+            label="27 (b)", replicated=True))
+    # recurrentgemma-2b's Mode B takes the paper's plain SGD update (Eq.
+    # 5) and runs eager, as launch.train runs a step through split RG-LRU
+    # channels (its capture hung on four H100s)
+    for arch, comps, opt in (("recurrentgemma-2b", ("none", "int8"), "sgd"),
+                             ("seamless-m4t-large-v2", ("none",), "adamw")):
+        cfg = get_config(arch)
+        for comp in comps:
+            ran(f"{arch} Mode B {comp}", cfg, rank_tp_steps(
+                torch, f"{arch} Mode B at published widths and depth "
+                f"({cfg.n_layers} layers), {TPF_NODES} nodes x TP 2, ring-1 "
+                f"{comp}, {opt}, {TPF_BATCH} x {TPF_SEQ} tokens a node",
+                cfg, _pod_run("dpsgd", optimizer=opt, eta=TPF_ETA[opt],
+                              compression=comp),
+                plan, two, TPF_NODES, TPF_BATCH, TPF_SEQ,
+                TPF_NODES * TPF_BATCH * TPF_SEQ, label="27 (b)",
+                replicated=True))
+    out["family"] = rank_tpf_family(torch, two)
+    out["smoke"] = rank_tpf_smoke(torch, {2: two, 4: four})
+    return out
+
+
 def fleet_rank_main(role: str) -> None:
-    """One rank of a 25 (c) or 26 (b) world; rank 0 prints the result as
-    a FLEET line."""
+    """One rank of a 25 (c), 26 (b) or 27 (b) world; rank 0 prints the
+    result as a FLEET line."""
     import os
 
     sys.path.insert(0, str(SRC))
@@ -6502,8 +7004,9 @@ def fleet_rank_main(role: str) -> None:
     from repro_torch.train.shardings import fleet_of
 
     init_world("cuda")
-    if role in ("tp", "tp-capture"):
-        result = rank_tp(torch) if role == "tp" else rank_tp_capture(torch)
+    if role in ("tp", "tp-capture", "tpf"):
+        result = {"tp": rank_tp, "tp-capture": rank_tp_capture,
+                  "tpf": rank_tpf}[role](torch)
         rank_print(f"FLEET {json.dumps(result)}")
         dist.barrier()
         dist.destroy_process_group()
@@ -6522,6 +7025,35 @@ def fleet_rank_main(role: str) -> None:
     rank_print(f"FLEET {json.dumps(result)}")
     dist.barrier()
     dist.destroy_process_group()
+
+
+def phase_encdec_serve(torch) -> dict:
+    """14: serving seamless-m4t-large-v2 at full width (``phase_serve``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+
+    n_enc = get_config(ENCDEC_ARCH).encoder_layers
+    n_dec = get_config(ENCDEC_ARCH).n_layers - n_enc
+    return phase_serve(
+        torch, "14. serving seamless-m4t-large-v2 (encoder-decoder) at full "
+        "width on the card", ENCDEC_ARCH,
+        {"flash_attention": fa.flash_attention},
+        {"flash_attention": n_enc + 2 * n_dec},
+        f"flash in prefill once per encoder layer (non-causal, {n_enc}) and "
+        f"twice per decoder layer (causal self and non-causal cross "
+        f"attention, {2 * n_dec}); none in the {SERVE_GEN - 1} decode steps")
+
+
+def phase_encdec_correct(torch) -> None:
+    """15: the served encoder-decoder path at the smoke widths against
+    the plain reference (``phase_served_correctness``)."""
+    from repro_torch.configs import get_config, reduce_for_smoke
+    from repro_torch.kernels import flash_attention as fa
+
+    phase_served_correctness(
+        torch, "15. correctness of the served encoder-decoder path",
+        ENCDEC_ARCH, {"flash_attention": fa.flash_attention},
+        reduce_for_smoke(get_config(ENCDEC_ARCH)), LOCK_TOL)
 
 
 def main() -> None:
@@ -6622,21 +7154,8 @@ def main() -> None:
     run("13", phase_served_correctness, torch,
         "13. correctness of the served deepseek path", MLA_ARCH, flash_only,
         reduce_for_smoke(get_config(MLA_ARCH)), LOCK_TOL, True)
-    n_enc = get_config(ENCDEC_ARCH).encoder_layers
-    n_dec = get_config(ENCDEC_ARCH).n_layers - n_enc
-    served_encdec = run("14", phase_serve, torch,
-                        "14. serving seamless-m4t-large-v2 "
-                        "(encoder-decoder) at full width on the card",
-                        ENCDEC_ARCH, flash_only,
-                        {"flash_attention": n_enc + 2 * n_dec},
-                        f"flash in prefill once per encoder layer "
-                        f"(non-causal, {n_enc}) and twice per decoder layer "
-                        f"(causal self and non-causal cross attention, "
-                        f"{2 * n_dec}); none in the {SERVE_GEN - 1} decode "
-                        f"steps")
-    run("15", phase_served_correctness, torch,
-        "15. correctness of the served encoder-decoder path", ENCDEC_ARCH,
-        flash_only, reduce_for_smoke(get_config(ENCDEC_ARCH)), LOCK_TOL)
+    served_encdec = run("14", phase_encdec_serve, torch)
+    run("15", phase_encdec_correct, torch)
 
     # training stablelm-3b over wireless traces: every attention's forward
     # and backward in the flash kernels
@@ -6686,6 +7205,12 @@ def main() -> None:
     # (fleet, model) worlds when four cards are present
     torch.cuda.empty_cache()
     tp_run = run("26", phase_tp, torch)
+    # tensor parallelism for every family's training: each new family
+    # through the tensor-parallel code on a (1, 1) world, the scans and
+    # flash at the rank's shard shapes, the (fleet, model) world when four
+    # cards are present
+    torch.cuda.empty_cache()
+    tpf_run = run("27", phase_tpf, torch)
     kernels["flash_attention"]["qwen2_vl_train"] = kernels.pop(
         "flash_attention_qwen2_vl_train")
     rec_launches = {**trained_rec["recurrentgemma-2b"]["launches"],
@@ -6850,6 +7375,34 @@ def main() -> None:
             by_path.update({k_: v for k_, v in paths.items() if v})
         if name.startswith("flash_attention"):
             row["tp_shapes"] = tp_run["flash"]
+    # phase 27's runs: (a) each new family's smoke config through the
+    # tensor-parallel code on a (1, 1) world, (b) the (fleet, model) world
+    # on four cards (rank 0's launches)
+    for row in rows:
+        name = row["name"]
+        if not name.startswith(("flash_attention", "rglru_scan",
+                                "rwkv6_scan")):
+            continue
+        by_path = row.setdefault("launches_by_path",
+                                 {"main path": row["launches"]})
+        by_path.update({
+            f"{arch} smoke, a step's loss and gradient through the "
+            f"tensor-parallel code on a (1, 1) world (phase 27 (a))": n[name]
+            for arch, n in tpf_run["a"].items() if n.get(name)})
+        b = tpf_run.get("b")
+        if b is not None:
+            paths = {f"{key}, {TP_TIMED} steps (phase 27 (b))":
+                     res["launches"].get(name, 0) for key, res in b.items()
+                     if key not in ("family", "smoke")}
+            paths["recurrentgemma-2b train-on-trace over (fleet 2, model "
+                  f"2), {TPF_FAMILY_ROUNDS} rounds (phase 27 (b))"] = \
+                b["family"]["launches_by_rank"][0].get(name, 0)
+            paths.update({f"{key} smoke, a loss and gradient (phase 27 (b))":
+                          res["launches"].get(name, 0)
+                          for key, res in b["smoke"].items()})
+            by_path.update({k_: v for k_, v in paths.items() if v})
+        row["tpf_shapes"] = tpf_run["flash"] \
+            if name.startswith("flash_attention") else tpf_run["scans"][name]
     k = traced["trace_scan"]
     rows.append({
         "name": "trace_scan", "route": "cuda",

@@ -82,14 +82,14 @@ from ..core.density_controller import (candidate_plans, choose_plan,
                                        evaluate_plan)
 from ..core.dpsgd import _leaves
 from ..kernels import counted_wrappers
-from ..models import build, encdec, transformer
+from ..models import build, encdec, tp, transformer
 from ..models.layers import torch_dtype
 from ..optim.schedule import constant_lr
 from ..train.step import (init_train_state, make_train_step,
                           reshape_batch_for_nodes)
 from ..utils.collectives import step_collectives
 from .serve import init_serving_params
-from .train import DISTRIBUTED_ITEM, param_bytes
+from .train import param_bytes
 
 __all__ = ["PeakTracker", "train_cell", "serve_cell",
            "fewest_microbatches", "check_mesh", "run_cell", "main",
@@ -373,7 +373,7 @@ def check_mesh(kind: str) -> None:
     if kind != "card":
         raise NotImplementedError(
             f"--mesh {kind}: the reference's pod meshes run on several "
-            f"devices, which waits for {DISTRIBUTED_ITEM}; the port's dry "
+            f"devices, which waits for {tp.SERVE_ITEM}; the port's dry "
             "run has one card (--mesh card)")
 
 

@@ -47,13 +47,16 @@ gradients. With ``--tp T`` the world of W ranks is the reference's
 or the one replica (Mode A; ``--nodes 1`` is pure tensor parallelism)
 runs over the T ranks of a ``model`` axis, every leaf the rank's shard
 of the JAX package's ``param_specs`` (drawn layer by layer and sharded as
-drawn: the whole model is never on one card), the dense decoder
-families only (any other raises naming ROADMAP Queue 1 item 9). A
+drawn: the whole model is never on one card), every family (heads that
+do not divide over the axis raise naming ROADMAP Queue 1 item 9). A
 checkpoint gathers every leaf over ``model`` and then the fleet to rank
 0's host (the JAX package's global arrays, the same files one process
 writes) and scatters it back to resume or after the fault drill; the
 tensor-parallel step, its regions' all-reduces inside, is captured and
-replays bit-equal to eager (chip_smoke.py phase 26 (b)). On the card the step is a ``graphs.GraphedStep`` (the counterpart
+replays bit-equal to eager (chip_smoke.py phase 26 (b)); a step through
+split RG-LRU channels runs eager (``transformer.tp_runs_eager``: its
+capture hung on four H100s). On the card the step is a
+``graphs.GraphedStep`` (the counterpart
 of ``jax.jit``; staging its inputs lets the loop drop its own copy of the
 state, the counterpart of ``donate_argnums``) unless ``graphed=False``
 (``--eager``) asks for the eager step: a graph keeps its static inputs,
@@ -81,7 +84,7 @@ from ..data.pipeline import deterministic_lm_batch
 from ..device import resolve_device
 from ..graphs import GraphedStep
 from ..models import build, tp as _tp
-from ..models.transformer import check_dense
+from ..models.transformer import check_tp, tp_runs_eager
 from ..models.layers import torch_dtype
 from ..optim.schedule import constant_lr
 from ..runtime.fault import ElasticController
@@ -91,8 +94,6 @@ from ..train.step import (init_train_state, make_train_step,
 
 __all__ = ["main", "train_loop", "param_bytes", "stub_embeds",
            "model_specs", "shard_cast", "state_specs"]
-
-DISTRIBUTED_ITEM = "ROADMAP Queue 1 item 9"
 
 
 def _mesh(nodes: int, tp: int, node_mode: bool = True):
@@ -221,8 +222,8 @@ def train_loop(cfg, run: RunConfig, *, nodes: int, tp: int, steps: int,
     # column is deterministic when a test stubs `clock`
     clock = clock or time.perf_counter
     node_mode = run.mode == "dpsgd"
-    if tp > 1:      # a family without tensor parallelism, before any work
-        check_dense(cfg, _tp.Model(size=tp))
+    # heads that do not divide over the axis refuse before any work
+    check_tp(cfg, _tp.Model(size=tp))
     mesh = _mesh(nodes, tp, node_mode)
     fleet = shr.fleet_of(mesh)
     model = _tp.model_of(mesh)
@@ -248,6 +249,9 @@ def train_loop(cfg, run: RunConfig, *, nodes: int, tp: int, steps: int,
         _log(fleet, f"[plan] {choice}")
 
     pspecs = model_specs(cfg, tp) if model.active else None
+    # a tensor-parallel step through split RG-LRU channels hung under
+    # CUDA graph capture on four H100s: it runs eager
+    graphed = graphed and not tp_runs_eager(cfg, model)
     # the eager step consumes its state, as the JAX trainer donates it
     step_fn = make_train_step(api, run, plan, constant_lr(run.eta),
                               group=fleet.group,

@@ -27,7 +27,10 @@ rows (partial sums leave by ``tp.reduce_out``), and ``wk`` / ``wv`` give
 the kv heads those q heads read: the rank's shard when it holds exactly
 them, gathered whole (``tp.gather``) when the specs split a head, or the
 replicated weight (through ``tp.copy_in``: its gradient is partial on each
-rank) when ``kv_dim`` does not divide. Decode and cross attention under
+rank) when ``kv_dim`` does not divide. Cross attention (``_cross``, one
+body for training and for prefill, which caches its K/V) runs the same
+way on the rank's heads over the encoder output, which enters by
+``tp.copy_in``. Decode and prefill caches under
 tensor parallelism wait for ROADMAP Queue 1 item 9.
 """
 from __future__ import annotations
@@ -175,7 +178,7 @@ def head_split(cfg: ModelConfig, model: tp.Model) -> tuple[int, int, int, int]:
     if n % model.size:
         raise NotImplementedError(
             f"{n} q heads over a 'model' axis of {model.size}: a q head "
-            f"split over ranks waits for {tp.DENSE_ITEM}")
+            f"split over ranks waits for {tp.SERVE_ITEM}")
     hq = n // model.size
     q0 = model.index * hq
     g = n // kv
@@ -186,7 +189,7 @@ def head_split(cfg: ModelConfig, model: tp.Model) -> tuple[int, int, int, int]:
         raise NotImplementedError(
             f"GQA {n} on {kv} heads over {model.size} ranks gives rank "
             f"{model.index} q heads of unequal kv groups "
-            f"({tp.DENSE_ITEM})")
+            f"({tp.SERVE_ITEM})")
     return q0, hq, k0, hkv
 
 
@@ -237,6 +240,32 @@ def _attn_train(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
     return tp.reduce_out(y, model)
 
 
+def _cross(p: dict, x: torch.Tensor, kv_src: torch.Tensor,
+           cfg: ModelConfig, model: tp.Model) -> tuple:
+    """Cross attention over the encoder output ``kv_src`` (B, T, D), for
+    training and for prefill: the rank's q heads over the kv heads they
+    read (all of them on an axis of one), non-causal through the flash
+    kernel (every source frame is visible: positions play no part), no
+    rotary; both inputs enter by ``tp.copy_in`` and the output
+    projection's partial sums leave by ``tp.reduce_out``. Returns (y, k,
+    v), k and v (B, T, hkv, head_dim) as the cache keeps them."""
+    dt = torch_dtype(cfg.dtype)
+    b, s, _ = x.shape
+    t = kv_src.shape[1]
+    d = cfg.head_dim
+    _, hq, k0, hkv = head_split(cfg, model)
+    x, kv_src = tp.copy_in(x, model), tp.copy_in(kv_src, model)
+    q = dense(p["wq"], x, dt).reshape(b, s, hq, d)
+    k = dense(_kv_of_heads(p["wk"], cfg, model, k0, hkv), kv_src,
+              dt).reshape(b, t, hkv, d)
+    v = dense(_kv_of_heads(p["wv"], cfg, model, k0, hkv), kv_src,
+              dt).reshape(b, t, hkv, d)
+    out = ops.flash_attention_gqa(q.contiguous(), k.contiguous(),
+                                  v.contiguous(), causal=False)
+    y = dense(p["wo"], out.to(dt).reshape(b, s, hq * d), dt)
+    return tp.reduce_out(y, model), k, v
+
+
 # ---------------------------------------------------------------------------
 # Full layer application
 # ---------------------------------------------------------------------------
@@ -267,39 +296,32 @@ def attn_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *, kind: str,
     training step runs inside a CUDA graph's capture) passes
     ``positions_are_arange`` and nothing is read.
 
-    ``model``: the train path runs on the rank's heads (``_attn_train``);
-    under an active axis the other modes raise.
+    ``model``: the train path runs on the rank's heads (``_attn_train``,
+    ``_cross``); under an active axis the other modes raise.
     """
-    if kind != "cross" and cache is None and cache_index is None:
+    if cache is None and cache_index is None:
+        if kind == "cross":
+            return _cross(p, x, kv_src, cfg, model)[0], None
         return _attn_train(p, x, cfg, kind, positions, causal_override,
                            positions_are_arange, model), None
     if model.active:
         raise NotImplementedError(
-            "tensor parallelism runs the train path of self attention; "
-            f"decode, prefill caches and cross attention wait for "
-            f"{tp.DENSE_ITEM}")
+            "tensor parallelism runs the train path of attention; decode "
+            f"and prefill caches wait for {tp.SERVE_ITEM}")
     dt = torch_dtype(cfg.dtype)
+    if kind == "cross" and kv_src is not None:
+        y, k, v = _cross(p, x, kv_src, cfg, model)
+        return y, {"k": k.to(dt), "v": v.to(dt)}
     b, s, _ = x.shape
     q = dense(p["wq"], x, dt).reshape(b, s, cfg.n_heads, cfg.head_dim)
 
     if kind == "cross":
-        if kv_src is not None:
-            t = kv_src.shape[1]
-            k = dense(p["wk"], kv_src, dt).reshape(b, t, cfg.n_kv_heads,
-                                                   cfg.head_dim)
-            v = dense(p["wv"], kv_src, dt).reshape(b, t, cfg.n_kv_heads,
-                                                   cfg.head_dim)
-            if cache is not None:
-                cache = {"k": k.to(dt), "v": v.to(dt)}
-            # every source frame is visible: positions play no part
-            out = ops.flash_attention_gqa(q.contiguous(), k.contiguous(),
-                                          v.contiguous(), causal=False)
-        else:
-            k, v = cache["k"], cache["v"]
-            zeros = torch.zeros((1,), dtype=torch.int32, device=x.device)
-            out = chunked_attention(q, k, v, causal=False,
-                                    q_positions=zeros.expand(s),
-                                    k_positions=zeros.expand(k.shape[1]))
+        # the K/V cached at prefill; every source frame is visible
+        k, v = cache["k"], cache["v"]
+        zeros = torch.zeros((1,), dtype=torch.int32, device=x.device)
+        out = chunked_attention(q, k, v, causal=False,
+                                q_positions=zeros.expand(s),
+                                k_positions=zeros.expand(k.shape[1]))
         y = dense(p["wo"], out.to(dt).reshape(b, s, cfg.q_dim), dt)
         return y, cache
 

@@ -13,6 +13,13 @@ The layer params keep the JAX layout, stacked with a leading ``n_enc`` /
 unchanged); the JAX package's ``lax.scan`` over a stack becomes a loop
 over its leading axis. A serving shape of S positions maps to S_src =
 S_tgt = S / 2 (``api._encdec_make_inputs``).
+
+Tensor parallelism (``model``; ``tp.current()`` when none is given) runs
+the teacher-forced forward on the rank's shards, through both stacks and
+remat's checkpoint: self and cross attention on the rank's heads, the
+MLPs column / row parallel, the tied embedding and its head
+vocab-parallel where the vocab divides over the axis (else replicated,
+``encdec_loss`` then the plain cross entropy).
 """
 from __future__ import annotations
 
@@ -22,11 +29,13 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
-from . import remat
-from .layers import cross_entropy, embed_init, norm, norm_init, torch_dtype
+from . import remat, tp
+from .layers import (cross_entropy, embed_init, norm, norm_init, torch_dtype,
+                     vocab_cross_entropy)
 from .transformer import (_apply_layer, _embed, _init_layer,
                           _init_layer_cache, _logits, _tree_index,
-                          _tree_map, _tree_stack, _tree_unbind, stack_drawn)
+                          _tree_map, _tree_stack, _tree_unbind, check_tp,
+                          stack_drawn)
 
 PyTree = Any
 
@@ -70,7 +79,7 @@ def _run_stacked(cfg: ModelConfig, stacked: dict, x: torch.Tensor, *,
                  cache_index: Optional[int] = None, want_cache: bool = False,
                  encoder_mode: bool = False,
                  positions_are_arange: bool = False,
-                 remat_policy: str = "none"
+                 remat_policy: str = "none", model: tp.Model = tp.ONE
                  ) -> tuple[torch.Tensor, Optional[dict]]:
     """The layers of a stack in turn. In decode (``cache_index`` given)
     the cross K/V, which never change after prefill, pass through as the
@@ -98,7 +107,7 @@ def _run_stacked(cfg: ModelConfig, stacked: dict, x: torch.Tensor, *,
             p, x, cfg, "global", positions=positions, cache=cache,
             cross_src=cross_src, want_cache=want_cache,
             encoder_mode=encoder_mode,
-            positions_are_arange=positions_are_arange)
+            positions_are_arange=positions_are_arange, model=model)
     new = []
     for i, p in enumerate(_tree_unbind(stacked, n)):
         if remat_policy != "none":
@@ -112,36 +121,47 @@ def _run_stacked(cfg: ModelConfig, stacked: dict, x: torch.Tensor, *,
 
 
 def encode(cfg: ModelConfig, params: PyTree, src_embeds: torch.Tensor, *,
-           remat: str = "none") -> torch.Tensor:
+           remat: str = "none", model: tp.Model = tp.ONE) -> torch.Tensor:
     """Bidirectional encoder over precomputed frame embeddings."""
     s = src_embeds.shape[1]
     x, _ = _run_stacked(cfg, params["encoder"],
                         src_embeds.to(torch_dtype(cfg.dtype)),
                         positions=torch.arange(s, device=src_embeds.device),
-                        encoder_mode=True, remat_policy=remat)
+                        encoder_mode=True, remat_policy=remat, model=model)
     return norm(params["enc_norm"], x, cfg.norm)
 
 
 def apply(cfg: ModelConfig, params: PyTree, src_embeds: torch.Tensor,
-          tgt_tokens: torch.Tensor, *, remat: str = "none") -> torch.Tensor:
-    """Teacher-forced: (B,S_src,d) x (B,S_tgt) -> (B,S_tgt,V) logits.
-    ``remat``: "none" | "full" | "dots" (``models.remat``)."""
-    enc = encode(cfg, params, src_embeds, remat=remat)
-    x = _embed(cfg, params, tgt_tokens)
+          tgt_tokens: torch.Tensor, *, remat: str = "none",
+          model: Optional[tp.Model] = None) -> torch.Tensor:
+    """Teacher-forced: (B,S_src,d) x (B,S_tgt) -> (B,S_tgt,V) logits
+    (under tensor parallelism with the vocab split, the rank's (B, S_tgt,
+    V / size) block). ``remat``: "none" | "full" | "dots"
+    (``models.remat``)."""
+    model = tp.resolve(model)
+    check_tp(cfg, model)
+    enc = encode(cfg, params, src_embeds, remat=remat, model=model)
+    x = _embed(cfg, params, tgt_tokens, model=model)
     x, _ = _run_stacked(
         cfg, params["decoder"], x,
         positions=torch.arange(tgt_tokens.shape[1], device=x.device),
-        cross_src=enc, positions_are_arange=True, remat_policy=remat)
-    return _logits(cfg, params, x)
+        cross_src=enc, positions_are_arange=True, remat_policy=remat,
+        model=model)
+    return _logits(cfg, params, x, model)
 
 
 def encdec_loss(cfg: ModelConfig, params: PyTree, batch: dict, *,
-                remat: str = "none") -> torch.Tensor:
+                remat: str = "none",
+                model: Optional[tp.Model] = None) -> torch.Tensor:
     """Next-token cross entropy of the target; differentiable
     (``torch.func.grad``, autograd), under ``torch.func.vmap`` too."""
-    logits = apply(cfg, params, batch["src_embeds"], batch["tokens"],
-                   remat=remat)
-    return cross_entropy(logits[:, :-1], batch["tokens"][:, 1:])
+    model = tp.resolve(model)
+    tokens = batch["tokens"]
+    logits = apply(cfg, params, batch["src_embeds"], tokens, remat=remat,
+                   model=model)
+    if model.splits(cfg.vocab_size):
+        return vocab_cross_entropy(logits[:, :-1], tokens[:, 1:], model)
+    return cross_entropy(logits[:, :-1], tokens[:, 1:])
 
 
 def init_dec_cache(cfg: ModelConfig, batch: int, max_len: int, cross_len: int,

@@ -22,8 +22,8 @@ from . import tp
 from .remat import product
 
 __all__ = ["torch_dtype", "normal", "dense_init", "dense", "norm_init",
-           "norm", "mlp_init", "mlp", "embed_init", "embed_rows", "rope",
-           "cross_entropy", "vocab_cross_entropy"]
+           "norm", "mlp_init", "mlp", "mlp_local", "embed_init", "embed_rows",
+           "rope", "cross_entropy", "vocab_cross_entropy"]
 
 
 def rounded_to(value: float, dtype: torch.dtype) -> float:
@@ -127,9 +127,17 @@ def mlp(p: dict, x: torch.Tensor, kind: str, compute_dtype,
     columns and ``w_down`` its rows: x enters by ``tp.copy_in`` and the
     partial sums leave by ``tp.reduce_out``. A width that does not divide
     is replicated and runs whole on every rank."""
-    split = model.splits(d_ff)
-    if split:
-        x = tp.copy_in(x, model)
+    if not model.splits(d_ff):
+        return mlp_local(p, x, kind, compute_dtype)
+    return tp.reduce_out(mlp_local(p, tp.copy_in(x, model), kind,
+                                   compute_dtype), model)
+
+
+def mlp_local(p: dict, x: torch.Tensor, kind: str,
+              compute_dtype) -> torch.Tensor:
+    """The MLP on the weights as they are, no region: on the rank's
+    columns / rows, its partial sum (the MoE layer adds the shared
+    experts' to its experts' before one ``tp.reduce_out``)."""
     # jax.nn.gelu defaults to the tanh approximation; F.gelu to the exact
     # erf form, so the approximation is named here.
     up = dense(p["w_up"], x, compute_dtype)
@@ -144,8 +152,7 @@ def mlp(p: dict, x: torch.Tensor, kind: str, compute_dtype,
         h = torch.square(F.relu(up))
     else:
         raise ValueError(kind)
-    y = dense(p["w_down"], h, compute_dtype)
-    return tp.reduce_out(y, model) if split else y
+    return dense(p["w_down"], h, compute_dtype)
 
 
 # ---------------------------------------------------------------------------

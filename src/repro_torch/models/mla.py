@@ -13,6 +13,14 @@ qk_nope + qk_rope lanes, v of v_head_dim, zero-padded to q's width inside
 uses the low-rank identity score_i = (W_uk_i^T q_nope_i)^T c_kv against
 the compressed cache, in plain torch as in the JAX package: it launches
 no kernel.
+
+Under tensor parallelism (``model``) the train path runs on the rank's
+heads: ``wq``, ``w_uk`` and ``w_uv`` are its columns (whole heads), the
+replicated ``wkv_a`` enters by ``tp.copy_in`` (c_kv and k_rope are made on
+every rank but feed only its heads, so their gradients are partial), the
+flash kernel runs at the local heads and ``wo``'s rows leave by
+``tp.reduce_out``. A cache under an active axis waits for ROADMAP Queue 1
+item 9.
 """
 from __future__ import annotations
 
@@ -22,10 +30,11 @@ import torch
 
 from ..configs.base import MLAConfig, ModelConfig
 from ..kernels import ops
+from . import tp
 from .layers import dense, dense_init, rope, torch_dtype
 from .remat import product
 
-__all__ = ["mla_init", "init_mla_cache", "mla_apply"]
+__all__ = ["mla_init", "init_mla_cache", "mla_apply", "heads_of"]
 
 _NEG = -1e30
 
@@ -57,19 +66,38 @@ def init_mla_cache(cfg: ModelConfig, m: MLAConfig, batch: int, max_len: int,
     }
 
 
+def heads_of(cfg: ModelConfig, model: tp.Model) -> int:
+    """The rank's count of MLA heads: every head whole on one rank."""
+    if cfg.n_heads % model.size:
+        raise NotImplementedError(
+            f"{cfg.n_heads} MLA heads over a 'model' axis of {model.size}: "
+            f"a head split over ranks waits for {tp.SERVE_ITEM}")
+    return cfg.n_heads // model.size
+
+
 def mla_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *, m: MLAConfig,
               positions: torch.Tensor, cache: Optional[dict] = None,
               cache_index: Optional[int] = None,
-              positions_are_arange: bool = False
+              positions_are_arange: bool = False,
+              model: tp.Model = tp.ONE
               ) -> tuple[torch.Tensor, Optional[dict]]:
     dt = torch_dtype(cfg.dtype)
     b, s, _ = x.shape
     h = cfg.n_heads
+    wkv_a = p["wkv_a"]
+    if model.active:
+        if cache is not None or cache_index is not None:
+            raise NotImplementedError(
+                "tensor parallelism runs MLA's train path; its caches "
+                f"wait for {tp.SERVE_ITEM}")
+        h = heads_of(cfg, model)
+        x = tp.copy_in(x, model)
+        wkv_a = {k: tp.copy_in(w, model) for k, w in wkv_a.items()}
     q = dense(p["wq"], x, dt).reshape(b, s, h, m.qk_nope_dim + m.qk_rope_dim)
     q_nope, q_rope = q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:]
     q_rope = rope(q_rope, positions, cfg.rope_theta)
 
-    kv = dense(p["wkv_a"], x, dt)
+    kv = dense(wkv_a, x, dt)
     c_kv, k_rope = kv[..., :m.kv_lora_rank], kv[..., m.kv_lora_rank:]
     k_rope = rope(k_rope[:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
 
@@ -94,7 +122,7 @@ def mla_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *, m: MLAConfig,
             kr_c[:, :s] = k_rope.to(kr_c.dtype)
             new_cache = {"c_kv": ckv_c, "k_rope": kr_c}
         y = dense(p["wo"], out.to(dt).reshape(b, s, h * m.v_head_dim), dt)
-        return y, new_cache
+        return tp.reduce_out(y, model), new_cache
 
     # ----- decode: low-rank attention against the compressed cache
     idx = int(cache_index)

@@ -23,6 +23,14 @@ The JAX package's per-row ``vmap`` becomes a batch axis: the dispatch
 buffer is laid out expert-major, (E, B * cap, d), so the expert products
 are one ``bmm`` each with no transpose. ``_wsc`` (a sharding hint, a
 no-op off-mesh) has no counterpart.
+
+Under tensor parallelism the experts split over the ``model`` axis
+(``moe_apply``). The sum then runs in another order: each rank combines
+its own experts' outputs in ascending expert order from zero, adds the
+shared experts' partial sum, and the ranks' sums are added by the
+all-reduce; one device adds all k outputs in ascending order and then the
+shared experts' whole output. The terms are the same, their roundings
+differ.
 """
 from __future__ import annotations
 
@@ -30,7 +38,8 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig, MoEConfig
-from .layers import dense_init, mlp, mlp_init, normal, torch_dtype
+from . import tp
+from .layers import dense_init, mlp, mlp_init, mlp_local, normal, torch_dtype
 from .remat import product
 
 __all__ = ["moe_init", "moe_route", "moe_apply", "combine",
@@ -93,22 +102,43 @@ def moe_route(p: dict, x: torch.Tensor, cfg: ModelConfig,
             "slot": slot.reshape(b, s, k), "cap": cap}
 
 
-def moe_apply(p: dict, x: torch.Tensor, cfg: ModelConfig,
-              mcfg: MoEConfig) -> torch.Tensor:
-    """x (B, S, d) -> (B, S, d)."""
+def moe_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, mcfg: MoEConfig,
+              model: tp.Model = tp.ONE) -> torch.Tensor:
+    """x (B, S, d) -> (B, S, d).
+
+    ``model`` (tensor parallelism) with the experts split over it
+    (``ew_*`` the rank's ``E / size`` experts): the routing runs whole and
+    identical on every rank (the router replicated, the capacity and the
+    stable sorts over all E experts: the same drops as on one device);
+    the rank fills and runs only its experts' block of the expert-major
+    buffer (every other pair goes to the sink row) and combines its
+    experts' outputs; x and the router enter by ``tp.copy_in`` (the gates
+    multiply only the rank's experts, so their gradients are partial).
+    The shared experts, column / row split, add their partial sum to the
+    combine's, and one ``tp.reduce_out`` sums both over the ranks."""
     dt = torch_dtype(cfg.dtype)
     b, s, d = x.shape
     e, k = mcfg.n_experts, mcfg.top_k
-    r = moe_route(p, x, cfg, mcfg)
+    split = model.splits(e)
+    xs = tp.copy_in(x, model) if split else x
+    router = {n: tp.copy_in(w, model) for n, w in p["router"].items()} \
+        if split else p["router"]
+    r = moe_route({"router": router}, xs, cfg, mcfg)
     cap = r["cap"]
+    lo, hi = model.block(e) if split else (0, e)
+    if split:       # the rank's experts' pairs; every other to the sink
+        mine = r["keep"] & (r["expert"] >= lo) & (r["expert"] < hi)
+        r = {**r, "keep": mine,
+             "slot": torch.where(mine, r["slot"] - lo * b * cap,
+                                 (hi - lo) * b * cap)}
 
     # dispatch: every kept pair's token row into its slot; dropped pairs
     # all land on the sink row, which is cut off
     slot = r["slot"].reshape(-1)
-    src = x.to(dt).repeat_interleave(k, dim=1).reshape(-1, d)
-    buf = x.new_zeros((e * b * cap + 1, d), dtype=dt)
+    src = xs.to(dt).repeat_interleave(k, dim=1).reshape(-1, d)
+    buf = x.new_zeros(((hi - lo) * b * cap + 1, d), dtype=dt)
     buf[slot] = src
-    xe = buf[:-1].view(e, b * cap, d)
+    xe = buf[:-1].view(hi - lo, b * cap, d)
     del src, buf
 
     # per-expert SwiGLU, batched over experts (each buffer dropped as soon
@@ -116,12 +146,18 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: ModelConfig,
     h = F.silu(product(xe, p["ew_gate"].to(dt))) \
         * product(xe, p["ew_up"].to(dt))
     del xe
-    ye = product(h, p["ew_down"].to(dt)).view(e * b * cap, d)
+    ye = product(h, p["ew_down"].to(dt)).view((hi - lo) * b * cap, d)
     del h
     y = combine(ye, r)
 
+    f = mcfg.d_ff_expert * mcfg.n_shared
+    if split and "shared" in p and model.splits(f):
+        y = y + mlp_local(p["shared"], xs.to(dt), "swiglu", dt)
+        return tp.reduce_out(y, model)
+    if split:
+        y = tp.reduce_out(y, model)
     if "shared" in p:
-        y = y + mlp(p["shared"], x.to(dt), "swiglu", dt)
+        y = y + mlp(p["shared"], x.to(dt), "swiglu", dt, model, f)
     return y
 
 

@@ -19,6 +19,15 @@ plain torch; only the recurrence runs in a kernel
 (``kernels.ops.rglru``), in prefill (S = prompt) and decode (S = 1) alike,
 where the JAX package runs ``linear_recurrence``'s associative scan.
 State: {conv: (B, width-1, d_rnn), h: (B, d_rnn) fp32}.
+
+Under tensor parallelism (``model``, d_rnn dividing over it) the block
+runs on the rank's channels: ``w_x`` / ``w_gate`` are its columns (x
+enters by ``tp.copy_in``), ``conv_w``, ``b_ai`` and ``lam`` its channels,
+``w_ai`` its output channels of the fused gates, whose product needs u
+whole (``tp.gather``: its backward sums the ranks' partial gradients and
+keeps the rank's slice), the recurrence runs on (B, S, d_rnn / size), and
+``w_out``'s rows leave by ``tp.reduce_out``. A state under an active axis
+waits for ROADMAP Queue 1 item 9.
 """
 from __future__ import annotations
 
@@ -29,6 +38,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig, RGLRUConfig
 from ..kernels import ops
+from . import tp
 from .layers import dense, dense_init, normal, torch_dtype
 from .remat import product
 
@@ -88,22 +98,32 @@ def _causal_conv(u: torch.Tensor, w: torch.Tensor,
 
 def rglru_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
                 r: RGLRUConfig, state: Optional[dict] = None,
-                return_state: bool = False
+                return_state: bool = False, model: tp.Model = tp.ONE
                 ) -> tuple[torch.Tensor, Optional[dict]]:
     """x: (B, S, d_model). If ``state`` is given (decode / resume), the
     conv and recurrence continue from it; the new state is returned when
-    ``return_state``."""
+    ``return_state``. ``model``: the rank's channels (a d_rnn that does
+    not divide over the axis is replicated and runs whole)."""
     dt = torch_dtype(cfg.dtype)
     b, s, _ = x.shape
+    if not model.splits(r.d_rnn):
+        model = tp.ONE
+    elif state is not None or return_state:
+        raise NotImplementedError(
+            "tensor parallelism runs the RG-LRU's train path; its state "
+            f"waits for {tp.SERVE_ITEM}")
+    x = tp.copy_in(x, model)
     # jax.nn.gelu's default is the tanh approximation
     gate = F.gelu(dense(p["w_gate"], x, dt), approximate="tanh")
     u_pre = dense(p["w_x"], x, dt)
     conv_state = state["conv"] if state is not None else None
     u = _causal_conv(u_pre, p["conv_w"].to(dt), conv_state)
 
-    # fused gates in compute dtype, sigmoid in fp32
+    # fused gates in compute dtype, sigmoid in fp32 (on the rank's output
+    # channels, from every channel of u)
     w_ai = p["w_ai"].to(dt)
-    ai = product(u, w_ai.reshape(w_ai.shape[0], -1)).reshape(
+    ai = product(tp.gather(u, model),
+                 w_ai.reshape(w_ai.shape[0], -1)).reshape(
         b, s, *w_ai.shape[1:]) + p["b_ai"].to(dt)[None, None]
     rg = torch.sigmoid(ai[..., 0].to(torch.float32))
     ig = torch.sigmoid(ai[..., 1].to(torch.float32))
@@ -115,7 +135,7 @@ def rglru_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     h0 = state["h"] if state is not None else None
     h = linear_recurrence(a, binp, h0)
 
-    y = dense(p["w_out"], h.to(dt) * gate, dt)
+    y = tp.reduce_out(dense(p["w_out"], h.to(dt) * gate, dt), model)
     new_state = None
     if return_state:
         prev = (conv_state.to(dt) if conv_state is not None

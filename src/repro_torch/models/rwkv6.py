@@ -18,6 +18,23 @@ chunked plain version on the CPU); decode is the exact single-step recurrence
 Channel-mix:  k = relu(W_k x_k)^2; out = sigmoid(W_r x_r) * (W_v k).
 State: {shift_tm, shift_cm: (B, d_model) in the compute dtype,
 wkv: (B, H, D, D) fp32}.
+
+Under tensor parallelism (``model``) both halves run on the rank's heads
+and channels (``axis_of``). Time-mix: x and each replicated leaf read
+inside the rank's work (the ``mu_*`` lerp weights and ``w_lora_a``) enter
+by ``tp.copy_in``, so their gradients come out whole on every rank (one
+all-reduce of x and one of each small leaf, where lerping first and
+copying the five mixed inputs in would all-reduce five activations);
+``w_r`` / ``w_k`` / ``w_v`` / ``w_g`` / ``w_lora_b`` are the rank's
+columns, ``w0``, ``u`` and ``ln_scale`` its channels, the scan runs on
+(B, S, H / size, D), the per-head group norm stays on the rank (a head
+is never split) and ``w_o``'s rows leave by ``tp.reduce_out``.
+Channel-mix: ``cw_k`` and ``cw_r`` are the rank's columns, ``cw_v`` its
+rows; the receptance is gathered whole (``tp.gather``) so that the
+sigmoid gate multiplies the value's partial sum before one
+``tp.reduce_out``: forward an all-gather of (B, S, d) and an all-reduce of
+(B, S, d), backward the gather's reduce-scatter and the all-reduce of
+x's and the lerp weights' gradients.
 """
 from __future__ import annotations
 
@@ -28,11 +45,12 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig, RWKVConfig
 from ..kernels import ops
+from . import tp
 from .layers import dense, dense_init, normal, torch_dtype
 from .remat import product
 
 __all__ = ["rwkv_init", "init_rwkv_state", "rwkv_time_mix",
-           "rwkv_channel_mix", "wkv_chunked", "wkv_step"]
+           "rwkv_channel_mix", "wkv_chunked", "wkv_step", "axis_of"]
 
 
 def rwkv_init(gen: torch.Generator, cfg: ModelConfig, r: RWKVConfig,
@@ -112,19 +130,47 @@ def wkv_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return ops.rwkv6(r, k, v, w, u, chunk, s0=s0)
 
 
+def axis_of(cfg: ModelConfig, r: RWKVConfig, model: tp.Model,
+            state: Optional[dict] = None,
+            return_state: bool = False) -> tp.Model:
+    """The axis a layer runs over: ``model`` when d_model and d_ff divide
+    over it (the specs split every matrix), ``tp.ONE`` when neither does
+    (every leaf replicated, the layer whole on each rank). A head split
+    over ranks, a split of one width only, and a state under an active
+    axis wait for ROADMAP Queue 1 item 9."""
+    d, d_ff = cfg.d_model, r.d_ff or cfg.d_ff
+    if not (model.splits(d) or model.splits(d_ff)):
+        return tp.ONE
+    heads = d // r.head_size
+    if not (model.splits(d) and model.splits(d_ff)) or heads % model.size:
+        raise NotImplementedError(
+            f"RWKV-6 with {heads} heads (d {d}, d_ff {d_ff}) over a 'model' "
+            f"axis of {model.size}: a split of heads or of one width only "
+            f"waits for {tp.SERVE_ITEM}")
+    if state is not None or return_state:
+        raise NotImplementedError(
+            "tensor parallelism runs RWKV-6's train path; its state waits "
+            f"for {tp.SERVE_ITEM}")
+    return model
+
+
 def rwkv_time_mix(p: dict, x: torch.Tensor, cfg: ModelConfig,
                   r: RWKVConfig, *, state: Optional[dict] = None,
-                  return_state: bool = False, chunk: int = 32
+                  return_state: bool = False, chunk: int = 32,
+                  model: tp.Model = tp.ONE
                   ) -> tuple[torch.Tensor, Optional[dict]]:
     dt = torch_dtype(cfg.dtype)
     f32 = torch.float32
+    model = axis_of(cfg, r, model, state, return_state)
     b, s, d = x.shape
+    d //= model.size            # the rank's channels
     h = d // r.head_size
+    x = tp.copy_in(x, model)
     prev = state["shift_tm"] if state is not None else None
     xs = _token_shift(x, prev)
 
     def mixed(mu):
-        return x + (xs - x) * mu.to(dt)[None, None, :]
+        return x + (xs - x) * tp.copy_in(mu, model).to(dt)[None, None, :]
 
     rr = dense(p["w_r"], mixed(p["mu_r"]), dt)
     kk = dense(p["w_k"], mixed(p["mu_k"]), dt)
@@ -133,8 +179,9 @@ def rwkv_time_mix(p: dict, x: torch.Tensor, cfg: ModelConfig,
     # the decay LoRA, w0, u and ln_scale are read in fp32 (serving keeps
     # those leaves fp32: launch.serve._FP32_LEAVES)
     xw = mixed(p["mu_w"]).to(f32)
-    dec_in = product(torch.tanh(product(xw, p["w_lora_a"].to(f32))),
-                     p["w_lora_b"].to(f32))
+    dec_in = product(torch.tanh(product(
+        xw, tp.copy_in(p["w_lora_a"], model).to(f32))),
+        p["w_lora_b"].to(f32))
     w = torch.exp(-torch.exp(p["w0"].to(f32)[None, None] + dec_in))
 
     shp = (b, s, h, r.head_size)
@@ -162,22 +209,24 @@ def rwkv_time_mix(p: dict, x: torch.Tensor, cfg: ModelConfig,
     new_state = None
     if return_state:
         new_state = {"shift_tm": x[:, -1].to(dt), "wkv": s_new}
-    return out, new_state
+    return tp.reduce_out(out, model), new_state
 
 
 def rwkv_channel_mix(p: dict, x: torch.Tensor, cfg: ModelConfig,
                      r: RWKVConfig, *, state: Optional[dict] = None,
-                     return_state: bool = False
+                     return_state: bool = False, model: tp.Model = tp.ONE
                      ) -> tuple[torch.Tensor, Optional[dict]]:
     dt = torch_dtype(cfg.dtype)
+    model = axis_of(cfg, r, model, state, return_state)
+    x = tp.copy_in(x, model)
     prev = state["shift_cm"] if state is not None else None
     xs = _token_shift(x, prev)
 
     def mixed(mu):
-        return x + (xs - x) * mu.to(dt)[None, None, :]
+        return x + (xs - x) * tp.copy_in(mu, model).to(dt)[None, None, :]
 
     kk = torch.square(F.relu(dense(p["cw_k"], mixed(p["cmu_k"]), dt)))
-    out = torch.sigmoid(dense(p["cw_r"], mixed(p["cmu_r"]), dt)) \
-        * dense(p["cw_v"], kk, dt)
+    rr = tp.gather(dense(p["cw_r"], mixed(p["cmu_r"]), dt), model)
+    out = torch.sigmoid(rr) * dense(p["cw_v"], kk, dt)
     new_state = {"shift_cm": x[:, -1].to(dt)} if return_state else None
-    return out, new_state
+    return tp.reduce_out(out, model), new_state

@@ -41,10 +41,12 @@ import torch.distributed as dist
 
 __all__ = ["Model", "ONE", "model_of_group", "model_of", "use", "current",
            "resolve", "copy_in", "reduce_out", "gather", "all_max",
-           "DENSE_ITEM", "COLLECTIVES"]
+           "SERVE_ITEM", "COLLECTIVES"]
 
-# what tensor parallelism still waits for, named by every refusal
-DENSE_ITEM = "ROADMAP Queue 1 item 9"
+# what tensor parallelism still waits for (serving caches over the axis, a
+# q head split over ranks, the dry run's pod meshes), named by every
+# refusal
+SERVE_ITEM = "ROADMAP Queue 1 item 9"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -168,10 +170,15 @@ class _ReduceOut(torch.autograd.Function):
 
 
 def _gathered(x: torch.Tensor, model: Model) -> torch.Tensor:
-    """The shards' concatenation along the last dim."""
-    parts = [torch.empty_like(x) for _ in range(model.size)]
-    dist.all_gather(parts, x.contiguous(), group=model.group)
-    out = torch.cat(parts, dim=-1)
+    """The shards' concatenation along the last dim: one all-gather into
+    one buffer, the shards end to end along dim 0 (the form gloo takes),
+    then moved to the last dim."""
+    x = x.contiguous()
+    flat = torch.empty((model.size * x.shape[0], *x.shape[1:]),
+                       dtype=x.dtype, device=x.device)
+    dist.all_gather_into_tensor(flat, x, group=model.group)
+    out = flat.view(model.size, *x.shape).movedim(0, -2).reshape(
+        *x.shape[:-1], model.size * x.shape[-1])
     _count("all_gather", out)
     return out
 

@@ -26,13 +26,15 @@ served model never holds its fp32 tree beside the cast one
 (``launch.serve.init_serving_params``).
 
 Tensor parallelism (``model``, a ``models.tp.Model``; ``tp.current()``
-when none is given) runs the dense decoder families' teacher-forced
-forward on the rank's shards of the ``train.shardings.param_specs``
-layout: attention on the rank's heads, the MLPs column / row parallel,
-the embedding and the head vocab-parallel (``lm_loss``'s cross entropy
-over the vocab's blocks, ``apply`` returning the rank's block of the
-logits). Every other family under tensor parallelism raises naming
-ROADMAP Queue 1 item 9; an axis of one runs the one-device code.
+when none is given) runs every family's teacher-forced forward on the
+rank's shards of the ``train.shardings.param_specs`` layout: attention
+and MLA on the rank's heads, the MLPs column / row parallel, the MoE
+experts over the ranks, the RG-LRU on the rank's channels, RWKV-6 on its
+heads and channels, the embedding and the head vocab-parallel
+(``lm_loss``'s cross entropy over the vocab's blocks, ``apply`` returning
+the rank's block of the logits). What still waits raises naming ROADMAP
+Queue 1 item 9 (``check_tp``: a q head split over ranks; the caches of
+prefill and decode); an axis of one runs the one-device code.
 """
 from __future__ import annotations
 
@@ -50,7 +52,8 @@ from .layers import (cross_entropy, embed_init, embed_rows, mlp, mlp_init,
 PyTree = Any
 
 __all__ = ["layer_kinds", "layer_groups", "init_params", "apply",
-           "lm_loss", "init_cache", "prefill", "decode_step"]
+           "lm_loss", "init_cache", "prefill", "decode_step", "check_tp",
+           "tp_runs_eager"]
 
 
 # ---------------------------------------------------------------------------
@@ -163,11 +166,16 @@ def _init_layer(gen: torch.Generator, cfg: ModelConfig, kind: str,
     if is_moe:
         p["moe"] = moe.moe_init(gen, cfg, cfg.moe, device)
     else:
-        d_ff = cfg.dense_d_ff if (cfg.moe is not None and cfg.dense_d_ff) \
-            else cfg.d_ff
-        p["mlp"] = mlp_init(gen, cfg.d_model, d_ff, cfg.mlp_kind, device,
-                            cfg.param_dtype)
+        p["mlp"] = mlp_init(gen, cfg.d_model, _dense_d_ff(cfg), cfg.mlp_kind,
+                            device, cfg.param_dtype)
     return p
+
+
+def _dense_d_ff(cfg: ModelConfig) -> int:
+    """The width of a layer's dense MLP (a MoE config's dense layers have
+    their own)."""
+    return cfg.dense_d_ff if (cfg.moe is not None and cfg.dense_d_ff) \
+        else cfg.d_ff
 
 
 def _apply_layer(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
@@ -190,11 +198,11 @@ def _apply_layer(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
         st = cache.get("rwkv") if cache else None
         y, st_tm = rwkv6.rwkv_time_mix(
             p["rwkv"], norm(p["norm1"], x, cfg.norm), cfg, cfg.rwkv,
-            state=st, return_state=want_cache)
+            state=st, return_state=want_cache, model=model)
         x = x + y
         y2, st_cm = rwkv6.rwkv_channel_mix(
             p["rwkv"], norm(p["norm2"], x, cfg.norm), cfg, cfg.rwkv,
-            state=st, return_state=want_cache)
+            state=st, return_state=want_cache, model=model)
         x = x + y2
         if want_cache:
             new_cache["rwkv"] = {**st_tm, **st_cm}
@@ -216,13 +224,13 @@ def _apply_layer(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
             p["attn"], h, cfg, m=cfg.mla, positions=positions,
             cache=cache.get("attn") if cache else None,
             cache_index=cache_index,
-            positions_are_arange=positions_are_arange)
+            positions_are_arange=positions_are_arange, model=model)
         if want_cache:
             new_cache["attn"] = attn_cache
     elif kind == "rglru":
         st = cache.get("rec") if cache else None
         y, st_new = rglru.rglru_apply(p["rec"], h, cfg, r=cfg.rglru, state=st,
-                                      return_state=want_cache)
+                                      return_state=want_cache, model=model)
         if want_cache:
             new_cache["rec"] = st_new
     else:
@@ -234,16 +242,16 @@ def _apply_layer(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
         yc, cross_cache = attention.attn_apply(
             p["cross"], hc, cfg, kind="cross", positions=positions,
             cache=cache.get("cross") if cache else None,
-            cache_index=cache_index, kv_src=cross_src)
+            cache_index=cache_index, kv_src=cross_src, model=model)
         x = x + yc
         if want_cache:
             new_cache["cross"] = cross_cache
 
     h2 = norm(p["norm2"], x, cfg.norm)
     if "moe" in p:
-        x = x + moe.moe_apply(p["moe"], h2, cfg, cfg.moe)
+        x = x + moe.moe_apply(p["moe"], h2, cfg, cfg.moe, model)
     else:
-        x = x + mlp(p["mlp"], h2, cfg.mlp_kind, dt, model, cfg.d_ff)
+        x = x + mlp(p["mlp"], h2, cfg.mlp_kind, dt, model, _dense_d_ff(cfg))
     return x, (new_cache if want_cache else None)
 
 
@@ -412,20 +420,36 @@ def _run_stack(cfg: ModelConfig, params: PyTree, x: torch.Tensor, *,
 # Public API
 # ---------------------------------------------------------------------------
 
-def check_dense(cfg: ModelConfig, model: tp.Model) -> None:
-    """Tensor parallelism runs the dense decoder families (global and
-    local attention, dense MLPs); any other family under an active
-    ``model`` raises."""
+def check_tp(cfg: ModelConfig, model: tp.Model) -> None:
+    """What tensor parallelism still refuses in training, checked from
+    the config before any work: heads that do not divide over the axis
+    (a q head split over ranks), for attention, MLA and RWKV-6 alike,
+    raise naming ROADMAP Queue 1 item 9. An axis of one passes."""
     if not model.active:
         return
     kinds = {_mixer_kind(cfg, k) for k in cfg.pattern}
-    if cfg.is_encdec or cfg.moe is not None or kinds - {"global", "local"}:
-        raise NotImplementedError(
-            f"tensor parallelism (a 'model' axis of {model.size}) runs the "
-            f"dense decoder families; {cfg.name} ({cfg.family}: "
-            f"{sorted(kinds)}{', moe' if cfg.moe else ''}"
-            f"{', encoder-decoder' if cfg.is_encdec else ''}) waits for "
-            f"{tp.DENSE_ITEM}")
+    if cfg.is_encdec or kinds & {"global", "local"}:
+        attention.head_split(cfg, model)
+    if "mla" in kinds:
+        mla.heads_of(cfg, model)
+    if "rwkv" in kinds:
+        rwkv6.axis_of(cfg, cfg.rwkv, model)
+
+
+def tp_runs_eager(cfg: ModelConfig, model: tp.Model) -> bool:
+    """Whether ``launch.train`` runs a tensor-parallel step eager: a step
+    through RG-LRU layers whose channels split over ``model``.
+    recurrentgemma-2b's Mode B step at its published widths (512 steps:
+    the chained scans) never ended its CUDA graph capture on four H100s,
+    with the all-gather of ``tp.gather`` issued either as a list of
+    shards or into one buffer; at the smoke widths (32 steps) the same
+    step, and RWKV-6's with its all-gather, captured and replayed
+    bit-equal. Which collective or kernel holds the full-width capture
+    is not known."""
+    if not model.active:
+        return False
+    kinds = {_mixer_kind(cfg, k) for k in cfg.pattern}
+    return "rglru" in kinds and model.splits(cfg.rglru.d_rnn)
 
 
 def apply(cfg: ModelConfig, params: PyTree, tokens: torch.Tensor, *,
@@ -436,7 +460,7 @@ def apply(cfg: ModelConfig, params: PyTree, tokens: torch.Tensor, *,
     tensor parallelism with the vocab split, the rank's (B, S, V / size)
     block). ``remat``: "none" | "full" | "dots" (``models.remat``)."""
     model = tp.resolve(model)
-    check_dense(cfg, model)
+    check_tp(cfg, model)
     x = _embed(cfg, params, tokens, patch_embeds, model)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     x, _ = _run_stack(cfg, params, x, positions=positions,

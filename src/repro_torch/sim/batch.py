@@ -38,7 +38,7 @@ payloads and scales) and runs the rank's rows of W through row 1 or the
 q8 receive (``core.dpsgd``'s ``group`` path). The first live node's
 snapshot is summed over the ranks from its owner; losses, rollbacks and
 the final parameters are gathered once at the end. A mesh with a
-``model`` axis (tensor parallelism, the dense decoder families) also
+``model`` axis (tensor parallelism, every family) also
 lays every leaf out by ``train.shardings.param_specs`` over it (the
 reference's ``node_param_specs``) and runs the family's loss under
 ``models.tp.use``; the snapshots and the final parameters are gathered
@@ -254,7 +254,7 @@ def _model_specs(tree: PyTree, size: int):
     if specs is None or not any("model" in sp for sp in spec_leaves(specs)):
         raise NotImplementedError(
             f"a 'model' axis of {size} over a tree no leaf of which "
-            f"tensor parallelism splits: waits for {tp.DENSE_ITEM}")
+            f"tensor parallelism splits: waits for {tp.SERVE_ITEM}")
     return specs
 
 
@@ -752,8 +752,8 @@ def train_model_on_traces(
     ``launch.mesh.make_fleet_mesh`` of this rank's world) lays the
     family's node axis over the fleet (``_shard_family``: sharded when it
     divides, else whole on every rank) and, with a 'model' axis, every
-    leaf over it (``_shard_model``: tensor parallelism, the dense decoder
-    families); every rank gets the whole results.
+    leaf over it (``_shard_model``: tensor parallelism, every family);
+    every rank gets the whole results.
 
     Returns ``(traces, out)`` like ``train_cnn_on_traces``: masked mean
     ``losses`` (S, rounds), eval-round metrics ``acc`` (S, E) with
@@ -769,7 +769,8 @@ def train_model_on_traces(
         raise ValueError("train_model_on_traces needs at least one config")
     if mesh is not None and tp_size(mesh) > 1:
         # a model without tensor parallelism refuses before the traces;
-        # a family that is not dense refuses in its loss (check_dense)
+        # heads that do not divide over the axis refuse in the loss
+        # (models.transformer.check_tp)
         _model_specs(adapter.init_params(cfgs[0].seed), tp_size(mesh))
     n_nodes = cfgs[0].n_nodes
     eval_every = cfgs[0].eval_every_rounds

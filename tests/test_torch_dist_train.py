@@ -19,7 +19,7 @@ results; the one-process runs they are held against run here.
 * import hygiene: a two-rank ``gossip_mix_tree`` against ``plan_w @ X``,
   and neither ``jax`` nor ``repro`` in the ranks' ``sys.modules``.
 
-The refusals that stay (tensor parallelism of a family that is not dense:
+The refusals that stay (a q head split over the ranks of a 'model' axis:
 ROADMAP Queue 1 item 9) are held here too.
 """
 import filecmp
@@ -190,26 +190,32 @@ def test_two_rank_gossip_tree_and_import_hygiene(world):
 
 
 def test_tensor_parallelism_raises_naming_queue_1_item_9():
-    """Tensor parallelism of a family that is not dense raises: the
-    trainer (MoE + MLA) before any work, the train-on-trace adapter of a
-    recurrent arch in its loss under a 'model' axis (where the family
-    loop runs it), and the model itself."""
+    """A q head split over the ranks of a 'model' axis raises, before any
+    work or collective: the trainer on recurrentgemma-2b (10 q heads) at
+    tp 4, its train-on-trace adapter's loss (10 heads at the smoke widths)
+    under a 'model' axis of 4 (where the family loop runs it), and the
+    model itself; the same arch at tp 2, and its smoke config (4 heads) at
+    tp 4, build."""
+    import dataclasses
+
     from repro_torch.models import build, tp
 
-    moe = reduce_for_smoke(get_config("deepseek-v2-lite-16b"))
+    rec = get_config("recurrentgemma-2b")
     with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        t_train.train_loop(moe, RunConfig(remat="none"), nodes=4, tp=2,
+        t_train.train_loop(rec, RunConfig(remat="none"), nodes=1, tp=4,
                            steps=1, batch_per_node=2, seq_len=16,
                            ckpt_dir=None, device="cpu")
-    rec = t_batch.transformer_adapter("recurrentgemma-2b", batch=2,
-                                      seq_len=16, device="cpu")
+    ten = dataclasses.replace(reduce_for_smoke(rec), n_heads=10)
+    adapter = t_batch.transformer_adapter(ten, batch=2, seq_len=16,
+                                          device="cpu")
     tokens = {"tokens": torch.zeros((2, 16), dtype=torch.int32)}
-    with tp.use(tp.Model(size=2)), \
+    with tp.use(tp.Model(size=4)), \
             pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        rec.loss_fn(rec.init_params(0), tokens)
+        adapter.loss_fn(adapter.init_params(0), tokens)
     with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        build(reduce_for_smoke(get_config("rwkv6-7b")), "cpu",
-              model=tp.Model(size=2))
+        build(rec, "cpu", model=tp.Model(size=4))
+    build(rec, "cpu", model=tp.Model(size=2))
+    build(reduce_for_smoke(rec), "cpu", model=tp.Model(size=4))
     # the smoke at its defaults (fleet 2 x model 2) outside a world names
     # the ranks it needs
     with pytest.raises(SystemExit, match="4 ranks"):

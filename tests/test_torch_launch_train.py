@@ -114,9 +114,15 @@ def test_train_loop_refusals():
     run = RunConfig(remat="none")
     kw = dict(steps=1, batch_per_node=2, seq_len=16, ckpt_dir=None,
               device="cpu")
-    rec = reduce_for_smoke(get_config("recurrentgemma-2b"))
+    # a q head split over ranks (10 heads over 4) and the dry run's pod
+    # meshes wait for Queue 1 item 9, before any work
+    rec = get_config("recurrentgemma-2b")
     with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        t_train.train_loop(rec, run, nodes=4, tp=2, **kw)
+        t_train.train_loop(rec, run, nodes=4, tp=4, **kw)
+    from repro_torch.launch import dryrun
+
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+        dryrun.check_mesh("single")
     vlm = get_config("qwen2-vl-2b")
     with pytest.raises(ValueError, match="patch positions"):
         t_train.train_loop(vlm, run, nodes=4, tp=1,

@@ -517,11 +517,30 @@ def test_import_hygiene_on_every_rank(world):
 
 
 def test_non_dense_families_refuse_a_model_axis():
-    """A family that is not dense raises naming ROADMAP Queue 1 item 9 at
-    ``build`` under an active model axis; an axis of one builds it."""
+    """Every family builds under an active model axis and trains on it
+    (``tests/test_torch_tp_families.py``); what still waits raises naming
+    ROADMAP Queue 1 item 9: a serve cache under an active axis (prefill
+    and decode, built with the axis or run under ``tp.use``), before any
+    collective."""
+    from repro_torch.models import build
+
     for arch in ("deepseek-v2-lite-16b", "recurrentgemma-2b", "rwkv6-7b",
                  "seamless-m4t-large-v2", "phi3.5-moe-42b-a6.6b"):
         cfg = reduce_for_smoke(get_config(arch))
+        api = build(cfg, "cpu", model=tp.Model(size=2))
+        one = build(cfg, "cpu")
+        params = one.init(torch.Generator().manual_seed(0))
+        batch = {"tokens": torch.zeros((1, 8), dtype=torch.int64)}
+        if cfg.is_encdec:
+            batch["src_embeds"] = torch.zeros((1, 8, cfg.d_model))
         with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-            build(cfg, "cpu", model=tp.Model(size=2))
-        build(cfg, "cpu", model=tp.ONE)
+            api.prefill(params, batch)
+        with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+            api.decode_step(params, torch.zeros((1,), dtype=torch.int64),
+                            None, 8)
+        with tp.use(tp.Model(size=2)), \
+                pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+            one.prefill(params, batch)
+        # an axis of one serves
+        logits, _ = build(cfg, "cpu", model=tp.ONE).prefill(params, batch)
+        assert logits.shape == (1, cfg.vocab_size)

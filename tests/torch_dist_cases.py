@@ -2,7 +2,8 @@
 
     python tests/torch_dist_cases.py <world_name> <rank> <world_size> <dir>
 
-(worlds: ``four``, ``two``, ``tp``, the last for ``tests/test_torch_tp.py``)
+(worlds: ``four``, ``two``, ``tp`` for ``tests/test_torch_tp.py`` and
+``tpf`` for ``tests/test_torch_tp_families.py``)
 
 Each rank joins the world through a ``FileStore`` under ``<dir>`` (no TCP
 port, so worlds of parallel test workers never collide), reads
@@ -271,23 +272,40 @@ def _tp_batch(case: dict) -> dict:
     return {k: torch.from_numpy(v) for k, v in case["batch"].items()}
 
 
-def tp_model_cases(inp: dict, meshes: dict) -> dict:
+def _logits(cfg, params, batch, model):
+    """The teacher-forced logits (the rank's vocab block where the vocab
+    splits over ``model``)."""
+    from repro_torch.models import encdec, transformer
+
+    if cfg.is_encdec:
+        return encdec.apply(cfg, params, batch["src_embeds"],
+                            batch["tokens"], model=model)
+    return transformer.apply(cfg, params, batch["tokens"],
+                             patch_embeds=batch.get("patch_embeds"),
+                             model=model)
+
+
+def tp_model_cases(inp: dict, meshes: dict, one: bool = False) -> dict:
     """Per (config, tp): the shards' shapes and their round trip, the loss,
     the gathered logits and gradients, and remat full / dots against none
-    under tensor parallelism (bit-equality)."""
-    from repro_torch.models import transformer
-
+    under tensor parallelism (bit-equality). ``one``: also the port's own
+    one-device loss and gradients (``"one"``)."""
     out = {}
-    for key, case in inp["tp"]["models"].items():
+    for key, case in inp["models"].items():
         cfg = _tp_cfg(case)
+        full = params_from_numpy(case["params"], "cpu")
+        batch = _tp_batch(case)
+        alone = None
+        if one:
+            g, loss = torch.func.grad_and_value(
+                lambda p: build(cfg, "cpu").loss(p, batch))(full)
+            alone = {"loss": float(loss), "grads": _np(g)}
         for size, mesh in meshes.items():
             model = t_tp.model_of(mesh)
             specs = shr.param_specs(case["params"], size, cfg.kv_dim)
-            full = params_from_numpy(case["params"], "cpu")
             local = shr.shard_model(full, specs, model)
             back = shr.gather_model(local, specs, model, dst=None)
             api = build(cfg, "cpu", model=model)
-            batch = _tp_batch(case)
             got = {"shapes": [tuple(x.shape) for x in dpsgd._leaves(local)],
                    "round_trip": all(torch.equal(a, b) for a, b in zip(
                        dpsgd._leaves(back), dpsgd._leaves(full)))}
@@ -302,14 +320,13 @@ def tp_model_cases(inp: dict, meshes: dict) -> dict:
                     torch.equal(a, b) for a, b in zip(
                         dpsgd._leaves(grads[r][0]), dpsgd._leaves(g))))
                 for r in ("full", "dots")}
-            logits = transformer.apply(
-                cfg, local, batch["tokens"],
-                patch_embeds=batch.get("patch_embeds"), model=model)
+            logits = _logits(cfg, local, batch, model)
             if model.splits(cfg.vocab_size):
                 logits = t_tp.gather(logits, model)
             got["loss"] = float(loss)
             got["logits"] = logits.detach().numpy()
             got["grads"] = _np(shr.gather_model(g, specs, model, dst=None))
+            got["one"] = alone
             out[(key, size)] = got
     return out
 
@@ -480,7 +497,7 @@ def world_tp(inp: dict, rank: int, root: str) -> dict:
     two = make_fleet_mesh(2, 2)
     four = make_fleet_mesh(1, 4)
     out = {"place": (shr.fleet_of(two).index, t_tp.model_of(two).index)}
-    out["models"] = tp_model_cases(inp, {2: two, 4: four})
+    out["models"] = tp_model_cases(inp["tp"], {2: two, 4: four})
     out["smoke"] = real_model_smoke.run(fleet=2, model=2, device="cpu",
                                         rounds=3)
     # the compressed_int8 family over (2, 2) against the one-device
@@ -528,6 +545,159 @@ def world_tp(inp: dict, rank: int, root: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The world of four again: tensor parallelism of the MoE, MLA, recurrent
+# and encoder-decoder families
+# ---------------------------------------------------------------------------
+
+# the wrappers' plain versions, by module: a CPU tensor's kernel calls
+_PLAIN = {"flash_attention": ("flash_attention_plain",
+                              "flash_attention_bwd_plain"),
+          "rglru_scan": ("rglru_scan_plain", "rglru_scan_bwd_plain"),
+          "rwkv6_scan": ("rwkv6_scan_plain", "rwkv6_scan_bwd_plain")}
+
+
+def _counting_plain() -> tuple[dict, list]:
+    """Count every call of the kernels' plain versions (the calls a CUDA
+    tensor would launch a kernel for); returns (counts, undo list)."""
+    import importlib
+
+    counts, undo = {}, []
+    for mod_name, names in _PLAIN.items():
+        mod = importlib.import_module(f"repro_torch.kernels.{mod_name}")
+        for name in names:
+            real = getattr(mod, name)
+            counts[name] = 0
+
+            def counted(*a, _real=real, _name=name, **kw):
+                counts[_name] += 1
+                return _real(*a, **kw)
+            setattr(mod, name, counted)
+            undo.append((mod, name, real))
+    return counts, undo
+
+
+def tpf_axis_of_one(inp: dict, mesh) -> dict:
+    """Each family on a model axis of one (a real group of one rank, the
+    (4, 1) mesh): loss and gradients through the tensor-parallel code
+    bit-equal to the one-device code's, with the same kernel calls."""
+    model = t_tp.model_of(mesh)
+    out = {}
+    for key, case in inp["models"].items():
+        cfg = _tp_cfg(case)
+        full = params_from_numpy(case["params"], "cpu")
+        batch = _tp_batch(case)
+        got = []
+        for api in (build(cfg, "cpu"), build(cfg, "cpu", model=model)):
+            counts, undo = _counting_plain()
+            try:
+                g, loss = torch.func.grad_and_value(
+                    lambda p: api.loss(p, batch))(full)
+            finally:
+                for mod, name, real in undo:
+                    setattr(mod, name, real)
+            got.append((g, loss, counts))
+        (g1, l1, c1), (g2, l2, c2) = got
+        out[key] = {"group_size": model.size,
+                    "bit_equal": bool(torch.equal(l1, l2) and all(
+                        torch.equal(a, b) for a, b in zip(
+                            dpsgd._leaves(g1), dpsgd._leaves(g2)))),
+                    "calls": (c1, c2)}
+    return out
+
+
+def tpf_int8_layouts(inp: dict, mesh) -> dict:
+    """Mode B's rowwise int8 on node-stacked shards of every family's
+    leaves (``ew_*`` led by 'model', ``w_ai`` split in the middle, 1-D
+    ``('model',)`` leaves, row-split matrices): each leaf's scales on the
+    rank, its row max over the model group where ``_model_flags`` says its
+    last dim is split, bit-equal to a one-process quantization's rows of
+    the rank's slice."""
+    model = t_tp.model_of(mesh)
+    out = {}
+    for key, case in inp["models"].items():
+        cfg = _tp_cfg(case)
+        full = dpsgd.replicate(params_from_numpy(case["params"], "cpu"), 2)
+        full = dpsgd._tree_map(
+            lambda x: x * torch.tensor([[1.0], [1.5]]).reshape(
+                2, *[1] * (x.dim() - 1)), full)
+        specs = shr.param_specs(case["params"], model.size, cfg.kv_dim)
+        local = shr.shard_model(full, specs, model)
+        _, rows = t_step._model_flags(specs, model)
+        same = []
+        for x, w, sp, m in zip(dpsgd._leaves(local), dpsgd._leaves(full),
+                               shr.spec_leaves(specs), rows):
+            q, scale = t_step._quantize_rowwise_int8(x, m)
+            wq, want = t_step._quantize_rowwise_int8(w)
+            d = shr.model_dim(sp, x.dim())
+            if d is not None:
+                wq = wq.chunk(model.size, dim=d)[model.index]
+                if d != x.dim() - 1:
+                    want = want.chunk(model.size, dim=d)[model.index]
+            same.append(bool(torch.equal(scale, want)
+                             and torch.equal(q, wq)))
+        out[key] = same
+    return out
+
+
+def tpf_trainer(inp: dict, root: str) -> dict:
+    """``train_loop --nodes 2 --tp 2`` on the rwkv6 smoke config with a
+    checkpoint (Mode B, momentum SGD: linear in the gradient), graphed by
+    default: its log, and whether it chose the graph (a step through
+    split RG-LRU channels alone runs eager; on the CPU a graph's step
+    runs eager inside it)."""
+    from repro_torch.launch import train as t_train
+
+    case = inp["trainer"]
+    ticks = iter(range(1000))
+    real = t_train.GraphedStep
+    made = []
+
+    def graphed(step_fn):
+        made.append(1)
+        return real(step_fn)
+
+    t_train.GraphedStep = graphed
+    try:
+        log = t_train.train_loop(
+            reduce_for_smoke(get_config(case["arch"])),
+            RunConfig(**case["run"]), nodes=2, tp=2, steps=case["steps"],
+            batch_per_node=2, seq_len=16,
+            ckpt_dir=os.path.join(root, "ckpt_tpf"),
+            ckpt_every=case["steps"], log_every=1,
+            clock=lambda: float(next(ticks)), device="cpu")["log"]
+    finally:
+        t_train.GraphedStep = real
+    return {"log": log, "graphed": bool(made)}
+
+
+def world_tpf(inp: dict, rank: int, root: str) -> dict:
+    from repro_torch.sim import real_model_smoke
+
+    two = make_fleet_mesh(2, 2)
+    four = make_fleet_mesh(1, 4)
+    alone = make_fleet_mesh(4, 1)
+    tpf = inp["tpf"]
+    out = {"place": (shr.fleet_of(two).index, t_tp.model_of(two).index)}
+    out["models"] = tp_model_cases(tpf, {2: two, 4: four}, one=True)
+    out["axis_one"] = tpf_axis_of_one(tpf, alone)
+    out["int8"] = {size: tpf_int8_layouts(tpf, mesh)
+                   for size, mesh in ((2, two), (4, four))}
+    out["smoke"] = {arch: real_model_smoke.run(
+        arch=arch, fleet=2, model=2, device="cpu", rounds=2)
+        for arch in tpf["smoke_archs"]}
+    out["trainer"] = tpf_trainer(tpf, root)
+    # the JAX steps' states, which the test module writes once its jitted
+    # steps have run
+    tpf.update(_wait_for(os.path.join(root, "steps.pkl")))
+    out["mode_a"] = tp_mode_a_cases({"tp": tpf}, two)
+    out["mode_b"] = tp_mode_b_cases({"tp": tpf}, two)
+    out["modules"] = sorted(m for m in sys.modules
+                            if m == "jax" or m.startswith("jax.")
+                            or m == "repro" or m.startswith("repro."))
+    return out
+
+
 def main(argv) -> int:
     name, rank, world, root = argv[1], int(argv[2]), int(argv[3]), argv[4]
     torch.manual_seed(0)
@@ -537,7 +707,8 @@ def main(argv) -> int:
         inp = pickle.load(f)
     worlds = {"four": lambda: world_four(inp, rank),
               "two": lambda: world_two(inp, rank, root),
-              "tp": lambda: world_tp(inp, rank, root)}
+              "tp": lambda: world_tp(inp, rank, root),
+              "tpf": lambda: world_tpf(inp, rank, root)}
     out = worlds[name]()
     dist.barrier()
     dist.destroy_process_group()
