@@ -365,6 +365,27 @@ Phases, each of which ends the run with a nonzero exit if it fails:
               (replay bit-equal to eager) with ``train_loop`` over the
               fleet: checkpoint, resume and the fault drill. On one card
               (c) prints that it was not run.
+28. serving under tensor parallelism (``launch.serve.generate(tp=)``,
+              ``train.shardings.cache_layout``, the q head split of
+              ``models.attention.head_layout``): (a) on one card every
+              served family's smoke serve (prefill and 3 decode steps)
+              through the tensor-parallel code on a (1, 1) world,
+              bit-equal to one-device serving with the same launches;
+              ``repro_torch.examples.serve_demo`` on the card;
+              flash at the rank's heads of (b)'s serves (recurrentgemma-2b
+              with its 10 q heads gathered whole) and the scans at the
+              rank's channels / heads, against their plain versions; the
+              dry run's tp4 cell of phi3.5-moe-42b-a6.6b's serve in
+              torch's fake process group; (b) with four cards only,
+              phi3.5-moe-42b-a6.6b at full width and all 32 layers over
+              them (prefill s, tok/s, ms a decode step, idle, collectives
+              a step, peak a rank, every rank's tokens equal), every
+              served arch at full width and a cut depth teacher-forced in
+              fp32 against each rank's card alone (phases 9 and 13's
+              bars), the q head split's smoke training against the card
+              alone (1e-5), and the dry run's peak within 10 % of rank
+              0's max_memory_allocated. On one card (b) prints that it
+              was not run.
 
 The cost model (``kernels.cost``: every bound) and the profiler summary
 (``utils.profile``) are the package's; this script keeps no copy.
@@ -6789,16 +6810,60 @@ def phase_tpf(torch) -> dict:
 # The ranks of 27 (b) (chip_smoke.py --fleet-rank tpf, four ranks)
 # ---------------------------------------------------------------------------
 
+def matmul64(x, w):
+    """A weight product formed in float64 and rounded to x's dtype: each
+    element correctly rounded, so a column shard's products are the whole
+    product's columns whatever kernel forms them."""
+    from repro_torch.models import remat
+
+    return remat.__dict__["_matmul_fp32"](x.double(), w.double()).to(x.dtype)
+
+
+@contextlib.contextmanager
+def float64_products():
+    """Every weight product of the models (``remat._matmul``) formed in
+    float64 and rounded (``matmul64``), on every side of a comparison:
+    27 (b)'s rwkv6-7b smoke and ``tools/tp_witness.py``'s "float64
+    products" mode. On four H100s the shards' fp32 GEMMs are not the whole
+    GEMM's columns bit for bit, and rwkv6-7b's random smoke weights carry
+    that rounding to 2.09e-4 in the embedding gradient; with the products
+    rounded from float64 tp against the card alone reads 5.96e-7 (tp 2)
+    and 3.58e-7 (tp 4)."""
+    from repro_torch.models import remat
+
+    remat._matmul_fp32 = remat._matmul
+    remat._matmul = matmul64
+    try:
+        yield
+    finally:
+        remat._matmul = remat.__dict__.pop("_matmul_fp32")
+
+
+# the smoke configs 27 (b) holds with the products formed in float64 on
+# both sides (the fp32 gap and the rounding sensitivity printed beside)
+TPF_SMOKE_F64 = ("rwkv6-7b",)
+
+
 def rank_tpf_smoke(torch, meshes: dict) -> dict:
     """Every new family's smoke config at tp 2 and 4: the loss and the
     gathered gradients against the same parameters and batch on this
-    rank's card alone, within ``TPF_SMOKE_TOL``, and the launches."""
+    rank's card alone, within ``TPF_SMOKE_TOL``, and the launches. The
+    archs of ``TPF_SMOKE_F64`` are held with every weight product formed
+    in float64 on both sides (``float64_products``); their fp32 gap and
+    the gradient's rounding sensitivity alone (fp32 products against
+    products rounded from float64) are printed, not barred."""
     import torch.distributed as dist
 
     from repro_torch.configs import get_config, reduce_for_smoke
     from repro_torch.launch.train import model_specs
     from repro_torch.models import build, tp
     from repro_torch.train import shardings as shr
+
+    def worst_of(whole, g1):
+        """(the largest gradient difference, its leaf path)."""
+        return max((float((a - b).abs().max()), path)
+                   for (path, a), (_, b) in zip(
+                       shr._with_path(whole), shr._with_path(g1)))
 
     out = {}
     for arch in TPF_FAMILIES:
@@ -6807,35 +6872,63 @@ def rank_tpf_smoke(torch, meshes: dict) -> dict:
             torch.Generator(device="cuda").manual_seed(27))
         batch = pod_batch(torch, cfg, 0, 1, POD_LOCK_BATCH, POD_LOCK_SEQ,
                           "allreduce")
-        g1, l1 = torch.func.grad_and_value(
-            lambda p: build(cfg, "cuda").loss(p, batch))(full)
+        f64 = arch in TPF_SMOKE_F64
+        mode = float64_products if f64 else contextlib.nullcontext
+
+        def alone():
+            return torch.func.grad_and_value(
+                lambda p: build(cfg, "cuda").loss(p, batch))(full)
+        with mode():
+            g1, l1 = alone()
+        if f64:
+            g32, l32 = alone()
+            sens = worst_of(g32, g1)
+            rank_print(f"27 (b) {arch} smoke alone: the gradient's rounding "
+                       f"sensitivity (fp32 products against products "
+                       f"rounded from float64) {sens[0]:.3e} at "
+                       f"{'/'.join(map(str, sens[1]))}, loss "
+                       f"{abs(float(l32) - float(l1)):.3e} (not a bar)")
         for size, mesh in meshes.items():
             model = tp.model_of(mesh)
             specs = model_specs(cfg, size)
             api = build(cfg, "cuda", model=model)
             local = shr.shard_model(full, specs, model)
-            (g, loss), n = launched(
-                torch, lambda: torch.func.grad_and_value(
-                    lambda p: api.loss(p, batch))(local), train_counters())
+
+            def step():
+                return torch.func.grad_and_value(
+                    lambda p: api.loss(p, batch))(local)
+            with mode():
+                (g, loss), n = launched(torch, step, train_counters())
             whole = shr.gather_model(g, specs, model, dst=None)
-            # the largest gradient difference and its leaf
-            worst = max((float((a - b).abs().max()), path)
-                        for (path, a), (_, b) in zip(
-                            shr._with_path(whole), shr._with_path(g1)))
+            worst = worst_of(whole, g1)
             got = [None] * dist.get_world_size()
             dist.all_gather_object(got, (abs(float(loss) - float(l1)),
                                          worst[0]))
-            out[f"{arch} tp {size}"] = {
+            key = f"{arch} tp {size}"
+            out[key] = {
                 "loss": float(loss), "loss_diff_grad_diff": got,
                 "worst_leaf": "/".join(map(str, worst[1])),
-                "launches": {k: v for k, v in n.items() if v}}
-            rank_print(f"27 (b) {arch} smoke at tp {size}: loss "
-                       f"{float(loss):.6f}; against the card alone per rank "
-                       f"(loss difference, the largest gradient difference) "
-                       f"{got}, that gradient's leaf "
-                       f"{out[f'{arch} tp {size}']['worst_leaf']} (bar "
-                       f"{TPF_SMOKE_TOL}); rank 0's launches "
-                       f"{out[f'{arch} tp {size}']['launches']}")
+                "launches": {k: v for k, v in n.items() if v},
+                "products": "float64" if f64 else "fp32"}
+            if f64:
+                g_, l_ = step()
+                w32 = worst_of(shr.gather_model(g_, specs, model, dst=None),
+                               g32)
+                out[key]["fp32_gap"] = [abs(float(l_) - float(l32)), w32[0],
+                                        "/".join(map(str, w32[1]))]
+                rank_print(f"27 (b) {arch} smoke at tp {size}, fp32 products "
+                           f"on both sides (not a bar): loss difference "
+                           f"{out[key]['fp32_gap'][0]:.3e}, the largest "
+                           f"gradient difference {w32[0]:.3e} at "
+                           f"{out[key]['fp32_gap'][2]}")
+                del g_, l_
+            rank_print(f"27 (b) {arch} smoke at tp {size}"
+                       f"{', every weight product formed in float64 on both sides' if f64 else ''}"
+                       f": loss {float(loss):.6f}; against the card alone "
+                       f"per rank (loss difference, the largest gradient "
+                       f"difference) {got}, that gradient's leaf "
+                       f"{out[key]['worst_leaf']} (bar {TPF_SMOKE_TOL}); "
+                       f"rank 0's launches {out[key]['launches']}")
             check(all(dl <= TPF_SMOKE_TOL and dg <= TPF_SMOKE_TOL
                       for dl, dg in got),
                   f"27 (b) {arch} smoke at tp {size}: {got}")
@@ -6989,9 +7082,570 @@ def rank_tpf(torch) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 28. Serving under tensor parallelism
+# ---------------------------------------------------------------------------
+
+TPS_ARCH = "phi3.5-moe-42b-a6.6b"    # (b) the target: 77.99 GiB in bf16
+TPS_SIZE = 4                         # (b) the model axis: four cards
+# (a) every served family's smoke config through the tensor-parallel
+# serving code on a (1, 1) world
+TPS_SMOKE = ("qwen2.5-14b", "recurrentgemma-2b", "rwkv6-7b",
+             "deepseek-v2-lite-16b", "phi3.5-moe-42b-a6.6b",
+             "seamless-m4t-large-v2")
+TPS_SMOKE_BATCH, TPS_SMOKE_PROMPT, TPS_SMOKE_STEPS = 2, 40, 3
+# (b) the served archs at full width, depth cut so that each fits one card
+# alone in fp32 beside its shard, teacher-forced at TF_PROMPT (batch 1,
+# TF_STEPS decode steps) against the card alone: {arch: layers}; an
+# encoder-decoder's layers are half encoder, half decoder
+TPS_TF = {"phi3.5-moe-42b-a6.6b": 4, "recurrentgemma-2b": 3, "rwkv6-7b": 4,
+          "deepseek-v2-lite-16b": 4, "seamless-m4t-large-v2": 4}
+TPS_SPLIT_HEADS = 10                 # (b) the smoke training's q head split
+TPS_CALL_S = 900
+TPS_PEAK_TOL = 0.10                  # (b) the dry run against the card
+# (a) flash at the rank's heads of (b)'s serves, (B, S, T, Hq, Hkv, D,
+# causal, window); recurrentgemma-2b's q head split gathers every q head
+TPS_FLASH = {
+    "phi3.5-moe-42b-a6.6b at tp 4": (SERVE_BATCH, SERVE_PROMPT,
+                                     SERVE_PROMPT, 8, 2, 128, True, 0),
+    "recurrentgemma-2b local at tp 4, q heads gathered whole": (
+        SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 10, 1, 256, True, 2048),
+    "deepseek-v2-lite-16b MLA at tp 4": (SERVE_BATCH, SERVE_PROMPT,
+                                         SERVE_PROMPT, 4, 4, 192, True, 0),
+    "seamless-m4t-large-v2 encoder and cross at tp 4": (
+        SERVE_BATCH, SERVE_PROMPT // 2, SERVE_PROMPT // 2, 4, 4, 64, False,
+        0),
+    "seamless-m4t-large-v2 decoder at tp 4": (
+        SERVE_BATCH, SERVE_PROMPT // 2, SERVE_PROMPT // 2, 4, 4, 64, True, 0),
+}
+# (a) the scans at the rank's channels / heads: recurrentgemma-2b's
+# d_rnn 2560 / 4 in prefill and decode, rwkv6-7b's 64 heads / 4
+TPS_RGLRU = (SERVE_BATCH, SERVE_PROMPT, 2560 // TPS_SIZE)
+TPS_RWKV = (SERVE_BATCH, SERVE_PROMPT, 64 // TPS_SIZE, 64)
+
+
+def serve_counters() -> dict:
+    """The kernels a serve launches, by name."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rglru_scan as rg
+    from repro_torch.kernels import rwkv6_scan as rw
+
+    return {"flash_attention": fa.flash_attention,
+            "rglru_scan": rg.rglru_scan, "rwkv6_scan": rw.rwkv6_scan}
+
+
+def tps_smoke_cfg(arch: str):
+    from repro_torch.configs import get_config, reduce_for_smoke
+
+    return reduce_for_smoke(get_config(arch))
+
+
+def tps_prompt(torch, cfg, batch: int, prompt: int, steps: int,
+               seed: int) -> tuple:
+    """A prompt (the encoder-decoder's: ``prompt`` source frames and target
+    tokens) and ``steps`` tokens to decode, drawn on the card from
+    ``seed``: the same on every rank."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, prompt + steps),
+                           generator=gen, device="cuda")
+    inputs = {"tokens": tokens[:, :prompt]}
+    if cfg.is_encdec:
+        inputs["src_embeds"] = torch.randn(
+            (batch, prompt, cfg.d_model), generator=gen,
+            device="cuda").to(getattr(torch, cfg.dtype))
+    return inputs, tokens
+
+
+def tps_forced(api, params, inputs: dict, tokens, prompt: int,
+               steps: int, max_len: int) -> tuple:
+    """Prefill, then ``steps`` decode steps fed the given tokens: (the
+    logits of each call, the last cache)."""
+    logits, cache = api.prefill(params, inputs, max_len=max_len)
+    out = [logits]
+    for i in range(steps):
+        logits, cache = api.decode_step(params, tokens[:, prompt + i], cache,
+                                        prompt + i)
+        out.append(logits)
+    return out, cache
+
+
+def tps_world_of_one(torch) -> dict:
+    """28 (a): every served family's smoke config on a (1, 1) world (NCCL)
+    through the tensor-parallel serving code with groups of one: the
+    prefill and decode logits and the caches bit-equal to one-device
+    serving, with the same launches."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.core import dpsgd
+    from repro_torch.launch import mesh as lm
+    from repro_torch.launch.train import model_specs
+    from repro_torch.models import build, tp
+    from repro_torch.train import shardings as shr
+
+    b, s, n = TPS_SMOKE_BATCH, TPS_SMOKE_PROMPT, TPS_SMOKE_STEPS
+
+    def runs(mesh) -> dict:
+        model = tp.model_of(mesh)
+        out = {}
+        for arch in TPS_SMOKE:
+            cfg = tps_smoke_cfg(arch)
+            params = build(cfg, "cuda").init(
+                torch.Generator(device="cuda").manual_seed(28))
+            if mesh is not None:
+                params = shr.shard_model(
+                    params, model_specs(cfg, model.size), model)
+            api = build(cfg, "cuda", model=None if mesh is None else model)
+            inputs, tokens = tps_prompt(torch, cfg, b, s, n, 29)
+            (logits, cache), got = launched(
+                torch, lambda: tps_forced(api, params, inputs, tokens, s, n,
+                                          s + n + 1), serve_counters())
+            out[arch] = ([x.clone() for x in logits],
+                         [x.clone() for x in dpsgd._leaves(cache)], got)
+        return out
+
+    one = runs(None)
+    with tempfile.TemporaryDirectory() as d:
+        lm.init_world("cuda", init_method=f"file://{d}/store", rank=0,
+                      world_size=1)
+        try:
+            mesh = lm.make_fleet_mesh(1, 1)
+            before = tp_collectives()
+            world = runs(mesh)
+            issued = tp_collectives() != before
+            print(f"28 (a) a world of {dist.get_world_size()} rank on a "
+                  f"(fleet, model) = {tuple(mesh.mesh.shape)} mesh: every "
+                  f"served family's prefill and {n} decode steps through "
+                  f"the tensor-parallel serving code, groups of one "
+                  f"({'some' if issued else 'no'} region collective issued)")
+        finally:
+            dist.destroy_process_group()
+    check(not issued, "28 (a): a model axis of one issued a collective")
+    result = {}
+    for arch in TPS_SMOKE:
+        (la, ca, na), (lb, cb, nb) = one[arch], world[arch]
+        same = all(torch.equal(x, y) for x, y in zip(la + ca, lb + cb))
+        nz = {k: v for k, v in nb.items() if v}
+        print(f"28 (a) {arch} smoke, batch {b}, prompt {s}, {n} decode "
+              f"steps: logits and caches "
+              f"{'bit-equal to' if same else 'UNLIKE'} one-device "
+              f"serving's; launches {nz} against "
+              f"{ {k: v for k, v in na.items() if v} }")
+        check(same and na == nb, f"28 (a) {arch}: {nb} against {na}")
+        result[arch] = nz
+    return result
+
+
+def tps_scans(torch) -> dict:
+    """28 (a): the RG-LRU scan at the rank's channels in prefill (the
+    chained path) and decode (S = 1, from h0) and the RWKV-6 scan at the
+    rank's heads from s0, against their plain versions under
+    tests/test_kernels.py's bars, with times beside the plain version's
+    and the bound."""
+    from repro_torch.kernels import rglru_scan as rg
+    from repro_torch.kernels import rwkv6_scan as rw
+
+    gen = torch.Generator(device="cuda").manual_seed(28)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    def row(kernel, plain, names, nbytes, flops, shape, e, reps):
+        b_ms, b_by = cost.bound(nbytes, flops)
+        return {"ms": time_ms(torch, kernel, reps=reps, rounds=3, warmup=2),
+                "plain_ms": time_ms(torch, plain, reps=1, rounds=3,
+                                    warmup=1),
+                "library_ms": None,
+                "device_ms": prof.device_ms(kernel, names, calls=5),
+                "bound_ms": b_ms, "bound_by": b_by, "shape": shape,
+                "max_abs_err": e}
+
+    out = {}
+    b, s, d = TPS_RGLRU
+    for steps in (s, 1):
+        a, x = torch.sigmoid(randn(b, steps, d)), randn(b, steps, d)
+        h0 = randn(b, d)
+        e = err(rg.rglru_scan(a, x, h0), rg.rglru_scan_plain(a, x, h0))
+        check(e <= TOL_RGLRU, f"28 (a) rglru_scan ({b},{steps},{d}): {e}")
+        key = "rglru_scan" if steps > 1 else "rglru_scan decode"
+        out[key] = row(lambda: rg.rglru_scan(a, x, h0),
+                       lambda: rg.rglru_scan_plain(a, x, h0),
+                       ("rglru_scan_kernel", "Memset"),
+                       *cost.rglru_cost(b, steps, d),
+                       f"a, b ({b},{steps},{d}) fp32, h0 ({b},{d})", e,
+                       20 if steps > 1 else 100)
+    b, s, hh, d = TPS_RWKV
+    r, k, v = (randn(b, s, hh, d) for _ in range(3))
+    w = torch.exp(-torch.exp(randn(b, s, hh, d) * 0.5))
+    u, s0 = randn(hh, d) * 0.1, randn(b, hh, d, d) * 0.1
+    y, sf = rw.rwkv6_scan(r, k, v, w, u, s0)
+    y_p, sf_p = rw.rwkv6_scan_plain(r, k, v, w, u, s0, RWKV_CHUNK)
+    e = max(err(y, y_p), err(sf, sf_p))
+    check(e <= TOL_RWKV * max(1.0, float(y_p.abs().max())),
+          f"28 (a) rwkv6_scan ({b},{s},{hh},{d}): {e}")
+    out["rwkv6_scan"] = row(
+        lambda: rw.rwkv6_scan(r, k, v, w, u, s0),
+        lambda: rw.rwkv6_scan_plain(r, k, v, w, u, s0, RWKV_CHUNK),
+        "rwkv6_scan_kernel", *cost.rwkv_cost(b, s, hh, d),
+        f"r, k, v, w ({b},{s},{hh},{d}) fp32, u ({hh},{d}), s0", e, 10)
+    for name, t in out.items():
+        dev_t = t["device_ms"] if t["device_ms"] is not None else t["ms"]
+        dms = "not measured" if t["device_ms"] is None \
+            else f"{t['device_ms']:.4f} ms"
+        print(f"28 (a) {name:17s} at the shard {t['shape']}: max|err| "
+              f"{t['max_abs_err']:.3e}; {t['ms']:.4f} ms/call (device "
+              f"{dms}) | plain {t['plain_ms']:.4f} ms | library none | bound "
+              f"{t['bound_ms']:.4f} ms ({t['bound_by']}), "
+              f"{t['bound_ms'] / dev_t * 100:.1f} % of it")
+    del r, k, v, w, u, s0, y, sf, y_p, sf_p
+    torch.cuda.empty_cache()
+    return out
+
+
+def tps_dry_run(torch) -> dict:
+    """The dry run's tp4 cell of (b)'s serve: rank 0 of (fleet 1, model
+    4) in torch's fake process group (on the card's torch: the fake group
+    runs there too), its per-rank peak and the model axis's collectives."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun as dr
+
+    with dr.fake_world(dr.MESHES["tp4"][0]) as world:
+        cell = dr.serve_cell(get_config(TPS_ARCH), batch=SERVE_BATCH,
+                             prompt_len=SERVE_PROMPT,
+                             max_len=SERVE_PROMPT + SERVE_GEN, world=world)
+    print(f"28 (a) the dry run's tp4 cell of {TPS_ARCH}'s serve (batch "
+          f"{SERVE_BATCH}, prompt {SERVE_PROMPT}, one decode step), rank 0 "
+          f"of (fleet 1, model 4) in the fake process group: weights "
+          f"{cell['params_bytes'] / 2**30:.3f} GiB, cache "
+          f"{cell['cache_bytes'] / 2**30:.3f} GiB, peak "
+          f"{cell['peak_bytes'] / 2**30:.3f} GiB, flops {cell['flops']:.4g},"
+          f" the model axis's collectives {cell['model_collectives']}")
+    return cell
+
+
+def tps_serve_demo(torch) -> dict:
+    """28 (a): ``repro_torch.examples.serve_demo`` on the card (the JAX
+    script's twin; its tokens are held equal to the JAX script's on the
+    CPU, tests/test_torch_serve.py): its lines, and its launches."""
+    import contextlib
+    import io
+
+    from repro_torch.examples import serve_demo
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        code, n = launched(
+            torch, lambda: serve_demo.main(["--device", "cuda"]),
+            serve_counters())
+    lines = buf.getvalue().strip().splitlines()
+    for ln in lines:
+        print(f"28 (a) serve_demo: {ln}")
+    check(code == 0 and len(lines) == len(serve_demo.ARCHS) and all(
+        "sample tokens" in ln for ln in lines),
+        f"28 (a) serve_demo: exit {code}, {lines}")
+    nz = {k: v for k, v in n.items() if v}
+    print(f"28 (a) serve_demo launches {nz}")
+    return nz
+
+
+def tps_four_cards(torch, dry: dict) -> dict:
+    """28 (b): the world of four cards, one a rank, and the dry run's peak
+    against rank 0's."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = torchrun(TPS_SIZE, [str(ROOT / Path(__file__).name),
+                              "--fleet-rank", "tps"],
+                   "28 (b) serving under tensor parallelism",
+                   timeout=TPS_CALL_S)
+    print("\n".join(ln for ln in out.splitlines()
+                    if ln.startswith("28 (b)")))
+    res = fleet_result(out, "28 (b) serving under tensor parallelism")
+    serve = res["serve"]
+    want = serve["peak_bytes"] - serve["base_bytes"]
+    off = dry["peak_bytes"] / want - 1
+    print(f"28 (b) the dry run's tp4 peak {dry['peak_bytes'] / 2**30:.3f} "
+          f"GiB against rank 0's max_memory_allocated less what it held "
+          f"before the serve {want / 2**30:.3f} GiB: {off * 100:+.2f} % "
+          f"(bar {TPS_PEAK_TOL * 100:.0f} %)")
+    check(abs(off) <= TPS_PEAK_TOL,
+          f"28 (b) the dry run's peak {dry['peak_bytes']} against {want}")
+    res["dry_peak_off"] = off
+    return res
+
+
+def phase_tps(torch) -> dict:
+    phase("28. serving under tensor parallelism: every served family "
+          "through the tensor-parallel serving code on a (1, 1) world, "
+          "flash and the scans at the rank's shard shapes, the dry run's "
+          "tp4 cell, and with four cards phi3.5-moe-42b-a6.6b served at "
+          "full width and depth over them, every served arch held against "
+          "the card alone")
+    result = {"a": tps_world_of_one(torch), "demo": tps_serve_demo(torch),
+              "scans": tps_scans(torch),
+              "flash": tp_flash(torch, TPS_FLASH, "28 (a)"),
+              "dry": tps_dry_run(torch)}
+    if torch.cuda.device_count() >= TPS_SIZE:
+        result["b"] = tps_four_cards(torch, result["dry"])
+    else:
+        print(f"28 (b) needs {TPS_SIZE} cards, {torch.cuda.device_count()} "
+              "visible: not run")
+    return result
+
+
+# ---------------------------------------------------------------------------
+# The ranks of 28 (b) (chip_smoke.py --fleet-rank tps, four ranks)
+# ---------------------------------------------------------------------------
+
+def rank_tps_serve(torch, model) -> dict:
+    """phi3.5-moe-42b-a6.6b at its published widths and depth over the
+    model axis: ``launch.serve.generate(tp=)`` at (SERVE_BATCH,
+    SERVE_PROMPT, SERVE_GEN) in bf16 (prefill s, tok/s, peak, launches,
+    every rank's tokens equal), then DECODE_PROFILE_STEPS decode steps
+    timed and profiled (ms a step, idle share, collectives a step)."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import serve
+    from repro_torch.models import build, tp
+    from repro_torch.utils import profile
+
+    cfg = get_config(TPS_ARCH)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    (out, n) = launched(torch, lambda: serve.generate(
+        cfg, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT, gen=SERVE_GEN,
+        device="cuda", tp=model), serve_counters())
+    peak = torch.cuda.max_memory_allocated()
+    tokens = [None] * dist.get_world_size()
+    dist.all_gather_object(tokens, out["tokens"].tolist())
+    same = all(t == tokens[0] for t in tokens)
+    peaks = [None] * dist.get_world_size()
+    dist.all_gather_object(peaks, peak)
+    finite = bool(torch.isfinite(out["logits"].float()).all())
+    rank_print(f"28 (b) {cfg.name} at full width and depth ({cfg.n_layers} "
+               f"layers, {cfg.moe.n_experts} experts / {TPS_SIZE} a rank), "
+               f"tp {TPS_SIZE}, bf16, batch {SERVE_BATCH}, prompt "
+               f"{SERVE_PROMPT}, {SERVE_GEN} tokens: prefill "
+               f"{out['prefill_s']:.4f} s, decode {out['decode_s']:.4f} s = "
+               f"{out['tok_per_s']:.2f} tok/s; peak per rank "
+               f"{[round(p / 2**30, 3) for p in peaks]} GiB; launches "
+               f"{ {k: v for k, v in n.items() if v} }; every rank's tokens "
+               f"{'equal' if same else 'DIFFER'}; sample "
+               f"{out['tokens'][0, :8].tolist()}")
+    check(same, "28 (b) the ranks sampled different tokens")
+    check(finite, "28 (b) non-finite logits")
+    check(tuple(out["tokens"].shape) == (SERVE_BATCH, SERVE_GEN),
+          f"28 (b) tokens {tuple(out['tokens'].shape)}")
+    check(n["flash_attention"] == cfg.n_layers,
+          f"28 (b) flash launches {n} (want {cfg.n_layers} in prefill)")
+    res = {"prefill_s": out["prefill_s"], "decode_s": out["decode_s"],
+           "tok_per_s": out["tok_per_s"], "peak_bytes": peak,
+           "base_bytes": base, "peaks": peaks,
+           "launches": {k: v for k, v in n.items() if v}}
+    del out
+    torch.cuda.empty_cache()
+
+    # the decode steps again, timed and profiled, beside the collectives
+    api = build(cfg, "cuda", model=model)
+    rng = torch.Generator(device="cuda").manual_seed(1)
+    params = serve.init_serving_params(api, rng, model)
+    inputs = api.make_inputs(ShapeConfig("serve", SERVE_PROMPT, SERVE_BATCH,
+                                         "prefill"), rng,
+                             batch_override=SERVE_BATCH)
+    state = {}
+    state["logits"], state["cache"] = api.prefill(
+        params, inputs, max_len=SERVE_PROMPT + 2 * DECODE_PROFILE_STEPS + 1)
+
+    def decode(start):
+        tok = torch.argmax(state["logits"], -1)
+        for i in range(DECODE_PROFILE_STEPS):
+            state["logits"], state["cache"] = api.decode_step(
+                params, tok, state["cache"], start + i)
+            tok = torch.argmax(state["logits"], -1)
+    before = {k: list(v) for k, v in tp.COLLECTIVES.items()}
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    decode(SERVE_PROMPT)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / DECODE_PROFILE_STEPS
+    per_step = {k: [(tp.COLLECTIVES[k][0] - before[k][0])
+                    / DECODE_PROFILE_STEPS,
+                    (tp.COLLECTIVES[k][1] - before[k][1])
+                    / DECODE_PROFILE_STEPS] for k in before}
+    rows = profile.device_profile(
+        lambda: decode(SERVE_PROMPT + DECODE_PROFILE_STEPS),
+        DECODE_PROFILE_STEPS)
+    idle = None
+    if rows:
+        busy = sum(r[1] for r in rows)
+        idle = 1 - busy / ms
+    rank_print(f"28 (b) {cfg.name} decode, {DECODE_PROFILE_STEPS} steps: "
+               f"{ms:.4f} ms a step on rank 0's host clock; idle share "
+               f"{'not measured' if idle is None else f'{idle:.3f}'}; a "
+               f"step's collectives per rank {per_step} ([calls, bytes]); "
+               f"top device operations (ms/step, launches/step) "
+               f"{[(r[0][:60], round(r[1], 4), r[2]) for r in rows[:6]]}")
+    res.update({"decode_ms": ms, "decode_idle_share": idle,
+                "collectives_per_step": per_step})
+    del params, state, inputs
+    torch.cuda.empty_cache()
+    return res
+
+
+def rank_tps_forced(torch, model) -> dict:
+    """Every served arch at full width (``TPS_TF``'s depths) in fp32,
+    teacher-forced at TF_PROMPT against the same parameters and tokens on
+    this rank's card alone: the prefill within 2e-4, each decode step
+    within 2e-4 + 3 x the floor (phases 9 and 13's bars: apply over the
+    prompt alone against apply over the whole sequence, on the card
+    alone); greedy tokens compared and printed, not barred. A MoE runs
+    at capacity factor n_experts / top_k (drop-free, as phase 13)."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import model_specs
+    from repro_torch.models import build, encdec, transformer
+    from repro_torch.train import shardings as shr
+
+    out = {}
+    for arch, layers in TPS_TF.items():
+        cfg = dataclasses.replace(get_config(arch), dtype="float32",
+                                  n_layers=layers)
+        if cfg.is_encdec:
+            cfg = dataclasses.replace(cfg, encoder_layers=layers // 2)
+        if cfg.moe is not None:
+            mc = cfg.moe
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                mc, capacity_factor=mc.n_experts / mc.top_k))
+        prompt = TF_PROMPT // 2 if cfg.is_encdec else TF_PROMPT
+        full = build(cfg, "cuda").init(
+            torch.Generator(device="cuda").manual_seed(28))
+        inputs, tokens = tps_prompt(torch, cfg, 1, prompt, TF_STEPS, 30)
+        max_len = prompt + TF_STEPS + 1
+        alone, _ = tps_forced(build(cfg, "cuda"), full, inputs, tokens,
+                              prompt, TF_STEPS, max_len)
+
+        def prefill_ms(api, params):
+            """One more prefill, timed on the host clock after a sync."""
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            api.prefill(params, inputs, max_len=max_len)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3
+        alone_ms = prefill_ms(build(cfg, "cuda"), full)
+
+        def apply(t):
+            if cfg.is_encdec:
+                return encdec.apply(cfg, full, inputs["src_embeds"], t)
+            return transformer.apply(cfg, full, t)
+        short = apply(tokens[:, :prompt])[:, -1]
+        floor = err(short, apply(tokens)[:, prompt - 1])
+        del short
+        local = shr.shard_model(full, model_specs(cfg, model.size), model)
+        del full
+        torch.cuda.empty_cache()
+        (served, _), n = launched(torch, lambda: tps_forced(
+            build(cfg, "cuda", model=model), local, inputs, tokens, prompt,
+            TF_STEPS, max_len), serve_counters())
+        tp_ms = prefill_ms(build(cfg, "cuda", model=model), local)
+        errs = [err(a, b) for a, b in zip(served, alone)]
+        same_tokens = [bool(torch.equal(torch.argmax(a, -1),
+                                        torch.argmax(b, -1)))
+                       for a, b in zip(served, alone)]
+        bar = 2e-4 + 3 * floor
+        got = [None] * dist.get_world_size()
+        dist.all_gather_object(got, (errs, floor))
+        ok = all(e[0] <= 2e-4 and max(e[1:]) <= 2e-4 + 3 * f
+                 for e, f in got)
+        rank_print(f"28 (b) {arch} at full width, {layers} layers, fp32, "
+                   f"batch 1, prompt {prompt}, {TF_STEPS} decode steps, tp "
+                   f"{model.size} against the card alone: max|diff| per call "
+                   f"(prefill, then each step) {[f'{e:.3e}' for e in errs]}, "
+                   f"floor {floor:.3e}, bars 2e-4 / {bar:.3e}; every rank "
+                   f"within: {ok}; greedy tokens equal per call "
+                   f"{same_tokens}; launches "
+                   f"{ {k: v for k, v in n.items() if v} }; a prefill "
+                   f"{tp_ms:.2f} ms at tp {model.size} against "
+                   f"{alone_ms:.2f} ms on the card alone")
+        check(ok, f"28 (b) {arch}: {got}")
+        out[arch] = {"errs": errs, "floor": floor, "prefill_ms": tp_ms,
+                     "alone_prefill_ms": alone_ms,
+                     "tokens_equal": same_tokens,
+                     "launches": {k: v for k, v in n.items() if v}}
+        del local, served, alone, inputs, tokens
+        torch.cuda.empty_cache()
+    return out
+
+
+def rank_tps_split_train(torch, model) -> dict:
+    """recurrentgemma-2b's smoke config at TPS_SPLIT_HEADS q heads (the q
+    head split at tp 4: every head on every rank): the loss and the
+    gathered gradients against the card alone within TPF_SMOKE_TOL."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.train import model_specs
+    from repro_torch.models import attention, build
+    from repro_torch.train import shardings as shr
+
+    cfg = dataclasses.replace(tps_smoke_cfg("recurrentgemma-2b"),
+                              n_heads=TPS_SPLIT_HEADS)
+    check(attention.head_layout(cfg, model).split,
+          "28 (b): the smoke config does not split its q heads")
+    full = build(cfg, "cuda").init(
+        torch.Generator(device="cuda").manual_seed(27))
+    batch = pod_batch(torch, cfg, 0, 1, POD_LOCK_BATCH, POD_LOCK_SEQ,
+                      "allreduce")
+    g1, l1 = torch.func.grad_and_value(
+        lambda p: build(cfg, "cuda").loss(p, batch))(full)
+    specs = model_specs(cfg, model.size)
+    local = shr.shard_model(full, specs, model)
+    (g, loss), n = launched(torch, lambda: torch.func.grad_and_value(
+        lambda p: build(cfg, "cuda", model=model).loss(p, batch))(local),
+        train_counters())
+    whole = shr.gather_model(g, specs, model, dst=None)
+    worst = max((float((a - b).abs().max()), "/".join(map(str, path)))
+                for (path, a), (_, b) in zip(shr._with_path(whole),
+                                             shr._with_path(g1)))
+    got = [None] * dist.get_world_size()
+    dist.all_gather_object(got, (abs(float(loss) - float(l1)), worst[0]))
+    rank_print(f"28 (b) recurrentgemma-2b smoke at {cfg.n_heads} q heads, "
+               f"tp {model.size} (the q head split): against the card alone "
+               f"per rank (loss difference, the largest gradient "
+               f"difference) {got}, that gradient's leaf {worst[1]} (bar "
+               f"{TPF_SMOKE_TOL}); launches "
+               f"{ {k: v for k, v in n.items() if v} }")
+    check(all(dl <= TPF_SMOKE_TOL and dg <= TPF_SMOKE_TOL for dl, dg in got),
+          f"28 (b) the q head split's gradients: {got}")
+    return {"loss_diff_grad_diff": got, "worst_leaf": worst[1],
+            "launches": {k: v for k, v in n.items() if v}}
+
+
+def rank_tps(torch) -> dict:
+    """28 (b), every rank of a world of four: phi3.5-moe-42b-a6.6b served
+    at full width and depth over the model axis, every served arch
+    teacher-forced against the card alone, the q head split's training."""
+    from repro_torch.launch import serve
+
+    model = serve.model_axis(TPS_SIZE)
+    out = {"serve": rank_tps_serve(torch, model)}
+    out["forced"] = rank_tps_forced(torch, model)
+    out["split_train"] = rank_tps_split_train(torch, model)
+    return out
+
+
 def fleet_rank_main(role: str) -> None:
-    """One rank of a 25 (c), 26 (b) or 27 (b) world; rank 0 prints the
-    result as a FLEET line."""
+    """One rank of a 25 (c), 26 (b), 27 (b) or 28 (b) world; rank 0 prints
+    the result as a FLEET line."""
     import os
 
     sys.path.insert(0, str(SRC))
@@ -7004,9 +7658,9 @@ def fleet_rank_main(role: str) -> None:
     from repro_torch.train.shardings import fleet_of
 
     init_world("cuda")
-    if role in ("tp", "tp-capture", "tpf"):
+    if role in ("tp", "tp-capture", "tpf", "tps"):
         result = {"tp": rank_tp, "tp-capture": rank_tp_capture,
-                  "tpf": rank_tpf}[role](torch)
+                  "tpf": rank_tpf, "tps": rank_tps}[role](torch)
         rank_print(f"FLEET {json.dumps(result)}")
         dist.barrier()
         dist.destroy_process_group()
@@ -7211,6 +7865,12 @@ def main() -> None:
     # cards are present
     torch.cuda.empty_cache()
     tpf_run = run("27", phase_tpf, torch)
+    # serving under tensor parallelism: every served family through the
+    # tensor-parallel serving code on a (1, 1) world, flash and the scans
+    # at the rank's shard shapes, the dry run's tp4 cell, and with four
+    # cards phi3.5-moe-42b-a6.6b at full width over them
+    torch.cuda.empty_cache()
+    tps_run = run("28", phase_tps, torch)
     kernels["flash_attention"]["qwen2_vl_train"] = kernels.pop(
         "flash_attention_qwen2_vl_train")
     rec_launches = {**trained_rec["recurrentgemma-2b"]["launches"],
@@ -7403,6 +8063,38 @@ def main() -> None:
             by_path.update({k_: v for k_, v in paths.items() if v})
         row["tpf_shapes"] = tpf_run["flash"] \
             if name.startswith("flash_attention") else tpf_run["scans"][name]
+    # phase 28's runs: (a) every served family's smoke serve through the
+    # tensor-parallel code on a (1, 1) world, (b) the serves over four
+    # cards (rank 0's launches)
+    for row in rows:
+        name = row["name"]
+        if name not in ("flash_attention", "rglru_scan", "rwkv6_scan"):
+            continue
+        by_path = row.setdefault("launches_by_path",
+                                 {"main path": row["launches"]})
+        by_path.update({
+            f"{arch} smoke, prefill and {TPS_SMOKE_STEPS} decode steps "
+            f"through the tensor-parallel serving code on a (1, 1) world "
+            f"(phase 28 (a))": n[name]
+            for arch, n in tps_run["a"].items() if n.get(name)})
+        if tps_run["demo"].get(name):
+            by_path["repro_torch.examples.serve_demo (phase 28 (a))"] = \
+                tps_run["demo"][name]
+        b = tps_run.get("b")
+        if b is not None:
+            paths = {f"{TPS_ARCH} served at full width and depth, tp "
+                     f"{TPS_SIZE} (phase 28 (b))":
+                     b["serve"]["launches"].get(name, 0)}
+            paths.update({
+                f"{arch} at full width, {TPS_TF[arch]} layers, "
+                f"teacher-forced at tp {TPS_SIZE} (phase 28 (b))":
+                res["launches"].get(name, 0)
+                for arch, res in b["forced"].items()})
+            by_path.update({k_: v for k_, v in paths.items() if v})
+        row["tps_shapes"] = tps_run["flash"] \
+            if name == "flash_attention" else {
+                k_: v for k_, v in tps_run["scans"].items()
+                if k_.startswith(name)}
     k = traced["trace_scan"]
     rows.append({
         "name": "trace_scan", "route": "cuda",

@@ -56,10 +56,29 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--out DIR]
   PYTHONPATH=src python -m repro_torch.launch.dryrun --list
 
-Each cell writes ``<out>/card/<arch>__<shape>[tag].json`` (resumable:
-existing files are skipped unless --force). ``--mesh single`` and
-``multi`` (the reference's pod meshes, with tensor parallelism over their
-'model' axis) wait for ROADMAP Queue 1 item 9.
+Each cell writes ``<out>/<mesh>/<arch>__<shape>[tag].json`` (resumable:
+existing files are skipped unless --force).
+
+``--mesh single`` / ``multi`` evaluate rank 0 of the reference's pod
+meshes, (data 16, model 16) and (pod 2, data 16, model 16)
+(``MESHES``), and ``tp4`` rank 0 of the four cards as (fleet 1, model 4):
+the cell runs as that rank runs it, under a world of that many ranks in
+torch's fake process group (``fake_world``: every collective is issued
+on data-free tensors and moves nothing). The data axes shard the batch;
+``model`` is tensor parallelism, every leaf the rank's shard of
+``param_specs``. A train cell is Mode B with a node a data index (the
+rank's one node over the fleet of data ranks, the gossip plan over them)
+or, with ``--mode allreduce``, Mode A (the replica's batch split over
+the data ranks); a serve cell is tensor-parallel serving of the rank's
+share of the batch (``batch_specs``: split over the data ranks where it
+divides). Besides what a card's cell records: the mesh, the rank's
+place, its batch, and the model axis's collectives by kind
+(``models.tp.COLLECTIVES``: calls and bytes of all-reduces and
+all-gathers).
+
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --mesh single --all
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --mesh tp4 \
+      --arch phi3.5-moe-42b-a6.6b --shape decode_32k
 """
 from __future__ import annotations
 
@@ -67,6 +86,7 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import time
 import traceback
@@ -85,15 +105,22 @@ from ..kernels import counted_wrappers
 from ..models import build, encdec, tp, transformer
 from ..models.layers import torch_dtype
 from ..optim.schedule import constant_lr
+from ..train import shardings as shr
 from ..train.step import (init_train_state, make_train_step,
                           reshape_batch_for_nodes)
 from ..utils.collectives import step_collectives
 from .serve import init_serving_params
-from .train import param_bytes
+from .train import model_specs, param_bytes, shard_cast
 
 __all__ = ["PeakTracker", "train_cell", "serve_cell",
-           "fewest_microbatches", "check_mesh", "run_cell", "main",
-           "H100_BYTES", "ALLOC_BLOCK"]
+           "fewest_microbatches", "check_mesh", "fake_world", "run_cell",
+           "main", "H100_BYTES", "ALLOC_BLOCK", "MESHES"]
+
+# (shape, axis names) of each mesh besides the one card: the reference's
+# pod meshes (repro.launch.mesh.make_production_mesh) and the four cards
+MESHES = {"single": ((16, 16), ("data", "model")),
+          "multi": ((2, 16, 16), ("pod", "data", "model")),
+          "tp4": ((1, 4), ("fleet", "model"))}
 
 # The card's memory as torch sees it on an H100 80GB HBM3, 700 W
 # (torch.cuda.get_device_properties(0).total_memory, read by
@@ -209,17 +236,22 @@ def _batch(cfg, b: int, s: int, device: torch.device) -> dict:
     return batch
 
 
-def _plan(cfg, run: RunConfig, nodes: int) -> tuple[Any, dict]:
+def _plan(cfg, run: RunConfig, nodes: int, axes: tuple = ("data",),
+          shape: Optional[tuple] = None, tp_size: int = 1
+          ) -> tuple[Any, dict]:
     """The gossip plan of a Mode B cell, as ``launch.train`` (or the
-    reference's dry run for an explicit ``--topology``) picks it."""
-    pbytes = param_bytes(cfg)
+    reference's dry run for an explicit ``--topology``) picks it: over
+    the node ``axes`` of ``shape`` (one axis of ``nodes`` by default),
+    a rank's bytes those of its shard over ``tp_size``."""
+    pbytes = param_bytes(cfg) / tp_size
+    shape = shape or (nodes,)
     if run.topology == "auto":
-        choice = choose_plan(("data",), (nodes,), run.lambda_target,
+        choice = choose_plan(axes, shape, run.lambda_target,
                              bytes_per_rank=pbytes, eta=run.eta)
         plan = choice.plan
         return plan, {"name": plan.name, "lam": choice.lam,
                       "degree": plan.degree, "t_com_model_s": choice.t_com_s}
-    cands = candidate_plans(("data",), (nodes,), include_onepeer=True)
+    cands = candidate_plans(axes, shape, include_onepeer=True)
     named = {p.name: p for p in cands}
     named.update({p.name.split("-")[0]: p for p in cands
                   if p.name.startswith("onepeer")})
@@ -231,23 +263,33 @@ def _plan(cfg, run: RunConfig, nodes: int) -> tuple[Any, dict]:
 
 def train_cell(cfg, run: RunConfig, *, batch: int, seq_len: int,
                nodes: int = 1, plan=None,
-               device: Optional[torch.device] = None) -> dict:
+               device: Optional[torch.device] = None,
+               world: Optional[tuple] = None) -> dict:
     """One step of ``make_train_step`` on data-free tensors: Mode A over a
     batch of ``batch`` sequences, Mode B over ``nodes`` nodes of ``batch /
-    nodes`` each (``plan`` the gossip plan). Returns the bytes, peak,
-    flops, launches and collectives (no fit)."""
+    nodes`` each (``plan`` the gossip plan). ``world`` (``fake_world``'s
+    (fleet, model)): the rank's step, ``nodes`` and ``batch`` its own,
+    over the fleet and the model axis. Returns the bytes, peak, flops,
+    launches and collectives (no fit)."""
     device = device or _fake_device()
     dpsgd = run.mode == "dpsgd"
     if dpsgd and plan is None:
         raise ValueError("Mode B (dpsgd) needs a gossip plan")
+    fleet, model = world or (None, tp.ONE)
+    specs = model_specs(cfg, model.size) if model.active else None
     with _evaluating(device) as (tracker, flops):
-        api = build(cfg, device)
-        state = init_train_state(api, run, torch.Generator(device=device),
-                                 n_nodes=nodes if dpsgd else 1)
+        api = build(cfg, device, model=model if model.active else None)
+        state = init_train_state(
+            api, run, torch.Generator(device=device),
+            n_nodes=nodes if dpsgd else 1,
+            cast=shard_cast(cfg, model) if model.active else None)
         data = _batch(cfg, batch, seq_len, device)
         if dpsgd:
             data = reshape_batch_for_nodes(data, nodes)
-        step = make_train_step(api, run, plan, constant_lr(run.eta))
+        step = make_train_step(
+            api, run, plan, constant_lr(run.eta),
+            group=fleet.group if fleet is not None and fleet.size > 1
+            else None, model=model if model.active else None, specs=specs)
         node_leaves = [(tuple(x.shape[1:] if dpsgd else x.shape),
                         str(x.dtype).removeprefix("torch."))
                        for x in _leaves(state["params"])]
@@ -259,11 +301,13 @@ def train_cell(cfg, run: RunConfig, *, batch: int, seq_len: int,
                "residual_bytes": _bytes(state.get("residual")),
                "batch_bytes": _bytes(data)}
         shaped0 = _shaped()
+        coll0 = _model_collectives()
         aten0 = flops.get_total_flops()
         tracker.reset_peak()
         base = tracker.now
         new_state, metrics = step(state, data)
         out["peak_bytes"] = tracker.peak
+        out["model_collectives"] = _model_collectives(coll0)
         del state, new_state, metrics
         out["end_bytes"] = tracker.now
         out["base_bytes"] = base
@@ -273,7 +317,7 @@ def train_cell(cfg, run: RunConfig, *, batch: int, seq_len: int,
     out.update(step_collectives(
         node_leaves, run.mode, plan=plan, fused=run.fused_gossip,
         compression=run.compression, microbatch=run.microbatch,
-        n_nodes=nodes, tied=tied))
+        n_nodes=nodes if fleet is None else fleet.size, tied=tied))
     out["graphed"] = False
     out["fake_device"] = str(device)
     return out
@@ -281,19 +325,25 @@ def train_cell(cfg, run: RunConfig, *, batch: int, seq_len: int,
 
 def serve_cell(cfg, *, batch: int, prompt_len: int, max_len: int,
                prefill: bool = True,
-               device: Optional[torch.device] = None) -> dict:
+               device: Optional[torch.device] = None,
+               world: Optional[tuple] = None) -> dict:
     """``launch.serve``'s weights (each layer cast as drawn), then on
     data-free tensors a prefill of ``batch`` prompts of ``prompt_len``
     tokens into caches of ``max_len`` and one decode step; without
     ``prefill`` the caches are made whole (``init_cache``; an
     encoder-decoder's cross K/V as long) and the step decodes position
     ``prompt_len`` against them. The peak runs from the first weight
-    drawn, as a serve's does."""
+    drawn, as a serve's does. ``world`` (``fake_world``'s (fleet,
+    model)): the rank's serve, ``batch`` its own, its weights and caches
+    its shards over the model axis."""
     device = device or _fake_device()
     shaped0 = _shaped()
+    model = world[1] if world else tp.ONE
+    coll0 = _model_collectives()
     with _evaluating(device) as (tracker, flops):
-        api = build(cfg, device)
-        params = init_serving_params(api, torch.Generator(device=device))
+        api = build(cfg, device, model=model)
+        params = init_serving_params(api, torch.Generator(device=device),
+                                     model)
         out = {"params_bytes": _bytes(params), "opt_bytes": 0,
                "residual_bytes": 0}
         inputs = _batch(cfg, batch, (2 if cfg.is_encdec else 1) * prompt_len,
@@ -303,9 +353,10 @@ def serve_cell(cfg, *, batch: int, prompt_len: int, max_len: int,
             logits, cache = api.prefill(params, inputs, max_len=max_len)
         elif cfg.is_encdec:
             cache = encdec.init_dec_cache(cfg, batch, max_len, max_len,
-                                          device=device)
+                                          device=device, model=model)
         else:
-            cache = transformer.init_cache(cfg, batch, max_len, device=device)
+            cache = transformer.init_cache(cfg, batch, max_len,
+                                           device=device, model=model)
         out["cache_bytes"] = _bytes(cache)
         token = torch.zeros((batch,), dtype=torch.int64, device=device)
         logits, cache = api.decode_step(params, token, cache, prompt_len)
@@ -314,11 +365,22 @@ def serve_cell(cfg, *, batch: int, prompt_len: int, max_len: int,
         del logits, cache, inputs
         out["end_bytes"] = tracker.now
         out["flops_aten"] = float(flops.get_total_flops())
+    out["model_collectives"] = _model_collectives(coll0)
     out.update(_kernels(shaped0))
     out["flops"] = out["flops_aten"] + out["flops_kernels"]
     out["graphed"] = False
     out["fake_device"] = str(device)
     return out
+
+
+def _model_collectives(before: Optional[dict] = None) -> dict:
+    """``models.tp.COLLECTIVES`` now, or {kind: [calls, bytes]} since
+    ``before``."""
+    now = {k: list(v) for k, v in tp.COLLECTIVES.items()}
+    if before is None:
+        return now
+    return {k: [now[k][0] - before[k][0], now[k][1] - before[k][1]]
+            for k in now}
 
 
 def _divisors(n: int) -> list[int]:
@@ -368,23 +430,52 @@ def fewest_microbatches(cfg, run: RunConfig, cell: dict, *, batch: int,
     return cands[hi], tried
 
 
-def check_mesh(kind: str) -> None:
-    """Raise unless ``kind`` is the one card the port's dry run has."""
-    if kind != "card":
-        raise NotImplementedError(
-            f"--mesh {kind}: the reference's pod meshes run on several "
-            f"devices, which waits for {tp.SERVE_ITEM}; the port's dry "
-            "run has one card (--mesh card)")
+def check_mesh(kind: str) -> Optional[tuple]:
+    """The (shape, axis names) of mesh ``kind`` (None for the one card);
+    an unknown kind raises."""
+    if kind == "card":
+        return None
+    if kind not in MESHES:
+        raise ValueError(f"--mesh {kind}: one of card, "
+                         f"{', '.join(MESHES)}")
+    return MESHES[kind]
+
+
+@contextlib.contextmanager
+def fake_world(shape: tuple):
+    """Rank 0 of a world of prod(``shape``) ranks in torch's fake process
+    group (``torch.testing._internal.distributed.fake_pg``: every
+    collective returns at once and moves nothing), the mesh row-major with
+    'model' last: yields (fleet, model), rank 0's places on the data axes
+    (ranks 0, T, 2T, ...: one fleet over every data axis) and on the
+    model axis (ranks 0 .. T - 1). The world is destroyed on exit; a
+    world already started raises."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("the dry run's mesh needs a process of its own: "
+                           "a torch.distributed world is already started")
+    n, t = math.prod(shape), shape[-1]
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=n)
+    try:
+        model = tp.model_of_group(dist.new_group(list(range(t))))
+        fleet = shr.fleet_of_group(dist.new_group(list(range(0, n, t))))
+        yield fleet, model
+    finally:
+        dist.destroy_process_group()
 
 
 def run_cell(arch: str, shape_name: str, mesh_kind: str = "card",
              mode: str = "dpsgd", run: Optional[RunConfig] = None,
              nodes: int = 4,
              clock: Optional[Callable[[], float]] = None) -> dict:
-    """One cell's record. ``clock`` is injectable (runtime/fault.py
-    pattern); the default is monotonic."""
+    """One cell's record: on the one card, or as rank 0 of ``mesh_kind``'s
+    mesh (``MESHES``, under ``fake_world``). ``clock`` is injectable
+    (runtime/fault.py pattern); the default is monotonic."""
     clock = clock or time.perf_counter
-    check_mesh(mesh_kind)
+    mesh = check_mesh(mesh_kind)
     cfg = get_config(arch)
     shape = SHAPES[shape_name]
     result: dict[str, Any] = {
@@ -398,32 +489,62 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str = "card",
         return result
     run = run or RunConfig(mode=mode)
     t0 = clock()
+    if mesh is not None:
+        dims = mesh[0]
+        fleet_size = math.prod(dims[:-1])
+        result.update({"mesh_shape": list(dims), "mesh_axes": list(mesh[1]),
+                       "rank": 0, "model_size": dims[-1],
+                       "fleet_size": fleet_size})
     try:
         capacity, origin = _capacity()
-        if shape.kind == "train":
-            plan = None
-            if run.mode == "dpsgd":
-                plan, result["plan"] = _plan(cfg, run, nodes)
-            result["nodes"] = nodes if run.mode == "dpsgd" else 1
-            res = train_cell(cfg, run, batch=shape.global_batch,
-                             seq_len=shape.seq_len, nodes=nodes, plan=plan)
-            result.update(res)
-            m, tried = fewest_microbatches(
-                cfg, run, res, batch=shape.global_batch,
-                seq_len=shape.seq_len, nodes=nodes, plan=plan,
-                capacity=capacity)
-            result["fewest_microbatches"] = m
-            result["microbatch_peaks"] = {str(k): v
-                                          for k, v in tried.items()}
-        else:
-            # an encoder-decoder's S positions are S / 2 source frames and
-            # S / 2 target tokens, as the reference maps them
-            s = shape.seq_len // 2 if cfg.is_encdec else shape.seq_len
-            prefill = shape.kind == "prefill"
-            prompt, max_len = (s, s + 1) if prefill else (s - 1, s)
-            result.update(serve_cell(cfg, batch=shape.global_batch,
-                                     prompt_len=prompt, max_len=max_len,
-                                     prefill=prefill))
+        with (fake_world(dims) if mesh is not None
+              else contextlib.nullcontext()) as world:
+            b = shape.global_batch
+            if shape.kind == "train":
+                plan = None
+                if world is None:
+                    if run.mode == "dpsgd":
+                        plan, result["plan"] = _plan(cfg, run, nodes)
+                    result["nodes"] = nodes if run.mode == "dpsgd" else 1
+                    res = train_cell(cfg, run, batch=b,
+                                     seq_len=shape.seq_len, nodes=nodes,
+                                     plan=plan)
+                    result.update(res)
+                    m, tried = fewest_microbatches(
+                        cfg, run, res, batch=b, seq_len=shape.seq_len,
+                        nodes=nodes, plan=plan, capacity=capacity)
+                    result["fewest_microbatches"] = m
+                    result["microbatch_peaks"] = {str(k): v
+                                                  for k, v in tried.items()}
+                else:
+                    # a node a data index (Mode B), or the replica's batch
+                    # over the data ranks (Mode A): the rank's share
+                    if run.mode == "dpsgd":
+                        plan, result["plan"] = _plan(
+                            cfg, run, fleet_size, mesh[1][:-1], dims[:-1],
+                            dims[-1])
+                    result["nodes"] = fleet_size if run.mode == "dpsgd" \
+                        else 1
+                    result["batch_per_rank"] = b // fleet_size
+                    result.update(train_cell(
+                        cfg, run, batch=b // fleet_size,
+                        seq_len=shape.seq_len, nodes=1, plan=plan,
+                        world=world))
+            else:
+                # an encoder-decoder's S positions are S / 2 source frames
+                # and S / 2 target tokens, as the reference maps them; on a
+                # mesh the batch splits over the data ranks where it
+                # divides (batch_specs), else every rank holds it whole
+                s = shape.seq_len // 2 if cfg.is_encdec else shape.seq_len
+                prefill = shape.kind == "prefill"
+                prompt, max_len = (s, s + 1) if prefill else (s - 1, s)
+                if world is not None:
+                    if fleet_size > 1 and b % fleet_size == 0:
+                        b //= fleet_size
+                    result["batch_per_rank"] = b
+                result.update(serve_cell(cfg, batch=b, prompt_len=prompt,
+                                         max_len=max_len, prefill=prefill,
+                                         world=world))
         result["capacity_bytes"] = capacity
         result["capacity_origin"] = origin
         result["fits"] = result["peak_bytes"] <= capacity
@@ -450,8 +571,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--arch")
     ap.add_argument("--shape", choices=list(SHAPES))
-    ap.add_argument("--mesh", choices=["card", "single", "multi", "both"],
-                    default="card")
+    ap.add_argument("--mesh", choices=["card", "single", "multi", "both",
+                                       "tp4"], default="card")
     ap.add_argument("--mode", choices=["dpsgd", "allreduce"], default="dpsgd")
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--list", action="store_true")
@@ -479,34 +600,39 @@ def main(argv=None) -> int:
             print(f"{arch:28s} {shape:12s} "
                   f"{'RUN' if ok else 'SKIP: ' + reason}")
         return 0
-    check_mesh(args.mesh)
+    meshes = ["single", "multi"] if args.mesh == "both" else [args.mesh]
+    for kind in meshes:
+        check_mesh(kind)
     if not args.all and not (args.arch and args.shape):
         ap.error("give --arch and --shape, or --all")
 
     cells = list(_cells()) if args.all else [(args.arch, args.shape)]
     failures = 0
-    outdir = os.path.join(args.out, "card")
-    os.makedirs(outdir, exist_ok=True)
-    for arch, shape in cells:
-        tag = "" if args.mode == "dpsgd" else f"__{args.mode}"
-        if args.tag:
-            tag += f"__{args.tag}"
-        path = os.path.join(outdir, f"{arch}__{shape}{tag}.json")
-        if os.path.exists(path) and not args.force:
-            print(f"[skip-existing] {path}", flush=True)
-            continue
-        print(f"[dryrun] {arch} x {shape} on card ({args.mode})", flush=True)
-        res = run_cell(arch, shape, "card", mode=args.mode, run=run_cfg,
-                       nodes=args.nodes)
-        with open(path, "w") as f:
-            json.dump(res, f, indent=1)
-        status = res["status"]
-        msg = res.get("error", "")[:200] if status == "error" else \
-            res.get("reason", "") if status == "skipped" else \
-            (f"peak {res['peak_bytes'] / 2**30:.3f} GiB fits {res['fits']} "
-             f"flops {res['flops']:.3g} in {res['seconds']}s")
-        print(f"  -> {status} {msg}", flush=True)
-        failures += status == "error"
+    for kind in meshes:
+        outdir = os.path.join(args.out, kind)
+        os.makedirs(outdir, exist_ok=True)
+        for arch, shape in cells:
+            tag = "" if args.mode == "dpsgd" else f"__{args.mode}"
+            if args.tag:
+                tag += f"__{args.tag}"
+            path = os.path.join(outdir, f"{arch}__{shape}{tag}.json")
+            if os.path.exists(path) and not args.force:
+                print(f"[skip-existing] {path}", flush=True)
+                continue
+            print(f"[dryrun] {arch} x {shape} on {kind} ({args.mode})",
+                  flush=True)
+            res = run_cell(arch, shape, kind, mode=args.mode, run=run_cfg,
+                           nodes=args.nodes)
+            with open(path, "w") as f:
+                json.dump(res, f, indent=1)
+            status = res["status"]
+            msg = res.get("error", "")[:200] if status == "error" else \
+                res.get("reason", "") if status == "skipped" else \
+                (f"peak {res['peak_bytes'] / 2**30:.3f} GiB fits "
+                 f"{res['fits']} flops {res['flops']:.3g} in "
+                 f"{res['seconds']}s")
+            print(f"  -> {status} {msg}", flush=True)
+            failures += status == "error"
     return 1 if failures else 0
 
 

@@ -47,8 +47,9 @@ gradients. With ``--tp T`` the world of W ranks is the reference's
 or the one replica (Mode A; ``--nodes 1`` is pure tensor parallelism)
 runs over the T ranks of a ``model`` axis, every leaf the rank's shard
 of the JAX package's ``param_specs`` (drawn layer by layer and sharded as
-drawn: the whole model is never on one card), every family (heads that
-do not divide over the axis raise naming ROADMAP Queue 1 item 9). A
+drawn: the whole model is never on one card), every family (attention
+heads that do not divide over the axis run the q head split:
+``models.attention.head_layout``). A
 checkpoint gathers every leaf over ``model`` and then the fleet to rank
 0's host (the JAX package's global arrays, the same files one process
 writes) and scatters it back to resume or after the fault drill; the

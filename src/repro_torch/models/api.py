@@ -81,25 +81,17 @@ def _encdec_make_inputs(cfg: ModelConfig, shape: ShapeConfig,
             "tokens": tokens.to(device)}
 
 
-def _serve_alone(model: Optional[tp.Model]) -> None:
-    """Serving runs on one device: its caches over a 'model' axis wait for
-    ROADMAP Queue 1 item 9."""
-    if tp.resolve(model).active:
-        raise NotImplementedError(
-            "tensor parallelism runs the teacher-forced loss; prefill and "
-            f"decode caches over a 'model' axis wait for {tp.SERVE_ITEM}")
-
-
 def build(cfg: ModelConfig, device: str | torch.device = "cuda",
           model: Optional[tp.Model] = None) -> ModelAPI:
     """The facade of ``cfg`` with ``init`` and ``make_inputs`` placing
     tensors on ``device`` (checked when they are called). ``model`` (a
-    ``models.tp.Model``) runs ``loss`` tensor parallel on the rank's
-    shards (``train.shardings.shard_model``; None: ``tp.current()`` at
-    the call), every family; what still waits raises naming ROADMAP
-    Queue 1 item 9: here a q head split over the ranks
-    (``transformer.check_tp``), at the call ``prefill`` and
-    ``decode_step`` under an active axis."""
+    ``models.tp.Model``) runs ``loss``, ``prefill`` and ``decode_step``
+    tensor parallel on the rank's shards
+    (``train.shardings.shard_model``; None: ``tp.current()`` at the call),
+    every family, the caches the rank's shards
+    (``train.shardings.cache_layout``) and the logits whole on every
+    rank. What tensor parallelism refuses raises here
+    (``transformer.check_tp``)."""
     if model is not None:
         transformer.check_tp(cfg, model)
     if cfg.is_encdec:
@@ -108,13 +100,13 @@ def build(cfg: ModelConfig, device: str | torch.device = "cuda",
                                       model=model)
 
         def prefill(params, batch, max_len=None):
-            _serve_alone(model)
             return encdec.prefill(cfg, params, batch["src_embeds"],
-                                  batch["tokens"], max_len=max_len)
+                                  batch["tokens"], max_len=max_len,
+                                  model=model)
 
         def decode(params, token, cache, index):
-            _serve_alone(model)
-            return encdec.decode_step(cfg, params, token, cache, index)
+            return encdec.decode_step(cfg, params, token, cache, index,
+                                      model=model)
 
         return ModelAPI(
             cfg, lambda gen, cast=None: encdec.init_params(cfg, gen, device,
@@ -128,14 +120,14 @@ def build(cfg: ModelConfig, device: str | torch.device = "cuda",
                                    model=model)
 
     def prefill(params, batch, max_len=None):
-        _serve_alone(model)
         return transformer.prefill(cfg, params, batch["tokens"],
                                    max_len=max_len,
-                                   patch_embeds=batch.get("patch_embeds"))
+                                   patch_embeds=batch.get("patch_embeds"),
+                                   model=model)
 
     def decode(params, token, cache, index):
-        _serve_alone(model)
-        return transformer.decode_step(cfg, params, token, cache, index)
+        return transformer.decode_step(cfg, params, token, cache, index,
+                                       model=model)
 
     return ModelAPI(
         cfg, lambda gen, cast=None: transformer.init_params(cfg, gen, device,

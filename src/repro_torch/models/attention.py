@@ -21,20 +21,28 @@ keep a ring buffer of ``window`` slots with explicit position tags; cross
 attention reads the encoder K/V its prefill cached (``chunked_attention``,
 one query).
 
-Under tensor parallelism (``model``, ``models.tp``) the train / prefill
-path runs on the rank's q heads: ``wq`` is the rank's columns, ``wo`` its
-rows (partial sums leave by ``tp.reduce_out``), and ``wk`` / ``wv`` give
-the kv heads those q heads read: the rank's shard when it holds exactly
-them, gathered whole (``tp.gather``) when the specs split a head, or the
+Under tensor parallelism (``model``, ``models.tp``) every mode runs on
+the rank's q heads: ``wq`` is the rank's columns, ``wo`` its rows
+(partial sums leave by ``tp.reduce_out``), and ``wk`` / ``wv`` give the
+kv heads those q heads read: the rank's shard when it holds exactly them,
+gathered whole (``tp.gather``) when the specs split a head, or the
 replicated weight (through ``tp.copy_in``: its gradient is partial on each
 rank) when ``kv_dim`` does not divide. Cross attention (``_cross``, one
 body for training and for prefill, which caches its K/V) runs the same
 way on the rank's heads over the encoder output, which enters by
-``tp.copy_in``. Decode and prefill caches under
-tensor parallelism wait for ROADMAP Queue 1 item 9.
+``tp.copy_in``. A cache holds the rank's kv heads (a kv head the specs
+split is held whole by each rank that reads it), a ring buffer's position
+tags whole. Where the q heads do not divide over the ranks (a q head
+split: recurrentgemma-2b's 10 heads at tp 4, 640 columns a rank, two and
+a half heads), the rank's columns of q are gathered whole and every head
+runs on every rank against every kv head; the output keeps the rank's
+columns for its rows of ``wo``. That attention work is redundant (each
+rank does all of it) but the result is one device's, and ``tp.gather``'s
+backward makes the same route train.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
@@ -45,7 +53,7 @@ from . import tp
 from .layers import dense, dense_init, rope, torch_dtype
 
 __all__ = ["attn_init", "init_attn_cache", "attn_apply", "chunked_attention",
-           "local_block_attention"]
+           "local_block_attention", "Heads", "attn_axis", "head_layout"]
 
 _NEG = -1e30
 
@@ -65,11 +73,13 @@ def attn_init(gen: torch.Generator, cfg: ModelConfig,
 
 
 def init_attn_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
-                    dtype, device: torch.device) -> dict:
-    """Cache tree for one self-attention layer. ``kind``: global|local."""
+                    dtype, device: torch.device,
+                    model: tp.Model = tp.ONE) -> dict:
+    """Cache tree for one self-attention layer. ``kind``: global|local.
+    ``model``: the kv heads the rank's q heads read (``head_layout``)."""
     length = (min(cfg.window, max_len) if kind == "local" and cfg.window
               else max_len)
-    shape = (batch, length, cfg.n_kv_heads, cfg.head_dim)
+    shape = (batch, length, head_layout(cfg, model).hkv, cfg.head_dim)
     cache = {"k": torch.zeros(shape, dtype=dtype, device=device),
              "v": torch.zeros(shape, dtype=dtype, device=device)}
     if kind == "local":
@@ -169,28 +179,47 @@ def local_block_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # Tensor parallelism: the rank's heads
 # ---------------------------------------------------------------------------
 
-def head_split(cfg: ModelConfig, model: tp.Model) -> tuple[int, int, int, int]:
-    """(q0, hq, k0, hkv): the rank's first q head and their count, the
-    first kv head they read and the count of those. The q heads must
-    divide over the ranks and each of the rank's kv heads serve the same
-    number of its q heads (flash's GQA)."""
+@dataclasses.dataclass(frozen=True)
+class Heads:
+    """A rank's share of the heads: ``hq`` q heads from ``q0``, reading
+    ``hkv`` kv heads from ``k0``. ``split``: a q head split over ranks
+    (the heads do not divide, or the rank's q heads would read unequal kv
+    groups): the rank's columns of q are gathered whole, every head runs
+    on every rank, and the output keeps the rank's columns for its rows of
+    ``wo``."""
+    q0: int
+    hq: int
+    k0: int
+    hkv: int
+    split: bool = False
+
+
+def attn_axis(cfg: ModelConfig, model: tp.Model) -> tp.Model:
+    """The axis attention runs over: ``model`` when ``q_dim`` divides over
+    it (the specs split ``wq`` and ``wo``), else ``tp.ONE`` (both
+    replicated, and ``wk`` / ``wv`` too: the layer whole on each rank)."""
+    return model if model.splits(cfg.q_dim) else tp.ONE
+
+
+def head_layout(cfg: ModelConfig, model: tp.Model) -> Heads:
+    """The rank's heads on ``attn_axis(cfg, model)``: whole heads where the
+    q heads divide over the ranks and each of the rank's kv heads serves
+    the same number of its q heads (flash's GQA); else the q head split
+    (``Heads.split``), every kv head read."""
     n, kv = cfg.n_heads, cfg.n_kv_heads
-    if n % model.size:
-        raise NotImplementedError(
-            f"{n} q heads over a 'model' axis of {model.size}: a q head "
-            f"split over ranks waits for {tp.SERVE_ITEM}")
-    hq = n // model.size
-    q0 = model.index * hq
-    g = n // kv
-    k0 = q0 // g
-    hkv = (q0 + hq - 1) // g + 1 - k0
-    if hq % hkv or any((q0 + i) // g - k0 != i // (hq // hkv)
-                       for i in range(hq)):
-        raise NotImplementedError(
-            f"GQA {n} on {kv} heads over {model.size} ranks gives rank "
-            f"{model.index} q heads of unequal kv groups "
-            f"({tp.SERVE_ITEM})")
-    return q0, hq, k0, hkv
+    model = attn_axis(cfg, model)
+    if not model.active:
+        return Heads(0, n, 0, kv)
+    if n % model.size == 0:
+        hq = n // model.size
+        q0 = model.index * hq
+        g = n // kv
+        k0 = q0 // g
+        hkv = (q0 + hq - 1) // g + 1 - k0
+        if hq % hkv == 0 and all((q0 + i) // g - k0 == i // (hq // hkv)
+                                 for i in range(hq)):
+            return Heads(q0, hq, k0, hkv)
+    return Heads(0, n, 0, kv, split=True)
 
 
 def _kv_of_heads(pw: dict, cfg: ModelConfig, model: tp.Model, k0: int,
@@ -211,23 +240,54 @@ def _kv_of_heads(pw: dict, cfg: ModelConfig, model: tp.Model, k0: int,
     return {k: v[..., lo:hi] for k, v in whole.items()}
 
 
-def _attn_train(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
-                positions: torch.Tensor, causal_override: Optional[bool],
-                positions_are_arange: bool,
-                model: tp.Model) -> torch.Tensor:
-    """Self attention's train path (no cache) through the flash kernel,
-    on the rank's heads (``head_split``; all of them on an axis of one),
-    the output projection's partial sums reduced over the ranks."""
-    dt = torch_dtype(cfg.dtype)
+def _q(p: dict, x: torch.Tensor, cfg: ModelConfig, model: tp.Model,
+       heads: Heads, dt) -> torch.Tensor:
+    """q (B, S, hq, head_dim) of the rank's heads from x (already through
+    ``tp.copy_in``); under a q head split the rank's columns gathered
+    whole (``tp.gather``: its backward reduce-scatters dq)."""
     b, s, _ = x.shape
-    d = cfg.head_dim
-    _, hq, k0, hkv = head_split(cfg, model)
+    q = dense(p["wq"], x, dt)
+    if heads.split:
+        q = tp.gather(q, model)
+    return q.reshape(b, s, heads.hq, cfg.head_dim)
+
+
+def _kv(p: dict, src: torch.Tensor, cfg: ModelConfig, model: tp.Model,
+        heads: Heads, dt) -> tuple[torch.Tensor, torch.Tensor]:
+    """k, v (B, T, hkv, head_dim): the kv heads the rank's q heads read."""
+    b, t, _ = src.shape
+    shape = (b, t, heads.hkv, cfg.head_dim)
+    return tuple(dense(_kv_of_heads(p[n], cfg, model, heads.k0, heads.hkv),
+                       src, dt).reshape(shape) for n in ("wk", "wv"))
+
+
+def _out(p: dict, out: torch.Tensor, cfg: ModelConfig, model: tp.Model,
+         heads: Heads, dt) -> torch.Tensor:
+    """The output projection of (B, S, hq, head_dim): the rank's rows of
+    ``wo`` (under a q head split, on the rank's columns of every head's
+    output), the partial sums reduced over the ranks."""
+    b, s = out.shape[:2]
+    out = out.to(dt).reshape(b, s, heads.hq * cfg.head_dim)
+    if heads.split:
+        lo, hi = model.block(cfg.q_dim)
+        out = out[..., lo:hi]
+    return tp.reduce_out(dense(p["wo"], out, dt), model)
+
+
+def _self_attn(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
+               positions: torch.Tensor, causal_override: Optional[bool],
+               positions_are_arange: bool, model: tp.Model) -> tuple:
+    """Self attention without a cache (training and prefill) through the
+    flash kernel, on the rank's heads (``head_layout``; all of them on an
+    axis of one), the output projection's partial sums reduced over the
+    ranks. Returns (y, k, v), k and v (B, S, hkv, head_dim) after rotary,
+    as the cache keeps them."""
+    dt = torch_dtype(cfg.dtype)
+    model = attn_axis(cfg, model)
+    heads = head_layout(cfg, model)
     x = tp.copy_in(x, model)
-    q = dense(p["wq"], x, dt).reshape(b, s, hq, d)
-    k = dense(_kv_of_heads(p["wk"], cfg, model, k0, hkv), x,
-              dt).reshape(b, s, hkv, d)
-    v = dense(_kv_of_heads(p["wv"], cfg, model, k0, hkv), x,
-              dt).reshape(b, s, hkv, d)
+    q = _q(p, x, cfg, model, heads, dt)
+    k, v = _kv(p, x, cfg, model, heads, dt)
     q = rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
     k = rope(k, positions, cfg.rope_theta, cfg.rope_fraction)
     causal = True if causal_override is None else causal_override
@@ -236,8 +296,7 @@ def _attn_train(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
         q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
         window=window, positions=None if positions_are_arange
         else positions)
-    y = dense(p["wo"], out.to(dt).reshape(b, s, hq * d), dt)
-    return tp.reduce_out(y, model)
+    return _out(p, out, cfg, model, heads, dt), k, v
 
 
 def _cross(p: dict, x: torch.Tensor, kv_src: torch.Tensor,
@@ -250,20 +309,14 @@ def _cross(p: dict, x: torch.Tensor, kv_src: torch.Tensor,
     projection's partial sums leave by ``tp.reduce_out``. Returns (y, k,
     v), k and v (B, T, hkv, head_dim) as the cache keeps them."""
     dt = torch_dtype(cfg.dtype)
-    b, s, _ = x.shape
-    t = kv_src.shape[1]
-    d = cfg.head_dim
-    _, hq, k0, hkv = head_split(cfg, model)
+    model = attn_axis(cfg, model)
+    heads = head_layout(cfg, model)
     x, kv_src = tp.copy_in(x, model), tp.copy_in(kv_src, model)
-    q = dense(p["wq"], x, dt).reshape(b, s, hq, d)
-    k = dense(_kv_of_heads(p["wk"], cfg, model, k0, hkv), kv_src,
-              dt).reshape(b, t, hkv, d)
-    v = dense(_kv_of_heads(p["wv"], cfg, model, k0, hkv), kv_src,
-              dt).reshape(b, t, hkv, d)
+    q = _q(p, x, cfg, model, heads, dt)
+    k, v = _kv(p, kv_src, cfg, model, heads, dt)
     out = ops.flash_attention_gqa(q.contiguous(), k.contiguous(),
                                   v.contiguous(), causal=False)
-    y = dense(p["wo"], out.to(dt).reshape(b, s, hq * d), dt)
-    return tp.reduce_out(y, model), k, v
+    return _out(p, out, cfg, model, heads, dt), k, v
 
 
 # ---------------------------------------------------------------------------
@@ -296,48 +349,37 @@ def attn_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *, kind: str,
     training step runs inside a CUDA graph's capture) passes
     ``positions_are_arange`` and nothing is read.
 
-    ``model``: the train path runs on the rank's heads (``_attn_train``,
-    ``_cross``); under an active axis the other modes raise.
+    ``model``: every mode runs on the rank's heads (``head_layout``); a
+    cache holds the kv heads they read (``init_attn_cache(model=)``), a
+    ring buffer's position tags whole on every rank.
     """
     if cache is None and cache_index is None:
         if kind == "cross":
             return _cross(p, x, kv_src, cfg, model)[0], None
-        return _attn_train(p, x, cfg, kind, positions, causal_override,
-                           positions_are_arange, model), None
-    if model.active:
-        raise NotImplementedError(
-            "tensor parallelism runs the train path of attention; decode "
-            f"and prefill caches wait for {tp.SERVE_ITEM}")
+        return _self_attn(p, x, cfg, kind, positions, causal_override,
+                          positions_are_arange, model)[0], None
     dt = torch_dtype(cfg.dtype)
     if kind == "cross" and kv_src is not None:
         y, k, v = _cross(p, x, kv_src, cfg, model)
         return y, {"k": k.to(dt), "v": v.to(dt)}
+    model = attn_axis(cfg, model)
+    heads = head_layout(cfg, model)
     b, s, _ = x.shape
-    q = dense(p["wq"], x, dt).reshape(b, s, cfg.n_heads, cfg.head_dim)
 
     if kind == "cross":
         # the K/V cached at prefill; every source frame is visible
+        q = _q(p, tp.copy_in(x, model), cfg, model, heads, dt)
         k, v = cache["k"], cache["v"]
         zeros = torch.zeros((1,), dtype=torch.int32, device=x.device)
         out = chunked_attention(q, k, v, causal=False,
                                 q_positions=zeros.expand(s),
                                 k_positions=zeros.expand(k.shape[1]))
-        y = dense(p["wo"], out.to(dt).reshape(b, s, cfg.q_dim), dt)
-        return y, cache
-
-    k = dense(p["wk"], x, dt).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
-    v = dense(p["wv"], x, dt).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
-    q = rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
-    k = rope(k, positions, cfg.rope_theta, cfg.rope_fraction)
+        return _out(p, out, cfg, model, heads, dt), cache
 
     if cache_index is None:
         # ----- prefill: the flash kernel, the keys into the cache -----
-        causal = True if causal_override is None else causal_override
-        window = cfg.window if kind == "local" and cfg.window else 0
-        out = ops.flash_attention_gqa(
-            q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
-            window=window, positions=None if positions_are_arange
-            else positions)
+        y, k, v = _self_attn(p, x, cfg, kind, positions, causal_override,
+                             positions_are_arange, model)
         length = cache["k"].shape[1]
         new_cache = dict(cache)
         if "pos" in cache and s >= length:
@@ -360,10 +402,14 @@ def attn_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *, kind: str,
                 pos_w = torch.nn.functional.pad(positions, (0, length - s),
                                                 value=-1)
                 new_cache["pos"] = pos_w.to(torch.int32)
-        y = dense(p["wo"], out.to(dt).reshape(b, s, cfg.q_dim), dt)
         return y, new_cache
 
     # ----- decode (s == 1), plain torch -----
+    x = tp.copy_in(x, model)
+    q = _q(p, x, cfg, model, heads, dt)
+    k, v = _kv(p, x, cfg, model, heads, dt)
+    q = rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
+    k = rope(k, positions, cfg.rope_theta, cfg.rope_fraction)
     idx = int(cache_index)
     length = cache["k"].shape[1]
     new = (lambda t: t) if cache_in_place else torch.clone
@@ -382,12 +428,12 @@ def attn_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *, kind: str,
         valid = torch.arange(length, device=x.device) <= idx
         new_cache = {"k": kc, "v": vc}
 
-    g = cfg.n_heads // cfg.n_kv_heads
-    qg = q.reshape(b, cfg.n_kv_heads, g, cfg.head_dim).to(torch.float32)
+    g = heads.hq // heads.hkv
+    qg = q.reshape(b, heads.hkv, g, cfg.head_dim).to(torch.float32)
     scores = torch.einsum("bhgd,blhd->bhgl", qg,
                           kc.to(torch.float32)) * cfg.head_dim**-0.5
     scores = scores.masked_fill(~valid[None, None, None, :], _NEG)
     pr = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhgl,blhd->bhgd", pr, vc.to(torch.float32))
-    out = out.reshape(b, 1, cfg.q_dim).to(dt)
-    return dense(p["wo"], out, dt), new_cache
+    return _out(p, out.reshape(b, 1, heads.hq, cfg.head_dim), cfg, model,
+                heads, dt), new_cache

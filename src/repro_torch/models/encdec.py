@@ -19,7 +19,8 @@ the teacher-forced forward on the rank's shards, through both stacks and
 remat's checkpoint: self and cross attention on the rank's heads, the
 MLPs column / row parallel, the tied embedding and its head
 vocab-parallel where the vocab divides over the axis (else replicated,
-``encdec_loss`` then the plain cross entropy).
+``encdec_loss`` then the plain cross entropy). Prefill and decode run the
+same layout, the self-attention and cross caches on the rank's kv heads.
 """
 from __future__ import annotations
 
@@ -35,7 +36,7 @@ from .layers import (cross_entropy, embed_init, norm, norm_init, torch_dtype,
 from .transformer import (_apply_layer, _embed, _init_layer,
                           _init_layer_cache, _logits, _tree_index,
                           _tree_map, _tree_stack, _tree_unbind, check_tp,
-                          stack_drawn)
+                          last_logits, stack_drawn)
 
 PyTree = Any
 
@@ -99,7 +100,7 @@ def _run_stacked(cfg: ModelConfig, stacked: dict, x: torch.Tensor, *,
                 positions=positions, cache_index=cache_index,
                 cache={"attn": _tree_index(self_kv, i),
                        "cross": _tree_index(caches["cross"], i)},
-                cache_in_place=True)
+                cache_in_place=True, model=model)
         return x, {"attn": self_kv, "cross": caches["cross"]}
 
     def layer(p, x, cross_src, positions, cache=None):
@@ -165,44 +166,53 @@ def encdec_loss(cfg: ModelConfig, params: PyTree, batch: dict, *,
 
 
 def init_dec_cache(cfg: ModelConfig, batch: int, max_len: int, cross_len: int,
-                   dtype=None, device: str | torch.device = "cuda") -> PyTree:
+                   dtype=None, device: str | torch.device = "cuda",
+                   model: Optional[tp.Model] = None) -> PyTree:
     """The decoder's caches, stacked over its layers: self attention
-    (B, max_len, ...) and cross attention (B, cross_len, ...)."""
+    (B, max_len, ...) and cross attention (B, cross_len, ...), each the
+    rank's kv heads on ``model``."""
     dev = resolve_device(device)
     dtype = torch_dtype(cfg.dtype if dtype is None else dtype)
     _, n_dec = _half_layers(cfg)
     one = _init_layer_cache(cfg, "global", batch, max_len, dtype, dev,
-                            cross=True, cross_len=cross_len)
+                            cross=True, cross_len=cross_len,
+                            model=tp.resolve(model))
     return _tree_map(lambda l: l[None].expand(n_dec, *l.shape).clone(), one)
 
 
 def prefill(cfg: ModelConfig, params: PyTree, src_embeds: torch.Tensor,
-            tgt_tokens: torch.Tensor, *, max_len: Optional[int] = None
-            ) -> tuple[torch.Tensor, PyTree]:
+            tgt_tokens: torch.Tensor, *, max_len: Optional[int] = None,
+            model: Optional[tp.Model] = None) -> tuple[torch.Tensor, PyTree]:
     """Encode, then run the target prompt; returns (last logits (B, V),
-    the decoder's caches, the encoder's K/V among them)."""
+    the decoder's caches, the encoder's K/V among them). ``model``: the
+    rank's shards and cache shards, the logits whole on every rank."""
+    model = tp.resolve(model)
+    check_tp(cfg, model)
     b, s_tgt = tgt_tokens.shape
     max_len = max_len or s_tgt
-    enc = encode(cfg, params, src_embeds)
+    enc = encode(cfg, params, src_embeds, model=model)
     caches = init_dec_cache(cfg, b, max_len, src_embeds.shape[1],
-                            device=tgt_tokens.device)
-    x = _embed(cfg, params, tgt_tokens)
+                            device=tgt_tokens.device, model=model)
+    x = _embed(cfg, params, tgt_tokens, model=model)
     x, new_caches = _run_stacked(
         cfg, params["decoder"], x,
         positions=torch.arange(s_tgt, device=x.device), cross_src=enc,
-        caches=caches, want_cache=True)
-    return _logits(cfg, params, x[:, -1:])[:, 0], new_caches
+        caches=caches, want_cache=True, model=model)
+    return last_logits(cfg, params, x, model), new_caches
 
 
 def decode_step(cfg: ModelConfig, params: PyTree, token: torch.Tensor,
-                caches: PyTree, index: int) -> tuple[torch.Tensor, PyTree]:
+                caches: PyTree, index: int,
+                model: Optional[tp.Model] = None
+                ) -> tuple[torch.Tensor, PyTree]:
     """One target-token decode against the cached encoder K/V. The
     returned caches hold ``caches``' cross K/V tensors themselves and a
     new copy of the self-attention caches; ``caches`` is left as it was."""
+    model = tp.resolve(model)
     index = int(index)
-    x = _embed(cfg, params, token[:, None])
+    x = _embed(cfg, params, token[:, None], model=model)
     x, new_caches = _run_stacked(
         cfg, params["decoder"], x,
         positions=torch.arange(index, index + 1, device=token.device),
-        caches=caches, cache_index=index)
-    return _logits(cfg, params, x)[:, 0], new_caches
+        caches=caches, cache_index=index, model=model)
+    return last_logits(cfg, params, x, model), new_caches

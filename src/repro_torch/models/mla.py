@@ -19,8 +19,12 @@ heads: ``wq``, ``w_uk`` and ``w_uv`` are its columns (whole heads), the
 replicated ``wkv_a`` enters by ``tp.copy_in`` (c_kv and k_rope are made on
 every rank but feed only its heads, so their gradients are partial), the
 flash kernel runs at the local heads and ``wo``'s rows leave by
-``tp.reduce_out``. A cache under an active axis waits for ROADMAP Queue 1
-item 9.
+``tp.reduce_out``. Serving keeps the compressed cache (c_kv, k_rope) whole
+on every rank (each rank makes it from the replicated ``wkv_a``); the
+decode step's absorbed form runs on the rank's heads (its columns of
+``w_uk`` and ``w_uv``) and ``wo``'s partial sums are reduced over the
+ranks. (The JAX package's ``cache_specs`` would split the latent's
+trailing dim instead: ``train.shardings.cache_layout``.)
 """
 from __future__ import annotations
 
@@ -67,11 +71,14 @@ def init_mla_cache(cfg: ModelConfig, m: MLAConfig, batch: int, max_len: int,
 
 
 def heads_of(cfg: ModelConfig, model: tp.Model) -> int:
-    """The rank's count of MLA heads: every head whole on one rank."""
+    """The rank's count of MLA heads: every head whole on one rank (the
+    published MLA config's 16 heads divide over 2, 4, 8 and 16 ranks; a
+    split of one would need the compressed projections' columns gathered,
+    which no configuration asks for)."""
     if cfg.n_heads % model.size:
         raise NotImplementedError(
             f"{cfg.n_heads} MLA heads over a 'model' axis of {model.size}: "
-            f"a head split over ranks waits for {tp.SERVE_ITEM}")
+            "MLA runs on whole heads a rank")
     return cfg.n_heads // model.size
 
 
@@ -86,10 +93,6 @@ def mla_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *, m: MLAConfig,
     h = cfg.n_heads
     wkv_a = p["wkv_a"]
     if model.active:
-        if cache is not None or cache_index is not None:
-            raise NotImplementedError(
-                "tensor parallelism runs MLA's train path; its caches "
-                f"wait for {tp.SERVE_ITEM}")
         h = heads_of(cfg, model)
         x = tp.copy_in(x, model)
         wkv_a = {k: tp.copy_in(w, model) for k, w in wkv_a.items()}
@@ -146,4 +149,4 @@ def mla_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *, m: MLAConfig,
     w_uv = p["w_uv"]["w"].to(dt).reshape(m.kv_lora_rank, h, m.v_head_dim)
     out = torch.einsum("bhr,rhd->bhd", ctx, w_uv.to(f32))
     y = dense(p["wo"], out.reshape(b, 1, h * m.v_head_dim).to(dt), dt)
-    return y, {"c_kv": ckv_c, "k_rope": kr_c}
+    return tp.reduce_out(y, model), {"c_kv": ckv_c, "k_rope": kr_c}

@@ -26,8 +26,9 @@ enters by ``tp.copy_in``), ``conv_w``, ``b_ai`` and ``lam`` its channels,
 ``w_ai`` its output channels of the fused gates, whose product needs u
 whole (``tp.gather``: its backward sums the ranks' partial gradients and
 keeps the rank's slice), the recurrence runs on (B, S, d_rnn / size), and
-``w_out``'s rows leave by ``tp.reduce_out``. A state under an active axis
-waits for ROADMAP Queue 1 item 9.
+``w_out``'s rows leave by ``tp.reduce_out``. Serving keeps the state on
+the rank's channels: conv (B, width-1, d_rnn / size), h (B, d_rnn / size);
+prefill runs the scan's chained path on the shard, decode its S = 1 path.
 """
 from __future__ import annotations
 
@@ -63,11 +64,14 @@ def rglru_init(gen: torch.Generator, cfg: ModelConfig, r: RGLRUConfig,
 
 
 def init_rglru_state(cfg: ModelConfig, r: RGLRUConfig, batch: int, dtype,
-                     device: torch.device) -> dict:
+                     device: torch.device, model: tp.Model = tp.ONE) -> dict:
+    """The state on the rank's channels (d_rnn / size where it splits)."""
+    lo, hi = model.block(r.d_rnn)
     return {
-        "conv": torch.zeros((batch, r.conv_width - 1, r.d_rnn), dtype=dtype,
+        "conv": torch.zeros((batch, r.conv_width - 1, hi - lo), dtype=dtype,
                             device=device),
-        "h": torch.zeros((batch, r.d_rnn), dtype=torch.float32, device=device),
+        "h": torch.zeros((batch, hi - lo), dtype=torch.float32,
+                         device=device),
     }
 
 
@@ -108,10 +112,6 @@ def rglru_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     b, s, _ = x.shape
     if not model.splits(r.d_rnn):
         model = tp.ONE
-    elif state is not None or return_state:
-        raise NotImplementedError(
-            "tensor parallelism runs the RG-LRU's train path; its state "
-            f"waits for {tp.SERVE_ITEM}")
     x = tp.copy_in(x, model)
     # jax.nn.gelu's default is the tanh approximation
     gate = F.gelu(dense(p["w_gate"], x, dt), approximate="tanh")
@@ -139,8 +139,8 @@ def rglru_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     new_state = None
     if return_state:
         prev = (conv_state.to(dt) if conv_state is not None
-                else torch.zeros((b, r.conv_width - 1, r.d_rnn), dtype=dt,
-                                 device=x.device))
+                else torch.zeros((b, r.conv_width - 1, u_pre.shape[-1]),
+                                 dtype=dt, device=x.device))
         tail = torch.cat([prev, u_pre.to(dt)], dim=1)[:, -(r.conv_width - 1):]
         new_state = {"conv": tail, "h": h[:, -1].to(torch.float32)}
     return y, new_state

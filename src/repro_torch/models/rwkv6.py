@@ -34,7 +34,10 @@ rows; the receptance is gathered whole (``tp.gather``) so that the
 sigmoid gate multiplies the value's partial sum before one
 ``tp.reduce_out``: forward an all-gather of (B, S, d) and an all-reduce of
 (B, S, d), backward the gather's reduce-scatter and the all-reduce of
-x's and the lerp weights' gradients.
+x's and the lerp weights' gradients. Serving keeps the state so: ``wkv``
+(B, H / size, D, D) on the rank's heads, ``shift_tm`` and ``shift_cm``
+(B, d_model) whole on every rank (x is whole there); prefill runs the
+scan at the head shard from s0, decode ``wkv_step`` on the rank's heads.
 """
 from __future__ import annotations
 
@@ -88,8 +91,10 @@ def rwkv_init(gen: torch.Generator, cfg: ModelConfig, r: RWKVConfig,
 
 
 def init_rwkv_state(cfg: ModelConfig, r: RWKVConfig, batch: int, dtype,
-                    device: torch.device) -> dict:
-    h = cfg.d_model // r.head_size
+                    device: torch.device, model: tp.Model = tp.ONE) -> dict:
+    """The state: the token shifts whole (residual-stream vectors), the
+    WKV state on the rank's heads (``axis_of``)."""
+    h = cfg.d_model // r.head_size // axis_of(cfg, r, model).size
     return {
         "shift_tm": torch.zeros((batch, cfg.d_model), dtype=dtype,
                                 device=device),
@@ -130,14 +135,13 @@ def wkv_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return ops.rwkv6(r, k, v, w, u, chunk, s0=s0)
 
 
-def axis_of(cfg: ModelConfig, r: RWKVConfig, model: tp.Model,
-            state: Optional[dict] = None,
-            return_state: bool = False) -> tp.Model:
+def axis_of(cfg: ModelConfig, r: RWKVConfig, model: tp.Model) -> tp.Model:
     """The axis a layer runs over: ``model`` when d_model and d_ff divide
     over it (the specs split every matrix), ``tp.ONE`` when neither does
-    (every leaf replicated, the layer whole on each rank). A head split
-    over ranks, a split of one width only, and a state under an active
-    axis wait for ROADMAP Queue 1 item 9."""
+    (every leaf replicated, the layer whole on each rank). A split of one
+    width only, or of the heads of the group norm, is refused (the
+    published RWKV-6's 64 heads, d 4096 and d_ff 14 336 divide over up to
+    16 ranks)."""
     d, d_ff = cfg.d_model, r.d_ff or cfg.d_ff
     if not (model.splits(d) or model.splits(d_ff)):
         return tp.ONE
@@ -145,12 +149,8 @@ def axis_of(cfg: ModelConfig, r: RWKVConfig, model: tp.Model,
     if not (model.splits(d) and model.splits(d_ff)) or heads % model.size:
         raise NotImplementedError(
             f"RWKV-6 with {heads} heads (d {d}, d_ff {d_ff}) over a 'model' "
-            f"axis of {model.size}: a split of heads or of one width only "
-            f"waits for {tp.SERVE_ITEM}")
-    if state is not None or return_state:
-        raise NotImplementedError(
-            "tensor parallelism runs RWKV-6's train path; its state waits "
-            f"for {tp.SERVE_ITEM}")
+            f"axis of {model.size}: its heads and both widths must divide "
+            "over the axis")
     return model
 
 
@@ -161,7 +161,7 @@ def rwkv_time_mix(p: dict, x: torch.Tensor, cfg: ModelConfig,
                   ) -> tuple[torch.Tensor, Optional[dict]]:
     dt = torch_dtype(cfg.dtype)
     f32 = torch.float32
-    model = axis_of(cfg, r, model, state, return_state)
+    model = axis_of(cfg, r, model)
     b, s, d = x.shape
     d //= model.size            # the rank's channels
     h = d // r.head_size
@@ -217,7 +217,7 @@ def rwkv_channel_mix(p: dict, x: torch.Tensor, cfg: ModelConfig,
                      return_state: bool = False, model: tp.Model = tp.ONE
                      ) -> tuple[torch.Tensor, Optional[dict]]:
     dt = torch_dtype(cfg.dtype)
-    model = axis_of(cfg, r, model, state, return_state)
+    model = axis_of(cfg, r, model)
     x = tp.copy_in(x, model)
     prev = state["shift_cm"] if state is not None else None
     xs = _token_shift(x, prev)

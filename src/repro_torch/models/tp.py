@@ -41,12 +41,7 @@ import torch.distributed as dist
 
 __all__ = ["Model", "ONE", "model_of_group", "model_of", "use", "current",
            "resolve", "copy_in", "reduce_out", "gather", "all_max",
-           "SERVE_ITEM", "COLLECTIVES"]
-
-# what tensor parallelism still waits for (serving caches over the axis, a
-# q head split over ranks, the dry run's pod meshes), named by every
-# refusal
-SERVE_ITEM = "ROADMAP Queue 1 item 9"
+           "COLLECTIVES"]
 
 
 @dataclasses.dataclass(frozen=True)

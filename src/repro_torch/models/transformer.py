@@ -32,9 +32,12 @@ and MLA on the rank's heads, the MLPs column / row parallel, the MoE
 experts over the ranks, the RG-LRU on the rank's channels, RWKV-6 on its
 heads and channels, the embedding and the head vocab-parallel
 (``lm_loss``'s cross entropy over the vocab's blocks, ``apply`` returning
-the rank's block of the logits). What still waits raises naming ROADMAP
-Queue 1 item 9 (``check_tp``: a q head split over ranks; the caches of
-prefill and decode); an axis of one runs the one-device code.
+the rank's block of the logits). Serving runs the same
+layout: ``init_cache(model=)`` gives the rank's cache shards
+(``train.shardings.cache_layout``), ``prefill`` and ``decode_step`` fill
+them and return the last position's logits gathered whole. Attention
+whose q heads do not divide over the axis runs the q head split
+(``attention.head_layout``); an axis of one runs the one-device code.
 """
 from __future__ import annotations
 
@@ -52,8 +55,8 @@ from .layers import (cross_entropy, embed_init, embed_rows, mlp, mlp_init,
 PyTree = Any
 
 __all__ = ["layer_kinds", "layer_groups", "init_params", "apply",
-           "lm_loss", "init_cache", "prefill", "decode_step", "check_tp",
-           "tp_runs_eager"]
+           "lm_loss", "init_cache", "last_logits", "prefill", "decode_step",
+           "check_tp", "tp_runs_eager"]
 
 
 # ---------------------------------------------------------------------------
@@ -257,25 +260,28 @@ def _apply_layer(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
 
 def _init_layer_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                       dtype, device: torch.device, cross: bool = False,
-                      cross_len: int = 0) -> dict:
+                      cross_len: int = 0, model: tp.Model = tp.ONE) -> dict:
+    """One layer's cache, its leaves the rank's shards on ``model``
+    (``train.shardings.cache_layout``)."""
     kind = _mixer_kind(cfg, kind)
     c: dict = {}
     if kind in ("global", "local"):
         c["attn"] = attention.init_attn_cache(cfg, kind, batch, max_len,
-                                              dtype, device)
+                                              dtype, device, model)
     elif kind == "mla":
         c["attn"] = mla.init_mla_cache(cfg, cfg.mla, batch, max_len, dtype,
                                        device)
     elif kind == "rglru":
         c["rec"] = rglru.init_rglru_state(cfg, cfg.rglru, batch, dtype,
-                                          device)
+                                          device, model)
     elif kind == "rwkv":
         c["rwkv"] = rwkv6.init_rwkv_state(cfg, cfg.rwkv, batch, dtype,
-                                          device)
+                                          device, model)
     else:
         raise ValueError(kind)
     if cross:
-        shape = (batch, cross_len, cfg.n_kv_heads, cfg.head_dim)
+        shape = (batch, cross_len, attention.head_layout(cfg, model).hkv,
+                 cfg.head_dim)
         c["cross"] = {"k": torch.zeros(shape, dtype=dtype, device=device),
                       "v": torch.zeros(shape, dtype=dtype, device=device)}
     return c
@@ -421,15 +427,14 @@ def _run_stack(cfg: ModelConfig, params: PyTree, x: torch.Tensor, *,
 # ---------------------------------------------------------------------------
 
 def check_tp(cfg: ModelConfig, model: tp.Model) -> None:
-    """What tensor parallelism still refuses in training, checked from
-    the config before any work: heads that do not divide over the axis
-    (a q head split over ranks), for attention, MLA and RWKV-6 alike,
-    raise naming ROADMAP Queue 1 item 9. An axis of one passes."""
+    """What tensor parallelism refuses, checked from the config before any
+    work: MLA heads, or RWKV-6 heads or widths, that do not divide over
+    the axis (``mla.heads_of``, ``rwkv6.axis_of``). Attention's q heads
+    that do not divide run the q head split (``attention.head_layout``).
+    An axis of one passes."""
     if not model.active:
         return
     kinds = {_mixer_kind(cfg, k) for k in cfg.pattern}
-    if cfg.is_encdec or kinds & {"global", "local"}:
-        attention.head_split(cfg, model)
     if "mla" in kinds:
         mla.heads_of(cfg, model)
     if "rwkv" in kinds:
@@ -484,16 +489,20 @@ def lm_loss(cfg: ModelConfig, params: PyTree, batch: dict, *,
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
-               device: str | torch.device = "cuda") -> dict:
-    """Serving cache tree matching the stack layout."""
+               device: str | torch.device = "cuda",
+               model: Optional[tp.Model] = None) -> dict:
+    """Serving cache tree matching the stack layout, each leaf the rank's
+    shard on ``model`` (``train.shardings.cache_layout``)."""
     dev = resolve_device(device)
+    model = tp.resolve(model)
     dtype = torch_dtype(cfg.dtype if dtype is None else dtype)
     pro, repeats, tail = layer_groups(cfg)
     kinds = layer_kinds(cfg)
     u = len(cfg.pattern)
 
     def one(kind):
-        return _init_layer_cache(cfg, kind, batch, max_len, dtype, dev)
+        return _init_layer_cache(cfg, kind, batch, max_len, dtype, dev,
+                                 model=model)
 
     return {
         "prologue": [one(kinds[i]) for i in range(pro)],
@@ -504,30 +513,45 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
     }
 
 
+def last_logits(cfg: ModelConfig, params: PyTree, x: torch.Tensor,
+                model: tp.Model = tp.ONE) -> torch.Tensor:
+    """The logits (B, V) of x's last position, whole on every rank: with
+    the vocab split over ``model``, the ranks' blocks gathered
+    (``tp.gather``), so every rank samples the same token."""
+    logits = _logits(cfg, params, x[:, -1:], model)[:, 0]
+    return tp.gather(logits, model) if model.splits(cfg.vocab_size) \
+        else logits
+
+
 def prefill(cfg: ModelConfig, params: PyTree, tokens: torch.Tensor, *,
             max_len: Optional[int] = None,
-            patch_embeds: Optional[torch.Tensor] = None
-            ) -> tuple[torch.Tensor, dict]:
-    """Run the prompt, returning (last-position logits (B, V), filled cache)."""
+            patch_embeds: Optional[torch.Tensor] = None,
+            model: Optional[tp.Model] = None) -> tuple[torch.Tensor, dict]:
+    """Run the prompt, returning (last-position logits (B, V), filled
+    cache). ``model``: the rank's shards, its cache shard filled, the
+    logits whole (``last_logits``)."""
+    model = tp.resolve(model)
+    check_tp(cfg, model)
     b, s = tokens.shape
     max_len = max_len or s
-    caches = init_cache(cfg, b, max_len, device=tokens.device)
-    x = _embed(cfg, params, tokens, patch_embeds)
+    caches = init_cache(cfg, b, max_len, device=tokens.device, model=model)
+    x = _embed(cfg, params, tokens, patch_embeds, model)
     positions = torch.arange(s, device=tokens.device)
     x, new_caches = _run_stack(cfg, params, x, positions=positions,
-                               caches=caches, want_cache=True)
-    logits = _logits(cfg, params, x[:, -1:])
-    return logits[:, 0], new_caches
+                               caches=caches, want_cache=True, model=model)
+    return last_logits(cfg, params, x, model), new_caches
 
 
 def decode_step(cfg: ModelConfig, params: PyTree, token: torch.Tensor,
-                caches: dict, index: int) -> tuple[torch.Tensor, dict]:
-    """One decode step: token (B,), index (int) -> (logits (B, V), caches)."""
+                caches: dict, index: int,
+                model: Optional[tp.Model] = None) -> tuple[torch.Tensor, dict]:
+    """One decode step: token (B,), index (int) -> (logits (B, V), caches);
+    ``model`` as in ``prefill``."""
+    model = tp.resolve(model)
     index = int(index)
-    x = _embed(cfg, params, token[:, None])
+    x = _embed(cfg, params, token[:, None], model=model)
     positions = torch.arange(index, index + 1, device=token.device)
     x, new_caches = _run_stack(cfg, params, x, positions=positions,
                                caches=caches, cache_index=index,
-                               want_cache=True)
-    logits = _logits(cfg, params, x)
-    return logits[:, 0], new_caches
+                               want_cache=True, model=model)
+    return last_logits(cfg, params, x, model), new_caches

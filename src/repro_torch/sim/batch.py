@@ -245,7 +245,6 @@ def _model_specs(tree: PyTree, size: int):
     through). A tree none of whose leaves the specs split (a model
     without tensor parallelism: the CNN, or no tensors at all) raises: it
     is never replicated silently."""
-    from ..models import tp
     from ..train.shardings import param_specs, spec_leaves
 
     leaves = dpsgd._leaves(tree)
@@ -254,7 +253,8 @@ def _model_specs(tree: PyTree, size: int):
     if specs is None or not any("model" in sp for sp in spec_leaves(specs)):
         raise NotImplementedError(
             f"a 'model' axis of {size} over a tree no leaf of which "
-            f"tensor parallelism splits: waits for {tp.SERVE_ITEM}")
+            "tensor parallelism splits: such a model (the CNN) has no "
+            "tensor-parallel layout, and is never replicated silently")
     return specs
 
 

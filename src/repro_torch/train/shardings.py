@@ -41,7 +41,7 @@ __all__ = ["P", "param_specs", "cache_specs", "batch_specs", "prepend_axes",
            "node_param_specs", "spec_leaves", "Fleet", "fleet_of",
            "fleet_of_group", "shard_nodes", "gather_nodes", "scatter_nodes",
            "model_dim", "shard_model", "gather_model", "gather_state",
-           "scatter_state"]
+           "scatter_state", "cache_layout", "shard_caches", "gather_caches"]
 
 
 class P(tuple):
@@ -514,3 +514,90 @@ def scatter_state(full: Optional[PyTree], like: PyTree, specs: PyTree,
         out.append(got)
         del y
     return _unflatten(like, out)
+
+
+# ---------------------------------------------------------------------------
+# Serving caches over the model axis
+# ---------------------------------------------------------------------------
+
+def cache_layout(cfg, model) -> dict:
+    """The port's serving cache layout on ``model``: {leaf name: (dim
+    counted from the end, lo, hi)} of the rank's block of each leaf whole,
+    or None for a leaf every rank holds whole. Where it differs from the
+    JAX ``cache_specs``:
+
+    * K/V hold the kv heads the rank's q heads read
+      (``attention.head_layout``): with fewer kv heads than ranks a kv head
+      is held whole by every rank that reads it (qwen2-vl-2b's 2 at tp 4:
+      ranks 0 and 1 hold head 0), and under a q head split (heads that do
+      not divide) every rank holds them all, where ``cache_specs`` splits
+      the head_dim;
+    * MLA's latent cache (``c_kv``, ``k_rope``) is whole on every rank
+      (each rank makes it from the replicated ``wkv_a``), where
+      ``cache_specs`` splits its trailing dim;
+    * RWKV-6's token shifts (``shift_tm``, ``shift_cm``) are whole
+      (residual-stream vectors), where ``cache_specs`` splits d_model.
+
+    The RG-LRU's ``conv`` and ``h`` take the rank's channels and RWKV-6's
+    ``wkv`` its heads, as both reckon them; position tags are whole."""
+    from ..models import attention, rwkv6
+
+    out: dict = {n: None for n in ("pos", "c_kv", "k_rope", "shift_tm",
+                                   "shift_cm", "k", "v", "conv", "h",
+                                   "wkv")}
+    heads = attention.head_layout(cfg, model)
+    if heads.hkv != cfg.n_kv_heads:
+        out["k"] = out["v"] = (2, heads.k0, heads.k0 + heads.hkv)
+    if cfg.rglru is not None and model.splits(cfg.rglru.d_rnn):
+        lo, hi = model.block(cfg.rglru.d_rnn)
+        out["conv"], out["h"] = (1, lo, hi), (1, lo, hi)
+    if cfg.rwkv is not None and "rwkv" in cfg.pattern:
+        axis = rwkv6.axis_of(cfg, cfg.rwkv, model)
+        if axis.active:
+            lo, hi = axis.block(cfg.d_model // cfg.rwkv.head_size)
+            out["wkv"] = (3, lo, hi)
+    return out
+
+
+def _cache_leaf_name(path: tuple) -> str:
+    return [n for n in path if isinstance(n, str)][-1]
+
+
+def shard_caches(tree: PyTree, cfg, model) -> PyTree:
+    """This rank's shard of every leaf of a whole serving cache
+    (``cache_layout``), each a tensor of its own; a whole leaf is kept."""
+    layout = cache_layout(cfg, model)
+
+    def take(path, x):
+        block = layout[_cache_leaf_name(path)]
+        if block is None:
+            return x
+        dim, lo, hi = block
+        return x.narrow(x.dim() - dim, lo, hi - lo).clone()
+    return _map_with_path(take, tree)
+
+
+def gather_caches(tree: PyTree, cfg, model) -> PyTree:
+    """The inverse of ``shard_caches``: every leaf whole on every rank
+    (each rank's block placed by its ``cache_layout``; blocks that several
+    ranks hold are theirs alike). A collective over the model group."""
+    if not model.active:
+        return tree
+    layouts = [cache_layout(cfg, _tp.Model(model.group, model.size, r))
+               for r in range(model.size)]
+
+    def whole(path, x):
+        name = _cache_leaf_name(path)
+        if layouts[model.index][name] is None:
+            return x
+        parts = [torch.empty_like(x) for _ in range(model.size)]
+        dist.all_gather(parts, x.contiguous(), group=model.group)
+        dim = layouts[0][name][0]
+        n = max(lay[name][2] for lay in layouts)
+        out = x.new_empty((*x.shape[:x.dim() - dim], n,
+                           *x.shape[x.dim() - dim + 1:]))
+        for lay, part in zip(layouts, parts):
+            _, lo, hi = lay[name]
+            out.narrow(x.dim() - dim, lo, hi - lo).copy_(part)
+        return out
+    return _map_with_path(whole, tree)

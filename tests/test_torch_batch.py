@@ -619,11 +619,12 @@ def test_mesh_names_its_roadmap_item():
     """A mesh runs the family over its fleet (``tests/test_torch_dist_
     train.py``) and, for the dense decoder families, each node over its
     'model' axis (``tests/test_torch_tp.py``); a model without tensor
-    parallelism (this adapter's) under a 'model' axis > 1 raises naming
-    its ROADMAP item before any work."""
+    parallelism (this adapter's) under a 'model' axis > 1 raises before
+    any work, saying it has no tensor-parallel layout."""
     adapter = t_batch.ModelAdapter("quad", lambda s: None, _quad_loss,
                                    lambda c, t: None)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+    with pytest.raises(NotImplementedError,
+                       match="no tensor-parallel layout"):
         t_batch.train_model_on_traces(adapter, ["static"], ROUNDS,
                                       mesh=_TPMesh(), device="cpu")
 

@@ -19,8 +19,8 @@ results; the one-process runs they are held against run here.
 * import hygiene: a two-rank ``gossip_mix_tree`` against ``plan_w @ X``,
   and neither ``jax`` nor ``repro`` in the ranks' ``sys.modules``.
 
-The refusals that stay (a q head split over the ranks of a 'model' axis:
-ROADMAP Queue 1 item 9) are held here too.
+What a q head split over the ranks of a 'model' axis needs outside a
+world (the ranks, named before any work) is held here too.
 """
 import filecmp
 import os
@@ -190,30 +190,46 @@ def test_two_rank_gossip_tree_and_import_hygiene(world):
 
 
 def test_tensor_parallelism_raises_naming_queue_1_item_9():
-    """A q head split over the ranks of a 'model' axis raises, before any
-    work or collective: the trainer on recurrentgemma-2b (10 q heads) at
-    tp 4, its train-on-trace adapter's loss (10 heads at the smoke widths)
-    under a 'model' axis of 4 (where the family loop runs it), and the
-    model itself; the same arch at tp 2, and its smoke config (4 heads) at
-    tp 4, build."""
+    """A q head split over the ranks of a 'model' axis now builds and runs
+    (``tests/test_torch_tp_serve.py`` holds it on a gloo world): the
+    trainer on recurrentgemma-2b (10 q heads) at tp 4 outside a world
+    names the ranks it needs, before any work; its train-on-trace
+    adapter's loss (10 heads at the smoke widths) under a 'model' axis of
+    4 runs (a group faked to move nothing) through the split layout; the
+    model builds at tp 4 and 2."""
     import dataclasses
 
-    from repro_torch.models import build, tp
+    from repro_torch.models import attention, build, tp
 
     rec = get_config("recurrentgemma-2b")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+    with pytest.raises(ValueError, match="1 x 4 = 4 ranks"):
         t_train.train_loop(rec, RunConfig(remat="none"), nodes=1, tp=4,
                            steps=1, batch_per_node=2, seq_len=16,
                            ckpt_dir=None, device="cpu")
     ten = dataclasses.replace(reduce_for_smoke(rec), n_heads=10)
+    assert attention.head_layout(ten, tp.Model(size=4)).split
     adapter = t_batch.transformer_adapter(ten, batch=2, seq_len=16,
                                           device="cpu")
     tokens = {"tokens": torch.zeros((2, 16), dtype=torch.int32)}
-    with tp.use(tp.Model(size=4)), \
-            pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        adapter.loss_fn(adapter.init_params(0), tokens)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        build(rec, "cpu", model=tp.Model(size=4))
+    fakes = {"_gathered": lambda x, m: torch.cat([x] * m.size, dim=-1),
+             "_reduced": lambda x, m, op: x.clone()}
+    real = {k: getattr(tp, k) for k in fakes}
+    for k, f in fakes.items():
+        setattr(tp, k, f)
+    try:
+        from repro_torch.launch.train import model_specs
+        from repro_torch.train import shardings as shr
+
+        model = tp.Model(size=4)
+        local = shr.shard_model(adapter.init_params(0),
+                                model_specs(ten, 4), model)
+        with tp.use(model):
+            loss = adapter.loss_fn(local, tokens)
+        assert bool(torch.isfinite(loss))
+    finally:
+        for k, f in real.items():
+            setattr(tp, k, f)
+    build(rec, "cpu", model=tp.Model(size=4))
     build(rec, "cpu", model=tp.Model(size=2))
     build(reduce_for_smoke(rec), "cpu", model=tp.Model(size=4))
     # the smoke at its defaults (fleet 2 x model 2) outside a world names

@@ -7,7 +7,9 @@ a data-free step launches no kernel and runs no plain version; each
 wrapper's shape rule gives the plain version's shapes and dtypes; the peak
 tracker is exact on a written-out sequence of allocations; a smoke dense
 step's flops equal a count written out from its widths; ``--mesh single``
-raises naming ROADMAP Queue 1 item 9. The card holds the peaks against
+writes rank 0's record of a cell on the (data 16, model 16) mesh, its
+parameter bytes those of the JAX ``param_specs`` shards, its statuses and
+skip reasons the reference's. The card holds the peaks against
 ``torch.cuda.max_memory_allocated`` (``chip_smoke.py`` phase 24).
 """
 import json
@@ -289,13 +291,49 @@ def test_microbatches_and_fit():
 
 
 def test_mesh_single_raises_naming_item_5(tmp_path):
-    """The pod meshes' raise names the item tensor parallelism moved to
-    (Queue 1 item 9; item 5's fleet half is done)."""
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        dr.main(["--mesh", "single", "--arch", "qwen2-vl-2b", "--shape",
-                 "train_4k", "--out", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        dr.run_cell("qwen2-vl-2b", "train_4k", "multi")
+    """``--mesh single`` writes rank 0's record of a cell on the
+    reference's (data 16, model 16) mesh in torch's fake process group:
+    its per-rank parameter bytes equal the bytes of the JAX
+    ``param_specs`` shards (``jax.eval_shape``, nothing compiled), the
+    region collectives were issued, and every cell's status and skip
+    reason are the reference's (``cell_is_runnable``: the port's cells
+    that skip return before any work)."""
+    import math
+
+    import jax
+
+    from repro.configs import SHAPES as R_SHAPES
+    from repro.configs import cell_is_runnable as r_runnable
+    from repro.configs import get_config as r_get_config
+    from repro.models import build as r_build
+    from repro.train import shardings as r_shr
+
+    assert dr.main(["--mesh", "single", "--arch", "qwen2-vl-2b", "--shape",
+                    "train_4k", "--out", str(tmp_path)]) == 0
+    with open(tmp_path / "single" / "qwen2-vl-2b__train_4k.json") as f:
+        rec = json.load(f)
+    assert rec["status"] == "ok" and rec["mesh"] == "single"
+    assert rec["mesh_shape"] == [16, 16] and rec["model_size"] == 16
+    assert rec["batch_per_rank"] == 256 // 16 and rec["nodes"] == 16
+    cfg = r_get_config("qwen2-vl-2b")
+    shapes = jax.eval_shape(r_build(cfg).init, jax.random.key(0))
+    specs = r_shr.param_specs(shapes, 16, cfg.kv_dim)
+    want = sum(
+        math.prod(d // 16 if e == "model" else d
+                  for d, e in zip(x.shape, tuple(sp))) * x.dtype.itemsize
+        for x, sp in zip(jax.tree.leaves(shapes), jax.tree.leaves(
+            specs, is_leaf=lambda x: isinstance(
+                x, jax.sharding.PartitionSpec))))
+    assert rec["params_bytes"] == want
+    assert rec["model_collectives"]["all_reduce"][0] > 0
+    for arch in ARCHS:
+        for shape in SHAPES:
+            ok, reason = r_runnable(r_get_config(arch), R_SHAPES[shape])
+            if ok:
+                continue
+            for kind in ("single", "multi"):
+                got = dr.run_cell(arch, shape, kind)
+                assert (got["status"], got["reason"]) == ("skipped", reason)
 
 
 def test_cli_writes_a_cell_and_resumes(tmp_path, capsys):

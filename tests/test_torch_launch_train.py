@@ -114,15 +114,18 @@ def test_train_loop_refusals():
     run = RunConfig(remat="none")
     kw = dict(steps=1, batch_per_node=2, seq_len=16, ckpt_dir=None,
               device="cpu")
-    # a q head split over ranks (10 heads over 4) and the dry run's pod
-    # meshes wait for Queue 1 item 9, before any work
+    # a q head split over ranks (10 heads over 4) passes the model's check
+    # and, outside a world, names the ranks it needs, before any work; the
+    # dry run's pod meshes are known, an unknown one raises
     rec = get_config("recurrentgemma-2b")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+    with pytest.raises(ValueError, match="4 = 16 ranks"):
         t_train.train_loop(rec, run, nodes=4, tp=4, **kw)
     from repro_torch.launch import dryrun
 
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        dryrun.check_mesh("single")
+    assert dryrun.check_mesh("single") == ((16, 16), ("data", "model"))
+    assert dryrun.check_mesh("card") is None
+    with pytest.raises(ValueError, match="one of card"):
+        dryrun.check_mesh("torus")
     vlm = get_config("qwen2-vl-2b")
     with pytest.raises(ValueError, match="patch positions"):
         t_train.train_loop(vlm, run, nodes=4, tp=1,

@@ -481,3 +481,46 @@ def test_serving_entry_points_default_to_cuda_and_raise_without_it(
                 call()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main([])               # the default arch, rwkv6-7b
+
+
+def test_serve_demo_twin_prints_the_jax_scripts_tokens(monkeypatch, capsys):
+    """``repro_torch.examples.serve_demo`` on the JAX script's weights and
+    prompts (its draws patched to them, converted) prints the JAX
+    ``examples/serve_demo.py``'s greedy sample tokens, arch for arch."""
+    import re
+    import runpy
+
+    from repro_torch.examples import serve_demo
+
+    runpy.run_path(str(ROOT / "examples" / "serve_demo.py"))
+    want = capsys.readouterr().out
+    drawn = {}
+    for arch in serve_demo.ARCHS:
+        jc = j_reduce(j_get_config(arch))
+        api, key = j_build(jc), jax.random.key(0)
+        params = jax.jit(api.init)(key)
+        inputs = api.make_inputs(j_base.ShapeConfig("serve", 32, 4,
+                                                    "prefill"),
+                                 key, batch_override=4)
+        drawn[jc.name] = (jax.tree.map(np.asarray, params),
+                          {k: torch.from_numpy(np.array(v))
+                           for k, v in inputs.items()})
+    real_build = serve.build
+
+    def built(cfg, dev, model=None):
+        api = real_build(cfg, dev, model=model)
+        return dataclasses.replace(
+            api, make_inputs=lambda *a, **kw: drawn[cfg.name][1])
+    monkeypatch.setattr(serve, "build", built)
+    monkeypatch.setattr(serve, "init_serving_params",
+                        lambda api, gen, model: serve.serving_params(
+                            api.cfg, params_from_numpy(
+                                drawn[api.cfg.name][0], "cpu")))
+    assert serve_demo.main(["--device", "cpu"]) == 0
+    got = capsys.readouterr().out
+
+    def samples(text):
+        return re.findall(r"^(\S+)\s.*sample tokens: (\[.*\])$", text,
+                          flags=re.M)
+    assert [a for a, _ in samples(got)] == list(serve_demo.ARCHS)
+    assert samples(got) == samples(want)

@@ -517,30 +517,55 @@ def test_import_hygiene_on_every_rank(world):
 
 
 def test_non_dense_families_refuse_a_model_axis():
-    """Every family builds under an active model axis and trains on it
-    (``tests/test_torch_tp_families.py``); what still waits raises naming
-    ROADMAP Queue 1 item 9: a serve cache under an active axis (prefill
-    and decode, built with the axis or run under ``tp.use``), before any
-    collective."""
-    from repro_torch.models import build
+    """Every family serves under an active model axis (prefill and decode,
+    built with the axis or run under ``tp.use``), its caches the rank's
+    shards as ``train.shardings.cache_layout`` gives them and its logits
+    whole (``tests/test_torch_tp_serve.py`` holds the numbers on a gloo
+    world); here a group of two is faked to move nothing (an all-reduce
+    returns its input, an all-gather repeats the shard), so no world is
+    needed. An axis of one serves the one-device shapes."""
+    from repro_torch.models import build, encdec, transformer
+    from repro_torch.train import shardings as shr
 
+    fakes = {"_gathered": lambda x, m: torch.cat([x] * m.size, dim=-1),
+             "_reduced": lambda x, m, op: x.clone()}
+    real = {k: getattr(tp, k) for k in fakes}
     for arch in ("deepseek-v2-lite-16b", "recurrentgemma-2b", "rwkv6-7b",
                  "seamless-m4t-large-v2", "phi3.5-moe-42b-a6.6b"):
         cfg = reduce_for_smoke(get_config(arch))
-        api = build(cfg, "cpu", model=tp.Model(size=2))
+        model = tp.Model(size=2)
+        api = build(cfg, "cpu", model=model)
         one = build(cfg, "cpu")
         params = one.init(torch.Generator().manual_seed(0))
+        local = shr.shard_model(
+            params, shr.param_specs(params, 2, cfg.kv_dim), model)
         batch = {"tokens": torch.zeros((1, 8), dtype=torch.int64)}
         if cfg.is_encdec:
             batch["src_embeds"] = torch.zeros((1, 8, cfg.d_model))
-        with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-            api.prefill(params, batch)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-            api.decode_step(params, torch.zeros((1,), dtype=torch.int64),
-                            None, 8)
-        with tp.use(tp.Model(size=2)), \
-                pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-            one.prefill(params, batch)
+        whole = (encdec.init_dec_cache(cfg, 1, 9, 8, device="cpu")
+                 if cfg.is_encdec else
+                 transformer.init_cache(cfg, 1, 9, device="cpu"))
+        want = [tuple(x.shape) for x in _leaves(
+            shr.shard_caches(whole, cfg, model))]
+        for k, f in fakes.items():
+            setattr(tp, k, f)
+        try:
+            logits, cache = api.prefill(local, batch, max_len=9)
+            assert logits.shape == (1, cfg.vocab_size)
+            assert [tuple(x.shape) for x in _leaves(cache)] == want
+            logits, cache = api.decode_step(
+                local, torch.zeros((1,), dtype=torch.int64), cache, 8)
+            assert logits.shape == (1, cfg.vocab_size)
+            assert [tuple(x.shape) for x in _leaves(cache)] == want
+            with tp.use(model):
+                logits, _ = one.prefill(local, batch, max_len=9)
+            assert logits.shape == (1, cfg.vocab_size)
+        finally:
+            for k, f in real.items():
+                setattr(tp, k, f)
         # an axis of one serves
-        logits, _ = build(cfg, "cpu", model=tp.ONE).prefill(params, batch)
+        logits, cache = build(cfg, "cpu", model=tp.ONE).prefill(
+            params, batch, max_len=9)
         assert logits.shape == (1, cfg.vocab_size)
+        assert [tuple(x.shape) for x in _leaves(cache)] == \
+            [tuple(x.shape) for x in _leaves(whole)]

@@ -2,8 +2,9 @@
 
     python tests/torch_dist_cases.py <world_name> <rank> <world_size> <dir>
 
-(worlds: ``four``, ``two``, ``tp`` for ``tests/test_torch_tp.py`` and
-``tpf`` for ``tests/test_torch_tp_families.py``)
+(worlds: ``four``, ``two``, ``tp`` for ``tests/test_torch_tp.py``,
+``tpf`` for ``tests/test_torch_tp_families.py`` and ``tps`` for
+``tests/test_torch_tp_serve.py``)
 
 Each rank joins the world through a ``FileStore`` under ``<dir>`` (no TCP
 port, so worlds of parallel test workers never collide), reads
@@ -698,6 +699,167 @@ def world_tpf(inp: dict, rank: int, root: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The world of four as (2, 2), (1, 4) and (4, 1): serving under tensor
+# parallelism
+# ---------------------------------------------------------------------------
+
+def _serve_batch(case: dict) -> dict:
+    return {k: torch.from_numpy(v) for k, v in case["prompt"].items()}
+
+
+def _teacher_forced(api, params, case: dict, gather=None) -> dict:
+    """Prefill the prompt, then decode ``case["steps"]`` given tokens:
+    the logits of each call, and the caches after the prefill and after
+    the last step (``gather``: each cache whole first)."""
+    gather = gather or (lambda c: c)
+    batch = _serve_batch(case)
+    s = batch["tokens"].shape[1]
+    logits, cache = api.prefill(params, batch, max_len=case["max_len"])
+    out = {"logits": [logits.numpy()], "cache_prefill": _np(gather(cache))}
+    for i, tok in enumerate(case["steps"]):
+        logits, cache = api.decode_step(params, torch.from_numpy(tok), cache,
+                                        s + i)
+        out["logits"].append(logits.numpy())
+    out["cache_last"] = _np(gather(cache))
+    return out, cache
+
+
+def _shapes(tree) -> list:
+    return [tuple(x.shape) for x in dpsgd._leaves(tree)]
+
+
+def tps_serve_cases(inp: dict, meshes: dict) -> dict:
+    """Per (config, tp): prefill and decode logits and gathered caches
+    (teacher-forced), every cache shard's shape beside the shape
+    ``cache_layout`` gives, and the port's own one-device run."""
+    from repro_torch.models import encdec, transformer
+
+    out = {}
+    for key, case in inp["models"].items():
+        cfg = _tp_cfg(case)
+        full = params_from_numpy(case["params"], "cpu")
+        one, _ = _teacher_forced(build(cfg, "cpu"), full, case)
+        b = case["prompt"]["tokens"].shape[0]
+        for size, mesh in meshes.items():
+            model = t_tp.model_of(mesh)
+            specs = shr.param_specs(case["params"], size, cfg.kv_dim)
+            local = shr.shard_model(full, specs, model)
+            got, cache = _teacher_forced(
+                build(cfg, "cpu", model=model), local, case,
+                lambda c: shr.gather_caches(c, cfg, model))
+            if cfg.is_encdec:
+                whole = encdec.init_dec_cache(
+                    cfg, b, case["max_len"],
+                    case["prompt"]["src_embeds"].shape[1], device="cpu")
+            else:
+                whole = transformer.init_cache(cfg, b, case["max_len"],
+                                               device="cpu")
+            got["shapes"] = (_shapes(cache), _shapes(
+                shr.shard_caches(whole, cfg, model)))
+            got["one"] = one
+            out[(key, size)] = got
+    return out
+
+
+def tps_generate(inp: dict, meshes: dict) -> dict:
+    """``launch.serve.generate(tp=)`` greedy on the converted parameters
+    and the given prompt (its draws patched to them): the tokens."""
+    import dataclasses
+
+    from repro_torch.launch import serve
+
+    out = {}
+    real_init, real_build = serve.init_serving_params, serve.build
+    for key, case in inp["models"].items():
+        cfg = _tp_cfg(case)
+        full = params_from_numpy(case["params"], "cpu")
+        batch = _serve_batch(case)
+
+        def init(api, gen, model, full=full):
+            params = serve.serving_params(cfg, full)
+            return shr.shard_model(params, shr.param_specs(
+                params, model.size, cfg.kv_dim), model)
+
+        def made(*a, batch=batch, **kw):
+            api = real_build(*a, **kw)
+            return dataclasses.replace(
+                api, make_inputs=lambda *_, **__: batch)
+        serve.init_serving_params, serve.build = init, made
+        try:
+            for size, mesh in meshes.items():
+                res = serve.generate(
+                    cfg, batch=batch["tokens"].shape[0],
+                    prompt_len=batch["tokens"].shape[1],
+                    gen=case["gen"], device="cpu", tp=t_tp.model_of(mesh))
+                out[(key, size)] = res["tokens"].numpy()
+        finally:
+            serve.init_serving_params, serve.build = real_init, real_build
+    return out
+
+
+def tps_axis_of_one(inp: dict, mesh) -> dict:
+    """Each config served on a model axis of one (a real group of one
+    rank): prefill and decode logits and caches bit-equal to the
+    one-device code's, with the same kernel calls."""
+    model = t_tp.model_of(mesh)
+    out = {}
+    for key, case in inp["models"].items():
+        cfg = _tp_cfg(case)
+        full = params_from_numpy(case["params"], "cpu")
+        got = []
+        for api in (build(cfg, "cpu"), build(cfg, "cpu", model=model)):
+            counts, undo = _counting_plain()
+            try:
+                res, _ = _teacher_forced(api, full, case)
+            finally:
+                for mod, name, real in undo:
+                    setattr(mod, name, real)
+            got.append((res, counts))
+        (a, ca), (b, cb) = got
+        same = all(np.array_equal(x, y) for x, y in zip(
+            dpsgd._leaves(a), dpsgd._leaves(b)))
+        out[key] = {"group_size": model.size, "bit_equal": same,
+                    "calls": (ca, cb)}
+    return out
+
+
+def tps_split_training(inp: dict, meshes: dict) -> dict:
+    """The q head split's training: the loss and the gathered gradients
+    of its config at each tp."""
+    out = {}
+    case = inp["models"][inp["split_key"]]
+    cfg = _tp_cfg(case)
+    full = params_from_numpy(case["params"], "cpu")
+    batch = {"tokens": torch.from_numpy(inp["split_batch"])}
+    for size, mesh in meshes.items():
+        model = t_tp.model_of(mesh)
+        specs = shr.param_specs(case["params"], size, cfg.kv_dim)
+        local = shr.shard_model(full, specs, model)
+        g, loss = torch.func.grad_and_value(
+            lambda p: build(cfg, "cpu", model=model).loss(p, batch))(local)
+        out[size] = {"loss": float(loss),
+                     "grads": _np(shr.gather_model(g, specs, model,
+                                                   dst=None))}
+    return out
+
+
+def world_tps(inp: dict, rank: int, root: str) -> dict:
+    two = make_fleet_mesh(2, 2)
+    four = make_fleet_mesh(1, 4)
+    alone = make_fleet_mesh(4, 1)
+    meshes = {2: two, 4: four}
+    tps = inp["tps"]
+    out = {"serve": tps_serve_cases(tps, meshes),
+           "generate": tps_generate(tps, meshes),
+           "axis_one": tps_axis_of_one(tps, alone),
+           "split_train": tps_split_training(tps, meshes)}
+    out["modules"] = sorted(m for m in sys.modules
+                            if m == "jax" or m.startswith("jax.")
+                            or m == "repro" or m.startswith("repro."))
+    return out
+
+
 def main(argv) -> int:
     name, rank, world, root = argv[1], int(argv[2]), int(argv[3]), argv[4]
     torch.manual_seed(0)
@@ -708,7 +870,8 @@ def main(argv) -> int:
     worlds = {"four": lambda: world_four(inp, rank),
               "two": lambda: world_two(inp, rank, root),
               "tp": lambda: world_tp(inp, rank, root),
-              "tpf": lambda: world_tpf(inp, rank, root)}
+              "tpf": lambda: world_tpf(inp, rank, root),
+              "tps": lambda: world_tps(inp, rank, root)}
     out = worlds[name]()
     dist.barrier()
     dist.destroy_process_group()

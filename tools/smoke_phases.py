@@ -3,13 +3,13 @@
 
 The phases offered need no earlier phase's result: 14 and 15 (serving
 seamless-m4t-large-v2's encoder-decoder at full width, and its
-correctness against the plain reference at the smoke widths) and 27
-(every family's tensor-parallel training: (a) on one card, (b) where four
-cards are visible). Each prints what it prints inside chip_smoke.py; the
+correctness against the plain reference at the smoke widths), 27
+(every family's tensor-parallel training) and 28 (serving under tensor
+parallelism), each (a) on one card, (b) where four cards are visible. Each prints what it prints inside chip_smoke.py; the
 results go to ``--out`` as JSON, then the card's name and power limit.
 
 Run from the repository root:
-    python3 tools/smoke_phases.py [--phases 14,15,27]
+    python3 tools/smoke_phases.py [--phases 14,15,27,28]
                                   [--out results/smoke_phases.json]
 """
 from __future__ import annotations
@@ -29,7 +29,7 @@ import chip_smoke as cs  # noqa: E402
 
 
 PHASES = {"14": cs.phase_encdec_serve, "15": cs.phase_encdec_correct,
-          "27": cs.phase_tpf}
+          "27": cs.phase_tpf, "28": cs.phase_tps}
 
 
 def main() -> None:

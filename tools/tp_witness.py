@@ -126,35 +126,21 @@ def _rglru_backward64(a, h, dh, h0=None):
     return rg.rglru_scan_bwd_plain(a, h, dh, h0, acc_dtype=torch.float64)
 
 
-def _matmul64(x, w):
-    """A product formed in float64 and rounded to x's dtype: each element
-    correctly rounded, so a column shard's products are the whole's
-    columns whatever kernel forms them."""
-    from repro_torch.models import remat
-
-    return remat.__dict__["_matmul_fp32"](x.double(), w.double()).to(x.dtype)
-
-
 @contextlib.contextmanager
 def scans(mode: str):
     """``"kernel"``: the port as it is; ``"float64"``: both scans and
     their backward through the float64 recurrences above; ``"float64
     products"``: the scans as they are, every weight product rounded from
-    float64 (``_matmul64``)."""
+    float64 (``chip_smoke.float64_products``, which 27 (b) shares)."""
     from repro_torch.kernels import rglru_scan as rg
     from repro_torch.kernels import rwkv6_scan as rw
-    from repro_torch.models import remat
 
     if mode == "kernel":
         yield
         return
     if mode == "float64 products":
-        remat._matmul_fp32 = remat._matmul
-        remat._matmul = _matmul64
-        try:
+        with cs.float64_products():
             yield
-        finally:
-            remat._matmul = remat.__dict__.pop("_matmul_fp32")
         return
     saved = rw._forward, rw.rwkv6_scan_bwd, rg._forward, rg.rglru_scan_bwd
     rw._forward, rw.rwkv6_scan_bwd = _rwkv6_forward64, _rwkv6_backward64
